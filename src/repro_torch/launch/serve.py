@@ -1,0 +1,105 @@
+"""Forecast serving driver: a thin CLI over the port's ``ForecastEngine``
+(the counterpart of ``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch weathermixer-1b \\
+      [--full] [--precision bf16] [--requests 8] [--leads 1,2] \\
+      [--buckets 1,2,4] [--mode continuous|drain] [--coalesce-ms 0] \\
+      [--device cuda|cpu]
+
+The engine serves fresh weights from ``--seed``.  Requests are synthetic
+initial conditions from the weather dataset, submitted up-front with leads
+cycling through ``--leads``; the engine batches continuously at
+rollout-step boundaries and reports requests/s and latency percentiles.
+``--device`` defaults to cuda and fails without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+from repro_torch.configs.registry import MIXER_IDS
+from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
+from repro_torch.serve.engine import ForecastEngine, ServeConfig
+
+
+def serve(arch: str, *, requests: int = 32,
+          leads: Sequence[int] = (1, 2, 4, 8),
+          precision: Optional[str] = None, mode: str = "continuous",
+          buckets: Sequence[int] = (1, 2, 4, 8), coalesce_ms: float = 0.0,
+          seed: int = 0, reduced: bool = True, warmup: bool = True,
+          trace: Optional[str] = None, config_override=None,
+          device: str = "cuda", quiet: bool = False):
+    """Build an engine, push ``requests`` synthetic forecasts through it,
+    and return ``(results, engine, wall_seconds)``."""
+    engine = ForecastEngine(
+        arch, reduced=reduced, config_override=config_override,
+        device=device,
+        config=ServeConfig(buckets=tuple(buckets), mode=mode,
+                           coalesce_s=coalesce_ms / 1e3,
+                           precision=precision, seed=seed, trace=trace))
+    cfg = engine.cfg
+    ds = WeatherDataset(WeatherDataConfig(
+        lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
+        seed=seed))
+    fields = ds.sample_fields(0, requests)
+    if warmup:
+        engine.warmup()
+        if not quiet:
+            print(f"[serve] warmup: {engine.stats['compiles']} setups "
+                  f"in {engine.stats['warmup_s']:.2f}s")
+    t0 = time.perf_counter()
+    results = [engine.submit(fields[i], leads[i % len(leads)])
+               for i in range(requests)]
+    engine.drain()
+    wall = time.perf_counter() - t0
+    if not quiet:
+        s = engine.summary(results)
+        print(f"[serve] {arch} (fresh init) on {engine.device} "
+              f"precision={engine.policy.name} mode={mode}")
+        print(f"[serve] {requests} requests in {wall:.2f}s = "
+              f"{requests / wall:.3f} req/s | p50 {s['p50_s'] * 1e3:.1f}ms "
+              f"p95 {s['p95_s'] * 1e3:.1f}ms | {s['device_steps']} rollout "
+              f"steps, {s['formed']} batch forms, {s['grown']} grows, "
+              f"{s['compiles']} setups (0 post-warmup = steady state)")
+    out = engine.export_trace()
+    if out and not quiet:
+        print(f"[serve] trace -> {out}")
+    return results, engine, wall
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="weathermixer-1b", choices=MIXER_IDS)
+    ap.add_argument("--full", action="store_true",
+                    help="full (non-reduced) config -- needs a GPU")
+    ap.add_argument("--precision", default=None,
+                    choices=["fp32", "bf16", "bf16_pure"],
+                    help="serving precision policy")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--leads", default="1,2,4,8",
+                    help="comma-separated lead times (rollout steps), "
+                         "assigned round-robin to requests")
+    ap.add_argument("--mode", default="continuous",
+                    choices=["continuous", "drain"],
+                    help="continuous batching vs drain-and-refill baseline")
+    ap.add_argument("--buckets", default="1,2,4,8",
+                    help="padded batch buckets (one state buffer each)")
+    ap.add_argument("--coalesce-ms", type=float, default=0.0,
+                    help="idle burst-coalescing window")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None,
+                    help="Chrome trace-event export path for the serving "
+                         "spans + latency histograms")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    serve(args.arch, requests=args.requests,
+          leads=[int(x) for x in args.leads.split(",")],
+          precision=args.precision, mode=args.mode,
+          buckets=[int(x) for x in args.buckets.split(",")],
+          coalesce_ms=args.coalesce_ms, seed=args.seed,
+          reduced=not args.full, trace=args.trace, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
