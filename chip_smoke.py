@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's kernels from the sources
-in ``src/repro_torch/kernels/csrc`` and drives the port's main path, forecast
-serving of ``weathermixer-1b`` at its full published width, through the
-entry points a user calls.  Phases, each printed as a JSON line:
+in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
+``weathermixer-1b``'s full published width, through the entry points a user
+calls: forecast serving, and one-GPU training.  Phases, each printed as a
+JSON line:
 
   1. the card (``nvidia-smi``) and the kernel build;
   2. the block_matmul kernel against its plain PyTorch version on the card:
@@ -21,7 +22,17 @@ entry points a user calls.  Phases, each printed as a JSON line:
      rollout, 14 kernel launches per device step;
   4. the legacy path (the config's own dtypes: bf16 weights, f32
      activations, f32 kernel) for one step against the plain version;
-  5. the ``kernels`` line, the card's name and power limit, and the last
+  5. the backward GEMMs of the six shapes (bucket 1): dx = dz @ w and
+     dw = dz.T @ x through the kernel's transposed-operand variants,
+     against the plain version, each timed beside the plain version, the
+     library's product and the bound; dw of tok_fc1 in f32 too;
+  6. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
+     up to 2): the first step's loss, grad norm and per-leaf gradients
+     against the same step with ``kernel="xla"``; then the run, with
+     5 + 54 r kernel launches per step of rollout r, finite losses, peak
+     memory under 80 GB; then a second run of the same seed, whose loss
+     and grad-norm history must equal the first's bit for bit;
+  7. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -36,7 +47,11 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
   * whole forecast step, max|a - b| / max|b|: bf16 policy 5e-2 (the plain
     step rounds each GEMM to bf16 before its bias and activation, the
     kernel after, through 3 blocks of bf16 residual stream); legacy f32
-    1e-4.
+    1e-4;
+  * first training step against ``kernel="xla"``: loss and grad norm
+    relative, each gradient leaf max|a - b| / max|b|, all 5e-2 (the
+    reference's bf16 loss-parity bound; the same rounding difference as
+    the forecast step, through the backward too).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -54,6 +69,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12                                   # HBM3, bytes/s
 GEMM_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 STEP_TOL = {"bf16": 5e-2, "legacy": 1e-4}
+TRAIN_TOL = 5e-2
+TRAIN_STEPS = 3           # seed 0's rollout schedule: r = 1, 2, 2
+TRAIN_BATCH = 2
+TRAIN_ROLLOUT = 2
+PEAK_MEM_LIMIT = 80e9
 
 
 class SmokeFailure(Exception):
@@ -118,6 +138,19 @@ def gemm_errors(y, r, dtype_name):
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
+# weathermixer-1b at batch 1: d = 4320, T = 16380 tokens, patch dim 4416.
+# (label, M, K, N, epilogue, dtype name, launches per forecast step,
+#  launches per training sample-step at rollout 1: forward, the remat
+#  recompute and, for the GELU layers, the pre-activation recompute)
+_D, _T, _PD = 4320, 16380, 4416
+SHAPES = [("encoder", _T, _PD, _D, "none", "bfloat16", 1, 1),
+          ("tok_fc1", _D, _T, 8640, "gelu", "bfloat16", 3, 9),
+          ("tok_fc2", _D, 8640, _T, "none", "bfloat16", 3, 6),
+          ("ch_fc1", _T, _D, 4320, "gelu", "bfloat16", 3, 9),
+          ("ch_fc2", _T, 4320, _D, "none", "bfloat16", 3, 6),
+          ("decoder", _T, _D, _PD, "none", "bfloat16", 1, 1),
+          ("tok_fc1_f32", _D, _T, 8640, "gelu", "float32", 0, 0)]
+
 def kernel_phase(torch, BM, ref):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -149,17 +182,9 @@ def kernel_phase(torch, BM, ref):
                     n_small += 1
     emit(phase="kernel_small", cases=n_small, max_abs_err=worst, ok=True)
 
-    d, t, pd = 4320, 16380, 4416          # weathermixer-1b at bucket 1
-    shapes = [("encoder", t, pd, d, "none", torch.bfloat16, 1),
-              ("tok_fc1", d, t, 8640, "gelu", torch.bfloat16, 3),
-              ("tok_fc2", d, 8640, t, "none", torch.bfloat16, 3),
-              ("ch_fc1", t, d, 4320, "gelu", torch.bfloat16, 3),
-              ("ch_fc2", t, 4320, d, "none", torch.bfloat16, 3),
-              ("decoder", t, d, pd, "none", torch.bfloat16, 1),
-              ("tok_fc1_f32", d, t, 8640, "gelu", torch.float32, 0)]
     rows = []
-    for label, m, k, n, epi, dtype, per_step in shapes:
-        name = str(dtype).removeprefix("torch.")
+    for label, m, k, n, epi, name, per_step, per_train in SHAPES:
+        dtype = getattr(torch, name)
         x, w, b = inputs(m, k, n, dtype, True)
         y = BM.block_matmul(x, w, b, epi)
         torch.cuda.synchronize()
@@ -174,7 +199,7 @@ def kernel_phase(torch, BM, ref):
                 return F.linear(x, w, b)
         bound, bound_by = gemm_bound_ms(m, n, k, name, True)
         row = dict(shape=label, m=m, n=n, k=k, dtype=name, epilogue=epi,
-                   per_step=per_step,
+                   per_step=per_step, per_train_step=per_train,
                    vec_bytes=BM.vec_bytes(x, w) if name == "bfloat16" else 4,
                    max_abs_err=err, tol=GEMM_TOL[name],
                    kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w, b, epi)),
@@ -354,6 +379,214 @@ def legacy_phase(torch, BM, eng, fields):
          step_vs_plain_rel_err=err, step_tol=STEP_TOL["legacy"])
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the backward GEMMs against their plain versions
+# ---------------------------------------------------------------------------
+
+# launches of dx and of dw per training sample-step at rollout 1 (the
+# encoder's input is data: no dx)
+BWD_COUNTS = {"encoder": (0, 1), "tok_fc1": (3, 3), "tok_fc2": (3, 3),
+              "ch_fc1": (3, 3), "ch_fc2": (3, 3), "decoder": (1, 1),
+              "tok_fc1_f32": (0, 0)}
+
+
+def kernel_bwd_phase(torch, BM, ref):
+    """dx = dz @ w (w read as w.T) and dw = dz.T @ x (dz and x read across
+    their rows) for each forward shape; dw only for the f32 row."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, worst = [], 0.0
+    for label, m, k, n, _, name, *_ in SHAPES:
+        dtype = getattr(torch, name)
+        x = (torch.randn(m, k, generator=gen, device="cuda")
+             / m ** 0.5).to(dtype)
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).to(dtype)
+        dz = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+        n_dx, n_dw = BWD_COUNTS[label]
+        cases = [("dw", dz, x, True, (n, k, m), n_dw,
+                  lambda: torch.matmul(dz.t(), x))]
+        if name == "bfloat16":
+            cases.insert(0, ("dx", dz, w, False, (m, k, n), n_dx,
+                             lambda: torch.matmul(dz, w)))
+        for kind, a, b, x_t, (om, on, ok_), count, library in cases:
+            def kernel(a=a, b=b, x_t=x_t):
+                return BM.block_matmul(a, b, x_t=x_t, w_t=True)
+
+            def plain(a=a, b=b, x_t=x_t):
+                return ref.block_matmul_ref(a, b, x_t=x_t, w_t=True)
+            y = kernel()
+            torch.cuda.synchronize()
+            err, ok = gemm_errors(y, plain(), name)
+            check(ok, f"{label}.{kind} {(om, on, ok_)} {name}: max err "
+                      f"{err:.3e}")
+            worst = max(worst, err)
+            bound, bound_by = gemm_bound_ms(om, on, ok_, name, False)
+            row = dict(shape=f"{label}.{kind}", m=om, n=on, k=ok_,
+                       dtype=name, x_t=x_t, w_t=True, per_train_step=count,
+                       vec_bytes=(BM.vec_bytes(a, b) if name == "bfloat16"
+                                  else 4),
+                       max_abs_err=err, tol=GEMM_TOL[name],
+                       kernel_ms=cuda_ms(kernel), library_ms=cuda_ms(library),
+                       plain_ms=cuda_ms(plain, 3), bound_ms=bound,
+                       bound_by=bound_by)
+            row["tflops"] = 2e-9 * om * on * ok_ / row["kernel_ms"]
+            emit(phase="kernel_bwd_shape", **row)
+            rows.append(row)
+            del y
+        del x, w, dz
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width training
+# ---------------------------------------------------------------------------
+
+def train_flops_per_sample(cfg, rollout):
+    """2*M*N*K over the 5 + 54 r GEMM launches of one training sample-step
+    (3 blocks, remat): forward, remat recompute, dw and dx (the encoder's
+    input needs none) of every linear, and the pre-activation recompute of
+    the two GELU linears of each block."""
+    t = (cfg.wm_lat // cfg.wm_patch) * (cfg.wm_lon // cfg.wm_patch)
+    d, pd = cfg.d_model, cfg.wm_patch ** 2 * cfg.wm_channels
+    enc = 2.0 * t * pd * d                   # encoder = decoder
+    tok = 2.0 * d * cfg.wm_d_tok * t         # tok_fc1 = tok_fc2
+    ch = 2.0 * t * cfg.wm_d_ch * d           # ch_fc1 = ch_fc2
+    block = 2 * tok + 2 * ch
+    return 5 * enc + rollout * cfg.n_layers * (4 * block + tok + ch)
+
+
+def train_phase(torch, BM):
+    import math
+    from repro_torch.core import tree as ptree
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import value_and_grad
+
+    # lr: the paper's base rate (optim/schedule.py's default)
+    ecfg = EngineConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                        rollout=TRAIN_ROLLOUT, precision="bf16", lr=1e-4,
+                        log_every=1, seed=0)
+
+    def engine():
+        return TrainEngine("weathermixer-1b", reduced=False, device="cuda",
+                           config=ecfg)
+
+    t0 = time.perf_counter()
+    eng = engine()
+    setup_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check(cfg.remat and cfg.kernel == "pallas" and cfg.n_layers == 3,
+          f"unexpected training config: remat={cfg.remat} "
+          f"kernel={cfg.kernel} n_layers={cfg.n_layers}")
+
+    # the first step against kernel="xla" on the same batch and weights
+    r0 = int(eng.r_sched[0])
+    t0 = time.perf_counter()
+    batch0 = eng.pipeline.get(0, r0)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    mk, gk = value_and_grad(eng.params, batch0, cfg, eng.jcfg, r0)
+    mx, gx = value_and_grad(eng.params, batch0, cfg,
+                            eng.jcfg.replace(kernel="xla"), r0)
+    lk, lx = float(mk["loss"]), float(mx["loss"])
+    nk, nx = float(global_norm(gk)), float(global_norm(gx))
+    leaf_err = max(float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max().clamp_min(1e-30))
+                   for a, b in zip(ptree.leaves(gk), ptree.leaves(gx)))
+    first = dict(rollout=r0, loss=lk, loss_xla=lx,
+                 loss_rel_err=abs(lk - lx) / abs(lx), grad_norm=nk,
+                 grad_norm_xla=nx, grad_norm_rel_err=abs(nk - nx) / nx,
+                 max_leaf_rel_err=leaf_err, tol=TRAIN_TOL)
+    check(first["loss_rel_err"] <= TRAIN_TOL
+          and first["grad_norm_rel_err"] <= TRAIN_TOL
+          and leaf_err <= TRAIN_TOL,
+          f"first training step vs kernel='xla': {first}")
+    del gk, gx
+    torch.cuda.empty_cache()
+
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    BM.block_matmul.launches = 0
+    BM.block_matmul.layout_launches.clear()
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = BM.block_matmul.launches
+    by_layout = dict(BM.block_matmul.layout_launches)
+    peak = torch.cuda.max_memory_allocated()
+    # ----------------------------------------------------------------------
+
+    sched = [int(r) for r in eng.r_sched]
+    want = sum(5 + 54 * r for r in sched) * ecfg.accum
+    check(launches == want, f"{launches} kernel launches in training steps "
+          f"with rollouts {sched} (want {want}: 5 + 54 r per step)")
+    # forward + remat + GELU recompute 2 + 30 r, dx 1 + 12 r, dw 2 + 12 r
+    layouts = {"x,w": by_layout.get((False, False), 0),
+               "x,w.T (dx)": by_layout.get((False, True), 0),
+               "x.T,w.T (dw)": by_layout.get((True, True), 0)}
+    want_layouts = {"x,w": sum(2 + 30 * r for r in sched) * ecfg.accum,
+                    "x,w.T (dx)": sum(1 + 12 * r for r in sched) * ecfg.accum,
+                    "x.T,w.T (dw)": sum(2 + 12 * r for r in sched)
+                    * ecfg.accum}
+    check(layouts == want_layouts and sum(by_layout.values()) == launches,
+          f"training launches by operand layout {by_layout}, want "
+          f"{want_layouts}")
+    check(peak < PEAK_MEM_LIMIT, f"training peak memory {peak / 1e9:.2f} GB")
+    check(len(hist) == TRAIN_STEPS
+          and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                  for h in hist), f"bad training history {hist}")
+    recs = eng.tracer.step_records()
+    wait_s = sum(r["data_wait_s"] for r in recs)
+    step_ms = {}
+    for r in sorted(set(sched)):
+        got = [1e3 * (x["dur_s"] - x["data_wait_s"]) for x in recs
+               if x["rollout"] == r]
+        step_ms[r] = sum(got) / len(got)
+    # device time of one step at each rollout length (CUDA events; these
+    # updates come after the run and are not part of it)
+    device_ms = {r: cuda_ms(lambda r=r: eng.dispatch(batch0, r), 1)
+                 for r in range(1, TRAIN_ROLLOUT + 1)}
+    # of which forward + backward (the rest: grad norm, clip, Adam)
+    fwd_bwd_ms = {r: cuda_ms(lambda r=r: value_and_grad(
+        eng.params, batch0, cfg, eng.jcfg, r), 1)
+        for r in range(1, TRAIN_ROLLOUT + 1)}
+    bound_ms = {r: 1e3 * train_flops_per_sample(cfg, r)
+                / PEAK_FLOPS["bfloat16"] for r in device_ms}
+    stats = dict(
+        params=cfg.param_count(), batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+        rollout_schedule=sched, setup_s=setup_s, batch_host_s=batch_s,
+        first_step_vs_xla=first, wall_s=wall, kernel_launches=launches,
+        launches_per_step=[5 + 54 * r for r in sched],
+        launches_by_layout=layouts,
+        loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        lr=[h["lr"] for h in hist],
+        step_ms_by_rollout=step_ms, device_step_ms_by_rollout=device_ms,
+        device_fwd_bwd_ms_by_rollout=fwd_bwd_ms,
+        device_ms_per_sample_step={r: v / TRAIN_BATCH
+                                   for r, v in device_ms.items()},
+        bound_ms_per_sample_step=bound_ms,
+        data_wait_s=wait_s,
+        data_wait_share=wait_s / sum(r["dur_s"] for r in recs),
+        peak_mem_gb=peak / 1e9)
+    emit(phase="train", **stats)
+    del eng, batch0
+    torch.cuda.empty_cache()
+
+    # the same seed again: the history must repeat bit for bit
+    hist2 = engine().run()
+    same = ([(h["loss"], h["grad_norm"]) for h in hist]
+            == [(h["loss"], h["grad_norm"]) for h in hist2])
+    check(same, f"two runs of one seed differ: {hist} vs {hist2}")
+    emit(phase="train_repeat", bitwise_equal=True,
+         loss=[h["loss"] for h in hist2])
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -380,21 +613,31 @@ def main():
          library=BM.build_info["library"])
 
     rows, worst = kernel_phase(torch, BM, ref)
-    eng, fields, launches = serve_phase(torch, BM)
+    eng, fields, serve_launches = serve_phase(torch, BM)
     legacy_phase(torch, BM, eng, fields)
+    del eng, fields
+    torch.cuda.empty_cache()
+    bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
+    train_launches, train = train_phase(torch, BM)
 
     step = [r for r in rows if r["per_step"]]
 
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in step)
 
+    def per_train_step(key):
+        return sum(r[key] * r["per_train_step"] for r in rows + bwd_rows)
+
     emit(kernels=[{
         "name": "block_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:37",
-        "launches": launches,
-        "max_abs_err": worst,
+        "launches": serve_launches + train_launches,
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches},
+        "train_launches_by_layout": train["launches_by_layout"],
+        "max_abs_err": max(worst, bwd_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1
         "ms": per_step("kernel_ms"),
         "plain_ms": per_step("plain_ms"),
@@ -402,7 +645,14 @@ def main():
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                          for r in step) else "bytes"),
         "library_ms": per_step("library_ms"),
+        # the 59 GEMMs of one training sample-step at rollout 1 (batch 1):
+        # forward, remat and GELU recomputes, dx and dw
+        "train_ms": per_train_step("kernel_ms"),
+        "train_plain_ms": per_train_step("plain_ms"),
+        "train_bound_ms": per_train_step("bound_ms"),
+        "train_library_ms": per_train_step("library_ms"),
         "shapes": rows,
+        "shapes_bwd": bwd_rows,
     }])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

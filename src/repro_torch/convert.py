@@ -21,6 +21,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import tree as ptree
+
 
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -38,21 +40,6 @@ def _to_numpy(t: torch.Tensor, bf16_dtype: Optional[Any]) -> np.ndarray:
     return t.numpy()
 
 
-def _map(fn, *trees):
-    """Apply ``fn`` leafwise over dicts of the same structure."""
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def params_from_numpy(tree, device="cuda"):
     """Reference WeatherMixer pytree (numpy leaves) -> the port's params on
     ``device`` (the card unless the caller asks for the CPU); the stacked
@@ -61,11 +48,11 @@ def params_from_numpy(tree, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("params_from_numpy: CUDA is not available; pass "
                            "device='cpu' to convert onto the CPU")
-    out = {k: _map(lambda a: _to_tensor(a, device), v)
+    out = {k: ptree.map(lambda a: _to_tensor(a, device), v)
            for k, v in tree.items() if k != "blocks"}
-    stacked = _map(lambda a: _to_tensor(a, device), tree["blocks"])
-    n_layers = len(next(_leaves(stacked)))
-    out["blocks"] = [_map(lambda t, i=i: t[i].clone(), stacked)
+    stacked = ptree.map(lambda a: _to_tensor(a, device), tree["blocks"])
+    n_layers = len(ptree.leaves(stacked)[0])
+    out["blocks"] = [ptree.map(lambda t, i=i: t[i].clone(), stacked)
                      for i in range(n_layers)]
     return out
 
@@ -73,9 +60,9 @@ def params_from_numpy(tree, device="cuda"):
 def params_to_numpy(params, bf16_dtype: Optional[Any] = None):
     """The port's params -> the reference's pytree layout with numpy
     leaves; the block list is stacked on a leading layer dim."""
-    out = {k: _map(lambda t: _to_numpy(t, bf16_dtype), v)
+    out = {k: ptree.map(lambda t: _to_numpy(t, bf16_dtype), v)
            for k, v in params.items() if k != "blocks"}
-    out["blocks"] = _map(lambda *ts: np.stack([_to_numpy(t, bf16_dtype)
-                                               for t in ts]),
-                         *params["blocks"])
+    out["blocks"] = ptree.map(lambda *ts: np.stack([_to_numpy(t, bf16_dtype)
+                                                for t in ts]),
+                              *params["blocks"])
     return out

@@ -1,12 +1,18 @@
-"""Public GEMM entry points of the port (forward only so far).
+"""Public GEMM entry points of the port, differentiable.
 
 The counterparts of ``repro/kernels/ops.py``: ``matmul`` is the local GEMM
 engine that ``JigsawConfig(kernel="pallas")`` selects, ``matmul_nd`` runs it
 over the last dim of any-rank x, and ``mixer_mlp`` is the WeatherMixer MLP
 as two kernel calls with the GELU fused into the first one's epilogue.
 The reference pads every dim to its block grid; the Hopper kernel masks
-ragged edges itself, so nothing is padded here.  The backward GEMMs
-(``_matmul_bwd`` in the reference) come with the training slice.
+ragged edges itself, so nothing is padded here.
+
+``matmul`` is an ``autograd.Function`` with the semantics of the
+reference's custom VJP (``_matmul_fwd`` / ``_matmul_bwd``): every backward
+GEMM is a launch of the same kernel, reading its operands in their stored
+layout (``block_matmul``'s ``x_t`` / ``w_t``), so no operand is transposed
+in memory.  GELU', the bias gradient and the casts stay plain PyTorch, as
+they sit outside the Pallas kernel in the reference.
 """
 from __future__ import annotations
 
@@ -15,17 +21,60 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.block_matmul import block_matmul
+from repro_torch.kernels.ref import act_grad
+
+
+class _Matmul(torch.autograd.Function):
+    """``epilogue(x @ w.T + b)`` with the reference's backward.
+
+    Saves (x, w, b), with w in its own dtype.  Backward, for dy [M, N] in
+    x.dtype (the output's):
+
+      * epilogue "none": dz = dy.  Otherwise the pre-activation is
+        recomputed with one more kernel launch (cheaper than saving it),
+        rounded to x.dtype as the kernel's output is, and up-cast:
+        dz = (act'(z) * dy) in f32, rounded to dy.dtype;
+      * dx [M, K] = dz @ w (w read as w.T, its rows across), in x.dtype;
+        skipped when x needs no gradient (the encoder's input is data);
+      * dw [N, K] = dz.T @ x (both read across their rows), in w.dtype;
+      * db = sum(dz) over rows, in b.dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b, epilogue):
+        ctx.epilogue = epilogue
+        ctx.save_for_backward(x, w, b)
+        # one operand width for the kernel, as the reference's _matmul_raw:
+        # w follows x (bf16 weights under f32 activations run an f32 GEMM)
+        return block_matmul(x, w.to(x.dtype), b, epilogue)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        # dy is a transposed view where the token mix hands its output back
+        # transposed: its contiguous copy is the backward of that transpose
+        dy = dy.contiguous()
+        wx = w.to(x.dtype)
+        if ctx.epilogue == "none":
+            dz = dy
+        else:
+            z = block_matmul(x, wx, b, "none").float()
+            dz = (act_grad(ctx.epilogue)(z) * dy.float()).to(dy.dtype)
+        dx = db = None
+        if ctx.needs_input_grad[0]:
+            dx = block_matmul(dz, wx, w_t=True)
+        dw = block_matmul(dz, x, x_t=True, w_t=True).to(w.dtype)
+        if b is not None and ctx.needs_input_grad[2]:
+            db = dz.sum(dim=0).to(b.dtype)
+        return dx, dw, db, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, *,
            epilogue: str = "none") -> torch.Tensor:
-    """``epilogue(x @ w.T + b)`` for 2-D x [M, K], w [N, K]."""
-    if w.dtype != x.dtype:
-        # one operand width for the kernel, as the reference's _matmul_raw:
-        # w follows x (bf16 weights under f32 activations run an f32 GEMM)
-        w = w.to(x.dtype)
-    return block_matmul(x, w, b, epilogue)
+    """``epilogue(x @ w.T + b)`` for 2-D x [M, K], w [N, K]; differentiable
+    in x, w and b."""
+    return _Matmul.apply(x, w, b, epilogue)
 
 
 def matmul_nd(x: torch.Tensor, w: torch.Tensor,

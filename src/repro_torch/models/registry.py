@@ -21,6 +21,12 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return module_for(cfg).init(cfg, seed=seed, device=device)
 
 
+def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, *,
+          rollout: int = 1):
+    """The training forward: (prediction, aux)."""
+    return module_for(cfg).apply(params, batch, cfg, jcfg, rollout=rollout)
+
+
 def forecast_step(params, fields, cfg: ModelConfig, jcfg: JigsawConfig):
     """One autoregressive field-rollout step (serving hot path)."""
     return module_for(cfg).forecast_step(params, fields, cfg, jcfg)

@@ -7,14 +7,17 @@ residual around each) -> decoder (un-patch linear) -> learned blend with
 the input.  Parameters are a dict of tensors as in the reference, except
 that ``params["blocks"]`` is a list with one dict per block where the
 reference stacks the blocks on a leading layer dim (``convert.py`` maps
-between the two).  Under ``kernel="pallas"`` every GEMM of a forecast step
-runs the hand-written block_matmul kernel: 2 + 4 * n_layers launches.
+between the two).  Under ``kernel="pallas"`` every GEMM runs the
+hand-written block_matmul kernel: 2 + 4 * n_layers launches per forecast
+step, forward only; in training the backward GEMMs run it too
+(``kernels/ops.py``).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, linear_apply,
@@ -105,14 +108,19 @@ def _block_apply(bp, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
     return x + m
 
 
-def processor(params, x: torch.Tensor, jcfg: JigsawConfig,
-              rollout: int = 1) -> torch.Tensor:
+def processor(params, x: torch.Tensor, cfg: ModelConfig,
+              jcfg: JigsawConfig, rollout: int = 1) -> torch.Tensor:
     """The mixing-block stack, applied ``rollout`` times (encode/decode
-    happen once).  ``cfg.remat`` has no effect: nothing is differentiated
-    when serving."""
+    happen once).  With ``cfg.remat`` and autograd recording, each block
+    application is checkpointed, as the reference's ``jax.checkpoint``:
+    only its input is kept, and its forward runs again in the backward."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for _ in range(rollout):
         for bp in params["blocks"]:
-            x = _block_apply(bp, x, jcfg)
+            if remat:
+                x = checkpoint(_block_apply, bp, x, jcfg, use_reentrant=False)
+            else:
+                x = _block_apply(bp, x, jcfg)
     return x
 
 
@@ -127,7 +135,7 @@ def apply(params, batch, cfg: ModelConfig,
     p = cfg.wm_patch
     x = L.boundary_cast(patchify(xin, p), jcfg)            # [B, T, p*p*C]
     h = linear_apply(params["encoder"], x, jcfg)           # [B, T, d]
-    h = processor(params, h, jcfg, rollout=rollout)
+    h = processor(params, h, cfg, jcfg, rollout=rollout)
     y = linear_apply(params["decoder"], h, jcfg)           # [B, T, p*p*C]
     y = unpatchify(y, cfg.wm_lat, cfg.wm_lon, p, cfg.wm_channels)
     # the exit boundary: blend in the INPUT dtype (f32) even under a bf16
