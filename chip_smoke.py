@@ -6,10 +6,11 @@
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s full published width, through the entry points a user
-calls: forecast serving, and one-GPU training.  Phases, each printed as a
-JSON line:
+calls: forecast serving, one-GPU training, and the 2-D Jigsaw (Cannon)
+training step at q = 1.  Phases, each printed as a JSON line:
 
-  1. the card (``nvidia-smi``) and the kernel build;
+  1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu and
+     wx.cu, one nvcc each, started together);
   2. the block_matmul kernel against its plain PyTorch version on the card:
      small ragged shapes in f32 and bf16 with every epilogue, then the six
      GEMM shapes of a weathermixer-1b forecast step (bucket 1) in bf16 and
@@ -26,13 +27,21 @@ JSON line:
      dw = dz.T @ x through the kernel's transposed-operand variants,
      against the plain version, each timed beside the plain version, the
      library's product and the bound; dw of tok_fc1 in f32 too;
-  6. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
+  6. the wx kernel (the transposed-Cannon step of the 2-D token mix) at
+     the full-width token-mix shapes of q = 1 and of a 2x2 rank, batch 1
+     and 2: the forward in bf16 with a non-zero f32 accumulator, and dx
+     (w read across its rows) in f32, each against its plain version and
+     timed beside it, the closest PyTorch library call and the bound;
+  7. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
      up to 2): the first step's loss, grad norm and per-leaf gradients
-     against the same step with ``kernel="xla"``; then the run, with
-     5 + 54 r kernel launches per step of rollout r, finite losses, peak
-     memory under 80 GB; then a second run of the same seed, whose loss
-     and grad-norm history must equal the first's bit for bit;
-  7. the ``kernels`` line, the card's name and power limit, and the last
+     against the same step with ``kernel="xla"``; on the same weights and
+     batch, one 2-D (``scheme="2d"``, the 1x1 mesh) forward and backward,
+     with its 18 r wx and 5 + 30 r block_matmul launches, held against the
+     ``scheme="none"`` step (``train_2d``); then the run, with 5 + 54 r
+     kernel launches per step of rollout r, finite losses, peak memory
+     under 80 GB; then a second run of the same seed, whose loss and
+     grad-norm history must equal the first's bit for bit;
+  8. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -44,14 +53,21 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     tolerance of the repository's kernel tests);
   * f32 GEMMs 1e-4 / 1e-4: exact f32 FMA, but K runs to 16,380 in an order
     other than cuBLAS's (~sqrt(K) * 2^-24 relative);
+  * wx: the bf16 forward 1e-3 / 1e-3 (its f32 output is not rounded and
+    bf16 products are exact in f32, so the error is the summation order's:
+    1.2e-4 at most at these shapes, where a bf16 rounding of the
+    accumulator, a or the output would show up to 1.6e-2), the f32 dx
+    1e-4 / 1e-4;
   * whole forecast step, max|a - b| / max|b|: bf16 policy 5e-2 (the plain
     step rounds each GEMM to bf16 before its bias and activation, the
     kernel after, through 3 blocks of bf16 residual stream); legacy f32
     1e-4;
-  * first training step against ``kernel="xla"``: loss and grad norm
-    relative, each gradient leaf max|a - b| / max|b|, all 5e-2 (the
-    reference's bf16 loss-parity bound; the same rounding difference as
-    the forecast step, through the backward too).
+  * first training step against ``kernel="xla"``, and the 2-D step
+    against the ``scheme="none"`` step: loss and grad norm relative, each
+    gradient leaf max|a - b| / max|b|, all 5e-2 (the reference's bf16
+    loss-parity bound; the same rounding difference as the forecast step,
+    through the backward too: the 2-D branch rounds each GEMM to bf16
+    before its bias and GELU, the none path after).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -114,13 +130,18 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def gemm_bound_ms(m, n, k, dtype_name, bias):
+def gemm_bound_ms(m, n, k, dtype_name, bias, batch=1, mn_bytes=None):
     """Least time on the card: FLOPs over the peak rate for the operand
     type, or bytes (each input read once, the output written once) over
-    the memory rate, whichever is larger."""
+    the memory rate, whichever is larger.  ``batch`` products share the
+    [m, k] operand (wx's w); ``mn_bytes`` is what each of the batch's
+    [m, n] elements moves: the output in the operand type unless given
+    (wx: its f32 output, plus the f32 accumulator ``a`` it reads)."""
     es = 4 if dtype_name == "float32" else 2
-    flops = 2.0 * m * n * k
-    nbytes = es * (m * k + n * k + m * n + (n if bias else 0))
+    mn_bytes = es if mn_bytes is None else mn_bytes
+    flops = 2.0 * batch * m * n * k
+    nbytes = (es * (m * k + batch * n * k) + batch * m * n * mn_bytes
+              + es * (n if bias else 0))
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -438,8 +459,87 @@ def kernel_bwd_phase(torch, BM, ref):
     return rows, worst
 
 
+
 # ---------------------------------------------------------------------------
-# phase 6: full-width training
+# phase 6: the wx kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# the token-mix Cannon steps at full width: (label, m, t, c) of w [m, t] @
+# x [L, t, c], and the launches of one 2-D training sample-step at r = 1
+# (3 blocks, remat): forward-layout launches (forward and rerun, one per
+# Cannon step), dx launches.  q = 1 is this card's path; the 2x2 rank
+# blocks are what each rank of a four-card mesh runs (q = 2 steps each).
+WX_SHAPES = [("q1.tok_fc1", 8640, 16380, 4320, (6, 3)),
+             ("q1.tok_fc2", 16380, 8640, 4320, (6, 3)),
+             ("2x2.tok_fc1", 4320, 8190, 2160, (12, 6)),
+             ("2x2.tok_fc2", 8190, 4320, 2160, (12, 6))]
+# wx's output is f32 under both operand types, and bf16 products are exact
+# in f32, so plain and kernel differ only in summation order (max 1.2e-4
+# at these shapes): a kernel that rounds its accumulator, a or its output
+# to bf16 (up to 1.6e-2 at |v| 4-8) must fail.
+WX_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+
+
+def wx_phase(torch, WX, ref):
+    """Per shape and batch: the forward a + w @ x[l] in bf16 (the Cannon
+    step), and dx = w.T @ dy[l] in f32 (w read across its rows), each
+    against ref.wx_ref.  library: torch.matmul(w, x) + a (cuBLAS bf16
+    product rounded to bf16, then the f32 add: two calls) for the forward,
+    torch.matmul(w.t(), dy) (cuBLAS f32, TF32 off) for dx."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, worst = [], 0.0
+    for label, m, t, c, (n_fwd, n_dx) in WX_SHAPES:
+        w = (torch.randn(m, t, generator=gen, device="cuda")
+             / t ** 0.5).to(torch.bfloat16)
+        w32 = w.float()
+        for ll in (1, 2):
+            x = torch.randn(ll, t, c, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            a = torch.randn(ll, m, c, generator=gen, device="cuda")
+            dy = torch.randn(ll, m, c, generator=gen, device="cuda")
+            cases = [
+                ("fwd", "bfloat16", (m, c, t), n_fwd,
+                 lambda: WX.wx(w, x, a),
+                 lambda: ref.wx_ref(w, x, a),
+                 lambda: torch.matmul(w, x) + a),
+                ("dx", "float32", (t, c, m), n_dx,
+                 lambda: WX.wx(w32, dy, None, w_t=True),
+                 lambda: ref.wx_ref(w32, dy, None, w_t=True),
+                 lambda: torch.matmul(w32.t(), dy))]
+            for kind, name, (gm, gn, gk), count, kernel, plain, lib in cases:
+                y = kernel()
+                torch.cuda.synchronize()
+                r = plain()
+                tol = WX_TOL[name]
+                err = float((y - r).abs().max())
+                check(bool(((y - r).abs() <= tol + tol * r.abs()).all()),
+                      f"wx {label}.{kind} L={ll} {name}: max err {err:.3e}")
+                worst = max(worst, err)
+                del y, r
+                bound, bound_by = gemm_bound_ms(
+                    gm, gn, gk, name, False, batch=ll,
+                    mn_bytes=8 if kind == "fwd" else 4)
+                row = dict(shape=f"{label}.{kind}", batch=ll, m=gm, n=gn,
+                           k=gk, dtype=name, w_t=kind == "dx",
+                           per_train_step=count,
+                           vec_bytes=(WX.vec_bytes(w, x) if kind == "fwd"
+                                      else 4),
+                           max_abs_err=err, tol=tol,
+                           kernel_ms=cuda_ms(kernel),
+                           library_ms=cuda_ms(lib),
+                           plain_ms=cuda_ms(plain, 3), bound_ms=bound,
+                           bound_by=bound_by)
+                row["tflops"] = 2e-9 * ll * gm * gn * gk / row["kernel_ms"]
+                emit(phase="wx_shape", **row)
+                rows.append(row)
+            del x, a, dy
+            torch.cuda.empty_cache()
+        del w, w32
+        torch.cuda.empty_cache()
+    return rows, worst
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width training
 # ---------------------------------------------------------------------------
 
 def train_flops_per_sample(cfg, rollout):
@@ -456,9 +556,108 @@ def train_flops_per_sample(cfg, rollout):
     return 5 * enc + rollout * cfg.n_layers * (4 * block + tok + ch)
 
 
-def train_phase(torch, BM):
-    import math
+def train_2d_bound_ms_per_sample(cfg, rollout):
+    """The least device time of one 2-D training sample-step at q = 1 (3
+    blocks, remat): per block and pass, the token mix's 6 bf16 GEMMs
+    (forward, rerun and dw of both linears) and 2 f32 ones (dx, as the
+    reference computes it), the channel mix's 8 bf16 ones (forward, rerun,
+    dx, dw), and 5 bf16 encoder/decoder GEMMs, each set over the peak of
+    its type."""
+    t = (cfg.wm_lat // cfg.wm_patch) * (cfg.wm_lon // cfg.wm_patch)
+    d, pd = cfg.d_model, cfg.wm_patch ** 2 * cfg.wm_channels
+    enc = 2.0 * t * pd * d
+    tok = 2.0 * d * cfg.wm_d_tok * t
+    ch = 2.0 * t * cfg.wm_d_ch * d
+    passes = rollout * cfg.n_layers
+    bf16 = 5 * enc + passes * (6 * tok + 8 * ch)
+    return 1e3 * (bf16 / PEAK_FLOPS["bfloat16"]
+                  + passes * 2 * tok / PEAK_FLOPS["float32"])
+
+
+def fwd_bwd_ms(torch, params, batch, cfg, jcfg, rollout):
+    """Device time of one forward (to the loss) and of its backward (CUDA
+    events around each)."""
     from repro_torch.core import tree as ptree
+    from repro_torch.train.step import loss_fn
+    live = [p.detach().requires_grad_(True) for p in ptree.leaves(params)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    with torch.enable_grad():
+        ev[0].record()
+        loss, _ = loss_fn(ptree.unflatten(params, live), batch, cfg, jcfg,
+                          rollout)
+        ev[1].record()
+        torch.autograd.grad(loss, live)
+        ev[2].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def leaf_rel_err(torch, got, want):
+    from repro_torch.core import tree as ptree
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+               for a, b in zip(ptree.leaves(got), ptree.leaves(want)))
+
+
+def train_2d_phase(torch, BM, WX, eng, batch0, r0, none_metrics,
+                   none_grads):
+    """One 2-D forward and backward (scheme="2d" on the 1x1 mesh: each rank
+    of a q x q mesh runs this code on its blocks, with rotations between
+    the Cannon steps) on the train phase's weights and first batch, held
+    against the scheme="none" step's loss, grad norm and gradients."""
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import value_and_grad
+    cfg2 = eng.cfg.replace(scheme="2d")
+    jcfg2 = eng.jcfg.replace(scheme="2d")
+    # -- the 2-D path: counts to 0 just before, read just after -------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    BM.block_matmul.launches = 0
+    WX.wx.launches = 0
+    WX.wx.layout_launches.clear()
+    m2, g2 = value_and_grad(eng.params, batch0, cfg2, jcfg2, r0)
+    torch.cuda.synchronize()
+    bm_launches, wx_launches = BM.block_matmul.launches, WX.wx.launches
+    wx_dx = WX.wx.layout_launches[True]
+    peak = torch.cuda.max_memory_allocated()
+    # ----------------------------------------------------------------------
+    check((bm_launches, wx_launches, wx_dx) == (5 + 30 * r0, 18 * r0, 6 * r0),
+          f"2-D step at r={r0}: {bm_launches} block_matmul and "
+          f"{wx_launches} wx launches ({wx_dx} dx); want {5 + 30 * r0}, "
+          f"{18 * r0} ({6 * r0})")
+    l2, ln = float(m2["loss"]), float(none_metrics["loss"])
+    n2, nn = float(global_norm(g2)), float(global_norm(none_grads))
+    leaf_err = leaf_rel_err(torch, g2, none_grads)
+    stats = dict(rollout=r0, loss=l2, loss_none=ln,
+                 loss_rel_err=abs(l2 - ln) / abs(ln), grad_norm=n2,
+                 grad_norm_none=nn, grad_norm_rel_err=abs(n2 - nn) / nn,
+                 max_leaf_rel_err=leaf_err, tol=TRAIN_TOL,
+                 block_matmul_launches=bm_launches, wx_launches=wx_launches,
+                 wx_dx_launches=wx_dx, peak_mem_gb=peak / 1e9)
+    check(stats["loss_rel_err"] <= TRAIN_TOL
+          and stats["grad_norm_rel_err"] <= TRAIN_TOL
+          and leaf_err <= TRAIN_TOL, f"2-D step vs scheme='none': {stats}")
+    del g2
+    torch.cuda.empty_cache()
+    # device time of a forward and its backward, both schemes (after the
+    # checked run, which warmed them up; not part of it)
+    f2, b2 = fwd_bwd_ms(torch, eng.params, batch0, cfg2, jcfg2, r0)
+    f0, b0 = fwd_bwd_ms(torch, eng.params, batch0, eng.cfg, eng.jcfg, r0)
+    stats.update(device_fwd_ms=f2, device_bwd_ms=b2,
+                 device_fwd_bwd_ms=f2 + b2, none_device_fwd_ms=f0,
+                 none_device_bwd_ms=b0, none_device_fwd_bwd_ms=f0 + b0,
+                 batch=TRAIN_BATCH,
+                 device_fwd_bwd_ms_per_sample=(f2 + b2) / TRAIN_BATCH,
+                 bound_ms_per_sample=train_2d_bound_ms_per_sample(eng.cfg,
+                                                                  r0))
+    emit(phase="train_2d", **stats)
+    torch.cuda.empty_cache()
+    return stats
+
+
+def train_phase(torch, BM, WX):
+    import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     from repro_torch.optim.adam import global_norm
     from repro_torch.train.step import value_and_grad
@@ -491,9 +690,7 @@ def train_phase(torch, BM):
                             eng.jcfg.replace(kernel="xla"), r0)
     lk, lx = float(mk["loss"]), float(mx["loss"])
     nk, nx = float(global_norm(gk)), float(global_norm(gx))
-    leaf_err = max(float((a.float() - b.float()).abs().max()
-                         / b.float().abs().max().clamp_min(1e-30))
-                   for a, b in zip(ptree.leaves(gk), ptree.leaves(gx)))
+    leaf_err = leaf_rel_err(torch, gk, gx)
     first = dict(rollout=r0, loss=lk, loss_xla=lx,
                  loss_rel_err=abs(lk - lx) / abs(lx), grad_norm=nk,
                  grad_norm_xla=nx, grad_norm_rel_err=abs(nk - nx) / nx,
@@ -502,7 +699,11 @@ def train_phase(torch, BM):
           and first["grad_norm_rel_err"] <= TRAIN_TOL
           and leaf_err <= TRAIN_TOL,
           f"first training step vs kernel='xla': {first}")
-    del gk, gx
+    del gx
+    torch.cuda.empty_cache()
+    # the 2-D path on the same weights and batch, before the run moves them
+    stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
+    del gk
     torch.cuda.empty_cache()
 
     # -- the main path: counts to 0 just before, read just after -----------
@@ -584,7 +785,7 @@ def train_phase(torch, BM):
     emit(phase="train_repeat", bitwise_equal=True,
          loss=[h["loss"] for h in hist2])
     torch.cuda.empty_cache()
-    return launches, stats
+    return launches, stats, stats_2d
 
 
 def main():
@@ -600,6 +801,7 @@ def main():
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import block_matmul as BM
     from repro_torch.kernels import ref
+    from repro_torch.kernels import wx as WX
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -608,9 +810,12 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False)
     t0 = time.perf_counter()
-    built = BM.build()
+    with ThreadPoolExecutor(2) as pool:    # one nvcc per source, together
+        built = list(pool.map(lambda lib: lib.build(), (BM, WX)))
     emit(phase="build", built=built, seconds=time.perf_counter() - t0,
-         library=BM.build_info["library"])
+         nvcc_seconds=[BM.build_info.get("seconds"),
+                       WX.build_info.get("seconds")],
+         libraries=[BM.build_info["library"], WX.build_info["library"]])
 
     rows, worst = kernel_phase(torch, BM, ref)
     eng, fields, serve_launches = serve_phase(torch, BM)
@@ -618,7 +823,8 @@ def main():
     del eng, fields
     torch.cuda.empty_cache()
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
-    train_launches, train = train_phase(torch, BM)
+    wx_rows, wx_worst = wx_phase(torch, WX, ref)
+    train_launches, train, t2 = train_phase(torch, BM, WX)
 
     step = [r for r in rows if r["per_step"]]
 
@@ -628,14 +834,21 @@ def main():
     def per_train_step(key):
         return sum(r[key] * r["per_train_step"] for r in rows + bwd_rows)
 
+    def per_wx_step(key):
+        # the q = 1 rows at batch 1: this card's path, per sample-step
+        return sum(r[key] * r["per_train_step"] for r in wx_rows
+                   if r["batch"] == 1 and r["shape"].startswith("q1."))
+
     emit(kernels=[{
         "name": "block_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:37",
-        "launches": serve_launches + train_launches,
+        "launches": serve_launches + train_launches
+        + t2["block_matmul_launches"],
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches},
+                             "train": train_launches,
+                             "train_2d": t2["block_matmul_launches"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "max_abs_err": max(worst, bwd_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1
@@ -653,6 +866,25 @@ def main():
         "train_library_ms": per_train_step("library_ms"),
         "shapes": rows,
         "shapes_bwd": bwd_rows,
+    }, {
+        "name": "wx",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wx.cu",
+        "replaces": "src/repro/kernels/fused_ring.py:521",
+        "launches": t2["wx_launches"],
+        "launches_by_path": {"train_2d": t2["wx_launches"]},
+        "max_abs_err": wx_worst,
+        # times: the 18 wx launches of one 2-D training sample-step at q = 1
+        # and r = 1 (batch 1): the 12 forward-layout launches (forward and
+        # the checkpoint's rerun) and the 6 f32 dx launches
+        "ms": per_wx_step("kernel_ms"),
+        "plain_ms": per_wx_step("plain_ms"),
+        "bound_ms": per_wx_step("bound_ms"),
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in wx_rows) else "bytes"),
+        # torch.matmul (+ the f32 add of the accumulator, forward rows)
+        "library_ms": per_wx_step("library_ms"),
+        "shapes": wx_rows,
     }])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -6,7 +6,15 @@ a list of per-block dicts.  Both functions go through numpy, so neither
 package imports the other:
 
   ``params_from_numpy(tree)``  reference pytree (numpy leaves) -> port;
-  ``params_to_numpy(params)``  port -> reference pytree (numpy leaves).
+  ``params_to_numpy(params)``  port -> reference pytree (numpy leaves);
+  ``shard_params_2d(tree, i, j, q)``  a whole parameter tree (the
+      reference's numpy pytree or the port's tensors) -> rank (i, j)'s
+      shard on a q x q 2-D Jigsaw mesh (WeatherMixer's 2-D layout,
+      ``models/weathermixer.py::param_spec_2d``);
+  ``gather_params_2d(shards, q)``  every rank's shard -> the whole tree,
+      bit for bit;
+  ``params_from_npz(path)``  a reference pytree saved flat with
+      ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port.
 
 bf16 travels as its uint16 bits, with no float round trip.  numpy has no
 bfloat16 of its own: a reference leaf arrives as an ``ml_dtypes.bfloat16``
@@ -22,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as ptree
+from repro_torch.core.sharding import MDOM_AXIS, Mesh
+from repro_torch.models.weathermixer import param_spec_2d
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -57,6 +67,20 @@ def params_from_numpy(tree, device="cuda"):
     return out
 
 
+def params_from_npz(path, device="cuda"):
+    """``params_from_numpy`` of the reference pytree saved flat in ``path``
+    (keys joined with "/")."""
+    tree: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *outer, leaf = key.split("/")
+            node = tree
+            for k in outer:
+                node = node.setdefault(k, {})
+            node[leaf] = f[key]
+    return params_from_numpy(tree, device=device)
+
+
 def params_to_numpy(params, bf16_dtype: Optional[Any] = None):
     """The port's params -> the reference's pytree layout with numpy
     leaves; the block list is stacked on a leading layer dim."""
@@ -66,3 +90,58 @@ def params_to_numpy(params, bf16_dtype: Optional[Any] = None):
                                                 for t in ts]),
                               *params["blocks"])
     return out
+
+
+def _own(a):
+    """A block as an array of its own (not a view of the whole)."""
+    return a.clone() if isinstance(a, torch.Tensor) \
+        else np.ascontiguousarray(a).copy()
+
+
+def shard_params_2d(tree, i: int, j: int, q: int):
+    """Rank (i, j)'s shard of a whole parameter tree on a q x q mesh (i on
+    mdom, j on mtp): token-mix ``w`` in (mdom, mtp) blocks, every other
+    ``w`` (mtp, mdom); token-mix ``b`` on mdom, every other ``b`` on mtp;
+    ``scale``, ``bias`` and ``blend`` whole.  Leaves are numpy arrays or
+    tensors (the reference's stacked blocks or the port's block list); the
+    shard's leaves own their memory."""
+    mesh = Mesh(q=q, i=i, j=j)
+    return ptree.map_with_path(
+        lambda path, a: _own(mesh.block(a, param_spec_2d(path, a.ndim))),
+        tree)
+
+
+def gather_params_2d(shards, q: int):
+    """The whole tree from the q*q shards, listed in rank order
+    r = i * q + j; replicated leaves are taken from rank 0."""
+    def coord(r, axis):
+        return r // q if axis == MDOM_AXIS else r % q
+
+    def gather(path, *leaves):
+        named = [(d, a) for d, a in
+                 enumerate(param_spec_2d(path, leaves[0].ndim)) if a]
+        blocks = {}
+        for r, leaf in enumerate(leaves):
+            blocks.setdefault(tuple(coord(r, a) for _, a in named), leaf)
+
+        def assemble(key):
+            if len(key) == len(named):
+                return blocks[key]
+            parts = [assemble(key + (c,)) for c in range(q)]
+            dim = named[len(key)][0]
+            return (torch.cat(parts, dim) if isinstance(parts[0], torch.Tensor)
+                    else np.concatenate(parts, dim))
+        return _own(assemble(()))
+
+    if len(shards) != q * q:
+        raise ValueError(f"gather_params_2d: {len(shards)} shards for a "
+                         f"{q}x{q} mesh")
+    return ptree.map_with_path(
+        lambda path, _: gather(path, *(_leaf_at(s, path) for s in shards)),
+        shards[0])
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

@@ -1,1 +1,2 @@
-"""Linear-layer API and precision policies (scheme="none" so far)."""
+"""Linear-layer API, precision policies, and 2-D Jigsaw: the mesh, its
+sharding rules, the differentiable collectives and the Cannon products."""

@@ -1,10 +1,12 @@
 """Linear-layer API of the port: functional init / apply pairs over dicts
 of tensors (the counterpart of ``repro/core/api.py``).
 
-``JigsawConfig`` selects how each linear completes its contraction.  Only
-the undistributed ``scheme="none"`` is ported so far; ``"1d"`` and
-``"2d"`` raise until their slices land.  ``kernel`` selects the engine of
-every local GEMM, under the reference's names:
+``JigsawConfig`` selects how each linear completes its contraction:
+``scheme="none"`` (the whole contraction local) or ``"2d"`` (Cannon on a
+q x q mesh, ``core/jigsaw.py``, called by the model on its blocks;
+``mesh`` is the rank's place on it, the 1x1 mesh when None).  ``"1d"``
+raises until its slice lands.  ``kernel`` selects the engine of every
+local GEMM, under the reference's names:
 
   "pallas"  the hand-written block_matmul kernel (kernels/block_matmul.py),
             with bias and activation fused into its epilogue;
@@ -20,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.jigsaw import _cast_operands
+from repro_torch.core.sharding import Mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act
 
@@ -29,12 +33,14 @@ KERNELS = ("xla", "pallas")
 
 @dataclasses.dataclass(frozen=True)
 class JigsawConfig:
-    scheme: str = "none"          # only "none" is ported
+    scheme: str = "none"          # "none" | "2d" ("1d" is not ported)
     accum_dtype: Optional[torch.dtype] = torch.float32
     kernel: str = "xla"           # "xla" | "pallas" (local GEMM engine)
     # precision-policy compute dtype: every linear casts its operands here
     # before the GEMM.  None = no cast (legacy).
     compute_dtype: Optional[torch.dtype] = None
+    # scheme="2d": this rank's place on the mesh (None: the 1x1 mesh)
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.scheme not in SCHEMES:
@@ -44,10 +50,6 @@ class JigsawConfig:
             raise NotImplementedError(
                 "scheme='1d' is not ported yet (ROADMAP.md, queue 1 item 5: "
                 "1-D Jigsaw on torch.distributed)")
-        if self.scheme == "2d":
-            raise NotImplementedError(
-                "scheme='2d' is not ported yet (ROADMAP.md, queue 1 item 7: "
-                "2-D Jigsaw)")
         if self.kernel not in KERNELS:
             raise ValueError(f"JigsawConfig: unknown kernel {self.kernel!r}"
                              f" (expected one of {KERNELS})")
@@ -55,17 +57,12 @@ class JigsawConfig:
     def replace(self, **kw) -> "JigsawConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def mesh_2d(self) -> Mesh:
+        return self.mesh if self.mesh is not None else Mesh()
+
 
 DEFAULT_JIGSAW = JigsawConfig()
-
-
-def _cast_operands(x, w, b, compute_dtype):
-    """Cast a linear's operands to the policy compute dtype (params stored
-    in param_dtype, GEMMs run in compute_dtype).  No-op when unset."""
-    if compute_dtype is None:
-        return x, w, b
-    return (x.to(compute_dtype), w.to(compute_dtype),
-            None if b is None else b.to(compute_dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,16 @@ def map(fn: Callable, *trees):
     return fn(*trees)
 
 
+def map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` leafwise, where ``path`` is the tuple of dict keys
+    and list indices leading to the leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
 def unflatten(like, values):
     """A tree of ``like``'s structure holding ``values`` in leaf order."""
     it = iter(values)

@@ -12,98 +12,60 @@ or raises; on a CPU tensor it computes the plain PyTorch version
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the repository root on first use, one shared library
 per source content, and bound with ``ctypes`` (a plain C interface: no
-PyTorch headers, so the build takes seconds).  ``block_matmul.launches``
-counts the launches of the kernel, and ``block_matmul.layout_launches`` the
-same launches by operand layout ``(x_t, w_t)``; nothing else adds to them.
+PyTorch headers, so the build takes seconds; ``kernels/build.py``).
+``block_matmul.launches`` counts the launches of the kernel, and
+``block_matmul.layout_launches`` the same launches by operand layout
+``(x_t, w_t)``; nothing else adds to them.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.ref import block_matmul_ref
 
 EPILOGUES = {"none": 0, "gelu": 1, "silu": 2}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "block_matmul.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 _MAX_GRID_Y = 65535
 _TILE = 128                      # output tile edge of both kernel variants
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_info: dict = {}            # build seconds, library path
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.block_matmul_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                      i32, i32, i32, vp]
+    lib.block_matmul_bf16.restype = i32
+    lib.block_matmul_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                     i32, i32, vp]
+    lib.block_matmul_f32.restype = i32
+    lib.block_matmul_error_string.argtypes = [i32]
+    lib.block_matmul_error_string.restype = ctypes.c_char_p
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cand = Path(home or "/usr/local/cuda") / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("block_matmul: nvcc not found (set CUDA_HOME); "
-                           "the kernel is built from csrc/ at first use")
-    return found
+LIBRARY = KernelLibrary("block_matmul", "block_matmul.cu", ["gemm_core.cuh"],
+                        _bind)
+build_info = LIBRARY.info        # build seconds, library path
 
 
 def build() -> bool:
-    """Compile (if this source content has no library yet) and load the
-    kernel library.  Returns True when this call ran ``nvcc``."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return False
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"libblock_matmul-{digest}.so"
-        built = not lib_path.exists()
-        if built:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"block_matmul: nvcc failed ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-            build_info["seconds"] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(lib_path))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.block_matmul_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                          i32, i32, i32, i32, vp]
-        lib.block_matmul_bf16.restype = i32
-        lib.block_matmul_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                         i32, i32, i32, vp]
-        lib.block_matmul_f32.restype = i32
-        lib.block_matmul_error_string.argtypes = [i32]
-        lib.block_matmul_error_string.restype = ctypes.c_char_p
-        build_info["library"] = str(lib_path)
-        _lib = lib
-        return built
+    """Compile (if these sources have no library yet) and load the kernel
+    library.  Returns True when this call ran ``nvcc``."""
+    return LIBRARY.load()
 
 
 def vec_bytes(*tensors: torch.Tensor) -> int:
     """Widest global-load width (16, 8, 4 or 2 bytes) that every bf16
-    operand's base pointer and row stride, as stored, allow.  The kernel
-    copies along each operand's contiguous dimension, whichever of its
-    logical dimensions that is."""
+    operand's base pointer, row stride and (for a batch of matrices) batch
+    stride, as stored, allow.  The kernels copy along each operand's
+    contiguous dimension, whichever of its logical dimensions that is."""
     for vb in (16, 8, 4):
         if all(t.data_ptr() % vb == 0
-               and (t.stride(0) * t.element_size()) % vb == 0
+               and all(t.stride(d) * t.element_size() % vb == 0
+                       for d in range(t.dim() - 1))
                for t in tensors):
             return vb
     return 2
@@ -165,20 +127,20 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor,
         return y
     bias = None if b is None else b.to(torch.float32).contiguous()
     build()
+    lib = LIBRARY.lib
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         args = (x.data_ptr(), w.data_ptr(),
                 None if bias is None else bias.data_ptr(), y.data_ptr(),
                 m, n, k, EPILOGUES[epilogue], int(x_t), int(w_t))
         if x.dtype == torch.bfloat16:
-            rc = _lib.block_matmul_bf16(*args, vec_bytes(x, w), stream)
+            rc = lib.block_matmul_bf16(*args, vec_bytes(x, w), stream)
         else:
-            rc = _lib.block_matmul_f32(*args, stream)
+            rc = lib.block_matmul_f32(*args, stream)
     if rc != 0:
-        msg = _lib.block_matmul_error_string(rc).decode()
         raise RuntimeError(f"block_matmul: launch failed with CUDA error "
-                           f"{rc} ({msg}) at M={m} N={n} K={k} {x.dtype} "
-                           f"x_t={x_t} w_t={w_t}")
+                           f"{rc} ({LIBRARY.error_string(rc)}) at M={m} "
+                           f"N={n} K={k} {x.dtype} x_t={x_t} w_t={w_t}")
     block_matmul.launches += 1
     block_matmul.layout_launches[(x_t, w_t)] += 1
     return y

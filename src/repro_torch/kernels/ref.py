@@ -2,7 +2,8 @@
 
 They are the oracles the kernels are held against on the card, and the path
 a kernel's wrapper takes for a tensor that lies on the CPU.  Each mirrors
-``repro/kernels/ref.py``: f32 accumulation (bf16 products are exact in f32,
+``repro/kernels/ref.py`` (``wx_ref``: ``repro/kernels/fused_ring.py``'s
+``_wx_raw``): f32 accumulation (bf16 products are exact in f32,
 so an f32 product of the up-cast operands is the reference's
 ``preferred_element_type=float32``), bias added in f32, the activation in
 f32, one rounding to ``x.dtype``.  On the card this needs
@@ -93,3 +94,17 @@ def mixer_mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1, w2: torch.Tensor,
     h = block_matmul_ref(x.reshape(-1, x.shape[-1]), w1, b1, "gelu")
     y = block_matmul_ref(h, w2, b2, "none")
     return y.reshape(*x.shape[:-1], w2.shape[0])
+
+
+def wx_ref(w: torch.Tensor, x: torch.Tensor, a: Optional[torch.Tensor] = None,
+           out_dtype: torch.dtype = torch.float32, *,
+           w_t: bool = False) -> torch.Tensor:
+    """``a[l] + W @ x[l]`` for each l (the reference's ``_wx_raw``): W = w
+    [M, K] (w.T when ``w_t``, w stored [K, M]), x [L, K, N], a [L, M, N] or
+    None (zero); the product and the add in f32, one rounding to
+    ``out_dtype``."""
+    wf = w.float().t() if w_t else w.float()
+    out = torch.matmul(wf, x.float())
+    if a is not None:
+        out = a.float() + out
+    return out.to(out_dtype)

@@ -1,11 +1,14 @@
-"""TrainEngine on one device: the training loop of the port (the one-device
-part of ``repro/launch/engine.py``).
+"""TrainEngine: the training loop of the port (``repro/launch/engine.py``),
+on one device or on a 2-D Jigsaw mesh.
 
 The engine owns
 
-  * the config, the precision policy and the ``JigsawConfig``
-    (``scheme="none"``: the whole contraction is local, as the reference
-    forces whenever ``mesh_model * mesh_data == 1``);
+  * the config, the precision policy and the ``JigsawConfig``: on one
+    device ``scheme="none"`` (the whole contraction is local, as the
+    reference forces whenever ``mesh_model * mesh_data == 1``); with
+    ``mesh_model=q*q`` ranks ``scheme="2d"`` on a (data=1, mdom=q, mtp=q)
+    mesh, one process per rank (``launch/mesh.py``), each holding its
+    shard of the parameters and of the optimizer state;
   * the parameters and the Adam state, updated in place each step;
   * one step function per rollout length (the paper's §6 randomized
     rollout: step i runs ``r_sched[i]`` passes of the processor);
@@ -14,9 +17,13 @@ The engine owns
     and the span tracer (``data_wait`` / ``step`` / ``dispatch``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
-and raises when CUDA is asked for and absent.  Left for later slices
-(ROADMAP.md): checkpoints and resume, preemption, ZeRO-1, meshes and the
-analytic cost model.
+and raises when CUDA is asked for and absent.  On a mesh every rank makes
+the whole batch (``pipeline="sync-full"``) and takes its block, every rank
+computes the same loss and gradient norm, and rank 0 alone prints and
+writes the metrics.  Left for later slices (ROADMAP.md): checkpoints and
+resume, preemption, ZeRO-1 and a data axis (queue 1 item 8), the 1-D
+scheme (item 5), per-rank reads (``pipeline="sharded"`` on a mesh,
+item 6) and the analytic cost model.
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       config=EngineConfig(steps=10, batch=2, rollout=2,
@@ -36,9 +43,11 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.configs.registry import get_config
+from repro_torch.convert import shard_params_2d
 from repro_torch.core import precision
 from repro_torch.core import tree as ptree
 from repro_torch.data.pipeline import InputPipeline, make_pipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
@@ -62,7 +71,8 @@ class EngineConfig:
     precision: Optional[str] = None   # policy preset: fp32|bf16|bf16_pure;
                                # None = the config's own dtypes
     seed: int = 0
-    pipeline: str = "sharded"  # "sharded" | "sync-full" (same on 1 device)
+    pipeline: str = "sharded"  # "sharded" | "sync-full" (same on 1 device;
+                               # a mesh takes "sync-full" only so far)
     prefetch: int = 2          # 0 disables the background thread
     metrics_out: Optional[str] = None
     metrics_format: str = "jsonl"  # "jsonl" (append per flush) | "json"
@@ -76,13 +86,21 @@ class TrainEngine:
     """Owns params/opt state, the step functions and the input pipeline."""
 
     def __init__(self, arch: str, *, reduced: bool = True,
-                 kernel: Optional[str] = None,
+                 mesh_model: int = 1, mesh_data: int = 1,
+                 scheme: Optional[str] = None, kernel: Optional[str] = None,
                  config: EngineConfig = EngineConfig(),
                  init_params=None, config_override=None, device="cuda"):
+        """``init_params``: whole parameters in the port's layout (on a
+        mesh each rank takes its shard of them); None draws them from
+        ``config.seed``."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainEngine: CUDA is not available; pass "
                                "device='cpu' to train on the CPU")
+        if mesh_data > 1:
+            raise NotImplementedError(
+                "TrainEngine: mesh_data > 1 is not ported yet (ROADMAP.md, "
+                "queue 1 item 8: data-parallel axis and ZeRO-1)")
         if config.metrics_format not in ("jsonl", "json"):
             raise ValueError(
                 f"unknown metrics_format {config.metrics_format!r} "
@@ -94,21 +112,42 @@ class TrainEngine:
             else get_config(arch)
         if reduced:
             cfg = cfg.reduced()
+        if scheme:
+            cfg = cfg.replace(scheme=scheme)
         if kernel:
             cfg = cfg.replace(kernel=kernel)
         if config.precision:
             cfg = precision.apply_policy(cfg, config.precision)
         self.policy = precision.policy_of(cfg)
-        # one device: the whole contraction is local
-        cfg = cfg.replace(scheme="none", impl="rs")
+        self.mesh = None
+        if mesh_model * mesh_data > 1:
+            if cfg.scheme != "2d":
+                raise NotImplementedError(
+                    f"TrainEngine: scheme={cfg.scheme!r} on a mesh is not "
+                    "ported (ROADMAP.md, queue 1 item 5: 1-D Jigsaw); pass "
+                    "scheme='2d'")
+            if config.pipeline == "sharded":
+                raise NotImplementedError(
+                    "TrainEngine: per-rank reads (pipeline='sharded') on a "
+                    "mesh are not ported yet (ROADMAP.md, queue 1 item 6); "
+                    "pass pipeline='sync-full'")
+            self.mesh = make_host_mesh(model=mesh_model, device=self.device)
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+        else:
+            # one device: the whole contraction is local
+            cfg = cfg.replace(scheme="none", impl="rs")
         self.cfg = cfg
-        self.jcfg = jigsaw_for(cfg)
+        self.jcfg = jigsaw_for(cfg).replace(mesh=self.mesh)
+        self.is_rank0 = self.mesh is None or self.mesh.i == self.mesh.j == 0
 
         self.tracer = telemetry.Tracer(enabled=config.telemetry)
         telemetry.set_tracer(self.tracer)
         self.tracer.set_meta(
             surface="train", arch=arch, reduced=reduced,
-            device=str(self.device), scheme=cfg.scheme, kernel=cfg.kernel,
+            device=str(self.device), mesh_model=mesh_model,
+            mesh_data=mesh_data, scheme=cfg.scheme, kernel=cfg.kernel,
             precision=self.policy.name, steps=config.steps,
             batch=config.batch, rollout=config.rollout, accum=config.accum)
 
@@ -125,6 +164,10 @@ class TrainEngine:
                                dtype=pdt if config.precision
                                and p.is_floating_point() else p.dtype,
                                copy=True), init_params)
+        if self.mesh is not None:
+            # every rank holds the whole init; each keeps its shard
+            m = self.mesh
+            self.params = shard_params_2d(self.params, m.i, m.j, m.q)
         pol = self.policy
         self.adam_cfg = adam.AdamConfig(
             weight_decay=0.0, master_weights=pol.master_weights,
@@ -204,14 +247,17 @@ class TrainEngine:
                     m["wall_s"] = round(time.time() - t0, 1)
                     self.history.append(m)
                     self._write_metrics()
-                    print(f"step {i:5d}  loss {m['loss']:.4f}  "
-                          f"lr {m['lr']:.2e}  ({m['wall_s']}s)")
+                    if self.is_rank0:
+                        print(f"step {i:5d}  loss {m['loss']:.4f}  "
+                              f"lr {m['lr']:.2e}  ({m['wall_s']}s)")
                 if c.eval_every and i and i % c.eval_every == 0:
                     with tr.span("eval", step=i):
                         em = self.evaluate()
                     self.history.append(dict(em, step=i, eval=True))
                     self._write_metrics()
-                    print(f"step {i:5d}  val_loss {em['val_loss']:.4f}")
+                    if self.is_rank0:
+                        print(f"step {i:5d}  val_loss "
+                              f"{em['val_loss']:.4f}")
         self._write_metrics(final=True)
         self._export_telemetry()
         return self.history
@@ -219,9 +265,9 @@ class TrainEngine:
     def _write_metrics(self, final: bool = False) -> None:
         """Persist the history: ``jsonl`` appends the records added since
         the last flush, one JSON object per line; ``json`` writes the whole
-        history once, at the end of the run."""
+        history once, at the end of the run.  On a mesh, rank 0 writes."""
         path = self.config.metrics_out
-        if not path:
+        if not path or not self.is_rank0:
             return
         if self.config.metrics_format == "json":
             if final:
@@ -238,7 +284,7 @@ class TrainEngine:
 
     def _export_telemetry(self) -> None:
         c = self.config
-        if not c.trace:
+        if not c.trace or not self.is_rank0:
             return
         self.tracer.export_chrome(c.trace)
         jsonl = telemetry.jsonl_path_for(c.trace)

@@ -1,11 +1,18 @@
-"""One-device training from the command line: a thin CLI over the port's
+"""Training from the command line: a thin CLI over the port's
 ``TrainEngine`` (the counterpart of ``repro/launch/train.py``, with the
-flags that apply on one device, plus ``--device``).
+flags that are ported, plus ``--device`` and ``--init-params``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch weathermixer-1b \\
       [--full] [--steps 100] [--batch 8] [--rollout 3] [--accum 2] \\
       [--precision bf16] [--kernel pallas|xla] [--pipeline sharded] \\
       [--prefetch 2] [--metrics-out m.jsonl] [--device cuda|cpu]
+
+2-D Jigsaw on q*q processes, one per rank (the launcher gives each its
+rank and the rendezvous; gloo on the CPU, NCCL on GPUs):
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
+      --scheme 2d --pipeline sync-full [--device cpu] ...
 
 Reduced configs (the default) run real optimization on the synthetic
 weather data; ``--full`` trains the published width and needs a GPU.
@@ -16,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs.registry import MIXER_IDS
+from repro_torch.convert import params_from_npz
 from repro_torch.launch.engine import EngineConfig, TrainEngine
 
 
@@ -26,10 +34,15 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
           metrics_format: str = "jsonl", trace: str = None,
           telemetry: bool = True, pipeline: str = "sharded",
           prefetch: int = 2, accum: int = 1, eval_every: int = 0,
-          device: str = "cuda"):
-    """Functional entry point; returns (history, params)."""
+          device: str = "cuda", mesh_model: int = 1, mesh_data: int = 1,
+          scheme: str = None, init_params: str = None):
+    """Functional entry point; returns (history, params).  ``init_params``:
+    an npz of reference weights (``convert.params_from_npz``)."""
     engine = TrainEngine(
         arch, reduced=reduced, kernel=kernel, device=device,
+        mesh_model=mesh_model, mesh_data=mesh_data, scheme=scheme,
+        init_params=(None if init_params is None
+                     else params_from_npz(init_params, device="cpu")),
         config=EngineConfig(
             steps=steps, batch=batch, rollout=rollout, lr=lr,
             log_every=log_every, seed=seed, precision=precision,
@@ -68,7 +81,17 @@ def main(argv=None):
     ap.add_argument("--pipeline", default="sharded",
                     choices=["sharded", "sync-full"],
                     help="input read mode (identical batches on one "
-                         "device)")
+                         "device; a mesh takes sync-full)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model-parallel ranks (q*q for --scheme 2d), one "
+                         "process each")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel ranks (only 1 is ported)")
+    ap.add_argument("--scheme", default=None, choices=["2d", "none"],
+                    help="Jigsaw scheme on a mesh (default: the config's)")
+    ap.add_argument("--init-params", default=None,
+                    help="start from the weights in this npz (a reference "
+                         "pytree saved flat, keys joined with '/')")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches prefetched by the background thread "
                          "(0 = synchronous)")
@@ -86,7 +109,9 @@ def main(argv=None):
           metrics_format=args.metrics_format, trace=args.trace,
           telemetry=not args.no_telemetry, pipeline=args.pipeline,
           prefetch=args.prefetch, accum=args.accum,
-          eval_every=args.eval_every, device=args.device)
+          eval_every=args.eval_every, device=args.device,
+          mesh_model=args.mesh_model, mesh_data=args.mesh_data,
+          scheme=args.scheme, init_params=args.init_params)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, *,
     return module_for(cfg).apply(params, batch, cfg, jcfg, rollout=rollout)
 
 
-def forecast_step(params, fields, cfg: ModelConfig, jcfg: JigsawConfig):
+def forecast_step(params, fields, cfg: ModelConfig, jcfg: JigsawConfig,
+                  **kw):
     """One autoregressive field-rollout step (serving hot path)."""
-    return module_for(cfg).forecast_step(params, fields, cfg, jcfg)
+    return module_for(cfg).forecast_step(params, fields, cfg, jcfg, **kw)

@@ -1,28 +1,45 @@
-"""WeatherMixer: the paper's MLP-Mixer atmospheric model, undistributed.
+"""WeatherMixer: the paper's MLP-Mixer atmospheric model.
 
-The port of ``repro/models/weathermixer.py`` for ``scheme="none"``:
-encoder (patch conv as a reshaped linear) -> N mixing blocks (token-mix MLP
-over spatial tokens, channel-mix MLP over latent channels, LayerNorm +
-residual around each) -> decoder (un-patch linear) -> learned blend with
-the input.  Parameters are a dict of tensors as in the reference, except
-that ``params["blocks"]`` is a list with one dict per block where the
-reference stacks the blocks on a leading layer dim (``convert.py`` maps
-between the two).  Under ``kernel="pallas"`` every GEMM runs the
-hand-written block_matmul kernel: 2 + 4 * n_layers launches per forecast
-step, forward only; in training the backward GEMMs run it too
-(``kernels/ops.py``).
+The port of ``repro/models/weathermixer.py``: encoder (patch conv as a
+reshaped linear) -> N mixing blocks (token-mix MLP over spatial tokens,
+channel-mix MLP over latent channels, LayerNorm + residual around each)
+-> decoder (un-patch linear) -> learned blend with the input.  Parameters
+are a dict of tensors as in the reference, except that
+``params["blocks"]`` is a list with one dict per block where the reference
+stacks the blocks on a leading layer dim (``convert.py`` maps between the
+two).
+
+``scheme="none"``: the whole model on one device.  Under
+``kernel="pallas"`` every GEMM runs the hand-written block_matmul kernel:
+2 + 4 * n_layers launches per forecast step; in training the backward
+GEMMs run it too (``kernels/ops.py``).
+
+``scheme="2d"``: 2-D Jigsaw on a q x q mesh (``jcfg.mesh``).  Each rank
+holds its shard of the parameters (``convert.shard_params_2d``) and its
+block of the patchified fields (tokens cut along mdom, the patch dim along
+mtp: the reference's ``act(3, domain_dim=1)``).  The encoder, channel mix
+and decoder are ``jigsaw_linear_2d`` (Cannon), the token mix
+``jigsaw_linear_2d_t`` (the transposed Cannon, on the wx kernel under
+``kernel="pallas"``), with GELU outside the linears as in the reference's
+2-D branch; the LayerNorms reduce over the mtp group, and the blend runs
+per rank in patch space.  ``apply`` then returns the rank's block of the
+forecast in patch space.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, linear_apply,
                                   linear_init, mlp_apply)
+from repro_torch.core.jigsaw import jigsaw_linear_2d, jigsaw_linear_2d_t
 from repro_torch.core.precision import dtype_of
+from repro_torch.core.sharding import RULES_2D, Spec
+from repro_torch.kernels.ref import act
 from repro_torch.models import layers as L
 
 
@@ -75,6 +92,36 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     }
 
 
+# leaves every rank holds whole, and the token-mix linears, whose weights
+# take the transposed Cannon layout
+_REPLICATED = {"scale", "bias", "blend"}
+_TOKEN_MIX = {"tok_fc1", "tok_fc2"}
+
+
+def param_spec_2d(path: Sequence[Any], ndim: int) -> Spec:
+    """The 2-D spec of the parameter leaf at ``path`` (the 2-D rule of
+    ``repro/launch/specs.py``): token-mix ``w`` (mdom, mtp), every other
+    ``w`` (mtp, mdom); token-mix ``b`` on mdom, every other ``b`` on mtp;
+    LayerNorm ``scale`` and ``bias`` and ``blend`` replicated.  Stacked
+    leading dims (the reference's layer dim) stay whole."""
+    name = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    dims: list = [None] * ndim
+    if name in _REPLICATED:
+        return tuple(dims)
+    if name == "w":
+        if parent in _TOKEN_MIX:
+            dims[-2], dims[-1] = RULES_2D.dom_axis, RULES_2D.tp_axis
+            return tuple(dims)
+        return RULES_2D.weight(ndim)
+    if name == "b":
+        dims[-1] = (RULES_2D.dom_axis if parent in _TOKEN_MIX
+                    else RULES_2D.tp_axis)
+        return tuple(dims)
+    raise ValueError(f"no 2-D layout for parameter "
+                     f"{'/'.join(map(str, path))}")
+
+
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """[B, lat, lon, C] -> [B, T, p*p*C] over non-overlapping windows."""
     b, lat, lon, c = x.shape
@@ -91,20 +138,39 @@ def unpatchify(x: torch.Tensor, lat: int, lon: int, p: int, c: int
     return x.reshape(b, lat, lon, c)
 
 
+def _linear_2d(fn, p, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
+    return fn(x, p["w"], p["b"], mesh=jcfg.mesh_2d,
+              accum_dtype=jcfg.accum_dtype, kernel=jcfg.kernel,
+              compute_dtype=jcfg.compute_dtype)
+
+
 def _token_mix(bp, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
-    """Token-mixing MLP contracting the token dim of x [B, T, C]: the
-    transpose is materialised (``contiguous``) so both GEMMs see row-major
-    operands; the result is handed back as a transposed view."""
+    """Token-mixing MLP contracting the token dim of x [B, T, C].
+
+    ``scheme="2d"``: two transposed-Cannon linears on the rank's blocks,
+    contracting the token dim in place.  ``scheme="none"``: the transpose
+    is materialised (``contiguous``) so both GEMMs see row-major operands;
+    the result is handed back as a transposed view."""
+    if jcfg.scheme == "2d":
+        h = _linear_2d(jigsaw_linear_2d_t, bp["tok_fc1"], x, jcfg)
+        h = act("gelu")(h)
+        return _linear_2d(jigsaw_linear_2d_t, bp["tok_fc2"], h, jcfg)
     xt = x.transpose(-1, -2).contiguous()                  # [B, C, T]
     h = mlp_apply({"fc1": bp["tok_fc1"], "fc2": bp["tok_fc2"]}, xt, jcfg)
     return h.transpose(-1, -2)
 
 
 def _block_apply(bp, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
-    h = L.layernorm_apply(bp["tok_norm"], x)
+    mesh = jcfg.mesh_2d if jcfg.scheme == "2d" else None
+    h = L.layernorm_apply(bp["tok_norm"], x, mesh=mesh)
     x = x + _token_mix(bp, h, jcfg)
-    h = L.layernorm_apply(bp["ch_norm"], x)
-    m = mlp_apply({"fc1": bp["ch_fc1"], "fc2": bp["ch_fc2"]}, h, jcfg)
+    h = L.layernorm_apply(bp["ch_norm"], x, mesh=mesh)
+    if jcfg.scheme == "2d":
+        m = _linear_2d(jigsaw_linear_2d, bp["ch_fc1"], h, jcfg)
+        m = act("gelu")(m)
+        m = _linear_2d(jigsaw_linear_2d, bp["ch_fc2"], m, jcfg)
+    else:
+        m = mlp_apply({"fc1": bp["ch_fc1"], "fc2": bp["ch_fc2"]}, h, jcfg)
     return x + m
 
 
@@ -124,14 +190,50 @@ def processor(params, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def field_block(fields: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
+                ) -> torch.Tensor:
+    """This rank's block of the patchified fields [B, lat, lon, C] ->
+    [B, T/q, p*p*C/q]: tokens cut along mdom, the patch dim along mtp."""
+    return jcfg.mesh_2d.block(patchify(fields, cfg.wm_patch),
+                              RULES_2D.act(3, domain_dim=1))
+
+
+def blend_weights(blend: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
+                  ) -> torch.Tensor:
+    """sigmoid(blend) for the rank's patch-dim columns: patch-dim index k
+    holds channel k % C."""
+    pd = patch_dim(cfg) // jcfg.mesh_2d.q
+    k = jcfg.mesh_2d.j * pd + torch.arange(pd, device=blend.device)
+    return torch.sigmoid(blend)[k % cfg.wm_channels]
+
+
+def _apply_2d(params, xin: torch.Tensor, cfg: ModelConfig,
+              jcfg: JigsawConfig, rollout: int) -> torch.Tensor:
+    """The 2-D forward on the rank's block xin [B, T/q, pd/q] (f32) -> the
+    rank's block of the forecast, in xin's dtype."""
+    x = L.boundary_cast(xin, jcfg)
+    h = _linear_2d(jigsaw_linear_2d, params["encoder"], x, jcfg)
+    h = processor(params, h, cfg, jcfg, rollout=rollout)
+    y = _linear_2d(jigsaw_linear_2d, params["decoder"], h, jcfg)
+    y = y.to(xin.dtype)
+    lam = blend_weights(params["blend"], cfg, jcfg).to(y.dtype)
+    return lam * xin + (1.0 - lam) * y
+
+
 def apply(params, batch, cfg: ModelConfig,
           jcfg: JigsawConfig = DEFAULT_JIGSAW, *, rollout: int = 1
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"fields": [B, lat, lon, C]} -> (forecast of the same shape,
-    aux = 0)."""
-    if jcfg.scheme != "none":
-        raise NotImplementedError("only scheme='none' is ported")
+    """batch: {"fields": [B, lat, lon, C]} -> (forecast, aux = 0).  The
+    forecast has the fields' shape under ``scheme="none"``; under
+    ``scheme="2d"`` it is the rank's block in patch space, [B, T/q,
+    p*p*C/q] (every rank is handed the whole fields and takes its block)."""
     xin = batch["fields"]
+    zero = torch.zeros((), dtype=torch.float32, device=xin.device)
+    if jcfg.scheme == "2d":
+        return _apply_2d(params, field_block(xin, cfg, jcfg), cfg, jcfg,
+                         rollout), zero
+    if jcfg.scheme != "none":
+        raise NotImplementedError(f"scheme={jcfg.scheme!r} is not ported")
     p = cfg.wm_patch
     x = L.boundary_cast(patchify(xin, p), jcfg)            # [B, T, p*p*C]
     h = linear_apply(params["encoder"], x, jcfg)           # [B, T, d]
@@ -143,11 +245,28 @@ def apply(params, batch, cfg: ModelConfig,
     y = y.to(xin.dtype)
     lam = torch.sigmoid(params["blend"]).to(y.dtype)
     out = lam * xin + (1.0 - lam) * y
-    return out, torch.zeros((), dtype=torch.float32, device=xin.device)
+    return out, zero
+
+
+def gather_field(block: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
+                 ) -> torch.Tensor:
+    """The whole field [B, lat, lon, C] from every rank's block in patch
+    space [B, T/q, pd/q] (an all-gather over the model ranks)."""
+    mesh = jcfg.mesh_2d
+    parts = comm.all_gather(block.contiguous(), mesh.model_group)
+    rows = [torch.cat(parts[i * mesh.q:(i + 1) * mesh.q], dim=-1)
+            for i in range(mesh.q)]
+    return unpatchify(torch.cat(rows, dim=-2), cfg.wm_lat, cfg.wm_lon,
+                      cfg.wm_patch, cfg.wm_channels)
 
 
 def forecast_step(params, fields: torch.Tensor, cfg: ModelConfig,
-                  jcfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
-    """One serving rollout step: fields [B, lat, lon, C] -> fields at +dt."""
+                  jcfg: JigsawConfig = DEFAULT_JIGSAW, *,
+                  gather: bool = False) -> torch.Tensor:
+    """One serving rollout step: fields [B, lat, lon, C] -> fields at +dt.
+    Under ``scheme="2d"`` it returns the rank's block in patch space, or,
+    with ``gather``, the whole field on every rank."""
     out, _ = apply(params, {"fields": fields}, cfg, jcfg, rollout=1)
+    if jcfg.scheme == "2d" and gather:
+        return gather_field(out, cfg, jcfg)
     return out

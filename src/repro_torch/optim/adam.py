@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core import tree as ptree
 from repro_torch.core.precision import dtype_of
 
@@ -49,11 +50,17 @@ def init(params, cfg: AdamConfig):
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, owned=None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-dim tensor on
-    the leaves' device)."""
-    sums = [g.float().square().sum() for g in ptree.leaves(tree)]
-    return torch.sqrt(torch.stack(sums).sum())
+    the leaves' device).  For a tree of shards: ``owned`` (a tree of bools
+    of the same structure) names the leaves this rank counts, and the
+    partial sum is all-reduced over ``group`` first."""
+    leaves = ptree.leaves(tree)
+    counted = ptree.leaves(owned) if owned is not None else [True] * len(
+        leaves)
+    sums = [g.float().square().sum() for g, c in zip(leaves, counted) if c]
+    total = torch.stack(sums).sum()
+    return torch.sqrt(comm.all_reduce_(total, group))
 
 
 def clip_by_global_norm(grads, max_norm: float,

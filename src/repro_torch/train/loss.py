@@ -1,5 +1,6 @@
 """The weather loss: latitude- and pressure-level-weighted MSE (the port's
-copy of the mixer half of ``repro/train/loss.py``)."""
+copy of the mixer half of ``repro/train/loss.py``), and its per-rank part
+on a 2-D Jigsaw mesh."""
 from __future__ import annotations
 
 from typing import Optional
@@ -43,3 +44,33 @@ def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
     if chan_w is not None:
         err = err * chan_w[None, None, None, :]
     return err.mean()
+
+
+def block_weights(lat_w: torch.Tensor, chan_w: Optional[torch.Tensor], *,
+                  lon: int, patch: int, channels: int, rows: range,
+                  cols: range):
+    """The latitude and channel weight of each element of a block in patch
+    space [T, p*p*C]: token rows ``rows``, patch-dim columns ``cols``.
+    Token t lies in latitude-patch row t // (lon / p); patch-dim index k
+    holds in-patch row (k // C) // p and channel k % C.  Returns (lat [len
+    rows, len cols], chan [len cols] or None)."""
+    dev = lat_w.device
+    tok = torch.as_tensor(rows, device=dev)
+    k = torch.as_tensor(cols, device=dev)
+    lat = (tok // (lon // patch))[:, None] * patch \
+        + ((k // channels) // patch)[None, :]
+    return lat_w[lat], None if chan_w is None else chan_w[k % channels]
+
+
+def weighted_sse(pred: torch.Tensor, target: torch.Tensor,
+                 lat_w: torch.Tensor, chan_w: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The weighted sum of squared errors over a block (pred/target
+    [B, ...], weights broadcast over the batch), in f32: divided by the
+    element count of the whole field and summed over the blocks of all
+    ranks, ``weighted_mse`` of the whole field."""
+    err = (pred.float() - target.float()) ** 2
+    err = err * lat_w
+    if chan_w is not None:
+        err = err * chan_w
+    return err.sum()

@@ -1,10 +1,21 @@
-"""Train-step builders on one device: loss -> grad -> clip -> Adam (the
-port's copy of the mixer half of ``repro/train/step.py``).
+"""Train steps: loss -> grad -> clip -> Adam (the port's copy of
+the mixer half of ``repro/train/step.py``), on one device or on the
+shards of a 2-D Jigsaw mesh.
 
 Autograd takes the place of ``jax.value_and_grad``: the step runs the
 forward on detached views of the parameters that require grad (no copy),
 and ``torch.autograd.grad`` returns the gradients in the parameters'
 dtypes, as JAX does.  The optimizer then updates the parameters in place.
+
+On a mesh (``scheme="2d"``, ``jcfg.mesh``) each rank differentiates its
+part of the loss.  A weight block belongs to one rank, and its gradient
+(gathered back through the rotations' backward) stays local.  A leaf
+replicated over some model axes (biases over the axis their block is not
+cut along, LayerNorm parameters and ``blend`` over both) gets its gradient
+summed over the ranks that share it, in f32, so every copy takes the same
+update and stays bitwise equal.  The gradient norm counts each logical
+element once: one rank of each replica group counts the leaf, and the
+partial sums are all-reduced over the model ranks.
 """
 from __future__ import annotations
 
@@ -14,8 +25,10 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core import tree as ptree
 from repro_torch.core.api import JigsawConfig
+from repro_torch.core.sharding import replicated_axes
 from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
 from repro_torch.train import loss as losses
@@ -23,8 +36,14 @@ from repro_torch.train import loss as losses
 
 def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
             rollout: int = 1):
-    """Returns (scalar loss, metrics dict).  Level weights apply from 69
-    channels on (the full ERA5 variable set)."""
+    """Returns (objective, metrics dict): the scalar to differentiate, and
+    the loss.  Level weights apply from 69 channels on (the full ERA5
+    variable set).  Under ``scheme="2d"`` the objective is this rank's
+    part, the weighted squared error of its block over the whole field's
+    element count: the parts of all ranks sum to the loss, so the
+    gradients, summed through the collectives' backward, are the loss's.
+    The metrics carry the whole loss (the parts all-reduced), the same on
+    every rank."""
     if cfg.family != "mixer":
         raise NotImplementedError(
             f"the port trains the mixer family only; {cfg.arch_id} is "
@@ -34,8 +53,41 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     chan_w = (losses.pressure_level_weights(cfg.wm_channels,
                                             device=pred.device)
               if cfg.wm_channels >= 69 else None)
+    if jcfg.scheme == "2d":
+        mesh = jcfg.mesh_2d
+        target = M.module_for(cfg).field_block(batch["target"], cfg, jcfg)
+        rows, cols = pred.shape[-2], pred.shape[-1]
+        lat_b, chan_b = losses.block_weights(
+            lat_w, chan_w, lon=cfg.wm_lon, patch=cfg.wm_patch,
+            channels=cfg.wm_channels,
+            rows=range(mesh.i * rows, (mesh.i + 1) * rows),
+            cols=range(mesh.j * cols, (mesh.j + 1) * cols))
+        sse = losses.weighted_sse(pred, target, lat_b, chan_b)
+        n = pred.shape[0] * cfg.wm_lat * cfg.wm_lon * cfg.wm_channels
+        main = comm.all_reduce_(sse.detach().clone(), mesh.model_group) / n
+        return sse / n, {"loss": main, "mse": main}
     main = losses.weighted_mse(pred, batch["target"], lat_w, chan_w)
     return main, {"loss": main, "mse": main}
+
+
+def replica_axes(params, cfg: ModelConfig):
+    """The tree of the model axes each 2-D parameter shard is replicated
+    over (``()`` for a weight block, which one rank holds), from the
+    model's own 2-D layout."""
+    spec = M.module_for(cfg).param_spec_2d
+    return ptree.map_with_path(
+        lambda path, p: replicated_axes(spec(path, p.ndim)), params)
+
+
+def _norm_args(params, cfg: ModelConfig, jcfg: JigsawConfig):
+    """``global_norm``'s arguments for a tree of 2-D shards: the rank at
+    coordinate 0 of every axis a leaf is replicated over counts it."""
+    if jcfg.scheme != "2d" or jcfg.mesh_2d.q == 1:
+        return {}
+    mesh = jcfg.mesh_2d
+    owned = ptree.map(lambda axes: all(mesh.coord(a) == 0 for a in axes),
+                      replica_axes(params, cfg))
+    return {"owned": owned, "group": mesh.model_group}
 
 
 def value_and_grad(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
@@ -48,6 +100,10 @@ def value_and_grad(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
         loss, metrics = loss_fn(ptree.unflatten(params, live), batch, cfg,
                                 jcfg, rollout)
         grads = torch.autograd.grad(loss, live)
+    if jcfg.scheme == "2d" and jcfg.mesh_2d.q > 1:
+        mesh = jcfg.mesh_2d
+        for g, axes in zip(grads, ptree.leaves(replica_axes(params, cfg))):
+            comm.all_reduce_(g, mesh.group(axes))
     return ({k: v.detach() for k, v in metrics.items()},
             ptree.unflatten(params, grads))
 
@@ -70,7 +126,7 @@ def make_train_step(cfg: ModelConfig, jcfg: JigsawConfig,
     def apply_update(params, opt_state, grads, metrics):
         lr = lr_fn(opt_state["step"])
         # the norm of the unclipped grads: reported, and the clip's input
-        norm = adam.global_norm(grads)
+        norm = adam.global_norm(grads, **_norm_args(params, cfg, jcfg))
         params, opt_state = adam.update(params, grads, opt_state, lr,
                                         adam_cfg, norm=norm)
         return params, opt_state, dict(metrics, lr=lr, grad_norm=norm)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skips without one).
+"""The port's CUDA kernels on the card (marked ``cuda``; skips without one).
 
 Run on a GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.  This file imports
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import block_matmul as BM
 from repro_torch.kernels import ref
+from repro_torch.kernels import wx as WX
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -183,3 +184,134 @@ def test_training_step_grads_bitwise_repeatable(cuda):
     from repro_torch.core import tree as ptree
     assert all(torch.equal(a, b) for a, b in zip(ptree.leaves(g0),
                                                  ptree.leaves(g1)))
+
+
+# ---------------------------------------------------------------------------
+# wx: the transposed-Cannon step kernel
+# ---------------------------------------------------------------------------
+
+# bf16 operands into an f32 output: the products are exact in f32, so the
+# kernel and the plain version differ only in summation order; a bf16
+# rounding of the accumulator, a or the output would exceed this
+WX_MIXED_TOL = 1e-3
+
+
+def _wx_inputs(gen, ll, m, t, c, dtype, out_dtype, w_t, with_a):
+    w = (torch.randn(m, t, generator=gen, device="cuda") / t ** 0.5
+         ).to(dtype)
+    ws = w.t().contiguous() if w_t else w
+    x = torch.randn(ll, t, c, generator=gen, device="cuda").to(dtype)
+    a = (torch.randn(ll, m, c, generator=gen, device="cuda").to(out_dtype)
+         if with_a else None)
+    return ws, x, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_t", [False, True])
+@pytest.mark.parametrize("shape", [(1, 300, 700, 130), (3, 129, 97, 257),
+                                   (2, 33, 8190, 40), (1, 4420, 33, 97)])
+def test_wx_matches_plain_version(cuda, dtype, out_dtype, w_t, shape):
+    """a + W @ x[l] over ragged M, K, N, batches of 1-3, W read along or
+    across its rows, stored rows of 97, 33 (2-byte copies) or 8,190 (4-byte)
+    elements, with and without a."""
+    ll, m, t, c = shape
+    for with_a in (True, False):
+        w, x, a = _wx_inputs(cuda, ll, m, t, c, dtype, out_dtype, w_t,
+                             with_a)
+        before = WX.wx.launches
+        y = WX.wx(w, x, a, out_dtype=out_dtype, w_t=w_t)
+        torch.cuda.synchronize()
+        assert WX.wx.launches == before + 1 and y.dtype == out_dtype
+        r = ref.wx_ref(w, x, a, out_dtype, w_t=w_t)
+        tol = (WX_MIXED_TOL if (dtype, out_dtype) == (torch.bfloat16,
+                                                      torch.float32)
+               else max(TOL[dtype], TOL[out_dtype]))
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,exc", [
+    ("dtype", TypeError), ("k", ValueError), ("a_shape", ValueError),
+    ("a_dtype", ValueError), ("device", ValueError),
+    ("contiguous", ValueError), ("out_dtype", TypeError)])
+def test_wx_wrapper_rejects_bad_inputs(cuda, case, exc):
+    """The wrapper raises on what the kernel does not take, and launches
+    nothing: no fallback to the plain version on a CUDA tensor."""
+    w, x, a = _wx_inputs(cuda, 2, 64, 48, 32, torch.bfloat16, torch.float32,
+                         False, True)
+    kw = {}
+    if case == "dtype":
+        x = x.float()
+    elif case == "k":
+        x = x[:, :40].contiguous()
+    elif case == "a_shape":
+        a = a[:, :10].contiguous()
+    elif case == "a_dtype":
+        a = a.to(torch.bfloat16)
+    elif case == "device":
+        w = w.cpu()
+    elif case == "contiguous":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "out_dtype":
+        kw["out_dtype"] = torch.float16
+    before = WX.wx.launches
+    with pytest.raises(exc):
+        WX.wx(w, x, a, **kw)
+    assert WX.wx.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cannon_step_grads_match_cpu(cuda, dtype):
+    """cannon_t_step's forward and backward on the card (wx forward and dx,
+    block_matmul dw) against the same Function on CPU tensors (the plain
+    versions)."""
+    from repro_torch.kernels.fused_ring import cannon_t_step
+    w, x, a = _wx_inputs(cuda, 3, 96, 80, 40, dtype, torch.float32, False,
+                         True)
+    dy = torch.randn(3, 96, 40, generator=cuda, device="cuda")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (w, x, a)]
+        y = cannon_t_step(*leaves[:2], leaves[2])
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy.to(dev))))
+    tol = 2 * TOL[dtype] if dtype == torch.bfloat16 else 1e-4
+    for g, r in zip(*outs):
+        assert g.dtype == r.dtype
+        np.testing.assert_allclose(g.detach().float().cpu().numpy(),
+                                   r.detach().float().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_2d_step_launch_counts_and_none_parity(cuda):
+    """One 2-D training forward and backward on the 1x1 mesh: 18 r wx and
+    5 + 30 r block_matmul launches at 3 blocks with remat, and the
+    gradients of the scheme="none" step within the bf16 bound."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as ptree
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.train.step import value_and_grad
+    cfg = get_config("weathermixer-1b").reduced().replace(
+        wm_lat=16, wm_lon=32, wm_channels=4, d_model=64, wm_d_tok=64,
+        wm_d_ch=64, kernel="pallas", remat=True, n_layers=3)
+    eng = TrainEngine("weathermixer-1b", reduced=False, config_override=cfg,
+                      device="cuda",
+                      config=EngineConfig(steps=1, batch=2, precision="bf16",
+                                          prefetch=0))
+    batch = eng.pipeline.get(0, 1)
+    m0, g0 = value_and_grad(eng.params, batch, eng.cfg, eng.jcfg, 1)
+    bm, wx = BM.block_matmul.launches, WX.wx.launches
+    m2, g2 = value_and_grad(eng.params, batch, eng.cfg.replace(scheme="2d"),
+                            eng.jcfg.replace(scheme="2d"), 1)
+    torch.cuda.synchronize()
+    assert (BM.block_matmul.launches - bm, WX.wx.launches - wx) == (35, 18)
+    assert abs(float(m2["loss"]) - float(m0["loss"])) <= 5e-2 * abs(
+        float(m0["loss"]))
+    for a, b in zip(ptree.leaves(g2), ptree.leaves(g0)):
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert float(err) <= 5e-2
