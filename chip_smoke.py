@@ -6,11 +6,12 @@
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s full published width, through the entry points a user
-calls: forecast serving, one-GPU training, and the 2-D Jigsaw (Cannon)
-training step at q = 1.  Phases, each printed as a JSON line:
+calls: forecast serving, one-GPU training, the 2-D Jigsaw (Cannon)
+training step at q = 1, and the 1-D Jigsaw (ring) training step on two
+ranks sharing the card.  Phases, each printed as a JSON line:
 
-  1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu and
-     wx.cu, one nvcc each, started together);
+  1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu,
+     wx.cu and ring.cu, one nvcc each, started together);
   2. the block_matmul kernel against its plain PyTorch version on the card:
      small ragged shapes in f32 and bf16 with every epilogue, then the six
      GEMM shapes of a weathermixer-1b forecast step (bucket 1) in bf16 and
@@ -32,16 +33,31 @@ training step at q = 1.  Phases, each printed as a JSON line:
      and 2: the forward in bf16 with a non-zero f32 accumulator, and dx
      (w read across its rows) in f32, each against its plain version and
      timed beside it, the closest PyTorch library call and the bound;
-  7. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
+  7. the ring step kernels (``ring_shape``) at the six full-width 1-D
+     linear shapes for p = 2 and 4 ranks held in one process (rank r
+     writes rank r+1's slot; the order of the launches is the barrier), in
+     bf16, and tok_fc1 in f32: the forward against the ring of
+     block_matmul's products and its plain version, the backward's dw
+     against block_matmul's dw of the gathered cotangent and its dx
+     accumulator against the plain one; rank 0's launches timed beside the
+     plain steps, cuBLAS chunk products with the adds, and the bound;
+  8. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
      up to 2): the first step's loss, grad norm and per-leaf gradients
      against the same step with ``kernel="xla"``; on the same weights and
      batch, one 2-D (``scheme="2d"``, the 1x1 mesh) forward and backward,
      with its 18 r wx and 5 + 30 r block_matmul launches, held against the
-     ``scheme="none"`` step (``train_2d``); then the run, with 5 + 54 r
+     ``scheme="none"`` step (``train_2d``); one 1-D (``scheme="1d"``,
+     ``impl="ring_fused"``) forward and backward on two ranks, this file
+     re-run as two processes (``--train-1d-rank``) that share the card
+     under gloo and reach each other's ring slots through CUDA IPC, with
+     (2 + 24 r) p ring_fwd and (2 + 12 r) p ring_bwd launches per rank and
+     no block_matmul, held against the same none step and, bit for bit in
+     its loss, against ``impl="ring_chunked"`` (``train_1d``); then the
+     run, with 5 + 54 r
      kernel launches per step of rollout r, finite losses, peak memory
      under 80 GB; then a second run of the same seed, whose loss and
      grad-norm history must equal the first's bit for bit;
-  8. the ``kernels`` line, the card's name and power limit, and the last
+  9. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -67,11 +83,22 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     gradient leaf max|a - b| / max|b|, all 5e-2 (the reference's bf16
     loss-parity bound; the same rounding difference as the forecast step,
     through the backward too: the 2-D branch rounds each GEMM to bf16
-    before its bias and GELU, the none path after).
+    before its bias and GELU, the none path after);
+  * ring forward: bit for bit the ring of block_matmul's products (the same
+    K order, the same cast points); against the plain version bf16 3e-2 /
+    3e-2 (every hop rounds to bf16), f32 1e-4 / 1e-4; ring backward: dw bit
+    for bit block_matmul's, dx's f32 accumulator 1e-4 max-normalised
+    against the plain one (another order over m), dx that accumulator
+    rounded;
+  * the 1-D step against the none step: loss 1e-3 and grad norm 5e-3
+    relative, the worst gradient leaf 5e-2 max-normalised (the 1-D path
+    rounds each linear's partial sums to bf16 at every hop and adds the
+    bias after the reduce).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -539,7 +566,200 @@ def wx_phase(torch, WX, ref):
     return rows, worst
 
 # ---------------------------------------------------------------------------
-# phase 7: full-width training
+# phase 7: the ring step kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the six 1-D linears of weathermixer-1b at batch 1: (label, rows, d, m) of
+# x [rows, d] @ w [m, d].T, each rank holding d/p of x's and w's columns;
+# forward ring calls per training sample-step at r = 1 (the forward and,
+# for the mixing linears, the checkpoint's rerun) and backward calls
+RING_SHAPES = [("encoder", _T, _PD, _D, 1, 1),
+               ("tok_fc1", _D, _T, 8640, 6, 3),
+               ("tok_fc2", _D, 8640, _T, 6, 3),
+               ("ch_fc1", _T, _D, 4320, 6, 3),
+               ("ch_fc2", _T, 4320, _D, 6, 3),
+               ("decoder", _T, _D, _PD, 1, 1)]
+RING_PS = (2, 4)
+# the forward rounds to the wire dtype at every hop (bf16: a summation
+# order other than the plain version's flips some roundings, the GEMM
+# bound); dx's f32 accumulator differs from the plain one in order only
+RING_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+RING_DX_TOL = 1e-4
+
+
+def ring_bound_ms(rows, d_l, m, p, dtype_name, bwd, dx=True):
+    """Least time of one rank's p launches of a ring call: its GEMM work
+    (the forward x [rows, d/p] @ w [m, d/p].T; the backward dw and, with
+    ``dx``, dx: twice that) over the peak, or the bytes (x, w and the
+    output read or written once, each of the p - 1 hops read and written
+    once; the backward also dw and the f32 dx accumulator, read and
+    written) over the memory rate."""
+    es = 4 if dtype_name == "float32" else 2
+    mc = m // p
+    flops = 2.0 * rows * m * d_l * (1 + int(bwd and dx))
+    hop = rows * mc * es
+    nbytes = es * (rows * d_l + m * d_l) + 2 * (p - 1) * hop
+    nbytes += (rows * mc * es + es * m * d_l + int(dx) * 8 * rows * d_l
+               if bwd else rows * mc * es)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ring_phase(torch, BM, RING, ref):
+    """p ranks held in one process (rank r's destination is rank r+1's
+    slot; the order of the launches on one stream is the barrier), at each
+    full-width 1-D linear for p = 2 and 4 in bf16, and tok_fc1 at p = 2 in
+    f32: the forward bit for bit against the ring of block_matmul's
+    products and within RING_TOL of the plain version; dw bit for bit
+    against block_matmul's dw of the gathered cotangent; dx's f32
+    accumulator within RING_DX_TOL (max-normalised) of the plain one, and
+    dx it rounded.  Then rank 0's p launches timed, forward and backward,
+    beside the plain steps, the library's (torch.matmul chunk products and
+    the adds) and the bound.  On one card a hop is a store into device
+    memory, not an NVLink write."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
+    cases.append((2, RING_SHAPES[1], "float32"))
+    rows_out, worst = [], {"fwd": 0.0, "bwd": 0.0}
+    for p, (label, rows, d, m, n_fwd, n_bwd), name in cases:
+        dtype = getattr(torch, name)
+        dl, mc = d // p, m // p
+        xs = [torch.randn(rows, dl, generator=gen, device="cuda").to(dtype)
+              for _ in range(p)]
+        ws = [(torch.randn(m, dl, generator=gen, device="cuda")
+               / d ** 0.5).to(dtype) for _ in range(p)]
+        dys = [torch.randn(rows, mc, generator=gen, device="cuda").to(dtype)
+               for _ in range(p)]
+        outs = RING.ring_fwd_all(xs, ws)
+        torch.cuda.synchronize()
+        parts = [BM.block_matmul(x, w) for x, w in zip(xs, ws)]
+        ring = ref.ring_walk_all(lambda r, j: parts[r][:, j * mc:(j + 1)
+                                                       * mc],
+                                 p, dtype, torch.float32)
+        check(all(torch.equal(a, b) for a, b in zip(outs, ring)),
+              f"ring_fwd {label} p={p} {name}: not bit for bit the ring of "
+              "block_matmul's products")
+        del parts, ring
+        plain = ref.ring_fwd_all_ref(xs, ws, torch.float32)
+        tol = RING_TOL[name]
+        fwd_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(outs, plain))
+        check(all(bool(((a.float() - b.float()).abs()
+                        <= tol + tol * b.float().abs()).all())
+                  for a, b in zip(outs, plain)),
+              f"ring_fwd {label} p={p} {name} vs plain: {fwd_err:.3e}")
+        del outs, plain
+        dxs, dws, accs = RING.ring_bwd_all(xs, ws, dys)
+        torch.cuda.synchronize()
+        gathered = torch.cat(dys, dim=1)
+        check(all(torch.equal(dw, BM.block_matmul(gathered, x, x_t=True,
+                                                  w_t=True))
+                  for dw, x in zip(dws, xs)),
+              f"ring_bwd {label} p={p} {name}: dw not bit for bit "
+              "block_matmul's")
+        check(all(torch.equal(dx, a.to(dtype)) for dx, a in zip(dxs, accs)),
+              f"ring_bwd {label} p={p} {name}: dx is not its accumulator "
+              "rounded")
+        del gathered, dxs, dws
+        _, _, paccs = ref.ring_bwd_all_ref(xs, ws, dys)
+        dx_err = max(rel_err(a, b) for a, b in zip(accs, paccs))
+        dx_abs = max(float((a - b).abs().max())
+                     for a, b in zip(accs, paccs))
+        check(dx_err <= RING_DX_TOL,
+              f"ring_bwd {label} p={p} {name}: dx accumulator vs plain "
+              f"{dx_err:.3e}")
+        del accs, paccs
+        torch.cuda.empty_cache()
+        worst["fwd"] = max(worst["fwd"], fwd_err)
+        worst["bwd"] = max(worst["bwd"], dx_abs)
+
+        # rank 0's p launches of one ring call, as the ring runs them
+        x, w, dy = xs[0], ws[0], dys[0]
+        slots = [torch.empty(rows, mc, dtype=dtype, device="cuda")
+                 for _ in range(2)]
+        out = torch.empty(rows, mc, dtype=dtype, device="cuda")
+        acc = torch.empty(rows, dl, dtype=torch.float32, device="cuda")
+        dx = torch.empty(rows, dl, dtype=dtype, device="cuda")
+        dw = torch.empty(m, dl, dtype=dtype, device="cuda")
+        need_dx = label != "encoder"        # the encoder's input is data
+
+        def fwd_kernel():
+            for s in range(p):
+                RING.ring_fwd(x, w, (-1 - s) % p,
+                              None if s == 0 else slots[(s - 1) % 2],
+                              out if s == p - 1 else slots[s % 2])
+
+        def fwd_plain():
+            y = None
+            for s in range(p):
+                j = (-1 - s) % p
+                y = ref.ring_fwd_step_ref(x, w[j * mc:(j + 1) * mc], y,
+                                          torch.float32)
+            return y
+
+        def fwd_library():
+            y = None
+            for s in range(p):
+                j = (-1 - s) % p
+                z = torch.matmul(x, w[j * mc:(j + 1) * mc].t())
+                y = z if y is None else (y.float() + z.float()).to(dtype)
+            return y
+
+        def bwd_kernel():
+            for s in range(p):
+                RING.ring_bwd(x, w, (-s) % p,
+                              dy if s == 0 else slots[(s - 1) % 2],
+                              slots[s % 2] if s < p - 1 else None, dw,
+                              acc if need_dx else None,
+                              dx if need_dx else None, first=s == 0,
+                              last=s == p - 1)
+
+        def bwd_plain():
+            a = None
+            for s in range(p):
+                j = (-s) % p
+                dw[j * mc:(j + 1) * mc], a = ref.ring_bwd_step_ref(
+                    x, w[j * mc:(j + 1) * mc], dy, a)
+            return a
+
+        def bwd_library():
+            for s in range(p):
+                j = (-s) % p
+                dw[j * mc:(j + 1) * mc] = torch.matmul(dy.t(), x)
+                if need_dx:
+                    z = torch.matmul(dy, w[j * mc:(j + 1) * mc]).float()
+                    acc.copy_(z) if s == 0 else acc.add_(z)
+
+        row = dict(shape=label, p=p, rows=rows, d=d, m=m, dtype=name,
+                   fwd_calls_per_train_step=n_fwd,
+                   bwd_calls_per_train_step=n_bwd,
+                   vec_bytes=RING._vec_bytes(x, w) if name == "bfloat16"
+                   else 4, fwd_max_abs_err=fwd_err, fwd_tol=tol,
+                   dx_acc_rel_err=dx_err, dx_acc_max_abs_err=dx_abs,
+                   dx_tol=RING_DX_TOL)
+        for kind, kernel, plain_fn, lib in (
+                ("fwd", fwd_kernel, fwd_plain, fwd_library),
+                ("bwd", bwd_kernel, bwd_plain, bwd_library)):
+            bound, bound_by = ring_bound_ms(rows, dl, m, p, name,
+                                            kind == "bwd", need_dx)
+            row.update({f"{kind}_kernel_ms": cuda_ms(kernel),
+                        f"{kind}_plain_ms": cuda_ms(plain_fn, 3),
+                        f"{kind}_library_ms": cuda_ms(lib),
+                        f"{kind}_bound_ms": bound,
+                        f"{kind}_bound_by": bound_by})
+            work = 2e-9 * rows * m * dl * (1 + int(kind == "bwd"
+                                                   and need_dx))
+            row[f"{kind}_tflops"] = work / row[f"{kind}_kernel_ms"]
+        emit(phase="ring_shape", **row)
+        rows_out.append(row)
+        del xs, ws, dys, x, w, dy, slots, out, acc, dx, dw
+        torch.cuda.empty_cache()
+    return rows_out, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 8: full-width training
 # ---------------------------------------------------------------------------
 
 def train_flops_per_sample(cfg, rollout):
@@ -656,6 +876,214 @@ def train_2d_phase(torch, BM, WX, eng, batch0, r0, none_metrics,
     return stats
 
 
+TRAIN_1D_P = 2
+# against the scheme="none" step on the same weights and batch: the 1-D
+# path rounds each linear's partial sums to bf16 at every hop and adds the
+# bias after the reduce (the none path fuses bias and GELU into one
+# rounding), so it agrees to bf16's precision, not bit for bit
+TRAIN_1D_TOL = {"loss": 1e-3, "grad_norm": 5e-3, "leaf": 5e-2}
+
+
+def train_1d_bound_ms_per_sample(p):
+    """The least device time of one 1-D training sample-step on the card
+    (both ranks' work; 3 blocks, remat, r = 1): every ring call's GEMMs
+    (2 + 24 forward calls, 2 + 12 backward ones of dw and, but for the
+    encoder, dx) over the bf16 peak.  Each rank does 1/p of it."""
+    flops = 0.0
+    for label, rows, d, m, n_fwd, n_bwd in RING_SHAPES:
+        gemm = 2.0 * rows * m * d
+        flops += gemm * (n_fwd + n_bwd * (1 if label == "encoder" else 2))
+    return 1e3 * flops / PEAK_FLOPS["bfloat16"]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def train_1d_phase(torch, eng, batch0, r0, none_metrics, none_grads):
+    """One 1-D (scheme="1d", impl="ring_fused") forward and backward on
+    TRAIN_1D_P ranks, one process each, sharing this card (gloo between
+    them; each rank's ring slots mapped into its predecessor by CUDA IPC),
+    through the TrainEngine on the train phase's weights (the same seed)
+    and first batch (handed over in a file), held against this process's
+    scheme="none" step on them; then the same step under
+    impl="ring_chunked", whose loss must be the same bits."""
+    import shutil
+    import tempfile
+    from repro_torch.convert import shard_params_1d
+    from repro_torch.core import tree as ptree
+    from repro_torch.optim.adam import global_norm
+    p = TRAIN_1D_P
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_1d_"))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        torch.save({k: v.cpu() for k, v in batch0.items()},
+                   tmp / "batch.pt")
+        for r in range(p):
+            shard = shard_params_1d(none_grads, r, p)
+            fingerprint = [float(t.double().sum()) for t in
+                           ptree.leaves(shard_params_1d(eng.params, r, p))]
+            torch.save({"grads": ptree.map(lambda t: t.cpu(), shard),
+                        "fingerprint": fingerprint}, tmp / f"none{r}.pt")
+            del shard
+        (tmp / "meta.json").write_text(json.dumps(dict(rollout=r0)))
+        torch.cuda.empty_cache()
+        handoff_s = time.perf_counter() - t0
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), WORLD_SIZE=str(p))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--train-1d-rank", str(r), str(tmp)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(p)]
+        outs = [pr.communicate(timeout=600) for pr in procs]
+        wall = time.perf_counter() - t0
+        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+            check(pr.returncode == 0, f"train_1d rank {r} failed "
+                  f"({pr.returncode}):\n{err[-4000:]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(p)]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want_fwd, want_bwd = (2 + 24 * r0) * p, (2 + 12 * r0) * p
+    for r, x in enumerate(res):
+        check((x["ring_fwd_launches"], x["ring_bwd_launches"],
+               x["block_matmul_launches"]) == (want_fwd, want_bwd, 0),
+              f"train_1d rank {r}: {x['ring_fwd_launches']} ring_fwd, "
+              f"{x['ring_bwd_launches']} ring_bwd and "
+              f"{x['block_matmul_launches']} block_matmul launches; want "
+              f"{want_fwd}, {want_bwd} and 0")
+    ln = float(none_metrics["loss"])
+    nn = float(global_norm(none_grads))
+    loss, norm = res[0]["loss"], res[0]["grad_norm"]
+    check(all(x["loss"] == loss and x["grad_norm"] == norm for x in res),
+          "train_1d: the ranks report different losses or norms")
+    leaf = max(max(x["leaf_diff"][i] for x in res)
+               / max(max(x["leaf_ref"][i] for x in res), 1e-30)
+               for i in range(len(res[0]["leaf_diff"])))
+    stats = dict(ranks=p, rollout=r0, impl="ring_fused", loss=loss,
+                 loss_none=ln, loss_rel_err=abs(loss - ln) / abs(ln),
+                 grad_norm=norm, grad_norm_none=nn,
+                 grad_norm_rel_err=abs(norm - nn) / nn,
+                 max_leaf_rel_err=leaf, tol=TRAIN_1D_TOL,
+                 loss_ring_chunked=res[0]["loss_ring_chunked"],
+                 ring_fwd_launches=[x["ring_fwd_launches"] for x in res],
+                 ring_bwd_launches=[x["ring_bwd_launches"] for x in res],
+                 peak_mem_gb=[x["peak_mem_gb"] for x in res],
+                 ring_slots_gb=[x["ring_slots_gb"] for x in res],
+                 collectives_through_host=[x["through_host"] for x in res],
+                 gb_through_host=[x["through_host_gb"] for x in res],
+                 device_fwd_ms=[x["fwd_ms"] for x in res],
+                 device_bwd_ms=[x["bwd_ms"] for x in res],
+                 batch=TRAIN_BATCH,
+                 device_fwd_bwd_ms_per_sample=max(
+                     x["fwd_ms"] + x["bwd_ms"] for x in res) / TRAIN_BATCH,
+                 bound_ms_per_sample=train_1d_bound_ms_per_sample(p),
+                 handoff_s=handoff_s, wall_s=wall,
+                 setup_s=[x["setup_s"] for x in res])
+    check(stats["loss_rel_err"] <= TRAIN_1D_TOL["loss"]
+          and stats["grad_norm_rel_err"] <= TRAIN_1D_TOL["grad_norm"]
+          and leaf <= TRAIN_1D_TOL["leaf"],
+          f"1-D step vs scheme='none': {stats}")
+    check(all(x["loss_ring_chunked"] == x["loss"] for x in res),
+          f"train_1d: ring_chunked's loss {res[0]['loss_ring_chunked']!r} "
+          f"is not ring_fused's {loss!r} bit for bit")
+    emit(phase="train_1d", **stats)
+    return stats
+
+
+def train_1d_worker(rank, tmp):
+    """One rank of ``train_1d_phase`` (this file run with
+    ``--train-1d-rank``): the process group from the environment, the
+    engine on the (data=1, model=TRAIN_1D_P) mesh, one forward and backward
+    with its launches counted, the comparison against this rank's shard of
+    the none step's gradients, the timed forward and backward, and the
+    ring_chunked step; results to rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.kernels import ring as RING
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import _norm_args, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    r0 = json.loads((tmp / "meta.json").read_text())["rollout"]
+    t0 = time.perf_counter()
+    eng = TrainEngine("weathermixer-1b", reduced=False,
+                      mesh_model=TRAIN_1D_P, scheme="1d", impl="ring_fused",
+                      device="cuda",
+                      config=EngineConfig(steps=1, batch=TRAIN_BATCH,
+                                          precision="bf16", lr=1e-4, seed=0,
+                                          pipeline="sync-full", prefetch=0,
+                                          telemetry=False))
+    none = torch.load(tmp / f"none{rank}.pt")
+    check([float(t.double().sum()) for t in ptree.leaves(eng.params)]
+          == none["fingerprint"], "train_1d: the engine's weights are not "
+          "the train phase's")
+    batch = {k: v.to(eng.device) for k, v in
+             torch.load(tmp / "batch.pt").items()}
+    cfg, jcfg = eng.cfg, eng.jcfg
+    check(cfg.remat and cfg.kernel == "pallas" and jcfg.impl == "ring_fused"
+          and dist.get_backend() == "gloo", "unexpected 1-D config")
+    setup_s = time.perf_counter() - t0
+
+    # -- the 1-D path: counts to 0 just before, read just after -------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RING.ring_fwd.launches = RING.ring_bwd.launches = 0
+    BM.block_matmul.launches = 0
+    comm.through_host.clear()
+    comm.through_host_bytes.clear()
+    metrics, grads = value_and_grad(eng.params, batch, cfg, jcfg, r0)
+    torch.cuda.synchronize()
+    res = dict(ring_fwd_launches=RING.ring_fwd.launches,
+               ring_bwd_launches=RING.ring_bwd.launches,
+               block_matmul_launches=BM.block_matmul.launches,
+               through_host=dict(comm.through_host),
+               through_host_gb=sum(comm.through_host_bytes.values()) / 1e9,
+               # the ring's slots are raw cudaMallocs, outside torch's
+               # allocator: their bytes are added to its peak
+               ring_slots_gb=RING.workspace_bytes() / 1e9,
+               peak_mem_gb=(torch.cuda.max_memory_allocated()
+                            + RING.workspace_bytes()) / 1e9)
+    # ----------------------------------------------------------------------
+    res["loss"] = float(metrics["loss"])
+    res["grad_norm"] = float(global_norm(grads, **_norm_args(eng.params, cfg,
+                                                             jcfg)))
+    res["leaf_diff"], res["leaf_ref"] = [], []
+    for a, b in zip(ptree.leaves(grads), ptree.leaves(none["grads"])):
+        b = b.to(a.device).float()
+        res["leaf_diff"].append(float((a.float() - b).abs().max()))
+        res["leaf_ref"].append(float(b.abs().max()))
+    del grads, none
+    torch.cuda.empty_cache()
+    res["fwd_ms"], res["bwd_ms"] = fwd_bwd_ms(torch, eng.params, batch, cfg,
+                                              jcfg, r0)
+    mc, _ = value_and_grad(eng.params, batch, cfg,
+                           jcfg.replace(impl="ring_chunked"), r0)
+    res["loss_ring_chunked"] = float(mc["loss"])
+    res["setup_s"] = setup_s
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    eng.close()
+    dist.destroy_process_group()
+    return 0
+
+
 def train_phase(torch, BM, WX):
     import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -703,6 +1131,7 @@ def train_phase(torch, BM, WX):
     torch.cuda.empty_cache()
     # the 2-D path on the same weights and batch, before the run moves them
     stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
+    stats_1d = train_1d_phase(torch, eng, batch0, r0, mk, gk)
     del gk
     torch.cuda.empty_cache()
 
@@ -785,7 +1214,7 @@ def train_phase(torch, BM, WX):
     emit(phase="train_repeat", bitwise_equal=True,
          loss=[h["loss"] for h in hist2])
     torch.cuda.empty_cache()
-    return launches, stats, stats_2d
+    return launches, stats, stats_2d, stats_1d
 
 
 def main():
@@ -801,6 +1230,7 @@ def main():
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import block_matmul as BM
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ring as RING
     from repro_torch.kernels import wx as WX
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -810,12 +1240,12 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:    # one nvcc per source, together
-        built = list(pool.map(lambda lib: lib.build(), (BM, WX)))
+    libs = (BM, WX, RING)
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source,
+        built = list(pool.map(lambda lib: lib.build(), libs))   # together
     emit(phase="build", built=built, seconds=time.perf_counter() - t0,
-         nvcc_seconds=[BM.build_info.get("seconds"),
-                       WX.build_info.get("seconds")],
-         libraries=[BM.build_info["library"], WX.build_info["library"]])
+         nvcc_seconds=[lib.build_info.get("seconds") for lib in libs],
+         libraries=[lib.build_info["library"] for lib in libs])
 
     rows, worst = kernel_phase(torch, BM, ref)
     eng, fields, serve_launches = serve_phase(torch, BM)
@@ -824,7 +1254,8 @@ def main():
     torch.cuda.empty_cache()
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, ref)
-    train_launches, train, t2 = train_phase(torch, BM, WX)
+    ring_rows, ring_worst = ring_phase(torch, BM, RING, ref)
+    train_launches, train, t2, t1 = train_phase(torch, BM, WX)
 
     step = [r for r in rows if r["per_step"]]
 
@@ -838,6 +1269,36 @@ def main():
         # the q = 1 rows at batch 1: this card's path, per sample-step
         return sum(r[key] * r["per_train_step"] for r in wx_rows
                    if r["batch"] == 1 and r["shape"].startswith("q1."))
+
+    def per_ring_step(kind, key):
+        # the p = 2 bf16 rows (batch 1): one rank of the 1-D step, per
+        # training sample-step at r = 1
+        return sum(r[f"{kind}_{key}"] * r[f"{kind}_calls_per_train_step"]
+                   for r in ring_rows
+                   if r["p"] == TRAIN_1D_P and r["dtype"] == "bfloat16")
+
+    def ring_entry(kind, line):
+        launches = t1[f"ring_{kind}_launches"]
+        return {
+            "name": f"ring_{kind}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ring.cu",
+            "replaces": f"src/repro/kernels/fused_ring.py:{line}",
+            "launches": sum(launches),
+            "launches_by_path": {"train_1d": launches},
+            "max_abs_err": ring_worst[kind],
+            # times: one rank's launches of a 1-D training sample-step at
+            # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
+            # 2 + 12, each p launches; a hop is an HBM store on one card
+            "ms": per_ring_step(kind, "kernel_ms"),
+            "plain_ms": per_ring_step(kind, "plain_ms"),
+            "bound_ms": per_ring_step(kind, "bound_ms"),
+            "bound_by": ("operations" if all(
+                r[f"{kind}_bound_by"] == "operations" for r in ring_rows)
+                else "bytes"),
+            # torch.matmul chunk products plus the adds
+            "library_ms": per_ring_step(kind, "library_ms"),
+        }
 
     emit(kernels=[{
         "name": "block_matmul",
@@ -885,7 +1346,8 @@ def main():
         # torch.matmul (+ the f32 add of the accumulator, forward rows)
         "library_ms": per_wx_step("library_ms"),
         "shapes": wx_rows,
-    }])
+    }, dict(ring_entry("fwd", 214), shapes=ring_rows),
+        ring_entry("bwd", 314)])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
@@ -895,6 +1357,8 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--train-1d-rank"]:
+            sys.exit(train_1d_worker(int(sys.argv[2]), sys.argv[3]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

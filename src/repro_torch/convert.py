@@ -13,6 +13,9 @@ package imports the other:
       ``models/weathermixer.py::param_spec_2d``);
   ``gather_params_2d(shards, q)``  every rank's shard -> the whole tree,
       bit for bit;
+  ``shard_params_1d(tree, r, p)`` / ``gather_params_1d(shards, p)``  the
+      same for rank r of a p-rank 1-D Jigsaw mesh (``param_spec_1d``: every
+      ``w`` cut along its contracting dim, every ``b`` along its out dim);
   ``params_from_npz(path)``  a reference pytree saved flat with
       ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port.
 
@@ -30,8 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as ptree
-from repro_torch.core.sharding import MDOM_AXIS, Mesh
-from repro_torch.models.weathermixer import param_spec_2d
+from repro_torch.core.sharding import MDOM_AXIS, Mesh, Mesh1D
+from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -136,6 +139,38 @@ def gather_params_2d(shards, q: int):
     if len(shards) != q * q:
         raise ValueError(f"gather_params_2d: {len(shards)} shards for a "
                          f"{q}x{q} mesh")
+    return ptree.map_with_path(
+        lambda path, _: gather(path, *(_leaf_at(s, path) for s in shards)),
+        shards[0])
+
+
+def shard_params_1d(tree, r: int, p: int):
+    """Rank r's shard of a whole parameter tree on a p-rank 1-D mesh:
+    every ``w`` cut along its contracting (last) dim, every ``b`` along its
+    (last) dim, ``scale``, ``bias`` and ``blend`` whole.  Leaves are numpy
+    arrays or tensors; the shard's leaves own their memory."""
+    mesh = Mesh1D(p=p, r=r)
+    return ptree.map_with_path(
+        lambda path, a: _own(mesh.block(a, param_spec_1d(path, a.ndim))),
+        tree)
+
+
+def gather_params_1d(shards, p: int):
+    """The whole tree from the p shards, listed in rank order; replicated
+    leaves are taken from rank 0."""
+    if len(shards) != p:
+        raise ValueError(f"gather_params_1d: {len(shards)} shards for "
+                         f"{p} ranks")
+
+    def gather(path, *leaves):
+        cut = [d for d, a in enumerate(param_spec_1d(path, leaves[0].ndim))
+               if a]
+        if not cut:
+            return _own(leaves[0])
+        cat = torch.cat if isinstance(leaves[0], torch.Tensor) \
+            else np.concatenate
+        return _own(cat(leaves, cut[0]))
+
     return ptree.map_with_path(
         lambda path, _: gather(path, *(_leaf_at(s, path) for s in shards)),
         shards[0])

@@ -2,11 +2,12 @@
 of tensors (the counterpart of ``repro/core/api.py``).
 
 ``JigsawConfig`` selects how each linear completes its contraction:
-``scheme="none"`` (the whole contraction local) or ``"2d"`` (Cannon on a
-q x q mesh, ``core/jigsaw.py``, called by the model on its blocks;
-``mesh`` is the rank's place on it, the 1x1 mesh when None).  ``"1d"``
-raises until its slice lands.  ``kernel`` selects the engine of every
-local GEMM, under the reference's names:
+``scheme="none"`` (the whole contraction local), ``"1d"`` (a reduce-
+scatter over p ranks by ``impl``, ``core/jigsaw.py::jigsaw_linear``) or
+``"2d"`` (Cannon on a q x q mesh, called by the model on its blocks);
+``mesh`` is the rank's place on its mesh (``Mesh1D`` / ``Mesh``; a
+one-rank mesh when None).  ``kernel`` selects the engine of every local
+GEMM, under the reference's names:
 
   "pallas"  the hand-written block_matmul kernel (kernels/block_matmul.py),
             with bias and activation fused into its epilogue;
@@ -18,12 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.jigsaw import _cast_operands
-from repro_torch.core.sharding import Mesh
+from repro_torch.core.jigsaw import _cast_operands, check_impl, jigsaw_linear
+from repro_torch.core.sharding import Mesh, Mesh1D
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act
 
@@ -33,23 +34,26 @@ KERNELS = ("xla", "pallas")
 
 @dataclasses.dataclass(frozen=True)
 class JigsawConfig:
-    scheme: str = "none"          # "none" | "2d" ("1d" is not ported)
+    scheme: str = "none"          # "none" | "1d" | "2d"
+    impl: str = "rs"              # scheme="1d": how the reduce completes
     accum_dtype: Optional[torch.dtype] = torch.float32
     kernel: str = "xla"           # "xla" | "pallas" (local GEMM engine)
     # precision-policy compute dtype: every linear casts its operands here
     # before the GEMM.  None = no cast (legacy).
     compute_dtype: Optional[torch.dtype] = None
-    # scheme="2d": this rank's place on the mesh (None: the 1x1 mesh)
-    mesh: Optional[Mesh] = None
+    # this rank's place on the mesh: Mesh1D under "1d", Mesh under "2d"
+    # (None: a one-rank mesh)
+    mesh: Optional[Union[Mesh, Mesh1D]] = None
 
     def __post_init__(self):
+        # fail fast on unknown knobs and on the 1-D impl that is not ported
+        # (the reference's JigsawConfig.__post_init__ validates the same;
+        # it warns where impl is set under another scheme, and jigsaw_for
+        # here sets it only under "1d")
         if self.scheme not in SCHEMES:
             raise ValueError(f"JigsawConfig: unknown scheme {self.scheme!r}"
                              " (expected '1d' | '2d' | 'none')")
-        if self.scheme == "1d":
-            raise NotImplementedError(
-                "scheme='1d' is not ported yet (ROADMAP.md, queue 1 item 5: "
-                "1-D Jigsaw on torch.distributed)")
+        check_impl(self.impl, runs=self.scheme == "1d")
         if self.kernel not in KERNELS:
             raise ValueError(f"JigsawConfig: unknown kernel {self.kernel!r}"
                              f" (expected one of {KERNELS})")
@@ -60,6 +64,16 @@ class JigsawConfig:
     @property
     def mesh_2d(self) -> Mesh:
         return self.mesh if self.mesh is not None else Mesh()
+
+    @property
+    def mesh_1d(self) -> Mesh1D:
+        return self.mesh if self.mesh is not None else Mesh1D()
+
+    @property
+    def rank_mesh(self) -> Optional[Union[Mesh, Mesh1D]]:
+        """The rank's mesh of a sharded scheme ("1d", "2d"); None under
+        "none"."""
+        return {"1d": self.mesh_1d, "2d": self.mesh_2d}.get(self.scheme)
 
 
 DEFAULT_JIGSAW = JigsawConfig()
@@ -87,7 +101,14 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
 def linear_apply(params, x: torch.Tensor,
                  cfg: JigsawConfig = DEFAULT_JIGSAW, *,
                  epilogue: str = "none") -> torch.Tensor:
-    """``y = epilogue(x @ w.T + b)`` over the last dim of x."""
+    """``y = epilogue(x @ w.T + b)`` over the last dim of x.  Under
+    ``scheme="1d"`` x, w and b are the rank's blocks, and the epilogue runs
+    after the reduce."""
+    if cfg.scheme == "1d":
+        y = jigsaw_linear(x, params["w"], params.get("b"), mesh=cfg.mesh_1d,
+                          impl=cfg.impl, accum_dtype=cfg.accum_dtype,
+                          kernel=cfg.kernel, compute_dtype=cfg.compute_dtype)
+        return act(epilogue)(y)
     x, w, b = _cast_operands(x, params["w"], params.get("b"),
                              cfg.compute_dtype)
     if cfg.kernel == "pallas":
@@ -104,9 +125,11 @@ def linear_apply(params, x: torch.Tensor,
 
 def mlp_apply(params, x: torch.Tensor,
               cfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
-    """``gelu(x @ w1.T + b1) @ w2.T + b2``.  Under kernel="pallas" it is the
-    fused two-kernel ``ops.mixer_mlp``."""
-    if cfg.kernel == "pallas":
+    """``gelu(x @ w1.T + b1) @ w2.T + b2``.  Under kernel="pallas" and
+    scheme="none" it is the fused two-kernel ``ops.mixer_mlp``; otherwise
+    linear, GELU, linear (under "1d" the contraction is incomplete until
+    the reduce, so nothing fuses into the GEMM)."""
+    if cfg.kernel == "pallas" and cfg.scheme == "none":
         x, w1, b1 = _cast_operands(x, params["fc1"]["w"],
                                    params["fc1"].get("b"), cfg.compute_dtype)
         _, w2, b2 = _cast_operands(x, params["fc2"]["w"],

@@ -1,10 +1,33 @@
-"""2-D Jigsaw: the paper's 4-way scheme generalised to a q x q mesh, with
-Cannon's algorithm on ``torch.distributed`` (the 2-D half of
+"""Jigsaw's distributed products on ``torch.distributed`` (the port of
 ``repro/core/jigsaw.py``).
 
 The reference runs each product inside ``shard_map`` on a named mesh; here
 each process is one rank and calls these functions on its own blocks.
-Rank (i, j) sits at mdom coordinate i and mtp coordinate j (``Mesh``).
+
+1-D Jigsaw (the paper's 2-way scheme generalised to p ranks, ``Mesh1D``):
+x [..., d/p] (features cut), w [m, d/p] (the contracting dim cut); each
+rank's partial product [..., m] is completed by a reduce-scatter, leaving
+y [..., m/p]: the layout of x, so layers compose.  ``jigsaw_matmul_1d``'s
+impls, under the reference's names:
+
+  "ring"          one local GEMM, then ``ring_reduce_scatter`` of its
+                  output (p - 1 hops of ``comm.ring_shift``);
+  "ring_chunked"  the paper's schedule: chunk j's GEMM right before hop j;
+  "ring_fused"    the same schedule as one operation per ring, on the ring
+                  step kernels on the card (``kernels/fused_ring.py``);
+  "rs"            ``comm.reduce_scatter`` (the library's reduce-scatter);
+  "allreduce"     ``comm.all_reduce``, then the rank's chunk;
+  "gspmd"         not ported: it is the reference's "no explicit
+                  collectives, let GSPMD place them", which PyTorch has no
+                  counterpart of (ROADMAP.md).
+
+The wire (every hop, the reduce-scatter's operand) carries x's dtype; the
+ring's adds run in ``accum_dtype``.  Differentiable: the transpose of each
+collective is its autograd backward (a ring reduce-scatter's is the ring
+all-gather).
+
+2-D Jigsaw: rank (i, j) sits at mdom coordinate i and mtp coordinate j
+(``Mesh``).
 
 ``jigsaw_linear_2d`` (X @ W.T, the encoder, channel mix and decoder):
   x: [..., n/q, d/q]  block X(i, j)   (n on mdom, d on mtp)
@@ -35,8 +58,23 @@ from typing import Optional
 import torch
 
 from repro_torch.core import comm
-from repro_torch.core.sharding import Mesh
+from repro_torch.core.sharding import Mesh, Mesh1D
 from repro_torch.kernels import fused_ring, ops
+from repro_torch.kernels.fused_ring import local_matmul
+
+IMPL_1D = ("ring", "ring_chunked", "ring_fused", "rs", "gspmd", "allreduce")
+
+
+def check_impl(impl: str, *, runs: bool = True) -> None:
+    """Raise ValueError for an impl the reference does not have and, where
+    the impl ``runs`` (scheme="1d"), NotImplementedError for "gspmd"."""
+    if impl not in IMPL_1D:
+        raise ValueError(f"unknown 1-D jigsaw impl {impl!r} (expected one "
+                         f"of {IMPL_1D})")
+    if runs and impl == "gspmd":
+        raise NotImplementedError(
+            "impl='gspmd' has no torch counterpart: it leaves the "
+            "collectives to GSPMD's sharding propagation (ROADMAP.md)")
 
 
 def _cast_operands(x, w, b, compute_dtype):
@@ -48,6 +86,103 @@ def _cast_operands(x, w, b, compute_dtype):
     return (x.to(compute_dtype), w.to(compute_dtype),
             None if b is None else b.to(compute_dtype))
 
+
+# ---------------------------------------------------------------------------
+# 1-D Jigsaw
+# ---------------------------------------------------------------------------
+
+def ring_reduce_scatter(x: torch.Tensor, group, p: int, me: int,
+                        dim: int = -1,
+                        accum_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """Ring reduce-scatter of x over ``group`` (p ranks, this rank ``me``):
+    every rank holds a whole partial sum, and rank r ends with chunk r of
+    the sum along ``dim`` (``fused_ring.ring_walk``: hops in x's dtype,
+    adds in ``accum_dtype``)."""
+    if p == 1:
+        return x
+    dim %= x.dim()
+    if x.shape[dim] % p:
+        raise ValueError(f"ring_reduce_scatter: dim {dim} of "
+                         f"{tuple(x.shape)} not divisible by {p}")
+    chunk = x.shape[dim] // p
+    acc_dt = accum_dtype or x.dtype
+    return fused_ring.ring_walk(
+        lambda j: x.narrow(dim, j * chunk, chunk).to(acc_dt), group, p, me,
+        x.dtype, acc_dt)
+
+
+def ring_matmul_chunked(x: torch.Tensor, w: torch.Tensor, *, group, p: int,
+                        me: int,
+                        accum_dtype: Optional[torch.dtype] = torch.float32,
+                        kernel: str = "xla") -> torch.Tensor:
+    """The paper's chunk-granular ring: w [m, d/p] cut into p chunks of
+    m/p rows, chunk j's GEMM issued right before hop j, in
+    ``ring_reduce_scatter``'s walk and cast points."""
+    if p == 1:
+        return local_matmul(x, w, accum_dtype, kernel).to(x.dtype)
+    if w.shape[0] % p:
+        raise ValueError(f"ring_matmul_chunked: out dim {w.shape[0]} not "
+                         f"divisible by {p}")
+    return fused_ring.chunk_walk(x, w, group, p, me, accum_dtype, kernel)
+
+
+def jigsaw_matmul_1d(x: torch.Tensor, w: torch.Tensor, *, mesh: Mesh1D,
+                     impl: str = "rs",
+                     accum_dtype: Optional[torch.dtype] = torch.float32,
+                     kernel: str = "xla") -> torch.Tensor:
+    """1-D Jigsaw on the rank's blocks: x [..., d/p], w [m, d/p] -> the
+    rank's [..., m/p] block of ``X @ W.T``, in x's dtype."""
+    p, me, group = mesh.p, mesh.r, mesh.tp_group
+    check_impl(impl)
+    if w.shape[0] % p:
+        raise ValueError(f"jigsaw_matmul_1d: out dim {w.shape[0]} not "
+                         f"divisible by {p} ranks")
+    if impl == "ring_fused":
+        return fused_ring.fused_ring_matmul(
+            x, w, group=group, p=p, rank=me, accum_dtype=accum_dtype,
+            kernel=kernel).to(x.dtype)
+    if impl == "ring_chunked":
+        return ring_matmul_chunked(x, w, group=group, p=p, me=me,
+                                   accum_dtype=accum_dtype,
+                                   kernel=kernel).to(x.dtype)
+    # reduce in the wire dtype: x's (the reference's partial_sum cast)
+    partial = local_matmul(x, w, accum_dtype, kernel).to(x.dtype)
+    if p == 1:
+        return partial
+    if impl == "ring":
+        return ring_reduce_scatter(partial, group, p, me,
+                                   accum_dtype=accum_dtype)
+    if impl == "rs":
+        return comm.reduce_scatter(partial, group, -1)
+    chunk = partial.shape[-1] // p          # "allreduce"
+    return comm.all_reduce(partial, group).narrow(-1, me * chunk, chunk)
+
+
+def jigsaw_linear(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, *, mesh: Mesh1D,
+                  impl: str = "rs",
+                  accum_dtype: Optional[torch.dtype] = torch.float32,
+                  kernel: str = "xla",
+                  compute_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """1-D Jigsaw linear ``x @ w.T + b`` on the rank's blocks: x
+    [..., d/p], w [m, d/p], b [m/p] (the rank's chunk of the bias; added
+    after the reduce, no communication) -> [..., m/p].  The reference's
+    FSDP hybrid (``w_data_sharded``) is not ported: it needs the data axis
+    (``launch/shapes.py::jigsaw_for`` raises for it)."""
+    x, w, b = _cast_operands(x, w, b, compute_dtype)
+    if x.shape[-1] != w.shape[1]:
+        raise ValueError(f"jigsaw_linear: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} blocks do not contract")
+    y = jigsaw_matmul_1d(x, w, mesh=mesh, impl=impl,
+                         accum_dtype=accum_dtype, kernel=kernel)
+    return y if b is None else y + b
+
+
+# ---------------------------------------------------------------------------
+# 2-D Jigsaw
+# ---------------------------------------------------------------------------
 
 def jigsaw_matmul_2d(x: torch.Tensor, w: torch.Tensor, *, mesh: Mesh,
                      accum_dtype: Optional[torch.dtype] = torch.float32,

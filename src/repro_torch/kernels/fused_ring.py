@@ -1,7 +1,22 @@
-"""The transposed Cannon on the wx kernel: the Cannon half of
-``repro/kernels/fused_ring.py`` (``cannon_t_step``, the custom VJP
-``_wx_acc``, and ``cannon_t_loop``, the form ``fused_cannon_t`` takes
-everywhere but on a TPU).
+"""The port of ``repro/kernels/fused_ring.py``: the 1-D ring as one
+operation per ring (``fused_ring_matmul``, ``impl="ring_fused"``) on the
+ring step kernels, and the transposed Cannon on the wx kernel
+(``cannon_t_step``, the custom VJP ``_wx_acc``, and ``cannon_t_loop``, the
+form ``fused_cannon_t`` takes everywhere but on a TPU).
+
+``fused_ring_matmul`` is an ``autograd.Function``.  On the card its forward
+is the p launches of the forward step kernel (``kernels/ring.py``, one per
+ring step, each writing the successor's slot through its IPC mapping) and
+its backward the p launches of the backward step kernel: dy chunks ride the
+ring in the all-gather direction while each step computes a dw chunk and
+adds to dx.  On the CPU it runs the plain versions of both: the chunk walk
+(the reference's ``_chunk_walk``, ``ring_matmul_chunked``'s schedule with
+its cast points) and the reference's fallback backward (``_fused_bwd``: the
+rank-ordered ring all-gather of the cotangent, ``ring_all_gather``, then
+the local backward).  The
+reference falls back from its TPU kernel to the chunk walk above a VMEM
+budget (12 MiB, every full-width linear); here a CUDA tensor launches the
+kernels or raises (the workspace guard: ``ring.WORKSPACE_BUDGET_BYTES``).
 
 Each multiply-accumulate step ``acc + w @ x`` is one launch of the wx
 kernel (``kernels/wx.py``), and its backward runs the reference's VJP:
@@ -10,7 +25,7 @@ between steps are ``core/comm.rotate``.  The reference's other form, the
 whole q-step loop as one TPU kernel with the rotations as in-kernel remote
 copies (``_cannon_kernel``), is not ported: its Hopper counterpart needs
 the rotations over NVLink during the step kernel (ROADMAP.md, queue 2
-item 5).  The 1-D ring kernels of that file are queue 2 items 2-3.
+item 5).
 """
 from __future__ import annotations
 
@@ -20,8 +35,190 @@ from typing import Optional
 import torch
 
 from repro_torch.core import comm
+from repro_torch.kernels import ops, ring
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.wx import wx
+
+
+# ---------------------------------------------------------------------------
+# the 1-D ring (impl="ring_fused")
+# ---------------------------------------------------------------------------
+
+def local_matmul(x: torch.Tensor, w: torch.Tensor,
+                 accum_dtype: Optional[torch.dtype], kernel: str = "xla"
+                 ) -> torch.Tensor:
+    """x [..., k] @ w [m, k].T -> [..., m], a rank's partial sum:
+    block_matmul (in x's dtype) under kernel="pallas", else a plain product
+    in ``accum_dtype`` (x's dtype when None).  Every local GEMM of the 1-D
+    path, here and in ``core/jigsaw.py``."""
+    if kernel == "pallas":
+        return ops.matmul_nd(x, w, None)
+    dt = accum_dtype or x.dtype
+    return torch.matmul(x.to(dt), w.to(dt).t())
+
+
+def ring_walk(get, group, p, me, wire_dtype, acc_dtype):
+    """The 1-D ring's walk (the reference's ``ring_reduce_scatter``): start
+    with ``get((me + p - 1) % p)``, then p - 1 rounds of one hop to the
+    successor in ``wire_dtype`` and the add of ``get((me - 2 - s) % p)`` in
+    ``acc_dtype``; ``get(j)`` is this rank's part of chunk j in
+    ``acc_dtype``.  Ends with this rank's chunk of the sum, in
+    ``wire_dtype``."""
+    acc = get((me + p - 1) % p)
+    for s in range(p - 1):
+        acc = comm.ring_shift(acc.to(wire_dtype), group)
+        acc = acc.to(acc_dtype) + get((me - 2 - s) % p)
+    return acc.to(wire_dtype)
+
+
+def ring_all_gather(x: torch.Tensor, group, p: int, me: int,
+                    dim: int = -1) -> torch.Tensor:
+    """Ring all-gather (the transpose of ``ring_walk``'s reduce-scatter,
+    the reference's ``_rank_order_all_gather``): p - 1 hops, each piece
+    placed at its owner's rank position along ``dim``."""
+    if p == 1:
+        return x
+    pieces = [x]
+    cur = x
+    for _ in range(p - 1):
+        cur = comm.ring_shift(cur, group)
+        pieces.append(cur)
+    # piece t came from rank (me - t) % p
+    ordered = [pieces[(me - r) % p] for r in range(p)]
+    return torch.cat(ordered, dim=dim)
+
+
+def chunk_walk(x, w, group, p, me, accum_dtype, kernel):
+    """The chunk-granular ring (the reference's ``_chunk_walk`` and
+    ``ring_matmul_chunked``, one schedule): chunk j's product, rounded to
+    the wire dtype (x's), right before hop j, in ``ring_walk``'s order.
+    The plain forward of the fused ring, and the ``ring_chunked`` impl."""
+    mc = w.shape[0] // p
+    acc_dt = accum_dtype or x.dtype
+
+    def chunk_mm(j):
+        y = local_matmul(x, w[j * mc:(j + 1) * mc], accum_dtype, kernel)
+        return y.to(x.dtype).to(acc_dt)
+
+    return ring_walk(chunk_mm, group, p, me, x.dtype, acc_dt)
+
+
+def _local_vjp(x, w, cot, accum_dtype, kernel, need_dx):
+    """The ring's plain backward after the gather (the reference's
+    ``jax.vjp`` of the local product): the gradients of
+    ``local_matmul(x, w).to(x.dtype)`` for the whole cotangent ``cot``."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(need_dx)
+        ww = w.detach().requires_grad_(True)
+        y = local_matmul(xx, ww, accum_dtype, kernel).to(x.dtype)
+        grads = torch.autograd.grad(y, [xx, ww] if need_dx else [ww], cot)
+    return (grads[0] if need_dx else None), grads[-1]
+
+
+def _card_forward(x2, w, group, p, me, accum_dtype):
+    """p launches of the forward step kernel: step s computes chunk
+    (me - 1 - s) % p, adds the partial that arrived in this rank's slot
+    (s-1) % 2 and writes the successor's slot s % 2, or at the last step
+    this rank's output."""
+    rows = x2.shape[0]
+    mc = w.shape[0] // p
+    shape = (rows, mc)
+    out = torch.empty(shape, dtype=x2.dtype, device=x2.device)
+    ws = ring.workspace(group, rows * mc * x2.element_size(), x2.device)
+    stream = torch.cuda.current_stream(x2.device)
+    for s in range(p):
+        stream.synchronize()          # the slot discipline of ring.cu
+        comm.barrier(group)
+        prev = None if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype)
+        dest = out if s == p - 1 else ws.succ(s % 2, shape, x2.dtype)
+        ring.ring_fwd(x2, w, (me - 1 - s) % p, prev, dest,
+                      accum_dtype=accum_dtype)
+    return out
+
+
+def _card_backward(x2, w, dy2, group, p, me, need_dx):
+    """p launches of the backward step kernel: step s takes the dy chunk
+    of rank (me - s) % p (this rank's own at s = 0, else the one that
+    arrived in slot (s-1) % 2), writes its dw chunk, adds its part of dx
+    and forwards it to the successor's slot s % 2."""
+    rows, k = x2.shape
+    mc = dy2.shape[1]
+    shape = (rows, mc)
+    dw = torch.empty(w.shape, dtype=x2.dtype, device=x2.device)
+    dx_acc = dx = None
+    if need_dx:
+        dx_acc = torch.empty((rows, k), dtype=torch.float32,
+                             device=x2.device)
+        dx = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
+    ws = ring.workspace(group, rows * mc * x2.element_size(), x2.device)
+    stream = torch.cuda.current_stream(x2.device)
+    for s in range(p):
+        stream.synchronize()
+        comm.barrier(group)
+        cur = dy2 if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype)
+        fwd = ws.succ(s % 2, shape, x2.dtype) if s < p - 1 else None
+        ring.ring_bwd(x2, w, (me - s) % p, cur, fwd, dw, dx_acc, dx,
+                      first=s == 0, last=s == p - 1)
+    return dx, dw
+
+
+def ring_forward(x, w, group, p, me, accum_dtype, kernel):
+    """The forward of one ring call: on the card p step launches, on the
+    CPU the plain chunk walk.  Returns [..., m/p] in x's dtype."""
+    if not x.is_cuda:
+        return chunk_walk(x, w, group, p, me, accum_dtype, kernel)
+    k = x.shape[-1]
+    y = _card_forward(x.reshape(-1, k).contiguous(),
+                      w.to(x.dtype).contiguous(), group, p, me, accum_dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def ring_backward(x, w, dy, group, p, me, accum_dtype, kernel, need_dx):
+    """The backward of one ring call: on the card p step launches, on the
+    CPU the rank-ordered all-gather of dy and the local backward.  Returns
+    (dx or None, dw) in the dtypes of x and w."""
+    if not x.is_cuda:
+        cot = ring_all_gather(dy, group, p, me, -1)
+        return _local_vjp(x, w, cot, accum_dtype, kernel, need_dx)
+    k = x.shape[-1]
+    dx, dw = _card_backward(x.reshape(-1, k).contiguous(),
+                            w.to(x.dtype).contiguous(),
+                            dy.to(x.dtype).reshape(-1, dy.shape[-1])
+                            .contiguous(), group, p, me, need_dx)
+    return (None if dx is None else dx.reshape(x.shape)), dw.to(w.dtype)
+
+
+class _FusedRing(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group, p, me, accum_dtype, kernel):
+        ctx.save_for_backward(x, w)
+        ctx.args = (group, p, me, accum_dtype, kernel)
+        return ring_forward(x, w, group, p, me, accum_dtype, kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = ring_backward(x, w, dy, *ctx.args,
+                               need_dx=ctx.needs_input_grad[0])
+        return dx, dw, None, None, None, None, None
+
+
+def fused_ring_matmul(x: torch.Tensor, w: torch.Tensor, *, group, p: int,
+                      rank: int,
+                      accum_dtype: Optional[torch.dtype] = torch.float32,
+                      kernel: str = "xla") -> torch.Tensor:
+    """The one-operation ring matmul (``impl="ring_fused"``): x [..., d/p]
+    (the rank's block), w [m, d/p] -> the rank's [..., m/p] chunk of
+    ``X @ W.T``, in x's dtype; ``rank`` is this rank's index in ``group``
+    (p ranks).  Differentiable.  On the card every GEMM runs in the ring
+    kernels (``kernel`` is not read there, as on the reference's TPU
+    path); on the CPU the plain walk honours it."""
+    if p == 1:
+        return local_matmul(x, w, accum_dtype, kernel).to(x.dtype)
+    if w.shape[0] % p:
+        raise ValueError(f"fused_ring: out dim {w.shape[0]} not divisible "
+                         f"by {p}")
+    return _FusedRing.apply(x, w, group, p, rank, accum_dtype, kernel)
 
 
 class _WxAcc(torch.autograd.Function):

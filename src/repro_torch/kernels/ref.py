@@ -3,7 +3,8 @@
 They are the oracles the kernels are held against on the card, and the path
 a kernel's wrapper takes for a tensor that lies on the CPU.  Each mirrors
 ``repro/kernels/ref.py`` (``wx_ref``: ``repro/kernels/fused_ring.py``'s
-``_wx_raw``): f32 accumulation (bf16 products are exact in f32,
+``_wx_raw``; the ring steps: one grid step of its ``_ring_fwd_kernel`` and
+``_ring_bwd_kernel``): f32 accumulation (bf16 products are exact in f32,
 so an f32 product of the up-cast operands is the reference's
 ``preferred_element_type=float32``), bias added in f32, the activation in
 f32, one rounding to ``x.dtype``.  On the card this needs
@@ -108,3 +109,73 @@ def wx_ref(w: torch.Tensor, x: torch.Tensor, a: Optional[torch.Tensor] = None,
     if a is not None:
         out = a.float() + out
     return out.to(out_dtype)
+
+
+def ring_fwd_step_ref(x: torch.Tensor, w_chunk: torch.Tensor,
+                      prev: Optional[torch.Tensor],
+                      accum_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """One forward ring step (``_ring_fwd_kernel``'s grid step): the chunk
+    product ``x @ w_chunk.T`` (x [R, K], w_chunk [MC, K]) rounded to the
+    wire dtype (x.dtype), up to ``accum_dtype`` (x's dtype when None), plus
+    the arrived partial ``prev`` [R, MC] (wire dtype, None at step 0) in
+    ``accum_dtype``, rounded to the wire dtype: what the step sends on, or
+    at the last step the rank's reduce-scattered chunk."""
+    acc = accum_dtype or x.dtype
+    y = block_matmul_ref(x, w_chunk.to(x.dtype)).to(acc)
+    if prev is not None:
+        y = prev.to(acc) + y
+    return y.to(x.dtype)
+
+
+def ring_bwd_step_ref(x: torch.Tensor, w_chunk: torch.Tensor,
+                      cur: torch.Tensor, dx_acc: Optional[torch.Tensor]):
+    """One backward ring step (``_ring_bwd_kernel``'s grid step) for the
+    cotangent chunk ``cur`` [R, MC] that arrived (or the rank's own at step
+    0): returns (dw_chunk = cur.T @ x [MC, K] rounded to cur's dtype,
+    dx_acc + cur @ w_chunk [R, K] in f32; ``dx_acc`` None at step 0).  The
+    last step's dx is the accumulator rounded to x.dtype."""
+    dw = block_matmul_ref(cur, x.to(cur.dtype), x_t=True, w_t=True)
+    d = torch.matmul(cur.float(), w_chunk.float())
+    return dw, d if dx_acc is None else dx_acc + d
+
+
+def ring_walk_all(chunk, p: int, wire_dtype: torch.dtype,
+                  accum_dtype: Optional[torch.dtype]):
+    """The 1-D ring's walk for p ranks held in one process: ``chunk(r, j)``
+    is rank r's part of chunk j of the sum; returns every rank's chunk of
+    the sum as the ring leaves it (``ring_reduce_scatter``'s order and cast
+    points: hops in ``wire_dtype``, adds in ``accum_dtype``)."""
+    acc = accum_dtype or wire_dtype
+    carry = [chunk(r, (r - 1) % p).to(wire_dtype).to(acc) for r in range(p)]
+    for s in range(p - 1):
+        carry = [carry[(r - 1) % p].to(wire_dtype).to(acc)
+                 + chunk(r, (r - 2 - s) % p).to(wire_dtype).to(acc)
+                 for r in range(p)]
+    return [c.to(wire_dtype) for c in carry]
+
+
+def ring_fwd_all_ref(xs, ws, accum_dtype: Optional[torch.dtype]):
+    """The plain forward ring of p ranks (x ``xs[r]``, w ``ws[r]``): every
+    rank's output chunk from the plain chunk products."""
+    p = len(xs)
+    mc = ws[0].shape[0] // p
+    return ring_walk_all(
+        lambda r, j: block_matmul_ref(xs[r], ws[r][j * mc:(j + 1) * mc]),
+        p, xs[0].dtype, accum_dtype)
+
+
+def ring_bwd_all_ref(xs, ws, dys):
+    """The plain backward ring of p ranks: (dx, dw, dx_acc) per rank, each
+    step's dw chunk and dx term from ``ring_bwd_step_ref`` in the kernels'
+    order (rank r takes rank (r - s) % p's dy chunk at step s)."""
+    p = len(xs)
+    mc = ws[0].shape[0] // p
+    cur, accs = list(dys), [None] * p
+    dws = [torch.empty_like(w, dtype=xs[0].dtype) for w in ws]
+    for s in range(p):
+        for r in range(p):
+            j = (r - s) % p
+            dws[r][j * mc:(j + 1) * mc], accs[r] = ring_bwd_step_ref(
+                xs[r], ws[r][j * mc:(j + 1) * mc], cur[r], accs[r])
+        cur = [cur[(r - 1) % p] for r in range(p)]
+    return [a.to(x.dtype) for a, x in zip(accs, xs)], dws, accs

@@ -1,11 +1,13 @@
 """TrainEngine: the training loop of the port (``repro/launch/engine.py``),
-on one device or on a 2-D Jigsaw mesh.
+on one device or on a 1-D or 2-D Jigsaw mesh.
 
 The engine owns
 
   * the config, the precision policy and the ``JigsawConfig``: on one
     device ``scheme="none"`` (the whole contraction is local, as the
     reference forces whenever ``mesh_model * mesh_data == 1``); with
+    ``mesh_model=p`` ranks ``scheme="1d"`` on a (data=1, model=p) mesh
+    (``impl`` picks how each linear's reduce completes), or with
     ``mesh_model=q*q`` ranks ``scheme="2d"`` on a (data=1, mdom=q, mtp=q)
     mesh, one process per rank (``launch/mesh.py``), each holding its
     shard of the parameters and of the optimizer state;
@@ -21,9 +23,9 @@ and raises when CUDA is asked for and absent.  On a mesh every rank makes
 the whole batch (``pipeline="sync-full"``) and takes its block, every rank
 computes the same loss and gradient norm, and rank 0 alone prints and
 writes the metrics.  Left for later slices (ROADMAP.md): checkpoints and
-resume, preemption, ZeRO-1 and a data axis (queue 1 item 8), the 1-D
-scheme (item 5), per-rank reads (``pipeline="sharded"`` on a mesh,
-item 6) and the analytic cost model.
+resume, preemption, ZeRO-1 and a data axis (queue 1 item 8), per-rank
+reads (``pipeline="sharded"`` on a mesh, item 6) and the analytic cost
+model.  ``close()`` releases the ring's IPC workspaces (collective).
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       config=EngineConfig(steps=10, batch=2, rollout=2,
@@ -43,11 +45,12 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.configs.registry import get_config
-from repro_torch.convert import shard_params_2d
+from repro_torch.convert import shard_params_1d, shard_params_2d
 from repro_torch.core import precision
 from repro_torch.core import tree as ptree
 from repro_torch.data.pipeline import InputPipeline, make_pipeline
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.kernels import ring
+from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
@@ -87,7 +90,8 @@ class TrainEngine:
 
     def __init__(self, arch: str, *, reduced: bool = True,
                  mesh_model: int = 1, mesh_data: int = 1,
-                 scheme: Optional[str] = None, kernel: Optional[str] = None,
+                 scheme: Optional[str] = None, impl: Optional[str] = None,
+                 kernel: Optional[str] = None,
                  config: EngineConfig = EngineConfig(),
                  init_params=None, config_override=None, device="cuda"):
         """``init_params``: whole parameters in the port's layout (on a
@@ -114,6 +118,8 @@ class TrainEngine:
             cfg = cfg.reduced()
         if scheme:
             cfg = cfg.replace(scheme=scheme)
+        if impl:
+            cfg = cfg.replace(impl=impl)
         if kernel:
             cfg = cfg.replace(kernel=kernel)
         if config.precision:
@@ -121,17 +127,18 @@ class TrainEngine:
         self.policy = precision.policy_of(cfg)
         self.mesh = None
         if mesh_model * mesh_data > 1:
-            if cfg.scheme != "2d":
+            if cfg.scheme not in ("1d", "2d"):
                 raise NotImplementedError(
-                    f"TrainEngine: scheme={cfg.scheme!r} on a mesh is not "
-                    "ported (ROADMAP.md, queue 1 item 5: 1-D Jigsaw); pass "
-                    "scheme='2d'")
+                    f"TrainEngine: scheme={cfg.scheme!r} on a mesh leaves "
+                    "the collectives to GSPMD in the reference, which has "
+                    "no torch counterpart; pass scheme='1d' or '2d'")
             if config.pipeline == "sharded":
                 raise NotImplementedError(
                     "TrainEngine: per-rank reads (pipeline='sharded') on a "
                     "mesh are not ported yet (ROADMAP.md, queue 1 item 6); "
                     "pass pipeline='sync-full'")
-            self.mesh = make_host_mesh(model=mesh_model, device=self.device)
+            make = make_ring_mesh if cfg.scheme == "1d" else make_host_mesh
+            self.mesh = make(model=mesh_model, device=self.device)
             if self.device.type == "cuda":
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
@@ -140,14 +147,16 @@ class TrainEngine:
             cfg = cfg.replace(scheme="none", impl="rs")
         self.cfg = cfg
         self.jcfg = jigsaw_for(cfg).replace(mesh=self.mesh)
-        self.is_rank0 = self.mesh is None or self.mesh.i == self.mesh.j == 0
+        self.is_rank0 = self.mesh is None or (
+            self.mesh.dom_index == self.mesh.tp_index == 0)
 
         self.tracer = telemetry.Tracer(enabled=config.telemetry)
         telemetry.set_tracer(self.tracer)
         self.tracer.set_meta(
             surface="train", arch=arch, reduced=reduced,
             device=str(self.device), mesh_model=mesh_model,
-            mesh_data=mesh_data, scheme=cfg.scheme, kernel=cfg.kernel,
+            mesh_data=mesh_data, scheme=cfg.scheme, impl=self.jcfg.impl,
+            kernel=cfg.kernel,
             precision=self.policy.name, steps=config.steps,
             batch=config.batch, rollout=config.rollout, accum=config.accum)
 
@@ -167,7 +176,9 @@ class TrainEngine:
         if self.mesh is not None:
             # every rank holds the whole init; each keeps its shard
             m = self.mesh
-            self.params = shard_params_2d(self.params, m.i, m.j, m.q)
+            self.params = (shard_params_1d(self.params, m.r, m.p)
+                           if cfg.scheme == "1d"
+                           else shard_params_2d(self.params, m.i, m.j, m.q))
         pol = self.policy
         self.adam_cfg = adam.AdamConfig(
             weight_decay=0.0, master_weights=pol.master_weights,
@@ -290,6 +301,13 @@ class TrainEngine:
         jsonl = telemetry.jsonl_path_for(c.trace)
         self.tracer.export_jsonl(jsonl)
         print(f"trace -> {c.trace} (+ {jsonl})")
+
+    def close(self, collective: bool = True) -> None:
+        """Release what outlives the steps: the ring's IPC workspaces
+        (collective over the mesh; a no-op where no ring ran on the card).
+        After an error, ``collective=False`` only unmaps the peers' slots:
+        the peers may be waiting in another collective."""
+        ring.release_workspaces(collective)
 
     # -- evaluation ------------------------------------------------------
     def evaluate(self) -> Dict[str, float]:

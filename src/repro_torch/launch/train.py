@@ -7,12 +7,19 @@ flags that are ported, plus ``--device`` and ``--init-params``).
       [--precision bf16] [--kernel pallas|xla] [--pipeline sharded] \\
       [--prefetch 2] [--metrics-out m.jsonl] [--device cuda|cpu]
 
-2-D Jigsaw on q*q processes, one per rank (the launcher gives each its
-rank and the rendezvous; gloo on the CPU, NCCL on GPUs):
+1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank (the
+launcher gives each its rank and the rendezvous; gloo on the CPU, NCCL on
+GPUs; under 1-D, ranks that share a card run under gloo):
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
+      --scheme 1d --impl ring_fused --pipeline sync-full [--device cpu] ...
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
       --scheme 2d --pipeline sync-full [--device cpu] ...
+
+``--impl`` (1-D only) defaults to the config's own (weathermixer-1b:
+``ring_chunked``).
 
 Reduced configs (the default) run real optimization on the synthetic
 weather data; ``--full`` trains the published width and needs a GPU.
@@ -35,13 +42,13 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
           telemetry: bool = True, pipeline: str = "sharded",
           prefetch: int = 2, accum: int = 1, eval_every: int = 0,
           device: str = "cuda", mesh_model: int = 1, mesh_data: int = 1,
-          scheme: str = None, init_params: str = None):
+          scheme: str = None, impl: str = None, init_params: str = None):
     """Functional entry point; returns (history, params).  ``init_params``:
     an npz of reference weights (``convert.params_from_npz``)."""
     engine = TrainEngine(
         arch, reduced=reduced, kernel=kernel, device=device,
         mesh_model=mesh_model, mesh_data=mesh_data, scheme=scheme,
-        init_params=(None if init_params is None
+        impl=impl, init_params=(None if init_params is None
                      else params_from_npz(init_params, device="cpu")),
         config=EngineConfig(
             steps=steps, batch=batch, rollout=rollout, lr=lr,
@@ -49,7 +56,12 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
             metrics_out=metrics_out, metrics_format=metrics_format,
             trace=trace, telemetry=telemetry, pipeline=pipeline,
             prefetch=prefetch, accum=accum, eval_every=eval_every))
-    history = engine.run()
+    try:
+        history = engine.run()
+    except BaseException:
+        engine.close(collective=False)    # the peers may be elsewhere
+        raise
+    engine.close()
     return history, engine.params
 
 
@@ -83,12 +95,17 @@ def main(argv=None):
                     help="input read mode (identical batches on one "
                          "device; a mesh takes sync-full)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="model-parallel ranks (q*q for --scheme 2d), one "
-                         "process each")
+                    help="model-parallel ranks (p for --scheme 1d, q*q for "
+                         "2d), one process each")
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="data-parallel ranks (only 1 is ported)")
-    ap.add_argument("--scheme", default=None, choices=["2d", "none"],
+    ap.add_argument("--scheme", default=None, choices=["1d", "2d", "none"],
                     help="Jigsaw scheme on a mesh (default: the config's)")
+    ap.add_argument("--impl", default=None,
+                    choices=["ring", "ring_chunked", "ring_fused", "rs",
+                             "allreduce"],
+                    help="1-D Jigsaw: how each linear's reduce-scatter "
+                         "completes (default: the config's)")
     ap.add_argument("--init-params", default=None,
                     help="start from the weights in this npz (a reference "
                          "pytree saved flat, keys joined with '/')")
@@ -111,7 +128,7 @@ def main(argv=None):
           prefetch=args.prefetch, accum=args.accum,
           eval_every=args.eval_every, device=args.device,
           mesh_model=args.mesh_model, mesh_data=args.mesh_data,
-          scheme=args.scheme, init_params=args.init_params)
+          scheme=args.scheme, impl=args.impl, init_params=args.init_params)
 
 
 if __name__ == "__main__":

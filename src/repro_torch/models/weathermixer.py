@@ -14,6 +14,19 @@ two).
 2 + 4 * n_layers launches per forecast step; in training the backward
 GEMMs run it too (``kernels/ops.py``).
 
+``scheme="1d"``: 1-D Jigsaw on p ranks (``jcfg.mesh``, a ``Mesh1D``).
+Each rank holds its shard of the parameters (``convert.shard_params_1d``:
+every ``w`` cut along its contracting dim, every ``b`` along its out dim)
+and its block of the patchified fields (the patch dim cut).  The encoder,
+the four mixing linears of each block and the decoder are
+``jigsaw_linear`` (a reduce-scatter by ``jcfg.impl``), GELU after the
+reduce; the token mix moves the cut from the feature dim to the token dim
+with an all-to-all (the reference's swap to [B, C, T] with T on the model
+axis, ``weathermixer.py:106-115``) and back before the residual add; the
+LayerNorms reduce over the tp group.  The decoder's output stays cut: the
+blend runs per rank in patch space, and the loss is taken per rank
+(``train/step.py``), as under 2-D.
+
 ``scheme="2d"``: 2-D Jigsaw on a q x q mesh (``jcfg.mesh``).  Each rank
 holds its shard of the parameters (``convert.shard_params_2d``) and its
 block of the patchified fields (tokens cut along mdom, the patch dim along
@@ -22,8 +35,8 @@ and decoder are ``jigsaw_linear_2d`` (Cannon), the token mix
 ``jigsaw_linear_2d_t`` (the transposed Cannon, on the wx kernel under
 ``kernel="pallas"``), with GELU outside the linears as in the reference's
 2-D branch; the LayerNorms reduce over the mtp group, and the blend runs
-per rank in patch space.  ``apply`` then returns the rank's block of the
-forecast in patch space.
+per rank in patch space.  Under either scheme ``apply`` returns the rank's
+block of the forecast in patch space.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, linear_apply,
                                   linear_init, mlp_apply)
 from repro_torch.core.jigsaw import jigsaw_linear_2d, jigsaw_linear_2d_t
 from repro_torch.core.precision import dtype_of
-from repro_torch.core.sharding import RULES_2D, Spec
+from repro_torch.core.sharding import RULES_1D, RULES_2D, Spec
 from repro_torch.kernels.ref import act
 from repro_torch.models import layers as L
 
@@ -122,6 +135,28 @@ def param_spec_2d(path: Sequence[Any], ndim: int) -> Spec:
                      f"{'/'.join(map(str, path))}")
 
 
+def param_spec_1d(path: Sequence[Any], ndim: int) -> Spec:
+    """The 1-D spec of the parameter leaf at ``path`` (the 1-D rule of
+    ``repro/launch/specs.py``): every ``w`` [out, in] on its contracting
+    (last) dim, every ``b`` on its (last) dim; LayerNorm ``scale`` and
+    ``bias`` and ``blend`` replicated."""
+    name = path[-1]
+    dims: list = [None] * ndim
+    if name in _REPLICATED:
+        return tuple(dims)
+    if name == "w":
+        return RULES_1D.weight(ndim)
+    if name == "b":
+        dims[-1] = RULES_1D.tp_axis
+        return tuple(dims)
+    raise ValueError(f"no 1-D layout for parameter "
+                     f"{'/'.join(map(str, path))}")
+
+
+# the parameter layout of each sharded scheme
+PARAM_SPECS = {"1d": param_spec_1d, "2d": param_spec_2d}
+
+
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """[B, lat, lon, C] -> [B, T, p*p*C] over non-overlapping windows."""
     b, lat, lon, c = x.shape
@@ -150,18 +185,24 @@ def _token_mix(bp, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
     ``scheme="2d"``: two transposed-Cannon linears on the rank's blocks,
     contracting the token dim in place.  ``scheme="none"``: the transpose
     is materialised (``contiguous``) so both GEMMs see row-major operands;
-    the result is handed back as a transposed view."""
+    the result is handed back as a transposed view.  ``scheme="1d"``: x is
+    [B, T, C/p]; an all-to-all cuts T instead of C, the transpose gives
+    [B, C, T/p], the two 1-D linears contract the token dim, and the
+    all-to-all back gives [B, T, C/p] again."""
     if jcfg.scheme == "2d":
         h = _linear_2d(jigsaw_linear_2d_t, bp["tok_fc1"], x, jcfg)
         h = act("gelu")(h)
         return _linear_2d(jigsaw_linear_2d_t, bp["tok_fc2"], h, jcfg)
-    xt = x.transpose(-1, -2).contiguous()                  # [B, C, T]
+    group = jcfg.mesh_1d.tp_group if jcfg.scheme == "1d" else None
+    x = comm.all_to_all(x, group, split_dim=-2, cat_dim=-1)   # [B, T/p, C]
+    xt = x.transpose(-1, -2).contiguous()                  # [B, C, T/p]
     h = mlp_apply({"fc1": bp["tok_fc1"], "fc2": bp["tok_fc2"]}, xt, jcfg)
-    return h.transpose(-1, -2)
+    return comm.all_to_all(h.transpose(-1, -2), group, split_dim=-1,
+                           cat_dim=-2)                     # [B, T, C/p]
 
 
 def _block_apply(bp, x: torch.Tensor, jcfg: JigsawConfig) -> torch.Tensor:
-    mesh = jcfg.mesh_2d if jcfg.scheme == "2d" else None
+    mesh = jcfg.rank_mesh
     h = L.layernorm_apply(bp["tok_norm"], x, mesh=mesh)
     x = x + _token_mix(bp, h, jcfg)
     h = L.layernorm_apply(bp["ch_norm"], x, mesh=mesh)
@@ -192,29 +233,38 @@ def processor(params, x: torch.Tensor, cfg: ModelConfig,
 
 def field_block(fields: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
                 ) -> torch.Tensor:
-    """This rank's block of the patchified fields [B, lat, lon, C] ->
-    [B, T/q, p*p*C/q]: tokens cut along mdom, the patch dim along mtp."""
-    return jcfg.mesh_2d.block(patchify(fields, cfg.wm_patch),
-                              RULES_2D.act(3, domain_dim=1))
+    """This rank's block of the patchified fields [B, lat, lon, C]: under
+    2-D [B, T/q, p*p*C/q] (tokens cut along mdom, the patch dim along
+    mtp), under 1-D [B, T, p*p*C/p] (the patch dim cut)."""
+    mesh = jcfg.rank_mesh
+    return mesh.block(patchify(fields, cfg.wm_patch),
+                      mesh.rules.act(3, domain_dim=1))
 
 
 def blend_weights(blend: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
                   ) -> torch.Tensor:
     """sigmoid(blend) for the rank's patch-dim columns: patch-dim index k
     holds channel k % C."""
-    pd = patch_dim(cfg) // jcfg.mesh_2d.q
-    k = jcfg.mesh_2d.j * pd + torch.arange(pd, device=blend.device)
+    mesh = jcfg.rank_mesh
+    pd = patch_dim(cfg) // mesh.tp_size
+    k = mesh.tp_index * pd + torch.arange(pd, device=blend.device)
     return torch.sigmoid(blend)[k % cfg.wm_channels]
 
 
-def _apply_2d(params, xin: torch.Tensor, cfg: ModelConfig,
-              jcfg: JigsawConfig, rollout: int) -> torch.Tensor:
-    """The 2-D forward on the rank's block xin [B, T/q, pd/q] (f32) -> the
-    rank's block of the forecast, in xin's dtype."""
+def _apply_sharded(params, xin: torch.Tensor, cfg: ModelConfig,
+                   jcfg: JigsawConfig, rollout: int) -> torch.Tensor:
+    """The 1-D or 2-D forward on the rank's block xin of the patchified
+    fields (f32) -> the rank's block of the forecast, in xin's dtype."""
     x = L.boundary_cast(xin, jcfg)
-    h = _linear_2d(jigsaw_linear_2d, params["encoder"], x, jcfg)
+    if jcfg.scheme == "2d":
+        h = _linear_2d(jigsaw_linear_2d, params["encoder"], x, jcfg)
+    else:
+        h = linear_apply(params["encoder"], x, jcfg)
     h = processor(params, h, cfg, jcfg, rollout=rollout)
-    y = _linear_2d(jigsaw_linear_2d, params["decoder"], h, jcfg)
+    if jcfg.scheme == "2d":
+        y = _linear_2d(jigsaw_linear_2d, params["decoder"], h, jcfg)
+    else:
+        y = linear_apply(params["decoder"], h, jcfg)
     y = y.to(xin.dtype)
     lam = blend_weights(params["blend"], cfg, jcfg).to(y.dtype)
     return lam * xin + (1.0 - lam) * y
@@ -225,15 +275,14 @@ def apply(params, batch, cfg: ModelConfig,
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"fields": [B, lat, lon, C]} -> (forecast, aux = 0).  The
     forecast has the fields' shape under ``scheme="none"``; under
-    ``scheme="2d"`` it is the rank's block in patch space, [B, T/q,
-    p*p*C/q] (every rank is handed the whole fields and takes its block)."""
+    ``scheme="1d"`` / ``"2d"`` it is the rank's block in patch space
+    (``field_block``'s; every rank is handed the whole fields and takes its
+    block)."""
     xin = batch["fields"]
     zero = torch.zeros((), dtype=torch.float32, device=xin.device)
-    if jcfg.scheme == "2d":
-        return _apply_2d(params, field_block(xin, cfg, jcfg), cfg, jcfg,
-                         rollout), zero
-    if jcfg.scheme != "none":
-        raise NotImplementedError(f"scheme={jcfg.scheme!r} is not ported")
+    if jcfg.scheme in ("1d", "2d"):
+        return _apply_sharded(params, field_block(xin, cfg, jcfg), cfg,
+                              jcfg, rollout), zero
     p = cfg.wm_patch
     x = L.boundary_cast(patchify(xin, p), jcfg)            # [B, T, p*p*C]
     h = linear_apply(params["encoder"], x, jcfg)           # [B, T, d]
@@ -251,11 +300,12 @@ def apply(params, batch, cfg: ModelConfig,
 def gather_field(block: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
                  ) -> torch.Tensor:
     """The whole field [B, lat, lon, C] from every rank's block in patch
-    space [B, T/q, pd/q] (an all-gather over the model ranks)."""
-    mesh = jcfg.mesh_2d
-    parts = comm.all_gather(block.contiguous(), mesh.model_group)
-    rows = [torch.cat(parts[i * mesh.q:(i + 1) * mesh.q], dim=-1)
-            for i in range(mesh.q)]
+    space (an all-gather over the model ranks, rank r = i * tp + j)."""
+    mesh = jcfg.rank_mesh
+    parts = comm.all_gather_list(block.contiguous(), mesh.model_group)
+    tp = mesh.tp_size
+    rows = [torch.cat(parts[i * tp:(i + 1) * tp], dim=-1)
+            for i in range(mesh.dom_size)]
     return unpatchify(torch.cat(rows, dim=-2), cfg.wm_lat, cfg.wm_lon,
                       cfg.wm_patch, cfg.wm_channels)
 
@@ -264,9 +314,9 @@ def forecast_step(params, fields: torch.Tensor, cfg: ModelConfig,
                   jcfg: JigsawConfig = DEFAULT_JIGSAW, *,
                   gather: bool = False) -> torch.Tensor:
     """One serving rollout step: fields [B, lat, lon, C] -> fields at +dt.
-    Under ``scheme="2d"`` it returns the rank's block in patch space, or,
-    with ``gather``, the whole field on every rank."""
+    Under ``scheme="1d"`` / ``"2d"`` it returns the rank's block in patch
+    space, or, with ``gather``, the whole field on every rank."""
     out, _ = apply(params, {"fields": fields}, cfg, jcfg, rollout=1)
-    if jcfg.scheme == "2d" and gather:
+    if jcfg.scheme != "none" and gather:
         return gather_field(out, cfg, jcfg)
     return out

@@ -7,15 +7,16 @@ forward on detached views of the parameters that require grad (no copy),
 and ``torch.autograd.grad`` returns the gradients in the parameters'
 dtypes, as JAX does.  The optimizer then updates the parameters in place.
 
-On a mesh (``scheme="2d"``, ``jcfg.mesh``) each rank differentiates its
-part of the loss.  A weight block belongs to one rank, and its gradient
-(gathered back through the rotations' backward) stays local.  A leaf
-replicated over some model axes (biases over the axis their block is not
-cut along, LayerNorm parameters and ``blend`` over both) gets its gradient
-summed over the ranks that share it, in f32, so every copy takes the same
-update and stays bitwise equal.  The gradient norm counts each logical
-element once: one rank of each replica group counts the leaf, and the
-partial sums are all-reduced over the model ranks.
+On a mesh (``scheme="1d"`` or ``"2d"``, ``jcfg.mesh``) each rank
+differentiates its part of the loss.  A weight block belongs to one rank,
+and its gradient (gathered back through the collectives' backward) stays
+local.  A leaf replicated over some model axes (under 2-D biases over the
+axis their block is not cut along; LayerNorm parameters and ``blend``
+under both) gets its gradient summed over the ranks that share it, in
+f32, so every copy takes the same update and stays bitwise equal.  The
+gradient norm counts each logical element once: one rank of each replica
+group counts the leaf, and the partial sums are all-reduced over the
+model ranks.
 """
 from __future__ import annotations
 
@@ -38,8 +39,8 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
             rollout: int = 1):
     """Returns (objective, metrics dict): the scalar to differentiate, and
     the loss.  Level weights apply from 69 channels on (the full ERA5
-    variable set).  Under ``scheme="2d"`` the objective is this rank's
-    part, the weighted squared error of its block over the whole field's
+    variable set).  Under ``scheme="1d"`` / ``"2d"`` the objective is this
+    rank's part, the weighted squared error of its block over the whole field's
     element count: the parts of all ranks sum to the loss, so the
     gradients, summed through the collectives' backward, are the loss's.
     The metrics carry the whole loss (the parts all-reduced), the same on
@@ -53,15 +54,16 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     chan_w = (losses.pressure_level_weights(cfg.wm_channels,
                                             device=pred.device)
               if cfg.wm_channels >= 69 else None)
-    if jcfg.scheme == "2d":
-        mesh = jcfg.mesh_2d
+    mesh = jcfg.rank_mesh
+    if mesh is not None:
         target = M.module_for(cfg).field_block(batch["target"], cfg, jcfg)
         rows, cols = pred.shape[-2], pred.shape[-1]
+        i, j = mesh.dom_index, mesh.tp_index
         lat_b, chan_b = losses.block_weights(
             lat_w, chan_w, lon=cfg.wm_lon, patch=cfg.wm_patch,
             channels=cfg.wm_channels,
-            rows=range(mesh.i * rows, (mesh.i + 1) * rows),
-            cols=range(mesh.j * cols, (mesh.j + 1) * cols))
+            rows=range(i * rows, (i + 1) * rows),
+            cols=range(j * cols, (j + 1) * cols))
         sse = losses.weighted_sse(pred, target, lat_b, chan_b)
         n = pred.shape[0] * cfg.wm_lat * cfg.wm_lon * cfg.wm_channels
         main = comm.all_reduce_(sse.detach().clone(), mesh.model_group) / n
@@ -70,23 +72,24 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     return main, {"loss": main, "mse": main}
 
 
-def replica_axes(params, cfg: ModelConfig):
-    """The tree of the model axes each 2-D parameter shard is replicated
-    over (``()`` for a weight block, which one rank holds), from the
-    model's own 2-D layout."""
-    spec = M.module_for(cfg).param_spec_2d
+def replica_axes(params, cfg: ModelConfig, jcfg: JigsawConfig):
+    """The tree of the model axes each parameter shard is replicated over
+    (``()`` for a weight block, which one rank holds), from the model's
+    own layout for the scheme."""
+    spec = M.module_for(cfg).PARAM_SPECS[jcfg.scheme]
+    rules = jcfg.rank_mesh.rules
     return ptree.map_with_path(
-        lambda path, p: replicated_axes(spec(path, p.ndim)), params)
+        lambda path, p: replicated_axes(spec(path, p.ndim), rules), params)
 
 
 def _norm_args(params, cfg: ModelConfig, jcfg: JigsawConfig):
-    """``global_norm``'s arguments for a tree of 2-D shards: the rank at
+    """``global_norm``'s arguments for a tree of shards: the rank at
     coordinate 0 of every axis a leaf is replicated over counts it."""
-    if jcfg.scheme != "2d" or jcfg.mesh_2d.q == 1:
+    mesh = jcfg.rank_mesh
+    if mesh is None or mesh.model_group is None:
         return {}
-    mesh = jcfg.mesh_2d
     owned = ptree.map(lambda axes: all(mesh.coord(a) == 0 for a in axes),
-                      replica_axes(params, cfg))
+                      replica_axes(params, cfg, jcfg))
     return {"owned": owned, "group": mesh.model_group}
 
 
@@ -100,9 +103,10 @@ def value_and_grad(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
         loss, metrics = loss_fn(ptree.unflatten(params, live), batch, cfg,
                                 jcfg, rollout)
         grads = torch.autograd.grad(loss, live)
-    if jcfg.scheme == "2d" and jcfg.mesh_2d.q > 1:
-        mesh = jcfg.mesh_2d
-        for g, axes in zip(grads, ptree.leaves(replica_axes(params, cfg))):
+    mesh = jcfg.rank_mesh
+    if mesh is not None and mesh.model_group is not None:
+        for g, axes in zip(grads, ptree.leaves(replica_axes(params, cfg,
+                                                            jcfg))):
             comm.all_reduce_(g, mesh.group(axes))
     return ({k: v.detach() for k, v in metrics.items()},
             ptree.unflatten(params, grads))

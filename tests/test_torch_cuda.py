@@ -5,13 +5,22 @@ Run on a GPU machine with
 torch and the port only, so it runs where JAX is not installed.
 Tolerances as ``tests/test_kernels.py``: fp32 2e-5, bf16 3e-2.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import block_matmul as BM
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring as RING
 from repro_torch.kernels import wx as WX
+
+ROOT = Path(__file__).resolve().parents[1]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -315,3 +324,280 @@ def test_2d_step_launch_counts_and_none_parity(cuda):
     for a, b in zip(ptree.leaves(g2), ptree.leaves(g0)):
         err = (a.float() - b.float()).abs().max() / b.float().abs().max()
         assert float(err) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the 1-D ring step kernels
+# ---------------------------------------------------------------------------
+
+# the bf16 forward rounds to bf16 at every hop: a summation order other
+# than the plain version's flips some roundings (the bf16 GEMM bound); the
+# f32 accumulator of dx differs from the plain one in summation order only
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+RING_DX_TOL = 1e-4
+
+
+def _ring_case(gen, p, rows, dl, m, dtype):
+    xs = [torch.randn(rows, dl, generator=gen, device="cuda").to(dtype)
+          for _ in range(p)]
+    ws = [(torch.randn(m, dl, generator=gen, device="cuda")
+           / (p * dl) ** 0.5).to(dtype) for _ in range(p)]
+    dys = [torch.randn(rows, m // p, generator=gen, device="cuda").to(dtype)
+           for _ in range(p)]
+    return xs, ws, dys
+
+
+def _max_rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,rows,dl,m", [(2, 300, 70, 260), (3, 129, 97, 99),
+                                         (4, 33, 200, 4420), (2, 1, 8, 4)])
+def test_ring_kernels_match_plain_and_ring(cuda, dtype, p, rows, dl, m):
+    """p ranks in one process at ragged shapes: the forward is bit for bit
+    the ring of block_matmul's products, and within RING_TOL of the plain
+    version; dw is bit for bit block_matmul's dw of the gathered cotangent;
+    dx's f32 accumulator is within RING_DX_TOL (max-normalised) of the plain
+    one, and dx is it rounded.  p launches of each kernel per rank."""
+    xs, ws, dys = _ring_case(cuda, p, rows, dl, m, dtype)
+    mc = m // p
+    f0, b0 = RING.ring_fwd.launches, RING.ring_bwd.launches
+    outs = RING.ring_fwd_all(xs, ws)
+    dxs, dws, accs = RING.ring_bwd_all(xs, ws, dys)
+    torch.cuda.synchronize()
+    assert (RING.ring_fwd.launches - f0, RING.ring_bwd.launches - b0) == (
+        p * p, p * p)
+    parts = [BM.block_matmul(x, w) for x, w in zip(xs, ws)]
+    ring = ref.ring_walk_all(lambda r, j: parts[r][:, j * mc:(j + 1) * mc],
+                             p, dtype, torch.float32)
+    plain = ref.ring_fwd_all_ref(xs, ws, torch.float32)
+    pdx, pdw, pacc = ref.ring_bwd_all_ref(xs, ws, dys)
+    gathered = torch.cat(dys, dim=1)
+    for r in range(p):
+        assert torch.equal(outs[r], ring[r])
+        np.testing.assert_allclose(outs[r].float().cpu().numpy(),
+                                   plain[r].float().cpu().numpy(),
+                                   rtol=RING_TOL[dtype], atol=RING_TOL[dtype])
+        assert torch.equal(dws[r], BM.block_matmul(gathered, xs[r],
+                                                   x_t=True, w_t=True))
+        np.testing.assert_allclose(dws[r].float().cpu().numpy(),
+                                   pdw[r].float().cpu().numpy(),
+                                   rtol=RING_TOL[dtype], atol=RING_TOL[dtype])
+        assert _max_rel(accs[r], pacc[r]) <= RING_DX_TOL
+        assert torch.equal(dxs[r], accs[r].to(dtype))
+
+
+@pytest.mark.cuda
+def test_ring_bf16_accumulator_and_step_errors(cuda):
+    """accum_dtype=bf16 under an f32 wire rounds the chunk products, the
+    arrived partials and every hop's add to bf16, as the plain walk does
+    (bit for bit against block_matmul's products); the wrapper raises on
+    what the kernel does not take, and launches nothing."""
+    xs, ws, _ = _ring_case(cuda, 3, 64, 48, 48, torch.float32)
+    got = RING.ring_fwd_all(xs, ws, accum_dtype=torch.bfloat16)
+    parts = [BM.block_matmul(x, w) for x, w in zip(xs, ws)]
+    want = ref.ring_walk_all(lambda r, j: parts[r][:, j * 16:(j + 1) * 16],
+                             3, torch.float32, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    xs, ws, _ = _ring_case(cuda, 2, 64, 48, 32, torch.bfloat16)
+    x, w = xs[0], ws[0]
+    dest = torch.empty(64, 16, dtype=torch.bfloat16, device="cuda")
+    before = RING.ring_fwd.launches
+    for bad in (dict(x=x.float()), dict(dest=dest[:, :8]),
+                dict(j=2), dict(x=x.t().contiguous().t()),
+                dict(dest=dest.float())):
+        kw = dict(x=x, w=w, j=0, prev=None, dest=dest)
+        kw.update(bad)
+        with pytest.raises((ValueError, TypeError)):
+            RING.ring_fwd(kw["x"], kw["w"], kw["j"], kw["prev"], kw["dest"])
+    assert RING.ring_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_ring_failed_library_build_raises(cuda, tmp_path, monkeypatch):
+    """A source nvcc refuses: the wrapper raises, with no plain-version
+    fallback on a CUDA tensor."""
+    from repro_torch.kernels import build
+    bad = tmp_path / "ring_broken.cu"
+    bad.write_text("this is not CUDA\n")
+    lib = build.KernelLibrary("ring_broken", "ring.cu", [], RING._bind)
+    lib.source = bad
+    monkeypatch.setattr(RING, "LIBRARY", lib)
+    xs, ws, _ = _ring_case(cuda, 2, 16, 8, 8, torch.float32)
+    dest = torch.empty(16, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        RING.ring_fwd(xs[0], ws[0], 0, None, dest)
+
+
+@pytest.mark.cuda
+def test_ring_failed_ipc_open_raises(cuda, monkeypatch):
+    """A successor's IPC handle that does not open: the workspace raises
+    (and frees its own slots) instead of falling back."""
+    me = os.getpid()
+
+    def fake_gather(out, obj, group=None):
+        out[0], out[1] = obj, (b"\0" * len(obj[0]), me + 1, obj[2])
+    monkeypatch.setattr(RING.dist, "get_world_size", lambda g: 2)
+    monkeypatch.setattr(RING.dist, "get_rank", lambda g: 0)
+    monkeypatch.setattr(RING.dist, "all_gather_object", fake_gather)
+    with pytest.raises(RuntimeError, match="cudaIpcOpenMemHandle"):
+        RING.RingWorkspace(None, 1 << 20, torch.device("cuda", 0))
+
+
+def _run_ranks(mode, tmp_path, n=2, timeout=300):
+    """This file run as n scripts in ``mode`` on the one card, joined by a
+    file store; returns their JSON results."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, mode, str(r), str(n),
+         f"file://{tmp_path / 'store'}", str(tmp_path)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return [json.loads((tmp_path / f"{mode}{r}.json").read_text())
+            for r in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_ring_two_processes_on_one_card_through_ipc(cuda, tmp_path, n):
+    """n processes on one card under gloo, each rank's slots mapped into
+    its predecessor by CUDA IPC: fused_ring_matmul's forward and backward
+    equal the one-process form of the same kernels bit for bit, and each
+    rank launched n kernels each way."""
+    for res in _run_ranks("--ring-rank", tmp_path, n):
+        assert res["fwd_launches"] == res["bwd_launches"] == n
+        assert res["fwd_equal"] and res["dw_equal"] and res["dx_equal"], res
+
+
+# the collectives the port calls, run on CUDA tensors under gloo without
+# staging; which of them gloo takes is what comm.GLOO_CUDA_OPS records
+_PROBES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+           "send_recv")
+
+
+@pytest.mark.cuda
+def test_gloo_device_collectives(cuda, tmp_path):
+    """Which collectives gloo runs on CUDA tensors: each probed alone on two
+    processes of one card (a probe's result is "ok", the error it raised,
+    or the signal that ended it: gloo aborts the process on some device
+    pointers).  Every collective comm hands to gloo on CUDA tensors must
+    be one that works."""
+    from repro_torch.core import comm
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {op: [subprocess.Popen(
+        [sys.executable, __file__, "--gloo-probe", str(r), "2",
+         f"file://{tmp_path / op}", str(tmp_path), op], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)] for op in _PROBES}
+    found = {}
+    for op, pair in procs.items():
+        try:
+            errs = [q.communicate(timeout=120)[1] for q in pair]
+        finally:
+            for q in pair:
+                q.kill()
+        path = tmp_path / f"{op}0.json"
+        if path.exists():
+            found[op] = json.loads(path.read_text())
+        else:
+            found[op] = f"exit {pair[0].returncode}: " + (
+                errs[0].strip().splitlines() or [""])[-1][:160]
+    print("gloo on CUDA tensors:", json.dumps(found))
+    native = {op for op, r in found.items() if r == "ok"}
+    assert comm.GLOO_CUDA_OPS <= native, found
+
+
+def _ring_rank_main(r, n, init, out_dir):
+    """One rank of ``test_ring_two_processes_on_one_card_through_ipc``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import fused_ring
+    from repro_torch.launch.mesh import make_ring_mesh
+    os.environ["LOCAL_RANK"] = str(r)
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    mesh = make_ring_mesh(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs, ws, dys = _ring_case(gen, n, 200, 72, 12 * n, torch.bfloat16)
+    outs = RING.ring_fwd_all(xs, ws)
+    dxs, dws, _ = RING.ring_bwd_all(xs, ws, dys)
+    x = xs[r].clone().requires_grad_()
+    w = ws[r].clone().requires_grad_()
+    f0, b0 = RING.ring_fwd.launches, RING.ring_bwd.launches
+    y = fused_ring.fused_ring_matmul(x, w, group=mesh.tp_group, p=n,
+                                     rank=r)
+    dx, dw = torch.autograd.grad(y, (x, w), dys[r])
+    torch.cuda.synchronize()
+    res = dict(fwd_launches=RING.ring_fwd.launches - f0,
+               bwd_launches=RING.ring_bwd.launches - b0,
+               fwd_equal=bool(torch.equal(y, outs[r])),
+               dw_equal=bool(torch.equal(dw, dws[r])),
+               dx_equal=bool(torch.equal(dx, dxs[r])))
+    RING.release_workspaces()
+    (Path(out_dir) / f"--ring-rank{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _gloo_probe_main(r, n, init, out_dir, op):
+    """One collective of ``_PROBES`` on CUDA tensors under gloo, as is,
+    its result held to the values it must give."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    x = torch.arange(4.0, device="cuda") + 10 * r
+    xs = [torch.arange(4.0) + 10 * k for k in range(n)]    # every rank's
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, sum(xs)
+
+    def all_gather():
+        y = torch.empty(4 * n, device="cuda")
+        dist.all_gather_into_tensor(y, x)
+        return y, torch.cat(xs)
+
+    def reduce_scatter():
+        y = torch.empty(4 // n, device="cuda")
+        dist.reduce_scatter_tensor(y, x)
+        return y, sum(xs).chunk(n)[r]
+
+    def all_to_all():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return y, torch.cat([v.chunk(n)[r] for v in xs])
+
+    def send_recv():
+        y = torch.empty_like(x)
+        for q in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, (r + 1) % n),
+                 dist.P2POp(dist.irecv, y, (r - 1) % n)]):
+            q.wait()
+        return y, xs[(r - 1) % n]
+
+    calls = dict(all_reduce=all_reduce, all_gather=all_gather,
+                 reduce_scatter=reduce_scatter, all_to_all=all_to_all,
+                 send_recv=send_recv)
+    try:
+        got, want = calls[op]()
+        torch.cuda.synchronize()
+        res = "ok" if torch.equal(got.cpu(), want) else "wrong values"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        res = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    (Path(out_dir) / f"{op}{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mode, rank, n, init, out, *extra = sys.argv[1:]
+    main = {"--ring-rank": _ring_rank_main,
+            "--gloo-probe": _gloo_probe_main}[mode]
+    main(int(rank), int(n), init, out, *extra)

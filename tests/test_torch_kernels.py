@@ -174,8 +174,8 @@ def test_port_imports_neither_jax_nor_reference():
     names = {f.relative_to(ROOT).as_posix().removeprefix("src/repro_torch/")
              for f in files}
     assert {"core/comm.py", "core/jigsaw.py", "core/sharding.py",
-            "kernels/build.py", "kernels/fused_ring.py", "kernels/wx.py",
-            "launch/mesh.py"} <= names
+            "kernels/build.py", "kernels/fused_ring.py", "kernels/ring.py",
+            "kernels/wx.py", "launch/mesh.py"} <= names
     bad = {str(f.relative_to(ROOT)): m.group(0).strip()
            for f in files for m in [_IMPORT.search(f.read_text())] if m}
     assert not bad, bad
