@@ -7,11 +7,12 @@ from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s full published width, through the entry points a user
 calls: forecast serving, one-GPU training, the 2-D Jigsaw (Cannon)
-training step at q = 1, and the 1-D Jigsaw (ring) training step on two
-ranks sharing the card.  Phases, each printed as a JSON line:
+training step at q = 1 and on a 2x2 mesh of four ranks sharing the card,
+and the 1-D Jigsaw (ring) training step on two ranks sharing the card.
+Phases, each printed as a JSON line:
 
   1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu,
-     wx.cu and ring.cu, one nvcc each, started together);
+     wx.cu, ring.cu and cannon.cu, one nvcc each, started together);
   2. the block_matmul kernel against its plain PyTorch version on the card:
      small ragged shapes in f32 and bf16 with every epilogue, then the six
      GEMM shapes of a weathermixer-1b forecast step (bucket 1) in bf16 and
@@ -41,7 +42,15 @@ ranks sharing the card.  Phases, each printed as a JSON line:
      against block_matmul's dw of the gathered cotangent and its dx
      accumulator against the plain one; rank 0's launches timed beside the
      plain steps, cuBLAS chunk products with the adds, and the bound;
-  8. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
+  8. the Cannon kernel (``cannon_shape``) at the two full-width token-mix
+     shapes of a 2x2 rank, batch 1 and 2 in bf16, and tok_fc1 in f32, the
+     four ranks held in one process (rank (i, j) writes the slots of
+     (i, j-1) and (i-1, j); the order of the launches is the barrier):
+     every rank bit for bit the step loop (one wx launch per step) and
+     within the wx tolerance of the plain Cannon; rank 0's q launches timed
+     beside the plain steps, torch.baddbmm per step and the bound; then
+     q = 3 at a small size;
+  9. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
      up to 2): the first step's loss, grad norm and per-leaf gradients
      against the same step with ``kernel="xla"``; on the same weights and
      batch, one 2-D (``scheme="2d"``, the 1x1 mesh) forward and backward,
@@ -52,12 +61,20 @@ ranks sharing the card.  Phases, each printed as a JSON line:
      under gloo and reach each other's ring slots through CUDA IPC, with
      (2 + 24 r) p ring_fwd and (2 + 12 r) p ring_bwd launches per rank and
      no block_matmul, held against the same none step and, bit for bit in
-     its loss, against ``impl="ring_chunked"`` (``train_1d``); then the
-     run, with 5 + 54 r
+     its loss, against ``impl="ring_chunked"`` (``train_1d``); one 2-D
+     forward and backward on a 2x2 mesh, this file re-run as four
+     processes (``--train-2d-rank``) sharing the card under gloo, each
+     reading only its block of the batch (``pipeline="sharded"``, 1/4 of
+     the bytes, bit for bit ``field_block`` of the whole batch) and
+     reaching its predecessors' Cannon slots through CUDA IPC, with 24 r
+     cannon, 12 r + 12 r wx and 10 + 60 r block_matmul launches per rank,
+     held against the none step and, bit for bit in loss and grad norm,
+     against the step with ``fused_cannon_t`` forced to the step loop
+     (``train_2d_mesh``); then the run, with 5 + 54 r
      kernel launches per step of rollout r, finite losses, peak memory
      under 80 GB; then a second run of the same seed, whose loss and
      grad-norm history must equal the first's bit for bit;
-  9. the ``kernels`` line, the card's name and power limit, and the last
+  10. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -93,7 +110,10 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
   * the 1-D step against the none step: loss 1e-3 and grad norm 5e-3
     relative, the worst gradient leaf 5e-2 max-normalised (the 1-D path
     rounds each linear's partial sums to bf16 at every hop and adds the
-    bias after the reduce).
+    bias after the reduce); the 2x2 step the same bounds (each Cannon
+    linear rounds its product to bf16 before its bias, as under q = 1);
+  * the Cannon kernel: bit for bit the step loop (wx's main loop, K order
+    and epilogue); against the plain Cannon the wx tolerances.
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -759,7 +779,132 @@ def ring_phase(torch, BM, RING, ref):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: full-width training
+# phase 8: the Cannon kernel against the step loop and its plain version
+# ---------------------------------------------------------------------------
+
+# the token-mix Cannon loops of a 2x2 rank at full width: (label, m, t, c)
+# of w [m, t] @ x [L, t, c], and the loops per training sample-step at
+# r = 1 (3 blocks: the forward and the checkpoint's rerun), q launches each
+CANNON_Q = 2
+CANNON_SHAPES = [("2x2.tok_fc1", 4320, 8190, 2160, 6),
+                 ("2x2.tok_fc2", 8190, 4320, 2160, 6)]
+
+
+def cannon_bound_ms(ll, m, t, c, q, dtype_name):
+    """Least time of one rank's q launches of a Cannon loop: its q GEMMs
+    over the peak, or the bytes (each step's w and x read, the f32
+    accumulator written at the first step and read and written after, the
+    q - 1 hops of w and x written) over the memory rate."""
+    es = 4 if dtype_name == "float32" else 2
+    flops = 2.0 * q * ll * m * t * c
+    ops = es * (m * t + ll * t * c)
+    nbytes = (q * ops + (q - 1) * ops + 4 * ll * m * c
+              + (q - 1) * 8 * ll * m * c)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def cannon_phase(torch, CANNON, WX, RING, ref):
+    """The q x q ranks of a mesh held in one process (rank r's step s writes
+    its predecessors' slots s % 2, tensors here; the launch order on one
+    stream is the barrier) at the two token-mix shapes of a 2x2 rank, batch
+    1 and 2, bf16, and tok_fc1 in f32 at batch 1: every rank's result bit
+    for bit the step loop (one wx launch per step, the blocks rotated the
+    same way), and within WX_TOL of the plain Cannon; then rank 0's q
+    launches timed beside the plain steps, the library's (torch.baddbmm per
+    step, no hops) and the bound.  Then q = 3 at a small size, both
+    checks.  On one card a hop is a store into HBM, not an NVLink write."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = CANNON_Q
+    cases = [(shape, ll, "bfloat16") for shape in CANNON_SHAPES
+             for ll in (1, 2)]
+    cases.append((CANNON_SHAPES[0], 1, "float32"))
+    rows, worst = [], 0.0
+
+    def blocks(q, ll, m, t, c, dtype):
+        ws = [(torch.randn(m, t, generator=gen, device="cuda") / t ** 0.5
+               ).to(dtype) for _ in range(q * q)]
+        xs = [torch.randn(ll, t, c, generator=gen, device="cuda").to(dtype)
+              for _ in range(q * q)]
+        return ws, xs
+
+    def checked(ws, xs, q, name, what):
+        got = CANNON.cannon_fwd_all(ws, xs, q)
+        torch.cuda.synchronize()
+        loop = ref.cannon_walk_all(lambda w, x, a: WX.wx(w, x, a), ws, xs,
+                                   q)
+        check(all(torch.equal(a, b) for a, b in zip(got, loop)),
+              f"cannon {what}: not bit for bit the step loop")
+        del loop
+        tol = WX_TOL[name]
+        err = 0.0
+        for a, b in zip(got, ref.cannon_ref(ws, xs, q)):
+            check(bool(((a - b).abs() <= tol + tol * b.abs()).all()),
+                  f"cannon {what} vs plain: max err "
+                  f"{float((a - b).abs().max()):.3e}")
+            err = max(err, float((a - b).abs().max()))
+        return err
+
+    for (label, m, t, c, calls), ll, name in cases:
+        dtype = getattr(torch, name)
+        ws, xs = blocks(q, ll, m, t, c, dtype)
+        err = checked(ws, xs, q, name, f"{label} L={ll} {name}")
+        worst = max(worst, err)
+        # rank (0, 0)'s q launches of one loop: at step s it holds the
+        # blocks of ranks (0, s) (w) and (s, 0) (x)
+        w0, x0 = ws[0], xs[0]
+        w_slots = [torch.empty_like(w0) for _ in range(2)]
+        x_slots = [torch.empty_like(x0) for _ in range(2)]
+        out = torch.empty(ll, m, c, device="cuda")
+        steps = [(ws[s], xs[s * q]) for s in range(q)]
+
+        def kernel():
+            for s in range(q):
+                last = s == q - 1
+                CANNON.cannon_step(
+                    w0 if s == 0 else w_slots[(s - 1) % 2],
+                    x0 if s == 0 else x_slots[(s - 1) % 2], out,
+                    first=s == 0, w_dest=None if last else w_slots[s % 2],
+                    x_dest=None if last else x_slots[s % 2])
+
+        def plain():
+            acc = None
+            for w, x in steps:
+                acc = ref.wx_ref(w, x, acc)
+            return acc
+
+        def library():
+            acc = torch.zeros(ll, m, c, dtype=dtype, device="cuda")
+            for w, x in steps:
+                acc = torch.baddbmm(acc, w.expand(ll, m, t), x)
+            return acc
+
+        bound, bound_by = cannon_bound_ms(ll, m, t, c, q, name)
+        row = dict(shape=label, q=q, batch=ll, m=m, t=t, c=c, dtype=name,
+                   calls_per_train_step=calls,
+                   vec_bytes=RING._vec_bytes(w0, x0) if name == "bfloat16"
+                   else 4, bitwise_step_loop=True, max_abs_err=err,
+                   tol=WX_TOL[name], kernel_ms=cuda_ms(kernel),
+                   plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library),
+                   bound_ms=bound, bound_by=bound_by,
+                   bound_ms_per_launch=bound / q)
+        row["tflops"] = 2e-9 * q * ll * m * t * c / row["kernel_ms"]
+        emit(phase="cannon_shape", **row)
+        rows.append(row)
+        del ws, xs, w0, x0, w_slots, x_slots, out, steps
+        torch.cuda.empty_cache()
+    for name in ("bfloat16", "float32"):
+        ws, xs = blocks(3, 2, 300, 129, 70, getattr(torch, name))
+        err = checked(ws, xs, 3, name, f"q=3 {name}")
+        worst = max(worst, err)
+        emit(phase="cannon_q3", dtype=name, shape=[2, 300, 129, 70],
+             bitwise_step_loop=True, max_abs_err=err, tol=WX_TOL[name])
+    return rows, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-width training
 # ---------------------------------------------------------------------------
 
 def train_flops_per_sample(cfg, rollout):
@@ -776,22 +921,23 @@ def train_flops_per_sample(cfg, rollout):
     return 5 * enc + rollout * cfg.n_layers * (4 * block + tok + ch)
 
 
-def train_2d_bound_ms_per_sample(cfg, rollout):
-    """The least device time of one 2-D training sample-step at q = 1 (3
-    blocks, remat): per block and pass, the token mix's 6 bf16 GEMMs
-    (forward, rerun and dw of both linears) and 2 f32 ones (dx, as the
-    reference computes it), the channel mix's 8 bf16 ones (forward, rerun,
-    dx, dw), and 5 bf16 encoder/decoder GEMMs, each set over the peak of
-    its type."""
+def train_2d_bound_ms_per_sample(cfg, rollout, q=1):
+    """The least device time of one 2-D training sample-step (3 blocks,
+    remat), per rank of a q x q mesh: per block and pass, the token mix's
+    6 bf16 GEMMs (forward, rerun and dw of both linears; at q > 1 two more,
+    the fused Cannon's VJP recomputing the forward) and 2 f32 ones (dx, as
+    the reference computes it), the channel mix's 8 bf16 ones (forward,
+    rerun, dx, dw), and 5 bf16 encoder/decoder GEMMs, each set over the
+    peak of its type; a rank does 1/q**2 of it."""
     t = (cfg.wm_lat // cfg.wm_patch) * (cfg.wm_lon // cfg.wm_patch)
     d, pd = cfg.d_model, cfg.wm_patch ** 2 * cfg.wm_channels
     enc = 2.0 * t * pd * d
     tok = 2.0 * d * cfg.wm_d_tok * t
     ch = 2.0 * t * cfg.wm_d_ch * d
     passes = rollout * cfg.n_layers
-    bf16 = 5 * enc + passes * (6 * tok + 8 * ch)
+    bf16 = 5 * enc + passes * ((6 if q == 1 else 8) * tok + 8 * ch)
     return 1e3 * (bf16 / PEAK_FLOPS["bfloat16"]
-                  + passes * 2 * tok / PEAK_FLOPS["float32"])
+                  + passes * 2 * tok / PEAK_FLOPS["float32"]) / q ** 2
 
 
 def fwd_bwd_ms(torch, params, batch, cfg, jcfg, rollout):
@@ -918,7 +1064,6 @@ def train_1d_phase(torch, eng, batch0, r0, none_metrics, none_grads):
     from repro_torch.optim.adam import global_norm
     p = TRAIN_1D_P
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_1d_"))
-    procs = []
     try:
         t0 = time.perf_counter()
         torch.save({k: v.cpu() for k, v in batch0.items()},
@@ -933,27 +1078,8 @@ def train_1d_phase(torch, eng, batch0, r0, none_metrics, none_grads):
         (tmp / "meta.json").write_text(json.dumps(dict(rollout=r0)))
         torch.cuda.empty_cache()
         handoff_s = time.perf_counter() - t0
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(_free_port()), WORLD_SIZE=str(p))
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--train-1d-rank", str(r), str(tmp)],
-            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(p)]
-        outs = [pr.communicate(timeout=600) for pr in procs]
-        wall = time.perf_counter() - t0
-        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
-            check(pr.returncode == 0, f"train_1d rank {r} failed "
-                  f"({pr.returncode}):\n{err[-4000:]}")
-        res = [json.loads((tmp / f"rank{r}.json").read_text())
-               for r in range(p)]
+        res, wall = run_ranks("--train-1d-rank", tmp, p)
     finally:
-        for pr in procs:
-            if pr.poll() is None:
-                pr.kill()
-                pr.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
     want_fwd, want_bwd = (2 + 24 * r0) * p, (2 + 12 * r0) * p
@@ -1084,6 +1210,254 @@ def train_1d_worker(rank, tmp):
     return 0
 
 
+TRAIN_2D_Q = 2
+
+
+def _step_loop(wl, xl, *, model_group, **kw):
+    """fused_cannon_t forced to the step loop (one wx launch per step,
+    rotations through comm.rotate): the variant the 2x2 step must equal."""
+    from repro_torch.kernels import fused_ring
+    return fused_ring.cannon_t_loop(wl, xl, **kw)
+
+
+def run_ranks(flag, tmp, n, timeout=600):
+    """This file re-run as n rank processes (``flag r tmp``) sharing the
+    card, joined through ``env://`` on a free port; returns their
+    rank<r>.json results and the wall seconds."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+             str(tmp)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+        outs = [pr.communicate(timeout=timeout) for pr in procs]
+        wall = time.perf_counter() - t0
+        for r, (pr, (_, err)) in enumerate(zip(procs, outs)):
+            check(pr.returncode == 0, f"{flag} {r} failed "
+                  f"({pr.returncode}):\n{err[-4000:]}")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+            for r in range(n)], wall
+
+
+def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
+    """One 2-D (scheme="2d") forward and backward on a 2x2 mesh of four
+    rank processes sharing this card (gloo between them; each rank's
+    Cannon slots mapped into its predecessors by CUDA IPC), through the
+    TrainEngine with per-rank reads (pipeline="sharded") on the train
+    phase's weights (the same seed) and first step's batch, held against
+    this process's scheme="none" step and, bit for bit, against the same
+    step with fused_cannon_t forced to the step loop."""
+    import shutil
+    import tempfile
+    from repro_torch.convert import shard_params_2d
+    from repro_torch.core import tree as ptree
+    from repro_torch.optim.adam import global_norm
+    q, n = TRAIN_2D_Q, TRAIN_2D_Q ** 2
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))
+    try:
+        t0 = time.perf_counter()
+        torch.save({k: v.cpu() for k, v in batch0.items()},
+                   tmp / "batch.pt")
+        for r in range(n):
+            i, j = divmod(r, q)
+            shard = shard_params_2d(none_grads, i, j, q)
+            fingerprint = [float(t.double().sum()) for t in
+                           ptree.leaves(shard_params_2d(eng.params, i, j,
+                                                        q))]
+            torch.save({"grads": ptree.map(lambda t: t.cpu(), shard),
+                        "fingerprint": fingerprint}, tmp / f"none{r}.pt")
+            del shard
+        (tmp / "meta.json").write_text(json.dumps(dict(rollout=r0)))
+        torch.cuda.empty_cache()
+        handoff_s = time.perf_counter() - t0
+        res, wall = run_ranks("--train-2d-rank", tmp, n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want = dict(cannon=24 * r0, wx_fwd=12 * r0, wx_dx=12 * r0,
+                block_matmul=10 + 60 * r0, ring=0)
+    for r, x in enumerate(res):
+        check(x["launches"] == want, f"train_2d_mesh rank {r}: launches "
+              f"{x['launches']}, want {want} (counted on the CPU)")
+        check(x["block_equal"], f"train_2d_mesh rank {r}: its batch is not "
+              "field_block of the whole batch")
+        check(x["read_share"] == 1 / n, f"train_2d_mesh rank {r} read "
+              f"{x['read_share']} of the batch's bytes, want 1/{n}")
+        check(x["loss"] == x["loss_step_loop"]
+              and x["grad_norm"] == x["grad_norm_step_loop"],
+              f"train_2d_mesh rank {r}: loss {x['loss']!r} / norm "
+              f"{x['grad_norm']!r} differ from the step loop's "
+              f"{x['loss_step_loop']!r} / {x['grad_norm_step_loop']!r}")
+    ln = float(none_metrics["loss"])
+    nn = float(global_norm(none_grads))
+    loss, norm = res[0]["loss"], res[0]["grad_norm"]
+    check(all(x["loss"] == loss and x["grad_norm"] == norm for x in res),
+          "train_2d_mesh: the ranks report different losses or norms")
+    leaf = max(max(x["leaf_diff"][i] for x in res)
+               / max(max(x["leaf_ref"][i] for x in res), 1e-30)
+               for i in range(len(res[0]["leaf_diff"])))
+    peaks = [x["peak_mem_gb"] for x in res]
+    stats = dict(ranks=n, mesh=f"{q}x{q}", rollout=r0, pipeline="sharded",
+                 loss=loss, loss_none=ln,
+                 loss_rel_err=abs(loss - ln) / abs(ln), grad_norm=norm,
+                 grad_norm_none=nn, grad_norm_rel_err=abs(norm - nn) / nn,
+                 max_leaf_rel_err=leaf, tol=TRAIN_1D_TOL,
+                 loss_step_loop=res[0]["loss_step_loop"],
+                 grad_norm_step_loop=res[0]["grad_norm_step_loop"],
+                 launches=[x["launches"] for x in res],
+                 read_bytes=[x["read_bytes"] for x in res],
+                 read_share=[x["read_share"] for x in res],
+                 read_s=[x["read_s"] for x in res],
+                 peak_mem_gb=peaks, peak_mem_gb_sum=sum(peaks),
+                 cannon_slots_gb=[x["cannon_slots_gb"] for x in res],
+                 collectives_through_host=[x["through_host"] for x in res],
+                 gb_through_host=[x["through_host_gb"] for x in res],
+                 device_fwd_ms=[x["fwd_ms"] for x in res],
+                 device_bwd_ms=[x["bwd_ms"] for x in res],
+                 batch=TRAIN_BATCH,
+                 device_fwd_bwd_ms_per_sample=max(
+                     x["fwd_ms"] + x["bwd_ms"] for x in res) / TRAIN_BATCH,
+                 bound_ms_per_sample=train_2d_bound_ms_per_sample(
+                     eng.cfg, r0, q),
+                 handoff_s=handoff_s, wall_s=wall,
+                 setup_s=[x["setup_s"] for x in res])
+    check(stats["loss_rel_err"] <= TRAIN_1D_TOL["loss"]
+          and stats["grad_norm_rel_err"] <= TRAIN_1D_TOL["grad_norm"]
+          and leaf <= TRAIN_1D_TOL["leaf"],
+          f"2x2 step vs scheme='none': {stats}")
+    check(sum(peaks) < PEAK_MEM_LIMIT, f"train_2d_mesh: the four ranks' "
+          f"peaks sum to {sum(peaks):.2f} GB")
+    emit(phase="train_2d_mesh", **stats)
+    return stats
+
+
+def train_2d_worker(rank, tmp):
+    """One rank of ``train_2d_mesh_phase`` (this file run with
+    ``--train-2d-rank``): the engine on the 2x2 mesh with per-rank reads,
+    its block of the first batch held against field_block of the whole
+    one, one forward and backward with its launches counted, the
+    comparison against this rank's shard of the none step's gradients,
+    the timed forward and backward, and the step-loop variant; results to
+    rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.kernels import cannon as CANNON
+    from repro_torch.kernels import fused_ring
+    from repro_torch.kernels import ring as RING
+    from repro_torch.kernels import wx as WX
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.models import weathermixer as W
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import _norm_args, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    r0 = json.loads((tmp / "meta.json").read_text())["rollout"]
+    t0 = time.perf_counter()
+    eng = TrainEngine("weathermixer-1b", reduced=False,
+                      mesh_model=TRAIN_2D_Q ** 2, scheme="2d",
+                      device="cuda",
+                      config=EngineConfig(steps=1, batch=TRAIN_BATCH,
+                                          precision="bf16", lr=1e-4, seed=0,
+                                          pipeline="sharded", prefetch=0,
+                                          telemetry=False))
+    none = torch.load(tmp / f"none{rank}.pt")
+    check([float(t.double().sum()) for t in ptree.leaves(eng.params)]
+          == none["fingerprint"], "train_2d_mesh: the engine's weights are "
+          "not the train phase's")
+    cfg, jcfg = eng.cfg, eng.jcfg
+    check(cfg.remat and cfg.kernel == "pallas" and jcfg.mesh.q == TRAIN_2D_Q
+          and dist.get_backend() == "gloo", "unexpected 2-D config")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = eng.pipeline.get(0, r0)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    whole = torch.load(tmp / "batch.pt")
+    block_equal = all(torch.equal(batch[k].cpu(),
+                                  W.field_block(whole[k], cfg, jcfg))
+                      for k in whole)
+    read_bytes = {k: v[eng.pipeline.rank]
+                  for k, v in eng.pipeline.stats.rank_bytes.items()}
+    read_share = read_bytes["fields"] / (whole["fields"].numel() * 4)
+    del whole
+
+    # -- the 2x2 path: counts to 0 just before, read just after ------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in (CANNON.cannon_step, WX.wx, BM.block_matmul, RING.ring_fwd,
+              RING.ring_bwd):
+        f.launches = 0
+    WX.wx.layout_launches.clear()
+    comm.through_host.clear()
+    comm.through_host_bytes.clear()
+    metrics, grads = value_and_grad(eng.params, batch, cfg, jcfg, r0)
+    torch.cuda.synchronize()
+    res = dict(launches=dict(cannon=CANNON.cannon_step.launches,
+                             wx_fwd=WX.wx.layout_launches[False],
+                             wx_dx=WX.wx.layout_launches[True],
+                             block_matmul=BM.block_matmul.launches,
+                             ring=RING.ring_fwd.launches
+                             + RING.ring_bwd.launches),
+               through_host=dict(comm.through_host),
+               through_host_gb=sum(comm.through_host_bytes.values()) / 1e9,
+               # the Cannon's slots are raw cudaMallocs, outside torch's
+               # allocator: their bytes are added to its peak
+               cannon_slots_gb=RING.workspace_bytes() / 1e9,
+               peak_mem_gb=(torch.cuda.max_memory_allocated()
+                            + RING.workspace_bytes()) / 1e9)
+    # ----------------------------------------------------------------------
+    check(res["launches"]["wx_fwd"] + res["launches"]["wx_dx"]
+          == WX.wx.launches, "wx launches outside the two layouts")
+    # the slots are the fused Cannon's footprint at the token mix's largest
+    # blocks (tok_fc1: w [d_tok/q, T/q], x [B, T/q, d/q])
+    q = TRAIN_2D_Q
+    slots = fused_ring.cannon_footprint_bytes(
+        TRAIN_BATCH, cfg.wm_d_tok // q, W.n_tokens(cfg) // q,
+        cfg.d_model // q, torch.bfloat16)
+    check(RING.workspace_bytes() == slots, f"train_2d_mesh: "
+          f"{RING.workspace_bytes()} bytes of slots, want {slots}")
+    res.update(block_equal=block_equal, read_bytes=read_bytes,
+               read_share=read_share, read_s=read_s, setup_s=setup_s)
+    norm_args = _norm_args(eng.params, cfg, jcfg)
+    res["loss"] = float(metrics["loss"])
+    res["grad_norm"] = float(global_norm(grads, **norm_args))
+    res["leaf_diff"], res["leaf_ref"] = [], []
+    for a, b in zip(ptree.leaves(grads), ptree.leaves(none["grads"])):
+        b = b.to(a.device).float()
+        res["leaf_diff"].append(float((a.float() - b).abs().max()))
+        res["leaf_ref"].append(float(b.abs().max()))
+    del grads, none
+    torch.cuda.empty_cache()
+    res["fwd_ms"], res["bwd_ms"] = fwd_bwd_ms(torch, eng.params, batch, cfg,
+                                              jcfg, r0)
+    real = fused_ring.fused_cannon_t
+    fused_ring.fused_cannon_t = _step_loop
+    try:
+        m2, g2 = value_and_grad(eng.params, batch, cfg, jcfg, r0)
+    finally:
+        fused_ring.fused_cannon_t = real
+    res["loss_step_loop"] = float(m2["loss"])
+    res["grad_norm_step_loop"] = float(global_norm(g2, **norm_args))
+    del g2
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    eng.close()
+    dist.destroy_process_group()
+    return 0
+
+
 def train_phase(torch, BM, WX):
     import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -1132,6 +1506,7 @@ def train_phase(torch, BM, WX):
     # the 2-D path on the same weights and batch, before the run moves them
     stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
     stats_1d = train_1d_phase(torch, eng, batch0, r0, mk, gk)
+    stats_2dm = train_2d_mesh_phase(torch, eng, batch0, r0, mk, gk)
     del gk
     torch.cuda.empty_cache()
 
@@ -1214,7 +1589,7 @@ def train_phase(torch, BM, WX):
     emit(phase="train_repeat", bitwise_equal=True,
          loss=[h["loss"] for h in hist2])
     torch.cuda.empty_cache()
-    return launches, stats, stats_2d, stats_1d
+    return launches, stats, stats_2d, stats_1d, stats_2dm
 
 
 def main():
@@ -1229,6 +1604,7 @@ def main():
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import block_matmul as BM
+    from repro_torch.kernels import cannon as CANNON
     from repro_torch.kernels import ref
     from repro_torch.kernels import ring as RING
     from repro_torch.kernels import wx as WX
@@ -1240,7 +1616,7 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False)
     t0 = time.perf_counter()
-    libs = (BM, WX, RING)
+    libs = (BM, WX, RING, CANNON)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source,
         built = list(pool.map(lambda lib: lib.build(), libs))   # together
     emit(phase="build", built=built, seconds=time.perf_counter() - t0,
@@ -1255,7 +1631,10 @@ def main():
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, ref)
-    train_launches, train, t2, t1 = train_phase(torch, BM, WX)
+    cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
+    train_launches, train, t2, t1, t2m = train_phase(torch, BM, WX)
+    mesh_launches = {k: [x[k] for x in t2m["launches"]]
+                     for k in t2m["launches"][0]}
 
     step = [r for r in rows if r["per_step"]]
 
@@ -1276,6 +1655,12 @@ def main():
         return sum(r[f"{kind}_{key}"] * r[f"{kind}_calls_per_train_step"]
                    for r in ring_rows
                    if r["p"] == TRAIN_1D_P and r["dtype"] == "bfloat16")
+
+    def per_cannon_step(key):
+        # the bf16 rows at batch 1: one rank of the 2x2 step, per training
+        # sample-step at r = 1
+        return sum(r[key] * r["calls_per_train_step"] for r in cannon_rows
+                   if r["batch"] == 1 and r["dtype"] == "bfloat16")
 
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
@@ -1306,10 +1691,11 @@ def main():
         "source": "src/repro_torch/kernels/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:37",
         "launches": serve_launches + train_launches
-        + t2["block_matmul_launches"],
+        + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches,
-                             "train_2d": t2["block_matmul_launches"]},
+                             "train_2d": t2["block_matmul_launches"],
+                             "train_2d_mesh": mesh_launches["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "max_abs_err": max(worst, bwd_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1
@@ -1332,8 +1718,12 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wx.cu",
         "replaces": "src/repro/kernels/fused_ring.py:521",
-        "launches": t2["wx_launches"],
-        "launches_by_path": {"train_2d": t2["wx_launches"]},
+        "launches": t2["wx_launches"] + sum(mesh_launches["wx_fwd"])
+        + sum(mesh_launches["wx_dx"]),
+        "launches_by_path": {
+            "train_2d": t2["wx_launches"],
+            "train_2d_mesh": [a + b for a, b in zip(mesh_launches["wx_fwd"],
+                                                    mesh_launches["wx_dx"])]},
         "max_abs_err": wx_worst,
         # times: the 18 wx launches of one 2-D training sample-step at q = 1
         # and r = 1 (batch 1): the 12 forward-layout launches (forward and
@@ -1347,7 +1737,27 @@ def main():
         "library_ms": per_wx_step("library_ms"),
         "shapes": wx_rows,
     }, dict(ring_entry("fwd", 214), shapes=ring_rows),
-        ring_entry("bwd", 314)])
+        ring_entry("bwd", 314), {
+        "name": "cannon",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cannon.cu",
+        "replaces": "src/repro/kernels/fused_ring.py:650",
+        "launches": sum(mesh_launches["cannon"]),
+        "launches_by_path": {"train_2d_mesh": mesh_launches["cannon"]},
+        "max_abs_err": cannon_worst,
+        # times: one rank's 24 Cannon launches of a 2-D training
+        # sample-step on the 2x2 mesh at r = 1 (batch 1): 12 loops of q = 2
+        # steps, 6 of each token-mix linear (forward and the checkpoint's
+        # rerun); a hop is an HBM store on one card
+        "ms": per_cannon_step("kernel_ms"),
+        "plain_ms": per_cannon_step("plain_ms"),
+        "bound_ms": per_cannon_step("bound_ms"),
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in cannon_rows) else "bytes"),
+        # torch.baddbmm per step (no hops)
+        "library_ms": per_cannon_step("library_ms"),
+        "shapes": cannon_rows,
+    }])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
@@ -1359,6 +1769,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--train-1d-rank"]:
             sys.exit(train_1d_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--train-2d-rank"]:
+            sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

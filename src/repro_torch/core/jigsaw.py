@@ -47,9 +47,11 @@ The wire carries the operands in their (policy-cast) dtype; the q-step
 accumulator is ``accum_dtype``.  Differentiable: each rotation's backward
 is the opposite rotation.
 
-``kernel="pallas"`` runs each step on the port's kernels (block_matmul for
-``_2d``, wx for ``_2d_t``); ``kernel="xla"`` runs plain PyTorch products
-accumulated in ``accum_dtype``, as the reference's dot_general.
+``kernel="pallas"`` runs the steps on the port's kernels: block_matmul for
+``_2d``, and for ``_2d_t`` ``fused_ring.fused_cannon_t`` (at q > 1 on the
+card the Cannon kernel, the rotations between steps in-kernel; at q = 1 one
+wx launch); ``kernel="xla"`` runs plain PyTorch products accumulated in
+``accum_dtype``, as the reference's dot_general.
 """
 from __future__ import annotations
 
@@ -234,9 +236,9 @@ def jigsaw_matmul_2d_t(x: torch.Tensor, w: torch.Tensor, *, mesh: Mesh,
     wl = comm.rotate(w, mesh.tp_group, mesh.i)    # W(i, (j + i) % q)
     xl = comm.rotate(x, mesh.dom_group, mesh.j)   # X((i + j) % q, j)
     if kernel == "pallas":
-        return fused_ring.cannon_t_loop(wl, xl, dom_group=mesh.dom_group,
-                                        tp_group=mesh.tp_group, q=mesh.q,
-                                        accum_dtype=accum_dtype)
+        return fused_ring.fused_cannon_t(
+            wl, xl, dom_group=mesh.dom_group, tp_group=mesh.tp_group,
+            model_group=mesh.model_group, q=mesh.q, accum_dtype=accum_dtype)
 
     def mm(wb, xb):
         dt = accum_dtype or xb.dtype

@@ -93,21 +93,24 @@ def replicated_axes(spec: Spec, rules: ShardingRules = RULES_2D
     return tuple(a for a in rules.model_axes if a not in spec)
 
 
+def block_range(mesh, axis: Optional[str], n: int) -> Tuple[int, int]:
+    """[start, stop) of the rank's block of a dim of ``n`` cut along
+    ``axis`` (None: the whole dim), on either mesh."""
+    if axis is None:
+        return 0, n
+    parts = mesh.extent(axis)
+    if n % parts:
+        raise ValueError(f"a dim of {n} is not divisible by the mesh "
+                         f"extent {parts}")
+    c, size = mesh.coord(axis), n // parts
+    return c * size, (c + 1) * size
+
+
 def _block(mesh, x, spec: Spec):
     """The rank's contiguous block of the whole array ``x`` (numpy or
     torch; a view) under ``spec``, on either mesh."""
-    index = []
-    for d, axis in enumerate(spec):
-        if axis is None:
-            index.append(slice(None))
-            continue
-        n, parts = x.shape[d], mesh.extent(axis)
-        if n % parts:
-            raise ValueError(f"dim {d} of {tuple(x.shape)} is not "
-                             f"divisible by the mesh extent {parts}")
-        c, size = mesh.coord(axis), n // parts
-        index.append(slice(c * size, (c + 1) * size))
-    return x[tuple(index)]
+    return x[tuple(slice(*block_range(mesh, axis, n))
+                   for axis, n in zip(spec, x.shape))]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -1,13 +1,21 @@
-"""The input pipeline on one device: synthetic weather batches made on the
-host, copied to the device, and prefetched by a background thread (the
-one-device part, ``mesh=None``, of ``repro/data/pipeline.py``).
+"""The input pipeline: synthetic weather batches made on the host, copied to
+the device, and prefetched by a background thread (the port of
+``repro/data/pipeline.py``; one process is one rank).
+
+On one device (``mesh=None``) both modes read the whole batch.  On a mesh
+``"sync-full"`` makes the whole batch on every rank (the model cuts its
+block), and ``"sharded"`` reads only this rank's block (paper §5: every
+model-parallel rank loads its slice): the ``_ReadPlan`` of each key lists
+the boxes of the grid whose pixels make up the block that
+``models/weathermixer.py::field_block`` cuts from the patchified fields
+(``launch/specs.py::batch_specs``), and the pipeline hands the model that
+block, [B, T/q, p*p*C/q] under 2-D, [B, T, p*p*C/p] under 1-D, bit-equal
+to cutting the whole batch.  A token band need not be whole patch rows, so
+a block is up to three boxes of patches by up to five of in-patch pixels.
+``PipelineStats`` counts the bytes each rank reads.
 
 Batches are a pure function of (seed, step, horizon); the prefetch thread
-changes timing only, never values.  On one device the reference's two modes
-read the same full batch, so ``"sharded"`` and ``"sync-full"`` are both
-accepted and give identical batches.  The per-rank read plans of the
-domain-parallel path (each model-parallel rank reading only its slice of
-the grid) come with the multi-GPU slice (ROADMAP.md, queue 1 item 6).
+changes timing only, never values.
 
 On a CUDA device the prefetch thread copies each batch on a side stream
 from pinned host memory and waits for the copy, so the training stream
@@ -16,54 +24,225 @@ never waits on a host-to-device transfer it did not ask for.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import queue
 import threading
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import telemetry
+from repro_torch.core.sharding import Spec, block_range
 from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
+from repro_torch.launch.specs import batch_specs
 
 MODES = ("sharded", "sync-full")
 
 
+# ---------------------------------------------------------------------------
+# Stats
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PipelineStats:
+    """Host-side read accounting, updated by the pipeline once per batch:
+    ``rank_bytes[key][rank]``, the bytes each rank read (``rank`` = i * q +
+    j on the mesh, -1 for a whole-batch read): what ``io_bytes_per_rank``
+    models.  One process is one rank, so every byte read was made here
+    (the reference's ``generated_bytes`` deduplicates the reads of the
+    devices one host feeds, and has no counterpart).
+
+    ``record_batch`` applies one batch's reads under the tracer's lock and
+    adds the totals to its counters in the same critical section, so the
+    prefetch worker and a reader never see half a batch."""
+    steps: int = 0
+    plan_builds: int = 0
+    rank_bytes: Dict[str, Dict[int, int]] = dataclasses.field(
+        default_factory=dict)
+
+    def record_batch(self, reads: Sequence[Tuple[str, int, int]],
+                     steps: int = 0, plan_builds: int = 0) -> None:
+        """Apply read records ``(key, rank, nbytes)``."""
+        total = 0
+        tr = telemetry.get_tracer()
+        with tr.lock:
+            self.steps += steps
+            self.plan_builds += plan_builds
+            for key, rank, nbytes in reads:
+                per = self.rank_bytes.setdefault(key, {})
+                per[rank] = per.get(rank, 0) + nbytes
+                total += nbytes
+            updates = {"pipeline.batches": steps,
+                       "pipeline.plan_builds": plan_builds,
+                       "pipeline.read_bytes": total}
+            tr.add_counters_locked({k: v for k, v in updates.items() if v})
+
+
+# ---------------------------------------------------------------------------
+# The read plan of a rank's block
+# ---------------------------------------------------------------------------
+
+def _boxes(lo: int, hi: int, shape: Sequence[int]
+           ) -> List[Tuple[Tuple[int, int], ...]]:
+    """The flat range [lo, hi) of a row-major array of ``shape`` as boxes,
+    each a (start, stop) per dim, in order; each box is a contiguous run of
+    the flat range."""
+    if lo >= hi:
+        return []
+    if len(shape) == 1:
+        return [((lo, hi),)]
+    inner = math.prod(shape[1:])
+    (a0, r0), (a1, r1) = divmod(lo, inner), divmod(hi, inner)
+    rest = tuple((0, n) for n in shape[1:])
+    if a0 == a1:
+        return [((a0, a0 + 1),) + b for b in _boxes(r0, r1, shape[1:])]
+    out = []
+    if r0:
+        out += [((a0, a0 + 1),) + b for b in _boxes(r0, inner, shape[1:])]
+        a0 += 1
+    if a1 > a0:
+        out.append(((a0, a1),) + rest)
+    if r1:
+        out += [((a1, a1 + 1),) + b for b in _boxes(0, r1, shape[1:])]
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Read:
+    """One box of the grid: its lat, lon and channel indices, and where its
+    pixels land in the block: ``tokens`` and ``cols`` (slices of the
+    block's token and patch dims) and ``dims`` = (patch rows, in-patch
+    rows, patch cols, in-patch cols, channels)."""
+    lat: np.ndarray
+    lon: np.ndarray
+    chan: np.ndarray
+    tokens: slice
+    cols: slice
+    dims: Tuple[int, int, int, int, int]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _ReadPlan:
+    """This rank's reads for a batch spec: the block's shape
+    [B, tokens, patch dim] and the boxes that fill it.  Built once per
+    pipeline and spec (specs and shapes are step-invariant), so the keys
+    of one spec share it."""
+    shape: Tuple[int, int, int]
+    reads: Tuple[_Read, ...]
+
+
+def read_plan(spec: Spec, mesh, batch: int, lat: int, lon: int,
+              channels: int, patch: int) -> _ReadPlan:
+    """The boxes of the [B, lat, lon, C] grid whose pixels make up this
+    rank's block under ``spec`` of the patchified fields [B, T, p*p*C]
+    (``weathermixer.patchify``: tokens patch-row-major, the patch dim
+    [in-patch row, in-patch col, channel])."""
+    p = patch
+    grid = (lat // p, lon // p)
+    t0, t1 = block_range(mesh, spec[1], grid[0] * grid[1])
+    k0, k1 = block_range(mesh, spec[2], p * p * channels)
+    reads = []
+    for (a0, a1), (b0, b1) in _boxes(t0, t1, grid):
+        for (i0, i1), (j0, j1), (c0, c1) in _boxes(k0, k1,
+                                                   (p, p, channels)):
+            tok = a0 * grid[1] + b0 - t0
+            col = (i0 * p + j0) * channels + c0 - k0
+            dims = (a1 - a0, i1 - i0, b1 - b0, j1 - j0, c1 - c0)
+            reads.append(_Read(
+                lat=(np.arange(a0, a1)[:, None] * p
+                     + np.arange(i0, i1)).reshape(-1),
+                lon=(np.arange(b0, b1)[:, None] * p
+                     + np.arange(j0, j1)).reshape(-1),
+                chan=np.arange(c0, c1),
+                tokens=slice(tok, tok + dims[0] * dims[2]),
+                cols=slice(col, col + dims[1] * dims[3] * dims[4]),
+                dims=dims))
+    return _ReadPlan((batch, t1 - t0, k1 - k0), tuple(reads))
+
+
+# ---------------------------------------------------------------------------
+# Batch source
+# ---------------------------------------------------------------------------
+
 class WeatherBatchSource:
-    """ERA5-like fields and their target ``horizon`` steps ahead."""
+    """ERA5-like fields and their target ``horizon`` steps ahead: the whole
+    batch, or a rank's block of the patchified fields (``patch``: the
+    model's patch size)."""
 
     keys = ("fields", "target")
 
-    def __init__(self, ds: WeatherDataset, batch_size: int):
+    def __init__(self, ds: WeatherDataset, batch_size: int, patch: int):
         self.ds = ds
         self.batch_size = batch_size
+        self.patch = patch
+        self._memo_key: Any = None
+        self._memo: Dict[str, np.ndarray] = {}
 
     def full_batch(self, step: int, horizon: int) -> Dict[str, np.ndarray]:
         return self.ds.sample_batch(step, self.batch_size, horizon=horizon)
 
+    def plan(self, spec: Spec, mesh) -> _ReadPlan:
+        c = self.ds.cfg
+        return read_plan(spec, mesh, self.batch_size, c.lat, c.lon,
+                         c.channels, self.patch)
+
+    def read_key(self, key: str, step: int, horizon: int,
+                 plan: _ReadPlan) -> np.ndarray:
+        """``key``'s block under ``plan``; fields and target share one
+        plan, so one read of its boxes serves both (memoised per step)."""
+        if self._memo_key != (step, horizon, plan):
+            self._memo_key = (step, horizon, plan)
+            self._memo = {k: np.empty(plan.shape, np.float32)
+                          for k in self.keys}
+            got = self.ds.sample_index(
+                step, self.batch_size,
+                [(r.lat, r.lon, r.chan) for r in plan.reads], horizon)
+            for r, box in zip(plan.reads, got):
+                na, ni, nb, nj, nc = r.dims
+                for k, v in box.items():
+                    self._memo[k][:, r.tokens, r.cols] = (
+                        v.reshape(-1, na, ni, nb, nj, nc)
+                        .transpose(0, 1, 3, 2, 4, 5)
+                        .reshape(-1, na * nb, ni * nj * nc))
+        return self._memo[key]
+
 
 class InputPipeline:
-    """Prefetching input pipeline on one device.
+    """Domain-parallel, prefetching input pipeline.
 
+    ``mesh``: this rank's ``Mesh`` or ``Mesh1D``, or None (one device);
+    ``specs``: the batch keys' specs over the patchified fields
+    (``launch/specs.py::batch_specs``), required with a mesh.
     ``prefetch`` is the number of batches the background thread keeps in
     flight (0: batches are made on the caller's thread).  ``cursor`` is the
     next step the pipeline will serve: batches are pure functions of the
     step, so it is the pipeline's whole state.
     """
 
-    def __init__(self, source: WeatherBatchSource, *, mode: str = "sharded",
-                 prefetch: int = 2, device="cuda"):
+    def __init__(self, source: WeatherBatchSource, *, mesh=None,
+                 specs: Optional[Dict[str, Spec]] = None,
+                 mode: str = "sharded", prefetch: int = 2, device="cuda"):
         if mode not in MODES:
             raise ValueError(f"unknown pipeline mode {mode!r} "
                              f"(expected one of {MODES})")
+        if mesh is not None and specs is None:
+            raise ValueError("specs required when a mesh is given")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("InputPipeline: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
         self.source = source
+        self.mesh = mesh
+        self.specs = specs or {}
+        self.rank = (-1 if mesh is None
+                     else mesh.dom_index * mesh.tp_size + mesh.tp_index)
         self.mode = mode
         self.prefetch = int(prefetch)
+        self.stats = PipelineStats()
         self.cursor = 0
+        self._plans: Dict[Spec, _ReadPlan] = {}
         self._queue: Optional[queue.Queue] = None
         self._stop_event: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
@@ -77,11 +256,37 @@ class InputPipeline:
     # -- device-side ----------------------------------------------------
     def get(self, step: int, horizon: int = 1) -> Dict[str, torch.Tensor]:
         """The batch for ``step`` on the pipeline's device, copied on the
-        current stream."""
-        out = {k: self._to_device(v)
-               for k, v in self.host_batch(step, horizon).items()}
-        telemetry.get_tracer().counter("pipeline.batches")
+        current stream: the whole batch, or on a mesh in ``"sharded"`` mode
+        this rank's block."""
+        reads: list = []
+        if self.mesh is None or self.mode == "sync-full":
+            host = self.host_batch(step, horizon)
+            if self.mesh is not None:
+                reads.extend((k, -1, v.nbytes) for k, v in host.items())
+        else:
+            host = {k: self._assemble(k, step, horizon, reads)
+                    for k in self.source.keys}
+        out = {k: self._to_device(v) for k, v in host.items()}
+        self.stats.record_batch(reads, steps=1)
         return out
+
+    def _plan_for(self, key: str) -> _ReadPlan:
+        """This rank's (cached) read plan for ``key``'s spec."""
+        spec = self.specs[key]
+        plan = self._plans.get(spec)
+        if plan is None:
+            plan = self._plans[spec] = self.source.plan(spec, self.mesh)
+            self.stats.record_batch([], plan_builds=1)
+        return plan
+
+    def _assemble(self, key: str, step: int, horizon: int,
+                  reads: list) -> np.ndarray:
+        """This rank's block of ``key`` from its plan's reads; the read's
+        record is appended to ``reads`` for the caller's one
+        ``record_batch``."""
+        block = self.source.read_key(key, step, horizon, self._plan_for(key))
+        reads.append((key, self.rank, block.nbytes))
+        return block
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -187,6 +392,14 @@ class InputPipeline:
         return not alive
 
 
+    # -- modeled I/O -----------------------------------------------------
+    def io_bytes_per_rank(self, n_ranks: int) -> int:
+        """Modeled bytes per rank per step of one key (the dataset's model;
+        held against ``stats.rank_bytes`` in the tests)."""
+        return self.source.ds.io_bytes_per_rank(self.source.batch_size,
+                                                n_ranks)
+
+
 def make_source(cfg, batch_size: int, seed: int = 0) -> WeatherBatchSource:
     """The batch source of a mixer-family ModelConfig."""
     if cfg.family != "mixer":
@@ -196,11 +409,15 @@ def make_source(cfg, batch_size: int, seed: int = 0) -> WeatherBatchSource:
     ds = WeatherDataset(WeatherDataConfig(
         lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
         seed=seed))
-    return WeatherBatchSource(ds, batch_size)
+    return WeatherBatchSource(ds, batch_size, patch=cfg.wm_patch)
 
 
 def make_pipeline(cfg, *, batch_size: int, mode: str = "sharded",
-                  prefetch: int = 2, seed: int = 0,
-                  device="cuda") -> InputPipeline:
-    return InputPipeline(make_source(cfg, batch_size, seed=seed), mode=mode,
-                         prefetch=prefetch, device=device)
+                  prefetch: int = 2, seed: int = 0, device="cuda",
+                  mesh=None) -> InputPipeline:
+    """The pipeline of a mixer-family ModelConfig; on a ``mesh`` its
+    batches are laid out by ``launch/specs.py::batch_specs``."""
+    specs = None if mesh is None else batch_specs(cfg, mesh.rules)
+    return InputPipeline(make_source(cfg, batch_size, seed=seed), mesh=mesh,
+                         specs=specs, mode=mode, prefetch=prefetch,
+                         device=device)

@@ -105,6 +105,37 @@ class WeatherDataset:
                           np.arange(self.cfg.lon),
                           np.arange(self.cfg.channels), 0.0)
 
+    def _noise(self, step: int, batch_size: int) -> np.ndarray:
+        """The target's noise over the whole grid: one draw per step, as in
+        ``sample_batch``."""
+        c = self.cfg
+        r = np.random.default_rng(np.random.SeedSequence([c.seed, 999, step]))
+        return r.normal(size=(batch_size, c.lat, c.lon, c.channels)
+                        ).astype(np.float32)
+
+    def sample_index(self, step: int, batch_size: int, boxes,
+                     horizon: int = 1, rows=slice(None)) -> list:
+        """Domain-parallel read by index arrays: for each box ``(lat_ix,
+        lon_ix, chan_ix)`` of the grid, the fields and target of the
+        ``rows`` of the batch at those points, [b, len(lat_ix),
+        len(lon_ix), len(chan_ix)], bit-equal to indexing
+        ``sample_batch(..., horizon=horizon)``'s with ``np.ix_``; only the
+        boxes are evaluated.  The noise is per full grid (regenerated, once
+        for all boxes, and indexed)."""
+        idx = (np.arange(batch_size, dtype=np.int64)
+               + step * batch_size)[rows]
+        noise = self._noise(step, batch_size)[rows] if self.cfg.noise \
+            else None
+        out = []
+        for lat, lon, ch in boxes:
+            x = self._eval(idx, lat, lon, ch, 0.0)
+            y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase)
+            if noise is not None:
+                y = y + self.cfg.noise * noise[np.ix_(np.arange(len(idx)),
+                                                      lat, lon, ch)]
+            out.append({"fields": x, "target": y})
+        return out
+
     def sample_shard(self, step: int, batch_size: int,
                      lon_slice: slice = slice(None),
                      chan_slice: slice = slice(None),
@@ -114,27 +145,14 @@ class WeatherDataset:
         """Domain-parallel read: only the (lon, channel) partition this
         model-parallel rank owns (paper §5 "Data loading"), and only the
         ``row_slice`` rows of the global batch this data-parallel rank
-        owns.  Identical to slicing ``sample_batch(..., horizon=horizon)``
-        (property-tested), but touches only the sliced portion of the
-        grid.  ``horizon`` must match ``sample_batch``'s for rollout
-        fine-tuning targets to agree."""
-        idx = (np.arange(batch_size, dtype=np.int64)
-               + step * batch_size)[row_slice]
-        lat = np.arange(self.cfg.lat)[lat_slice]
-        lon = np.arange(self.cfg.lon)[lon_slice]
-        ch = np.arange(self.cfg.channels)[chan_slice]
-        x = self._eval(idx, lat, lon, ch, 0.0)
-        y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase)
-        if self.cfg.noise:
-            # noise is per-full-grid; regenerate and slice for consistency
-            r = np.random.default_rng(
-                np.random.SeedSequence([self.cfg.seed, 999, step]))
-            full = self.cfg
-            n = r.normal(size=(batch_size, full.lat, full.lon,
-                               full.channels)).astype(np.float32)
-            y = y + self.cfg.noise * n[row_slice][:, lat_slice][
-                :, :, lon_slice, chan_slice]
-        return {"fields": x, "target": y}
+        owns (``sample_index`` of one box).  Identical to slicing
+        ``sample_batch(..., horizon=horizon)``, but touches only the sliced
+        portion of the grid."""
+        c = self.cfg
+        box = (np.arange(c.lat)[lat_slice], np.arange(c.lon)[lon_slice],
+               np.arange(c.channels)[chan_slice])
+        return self.sample_index(step, batch_size, [box], horizon,
+                                 rows=row_slice)[0]
 
     def io_bytes_per_rank(self, batch_size: int, n_ranks: int) -> int:
         """Modeled I/O volume per rank per step (for the Fig-7 roofline's

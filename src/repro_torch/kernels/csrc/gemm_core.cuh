@@ -1,5 +1,6 @@
 // gemm_core.cuh -- the tile main loops shared by the port's GEMM kernels
-// (block_matmul.cu, wx.cu): one [128 x 128] f32 tile of A @ B.T, with
+// (block_matmul.cu, wx.cu, ring.cu, cannon.cu): one [128 x 128] f32 tile of
+// A @ B.T, with
 // A [M, K] read from `a`, stored [M, K] (K contiguous) or [K, M] (AT), and
 // B [N, K] read from `b`, stored [N, K] or [K, N] (BT).  The kernels add
 // their own epilogues.
@@ -18,6 +19,8 @@
 //   * The K order of every output element is fixed by K alone (the same
 //     k-tiles in the same order, no split-K), so a row does not depend on
 //     how many rows share the launch, and results repeat bit for bit.
+//   * copy_bytes: the hop of a ring or Cannon step, done by the launch's
+//     copy blocks beside its GEMM blocks.
 
 #pragma once
 
@@ -282,6 +285,36 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ a,
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// copies: a step's hop into a peer's receive slot
+// ---------------------------------------------------------------------------
+
+// Blocks [0, nblocks) of a launch's copy part copy nbytes from src to dst:
+// 16 bytes a thread where vec16 (nbytes, src and dst 16-byte aligned), else
+// 2 bytes a thread (nbytes even).  blockDim.x threads each.
+__device__ __forceinline__ void copy_bytes(const void* src, void* dst,
+                                           size_t nbytes, int vec16, int blk,
+                                           int nblocks) {
+  const size_t stride = size_t(nblocks) * blockDim.x;
+  const size_t start = size_t(blk) * blockDim.x + threadIdx.x;
+  if (vec16) {
+    const int4* s = static_cast<const int4*>(src);
+    int4* d = static_cast<int4*>(dst);
+    for (size_t i = start; i < nbytes / 16; i += stride) d[i] = s[i];
+  } else {
+    const unsigned short* s = static_cast<const unsigned short*>(src);
+    unsigned short* d = static_cast<unsigned short*>(dst);
+    for (size_t i = start; i < nbytes / 2; i += stride) d[i] = s[i];
+  }
+}
+
+// Copy blocks for nbytes: up to 2 per SM, 256 threads of 16 bytes each.
+inline int copy_blocks(size_t nbytes) {
+  const size_t per = size_t(THREADS) * 16;
+  const size_t n = (nbytes + per - 1) / per;
+  return int(n < 264 ? n : 264);
 }
 
 }  // namespace gemm

@@ -120,23 +120,6 @@ __device__ __forceinline__ void dx_store(float v, float* dx_acc, T* dx,
   if (last) dx[o] = from_float<T>(v);
 }
 
-// Blocks [0, nblocks) of the copy part copy cur to fwd (nbytes bytes).
-__device__ __forceinline__ void copy_part(const void* src, void* dst,
-                                          size_t nbytes, int vec16, int blk,
-                                          int nblocks) {
-  const size_t stride = size_t(nblocks) * blockDim.x;
-  const size_t start = size_t(blk) * blockDim.x + threadIdx.x;
-  if (vec16) {
-    const int4* s = static_cast<const int4*>(src);
-    int4* d = static_cast<int4*>(dst);
-    for (size_t i = start; i < nbytes / 16; i += stride) d[i] = s[i];
-  } else {
-    const unsigned short* s = static_cast<const unsigned short*>(src);
-    unsigned short* d = static_cast<unsigned short*>(dst);
-    for (size_t i = start; i < nbytes / 2; i += stride) d[i] = s[i];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through WMMA (gemm::bf16_tile)
 // ---------------------------------------------------------------------------
@@ -173,7 +156,7 @@ ring_bwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wj,
   const int tiles_n = (D + gemm::BN - 1) / gemm::BN;
   int b = blockIdx.x;
   if (b >= n_dw + n_dx) {
-    copy_part(cur, fwd, size_t(R) * MC * sizeof(bf16), vec16,
+    gemm::copy_bytes(cur, fwd, size_t(R) * MC * sizeof(bf16), vec16,
               b - n_dw - n_dx, n_copy);
     return;
   }
@@ -283,7 +266,7 @@ ring_bwd_f32_kernel(const float* __restrict__ x,
   const int tiles_n = (D + gemm::FBN - 1) / gemm::FBN;
   int b = blockIdx.x;
   if (b >= n_dw + n_dx) {
-    copy_part(cur, fwd, size_t(R) * MC * sizeof(float), vec16,
+    gemm::copy_bytes(cur, fwd, size_t(R) * MC * sizeof(float), vec16,
               b - n_dw - n_dx, n_copy);
     return;
   }
@@ -319,13 +302,6 @@ ring_bwd_f32_kernel(const float* __restrict__ x,
 // Tiles of a GEMM with R x C outputs in tiles of T x T.
 inline int tiles(int rows, int cols, int t) {
   return ((rows + t - 1) / t) * ((cols + t - 1) / t);
-}
-
-// Copy blocks for nbytes: up to 2 per SM, 256 threads of 16 bytes each.
-inline int copy_blocks(size_t nbytes) {
-  const size_t per = size_t(gemm::THREADS) * 16;
-  const size_t n = (nbytes + per - 1) / per;
-  return int(n < 264 ? n : 264);
 }
 
 }  // namespace
@@ -376,7 +352,7 @@ extern "C" int ring_bwd_bf16(const void* x, const void* w, const void* cur,
   const int n_dw = tiles(MC, D, gemm::BM);
   const int n_dx = dx_acc != nullptr ? tiles(R, D, gemm::BM) : 0;
   const int n_copy =
-      fwd != nullptr ? copy_blocks(size_t(R) * MC * sizeof(bf16)) : 0;
+      fwd != nullptr ? gemm::copy_blocks(size_t(R) * MC * sizeof(bf16)) : 0;
   switch (vec_bytes) {
     case 16: return launch_bwd_bf16<8>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
     case 8: return launch_bwd_bf16<4>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
@@ -396,7 +372,7 @@ extern "C" int ring_bwd_f32(const void* x, const void* w, const void* cur,
   const int n_dw = tiles(MC, D, gemm::FBM);
   const int n_dx = dx_acc != nullptr ? tiles(R, D, gemm::FBM) : 0;
   const int n_copy =
-      fwd != nullptr ? copy_blocks(size_t(R) * MC * sizeof(float)) : 0;
+      fwd != nullptr ? gemm::copy_blocks(size_t(R) * MC * sizeof(float)) : 0;
   ring_bwd_f32_kernel<<<n_dw + n_dx + n_copy, gemm::FTHREADS, 0, s>>>(
       static_cast<const float*>(x), wj, static_cast<const float*>(cur),
       static_cast<float*>(fwd), static_cast<float*>(dx_acc),

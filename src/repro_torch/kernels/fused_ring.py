@@ -1,8 +1,8 @@
 """The port of ``repro/kernels/fused_ring.py``: the 1-D ring as one
 operation per ring (``fused_ring_matmul``, ``impl="ring_fused"``) on the
-ring step kernels, and the transposed Cannon on the wx kernel
-(``cannon_t_step``, the custom VJP ``_wx_acc``, and ``cannon_t_loop``, the
-form ``fused_cannon_t`` takes everywhere but on a TPU).
+ring step kernels, and the transposed Cannon: its step on the wx kernel
+(``cannon_t_step``, the custom VJP ``_wx_acc``, ``cannon_t_loop``) and the
+whole loop on the Cannon kernel (``fused_cannon_t``).
 
 ``fused_ring_matmul`` is an ``autograd.Function``.  On the card its forward
 is the p launches of the forward step kernel (``kernels/ring.py``, one per
@@ -18,14 +18,19 @@ reference falls back from its TPU kernel to the chunk walk above a VMEM
 budget (12 MiB, every full-width linear); here a CUDA tensor launches the
 kernels or raises (the workspace guard: ``ring.WORKSPACE_BUDGET_BYTES``).
 
-Each multiply-accumulate step ``acc + w @ x`` is one launch of the wx
-kernel (``kernels/wx.py``), and its backward runs the reference's VJP:
-dx through the same kernel, dw through block_matmul.  The rotations
-between steps are ``core/comm.rotate``.  The reference's other form, the
-whole q-step loop as one TPU kernel with the rotations as in-kernel remote
-copies (``_cannon_kernel``), is not ported: its Hopper counterpart needs
-the rotations over NVLink during the step kernel (ROADMAP.md, queue 2
-item 5).
+In the step loop (``cannon_t_loop``) each multiply-accumulate step
+``acc + w @ x`` is one launch of the wx kernel (``kernels/wx.py``), and its
+backward runs the reference's VJP: dx through the same kernel, dw through
+block_matmul; the rotations between steps are ``core/comm.rotate``.
+``fused_cannon_t`` (an ``autograd.Function``, the reference's
+``_fused_cannon``) is the loop as the token mix runs it: at q > 1 on a CUDA
+tensor its forward is the q launches of the Cannon kernel
+(``kernels/cannon.py``), each step's rotations in-kernel stores into the
+predecessors' receive slots, and it raises rather than run the step loop
+there (``cannon_path``); at q = 1 it is the step loop itself, and on the
+CPU its forward is the step loop.  Its backward is the reference's
+``_fused_cannon_bwd``: the VJP of the step loop, recomputed on the saved
+skewed operands, so its gradients are the step loop's bit for bit.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import comm
-from repro_torch.kernels import ops, ring
+from repro_torch.kernels import cannon, ops, ring
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.wx import wx
 
@@ -130,7 +135,7 @@ def _card_forward(x2, w, group, p, me, accum_dtype):
         stream.synchronize()          # the slot discipline of ring.cu
         comm.barrier(group)
         prev = None if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype)
-        dest = out if s == p - 1 else ws.succ(s % 2, shape, x2.dtype)
+        dest = out if s == p - 1 else ws.peer(s % 2, shape, x2.dtype)
         ring.ring_fwd(x2, w, (me - 1 - s) % p, prev, dest,
                       accum_dtype=accum_dtype)
     return out
@@ -156,7 +161,7 @@ def _card_backward(x2, w, dy2, group, p, me, need_dx):
         stream.synchronize()
         comm.barrier(group)
         cur = dy2 if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype)
-        fwd = ws.succ(s % 2, shape, x2.dtype) if s < p - 1 else None
+        fwd = ws.peer(s % 2, shape, x2.dtype) if s < p - 1 else None
         ring.ring_bwd(x2, w, (me - s) % p, cur, fwd, dw, dx_acc, dx,
                       first=s == 0, last=s == p - 1)
     return dx, dw
@@ -298,3 +303,109 @@ def cannon_t_loop(wl: torch.Tensor, xl: torch.Tensor, *, dom_group,
         xl = comm.rotate(xl, dom_group, 1)
         acc = cannon_t_step(wl, xl, acc, accum_dtype=accum_dtype)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# the fused transposed Cannon: the q-step loop on the Cannon kernel
+# ---------------------------------------------------------------------------
+
+def cannon_footprint_bytes(ll: int, m_l: int, t_l: int, c_l: int,
+                           x_dtype: torch.dtype) -> int:
+    """Device memory the fused Cannon takes on the card beside its operands
+    and output: two receive slots for w's hops [m_l, t_l] and two for x's
+    [ll, t_l, c_l] (raw ``cudaMalloc``, rounded up to ``ring.SLOT_GRANULE``;
+    the reference's counts VMEM)."""
+    e = x_dtype.itemsize
+    return 2 * (ring.slot_bytes_for(m_l * t_l * e)
+                + ring.slot_bytes_for(ll * t_l * c_l * e))
+
+
+def cannon_path(ll: int, m_l: int, t_l: int, c_l: int, x_dtype: torch.dtype,
+                device) -> str:
+    """``"card"``: the Cannon kernel, on a CUDA device; ``"step"``: the step
+    loop, on the CPU.  On the card it raises when the slots of a hop would
+    exceed ``ring.WORKSPACE_BUDGET_BYTES`` (the reference falls back to the
+    step loop above its VMEM budget; here nothing falls back)."""
+    if torch.device(device).type != "cuda":
+        return "step"
+    e = x_dtype.itemsize
+    ring.check_budget(m_l * t_l * e)
+    ring.check_budget(ll * t_l * c_l * e)
+    return "card"
+
+
+def _card_cannon(w, x, dom_group, tp_group, model_group, q, out_dt):
+    """q launches of the Cannon kernel on this rank's skewed blocks w
+    [m, t] and x [L, t, c]: step s reads the blocks that arrived in slots
+    (s-1) % 2 (its own at s = 0), adds w @ x into the [L, m, c]
+    accumulator and, but at the last step, stores both into the
+    predecessors' slots s % 2 (w's in the mtp group, x's in the mdom
+    group)."""
+    out = torch.empty((x.shape[0], w.shape[0], x.shape[2]), dtype=out_dt,
+                      device=x.device)
+    w_ws = ring.workspace(tp_group, w.numel() * w.element_size(), x.device,
+                          peer=-1)
+    x_ws = ring.workspace(dom_group, x.numel() * x.element_size(), x.device,
+                          peer=-1)
+    stream = torch.cuda.current_stream(x.device)
+    for s in range(q):
+        stream.synchronize()          # the slot discipline of ring.cu
+        comm.barrier(model_group)
+        last = s == q - 1
+        cannon.cannon_step(
+            w if s == 0 else w_ws.own((s - 1) % 2, w.shape, w.dtype),
+            x if s == 0 else x_ws.own((s - 1) % 2, x.shape, x.dtype), out,
+            first=s == 0,
+            w_dest=None if last else w_ws.peer(s % 2, w.shape, w.dtype),
+            x_dest=None if last else x_ws.peer(s % 2, x.shape, x.dtype))
+    return out
+
+
+class _FusedCannon(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wl, xl, dom_group, tp_group, model_group, q,
+                accum_dtype):
+        ctx.save_for_backward(wl, xl)
+        ctx.args = dict(dom_group=dom_group, tp_group=tp_group, q=q,
+                        accum_dtype=accum_dtype)
+        lead, (t, c), m = xl.shape[:-2], xl.shape[-2:], wl.shape[0]
+        ll = math.prod(lead)
+        dt = torch.promote_types(wl.dtype, xl.dtype)
+        if cannon_path(ll, m, t, c, dt, xl.device) == "step":
+            return cannon_t_loop(wl, xl, **ctx.args)
+        y = _card_cannon(wl.to(dt).contiguous(),
+                         xl.to(dt).reshape(ll, t, c).contiguous(), dom_group,
+                         tp_group, model_group, q, accum_dtype or xl.dtype)
+        return y.reshape(*lead, m, c)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the reference's _fused_cannon_bwd: the VJP of the step loop,
+        # its forward recomputed on the saved skewed operands
+        wl, xl = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in
+                      zip((wl, xl), need)]
+            y = cannon_t_loop(*leaves, **ctx.args)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(leaves, need) if n], dy))
+        dw, dx = (next(grads) if n else None for n in need)
+        return dw, dx, None, None, None, None, None
+
+
+def fused_cannon_t(wl: torch.Tensor, xl: torch.Tensor, *, dom_group,
+                   tp_group, model_group, q: int,
+                   accum_dtype: Optional[torch.dtype] = torch.float32
+                   ) -> torch.Tensor:
+    """The transposed Cannon on already-skewed blocks (the reference's
+    ``fused_cannon_t``): w [m_l, t_l], x [..., t_l, c_l] -> [..., m_l, c_l]
+    in ``accum_dtype`` (x's dtype when None); differentiable.  At q > 1 on
+    the card the q steps and their 2 (q - 1) rotations run as q launches of
+    the Cannon kernel, with a barrier over ``model_group`` before each; at
+    q = 1, and on the CPU, the step loop (``cannon_t_loop``)."""
+    if q == 1:
+        return cannon_t_loop(wl, xl, dom_group=dom_group, tp_group=tp_group,
+                             q=q, accum_dtype=accum_dtype)
+    return _FusedCannon.apply(wl, xl, dom_group, tp_group, model_group, q,
+                              accum_dtype)

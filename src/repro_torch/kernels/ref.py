@@ -4,7 +4,7 @@ They are the oracles the kernels are held against on the card, and the path
 a kernel's wrapper takes for a tensor that lies on the CPU.  Each mirrors
 ``repro/kernels/ref.py`` (``wx_ref``: ``repro/kernels/fused_ring.py``'s
 ``_wx_raw``; the ring steps: one grid step of its ``_ring_fwd_kernel`` and
-``_ring_bwd_kernel``): f32 accumulation (bf16 products are exact in f32,
+``_ring_bwd_kernel``; ``cannon_ref``: its ``_cannon_kernel`` over a mesh): f32 accumulation (bf16 products are exact in f32,
 so an f32 product of the up-cast operands is the reference's
 ``preferred_element_type=float32``), bias added in f32, the activation in
 f32, one rounding to ``x.dtype``.  On the card this needs
@@ -179,3 +179,29 @@ def ring_bwd_all_ref(xs, ws, dys):
                 xs[r], ws[r][j * mc:(j + 1) * mc], cur[r], accs[r])
         cur = [cur[(r - 1) % p] for r in range(p)]
     return [a.to(x.dtype) for a, x in zip(accs, xs)], dws, accs
+
+
+def cannon_walk_all(step, ws, xs, q: int):
+    """The transposed Cannon of the q x q ranks of a mesh held in one
+    process, the rotations done by indexing: rank r = i * q + j starts with
+    its skewed blocks ``ws[r]``, ``xs[r]`` and at step s holds those of
+    ranks (i, j + s) (w, rotated along mtp) and (i + s, j) (x, along mdom);
+    ``step(w, x, acc)`` is one multiply-accumulate (acc None at s = 0).
+    Returns every rank's accumulator."""
+    accs = [None] * (q * q)
+    for s in range(q):
+        for r in range(q * q):
+            i, j = divmod(r, q)
+            accs[r] = step(ws[i * q + (j + s) % q],
+                           xs[(i + s) % q * q + j], accs[r])
+    return accs
+
+
+def cannon_ref(ws, xs, q: int, accum_dtype: torch.dtype = torch.float32):
+    """The plain transposed Cannon of q x q ranks (``_cannon_kernel``'s
+    function): ``acc += w @ x`` in f32 over the q steps, rounded once to
+    ``accum_dtype``; w [M, K], x [L, K, N] -> [L, M, N] per rank."""
+    def step(w, x, acc):
+        y = torch.matmul(w.float(), x.float())
+        return y if acc is None else acc + y
+    return [a.to(accum_dtype) for a in cannon_walk_all(step, ws, xs, q)]

@@ -1,6 +1,8 @@
 """The 1-D Jigsaw ring steps: the wrappers of the hand-written Hopper kernels
 ``csrc/ring.cu``, the receive slots those kernels write into, and the
-per-group workspace that holds a rank's slots and its successor's.
+per-group workspace that holds a rank's slots and those of the peer it
+writes to (the ring's successor, or the transposed Cannon's predecessor:
+``kernels/cannon.py``).
 
 The counterparts of ``repro/kernels/fused_ring.py::_ring_fwd_kernel`` and
 ``::_ring_bwd_kernel`` (Pallas TPU kernels: one ``pallas_call`` over the p
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import os
 from typing import Dict, Optional, Tuple, Union
 
@@ -91,10 +94,10 @@ def _raise_on(rc: int, what: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceBuffer:
-    """A row-major [rows, cols] buffer of ``dtype`` at ``ptr`` on the card
+    """A row-major buffer of ``shape`` and ``dtype`` at ``ptr`` on the card
     that torch does not own: a receive slot."""
     ptr: int
-    shape: Tuple[int, int]
+    shape: Tuple[int, ...]
     dtype: torch.dtype
     device: torch.device
 
@@ -113,25 +116,27 @@ def _addr(b: Optional[Buffer]) -> Optional[int]:
 
 def _vec_bytes(*operands: Buffer) -> int:
     """The widest global-load width (16, 8, 4 or 2 bytes) that every
-    operand's base address and row stride allow (``vec_bytes`` of
-    ``kernels/block_matmul.py``, for slots too)."""
+    contiguous operand's base address and row stride allow (``vec_bytes``
+    of ``kernels/block_matmul.py``, for slots too; a batch stride is a
+    multiple of the row stride)."""
     def ok(b, vb):
         es = torch.finfo(b.dtype).bits // 8
-        return _addr(b) % vb == 0 and b.shape[1] * es % vb == 0
+        return _addr(b) % vb == 0 and b.shape[-1] * es % vb == 0
     for vb in (16, 8, 4):
         if all(ok(b, vb) for b in operands):
             return vb
     return 2
 
 
-def _check_buffer(b: Buffer, name: str, shape, dtype, device) -> None:
+def _check_buffer(b: Buffer, name: str, shape, dtype, device,
+                  who: str = "ring") -> None:
     if tuple(b.shape) != tuple(shape) or b.dtype != dtype \
             or b.device != device:
-        raise ValueError(f"ring: {name} must be {list(shape)} {dtype} on "
+        raise ValueError(f"{who}: {name} must be {list(shape)} {dtype} on "
                          f"{device}; got {list(b.shape)} {b.dtype} on "
                          f"{b.device}")
     if not b.is_contiguous():
-        raise ValueError(f"ring: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def _check_operands(x, w, mc):
@@ -309,18 +314,21 @@ def ring_bwd_all(xs, ws, dys):
 
 class RingWorkspace:
     """This rank's two receive slots (one raw ``cudaMalloc`` of 2 x
-    ``slot_bytes``, exported for CUDA IPC) and its successor's, mapped into
-    this process by IPC.  Made collectively: every rank of ``group`` makes
-    its own at once, and the handles are exchanged over the group."""
+    ``slot_bytes``, exported for CUDA IPC) and those of the rank ``peer``
+    positions on in ``group`` (+1: the ring's successor; -1: the Cannon's
+    predecessor), mapped into this process by IPC.  Made collectively:
+    every rank of ``group`` makes its own at once, and the handles are
+    exchanged over the group."""
 
-    def __init__(self, group, slot_bytes: int, device: torch.device):
+    def __init__(self, group, slot_bytes: int, device: torch.device,
+                 peer: int = 1):
         build()
         lib = LIBRARY.lib
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.group, self.device = group, device
         self.slot_bytes = slot_bytes
-        self.own_ptr = self.succ_ptr = None
+        self.own_ptr = self.peer_ptr = None
         p, me = dist.get_world_size(group), dist.get_rank(group)
         handle = ctypes.create_string_buffer(lib.ring_ipc_handle_bytes())
         ptr = ctypes.c_void_p()
@@ -331,23 +339,23 @@ class RingWorkspace:
         peers = [None] * p
         dist.all_gather_object(peers, (handle.raw, os.getpid(), device.index),
                                group=group)
-        succ_handle, succ_pid, _ = peers[(me + 1) % p]
-        if succ_pid == os.getpid():
-            raise RuntimeError("ring slots: the successor rank lives in this "
+        peer_handle, peer_pid, _ = peers[(me + peer) % p]
+        if peer_pid == os.getpid():
+            raise RuntimeError("ring slots: the peer rank lives in this "
                                "process; IPC maps only another process's "
                                "memory")
-        sptr = ctypes.c_void_p()
-        rc = lib.ring_slots_open(device.index, succ_handle,
-                                 ctypes.byref(sptr))
+        pptr = ctypes.c_void_p()
+        rc = lib.ring_slots_open(device.index, peer_handle,
+                                 ctypes.byref(pptr))
         if rc != 0:
             lib.ring_slots_free(self.own_ptr)
             self.own_ptr = None
-            _raise_on(rc, "ring slots: cudaIpcOpenMemHandle of the "
-                          "successor's")
-        self.succ_ptr = sptr.value
+            _raise_on(rc, f"ring slots: cudaIpcOpenMemHandle of peer "
+                          f"{peer:+d}'s")
+        self.peer_ptr = pptr.value
 
     def _buffer(self, base: int, i: int, shape, dtype) -> DeviceBuffer:
-        nbytes = shape[0] * shape[1] * (torch.finfo(dtype).bits // 8)
+        nbytes = math.prod(shape) * (torch.finfo(dtype).bits // 8)
         if nbytes > self.slot_bytes:
             raise ValueError(f"ring slot of {self.slot_bytes} bytes holds "
                              f"no {list(shape)} {dtype}")
@@ -358,12 +366,12 @@ class RingWorkspace:
         """This rank's slot i (0 or 1), read at the step after it."""
         return self._buffer(self.own_ptr, i, shape, dtype)
 
-    def succ(self, i: int, shape, dtype) -> DeviceBuffer:
-        """The successor's slot i, written by this rank."""
-        return self._buffer(self.succ_ptr, i, shape, dtype)
+    def peer(self, i: int, shape, dtype) -> DeviceBuffer:
+        """The peer's slot i, written by this rank."""
+        return self._buffer(self.peer_ptr, i, shape, dtype)
 
     def close(self, collective: bool = True) -> None:
-        """Unmap the successor's slots, wait for the group (so that no rank
+        """Unmap the peer's slots, wait for the group (so that no rank
         still writes into this rank's), and free this rank's.  Collective;
         with ``collective=False`` (after an error, when the peers may be in
         another collective) only the unmap, and this rank's slots are left
@@ -371,10 +379,10 @@ class RingWorkspace:
         lib = LIBRARY.lib
         if collective:
             torch.cuda.synchronize(self.device)
-        if self.succ_ptr is not None:
-            _raise_on(lib.ring_slots_close(self.succ_ptr),
+        if self.peer_ptr is not None:
+            _raise_on(lib.ring_slots_close(self.peer_ptr),
                       "ring slots: cudaIpcCloseMemHandle")
-            self.succ_ptr = None
+            self.peer_ptr = None
         if not collective:
             return
         dist.barrier(group=self.group)
@@ -389,27 +397,37 @@ def slot_bytes_for(nbytes: int) -> int:
     return -(-nbytes // SLOT_GRANULE) * SLOT_GRANULE
 
 
-# one workspace per process group (its slots are reused by every ring call
-# of the group: the calls run one after the other on every rank)
-_WORKSPACES: Dict[object, RingWorkspace] = {}
+# one workspace per process group and peer (its slots are reused by every
+# call of the group: the calls run one after the other on every rank)
+_WORKSPACES: Dict[Tuple[object, int], RingWorkspace] = {}
 
 
-def workspace(group, nbytes: int, device: torch.device) -> RingWorkspace:
-    """The group's workspace with slots of at least ``nbytes``; made, or
-    remade larger, collectively (every rank of the group asks for the same
-    size at the same call).  Raises above ``WORKSPACE_BUDGET_BYTES``."""
-    ws = _WORKSPACES.get(group)
-    if ws is not None and ws.slot_bytes >= nbytes:
-        return ws
+def check_budget(nbytes: int) -> int:
+    """The slot size for a hop of ``nbytes``; raises when two such slots
+    exceed ``WORKSPACE_BUDGET_BYTES``."""
     size = slot_bytes_for(nbytes)
     if 2 * size > WORKSPACE_BUDGET_BYTES:
         raise ValueError(f"ring: two slots of {size} bytes exceed the "
                          f"workspace budget of {WORKSPACE_BUDGET_BYTES} "
                          f"bytes (a hop of {nbytes} bytes)")
+    return size
+
+
+def workspace(group, nbytes: int, device: torch.device,
+              peer: int = 1) -> RingWorkspace:
+    """The workspace of ``group`` whose peer is ``peer`` positions on, with
+    slots of at least ``nbytes``; made, or remade larger, collectively
+    (every rank of the group asks for the same size at the same call).
+    Raises above ``WORKSPACE_BUDGET_BYTES``."""
+    key = (group, peer)
+    ws = _WORKSPACES.get(key)
+    if ws is not None and ws.slot_bytes >= nbytes:
+        return ws
+    size = check_budget(nbytes)
     if ws is not None:
         ws.close()
-        del _WORKSPACES[group]
-    ws = _WORKSPACES[group] = RingWorkspace(group, size, device)
+        del _WORKSPACES[key]
+    ws = _WORKSPACES[key] = RingWorkspace(group, size, device, peer)
     return ws
 
 

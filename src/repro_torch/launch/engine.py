@@ -19,13 +19,14 @@ The engine owns
     and the span tracer (``data_wait`` / ``step`` / ``dispatch``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
-and raises when CUDA is asked for and absent.  On a mesh every rank makes
-the whole batch (``pipeline="sync-full"``) and takes its block, every rank
-computes the same loss and gradient norm, and rank 0 alone prints and
-writes the metrics.  Left for later slices (ROADMAP.md): checkpoints and
-resume, preemption, ZeRO-1 and a data axis (queue 1 item 8), per-rank
-reads (``pipeline="sharded"`` on a mesh, item 6) and the analytic cost
-model.  ``close()`` releases the ring's IPC workspaces (collective).
+and raises when CUDA is asked for and absent.  On a mesh each rank reads
+only its block of the batch (``pipeline="sharded"``, the default: paper
+§5), or makes the whole batch and takes its block (``"sync-full"``: the
+same blocks, bit for bit); every rank computes the same loss and gradient
+norm, and rank 0 alone prints and writes the metrics.  Left for later
+slices (ROADMAP.md): checkpoints and resume, preemption, ZeRO-1 and a data
+axis (queue 1 item 8) and the analytic cost model.  ``close()`` releases
+the ring's and the Cannon's IPC workspaces (collective).
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       config=EngineConfig(steps=10, batch=2, rollout=2,
@@ -74,8 +75,9 @@ class EngineConfig:
     precision: Optional[str] = None   # policy preset: fp32|bf16|bf16_pure;
                                # None = the config's own dtypes
     seed: int = 0
-    pipeline: str = "sharded"  # "sharded" | "sync-full" (same on 1 device;
-                               # a mesh takes "sync-full" only so far)
+    pipeline: str = "sharded"  # "sharded" (a rank reads its block) |
+                               # "sync-full" (the whole batch); the same
+                               # batches on 1 device
     prefetch: int = 2          # 0 disables the background thread
     metrics_out: Optional[str] = None
     metrics_format: str = "jsonl"  # "jsonl" (append per flush) | "json"
@@ -132,11 +134,6 @@ class TrainEngine:
                     f"TrainEngine: scheme={cfg.scheme!r} on a mesh leaves "
                     "the collectives to GSPMD in the reference, which has "
                     "no torch counterpart; pass scheme='1d' or '2d'")
-            if config.pipeline == "sharded":
-                raise NotImplementedError(
-                    "TrainEngine: per-rank reads (pipeline='sharded') on a "
-                    "mesh are not ported yet (ROADMAP.md, queue 1 item 6); "
-                    "pass pipeline='sync-full'")
             make = make_ring_mesh if cfg.scheme == "1d" else make_host_mesh
             self.mesh = make(model=mesh_model, device=self.device)
             if self.device.type == "cuda":
@@ -211,7 +208,8 @@ class TrainEngine:
     def _make_pipeline(self, prefetch: int) -> InputPipeline:
         return make_pipeline(self.cfg, batch_size=self.config.batch,
                              mode=self.config.pipeline, prefetch=prefetch,
-                             seed=self.config.seed, device=self.device)
+                             seed=self.config.seed, device=self.device,
+                             mesh=self.mesh)
 
     # -- single dispatch -------------------------------------------------
     def dispatch(self, batch, rollout_len: int = 1) -> Dict:
@@ -303,8 +301,9 @@ class TrainEngine:
         print(f"trace -> {c.trace} (+ {jsonl})")
 
     def close(self, collective: bool = True) -> None:
-        """Release what outlives the steps: the ring's IPC workspaces
-        (collective over the mesh; a no-op where no ring ran on the card).
+        """Release what outlives the steps: the ring's and the Cannon's IPC
+        workspaces (collective over the mesh; a no-op where neither ran on
+        the card).
         After an error, ``collective=False`` only unmaps the peers' slots:
         the peers may be waiting in another collective."""
         ring.release_workspaces(collective)

@@ -9,14 +9,16 @@ flags that are ported, plus ``--device`` and ``--init-params``).
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank (the
 launcher gives each its rank and the rendezvous; gloo on the CPU, NCCL on
-GPUs; under 1-D, ranks that share a card run under gloo):
+GPUs, gloo for ranks that share a card: four ranks of the 2x2 mesh fit on
+one H100).  Each rank reads only its block of the batch (``--pipeline
+sharded``, the default; ``sync-full`` makes the whole batch on every rank):
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
-      --scheme 1d --impl ring_fused --pipeline sync-full [--device cpu] ...
+      --scheme 1d --impl ring_fused [--device cpu] ...
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
-      --scheme 2d --pipeline sync-full [--device cpu] ...
+      --scheme 2d [--full] [--device cpu] ...
 
 ``--impl`` (1-D only) defaults to the config's own (weathermixer-1b:
 ``ring_chunked``).
@@ -92,8 +94,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pipeline", default="sharded",
                     choices=["sharded", "sync-full"],
-                    help="input read mode (identical batches on one "
-                         "device; a mesh takes sync-full)")
+                    help="input read mode: sharded = each rank reads its "
+                         "block; sync-full = every rank makes the whole "
+                         "batch (the same blocks)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model-parallel ranks (p for --scheme 1d, q*q for "
                          "2d), one process each")

@@ -235,7 +235,11 @@ def field_block(fields: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
                 ) -> torch.Tensor:
     """This rank's block of the patchified fields [B, lat, lon, C]: under
     2-D [B, T/q, p*p*C/q] (tokens cut along mdom, the patch dim along
-    mtp), under 1-D [B, T, p*p*C/p] (the patch dim cut)."""
+    mtp), under 1-D [B, T, p*p*C/p] (the patch dim cut).  A block already
+    cut ([B, tokens, patch dim]: what the sharded input pipeline hands
+    over, ``data/pipeline.py``) is returned as it is."""
+    if fields.dim() == 3:
+        return fields
     mesh = jcfg.rank_mesh
     return mesh.block(patchify(fields, cfg.wm_patch),
                       mesh.rules.act(3, domain_dim=1))
@@ -276,8 +280,8 @@ def apply(params, batch, cfg: ModelConfig,
     """batch: {"fields": [B, lat, lon, C]} -> (forecast, aux = 0).  The
     forecast has the fields' shape under ``scheme="none"``; under
     ``scheme="1d"`` / ``"2d"`` it is the rank's block in patch space
-    (``field_block``'s; every rank is handed the whole fields and takes its
-    block)."""
+    (``field_block``'s: the rank is handed the whole fields and takes its
+    block, or is handed its block)."""
     xin = batch["fields"]
     zero = torch.zeros((), dtype=torch.float32, device=xin.device)
     if jcfg.scheme in ("1d", "2d"):

@@ -1,6 +1,7 @@
 """The port's 2-D Jigsaw pieces against the JAX package's: the wx kernel's
-plain version and its autograd Function, the rotations and skews, the
-Cannon linears, and the parameter shards.
+plain version and its autograd Function, the Cannon kernel's wrapper and
+plain versions, the rotations and skews, the fused Cannon
+(``fused_cannon_t``) and the Cannon linears, and the parameter shards.
 
 The reference runs as its own tests run it: Pallas in interpret mode, and
 the 2x2 mesh on four host-emulated devices in a subprocess (this file run
@@ -31,6 +32,7 @@ from repro.models import weathermixer as RW
 from repro_torch.convert import (gather_params_2d, params_from_numpy,
                                  params_to_numpy, shard_params_2d)
 from repro_torch.core import tree as ptree
+from repro_torch.kernels import cannon as CANNON
 from repro_torch.kernels import fused_ring, ref
 from repro_torch.kernels import wx as WX
 
@@ -40,6 +42,20 @@ Q = 2
 B, N, D, M = 2, 12, 20, 16
 T, C, MT = 20, 12, 24
 KERNELS = ("xla", "pallas")
+
+
+def _fused_inputs():
+    """Global w [MT, T] (mdom, mtp), x and dy [B, T, C] / [B, MT, C]
+    (None, mdom, mtp): each rank's blocks are the fused Cannon's skewed
+    operands."""
+    rng = np.random.default_rng(11)
+    return dict(w=(rng.normal(size=(MT, T)) / T ** 0.5).astype(np.float32),
+                x=rng.normal(size=(B, T, C)).astype(np.float32),
+                dy=rng.normal(size=(B, MT, C)).astype(np.float32))
+
+
+_FUSED_SPECS = dict(w=((0, 0), (1, 1)), x=((1, 0), (2, 1)),
+                    dy=((1, 0), (2, 1)))
 
 
 def _inputs():
@@ -104,7 +120,23 @@ def _reference_main(path):
                 a["x"], a["w"], a["b"])
             for k, g in zip("xwb", grads):
                 out[f"{name}/d{k}"] = g
-    np.savez(path, **{k: np.asarray(v) for k, v in out.items()})
+        # the fused Cannon on every rank's blocks, under jax.vjp
+        from jax.sharding import PartitionSpec as P
+        from repro.compat import shard_map
+        fused = shard_map(
+            lambda w, x: ref_fused_ring.fused_cannon_t(
+                w, x, dom_axis="mdom", tp_axis="mtp", q=Q),
+            mesh=mesh, in_specs=(P("mdom", "mtp"), P(None, "mdom", "mtp")),
+            out_specs=P(None, "mdom", "mtp"), axis_names={"mdom", "mtp"},
+            check_vma=False)
+        a = {k: jnp.asarray(v) for k, v in _fused_inputs().items()}
+        for dt in ("float32", "bfloat16"):
+            y, vjp = jax.vjp(jax.jit(fused), a["w"].astype(dt),
+                             a["x"].astype(dt))
+            dw, dx = vjp(a["dy"])
+            out.update({f"fused/{dt}/y": y, f"fused/{dt}/dw": dw,
+                        f"fused/{dt}/dx": dx})
+    np.savez(path, **{k: np.asarray(v, np.float32) for k, v in out.items()})
 
 
 def _rank_main(rank, init, out_dir):
@@ -145,6 +177,25 @@ def _rank_main(rank, init, out_dir):
             res[f"{name}/{kernel}/y"] = y.detach().numpy()
             for k, gk in zip("xwb", grads):
                 res[f"{name}/{kernel}/d{k}"] = gk.numpy()
+    # the fused Cannon (its plain path on the CPU), and the step loop
+    blocks = {k: torch.from_numpy(np.ascontiguousarray(
+        _block(v, _FUSED_SPECS[k], i, j))) for k, v in _fused_inputs().items()}
+    groups = dict(dom_group=mesh.dom_group, tp_group=mesh.tp_group, q=Q)
+    for dt in ("float32", "bfloat16"):
+        outs = []
+        for fn in (fused_ring.fused_cannon_t, fused_ring.cannon_t_loop):
+            leaves = [blocks[k].to(getattr(torch, dt)).requires_grad_()
+                      for k in "wx"]
+            kw = dict(groups, model_group=mesh.model_group) \
+                if fn is fused_ring.fused_cannon_t else groups
+            y = fn(*leaves, **kw)
+            outs.append([y] + list(torch.autograd.grad(y, leaves,
+                                                       blocks["dy"])))
+        res[f"fused/{dt}/node"] = np.array(type(outs[0][0].grad_fn).__name__)
+        for k, got, loop in zip(("y", "dw", "dx"), *outs):
+            res[f"fused/{dt}/{k}"] = got.detach().float().numpy()
+            res[f"fused/{dt}/{k}_equal_loop"] = np.array(
+                torch.equal(got, loop) and got.dtype == loop.dtype)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
     dist.destroy_process_group()
 
@@ -401,6 +452,129 @@ def test_cannon_linears_match_reference_2x2(ranks, reference, name):
     for k in ("dx", "dw", "db"):
         np.testing.assert_allclose(got[k], reference[f"{name}/{k}"],
                                    rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_cannon_matches_reference_2x2(ranks, reference, dtype):
+    """The port's fused_cannon_t (an autograd Function; on the CPU its
+    forward is the step loop and its backward the step loop's VJP,
+    recomputed) against the reference's under jax.vjp on its 2x2 mesh,
+    Pallas in interpret mode: f32 forward 1e-5 and grads 1e-4, bf16 3e-2.
+    On every rank forward and grads equal the step loop's bit for bit."""
+    fwd_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (3e-2, 3e-2)
+    for k, tol in (("y", fwd_tol), ("dw", grad_tol), ("dx", grad_tol)):
+        spec = _FUSED_SPECS["dy" if k == "y" else k[1]]
+        got = _assemble({ij: r[f"fused/{dtype}/{k}"]
+                         for ij, r in ranks.items()}, spec)
+        np.testing.assert_allclose(got, reference[f"fused/{dtype}/{k}"],
+                                   rtol=tol, atol=tol, err_msg=k)
+    for r in ranks.values():
+        assert str(r[f"fused/{dtype}/node"]) == "_FusedCannonBackward"
+        assert all(bool(r[f"fused/{dtype}/{k}_equal_loop"])
+                   for k in ("y", "dw", "dx"))
+
+
+# ---------------------------------------------------------------------------
+# the Cannon kernel's wrapper and plain versions, one process
+# ---------------------------------------------------------------------------
+
+def _cannon_blocks(q, ll, m, t, c, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ws = [(torch.randn(m, t, generator=g) / t ** 0.5).to(dtype)
+          for _ in range(q * q)]
+    xs = [torch.randn(ll, t, c, generator=g).to(dtype) for _ in range(q * q)]
+    return ws, xs
+
+
+@pytest.mark.parametrize("q", [1, 2, 3])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cannon_fwd_all_on_cpu_is_the_step_loop(q, out_dtype):
+    """q x q ranks in one process on CPU tensors: the wrapper's plain
+    version, step by step, equals the step loop of wx steps rotated the
+    same way bit for bit, and the plain Cannon (one rounding at the end)
+    within the accumulator's rounding; rank (i, j) ends with
+    sum_s W(i, j+s) @ X(i+s, j).  No launch is counted."""
+    ws, xs = _cannon_blocks(q, 2, 7, 5, 3)
+    before = CANNON.cannon_step.launches
+    got = CANNON.cannon_fwd_all(ws, xs, q, accum_dtype=out_dtype)
+    assert CANNON.cannon_step.launches == before
+    loop = ref.cannon_walk_all(
+        lambda w, x, a: WX.wx(w, x, a, out_dtype=out_dtype), ws, xs, q)
+    plain = ref.cannon_ref(ws, xs, q, out_dtype)
+    tol = 1e-5 if out_dtype == torch.float32 else 2e-2
+    for r, (a, b, c) in enumerate(zip(got, loop, plain)):
+        assert a.dtype == out_dtype and torch.equal(a, b), r
+        np.testing.assert_allclose(a.float().numpy(), c.float().numpy(),
+                                   rtol=tol, atol=tol)
+        i, j = divmod(r, q)
+        want = sum(ws[i * q + (j + s) % q] @ xs[(i + s) % q * q + j]
+                   for s in range(q))
+        np.testing.assert_allclose(c.float().numpy(), want.numpy(),
+                                   rtol=tol, atol=tol)
+
+
+def test_cannon_step_copies_the_hops_on_cpu():
+    """One step: out = (0 if first else out) + w @ x[l], and w, x copied to
+    the destinations given."""
+    ws, xs = _cannon_blocks(1, 3, 6, 4, 5)
+    w, x = ws[0], xs[0]
+    out = torch.full((3, 6, 5), 2.0)
+    wd, xd = torch.zeros_like(w), torch.zeros_like(x)
+    CANNON.cannon_step(w, x, out, first=False, w_dest=wd, x_dest=xd)
+    assert torch.equal(out, ref.wx_ref(w, x, torch.full((3, 6, 5), 2.0)))
+    assert torch.equal(wd, w) and torch.equal(xd, x)
+    CANNON.cannon_step(w, x, out, first=True)
+    assert torch.equal(out, ref.wx_ref(w, x))
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("w_dim", ValueError), ("k", ValueError), ("dtype", TypeError),
+    ("x_layout", ValueError), ("out_shape", ValueError),
+    ("out_dtype", TypeError), ("dest_shape", ValueError),
+    ("dest_dtype", ValueError)])
+def test_cannon_step_rejects_bad_inputs(case, exc):
+    w, x = torch.randn(6, 4), torch.randn(2, 4, 3)
+    out, kw = torch.empty(2, 6, 3), {}
+    if case == "w_dim":
+        w = w[None]
+    elif case == "k":
+        x = torch.randn(2, 5, 3)
+    elif case == "dtype":
+        x = x.to(torch.bfloat16)
+    elif case == "x_layout":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "out_shape":
+        out = out[:, :5]
+    elif case == "out_dtype":
+        out = out.double()
+    elif case == "dest_shape":
+        kw["x_dest"] = torch.empty(2, 4, 2)
+    elif case == "dest_dtype":
+        kw["w_dest"] = torch.empty(6, 4, dtype=torch.bfloat16)
+    with pytest.raises(exc):
+        CANNON.cannon_step(w, x, out, first=True, **kw)
+
+
+def test_cannon_path_and_footprint():
+    """The CPU takes the step loop; the card's slots at a 2x2 rank of
+    weathermixer-1b (batch 2, bf16: w hops of 70.8 MB and x hops of
+    70.8 MB, each rounded up to 128 MiB) are 512 MiB per rank."""
+    assert fused_ring.cannon_path(2, 4320, 8190, 2160, torch.bfloat16,
+                                  "cpu") == "step"
+    assert fused_ring.cannon_footprint_bytes(
+        2, 4320, 8190, 2160, torch.bfloat16) == 4 * (128 << 20)
+
+
+def test_fused_cannon_at_q1_is_the_step_loop():
+    """At q = 1 fused_cannon_t is cannon_t_loop itself (one wx step, its
+    own VJP: no recompute), as the reference's _fused_cannon at q = 1."""
+    ws, xs = _cannon_blocks(1, 2, 5, 4, 3)
+    w = ws[0].requires_grad_()
+    y = fused_ring.fused_cannon_t(w, xs[0], dom_group=None, tp_group=None,
+                                  model_group=None, q=1)
+    assert type(y.grad_fn).__name__ != "_FusedCannonBackward"
+    assert torch.equal(y, fused_ring.cannon_t_loop(
+        w, xs[0], dom_group=None, tp_group=None, q=1))
 
 
 # ---------------------------------------------------------------------------

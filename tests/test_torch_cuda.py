@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import block_matmul as BM
+from repro_torch.kernels import cannon as CANNON
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring as RING
 from repro_torch.kernels import wx as WX
@@ -447,6 +448,107 @@ def test_ring_failed_ipc_open_raises(cuda, monkeypatch):
         RING.RingWorkspace(None, 1 << 20, torch.device("cuda", 0))
 
 
+# ---------------------------------------------------------------------------
+# the Cannon kernel
+# ---------------------------------------------------------------------------
+
+# the bf16 forward's output is f32 and bf16 products are exact in f32: the
+# plain Cannon differs in summation order only (chip_smoke.py's WX_TOL)
+CANNON_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+def _cannon_case(gen, q, ll, m, t, c, dtype):
+    ws = [(torch.randn(m, t, generator=gen, device="cuda") / t ** 0.5
+           ).to(dtype) for _ in range(q * q)]
+    xs = [torch.randn(ll, t, c, generator=gen, device="cuda").to(dtype)
+          for _ in range(q * q)]
+    return ws, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,ll,m,t,c", [(2, 2, 300, 130, 70),
+                                        (3, 1, 129, 97, 257),
+                                        (3, 3, 33, 40, 8), (2, 1, 1, 1, 1)])
+def test_cannon_kernel_matches_step_loop_and_plain(cuda, dtype, out_dtype,
+                                                   q, ll, m, t, c):
+    """q x q ranks in one process at ragged shapes (rows of 97 bf16 take
+    2-byte loads): the Cannon kernel's q launches per rank are bit for bit
+    the step loop (one wx launch per step, the blocks rotated the same
+    way), and within CANNON_TOL of the plain Cannon (f32 out)."""
+    ws, xs = _cannon_case(cuda, q, ll, m, t, c, dtype)
+    before = CANNON.cannon_step.launches
+    got = CANNON.cannon_fwd_all(ws, xs, q, accum_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert CANNON.cannon_step.launches - before == q ** 3
+    loop = ref.cannon_walk_all(
+        lambda w, x, a: WX.wx(w, x, a, out_dtype=out_dtype), ws, xs, q)
+    for a, b in zip(got, loop):
+        assert a.dtype == out_dtype and torch.equal(a, b)
+    if out_dtype == torch.float32:
+        for a, b in zip(got, ref.cannon_ref(ws, xs, q)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=CANNON_TOL[dtype],
+                                       atol=CANNON_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cannon_wrapper_rejects_bad_inputs(cuda):
+    """What the kernel does not take raises, and launches nothing."""
+    ws, xs = _cannon_case(cuda, 1, 2, 16, 8, 4, torch.bfloat16)
+    w, x = ws[0], xs[0]
+    out = torch.empty(2, 16, 4, device="cuda")
+    before = CANNON.cannon_step.launches
+    for bad in (dict(x=x.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(w=w.float()), dict(out=out.cpu()),
+                dict(w_dest=torch.empty(16, 8, device="cuda")),
+                dict(x_dest=torch.empty(2, 8, 3, dtype=torch.bfloat16,
+                                        device="cuda"))):
+        kw = dict(w=w, x=x, out=out, w_dest=None, x_dest=None)
+        kw.update(bad)
+        with pytest.raises((ValueError, TypeError)):
+            CANNON.cannon_step(kw["w"], kw["x"], kw["out"], first=True,
+                               w_dest=kw["w_dest"], x_dest=kw["x_dest"])
+    assert CANNON.cannon_step.launches == before
+
+
+@pytest.mark.cuda
+def test_cannon_failed_ipc_open_raises(cuda, monkeypatch):
+    """A predecessor's IPC handle that does not open: the Cannon's
+    workspace (peer -1) raises instead of falling back."""
+    me = os.getpid()
+
+    def fake_gather(out, obj, group=None):
+        out[0], out[1] = obj, (b"\0" * len(obj[0]), me + 1, obj[2])
+    monkeypatch.setattr(RING.dist, "get_world_size", lambda g: 2)
+    monkeypatch.setattr(RING.dist, "get_rank", lambda g: 0)
+    monkeypatch.setattr(RING.dist, "all_gather_object", fake_gather)
+    with pytest.raises(RuntimeError, match="peer -1"):
+        RING.RingWorkspace(None, 1 << 20, torch.device("cuda", 0), peer=-1)
+
+
+@pytest.mark.cuda
+def test_2x2_mesh_four_processes_on_one_card(cuda, tmp_path):
+    """Four processes of a 2x2 mesh on one card under gloo, each rank's
+    Cannon slots mapped into its predecessors by CUDA IPC: fused_cannon_t
+    forward and backward equal the step loop's bit for bit with q launches
+    per rank; a 2-D training step through TrainEngine with per-rank reads
+    gives the loss and grad norm of the step-loop variant bit for bit,
+    with 24 Cannon launches at r = 1 (3 blocks, remat), 12 wx recompute
+    and 12 wx dx launches, 70 block_matmul launches and no ring launch."""
+    res = _run_ranks("--cannon-rank", tmp_path, 4)
+    assert all(r["loss"] == res[0]["loss"] for r in res)
+    for r in res:
+        assert r["fused_launches"] == 2
+        assert r["fused_equal"], r
+        assert r["loss"] == r["loss_step_loop"]
+        assert r["grad_norm"] == r["grad_norm_step_loop"]
+        assert r["launches"] == dict(cannon=24, wx_fwd=12, wx_dx=12,
+                                     block_matmul=70, ring=0)
+        assert r["block_equal"] and r["read_share"] == 0.25
+
+
 def _run_ranks(mode, tmp_path, n=2, timeout=300):
     """This file run as n scripts in ``mode`` on the one card, joined by a
     file store; returns their JSON results."""
@@ -546,6 +648,83 @@ def _ring_rank_main(r, n, init, out_dir):
     dist.destroy_process_group()
 
 
+def _step_loop(wl, xl, *, model_group, **kw):
+    """fused_cannon_t forced to the step loop (one wx launch per step)."""
+    from repro_torch.kernels import fused_ring
+    return fused_ring.cannon_t_loop(wl, xl, **kw)
+
+
+def _cannon_rank_main(r, n, init, out_dir):
+    """One rank of ``test_2x2_mesh_four_processes_on_one_card``."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.kernels import fused_ring
+    from repro_torch.models import weathermixer as W
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import _norm_args, value_and_grad
+    os.environ["LOCAL_RANK"] = str(r)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    cfg = get_config("weathermixer-1b").reduced().replace(
+        wm_lat=20, wm_lon=24, wm_channels=4, wm_patch=4, d_model=64,
+        wm_d_tok=64, wm_d_ch=64, kernel="pallas", remat=True, n_layers=3)
+    eng = TrainEngine("weathermixer-1b", reduced=False, config_override=cfg,
+                      mesh_model=n, scheme="2d", device="cuda",
+                      config=EngineConfig(steps=1, batch=2, precision="bf16",
+                                          prefetch=0, pipeline="sharded"))
+    mesh = eng.mesh
+    groups = dict(dom_group=mesh.dom_group, tp_group=mesh.tp_group, q=2)
+    gen = torch.Generator(device="cuda").manual_seed(7 + r)
+    w = torch.randn(40, 30, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(2, 30, 20, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dy = torch.randn(2, 40, 20, generator=gen, device="cuda")
+    outs = []
+    for fn, kw in ((fused_ring.fused_cannon_t,
+                    dict(groups, model_group=mesh.model_group)),
+                   (fused_ring.cannon_t_loop, groups)):
+        leaves = [w.clone().requires_grad_(), x.clone().requires_grad_()]
+        before = CANNON.cannon_step.launches
+        y = fn(*leaves, **kw)
+        outs.append([y, *torch.autograd.grad(y, leaves, dy),
+                     CANNON.cannon_step.launches - before])
+    res = dict(fused_launches=outs[0][3],
+               fused_equal=all(torch.equal(a, b) for a, b in
+                               zip(outs[0][:3], outs[1][:3])))
+    batch = eng.pipeline.get(0, 1)
+    whole = eng.pipeline.host_batch(0, 1)
+    res["block_equal"] = all(torch.equal(batch[k].cpu(), W.field_block(
+        torch.from_numpy(whole[k]), eng.cfg, eng.jcfg)) for k in whole)
+    res["read_share"] = (eng.pipeline.stats.rank_bytes["fields"]
+                         [eng.pipeline.rank] / whole["fields"].nbytes)
+    counters = dict(cannon=CANNON.cannon_step, block_matmul=BM.block_matmul,
+                    ring=RING.ring_fwd)
+    for f in (*counters.values(), RING.ring_bwd, WX.wx):
+        f.launches = 0
+    WX.wx.layout_launches.clear()
+    metrics, grads = value_and_grad(eng.params, batch, eng.cfg, eng.jcfg, 1)
+    torch.cuda.synchronize()
+    res["launches"] = {k: f.launches for k, f in counters.items()}
+    res["launches"]["ring"] += RING.ring_bwd.launches
+    res["launches"].update(wx_fwd=WX.wx.layout_launches[False],
+                           wx_dx=WX.wx.layout_launches[True])
+    norm_args = _norm_args(eng.params, eng.cfg, eng.jcfg)
+    res["loss"] = float(metrics["loss"])
+    res["grad_norm"] = float(global_norm(grads, **norm_args))
+    real = fused_ring.fused_cannon_t
+    fused_ring.fused_cannon_t = _step_loop
+    try:
+        m2, g2 = value_and_grad(eng.params, batch, eng.cfg, eng.jcfg, 1)
+    finally:
+        fused_ring.fused_cannon_t = real
+    res["loss_step_loop"] = float(m2["loss"])
+    res["grad_norm_step_loop"] = float(global_norm(g2, **norm_args))
+    eng.close()
+    (Path(out_dir) / f"--cannon-rank{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
 def _gloo_probe_main(r, n, init, out_dir, op):
     """One collective of ``_PROBES`` on CUDA tensors under gloo, as is,
     its result held to the values it must give."""
@@ -599,5 +778,6 @@ def _gloo_probe_main(r, n, init, out_dir, op):
 if __name__ == "__main__":
     mode, rank, n, init, out, *extra = sys.argv[1:]
     main = {"--ring-rank": _ring_rank_main,
+            "--cannon-rank": _cannon_rank_main,
             "--gloo-probe": _gloo_probe_main}[mode]
     main(int(rank), int(n), init, out, *extra)

@@ -399,7 +399,7 @@ def test_bad_inputs_raise(case, exc):
 @pytest.mark.parametrize("collective", [True, False])
 def test_workspace_close(monkeypatch, collective):
     """``release_workspaces`` closes every group's slots: the collective
-    close synchronises, unmaps the successor's slots, waits for the group
+    close synchronises, unmaps the peer's slots, waits for the group
     and frees this rank's; the local one (after an error) only unmaps.
     ``workspace_bytes`` counts the live slots (raw cudaMallocs, outside
     torch's allocator statistics)."""
@@ -415,14 +415,14 @@ def test_workspace_close(monkeypatch, collective):
                         lambda device: calls.append(("sync", device)))
     ws = object.__new__(ring.RingWorkspace)
     ws.group, ws.device, ws.slot_bytes = "g", "cuda:0", 3 << 20
-    ws.own_ptr, ws.succ_ptr = 1000, 2000
+    ws.own_ptr, ws.peer_ptr = 1000, 2000
     monkeypatch.setitem(ring._WORKSPACES, "g", ws)
     assert ring.workspace_bytes() == 6 << 20
     ring.release_workspaces(collective)
     want = ([("sync", "cuda:0"), ("close", 2000), ("barrier", "g"),
              ("free", 1000)] if collective else [("close", 2000)])
     assert calls == want and ring.workspace_bytes() == 0
-    assert ws.succ_ptr is None and (ws.own_ptr is None) == collective
+    assert ws.peer_ptr is None and (ws.own_ptr is None) == collective
 
 
 # ---------------------------------------------------------------------------

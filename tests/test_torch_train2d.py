@@ -20,6 +20,7 @@ one-device histories); the ``bf16`` policy 5e-2 (the reference's bf16
 loss-parity bound).  Replicated parameters and two runs of one seed are
 held bit for bit.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -170,8 +171,52 @@ def _rank_main(rank, init, out_dir):
                             prefetch=0, telemetry=False, seed=0,
                             precision="bf16", pipeline="sync-full"))
     res["bf16/loss"] = np.array([h["loss"] for h in eng.run()])
+    res.update(_count_calls(mesh))
     np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
     dist.destroy_process_group()
+
+
+def _count_calls(mesh):
+    """The kernel wrappers' calls in one 2x2 forward and backward (3
+    blocks, remat) at r = 1 and 2, counted at their call sites: fused
+    Cannon forwards (``cannon_path``: one per call), wx by layout,
+    block_matmul."""
+    calls = collections.Counter()
+
+    def counting(mod, name, key):
+        real = getattr(mod, name)
+
+        def f(*a, **kw):
+            calls[key(kw) if callable(key) else key] += 1
+            return real(*a, **kw)
+        return mod, name, real, f
+    patches = [counting(fused_ring, "cannon_path", "fused"),
+               counting(fused_ring, "wx", lambda kw: ("wx_dx" if
+                                                      kw.get("w_t")
+                                                      else "wx_fwd")),
+               counting(fused_ring, "block_matmul", "bm"),
+               counting(ops, "block_matmul", "bm")]
+    cfg = _port_cfg(_tiny(n_layers=3, remat=True, scheme="2d"))
+    jcfg = jigsaw_for(cfg).replace(mesh=mesh)
+    params = shard_params_2d(params_from_numpy(
+        jax.tree.map(np.asarray, RW.init(jax.random.PRNGKey(0),
+                                         _tiny(n_layers=3))), device="cpu"),
+        mesh.i, mesh.j, Q)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    out = {}
+    try:
+        for mod, name, _, f in patches:
+            setattr(mod, name, f)
+        for r in (1, 2):
+            calls.clear()
+            step.value_and_grad(params, batch, cfg, jcfg, r)
+            out[f"calls/{r}"] = np.array([calls[k] for k in
+                                          ("fused", "wx_fwd", "wx_dx",
+                                           "bm")])
+    finally:
+        for mod, name, real, _ in patches:
+            setattr(mod, name, real)
+    return out
 
 
 def _env(**kw):
@@ -346,13 +391,29 @@ def test_cli_2x2_history_matches_reference_and_repeats(reference,
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_model=4, mesh_data=2, scheme="2d"), "item 8"),
-    (dict(mesh_model=4, scheme="2d"), "item 6"),
     (dict(mesh_model=4, scheme="none"), "GSPMD")])
 def test_engine_mesh_paths_not_ported_raise(kw, match):
     pipeline = "sync-full" if kw.get("scheme") == "none" else "sharded"
     with pytest.raises(NotImplementedError, match=match):
         TrainEngine("weathermixer-1b", device="cpu",
                     config=EngineConfig(steps=1, pipeline=pipeline), **kw)
+
+
+@pytest.mark.parametrize("rollout", [1, 2])
+def test_2x2_kernel_calls_per_rank(ranks, rollout):
+    """One 2x2 forward and backward (3 blocks, remat), per rank, counted
+    on the CPU at the call sites: 12 r fused Cannon calls (two token-mix
+    linears a block, forward and the checkpoint's rerun), each q = 2
+    launches of the Cannon kernel on the card, 24 r; the fused VJP's
+    recompute 12 r wx forward-layout launches (on the CPU the fused forward
+    runs its q wx steps too) and 12 r dx; block_matmul 10 + 60 r (the
+    q = 1 counts, each Cannon product now q steps)."""
+    for res in ranks.values():
+        fused, wx_fwd, wx_dx, bm = res[f"calls/{rollout}"]
+        assert fused * Q == 24 * rollout
+        assert wx_fwd - fused * Q == 12 * rollout
+        assert wx_dx == 12 * rollout
+        assert bm == 10 + 60 * rollout
 
 
 @pytest.mark.parametrize("rollout,remat", [(1, True), (2, True),
