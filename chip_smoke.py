@@ -5,20 +5,40 @@
 
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
-``weathermixer-1b``'s full published width, through the entry points a user
-calls: forecast serving, one-GPU training, the 2-D Jigsaw (Cannon)
-training step at q = 1 and on a 2x2 mesh of four ranks sharing the card,
-and the 1-D Jigsaw (ring) training step on two ranks sharing the card.
-Phases, each printed as a JSON line:
+``weathermixer-1b``'s and ``mamba2-130m``'s full published widths, through
+the entry points a user calls: the Mamba-2 forward and greedy generation,
+forecast serving, one-GPU training, the 2-D Jigsaw (Cannon) training step
+at q = 1 and on a 2x2 mesh of four ranks sharing the card, and the 1-D
+Jigsaw (ring) training step on two ranks sharing the card.  Phases, each
+printed as a JSON line:
 
   1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu,
-     wx.cu, ring.cu and cannon.cu, one nvcc each, started together);
+     wx.cu, ring.cu, cannon.cu and ssd_chunk.cu, one nvcc each, started
+     together);
   2. the block_matmul kernel against its plain PyTorch version on the card:
      small ragged shapes in f32 and bf16 with every epilogue, then the six
      GEMM shapes of a weathermixer-1b forecast step (bucket 1) in bf16 and
-     tok_fc1 in f32, each timed beside the plain version, one PyTorch
-     library call computing the same function (never used by the port) and
-     the card's bound;
+     tok_fc1 in f32, and the five GEMM shapes of a mamba2-130m forward
+     (8,192 rows) and of its decode step (4 rows) in bf16, each timed
+     beside the plain version, one PyTorch library call computing the same
+     function (never used by the port) and the card's bound;
+  2b. the ssd_chunk kernel (``ssd_shape``) against its plain version: small
+     ragged chunks in f32 and bf16 and a chunk whose decay overflows exp
+     above the diagonal (the output must be finite), then mamba2-130m's
+     groups at sequence 2048 (batch 1) and 4096 (batch 2) in f32, timed
+     beside the plain version, the closest library composition (bmm,
+     where, * dt, bmm) and the bound;
+  2c. ``mamba_forward``: the full-width mamba2-130m forward (24 layers,
+     random bf16 weights from seed 0) at sequence 4096 and batch 2 on
+     ``TokenDataset`` rows, 24 ssd and 97 block_matmul launches, logits
+     finite, its time and tokens/s; then, on the same weights in f32, the
+     forward against the same with the plain SSD term and with
+     ``kernel="xla"``, and the bf16 logits against the f32 ones;
+  2d. ``mamba_generate``: ``serve.step.generate`` at batch 4 (64-token
+     prompts, 32 new tokens; token-wise prefill, then decode steps), no ssd
+     launch and 97 block_matmul launches per step, tokens in range, the
+     token-wise logits at every prompt position against the teacher-forced
+     forward (judged in f32, printed in bf16), the time of a decode step;
   3. full-width serving under the bf16 policy: requests admitted before and
      during a rollout, outputs finite, one lead-1 forecast against the plain
      forecast step, every request bitwise equal to its solo bucket-1
@@ -113,7 +133,17 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     bias after the reduce); the 2x2 step the same bounds (each Cannon
     linear rounds its product to bf16 before its bias, as under q = 1);
   * the Cannon kernel: bit for bit the step loop (wx's main loop, K order
-    and epilogue); against the plain Cannon the wx tolerances.
+    and epilogue); against the plain Cannon the wx tolerances;
+  * the ssd kernel: f32 2e-4 / 2e-4 (the reference's own kernel tolerance:
+    sums of N = 128 and Q = 64 terms in another order), bf16 3e-2 / 3e-2
+    (att and y rounded to bf16);
+  * mamba2-130m logits, judged in f32 (the seed's weights up-cast, where
+    only summation orders differ): max|a - b| / max|b| 1e-3 against the
+    plain SSD term and against ``kernel="xla"``; token-wise decode against
+    the teacher-forced forward 5e-3 / 5e-3 elementwise (the reference's
+    own); the bf16 forward against the f32 one by mean|a - b| / mean|b|
+    0.3, a gross-fault check only: the random-weight bf16 residual stream
+    amplifies rounding through 24 layers (``MAMBA_BF16_TOL``).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -123,6 +153,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -219,6 +250,21 @@ SHAPES = [("encoder", _T, _PD, _D, "none", "bfloat16", 1, 1),
           ("decoder", _T, _D, _PD, "none", "bfloat16", 1, 1),
           ("tok_fc1_f32", _D, _T, 8640, "gelu", "float32", 0, 0)]
 
+# mamba2-130m (d_model 768, d_inner 1536, conv_dim 1536 + 2 * 128, 24 heads,
+# vocab 50,432), its forward at sequence 4096 and batch 2 (M = 8192 rows)
+# and its decode step at batch 4 (M = 4): (label, M, K, N, launches per
+# forward or decode step); no bias, no epilogue
+MAMBA_SEQ, MAMBA_BATCH, MAMBA_LAYERS = 4096, 2, 24
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 64, 32
+_MM = MAMBA_SEQ * MAMBA_BATCH
+MAMBA_SHAPES = [(f"{tag}.{name}", m, k, n, per)
+                for tag, m in (("fwd", _MM), ("decode", GEN_BATCH))
+                for name, k, n, per in (("in_z", 768, 1536, MAMBA_LAYERS),
+                                        ("in_xbc", 768, 1792, MAMBA_LAYERS),
+                                        ("in_dt", 768, 24, MAMBA_LAYERS),
+                                        ("out_proj", 1536, 768, MAMBA_LAYERS),
+                                        ("head", 768, 50432, 1))]
+
 def kernel_phase(torch, BM, ref):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -280,7 +326,339 @@ def kernel_phase(torch, BM, ref):
         rows.append(row)
         del x, w, b, y
         torch.cuda.empty_cache()
+
+    mamba_rows = []
+    for label, m, k, n, per_path in MAMBA_SHAPES:
+        x, w, _ = inputs(m, k, n, torch.bfloat16, False)
+        y = BM.block_matmul(x, w)
+        torch.cuda.synchronize()
+        err, ok = gemm_errors(y, ref.block_matmul_ref(x, w), "bfloat16")
+        check(ok, f"{label} {(m, k, n)}: max err {err:.3e}")
+        worst = max(worst, err)
+        bound, bound_by = gemm_bound_ms(m, n, k, "bfloat16", False)
+        row = dict(shape=label, m=m, n=n, k=k, dtype="bfloat16",
+                   epilogue="none", per_path=per_path,
+                   vec_bytes=BM.vec_bytes(x, w), max_abs_err=err,
+                   tol=GEMM_TOL["bfloat16"],
+                   kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w), 10),
+                   library_ms=cuda_ms(lambda: F.linear(x, w), 10),
+                   plain_ms=cuda_ms(lambda: ref.block_matmul_ref(x, w), 3),
+                   bound_ms=bound, bound_by=bound_by)
+        row["tflops"] = 2e-9 * m * n * k / row["kernel_ms"]
+        emit(phase="kernel_shape", **row)
+        mamba_rows.append(row)
+        del x, w, y
+    torch.cuda.empty_cache()
+    return rows, mamba_rows, worst
+
+
+# ---------------------------------------------------------------------------
+# phases 2b-2d: the ssm family (mamba2-130m): the ssd kernel, forward, generate
+# ---------------------------------------------------------------------------
+
+SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+SSD_Q, SSD_N, SSD_P, SSD_HEADS = 64, 128, 64, 24
+# G = batch x chunks x heads of the two forwards
+SSD_SHAPES = [("seq2048.b1", 2048 // SSD_Q * SSD_HEADS),
+              ("seq4096.b2", 2 * MAMBA_SEQ // SSD_Q * SSD_HEADS)]
+# mamba2-130m logits.  Judged in f32 (the seed's weights up-cast), where
+# only the summation orders differ: max|a - b| / max|b| against the plain
+# SSD term and against kernel="xla", and token-wise decode against the
+# teacher-forced forward elementwise at the reference's own 5e-3
+# (tests/test_decode_consistency.py).  The bf16 forward (the config's own
+# dtypes) against the f32 one by mean|a - b| / mean|b|: a random-weight
+# bf16 residual stream through 24 layers amplifies rounding (on the CPU, 1%
+# of the linears' outputs moved by one bf16 step moves the logits by 15 % of
+# their mean, and bf16 against f32 is 16-18 %), so only a gross fault
+# (zeros, a wrong layout: ~100 %) is caught there.
+MAMBA_F32_TOL = 1e-3
+MAMBA_DECODE_TOL = 5e-3
+MAMBA_BF16_TOL = 0.3
+
+
+def ssd_inputs(torch, gen, g, q, n, p, dtype, decay=None):
+    """c, b, x in ``dtype``; dt = softplus(N(0, 1)); dac the within-chunk
+    cumsum of dt * A with the model's initial A = -linspace(1, 16, 24) by
+    head (g % 24), or -decay.  Above the diagonal exp(dac_i - dac_j)
+    overflows to inf for the faster heads at Q = 64."""
+    c = (0.3 * torch.randn(g, q, n, generator=gen, device="cuda")).to(dtype)
+    b = (0.3 * torch.randn(g, q, n, generator=gen, device="cuda")).to(dtype)
+    x = torch.randn(g, q, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(g, q, generator=gen, device="cuda"))
+    if decay is None:
+        a = -torch.linspace(1.0, 16.0, SSD_HEADS, device="cuda").repeat(
+            (g + SSD_HEADS - 1) // SSD_HEADS)[:g, None]
+    else:
+        a = torch.full((g, 1), -decay, device="cuda")
+    return c, b, x, dt, torch.cumsum(dt * a, dim=1)
+
+
+def ssd_bound_ms(g, q, n, p, dtype_name):
+    """Each input read once (c, b, x in the operand type, dt and dac f32),
+    y written once; the operations the causal half needs, 2 (N + P) per
+    (i, j <= i) pair, at the operand type's peak."""
+    es = 4 if dtype_name == "float32" else 2
+    nbytes = g * (es * q * (2 * n + 2 * p) + 8 * q)
+    ops = g * (n + p) * q * (q + 1)
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_phase(torch, SSD, ref):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def errors(y, r, name):
+        tol = SSD_TOL[name]
+        y, r = y.float(), r.float()
+        err = (y - r).abs()
+        return float(err.max()), bool((err <= tol + tol * r.abs()).all())
+
+    worst = 0.0
+    n_small = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for q in (64, 37):
+            for n in (32, 128):
+                for p in (16, 64):
+                    args = ssd_inputs(torch, gen, 6, q, n, p, dtype,
+                                      decay=0.1)
+                    y = SSD.ssd_intra_chunk(*args)
+                    torch.cuda.synchronize()
+                    err, ok = errors(y, ref.ssd_intra_ref(*args), name)
+                    check(ok, f"ssd small {name} Q={q} N={n} P={p}: max err "
+                              f"{err:.3e}")
+                    worst = max(worst, err)
+                    n_small += 1
+        # dac decaying fast enough that exp overflows above the diagonal
+        args = ssd_inputs(torch, gen, 4, 64, 128, 64, dtype, decay=16.0)
+        dac = args[4]
+        check(bool(torch.isinf(torch.exp(dac[:, :, None]
+                                         - dac[:, None, :])).any()),
+              "the overflow case does not overflow")
+        y = SSD.ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        err, ok = errors(y, ref.ssd_intra_ref(*args), name)
+        check(ok and bool(torch.isfinite(y).all()),
+              f"ssd overflow case {name}: max err {err:.3e}, finite "
+              f"{bool(torch.isfinite(y).all())}")
+        worst = max(worst, err)
+        n_small += 1
+    emit(phase="ssd_small", cases=n_small, max_abs_err=worst, ok=True)
+
+    rows = []
+    q, n, p = SSD_Q, SSD_N, SSD_P
+    tri = torch.ones((q, q), dtype=torch.bool, device="cuda").tril()
+    for label, g in SSD_SHAPES:
+        c, b, x, dt, dac = args = ssd_inputs(torch, gen, g, q, n, p,
+                                             torch.float32)
+        y = SSD.ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        err, ok = errors(y, ref.ssd_intra_ref(*args), "float32")
+        check(ok and bool(torch.isfinite(y).all()),
+              f"ssd {label} G={g}: max err {err:.3e}")
+        worst = max(worst, err)
+
+        def library():
+            s = torch.bmm(c, b.transpose(1, 2))
+            att = torch.where(tri, s * torch.exp(dac[:, :, None]
+                                                 - dac[:, None, :]), 0.0)
+            return torch.bmm(att * dt[:, None, :], x)
+        bound, bound_by = ssd_bound_ms(g, q, n, p, "float32")
+        row = dict(shape=label, g=g, q=q, n=n, p=p, dtype="float32",
+                   max_abs_err=err, tol=SSD_TOL["float32"],
+                   kernel_ms=cuda_ms(lambda: SSD.ssd_intra_chunk(*args), 20),
+                   library_ms=cuda_ms(library, 10),
+                   plain_ms=cuda_ms(lambda: ref.ssd_intra_ref(*args), 10),
+                   bound_ms=bound, bound_by=bound_by)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        emit(phase="ssd_shape", **row)
+        rows.append(row)
+        del c, b, x, dt, dac, args, y
+    torch.cuda.empty_cache()
     return rows, worst
+
+
+def zero_counts(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+def read_counts(kernels):
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+@contextmanager
+def plain_ssd(ops, ref):
+    """The model's forward with ``ref.ssd_intra_ref`` in place of the ssd
+    kernel (``ops.ssd_intra``, which ``_ssd_chunked`` calls): the only
+    difference from the kernel's forward."""
+    saved, ops.ssd_intra = ops.ssd_intra, ref.ssd_intra_ref
+    try:
+        yield
+    finally:
+        ops.ssd_intra = saved
+
+
+def mamba_setup(torch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import JigsawConfig
+    from repro_torch.models import registry as M
+    cfg = get_config("mamba2-130m")
+    # the reference's one-device engine runs scheme="none"
+    jcfg = JigsawConfig(scheme="none", kernel="pallas")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit(phase="mamba_setup", params=cfg.param_count(),
+         param_dtype=cfg.param_dtype, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab_padded=cfg.vocab_padded,
+         init_s=time.perf_counter() - t0)
+    return cfg, jcfg, params
+
+
+def token_rows(torch, cfg, seq, batch, step):
+    from repro_torch.data.tokens import TokenDataConfig, TokenDataset
+    rows = TokenDataset(TokenDataConfig(cfg.vocab_size, seq)).sample_batch(
+        step, batch)["tokens"]
+    return torch.from_numpy(rows).cuda()
+
+
+def mean_rel(a, b):
+    return float((a - b).abs().mean() / b.abs().mean())
+
+
+def mamba_f32(torch, cfg, params):
+    """The same weights in f32, and the config that runs them so (every
+    GEMM then runs the kernel's exact f32 FMA variant)."""
+    from repro_torch.core import tree as ptree
+    return (cfg.replace(param_dtype="float32", compute_dtype="float32"),
+            ptree.map(lambda t: t.float(), params))
+
+
+def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
+    from repro_torch.models import registry as M
+    batch = {"tokens": token_rows(torch, cfg, MAMBA_SEQ, MAMBA_BATCH, 0)}
+    cfg32, params32 = mamba_f32(torch, cfg, params)
+    with torch.no_grad():
+        # -- the main path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        logits, _ = M.apply(params, batch, cfg, jcfg)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # ------------------------------------------------------------------
+        check(launches["ssd_intra_chunk"] == MAMBA_LAYERS
+              and launches["block_matmul"] == 4 * MAMBA_LAYERS + 1,
+              f"mamba forward launches {launches} (want {MAMBA_LAYERS} ssd, "
+              f"{4 * MAMBA_LAYERS + 1} block_matmul)")
+        check(tuple(logits.shape) == (MAMBA_BATCH, MAMBA_SEQ,
+                                      cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all()),
+              f"mamba logits {tuple(logits.shape)} not finite or misshapen")
+        ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 3)
+
+        # f32: the kernel forward against the plain SSD term (the only
+        # difference) and against kernel="xla"; bf16 against f32
+        ref32, _ = M.apply(params32, batch, cfg32, jcfg)
+        bf16_err = mean_rel(logits.float(), ref32)
+        bf16_top1 = float((logits.float().argmax(-1)
+                           == ref32.argmax(-1)).float().mean())
+        del logits
+        with plain_ssd(ops, ref):
+            plain, _ = M.apply(params32, batch, cfg32, jcfg)
+        ssd_err = rel_err(ref32, plain)
+        del plain
+        xla, _ = M.apply(params32, batch, cfg32, jcfg.replace(kernel="xla"))
+        xla_err = rel_err(ref32, xla)
+        del xla, ref32
+        check(ssd_err <= MAMBA_F32_TOL,
+              f"mamba f32 logits, ssd kernel vs plain: {ssd_err:.3e}")
+        check(xla_err <= MAMBA_F32_TOL,
+              f"mamba f32 logits, pallas vs xla: {xla_err:.3e}")
+        check(bf16_err <= MAMBA_BF16_TOL,
+              f"mamba bf16 logits vs f32: {bf16_err:.3e} of the mean")
+        ms32 = cuda_ms(lambda: M.apply(params32, batch, cfg32, jcfg), 2)
+    torch.cuda.empty_cache()
+    tokens = MAMBA_SEQ * MAMBA_BATCH
+    emit(phase="mamba_forward", seq=MAMBA_SEQ, batch=MAMBA_BATCH,
+         launches=launches, ms_per_forward=ms,
+         tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
+         f32_ms_per_forward=ms32,
+         f32_vs_plain_ssd=ssd_err, f32_vs_xla=xla_err, tol_f32=MAMBA_F32_TOL,
+         bf16_vs_f32_mean=bf16_err, tol_bf16_mean=MAMBA_BF16_TOL,
+         bf16_vs_f32_top1_agree=bf16_top1)
+    return launches
+
+
+def decode_logits(torch, M, params, prompts, cfg, jcfg, cache_dtype):
+    """Token-wise logits at every prompt position, from a fresh cache."""
+    cache = M.init_cache(cfg, prompts.shape[0], prompts.shape[1],
+                         dtype=cache_dtype, device="cuda")
+    got = []
+    for t in range(prompts.shape[1]):
+        logits, cache = M.decode_step(params, cache, prompts[:, t:t + 1],
+                                      cfg, jcfg)
+        got.append(logits[:, 0])
+    return torch.stack(got, 1), cache
+
+
+def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    prompts = token_rows(torch, cfg, GEN_PROMPT, GEN_BATCH, 1)
+    max_len = GEN_PROMPT + GEN_STEPS
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out = S.generate(params, prompts, cfg, jcfg, steps=GEN_STEPS,
+                     max_len=max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    # ----------------------------------------------------------------------
+    n_steps = GEN_PROMPT + GEN_STEPS - 1      # token-wise prefill + decode
+    check(launches["ssd_intra_chunk"] == 0,
+          f"{launches['ssd_intra_chunk']} ssd launches on the decode path")
+    check(launches["block_matmul"] == n_steps * (4 * MAMBA_LAYERS + 1),
+          f"generate launches {launches} (want {4 * MAMBA_LAYERS + 1} "
+          f"block_matmul per step, {n_steps} steps)")
+    check(tuple(out.shape) == (GEN_BATCH, GEN_STEPS)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"generated tokens {tuple(out.shape)} out of range")
+    cfg32, params32 = mamba_f32(torch, cfg, params)
+    with torch.no_grad():
+        # decode consistency: token-wise logits at every prompt position
+        # against the teacher-forced forward (the kernel path), judged in
+        # f32 and printed in bf16
+        want32, _ = M.apply(params32, {"tokens": prompts}, cfg32, jcfg)
+        got32, _ = decode_logits(torch, M, params32, prompts, cfg32, jcfg,
+                                 torch.float32)
+        err32 = (got32 - want32).abs()
+        decode_ok = bool((err32 <= MAMBA_DECODE_TOL
+                          + MAMBA_DECODE_TOL * want32.abs()).all())
+        want, _ = M.apply(params, {"tokens": prompts}, cfg, jcfg)
+        got, cache = decode_logits(torch, M, params, prompts, cfg, jcfg,
+                                   torch.bfloat16)
+        bf16_abs = float((got.float() - want.float()).abs().max())
+        bf16_mean = mean_rel(got.float(), want.float())
+        check(decode_ok, f"mamba f32 decode vs teacher-forced: max abs "
+                         f"{float(err32.max()):.3e}")
+        step = S.make_serve_step(cfg, jcfg)
+        nxt = out[:, -1:]
+        step_ms = cuda_ms(lambda: step(params, cache, nxt), 10)
+    emit(phase="mamba_generate", batch=GEN_BATCH, prompt=GEN_PROMPT,
+         new_tokens=GEN_STEPS, launches=launches, wall_s=wall,
+         host_ms_per_step=1e3 * wall / n_steps,
+         device_ms_per_decode_step=step_ms,
+         f32_decode_max_abs_err=float(err32.max()), tol=MAMBA_DECODE_TOL,
+         bf16_decode_max_abs_err=bf16_abs, bf16_decode_mean_rel=bf16_mean,
+         first_tokens=out[0, :8].tolist())
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1356,7 +1734,9 @@ def train_2d_worker(rank, tmp):
     from repro_torch.kernels import block_matmul as BM
     from repro_torch.kernels import cannon as CANNON
     from repro_torch.kernels import fused_ring
+    from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import ring as RING
+    from repro_torch.kernels import ssd_chunk as SSD
     from repro_torch.kernels import wx as WX
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     from repro_torch.models import weathermixer as W
@@ -1606,7 +1986,9 @@ def main():
     from repro_torch.kernels import block_matmul as BM
     from repro_torch.kernels import cannon as CANNON
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import ring as RING
+    from repro_torch.kernels import ssd_chunk as SSD
     from repro_torch.kernels import wx as WX
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1616,14 +1998,23 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False)
     t0 = time.perf_counter()
-    libs = (BM, WX, RING, CANNON)
+    libs = (BM, WX, RING, CANNON, SSD)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source,
         built = list(pool.map(lambda lib: lib.build(), libs))   # together
     emit(phase="build", built=built, seconds=time.perf_counter() - t0,
          nvcc_seconds=[lib.build_info.get("seconds") for lib in libs],
          libraries=[lib.build_info["library"] for lib in libs])
 
-    rows, worst = kernel_phase(torch, BM, ref)
+    rows, mamba_rows, worst = kernel_phase(torch, BM, ref)
+    ssd_rows, ssd_worst = ssd_phase(torch, SSD, ref)
+    counted = (BM.block_matmul, SSD.ssd_intra_chunk, WX.wx, RING.ring_fwd,
+               RING.ring_bwd, CANNON.cannon_step)
+    mcfg, mjcfg, mparams = mamba_setup(torch)
+    fwd_launches = mamba_forward_phase(torch, counted, OPS, ref, mcfg, mjcfg,
+                                       mparams)
+    gen_launches = mamba_generate_phase(torch, counted, mcfg, mjcfg, mparams)
+    del mparams
+    torch.cuda.empty_cache()
     eng, fields, serve_launches = serve_phase(torch, BM)
     legacy_phase(torch, BM, eng, fields)
     del eng, fields
@@ -1662,6 +2053,16 @@ def main():
         return sum(r[key] * r["calls_per_train_step"] for r in cannon_rows
                    if r["batch"] == 1 and r["dtype"] == "bfloat16")
 
+    def per_mamba(tag, key):
+        # the block_matmul launches of one mamba2-130m forward (tag "fwd",
+        # sequence 4096, batch 2) or one decode step (tag "decode", batch 4)
+        return sum(r[key] * r["per_path"] for r in mamba_rows
+                   if r["shape"].startswith(tag + "."))
+
+    # the ssd launches of one mamba2-130m forward (sequence 4096, batch 2):
+    # one per layer at G = 3072
+    ssd_fwd = next(r for r in ssd_rows if r["shape"] == "seq4096.b2")
+
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
         return {
@@ -1691,11 +2092,14 @@ def main():
         "source": "src/repro_torch/kernels/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:37",
         "launches": serve_launches + train_launches
-        + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"]),
+        + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"])
+        + fwd_launches["block_matmul"] + gen_launches["block_matmul"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches,
                              "train_2d": t2["block_matmul_launches"],
-                             "train_2d_mesh": mesh_launches["block_matmul"]},
+                             "train_2d_mesh": mesh_launches["block_matmul"],
+                             "mamba_forward": fwd_launches["block_matmul"],
+                             "mamba_generate": gen_launches["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "max_abs_err": max(worst, bwd_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1
@@ -1711,8 +2115,18 @@ def main():
         "train_plain_ms": per_train_step("plain_ms"),
         "train_bound_ms": per_train_step("bound_ms"),
         "train_library_ms": per_train_step("library_ms"),
+        # the 97 GEMMs of one mamba2-130m forward (sequence 4096, batch 2)
+        # and of one of its decode steps (batch 4)
+        "mamba_forward_ms": per_mamba("fwd", "kernel_ms"),
+        "mamba_forward_plain_ms": per_mamba("fwd", "plain_ms"),
+        "mamba_forward_bound_ms": per_mamba("fwd", "bound_ms"),
+        "mamba_forward_library_ms": per_mamba("fwd", "library_ms"),
+        "mamba_decode_step_ms": per_mamba("decode", "kernel_ms"),
+        "mamba_decode_step_bound_ms": per_mamba("decode", "bound_ms"),
+        "mamba_decode_step_library_ms": per_mamba("decode", "library_ms"),
         "shapes": rows,
         "shapes_bwd": bwd_rows,
+        "shapes_mamba": mamba_rows,
     }, {
         "name": "wx",
         "route": "cuda",
@@ -1757,6 +2171,26 @@ def main():
         # torch.baddbmm per step (no hops)
         "library_ms": per_cannon_step("library_ms"),
         "shapes": cannon_rows,
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk.py:25",
+        "launches": fwd_launches["ssd_intra_chunk"]
+        + gen_launches["ssd_intra_chunk"],
+        "launches_by_path": {
+            "mamba_forward": fwd_launches["ssd_intra_chunk"],
+            "mamba_generate": gen_launches["ssd_intra_chunk"]},
+        "max_abs_err": ssd_worst,
+        # times: the 24 launches of one mamba2-130m forward (sequence 4096,
+        # batch 2, G = 3072 groups each)
+        "ms": MAMBA_LAYERS * ssd_fwd["kernel_ms"],
+        "plain_ms": MAMBA_LAYERS * ssd_fwd["plain_ms"],
+        "bound_ms": MAMBA_LAYERS * ssd_fwd["bound_ms"],
+        "bound_by": ssd_fwd["bound_by"],
+        # torch.bmm, torch.where, * dt, torch.bmm (TF32 off)
+        "library_ms": MAMBA_LAYERS * ssd_fwd["library_ms"],
+        "shapes": ssd_rows,
     }])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

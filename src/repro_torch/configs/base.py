@@ -5,8 +5,8 @@ Every architecture gets a ``configs/<id>.py`` exporting ``CONFIG`` (exact
 published dimensions, source cited) built on this dataclass.  ``reduced()``
 derives the CPU smoke-test variant of the same family.  The fields and
 ``reduced()`` are those of the JAX package, so a config built here equals
-its reference field by field; ``param_count()`` covers the mixer family,
-the only one the port runs so far.
+its reference field by field; ``param_count()`` covers the mixer and ssm
+families, the ones the port runs so far.
 """
 from __future__ import annotations
 
@@ -191,6 +191,22 @@ class ModelConfig:
             n += self.n_layers * per
             n += D * pin + pin  # decoder
             n += 2  # blend
+            return n
+        if self.family == "ssm":
+            # the reference's LM count for an all-SSM stack (it leaves out
+            # each layer's conv bias, conv_dim values, as the reference does)
+            V = self.vocab_padded
+            n += V * D
+            if not self.tie_embeddings:
+                n += V * D
+            din = self.ssm_d_inner
+            dinp = (2 * din + 2 * self.ssm_groups * self.ssm_state
+                    + self.ssm_heads)
+            ssm = D * dinp + din * D \
+                + self.ssm_conv * (din + 2 * self.ssm_groups * self.ssm_state) \
+                + 3 * self.ssm_heads + din
+            n += self.n_layers * (ssm + D)
+            n += D  # final norm
             return n
         raise NotImplementedError(
             f"param_count for family {self.family!r} is not ported yet "

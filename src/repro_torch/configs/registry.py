@@ -1,8 +1,9 @@
 """Config registry: ``get_config(arch_id)``.
 
-The port serves the mixer family so far.  The ids of the other families are
-listed, as in ``repro/configs/registry.py``, and raise until their slice of
-the port lands.
+The port runs the mixer family and ``mamba2-130m`` (the ssm family's
+forward and generation) so far.  The ids of the other families are listed,
+as in ``repro/configs/registry.py``, and raise until their slice of the port
+lands.
 """
 from __future__ import annotations
 
@@ -25,15 +26,20 @@ ARCH_IDS: List[str] = [
 ]
 
 MIXER_IDS: List[str] = ["weathermixer-1b"]
+SSM_IDS: List[str] = ["mamba2-130m"]
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in MIXER_IDS:
+    if arch_id not in MIXER_IDS + SSM_IDS:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port has the mixer family "
-            "only (ROADMAP.md, queue 1 item 14: model zoo)")
+            f"{arch_id!r} is not ported yet: the port has "
+            f"{MIXER_IDS + SSM_IDS} "
+            "(ROADMAP.md, queue 1 item 14: model zoo)")
+    if arch_id == "mamba2-130m":
+        from repro_torch.configs import mamba2_130m
+        return mamba2_130m.CONFIG
     from repro_torch.configs import weathermixer_1b
     return weathermixer_1b.CONFIG
 

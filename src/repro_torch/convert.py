@@ -1,9 +1,9 @@
 """Weight carry-over between the JAX package and the port.
 
-The reference keeps WeatherMixer's parameters as a pytree of arrays whose
-``"blocks"`` entry stacks the blocks on a leading layer dim; the port keeps
-a list of per-block dicts.  Both functions go through numpy, so neither
-package imports the other:
+The reference keeps a model's parameters as a pytree of arrays whose
+layers are stacked on a leading layer dim: WeatherMixer's ``"blocks"``,
+Mamba-2's ``"layers"``; the port keeps a list of per-layer dicts there.
+Both functions go through numpy, so neither package imports the other:
 
   ``params_from_numpy(tree)``  reference pytree (numpy leaves) -> port;
   ``params_to_numpy(params)``  port -> reference pytree (numpy leaves);
@@ -37,6 +37,10 @@ from repro_torch.core.sharding import MDOM_AXIS, Mesh, Mesh1D
 from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
+# the entries of a parameter tree whose layers the reference stacks
+STACKED = ("blocks", "layers")
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -54,19 +58,21 @@ def _to_numpy(t: torch.Tensor, bf16_dtype: Optional[Any]) -> np.ndarray:
 
 
 def params_from_numpy(tree, device="cuda"):
-    """Reference WeatherMixer pytree (numpy leaves) -> the port's params on
-    ``device`` (the card unless the caller asks for the CPU); the stacked
-    ``"blocks"`` are split into a list."""
+    """Reference pytree (numpy leaves) -> the port's params on ``device``
+    (the card unless the caller asks for the CPU); the stacked ``"blocks"``
+    or ``"layers"`` are split into a list."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("params_from_numpy: CUDA is not available; pass "
                            "device='cpu' to convert onto the CPU")
     out = {k: ptree.map(lambda a: _to_tensor(a, device), v)
-           for k, v in tree.items() if k != "blocks"}
-    stacked = ptree.map(lambda a: _to_tensor(a, device), tree["blocks"])
-    n_layers = len(ptree.leaves(stacked)[0])
-    out["blocks"] = [ptree.map(lambda t, i=i: t[i].clone(), stacked)
-                     for i in range(n_layers)]
+           for k, v in tree.items() if k not in STACKED}
+    for k in STACKED:
+        if k in tree:
+            stacked = ptree.map(lambda a: _to_tensor(a, device), tree[k])
+            n_layers = len(ptree.leaves(stacked)[0])
+            out[k] = [ptree.map(lambda t, i=i: t[i].clone(), stacked)
+                      for i in range(n_layers)]
     return out
 
 
@@ -86,12 +92,13 @@ def params_from_npz(path, device="cuda"):
 
 def params_to_numpy(params, bf16_dtype: Optional[Any] = None):
     """The port's params -> the reference's pytree layout with numpy
-    leaves; the block list is stacked on a leading layer dim."""
+    leaves; the layer list is stacked on a leading layer dim."""
     out = {k: ptree.map(lambda t: _to_numpy(t, bf16_dtype), v)
-           for k, v in params.items() if k != "blocks"}
-    out["blocks"] = ptree.map(lambda *ts: np.stack([_to_numpy(t, bf16_dtype)
-                                                for t in ts]),
-                              *params["blocks"])
+           for k, v in params.items() if k not in STACKED}
+    for k in STACKED:
+        if k in params:
+            out[k] = ptree.map(lambda *ts: np.stack(
+                [_to_numpy(t, bf16_dtype) for t in ts]), *params[k])
     return out
 
 

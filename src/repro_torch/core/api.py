@@ -79,6 +79,17 @@ class JigsawConfig:
 DEFAULT_JIGSAW = JigsawConfig()
 
 
+def head_config(cfg: JigsawConfig) -> JigsawConfig:
+    """Jigsaw config of the LM head (the tied unembedding).  The reference
+    leaves the head to GSPMD under scheme="1d" (its explicit reduce-scatter's
+    transpose would all-gather the full-vocab gradient); the port has no
+    GSPMD, so that config raises (``core/jigsaw.py::check_impl``).  Every
+    other scheme keeps ``cfg``."""
+    if cfg.scheme == "1d":
+        return cfg.replace(impl="gspmd")
+    return cfg
+
+
 # ---------------------------------------------------------------------------
 # Linear
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Synthetic weather data (numpy; the port's copy of ``repro/data``)."""
+"""Synthetic weather and token data (numpy; the port's copies of
+``repro/data``) and the weather input pipeline."""

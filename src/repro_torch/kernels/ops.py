@@ -1,9 +1,11 @@
-"""Public GEMM entry points of the port, differentiable.
+"""Public kernel entry points of the port.
 
 The counterparts of ``repro/kernels/ops.py``: ``matmul`` is the local GEMM
 engine that ``JigsawConfig(kernel="pallas")`` selects, ``matmul_nd`` runs it
 over the last dim of any-rank x, and ``mixer_mlp`` is the WeatherMixer MLP
-as two kernel calls with the GELU fused into the first one's epilogue.
+as two kernel calls with the GELU fused into the first one's epilogue; all
+three are differentiable.  ``ssd_intra`` is the Mamba-2 intra-chunk term
+(forward only).
 The reference pads every dim to its block grid; the Hopper kernel masks
 ragged edges itself, so nothing is padded here.
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.ref import act_grad
+from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
 
 
 class _Matmul(torch.autograd.Function):
@@ -94,3 +97,13 @@ def mixer_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     h = matmul(x2, w1, b1, epilogue="gelu")
     y = matmul(h, w2, b2, epilogue="none")
     return y.reshape(*x.shape[:-1], w2.shape[0])
+
+
+def ssd_intra(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+              dt: torch.Tensor, dac: torch.Tensor) -> torch.Tensor:
+    """The Mamba-2 intra-chunk SSD term on the kernel's grid
+    (``kernels/ssd_chunk.py``): c, b [G, Q, N]; x [G, Q, P]; dt, dac [G, Q]
+    -> y [G, Q, P].  The caller (``models/layers.py::_ssd_chunked``) lays
+    the mamba2 tensors out as G = (batch, chunk, head) groups.  Not
+    differentiable: the port runs the ssm family's forward only so far."""
+    return ssd_intra_chunk(c, b, x, dt, dac)

@@ -4,7 +4,8 @@ They are the oracles the kernels are held against on the card, and the path
 a kernel's wrapper takes for a tensor that lies on the CPU.  Each mirrors
 ``repro/kernels/ref.py`` (``wx_ref``: ``repro/kernels/fused_ring.py``'s
 ``_wx_raw``; the ring steps: one grid step of its ``_ring_fwd_kernel`` and
-``_ring_bwd_kernel``; ``cannon_ref``: its ``_cannon_kernel`` over a mesh): f32 accumulation (bf16 products are exact in f32,
+``_ring_bwd_kernel``; ``cannon_ref``: its ``_cannon_kernel`` over a mesh;
+``ssd_intra_ref``: ``repro/kernels/ssd_chunk.py::_kernel``): f32 accumulation (bf16 products are exact in f32,
 so an f32 product of the up-cast operands is the reference's
 ``preferred_element_type=float32``), bias added in f32, the activation in
 f32, one rounding to ``x.dtype``.  On the card this needs
@@ -205,3 +206,28 @@ def cannon_ref(ws, xs, q: int, accum_dtype: torch.dtype = torch.float32):
         y = torch.matmul(w.float(), x.float())
         return y if acc is None else acc + y
     return [a.to(accum_dtype) for a in cannon_walk_all(step, ws, xs, q)]
+
+
+def ssd_intra_ref(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                  dt: torch.Tensor, dac: torch.Tensor) -> torch.Tensor:
+    """The Mamba-2 intra-chunk SSD term, per group g of G = batch x chunks x
+    heads: c, b [G, Q, N]; x [G, Q, P]; dt, dac [G, Q] (dt after softplus,
+    dac the within-chunk cumsum of dt * A).  Returns y [G, Q, P] in x's
+    dtype:
+
+      s   = c @ b.T                                  (f32)
+      att = where(i >= j, s * exp(dac_i - dac_j), 0) * dt_j
+      y   = att.astype(x.dtype) @ x                  (f32, rounded once)
+
+    ``repro/kernels/ref.py::ssd_intra_ref`` with the TPU kernel's one cast
+    of att to x's dtype before the second product (a no-op for f32 x, the
+    model's path; for bf16 x the kernel's function).  The mask is a select:
+    above the diagonal dac_i - dac_j > 0 and exp may overflow to inf, which
+    the select drops (a multiply by 0 would make NaN)."""
+    s = torch.einsum("gin,gjn->gij", c.float(), b.float())
+    seg = dac[:, :, None] - dac[:, None, :]
+    q = c.shape[1]
+    tri = torch.ones((q, q), dtype=torch.bool, device=c.device).tril()
+    att = torch.where(tri[None], s * torch.exp(seg), 0.0) * dt[:, None, :]
+    y = torch.einsum("gij,gjp->gip", att.to(x.dtype).float(), x.float())
+    return y.to(x.dtype)

@@ -1,0 +1,129 @@
+"""mamba2-130m: the attention-free SSM language model (SSD, arXiv:2405.21060).
+
+The port of ``repro/models/mamba.py``: token embedding -> n_layers of
+(RMSNorm, Mamba-2 mixer, residual) -> final RMSNorm -> the tied LM head.
+Parameters are a dict of tensors as in the reference, except that
+``params["layers"]`` is a list with one dict per layer where the reference
+stacks the layers on a leading dim for ``lax.scan`` (``convert.py`` maps
+between the two).
+
+``apply`` is the teacher-forced forward: under ``kernel="pallas"`` its
+4 * n_layers + 1 linears run the block_matmul kernel, and each layer's
+intra-chunk SSD term one launch of the ssd_chunk kernel.  ``decode_step`` is
+the recurrent single-token step (no SSD launch).  The port runs this family
+forward only: training (the LM loss, the token batch source, the SSD term's
+backward) is ROADMAP.md queue 1 item 14.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.api import DEFAULT_JIGSAW, JigsawConfig
+from repro_torch.core.precision import dtype_of
+from repro_torch.models import layers as L
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, device):
+    return {
+        "norm": L.rmsnorm_init(cfg.d_model, device=device),
+        "mixer": L.mamba2_init(gen, cfg.d_model, d_state=cfg.ssm_state,
+                               n_heads=cfg.ssm_heads,
+                               head_dim=cfg.ssm_head_dim,
+                               conv_kernel=cfg.ssm_conv,
+                               n_groups=cfg.ssm_groups,
+                               expand=cfg.ssm_expand,
+                               dtype=dtype_of(cfg.param_dtype),
+                               device=device),
+    }
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Fresh weights on ``device`` from a ``torch.Generator`` seeded with
+    ``seed``, in ``cfg.param_dtype`` (A_log, D, dt_bias and the residual
+    norms in f32, as the reference's).  Raises when ``device`` is CUDA and
+    there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("mamba.init: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                              dtype=dtype_of(cfg.param_dtype), device=device),
+        "layers": [layer_init(gen, cfg, device)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": L.rmsnorm_init(cfg.d_model, device=device),
+    }
+
+
+def _mixer(lp, x, cfg: ModelConfig, jcfg: JigsawConfig, state=None):
+    h = L.rmsnorm_apply(lp["norm"], x)
+    out, new_state = L.mamba2_apply(
+        lp["mixer"], h, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
+        head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+        conv_kernel=cfg.ssm_conv, chunk=cfg.ssm_chunk, cfg=jcfg,
+        state=state)
+    return x + out, new_state
+
+
+def apply(params, batch, cfg: ModelConfig,
+          jcfg: JigsawConfig = DEFAULT_JIGSAW
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits [B, S, vocab_padded] of ``batch["tokens"]``
+    [B, S], and the reference's aux loss (0).  ``cfg.remat`` does not
+    apply: the port runs this forward without autograd."""
+    x = L.embed_apply(params["embed"], batch["tokens"])
+    for lp in params["layers"]:
+        x, _ = _mixer(lp, x, cfg, jcfg)
+    x = L.rmsnorm_apply(params["final_norm"], x)
+    logits = L.unembed_apply(params["embed"], x, jcfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """The decode state, O(1) in sequence length: per layer the conv window
+    [B, K-1, conv_dim] in ``dtype`` and the SSM state [B, H, P, N] in f32,
+    stacked on a leading layer dim as in the reference."""
+    del max_len
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("mamba.init_cache: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
+                             conv_dim), dtype=dtype, device=device),
+        "ssm": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_heads,
+                            cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig,
+                jcfg: JigsawConfig = DEFAULT_JIGSAW):
+    """One token per row: logits [B, 1, vocab_padded] and the cache.
+
+    The new states are written into ``cache`` in place (the reference
+    donates the cache to XLA), and the same dict is returned.  Where the
+    conv window promotes to a wider dtype than the cache's (f32 activations
+    against a bf16 cache), ``cache["conv"]`` is replaced by a tensor of that
+    dtype, as the reference's returned cache has; bf16 -> f32 is exact."""
+    x = L.embed_apply(params["embed"], tokens)
+    conv, ssm = cache["conv"], cache["ssm"]
+    for i, lp in enumerate(params["layers"]):
+        x, ns = _mixer(lp, x, cfg, jcfg,
+                       state={"conv": conv[i], "ssm": ssm[i]})
+        if ns["conv"].dtype != conv.dtype:
+            conv = conv.to(ns["conv"].dtype)
+        conv[i].copy_(ns["conv"])
+        ssm[i].copy_(ns["ssm"])
+    x = L.rmsnorm_apply(params["final_norm"], x)
+    logits = L.unembed_apply(params["embed"], x, jcfg)
+    cache["conv"] = conv
+    cache["pos"] += 1
+    return logits, cache

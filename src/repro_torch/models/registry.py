@@ -1,12 +1,14 @@
-"""Architecture registry: family -> model module dispatch (the mixer family
-so far; the others arrive with ROADMAP.md queue 1 item 14)."""
+"""Architecture registry: family -> model module dispatch (the mixer and ssm
+families so far; the others arrive with ROADMAP.md queue 1 item 14)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import JigsawConfig
-from repro_torch.models import weathermixer
+from repro_torch.models import mamba, weathermixer
 
-_FAMILY_MODULE = {"mixer": weathermixer}
+_FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba}
 
 
 def module_for(cfg: ModelConfig):
@@ -21,10 +23,35 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return module_for(cfg).init(cfg, seed=seed, device=device)
 
 
-def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, *,
-          rollout: int = 1):
-    """The training forward: (prediction, aux)."""
-    return module_for(cfg).apply(params, batch, cfg, jcfg, rollout=rollout)
+def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, **kw):
+    """The training forward: (prediction, aux); the mixer family takes
+    ``rollout``."""
+    return module_for(cfg).apply(params, batch, cfg, jcfg, **kw)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    mod = module_for(cfg)
+    if not hasattr(mod, "init_cache"):
+        raise ValueError(f"{cfg.arch_id} ({cfg.family}) has no decode path")
+    return mod.init_cache(cfg, batch_size, max_len, dtype, device=device)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, jcfg: JigsawConfig):
+    return module_for(cfg).decode_step(params, cache, tokens, cfg, jcfg)
+
+
+def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
+                  max_len: int, dtype=torch.bfloat16):
+    """Fused prefill: one teacher-forced forward that also fills the cache.
+    Families without one raise NotImplementedError, and ``serve/step.py``
+    then prefills token by token (the ssm family has none, as in the
+    reference)."""
+    mod = module_for(cfg)
+    if not hasattr(mod, "prefill_cache"):
+        raise NotImplementedError(
+            f"{cfg.arch_id} ({cfg.family}) has no fused prefill")
+    return mod.prefill_cache(params, batch, cfg, jcfg, max_len, dtype=dtype)
 
 
 def forecast_step(params, fields, cfg: ModelConfig, jcfg: JigsawConfig,

@@ -19,6 +19,7 @@ from repro_torch.kernels import block_matmul as BM
 from repro_torch.kernels import cannon as CANNON
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring as RING
+from repro_torch.kernels import ssd_chunk as SSD
 from repro_torch.kernels import wx as WX
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -526,6 +527,83 @@ def test_cannon_failed_ipc_open_raises(cuda, monkeypatch):
     monkeypatch.setattr(RING.dist, "all_gather_object", fake_gather)
     with pytest.raises(RuntimeError, match="peer -1"):
         RING.RingWorkspace(None, 1 << 20, torch.device("cuda", 0), peer=-1)
+
+
+def _ssd_inputs(gen, g, q, n, p, dtype, decay=0.1):
+    c = (0.3 * torch.randn(g, q, n, generator=gen, device="cuda")).to(dtype)
+    b = (0.3 * torch.randn(g, q, n, generator=gen, device="cuda")).to(dtype)
+    x = torch.randn(g, q, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(g, q, generator=gen, device="cuda"))
+    dac = torch.cumsum(-dt * decay, dim=1)
+    return c, b, x, dt, dac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqnp", [(6, 64, 32, 16), (5, 37, 128, 64),
+                                  (3, 64, 128, 128), (2, 1, 1, 1)])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, gqnp):
+    """f32 2e-4 (the reference's kernel tolerance; sums of 128 and 64 terms
+    in another order); bf16 3e-2 (att and y rounded to bf16)."""
+    args = _ssd_inputs(cuda, *gqnp, dtype)
+    before = SSD.ssd_intra_chunk.launches
+    y = SSD.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == before + 1
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ref.ssd_intra_ref(*args).float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_overflow_above_the_diagonal_is_masked(cuda):
+    args = _ssd_inputs(cuda, 4, 64, 128, 64, torch.float32, decay=16.0)
+    dac = args[4]
+    assert torch.isinf(torch.exp(dac[:, :, None] - dac[:, None, :])).any()
+    y = SSD.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, ref.ssd_intra_ref(*args), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_rejects_non_contiguous(cuda):
+    c, b, x, dt, dac = _ssd_inputs(cuda, 2, 16, 8, 4, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.ssd_intra_chunk(c.transpose(1, 2).contiguous().transpose(1, 2),
+                            b, x, dt, dac)
+
+
+@pytest.mark.cuda
+def test_mamba_forward_and_decode_launch_counts(cuda):
+    """The ssm family on the card (reduced config, kernel="pallas"): one
+    ssd launch per layer and 4 per layer + 1 block_matmul launches per
+    forward, within 2e-3 of the plain forward (bf16-free f32 path); the
+    decode step launches no ssd kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.shapes import jigsaw_for
+    from repro_torch.models import registry as M
+    cfg = get_config("mamba2-130m").reduced()
+    jcfg = jigsaw_for(cfg).replace(kernel="pallas")
+    params = M.init(cfg, seed=0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=cuda,
+                           device="cuda")
+    s0, b0 = SSD.ssd_intra_chunk.launches, BM.block_matmul.launches
+    logits, _ = M.apply(params, {"tokens": tokens}, cfg, jcfg)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches - s0 == cfg.n_layers
+    assert BM.block_matmul.launches - b0 == 4 * cfg.n_layers + 1
+    plain, _ = M.apply(params, {"tokens": tokens}, cfg,
+                       jcfg.replace(kernel="xla"))
+    torch.testing.assert_close(logits, plain, rtol=2e-3, atol=2e-3)
+    cache = M.init_cache(cfg, 2, 4, device="cuda")
+    s0 = SSD.ssd_intra_chunk.launches
+    M.decode_step(params, cache, tokens[:, :1], cfg, jcfg)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == s0
 
 
 @pytest.mark.cuda

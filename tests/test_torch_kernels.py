@@ -6,9 +6,11 @@ Pallas kernel in interpret mode, and its jnp oracle) and through
 takes for CPU tensors).  Tolerances are those of ``tests/test_kernels.py``:
 fp32 2e-5, bf16 3e-2.  The gradients of ``ops.matmul`` / ``mixer_mlp`` (an
 ``autograd.Function``) are held against ``jax.grad`` of the reference's
-custom VJP at f32 2e-5.  The card-side half (the CUDA kernel against its plain
-version) is ``tests/test_torch_cuda.py``; ``chip_smoke.py`` runs it at the
-model's full shapes.
+custom VJP: ``mixer_mlp``'s at f32 2e-5; ``matmul``'s, the port's and the
+reference's both, against a float64 oracle within each element's f32 error
+bound (``_grads_oracle``).  The card-side half (the CUDA kernel against its
+plain version) is ``tests/test_torch_cuda.py``; ``chip_smoke.py`` runs it at
+the model's full shapes.
 """
 import re
 from pathlib import Path
@@ -242,19 +244,84 @@ def _grads_port(x, w, b, dy, epilogue):
             torch.autograd.grad(y, leaves, torch.from_numpy(dy))]
 
 
+# float32 machine epsilon, 2^-23: twice the unit roundoff, so K * EPS32 is
+# twice the worst-case error bound of a K-term f32 sum in any order
+EPS32 = 2.0 ** -23
+# the f32 evaluation of GELU' and its product with dy: a few roundings of
+# terms no larger than 1 + |z| (tanh's cancellation in 1 - t^2 included)
+ACT_ROUNDINGS = 8
+
+
+def _gelu_grads64(z):
+    """GELU' and GELU'' (tanh form) in float64."""
+    beta, kappa = np.sqrt(2.0 / np.pi), 0.044715
+    u = beta * (z + kappa * z ** 3)
+    du = beta * (1.0 + 3.0 * kappa * z ** 2)
+    t = np.tanh(u)
+    sech2 = 1.0 - t * t
+    g1 = 0.5 * (1.0 + t) + 0.5 * z * sech2 * du
+    g2 = sech2 * du + 0.5 * z * (-2.0 * t * sech2 * du * du
+                                 + sech2 * 6.0 * beta * kappa * z)
+    return g1, g2
+
+
+def _grads_oracle(x, w, b, dy, epilogue):
+    """The gradients of <epilogue(x @ w.T + b), dy> in float64, and each
+    element's bound on an f32 computation's error.
+
+    A GEMM C = A @ B summed in f32 over K terms, in any order, is within
+    K * EPS32 * (|A| @ |B|) of the exact sum of its f32 operands (c = 1 at
+    EPS32 = 2^-23; the rounding of the output adds one more EPS32, so K + 1
+    is used).  dx = dz @ w sums over n, dw = dz.T @ x and db over m.  For
+    the GELU epilogue dz itself is f32: z's sum over k (plus the bias) is
+    off by up to (k + 1) * EPS32 * (|x| @ |w|.T + |b|), which GELU'' carries
+    into dz, and GELU' and its product with dy add ACT_ROUNDINGS roundings
+    of terms up to 1 + |z|; that error e_dz rides through the backward
+    GEMMs as |e_dz| @ |B|.  The worst elements are small results of large
+    cancelling sums, which an rtol / atol pair cannot bound."""
+    x64, w64, dy64 = (a.astype(np.float64) for a in (x, w, dy))
+    m, k = x.shape
+    n = w.shape[0]
+    if epilogue == "none":
+        dz, e_dz = dy64, np.zeros_like(dy64)
+    else:
+        b64 = np.zeros(n) if b is None else b.astype(np.float64)
+        z = x64 @ w64.T + b64
+        zmag = np.abs(x64) @ np.abs(w64).T + np.abs(b64)
+        g1, g2 = _gelu_grads64(z)
+        dz = g1 * dy64
+        e_dz = EPS32 * ((k + 1) * zmag * np.abs(g2)
+                        + ACT_ROUNDINGS * (1.0 + np.abs(z))) * np.abs(dy64)
+    adz = np.abs(dz) + e_dz
+    grads = [dz @ w64, dz.T @ x64]
+    bounds = [e_dz @ np.abs(w64) + (n + 1) * EPS32 * (adz @ np.abs(w64)),
+              e_dz.T @ np.abs(x64) + (m + 1) * EPS32 * (adz.T @ np.abs(x64))]
+    if b is not None:
+        grads.append(dz.sum(axis=0))
+        bounds.append(e_dz.sum(axis=0) + (m + 1) * EPS32 * adz.sum(axis=0))
+    return grads, bounds
+
+
 @pytest.mark.parametrize("epilogue", ["none", "gelu"])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("mkn", [(300, 140, 130), (33, 200, 17)])
 def test_matmul_grads_match_reference_custom_vjp(epilogue, bias, mkn):
+    """The port's gradients and the reference's custom VJP, each held to
+    the float64 oracle within each element's f32 error bound
+    (``_grads_oracle``).  A fixed rtol / atol between the two failed at
+    random: dw = dz.T @ x sums 300 rows whose reduction order differs with
+    the BLAS and its threads."""
     m, k, n = mkn
     x, w, b = _np_inputs(m, k, n, seed=7, bias=bias)
     dy = np.random.default_rng(8).normal(size=(m, n)).astype(np.float32)
     want = _grads_ref(x, w, b, dy, epilogue)
     got = _grads_port(x, w, b, dy, epilogue)
-    assert len(got) == len(want) == (3 if bias else 2)
-    for g, r in zip(got, want):
-        assert g.shape == r.shape and g.dtype == np.float32
-        np.testing.assert_allclose(g, r, rtol=2e-5, atol=2e-5)
+    oracle, bounds = _grads_oracle(x, w, b, dy, epilogue)
+    assert len(got) == len(want) == len(oracle) == (3 if bias else 2)
+    for g, r, o, bound in zip(got, want, oracle, bounds):
+        assert g.shape == r.shape == o.shape and g.dtype == np.float32
+        assert np.all(np.abs(g - o) <= bound), np.max(np.abs(g - o) / bound)
+        assert np.all(np.abs(r - o) <= bound), np.max(np.abs(r - o) / bound)
 
 
 def test_mixer_mlp_grads_match_reference():
