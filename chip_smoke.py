@@ -60,16 +60,20 @@ printed as a JSON line:
      bf16, and tok_fc1 in f32: the forward against the ring of
      block_matmul's products and its plain version, the backward's dw
      against block_matmul's dw of the gathered cotangent and its dx
-     accumulator against the plain one; rank 0's launches timed beside the
-     plain steps, cuBLAS chunk products with the adds, and the bound;
+     accumulator against the plain one and, in bf16, bit for bit against
+     the wx step loop; rank 0's launches timed (the backward also with dx
+     off) beside the plain steps, cuBLAS chunk products with the adds, and
+     the bound, each row with every operand's load path, the kernels'
+     registers, local and shared bytes, and the backward's tiles and waves;
   8. the Cannon kernel (``cannon_shape``) at the two full-width token-mix
      shapes of a 2x2 rank, batch 1 and 2 in bf16, and tok_fc1 in f32, the
      four ranks held in one process (rank (i, j) writes the slots of
      (i, j-1) and (i-1, j); the order of the launches is the barrier):
      every rank bit for bit the step loop (one wx launch per step) and
      within the wx tolerance of the plain Cannon; rank 0's q launches timed
-     beside the plain steps, torch.baddbmm per step and the bound; then
-     q = 3 at a small size;
+     beside the plain steps, torch.baddbmm per step and the bound, each
+     row with the operands' load paths, the kernel's registers, local and
+     shared bytes, tiles and waves; then q = 3 at a small size;
   9. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
      up to 2): the first step's loss, grad norm and per-leaf gradients
      against the same step with ``kernel="xla"``; on the same weights and
@@ -125,8 +129,9 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     K order, the same cast points); against the plain version bf16 3e-2 /
     3e-2 (every hop rounds to bf16), f32 1e-4 / 1e-4; ring backward: dw bit
     for bit block_matmul's, dx's f32 accumulator 1e-4 max-normalised
-    against the plain one (another order over m), dx that accumulator
-    rounded;
+    against the plain one (another order over m) and, in bf16, bit for bit
+    the wx step loop (the kernel it replaces ran the same WMMA loop and
+    epilogue), dx that accumulator rounded;
   * the 1-D step against the none step: loss 1e-3 and grad norm 5e-3
     relative, the worst gradient leaf 5e-2 max-normalised (the 1-D path
     rounds each linear's partial sums to bf16 at every hop and adds the
@@ -1004,18 +1009,27 @@ def ring_bound_ms(rows, d_l, m, p, dtype_name, bwd, dx=True):
                                        else "bytes")
 
 
-def ring_phase(torch, BM, RING, ref):
+def sm_count(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def ring_phase(torch, BM, RING, WX, ref):
     """p ranks held in one process (rank r's destination is rank r+1's
     slot; the order of the launches on one stream is the barrier), at each
     full-width 1-D linear for p = 2 and 4 in bf16, and tok_fc1 at p = 2 in
     f32: the forward bit for bit against the ring of block_matmul's
     products and within RING_TOL of the plain version; dw bit for bit
     against block_matmul's dw of the gathered cotangent; dx's f32
-    accumulator within RING_DX_TOL (max-normalised) of the plain one, and
-    dx it rounded.  Then rank 0's p launches timed, forward and backward,
-    beside the plain steps, the library's (torch.matmul chunk products and
-    the adds) and the bound.  On one card a hop is a store into device
-    memory, not an NVLink write."""
+    accumulator within RING_DX_TOL (max-normalised) of the plain one and,
+    in bf16, bit for bit the wx step loop that the kernel replaces (acc =
+    wx(cur_s, w_j[None], acc): the WMMA loop, the same epilogue); dx that
+    accumulator rounded.  Then rank 0's p launches timed, forward and
+    backward (the backward with its per-call padding of x, w and dy, and
+    with dx off: dw alone), beside the plain steps, the library's
+    (torch.matmul chunk products and the adds) and the bound; each row
+    names every operand's load path, each kernel's registers, local and
+    shared bytes, and the backward's tiles and waves.  On one card a hop is
+    a store into device memory, not an NVLink write."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
     cases.append((2, RING_SHAPES[1], "float32"))
@@ -1067,7 +1081,19 @@ def ring_phase(torch, BM, RING, ref):
         check(dx_err <= RING_DX_TOL,
               f"ring_bwd {label} p={p} {name}: dx accumulator vs plain "
               f"{dx_err:.3e}")
-        del accs, paccs
+        del paccs
+        if name == "bfloat16":
+            for r in range(p):
+                loop = None
+                for s in range(p):
+                    j = (r - s) % p
+                    loop = WX.wx(dys[j], ws[r][j * mc:(j + 1) * mc][None],
+                                 loop)
+                check(torch.equal(accs[r], loop[0]),
+                      f"ring_bwd {label} p={p} {name}: dx accumulator of "
+                      f"rank {r} not bit for bit the wx step loop")
+                del loop
+        del accs
         torch.cuda.empty_cache()
         worst["fwd"] = max(worst["fwd"], fwd_err)
         worst["bwd"] = max(worst["bwd"], dx_abs)
@@ -1104,13 +1130,18 @@ def ring_phase(torch, BM, RING, ref):
                 y = z if y is None else (y.float() + z.float()).to(dtype)
             return y
 
-        def bwd_kernel():
+        bwd_slots = [RING.empty_rows_like(RING.pad_rows(dy))
+                     for _ in range(2)]
+
+        def bwd_kernel(with_dx=need_dx):
+            # as fused_ring._card_backward: x, w and dy padded once per call
+            xp, wp, dyp = (RING.pad_rows(t) for t in (x, w, dy))
             for s in range(p):
-                RING.ring_bwd(x, w, (-s) % p,
-                              dy if s == 0 else slots[(s - 1) % 2],
-                              slots[s % 2] if s < p - 1 else None, dw,
-                              acc if need_dx else None,
-                              dx if need_dx else None, first=s == 0,
+                RING.ring_bwd(xp, wp, (-s) % p,
+                              dyp if s == 0 else bwd_slots[(s - 1) % 2],
+                              bwd_slots[s % 2] if s < p - 1 else None, dw,
+                              acc if with_dx else None,
+                              dx if with_dx else None, first=s == 0,
                               last=s == p - 1)
 
         def bwd_plain():
@@ -1129,13 +1160,32 @@ def ring_phase(torch, BM, RING, ref):
                     z = torch.matmul(dy, w[j * mc:(j + 1) * mc]).float()
                     acc.copy_(z) if s == 0 else acc.add_(z)
 
+        bf16 = name == "bfloat16"
+        # the forward loads every operand at one width: the widest that
+        # x and each launch's w_j allow; the backward reads through TMA
+        vb = (min(RING._vec_bytes(x, w[j * mc:]) for j in range(p))
+              if bf16 else 4)
+        n_dw, n_dx = RING.ring_bwd_tiles(rows, dl, mc, need_dx)
+        grid = RING.persistent_grid(n_dw + n_dx, p > 1, sm_count(torch))
+        fwd_blocks = -(-rows // 128) * -(-mc // 128)
         row = dict(shape=label, p=p, rows=rows, d=d, m=m, dtype=name,
                    fwd_calls_per_train_step=n_fwd,
                    bwd_calls_per_train_step=n_bwd,
-                   vec_bytes=RING._vec_bytes(x, w) if name == "bfloat16"
-                   else 4, fwd_max_abs_err=fwd_err, fwd_tol=tol,
+                   fwd_loads={"x": f"{vb} B", "w_j": f"{vb} B"},
+                   bwd_loads=({k: op.describe() for k, op in
+                               RING.tma_operands_ring_bwd(
+                                   rows, dl, mc, need_dx).items()}
+                              if bf16 else "4 B (f32 FMA tiles)"),
+                   fwd_kernel=RING.kernel_attrs(2 if bf16 else 3, vb),
+                   bwd_kernel=RING.kernel_attrs(0 if bf16 else 1),
+                   fwd_blocks=fwd_blocks,
+                   fwd_waves=fwd_blocks / sm_count(torch),
+                   bwd_tiles={"dw": n_dw, "dx": n_dx}, bwd_grid=grid,
+                   bwd_waves=(n_dw + n_dx) / grid,
+                   fwd_max_abs_err=fwd_err, fwd_tol=tol,
                    dx_acc_rel_err=dx_err, dx_acc_max_abs_err=dx_abs,
-                   dx_tol=RING_DX_TOL)
+                   dx_tol=RING_DX_TOL,
+                   dx_acc_bitwise_wx_step_loop=bf16)
         for kind, kernel, plain_fn, lib in (
                 ("fwd", fwd_kernel, fwd_plain, fwd_library),
                 ("bwd", bwd_kernel, bwd_plain, bwd_library)):
@@ -1149,9 +1199,11 @@ def ring_phase(torch, BM, RING, ref):
             work = 2e-9 * rows * m * dl * (1 + int(kind == "bwd"
                                                    and need_dx))
             row[f"{kind}_tflops"] = work / row[f"{kind}_kernel_ms"]
+        if need_dx:
+            row["bwd_dw_only_ms"] = cuda_ms(lambda: bwd_kernel(False))
         emit(phase="ring_shape", **row)
         rows_out.append(row)
-        del xs, ws, dys, x, w, dy, slots, out, acc, dx, dw
+        del xs, ws, dys, x, w, dy, slots, bwd_slots, out, acc, dx, dw
         torch.cuda.empty_cache()
     return rows_out, worst
 
@@ -1190,9 +1242,12 @@ def cannon_phase(torch, CANNON, WX, RING, ref):
     1 and 2, bf16, and tok_fc1 in f32 at batch 1: every rank's result bit
     for bit the step loop (one wx launch per step, the blocks rotated the
     same way), and within WX_TOL of the plain Cannon; then rank 0's q
-    launches timed beside the plain steps, the library's (torch.baddbmm per
-    step, no hops) and the bound.  Then q = 3 at a small size, both
-    checks.  On one card a hop is a store into HBM, not an NVLink write."""
+    launches timed (with the per-loop padding of w and x where their rows
+    need it) beside the plain steps, the library's (torch.baddbmm per
+    step, no hops) and the bound; each row names every operand's load
+    path, the kernel's registers, local and shared bytes, and its tiles
+    and waves.  Then q = 3 at a small size, both checks.  On one card a
+    hop is a store into HBM, not an NVLink write."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     q = CANNON_Q
     cases = [(shape, ll, "bfloat16") for shape in CANNON_SHAPES
@@ -1232,17 +1287,19 @@ def cannon_phase(torch, CANNON, WX, RING, ref):
         # rank (0, 0)'s q launches of one loop: at step s it holds the
         # blocks of ranks (0, s) (w) and (s, 0) (x)
         w0, x0 = ws[0], xs[0]
-        w_slots = [torch.empty_like(w0) for _ in range(2)]
-        x_slots = [torch.empty_like(x0) for _ in range(2)]
+        w_slots = [RING.empty_rows_like(RING.pad_rows(w0)) for _ in range(2)]
+        x_slots = [RING.empty_rows_like(RING.pad_rows(x0)) for _ in range(2)]
         out = torch.empty(ll, m, c, device="cuda")
         steps = [(ws[s], xs[s * q]) for s in range(q)]
 
         def kernel():
+            # as fused_ring._card_cannon: the blocks padded once per loop
+            wp, xp = RING.pad_rows(w0), RING.pad_rows(x0)
             for s in range(q):
                 last = s == q - 1
                 CANNON.cannon_step(
-                    w0 if s == 0 else w_slots[(s - 1) % 2],
-                    x0 if s == 0 else x_slots[(s - 1) % 2], out,
+                    wp if s == 0 else w_slots[(s - 1) % 2],
+                    xp if s == 0 else x_slots[(s - 1) % 2], out,
                     first=s == 0, w_dest=None if last else w_slots[s % 2],
                     x_dest=None if last else x_slots[s % 2])
 
@@ -1259,10 +1316,19 @@ def cannon_phase(torch, CANNON, WX, RING, ref):
             return acc
 
         bound, bound_by = cannon_bound_ms(ll, m, t, c, q, name)
+        bf16 = name == "bfloat16"
+        tiles = ll * RING.sm90_tiles(m, c)
+        grid = RING.persistent_grid(tiles, True, sm_count(torch))
         row = dict(shape=label, q=q, batch=ll, m=m, t=t, c=c, dtype=name,
                    calls_per_train_step=calls,
-                   vec_bytes=RING._vec_bytes(w0, x0) if name == "bfloat16"
-                   else 4, bitwise_step_loop=True, max_abs_err=err,
+                   loads=({k: op.describe() for k, op in
+                           RING.tma_operands_cannon(ll, m, c, t).items()}
+                          if bf16 else "4 B (f32 FMA tiles)"),
+                   kernel=CANNON.kernel_attrs(f32=not bf16),
+                   tiles=tiles if bf16 else None,
+                   grid=grid if bf16 else None,
+                   waves=tiles / grid if bf16 else None,
+                   bitwise_step_loop=True, max_abs_err=err,
                    tol=WX_TOL[name], kernel_ms=cuda_ms(kernel),
                    plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library),
                    bound_ms=bound, bound_by=bound_by,
@@ -2021,7 +2087,7 @@ def main():
     torch.cuda.empty_cache()
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, ref)
-    ring_rows, ring_worst = ring_phase(torch, BM, RING, ref)
+    ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
     train_launches, train, t2, t1, t2m = train_phase(torch, BM, WX)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]

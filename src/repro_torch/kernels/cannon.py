@@ -16,34 +16,44 @@ On CUDA tensors ``cannon_step`` launches the kernel, or raises; on CPU
 tensors it computes the plain version (``ref.wx_ref`` and copies).  Nothing
 falls back from one to the other.  ``cannon_step.launches`` counts the
 launches; nothing else adds to it.  The library is built like
-block_matmul's (``kernels/build.py``), from its own source.
+block_matmul's (``kernels/build.py``), from its own source and the headers
+it includes.
+
+The bf16 kernel reads w and x through TMA tensor maps, so each may have
+padded rows (``ring.row_stride``; the plan: ``ring.tma_operands_cannon``):
+the loop's callers pad the rank's own blocks once per loop
+(``ring.pad_rows``), the receive slots hold the padded layout, and the
+hops copy it.
 """
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import ring
 from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.ref import wx_ref
 from repro_torch.kernels.ring import (Buffer, _addr, _check_buffer,
-                                      _vec_bytes)
+                                      _check_hop, row_stride, span_bytes)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cannon_bf16.argtypes = [vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
+    lib.cannon_bf16.argtypes = [vp, vp, vp, vp, vp] + [i32] * 11 + [vp]
     lib.cannon_f32.argtypes = [vp, vp, vp, vp, vp] + [i32] * 8 + [vp]
+    lib.cannon_attrs.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.cannon_bf16.restype = lib.cannon_f32.restype = i32
+    lib.cannon_attrs.restype = i32
     lib.cannon_error_string.argtypes = [i32]
     lib.cannon_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = KernelLibrary("cannon", "cannon.cu", ["gemm_core.cuh"], _bind)
+LIBRARY = KernelLibrary("cannon", "cannon.cu",
+                        ["gemm_core.cuh", "gemm_sm90.cuh"], _bind)
 build_info = LIBRARY.info        # build seconds, library path
 
 
@@ -53,12 +63,23 @@ def build() -> bool:
     return LIBRARY.load()
 
 
-def _nbytes(b: Buffer) -> int:
-    return math.prod(b.shape) * (torch.finfo(b.dtype).bits // 8)
+def kernel_attrs(out_bf16: bool = False, f32: bool = False
+                 ) -> Dict[str, int]:
+    """Registers, local (spill) bytes, static and dynamic shared bytes and
+    block size of a Cannon kernel: bf16 operands (the Hopper loop) with an
+    f32 or bf16 out, or the f32 kernel.  Loads the library."""
+    build()
+    out = (ctypes.c_int * 5)()
+    rc = LIBRARY.lib.cannon_attrs(int(f32), int(out_bf16), out)
+    if rc != 0:
+        raise RuntimeError(f"cannon_attrs: CUDA error {rc} "
+                           f"({LIBRARY.error_string(rc)})")
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
+                     "dynamic_shared_bytes", "threads"), out))
 
 
 def _vec16(src: Buffer, dst: Optional[Buffer]) -> int:
-    return int(dst is not None and _nbytes(src) % 16 == 0
+    return int(dst is not None and span_bytes(src) % 16 == 0
                and _addr(src) % 16 == 0 and _addr(dst) % 16 == 0)
 
 
@@ -69,8 +90,10 @@ def cannon_step(w: Buffer, x: Buffer, out: torch.Tensor, *, first: bool,
     w @ x[l]`` for w [M, K], x [L, K, N], out [L, M, N] (the sum over K in
     f32, the add in f32, one rounding to out's dtype, f32 or bf16), and
     ``w_dest = w``, ``x_dest = x`` where given (the predecessors' receive
-    slots; None at the last step).  w and x are tensors or receive
-    slots."""
+    slots, in the layout of w and x; None at the last step).  w and x are
+    tensors or receive slots, with dense rows at any row stride: bf16 on
+    the card at strides that TMA takes (``ring.check_tma``), f32 there
+    contiguous; out is contiguous."""
     if len(w.shape) != 2 or len(x.shape) != 3 or w.shape[1] != x.shape[1]:
         raise ValueError(f"cannon: needs w [M, K] and x [L, K, N]; got "
                          f"{list(w.shape)} and {list(x.shape)}")
@@ -80,16 +103,17 @@ def cannon_step(w: Buffer, x: Buffer, out: torch.Tensor, *, first: bool,
     ll, k, n = x.shape
     m = w.shape[0]
     dev = x.device
-    for name, b, shape in (("w", w, (m, k)), ("x", x, (ll, k, n)),
-                           ("out", out, (ll, m, n))):
-        _check_buffer(b, name, shape, b.dtype, dev, "cannon")
+    for name, b, shape in (("w", w, (m, k)), ("x", x, (ll, k, n))):
+        _check_buffer(b, name, shape, b.dtype, dev, "cannon", padded=True)
+    _check_buffer(out, "out", (ll, m, n), out.dtype, dev, "cannon")
     if out.dtype not in _DTYPES:
         raise TypeError(f"cannon: out must be float32 or bfloat16, not "
                         f"{out.dtype}")
     for name, dest, src in (("w_dest", w_dest, w), ("x_dest", x_dest, x)):
         if dest is not None:
             _check_buffer(dest, name, tuple(src.shape), src.dtype, dev,
-                          "cannon")
+                          "cannon", padded=True)
+            _check_hop(src, dest, name, "cannon")
     if dev.type == "cpu":
         out.copy_(wx_ref(w, x, None if first else out, out.dtype))
         for dest, src in ((w_dest, w), (x_dest, x)):
@@ -101,18 +125,27 @@ def cannon_step(w: Buffer, x: Buffer, out: torch.Tensor, *, first: bool,
     if k == 0 or m == 0 or n == 0 or ll == 0:
         raise ValueError(f"cannon: unsupported shape L={ll}, M={m}, N={n}, "
                          f"K={k}")
+    bf16 = w.dtype == torch.bfloat16
+    if bf16:
+        ops = ring.tma_operands_cannon(ll, m, n, k)
+        lds = (ring.check_tma(w, ops["w"], "cannon"),
+               ring.check_tma(x, ops["x"], "cannon"))
+    elif row_stride(w) != k or row_stride(x) != n:
+        raise ValueError("cannon: the f32 kernel takes w and x contiguous")
     build()
     lib = LIBRARY.lib
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         args = (_addr(w), _addr(x), out.data_ptr(), _addr(w_dest),
-                _addr(x_dest), ll, m, n, k, int(first),
-                int(out.dtype == torch.bfloat16))
+                _addr(x_dest), ll, m, n, k)
         hops = (_vec16(w, w_dest), _vec16(x, x_dest))
-        if w.dtype == torch.bfloat16:
-            rc = lib.cannon_bf16(*args, _vec_bytes(w, x), *hops, stream)
+        out_bf16 = int(out.dtype == torch.bfloat16)
+        if bf16:
+            vec2 = int(n % 2 == 0 and out.data_ptr() % 8 == 0)
+            rc = lib.cannon_bf16(*args, *lds, int(first), out_bf16, vec2,
+                                 *hops, stream)
         else:
-            rc = lib.cannon_f32(*args, *hops, stream)
+            rc = lib.cannon_f32(*args, int(first), out_bf16, *hops, stream)
     if rc != 0:
         raise RuntimeError(f"cannon: launch failed with CUDA error {rc} "
                            f"({LIBRARY.error_string(rc)}) at L={ll} M={m} "
@@ -133,11 +166,15 @@ def cannon_fwd_all(ws: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
     (i - 1, j) (x), tensors here; all launches run in order on one stream,
     which is the barrier of the slot discipline."""
     n = q * q
-    w_slots = [[torch.empty_like(w) for _ in range(2)] for w in ws]
-    x_slots = [[torch.empty_like(x) for _ in range(2)] for x in xs]
     outs = [torch.empty((x.shape[0], w.shape[0], x.shape[2]),
                         dtype=accum_dtype, device=x.device)
             for w, x in zip(ws, xs)]
+    # each rank's blocks in the layout the kernel reads (padded rows where
+    # TMA needs them), once per loop; the slots hold the same layout
+    ws = [ring.pad_rows(w) for w in ws]
+    xs = [ring.pad_rows(x) for x in xs]
+    w_slots = [[ring.empty_rows_like(w) for _ in range(2)] for w in ws]
+    x_slots = [[ring.empty_rows_like(x) for _ in range(2)] for x in xs]
     for s in range(q):
         last = s == q - 1
         for r in range(n):

@@ -68,13 +68,31 @@
 // Bound: at weathermixer-1b's full width every step is a GEMM of 1,000+
 // FLOP per byte it must move (the hop is R x MC in the wire dtype, read
 // once and written once), above the ~295 FLOP/byte ridge: tensor-core
-// FLOPs bound it, as they bound block_matmul, whose main loops
-// (gemm_core.cuh) it runs.  The f32 variants run the exact FMA tiles.
+// FLOPs bound it.  The forward runs block_matmul's main loops
+// (gemm_core.cuh); the f32 variants run the exact FMA tiles.
 //
-// Left for later: wgmma and TMA, overlap of the hop with the GEMM, and a
-// single persistent launch per ring.
+// The bf16 backward (what its design does about the bound): the Hopper
+// loop of gemm_sm90.cuh, wgmma fed by a TMA producer warp through a
+// 4-stage mbarrier ring of [128 x 256] tiles, one persistent 384-thread
+// block per SM walking the launch's tiles, the long dw tiles (K = R) first
+// and the short dx tiles (K = MC) after them, so that the dx tiles fill
+// the dw tiles' last wave; the epilogue from the accumulator registers.
+// Each operand has its own row stride `ld` (a multiple of 8 elements,
+// which TMA takes), so one operand's odd rows (tok_fc1's x and w: 8,190 or
+// 4,095 bf16; tok_fc2's dy) cost its own padding, not every operand's
+// load width: the caller pads x, w and dy once per ring call where their
+// rows need it, and the receive slots hold cur in that layout.  dw is bit
+// for bit block_matmul's dw of the gathered cotangent and dx's f32
+// accumulator bit for bit wx's step loop (acc = wx(cur, w_j[None], acc)):
+// the same k16 steps in the same K order, the same roundings.  The hop is
+// copied by the producer warpgroup's three idle warps while the consumers
+// compute.
+//
+// Left for later: wgmma and TMA in the forward, and a single persistent
+// launch per ring.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 
 #include <string.h>
 
@@ -144,50 +162,106 @@ ring_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wj,
   }
 }
 
-// Blocks: n_dw tiles of dw_j [MC, D] (tiles_n per row of tiles), then n_dx
-// tiles of dx [R, D], then n_copy blocks copying cur to fwd.
-template <int VE>
-__global__ void __launch_bounds__(gemm::THREADS)
-ring_bwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wj,
-                     const bf16* cur, bf16* fwd, float* dx_acc, bf16* dx,
-                     bf16* dw_j, int R, int D, int MC, int first, int last,
-                     int n_dw, int n_dx, int n_copy, int vec16) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int tiles_n = (D + gemm::BN - 1) / gemm::BN;
-  int b = blockIdx.x;
-  if (b >= n_dw + n_dx) {
-    gemm::copy_bytes(cur, fwd, size_t(R) * MC * sizeof(bf16), vec16,
-              b - n_dw - n_dx, n_copy);
-    return;
+// The bf16 backward step on the Hopper loop (gemm_sm90.cuh).  Tiles: the
+// dw tiles of dw_j [MC, D] (A = cur read as [K = R, M = MC], M-major; B =
+// x [R, D], N-major), then the dx tiles of dx [R, D] (A = cur [R, MC],
+// K-major; B = w_j [MC, D], N-major); tiles_n column tiles per row of
+// tiles in both.  cur, x and w_j carry their own row strides (the tensor
+// maps'); dw_j, dx_acc and dx are contiguous with rows of D.
+struct RingBwdStep {
+  const CUtensorMap* m_cur_mn;
+  const CUtensorMap* m_x;
+  const CUtensorMap* m_cur_k;
+  const CUtensorMap* m_wj;
+  const void* cur;
+  void* fwd;
+  size_t cur_bytes;
+  float* dx_acc;
+  bf16* dx;
+  bf16* dw_j;
+  int R, D, MC, first, last, n_dw, n_dx, tiles_n, vec2, vec16;
+
+  __device__ int tiles() const { return n_dw + n_dx; }
+
+  __device__ sm90::Tile tile(int t) const {
+    const int kind = t < n_dw ? 0 : 1;
+    const int b = kind ? t - n_dw : t;
+    return {kind, (b / tiles_n) * sm90::BM, (b % tiles_n) * sm90::BN, 0,
+            kind ? MC : R};
   }
-  const bool is_dw = b < n_dw;
-  if (!is_dw) b -= n_dw;
-  const int m0 = (b / tiles_n) * gemm::BM, n0 = (b % tiles_n) * gemm::BN;
-  if (is_dw) {
-    // dw_j = cur.T @ x: A = cur stored [R, MC] ([K, M]), B = x stored
-    // [R, D] ([K, N]), K = R
-    gemm::bf16_tile<VE, true, true>(cur, x, MC, D, R, m0, n0, smem_raw);
-  } else {
-    // dx += cur @ w_j: A = cur [R, MC] (K contiguous), B = w_j stored
-    // [MC, D] ([K, N]), K = MC
-    gemm::bf16_tile<VE, false, true>(cur, wj, R, D, MC, m0, n0, smem_raw);
+
+  __device__ bool a_mn(int kind) const { return kind == 0; }
+
+  __device__ void load(const sm90::Tile& tl, int k0, uint32_t a, uint32_t b,
+                       uint32_t bar) const {
+    const CUtensorMap* mb = tl.kind ? m_wj : m_x;
+    if (tl.kind) {
+      sm90::tma_load(a, m_cur_k, k0, tl.m0, 0, bar);
+    } else {
+      sm90::tma_load(a, m_cur_mn, tl.m0, k0, 0, bar);
+      sm90::tma_load(a + sm90::BOX_BYTES, m_cur_mn, tl.m0 + 64, k0, 0, bar);
+    }
+#pragma unroll
+    for (int i = 0; i < sm90::BN / 64; ++i)
+      sm90::tma_load(b + i * sm90::BOX_BYTES, mb, tl.n0 + 64 * i, k0, 0, bar);
   }
-  const float* Cs = reinterpret_cast<const float*>(smem_raw);
-  const int rows = is_dw ? MC : R;
-  for (int idx = threadIdx.x; idx < gemm::BM * gemm::BN;
-       idx += gemm::THREADS) {
-    const int r = idx / gemm::BN, c = idx % gemm::BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < rows && gn < D) {
-      const size_t o = size_t(gm) * D + gn;
-      const float v = Cs[r * gemm::LDC + c];
-      if (is_dw) {
-        dw_j[o] = from_float<bf16>(v);
-      } else {
-        dx_store(v, dx_acc, dx, o, first != 0, last != 0);
+
+  __device__ void store(const sm90::Tile& tl, const float (&acc)[sm90::ACC],
+                        int row, int col) const {
+    const int rows = tl.kind ? R : MC;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row + 8 * h;
+      if (gm >= rows) continue;
+      const size_t o = size_t(gm) * D;
+#pragma unroll
+      for (int j = 0; j < sm90::BN / 8; ++j) {
+        const int gn = col + 8 * j;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (tl.kind == 0) {
+          if (vec2) {  // D even: gn < D means gn + 1 < D
+            if (gn < D) sm90::store_pair(dw_j + o + gn, v0, v1);
+          } else {
+            if (gn < D) dw_j[o + gn] = from_float<bf16>(v0);
+            if (gn + 1 < D) dw_j[o + gn + 1] = from_float<bf16>(v1);
+          }
+        } else if (vec2) {
+          if (gn < D) {
+            float2 v = make_float2(v0, v1);
+            if (!first) {
+              const float2 a = sm90::load_pair(dx_acc + o + gn);
+              v = make_float2(a.x + v0, a.y + v1);
+            }
+            sm90::store_pair(dx_acc + o + gn, v.x, v.y);
+            if (last) sm90::store_pair(dx + o + gn, v.x, v.y);
+          }
+        } else {
+          if (gn < D) dx_store(v0, dx_acc, dx, o + gn, first != 0, last != 0);
+          if (gn + 1 < D)
+            dx_store(v1, dx_acc, dx, o + gn + 1, first != 0, last != 0);
+        }
       }
     }
   }
+
+  __device__ void copy(int thread, int threads) const {
+    sm90::copy_span(cur, fwd, cur_bytes, vec16, thread, threads);
+  }
+};
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+ring_bwd_bf16_kernel(const __grid_constant__ CUtensorMap m_cur_mn,
+                     const __grid_constant__ CUtensorMap m_x,
+                     const __grid_constant__ CUtensorMap m_cur_k,
+                     const __grid_constant__ CUtensorMap m_wj,
+                     RingBwdStep st) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  RingBwdStep p = st;
+  p.m_cur_mn = &m_cur_mn;
+  p.m_x = &m_x;
+  p.m_cur_k = &m_cur_k;
+  p.m_wj = &m_wj;
+  sm90::run(p, smem_raw);
 }
 
 template <int VE>
@@ -207,24 +281,49 @@ cudaError_t launch_fwd_bf16(const void* x, const void* wj, const void* prev,
   return cudaGetLastError();
 }
 
-template <int VE>
-cudaError_t launch_bwd_bf16(const void* x, const void* wj, const void* cur,
-                            void* fwd, void* dx_acc, void* dx, void* dw_j,
-                            int R, int D, int MC, int first, int last,
-                            int n_dw, int n_dx, int n_copy, int vec16,
-                            cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ring_bwd_bf16_kernel<VE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(gemm::SMEM_BF16));
-  if (err != cudaSuccess) return err;
-  ring_bwd_bf16_kernel<VE>
-      <<<n_dw + n_dx + n_copy, gemm::THREADS, gemm::SMEM_BF16, s>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(wj),
-          static_cast<const bf16*>(cur), static_cast<bf16*>(fwd),
-          static_cast<float*>(dx_acc), static_cast<bf16*>(dx),
-          static_cast<bf16*>(dw_j), R, D, MC, first, last, n_dw, n_dx,
-          n_copy, vec16);
-  return cudaGetLastError();
+int launch_bwd_bf16(const void* x, const void* wj, const void* cur,
+                    void* fwd, void* dx_acc, void* dx, void* dw_j, int R,
+                    int D, int MC, int ld_x, int ld_w, int ld_c, int first,
+                    int last, int vec2, int vec16, cudaStream_t s) {
+  auto kernel = ring_bwd_bf16_kernel;
+  static const int reg_err = sm90::check_registers(kernel);
+  if (reg_err != 0) return reg_err;
+  // the dx maps are not read when there is no dx (dx_acc null): they then
+  // describe cur again
+  const bool has_dx = dx_acc != nullptr;
+  CUtensorMap m_cur_mn, m_x, m_cur_k, m_wj;
+  if (sm90::make_map(&m_cur_mn, cur, MC, R, 1, ld_c, 64, 64) != 0 ||
+      sm90::make_map(&m_x, x, D, R, 1, ld_x, 64, 64) != 0 ||
+      sm90::make_map(&m_cur_k, cur, MC, R, 1, ld_c, 64, 128) != 0 ||
+      sm90::make_map(&m_wj, has_dx ? wj : cur, has_dx ? D : MC,
+                     has_dx ? MC : R, 1, has_dx ? ld_w : ld_c, 64, 64) != 0)
+    return sm90::TENSOR_MAP_ERROR;
+  RingBwdStep st;
+  st.m_cur_mn = st.m_x = st.m_cur_k = st.m_wj = nullptr;
+  st.cur = cur;
+  st.fwd = fwd;
+  st.cur_bytes = size_t(R) * ld_c * sizeof(bf16);
+  st.dx_acc = static_cast<float*>(dx_acc);
+  st.dx = static_cast<bf16*>(dx);
+  st.dw_j = static_cast<bf16*>(dw_j);
+  st.R = R;
+  st.D = D;
+  st.MC = MC;
+  st.first = first;
+  st.last = last;
+  st.tiles_n = (D + sm90::BN - 1) / sm90::BN;
+  st.n_dw = ((MC + sm90::BM - 1) / sm90::BM) * st.tiles_n;
+  st.n_dx = has_dx ? ((R + sm90::BM - 1) / sm90::BM) * st.tiles_n : 0;
+  st.vec2 = vec2;
+  st.vec16 = vec16;
+  const int grid = sm90::grid_size(st.n_dw + st.n_dx, fwd != nullptr);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(sm90::SMEM_BYTES));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, s>>>(m_cur_mn, m_x, m_cur_k,
+                                                       m_wj, st);
+  return int(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -341,25 +440,20 @@ extern "C" int ring_fwd_f32(const void* x, const void* w, const void* prev,
   return int(cudaGetLastError());
 }
 
+// ring_bwd_bf16: x [R, D] (row stride ld_x), w [M, D] (row stride ld_w),
+// cur [R, MC] (row stride ld_c) and fwd in cur's layout; dw [M, D], dx_acc
+// and dx [R, D] contiguous.  vec2: D is even and dw, dx_acc, dx 8-byte
+// aligned (pairs of columns per access); vec16: the hop's width.
 extern "C" int ring_bwd_bf16(const void* x, const void* w, const void* cur,
                              void* fwd, void* dx_acc, void* dx, void* dw,
-                             int R, int D, int MC, int j, int first,
-                             int last, int vec_bytes, int vec16,
-                             void* stream) {
+                             int R, int D, int MC, int j, int ld_x, int ld_w,
+                             int ld_c, int first, int last, int vec2,
+                             int vec16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* wj = static_cast<const bf16*>(w) + size_t(j) * MC * D;
+  const void* wj = static_cast<const bf16*>(w) + size_t(j) * MC * ld_w;
   void* dw_j = static_cast<bf16*>(dw) + size_t(j) * MC * D;
-  const int n_dw = tiles(MC, D, gemm::BM);
-  const int n_dx = dx_acc != nullptr ? tiles(R, D, gemm::BM) : 0;
-  const int n_copy =
-      fwd != nullptr ? gemm::copy_blocks(size_t(R) * MC * sizeof(bf16)) : 0;
-  switch (vec_bytes) {
-    case 16: return launch_bwd_bf16<8>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
-    case 8: return launch_bwd_bf16<4>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
-    case 4: return launch_bwd_bf16<2>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
-    case 2: return launch_bwd_bf16<1>(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, first, last, n_dw, n_dx, n_copy, vec16, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return launch_bwd_bf16(x, wj, cur, fwd, dx_acc, dx, dw_j, R, D, MC, ld_x,
+                         ld_w, ld_c, first, last, vec2, vec16, s);
 }
 
 extern "C" int ring_bwd_f32(const void* x, const void* w, const void* cur,
@@ -419,6 +513,31 @@ extern "C" int ring_ipc_handle_bytes() {
   return int(sizeof(cudaIpcMemHandle_t));
 }
 
+// Attributes of a kernel (sm90::kernel_attrs: registers, local bytes,
+// static and dynamic shared bytes, block size): 0 the bf16 backward, 1 the
+// f32 backward, 2 the bf16 forward at load width vec_bytes, 3 the f32
+// forward.
+extern "C" int ring_attrs(int kernel, int vec_bytes, int* out) {
+  switch (kernel) {
+    case 0: return sm90::kernel_attrs(ring_bwd_bf16_kernel, sm90::SMEM_BYTES, out);
+    case 1: return sm90::kernel_attrs(ring_bwd_f32_kernel, 0, out);
+    case 3: return sm90::kernel_attrs(ring_fwd_f32_kernel, 0, out);
+    case 2: break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  switch (vec_bytes) {
+    case 16: return sm90::kernel_attrs(ring_fwd_bf16_kernel<8>, gemm::SMEM_BF16, out);
+    case 8: return sm90::kernel_attrs(ring_fwd_bf16_kernel<4>, gemm::SMEM_BF16, out);
+    case 4: return sm90::kernel_attrs(ring_fwd_bf16_kernel<2>, gemm::SMEM_BF16, out);
+    case 2: return sm90::kernel_attrs(ring_fwd_bf16_kernel<1>, gemm::SMEM_BF16, out);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" const char* ring_error_string(int err) {
+  if (err == sm90::TENSOR_MAP_ERROR)
+    return "cuTensorMapEncodeTiled refused an operand";
+  if (err == sm90::REGISTER_ERROR)
+    return "the kernel's register count leaves setmaxnreg no room";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

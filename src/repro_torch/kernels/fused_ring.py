@@ -155,13 +155,17 @@ def _card_backward(x2, w, dy2, group, p, me, need_dx):
         dx_acc = torch.empty((rows, k), dtype=torch.float32,
                              device=x2.device)
         dx = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
-    ws = ring.workspace(group, rows * mc * x2.element_size(), x2.device)
+    # x, w and dy in the layout the kernel reads (rows padded where TMA
+    # needs it), once per call; the slots hold dy's layout
+    x2, w, dy2 = ring.pad_rows(x2), ring.pad_rows(w), ring.pad_rows(dy2)
+    ld = ring.row_stride(dy2)
+    ws = ring.workspace(group, ring.span_bytes(dy2), x2.device)
     stream = torch.cuda.current_stream(x2.device)
     for s in range(p):
         stream.synchronize()
         comm.barrier(group)
-        cur = dy2 if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype)
-        fwd = ws.peer(s % 2, shape, x2.dtype) if s < p - 1 else None
+        cur = dy2 if s == 0 else ws.own((s - 1) % 2, shape, x2.dtype, ld)
+        fwd = ws.peer(s % 2, shape, x2.dtype, ld) if s < p - 1 else None
         ring.ring_bwd(x2, w, (me - s) % p, cur, fwd, dw, dx_acc, dx,
                       first=s == 0, last=s == p - 1)
     return dx, dw
@@ -309,15 +313,26 @@ def cannon_t_loop(wl: torch.Tensor, xl: torch.Tensor, *, dom_group,
 # the fused transposed Cannon: the q-step loop on the Cannon kernel
 # ---------------------------------------------------------------------------
 
+def _hop_bytes(ll: int, m_l: int, t_l: int, c_l: int,
+               x_dtype: torch.dtype):
+    """The bytes of a Cannon step's two hops, w [m_l, t_l] and x [ll, t_l,
+    c_l], in the layout the kernel reads (bf16 rows padded to
+    ``ring.tma_ld``)."""
+    e = x_dtype.itemsize
+
+    def ld(cols):
+        return ring.tma_ld(cols) if x_dtype == torch.bfloat16 else cols
+    return m_l * ld(t_l) * e, ll * t_l * ld(c_l) * e
+
+
 def cannon_footprint_bytes(ll: int, m_l: int, t_l: int, c_l: int,
                            x_dtype: torch.dtype) -> int:
     """Device memory the fused Cannon takes on the card beside its operands
     and output: two receive slots for w's hops [m_l, t_l] and two for x's
     [ll, t_l, c_l] (raw ``cudaMalloc``, rounded up to ``ring.SLOT_GRANULE``;
     the reference's counts VMEM)."""
-    e = x_dtype.itemsize
-    return 2 * (ring.slot_bytes_for(m_l * t_l * e)
-                + ring.slot_bytes_for(ll * t_l * c_l * e))
+    return 2 * sum(ring.slot_bytes_for(b)
+                   for b in _hop_bytes(ll, m_l, t_l, c_l, x_dtype))
 
 
 def cannon_path(ll: int, m_l: int, t_l: int, c_l: int, x_dtype: torch.dtype,
@@ -328,9 +343,8 @@ def cannon_path(ll: int, m_l: int, t_l: int, c_l: int, x_dtype: torch.dtype,
     step loop above its VMEM budget; here nothing falls back)."""
     if torch.device(device).type != "cuda":
         return "step"
-    e = x_dtype.itemsize
-    ring.check_budget(m_l * t_l * e)
-    ring.check_budget(ll * t_l * c_l * e)
+    for nbytes in _hop_bytes(ll, m_l, t_l, c_l, x_dtype):
+        ring.check_budget(nbytes)
     return "card"
 
 
@@ -343,21 +357,27 @@ def _card_cannon(w, x, dom_group, tp_group, model_group, q, out_dt):
     group)."""
     out = torch.empty((x.shape[0], w.shape[0], x.shape[2]), dtype=out_dt,
                       device=x.device)
-    w_ws = ring.workspace(tp_group, w.numel() * w.element_size(), x.device,
-                          peer=-1)
-    x_ws = ring.workspace(dom_group, x.numel() * x.element_size(), x.device,
-                          peer=-1)
+    # the blocks in the layout the kernel reads (rows padded where TMA
+    # needs it), once per loop; the slots hold the same layout
+    w, x = ring.pad_rows(w), ring.pad_rows(x)
+    ld_w, ld_x = ring.row_stride(w), ring.row_stride(x)
+    w_ws = ring.workspace(tp_group, ring.span_bytes(w), x.device, peer=-1)
+    x_ws = ring.workspace(dom_group, ring.span_bytes(x), x.device, peer=-1)
     stream = torch.cuda.current_stream(x.device)
+
+    def slot(ws, i, t, ld, own):
+        return (ws.own if own else ws.peer)(i, t.shape, t.dtype, ld)
+
     for s in range(q):
         stream.synchronize()          # the slot discipline of ring.cu
         comm.barrier(model_group)
         last = s == q - 1
         cannon.cannon_step(
-            w if s == 0 else w_ws.own((s - 1) % 2, w.shape, w.dtype),
-            x if s == 0 else x_ws.own((s - 1) % 2, x.shape, x.dtype), out,
+            w if s == 0 else slot(w_ws, (s - 1) % 2, w, ld_w, True),
+            x if s == 0 else slot(x_ws, (s - 1) % 2, x, ld_x, True), out,
             first=s == 0,
-            w_dest=None if last else w_ws.peer(s % 2, w.shape, w.dtype),
-            x_dest=None if last else x_ws.peer(s % 2, x.shape, x.dtype))
+            w_dest=None if last else slot(w_ws, s % 2, w, ld_w, False),
+            x_dest=None if last else slot(x_ws, s % 2, x, ld_x, False))
     return out
 
 

@@ -390,6 +390,69 @@ def test_ring_kernels_match_plain_and_ring(cuda, dtype, p, rows, dl, m):
                                    rtol=RING_TOL[dtype], atol=RING_TOL[dtype])
         assert _max_rel(accs[r], pacc[r]) <= RING_DX_TOL
         assert torch.equal(dxs[r], accs[r].to(dtype))
+    if dtype == torch.bfloat16:
+        _assert_dx_is_the_wx_step_loop(xs, ws, dys, accs)
+
+
+def _assert_dx_is_the_wx_step_loop(xs, ws, dys, accs):
+    """dx's f32 accumulator bit for bit what the kernel it replaces gave:
+    the wx step loop acc = wx(cur_s, w_j[None], acc), rank r taking rank
+    (r - s) % p's dy chunk at step s (the WMMA loop and epilogue)."""
+    p = len(xs)
+    mc = ws[0].shape[0] // p
+    for r in range(p):
+        loop = None
+        for s in range(p):
+            j = (r - s) % p
+            loop = WX.wx(dys[j], ws[r][j * mc:(j + 1) * mc][None], loop)
+        assert torch.equal(accs[r], loop[0]), r
+
+
+def _wide(gen, shape, lo=-20, hi=20):
+    """bf16 values of random sign and magnitude 2^lo .. 2^hi: products of
+    every magnitude meet in one k16 step and their sums cancel, so a k16
+    step that rounded otherwise than the WMMA loop's would show."""
+    mant = 1 + torch.rand(shape, generator=gen, device="cuda")
+    e = torch.randint(lo, hi, shape, generator=gen, device="cuda").float()
+    sign = torch.rand(shape, generator=gen, device="cuda") < 0.5
+    return (torch.where(sign, -mant, mant) * torch.exp2(e)).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["randn", "wide"])
+@pytest.mark.parametrize("p,rows,dl,m", [(2, 300, 97, 260), (2, 129, 98, 130),
+                                         (4, 200, 129, 516), (3, 77, 1000, 99),
+                                         (2, 1, 8, 4)])
+def test_ring_bwd_odd_strides_and_cancelling_inputs(cuda, inputs, p, rows,
+                                                    dl, m):
+    """The bf16 backward at row strides of 2 and 4 bytes mod 16 (dl = 97,
+    98, 129: x and w_j padded by ring_bwd_all), ragged R, D and MC (not
+    multiples of 64 or 128), p = 4, and inputs that cancel across a wide
+    exponent range: dw bit for bit block_matmul's dw of the gathered
+    cotangent, dx's accumulator bit for bit the wx step loop and within
+    RING_DX_TOL of the plain one (randn; the wide inputs cancel to where a
+    max-normalised bound says nothing)."""
+    mc = m // p
+    if inputs == "wide":
+        xs = [_wide(cuda, (rows, dl)) for _ in range(p)]
+        ws = [_wide(cuda, (m, dl)) for _ in range(p)]
+        dys = [_wide(cuda, (rows, mc)) for _ in range(p)]
+    else:
+        xs, ws, dys = _ring_case(cuda, p, rows, dl, m, torch.bfloat16)
+    b0 = RING.ring_bwd.launches
+    dxs, dws, accs = RING.ring_bwd_all(xs, ws, dys)
+    torch.cuda.synchronize()
+    assert RING.ring_bwd.launches - b0 == p * p
+    gathered = torch.cat(dys, dim=1)
+    for dw, x in zip(dws, xs):
+        assert torch.equal(dw, BM.block_matmul(gathered, x, x_t=True,
+                                               w_t=True))
+    _assert_dx_is_the_wx_step_loop(xs, ws, dys, accs)
+    assert all(torch.equal(dx, a.to(torch.bfloat16))
+               for dx, a in zip(dxs, accs))
+    if inputs == "randn":
+        _, _, pacc = ref.ring_bwd_all_ref(xs, ws, dys)
+        assert all(_max_rel(a, b) <= RING_DX_TOL for a, b in zip(accs, pacc))
 
 
 @pytest.mark.cuda
@@ -492,6 +555,86 @@ def test_cannon_kernel_matches_step_loop_and_plain(cuda, dtype, out_dtype,
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        rtol=CANNON_TOL[dtype],
                                        atol=CANNON_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["randn", "wide"])
+@pytest.mark.parametrize("q,ll,m,t,c", [(2, 1, 300, 97, 130),
+                                        (2, 2, 129, 98, 97),
+                                        (3, 2, 200, 129, 70),
+                                        (3, 1, 65, 1000, 258)])
+def test_cannon_odd_strides_and_cancelling_inputs(cuda, inputs, q, ll, m, t,
+                                                  c):
+    """The bf16 Cannon at row strides of 2 and 4 bytes mod 16 (w's rows of
+    97, 98, 129; x's of 97, 130, 70: padded once per loop by
+    cannon_fwd_all, the slots in the padded layout), ragged M, N and K,
+    L = 2, q = 3, and inputs that cancel across a wide exponent range: bit
+    for bit the step loop (one wx launch per step) in an f32 and a bf16
+    accumulator, and within CANNON_TOL of the plain Cannon (randn)."""
+    if inputs == "wide":
+        ws = [_wide(cuda, (m, t)) for _ in range(q * q)]
+        xs = [_wide(cuda, (ll, t, c)) for _ in range(q * q)]
+    else:
+        ws, xs = _cannon_case(cuda, q, ll, m, t, c, torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = CANNON.cannon_step.launches
+        got = CANNON.cannon_fwd_all(ws, xs, q, accum_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert CANNON.cannon_step.launches - before == q ** 3
+        loop = ref.cannon_walk_all(
+            lambda w, x, a: WX.wx(w, x, a, out_dtype=out_dtype), ws, xs, q)
+        assert all(torch.equal(a, b) for a, b in zip(got, loop))
+        if inputs == "randn" and out_dtype == torch.float32:
+            for a, b in zip(got, ref.cannon_ref(ws, xs, q)):
+                np.testing.assert_allclose(
+                    a.cpu().numpy(), b.cpu().numpy(),
+                    rtol=CANNON_TOL[torch.bfloat16],
+                    atol=CANNON_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("who,case", [("ring", "stride"), ("ring", "base"),
+                                      ("cannon", "stride"),
+                                      ("cannon", "base")])
+def test_sm90_wrappers_raise_on_rows_tma_does_not_take(cuda, who, case):
+    """A bf16 operand whose rows are 2 bytes mod 16 apart (not padded) or
+    whose base is not 16-byte aligned: the wrapper raises ValueError and
+    launches nothing; there is no fallback on a CUDA tensor."""
+    bf = torch.bfloat16
+    if case == "stride":
+        x = torch.randn(40, 97, device="cuda").to(bf)
+    else:
+        x = torch.randn(40 * 104 + 1, device="cuda").to(bf)[1:].view(
+            40, 104)[:, :97]
+    if who == "ring":
+        w = RING.pad_rows(torch.randn(60, 97, device="cuda").to(bf))
+        cur = RING.pad_rows(torch.randn(40, 30, device="cuda").to(bf))
+        before = RING.ring_bwd.launches
+        with pytest.raises(ValueError, match="TMA"):
+            RING.ring_bwd(x, w, 0, cur, None,
+                          torch.empty(60, 97, dtype=bf, device="cuda"),
+                          None, None, first=True, last=True)
+        assert RING.ring_bwd.launches == before
+    else:
+        xc = RING.pad_rows(torch.randn(1, 97, 16, device="cuda").to(bf))
+        before = CANNON.cannon_step.launches
+        with pytest.raises(ValueError, match="TMA"):
+            CANNON.cannon_step(x, xc, torch.empty(1, 40, 16, device="cuda"),
+                               first=True)
+        assert CANNON.cannon_step.launches == before
+
+
+@pytest.mark.cuda
+def test_sm90_kernels_start_with_the_registers_setmaxnreg_moves(cuda):
+    """The Hopper-loop kernels run 384 threads, one block per SM, and start
+    with enough registers for setmaxnreg to give the consumers 232 and the
+    producer 40 (else the launch refuses, rather than wait forever)."""
+    need = 232 * 256 + 40 * 128
+    for attrs in (CANNON.kernel_attrs(), CANNON.kernel_attrs(out_bf16=True),
+                  RING.kernel_attrs(0)):
+        assert attrs["threads"] >= 384
+        assert attrs["registers"] * 384 >= need, attrs
+        assert attrs["dynamic_shared_bytes"] <= 232448
 
 
 @pytest.mark.cuda
