@@ -21,7 +21,11 @@ printed as a JSON line:
      tok_fc1 in f32, and the five GEMM shapes of a mamba2-130m forward
      (8,192 rows) and of its decode step (4 rows) in bf16, each timed
      beside the plain version, one PyTorch library call computing the same
-     function (never used by the port) and the card's bound;
+     function (never used by the port) and the card's bound; each row with
+     its route (the Hopper loop, or the WMMA loop where M or N is under
+     64), load paths, registers, spills, shared bytes, tiles, waves and
+     the per-call padding's time, and every Hopper-loop result held bit for
+     bit against the WMMA loop's on the same operands (timed too);
   2b. the ssd_chunk kernel (``ssd_shape``) against its plain version: small
      ragged chunks in f32 and bf16 and a chunk whose decay overflows exp
      above the diagonal (the output must be finite), then mamba2-130m's
@@ -48,12 +52,17 @@ printed as a JSON line:
   5. the backward GEMMs of the six shapes (bucket 1): dx = dz @ w and
      dw = dz.T @ x through the kernel's transposed-operand variants,
      against the plain version, each timed beside the plain version, the
-     library's product and the bound; dw of tok_fc1 in f32 too;
+     library's product and the bound, with the rows of phase 2; dw of
+     tok_fc1 in f32 too;
   6. the wx kernel (the transposed-Cannon step of the 2-D token mix) at
      the full-width token-mix shapes of q = 1 and of a 2x2 rank, batch 1
      and 2: the forward in bf16 with a non-zero f32 accumulator, and dx
-     (w read across its rows) in f32, each against its plain version and
-     timed beside it, the closest PyTorch library call and the bound;
+     from the bf16 w (read across its rows) and an f32 dy, once bf16-exact
+     (one split term, the 2-D path's) and once not (three terms), each
+     against its plain version, dx also against a float64 oracle and the
+     term count the card recorded, timed beside the plain version, the
+     closest PyTorch library call, the bound and, for dx, the f32 FMA
+     kernel that took it before and the split pass;
   7. the ring step kernels (``ring_shape``) at the six full-width 1-D
      linear shapes for p = 2 and 4 ranks held in one process (rank r
      writes rank r+1's slot; the order of the launches is the barrier), in
@@ -78,8 +87,9 @@ printed as a JSON line:
      up to 2): the first step's loss, grad norm and per-leaf gradients
      against the same step with ``kernel="xla"``; on the same weights and
      batch, one 2-D (``scheme="2d"``, the 1x1 mesh) forward and backward,
-     with its 18 r wx and 5 + 30 r block_matmul launches, held against the
-     ``scheme="none"`` step (``train_2d``); one 1-D (``scheme="1d"``,
+     with its 18 r wx and 5 + 30 r block_matmul launches, every dx launch
+     at one split term, held against the ``scheme="none"`` step
+     (``train_2d``); one 1-D (``scheme="1d"``,
      ``impl="ring_fused"``) forward and backward on two ranks, this file
      re-run as two processes (``--train-1d-rank``) that share the card
      under gloo and reach each other's ring slots through CUDA IPC, with
@@ -91,8 +101,8 @@ printed as a JSON line:
      reading only its block of the batch (``pipeline="sharded"``, 1/4 of
      the bytes, bit for bit ``field_block`` of the whole batch) and
      reaching its predecessors' Cannon slots through CUDA IPC, with 24 r
-     cannon, 12 r + 12 r wx and 10 + 60 r block_matmul launches per rank,
-     held against the none step and, bit for bit in loss and grad norm,
+     cannon, 12 r + 12 r wx (every dx at one split term) and 10 + 60 r
+     block_matmul launches per rank, held against the none step and, bit for bit in loss and grad norm,
      against the step with ``fused_cannon_t`` forced to the step loop
      (``train_2d_mesh``); then the run, with 5 + 54 r
      kernel launches per step of rollout r, finite losses, peak memory
@@ -113,8 +123,10 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
   * wx: the bf16 forward 1e-3 / 1e-3 (its f32 output is not rounded and
     bf16 products are exact in f32, so the error is the summation order's:
     1.2e-4 at most at these shapes, where a bf16 rounding of the
-    accumulator, a or the output would show up to 1.6e-2), the f32 dx
-    1e-4 / 1e-4;
+    accumulator, a or the output would show up to 1.6e-2), dx 1e-4 / 1e-4
+    (every product of the bf16 w and a split term of dy is exact in f32)
+    and 1e-4 max-normalised against a float64 oracle (``WX_DX_F64_TOL``);
+  * block_matmul's Hopper loop: bit for bit its WMMA loop;
   * whole forecast step, max|a - b| / max|b|: bf16 policy 5e-2 (the plain
     step rounds each GEMM to bf16 before its bias and activation, the
     kernel after, through 3 blocks of bf16 residual stream); legacy f32
@@ -238,6 +250,46 @@ def gemm_errors(y, r, dtype_name):
     return float(err.max()), ok
 
 
+def sm_count(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi, x_t, w_t):
+    """What a block_matmul launch at this shape runs: its route, its
+    kernel's registers, spills and shared bytes, its operands' load paths,
+    its tiles and waves, and the device time of the per-call padding of
+    operands whose rows TMA cannot take (0 where none is padded)."""
+    path = BM.route(m, n, x.dtype)
+    if path != "sm90":
+        vb = BM.vec_bytes(x, w) if path == "wmma" else 4
+        blocks = -(-m // 128) * -(-n // 128)
+        return dict(route=path, loads=f"{vb} B",
+                    kernel=BM.kernel_attrs(path, x_t, w_t, epi, vb),
+                    tiles=blocks, grid=blocks, waves=blocks / sm_count(torch),
+                    pad_ms=0.0)
+    ops = SM90.tma_operands_block_matmul(m, n, k, x_t, w_t)
+    tiles = SM90.sm90_tiles(m, n)
+    grid = SM90.persistent_grid(tiles, False, sm_count(torch))
+    padded = [t for t in (x, w) if SM90.pad_rows(t) is not t]
+    return dict(route=path,
+                loads={name: op.describe() for name, op in ops.items()},
+                kernel=BM.kernel_attrs(path, x_t, w_t, epi),
+                tiles=tiles, grid=grid, waves=tiles / grid,
+                pad_ms=(cuda_ms(lambda: [SM90.pad_rows(t) for t in padded])
+                        if padded else 0.0))
+
+
+def check_routes_agree(torch, BM, y, args, kw, what):
+    """A bf16 result of the Hopper loop against the WMMA loop's on the same
+    operands, bit for bit (the same k16 steps in the same K order, the
+    same epilogue); returns the WMMA launch's device time."""
+    y_w = BM.block_matmul(*args, route_name="wmma", **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y_w), f"{what}: the Hopper loop's result is not "
+          "bit for bit the WMMA loop's")
+    return cuda_ms(lambda: BM.block_matmul(*args, route_name="wmma", **kw))
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -270,7 +322,7 @@ MAMBA_SHAPES = [(f"{tag}.{name}", m, k, n, per)
                                         ("out_proj", 1536, 768, MAMBA_LAYERS),
                                         ("head", 768, 50432, 1))]
 
-def kernel_phase(torch, BM, ref):
+def kernel_phase(torch, BM, SM90, ref):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -283,7 +335,7 @@ def kernel_phase(torch, BM, ref):
         return x, w, b
 
     worst = 0.0
-    n_small = 0
+    n_small = n_bitwise = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for m, k, n in [(1, 1, 1), (7, 13, 5), (300, 700, 130),
@@ -295,11 +347,16 @@ def kernel_phase(torch, BM, ref):
                     torch.cuda.synchronize()
                     err, ok = gemm_errors(y, ref.block_matmul_ref(x, w, b,
                                                                   epi), name)
-                    check(ok, f"small {name} {(m, k, n)} {epi} bias={bias}:"
-                              f" max err {err:.3e}")
+                    what = f"small {name} {(m, k, n)} {epi} bias={bias}"
+                    check(ok, f"{what}: max err {err:.3e}")
+                    if BM.route(m, n, dtype) == "sm90":
+                        check_routes_agree(torch, BM, y, (x, w, b, epi), {},
+                                           what)
+                        n_bitwise += 1
                     worst = max(worst, err)
                     n_small += 1
-    emit(phase="kernel_small", cases=n_small, max_abs_err=worst, ok=True)
+    emit(phase="kernel_small", cases=n_small, max_abs_err=worst,
+         bitwise_wmma_cases=n_bitwise, ok=True)
 
     rows = []
     for label, m, k, n, epi, name, per_step, per_train in SHAPES:
@@ -319,13 +376,18 @@ def kernel_phase(torch, BM, ref):
         bound, bound_by = gemm_bound_ms(m, n, k, name, True)
         row = dict(shape=label, m=m, n=n, k=k, dtype=name, epilogue=epi,
                    per_step=per_step, per_train_step=per_train,
-                   vec_bytes=BM.vec_bytes(x, w) if name == "bfloat16" else 4,
+                   **bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi,
+                                     False, False),
                    max_abs_err=err, tol=GEMM_TOL[name],
                    kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w, b, epi)),
                    library_ms=cuda_ms(library),
                    plain_ms=cuda_ms(lambda: ref.block_matmul_ref(x, w, b,
                                                                  epi), 3),
                    bound_ms=bound, bound_by=bound_by)
+        if row["route"] == "sm90":
+            row["wmma_ms"] = check_routes_agree(torch, BM, y, (x, w, b, epi),
+                                                {}, label)
+            row["bitwise_wmma"] = True
         row["tflops"] = 2e-9 * m * n * k / row["kernel_ms"]
         emit(phase="kernel_shape", **row)
         rows.append(row)
@@ -343,12 +405,17 @@ def kernel_phase(torch, BM, ref):
         bound, bound_by = gemm_bound_ms(m, n, k, "bfloat16", False)
         row = dict(shape=label, m=m, n=n, k=k, dtype="bfloat16",
                    epilogue="none", per_path=per_path,
-                   vec_bytes=BM.vec_bytes(x, w), max_abs_err=err,
-                   tol=GEMM_TOL["bfloat16"],
+                   **bm_route_fields(torch, BM, SM90, x, w, m, n, k, "none",
+                                     False, False),
+                   max_abs_err=err, tol=GEMM_TOL["bfloat16"],
                    kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w), 10),
                    library_ms=cuda_ms(lambda: F.linear(x, w), 10),
                    plain_ms=cuda_ms(lambda: ref.block_matmul_ref(x, w), 3),
                    bound_ms=bound, bound_by=bound_by)
+        if row["route"] == "sm90":
+            row["wmma_ms"] = check_routes_agree(torch, BM, y, (x, w), {},
+                                                label)
+            row["bitwise_wmma"] = True
         row["tflops"] = 2e-9 * m * n * k / row["kernel_ms"]
         emit(phase="kernel_shape", **row)
         mamba_rows.append(row)
@@ -488,10 +555,23 @@ def ssd_phase(torch, SSD, ref):
 def zero_counts(kernels):
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches.clear()
 
 
 def read_counts(kernels):
     return {fn.__name__: fn.launches for fn in kernels}
+
+
+def read_routes(kernels):
+    """block_matmul's launches by route since ``zero_counts``."""
+    bm = next(fn for fn in kernels if fn.__name__ == "block_matmul")
+    return dict(bm.route_launches)
+
+
+# mamba2-130m's block_matmul routes: in_dt (N = 24) and, in the decode
+# step, every GEMM (M = 4) run the WMMA loop; the rest the Hopper loop
+MAMBA_FWD_ROUTES = {"sm90": 3 * MAMBA_LAYERS + 1, "wmma": MAMBA_LAYERS}
 
 
 @contextmanager
@@ -554,8 +634,11 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
         logits, _ = M.apply(params, batch, cfg, jcfg)
         torch.cuda.synchronize()
         launches = read_counts(kernels)
+        routes = read_routes(kernels)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # ------------------------------------------------------------------
+        check(routes == MAMBA_FWD_ROUTES, f"mamba forward block_matmul "
+              f"routes {routes}, want {MAMBA_FWD_ROUTES}")
         check(launches["ssd_intra_chunk"] == MAMBA_LAYERS
               and launches["block_matmul"] == 4 * MAMBA_LAYERS + 1,
               f"mamba forward launches {launches} (want {MAMBA_LAYERS} ssd, "
@@ -590,7 +673,7 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
     torch.cuda.empty_cache()
     tokens = MAMBA_SEQ * MAMBA_BATCH
     emit(phase="mamba_forward", seq=MAMBA_SEQ, batch=MAMBA_BATCH,
-         launches=launches, ms_per_forward=ms,
+         launches=launches, block_matmul_routes=routes, ms_per_forward=ms,
          tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
          f32_ms_per_forward=ms32,
          f32_vs_plain_ssd=ssd_err, f32_vs_xla=xla_err, tol_f32=MAMBA_F32_TOL,
@@ -625,8 +708,12 @@ def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
+    routes = read_routes(kernels)
     # ----------------------------------------------------------------------
     n_steps = GEN_PROMPT + GEN_STEPS - 1      # token-wise prefill + decode
+    check(routes == {"wmma": launches["block_matmul"]},
+          f"generate's block_matmul routes {routes}: M = {GEN_BATCH} takes "
+          "the WMMA loop")
     check(launches["ssd_intra_chunk"] == 0,
           f"{launches['ssd_intra_chunk']} ssd launches on the decode path")
     check(launches["block_matmul"] == n_steps * (4 * MAMBA_LAYERS + 1),
@@ -657,7 +744,8 @@ def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
         nxt = out[:, -1:]
         step_ms = cuda_ms(lambda: step(params, cache, nxt), 10)
     emit(phase="mamba_generate", batch=GEN_BATCH, prompt=GEN_PROMPT,
-         new_tokens=GEN_STEPS, launches=launches, wall_s=wall,
+         new_tokens=GEN_STEPS, launches=launches, block_matmul_routes=routes,
+         wall_s=wall,
          host_ms_per_step=1e3 * wall / n_steps,
          device_ms_per_decode_step=step_ms,
          f32_decode_max_abs_err=float(err32.max()), tol=MAMBA_DECODE_TOL,
@@ -841,7 +929,7 @@ BWD_COUNTS = {"encoder": (0, 1), "tok_fc1": (3, 3), "tok_fc2": (3, 3),
               "tok_fc1_f32": (0, 0)}
 
 
-def kernel_bwd_phase(torch, BM, ref):
+def kernel_bwd_phase(torch, BM, SM90, ref):
     """dx = dz @ w (w read as w.T) and dw = dz.T @ x (dz and x read across
     their rows) for each forward shape; dw only for the f32 row."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -874,12 +962,17 @@ def kernel_bwd_phase(torch, BM, ref):
             bound, bound_by = gemm_bound_ms(om, on, ok_, name, False)
             row = dict(shape=f"{label}.{kind}", m=om, n=on, k=ok_,
                        dtype=name, x_t=x_t, w_t=True, per_train_step=count,
-                       vec_bytes=(BM.vec_bytes(a, b) if name == "bfloat16"
-                                  else 4),
+                       **bm_route_fields(torch, BM, SM90, a, b, om, on, ok_,
+                                         "none", x_t, True),
                        max_abs_err=err, tol=GEMM_TOL[name],
                        kernel_ms=cuda_ms(kernel), library_ms=cuda_ms(library),
                        plain_ms=cuda_ms(plain, 3), bound_ms=bound,
                        bound_by=bound_by)
+            if row["route"] == "sm90":
+                row["wmma_ms"] = check_routes_agree(
+                    torch, BM, y, (a, b), dict(x_t=x_t, w_t=True),
+                    f"{label}.{kind}")
+                row["bitwise_wmma"] = True
             row["tflops"] = 2e-9 * om * on * ok_ / row["kernel_ms"]
             emit(phase="kernel_bwd_shape", **row)
             rows.append(row)
@@ -906,66 +999,123 @@ WX_SHAPES = [("q1.tok_fc1", 8640, 16380, 4320, (6, 3)),
 # wx's output is f32 under both operand types, and bf16 products are exact
 # in f32, so plain and kernel differ only in summation order (max 1.2e-4
 # at these shapes): a kernel that rounds its accumulator, a or its output
-# to bf16 (up to 1.6e-2 at |v| 4-8) must fail.
+# to bf16 (up to 1.6e-2 at |v| 4-8) must fail.  dx (bf16 w, f32 dy split
+# into bf16 terms, every product exact in f32) 1e-4 likewise.
 WX_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# dx against a float64 oracle, max|dx - oracle| / max|oracle|: f32
+# accumulation of exact products over K <= 16,380 terms errs ~1e-5 of the
+# max at most; a dx that dropped the second and third terms of an inexact
+# dy would err by bf16's rounding of dy, ~1e-3 of the max
+WX_DX_F64_TOL = 1e-4
 
 
-def wx_phase(torch, WX, ref):
+def wx_bound_ms(ll, m, n, k, x_bytes, out_bytes, terms=1):
+    """Least time of one wx launch: ``terms`` bf16 products [m, k] @ [k, n]
+    per batch element over the bf16 peak, or the bytes (w in bf16 once, x
+    at ``x_bytes`` an element, each [m, n] output element ``out_bytes``:
+    written, plus the accumulator read where there is one) over the memory
+    rate."""
+    flops = 2.0 * terms * ll * m * n * k
+    nbytes = 2 * m * k + x_bytes * ll * k * n + out_bytes * ll * m * n
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def wx_phase(torch, WX, SM90, ref):
     """Per shape and batch: the forward a + w @ x[l] in bf16 (the Cannon
-    step), and dx = w.T @ dy[l] in f32 (w read across its rows), each
-    against ref.wx_ref.  library: torch.matmul(w, x) + a (cuBLAS bf16
-    product rounded to bf16, then the f32 add: two calls) for the forward,
-    torch.matmul(w.t(), dy) (cuBLAS f32, TF32 off) for dx."""
+    step) against ref.wx_ref; and dx = w.T @ dy[l] from the bf16 w (read
+    across its rows) and an f32 dy, twice: dy the f32 image of a bf16
+    cotangent (the 2-D path's: one term) and an inexact dy (three terms),
+    each against ref.wx_ref, a float64 oracle and the term count the card
+    recorded.  Timed beside the plain version, the library (torch.matmul(w,
+    x) + a: cuBLAS bf16, rounded to bf16, then the f32 add; for dx
+    torch.matmul(w.float().t(), dy), cuBLAS f32, TF32 off), the f32 FMA
+    kernel that took dx before (``fma_ms``), the split pass alone and the
+    per-call padding of w; each row names the operands' load paths, the
+    kernel's registers, spills and shared bytes, its tiles and waves."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
+    sms = sm_count(torch)
     for label, m, t, c, (n_fwd, n_dx) in WX_SHAPES:
         w = (torch.randn(m, t, generator=gen, device="cuda")
              / t ** 0.5).to(torch.bfloat16)
         w32 = w.float()
+        pad_ms = (cuda_ms(lambda: SM90.pad_rows(w))
+                  if SM90.pad_rows(w) is not w else 0.0)
         for ll in (1, 2):
             x = torch.randn(ll, t, c, generator=gen,
                             device="cuda").to(torch.bfloat16)
             a = torch.randn(ll, m, c, generator=gen, device="cuda")
-            dy = torch.randn(ll, m, c, generator=gen, device="cuda")
-            cases = [
-                ("fwd", "bfloat16", (m, c, t), n_fwd,
-                 lambda: WX.wx(w, x, a),
-                 lambda: ref.wx_ref(w, x, a),
-                 lambda: torch.matmul(w, x) + a),
-                ("dx", "float32", (t, c, m), n_dx,
-                 lambda: WX.wx(w32, dy, None, w_t=True),
-                 lambda: ref.wx_ref(w32, dy, None, w_t=True),
-                 lambda: torch.matmul(w32.t(), dy))]
-            for kind, name, (gm, gn, gk), count, kernel, plain, lib in cases:
+            dy3 = torch.randn(ll, m, c, generator=gen, device="cuda")
+            dy1 = dy3.to(torch.bfloat16).float()
+            cases = [("fwd", None, (m, c, t), n_fwd,
+                      lambda: WX.wx(w, x, a), lambda: ref.wx_ref(w, x, a),
+                      lambda: torch.matmul(w, x) + a)]
+            for terms, dy in ((1, dy1), (3, dy3)):
+                cases.append((
+                    "dx", terms, (t, c, m), n_dx if terms == 1 else 0,
+                    lambda dy=dy: WX.wx(w, dy, None, w_t=True),
+                    lambda dy=dy: ref.wx_ref(w, dy, None, w_t=True),
+                    lambda dy=dy: torch.matmul(w32.t(), dy)))
+            for kind, terms, (gm, gn, gk), count, kernel, plain, lib in cases:
+                WX.reset_dx_terms()
                 y = kernel()
                 torch.cuda.synchronize()
+                got_terms = WX.dx_terms()
                 r = plain()
-                tol = WX_TOL[name]
+                tol = WX_TOL["float32" if kind == "dx" else "bfloat16"]
+                what = f"wx {label}.{kind} L={ll}" + (
+                    f" {terms} term(s)" if terms else "")
                 err = float((y - r).abs().max())
                 check(bool(((y - r).abs() <= tol + tol * r.abs()).all()),
-                      f"wx {label}.{kind} L={ll} {name}: max err {err:.3e}")
+                      f"{what}: max err {err:.3e}")
                 worst = max(worst, err)
-                del y, r
-                bound, bound_by = gemm_bound_ms(
-                    gm, gn, gk, name, False, batch=ll,
-                    mn_bytes=8 if kind == "fwd" else 4)
+                del r
                 row = dict(shape=f"{label}.{kind}", batch=ll, m=gm, n=gn,
-                           k=gk, dtype=name, w_t=kind == "dx",
-                           per_train_step=count,
-                           vec_bytes=(WX.vec_bytes(w, x) if kind == "fwd"
-                                      else 4),
-                           max_abs_err=err, tol=tol,
-                           kernel_ms=cuda_ms(kernel),
-                           library_ms=cuda_ms(lib),
-                           plain_ms=cuda_ms(plain, 3), bound_ms=bound,
-                           bound_by=bound_by)
-                row["tflops"] = 2e-9 * ll * gm * gn * gk / row["kernel_ms"]
+                           k=gk, w_t=kind == "dx", per_train_step=count)
+                if kind == "dx":
+                    want = {1: int(terms == 1), 3: int(terms == 3)}
+                    check(got_terms == want, f"{what}: the card's term "
+                          f"counts {got_terms}, want {want}")
+                    dy = dy1 if terms == 1 else dy3
+                    oracle = torch.matmul(w.double().t(), dy.double())
+                    f64_err = rel_err(y.double(), oracle)
+                    del oracle
+                    check(f64_err <= WX_DX_F64_TOL, f"{what}: against the "
+                          f"float64 oracle {f64_err:.3e}")
+                    bound, bound_by = wx_bound_ms(ll, gm, gn, gk, 4, 4,
+                                                  terms)
+                    row.update(dtype="bfloat16 w, float32 dy", terms=terms,
+                               f64_rel_err=f64_err, f64_tol=WX_DX_F64_TOL,
+                               split_ms=cuda_ms(lambda: WX.split_terms(dy)),
+                               fma_ms=cuda_ms(lambda: WX.wx(
+                                   w32, dy, None, w_t=True), 2))
+                else:
+                    bound, bound_by = wx_bound_ms(ll, gm, gn, gk, 2, 8)
+                    row.update(dtype="bfloat16")
+                del y
+                ops = SM90.tma_operands_wx(ll, gm, gn, gk, kind == "dx")
+                tiles = ll * SM90.sm90_tiles(gm, gn)
+                grid = SM90.persistent_grid(tiles, False, sms)
+                row.update(
+                    route="sm90",
+                    loads={name: op.describe() for name, op in ops.items()},
+                    kernel=WX.kernel_attrs("sm90", kind == "dx"),
+                    tiles=tiles, grid=grid, waves=tiles / grid,
+                    pad_ms=pad_ms, max_abs_err=err, tol=tol,
+                    kernel_ms=cuda_ms(kernel), library_ms=cuda_ms(lib),
+                    plain_ms=cuda_ms(plain, 3), bound_ms=bound,
+                    bound_by=bound_by)
+                row["tflops"] = (2e-9 * (terms or 1) * ll * gm * gn * gk
+                                 / row["kernel_ms"])
                 emit(phase="wx_shape", **row)
                 rows.append(row)
-            del x, a, dy
+            del x, a, dy1, dy3
             torch.cuda.empty_cache()
         del w, w32
         torch.cuda.empty_cache()
+    emit(phase="wx_split", kernel=WX.kernel_attrs("split"))
     return rows, worst
 
 # ---------------------------------------------------------------------------
@@ -1007,10 +1157,6 @@ def ring_bound_ms(rows, d_l, m, p, dtype_name, bwd, dx=True):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
-
-
-def sm_count(torch):
-    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def ring_phase(torch, BM, RING, WX, ref):
@@ -1368,20 +1514,20 @@ def train_flops_per_sample(cfg, rollout):
 def train_2d_bound_ms_per_sample(cfg, rollout, q=1):
     """The least device time of one 2-D training sample-step (3 blocks,
     remat), per rank of a q x q mesh: per block and pass, the token mix's
-    6 bf16 GEMMs (forward, rerun and dw of both linears; at q > 1 two more,
-    the fused Cannon's VJP recomputing the forward) and 2 f32 ones (dx, as
-    the reference computes it), the channel mix's 8 bf16 ones (forward,
-    rerun, dx, dw), and 5 bf16 encoder/decoder GEMMs, each set over the
-    peak of its type; a rank does 1/q**2 of it."""
+    8 GEMMs (forward, rerun, dw and dx of both linears; at q > 1 two more,
+    the fused Cannon's VJP recomputing the forward), the channel mix's 8
+    (forward, rerun, dx, dw), and 5 encoder/decoder GEMMs, all over the
+    bf16 peak: dx too, which on this path is one bf16 product (the
+    cotangent is bf16-exact: wx's dx route contracts one split term); a
+    rank does 1/q**2 of it."""
     t = (cfg.wm_lat // cfg.wm_patch) * (cfg.wm_lon // cfg.wm_patch)
     d, pd = cfg.d_model, cfg.wm_patch ** 2 * cfg.wm_channels
     enc = 2.0 * t * pd * d
     tok = 2.0 * d * cfg.wm_d_tok * t
     ch = 2.0 * t * cfg.wm_d_ch * d
     passes = rollout * cfg.n_layers
-    bf16 = 5 * enc + passes * ((6 if q == 1 else 8) * tok + 8 * ch)
-    return 1e3 * (bf16 / PEAK_FLOPS["bfloat16"]
-                  + passes * 2 * tok / PEAK_FLOPS["float32"]) / q ** 2
+    flops = 5 * enc + passes * ((8 if q == 1 else 10) * tok + 8 * ch)
+    return 1e3 * flops / PEAK_FLOPS["bfloat16"] / q ** 2
 
 
 def fwd_bwd_ms(torch, params, batch, cfg, jcfg, rollout):
@@ -1426,16 +1572,22 @@ def train_2d_phase(torch, BM, WX, eng, batch0, r0, none_metrics,
     BM.block_matmul.launches = 0
     WX.wx.launches = 0
     WX.wx.layout_launches.clear()
+    WX.reset_dx_terms()
     m2, g2 = value_and_grad(eng.params, batch0, cfg2, jcfg2, r0)
     torch.cuda.synchronize()
     bm_launches, wx_launches = BM.block_matmul.launches, WX.wx.launches
     wx_dx = WX.wx.layout_launches[True]
+    dx_terms = WX.dx_terms()
     peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
     check((bm_launches, wx_launches, wx_dx) == (5 + 30 * r0, 18 * r0, 6 * r0),
           f"2-D step at r={r0}: {bm_launches} block_matmul and "
           f"{wx_launches} wx launches ({wx_dx} dx); want {5 + 30 * r0}, "
           f"{18 * r0} ({6 * r0})")
+    # the cotangent that reaches dx is a bf16 one cast up: every dx launch
+    # contracts one split term
+    check(dx_terms == {1: wx_dx, 3: 0}, f"2-D step: dx launches by term "
+          f"count {dx_terms}, want all {wx_dx} at one term")
     l2, ln = float(m2["loss"]), float(none_metrics["loss"])
     n2, nn = float(global_norm(g2)), float(global_norm(none_grads))
     leaf_err = leaf_rel_err(torch, g2, none_grads)
@@ -1444,7 +1596,8 @@ def train_2d_phase(torch, BM, WX, eng, batch0, r0, none_metrics,
                  grad_norm_none=nn, grad_norm_rel_err=abs(n2 - nn) / nn,
                  max_leaf_rel_err=leaf_err, tol=TRAIN_TOL,
                  block_matmul_launches=bm_launches, wx_launches=wx_launches,
-                 wx_dx_launches=wx_dx, peak_mem_gb=peak / 1e9)
+                 wx_dx_launches=wx_dx, wx_dx_terms=dx_terms,
+                 peak_mem_gb=peak / 1e9)
     check(stats["loss_rel_err"] <= TRAIN_TOL
           and stats["grad_norm_rel_err"] <= TRAIN_TOL
           and leaf_err <= TRAIN_TOL, f"2-D step vs scheme='none': {stats}")
@@ -1732,6 +1885,9 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
     for r, x in enumerate(res):
         check(x["launches"] == want, f"train_2d_mesh rank {r}: launches "
               f"{x['launches']}, want {want} (counted on the CPU)")
+        check(x["dx_terms"] == {"1": want["wx_dx"], "3": 0},
+              f"train_2d_mesh rank {r}: dx launches by term count "
+              f"{x['dx_terms']}, want all {want['wx_dx']} at one term")
         check(x["block_equal"], f"train_2d_mesh rank {r}: its batch is not "
               "field_block of the whole batch")
         check(x["read_share"] == 1 / n, f"train_2d_mesh rank {r} read "
@@ -1758,6 +1914,7 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
                  loss_step_loop=res[0]["loss_step_loop"],
                  grad_norm_step_loop=res[0]["grad_norm_step_loop"],
                  launches=[x["launches"] for x in res],
+                 wx_dx_terms=[x["dx_terms"] for x in res],
                  read_bytes=[x["read_bytes"] for x in res],
                  read_share=[x["read_share"] for x in res],
                  read_s=[x["read_s"] for x in res],
@@ -1847,11 +2004,13 @@ def train_2d_worker(rank, tmp):
               RING.ring_bwd):
         f.launches = 0
     WX.wx.layout_launches.clear()
+    WX.reset_dx_terms()
     comm.through_host.clear()
     comm.through_host_bytes.clear()
     metrics, grads = value_and_grad(eng.params, batch, cfg, jcfg, r0)
     torch.cuda.synchronize()
-    res = dict(launches=dict(cannon=CANNON.cannon_step.launches,
+    res = dict(dx_terms=WX.dx_terms(),
+               launches=dict(cannon=CANNON.cannon_step.launches,
                              wx_fwd=WX.wx.layout_launches[False],
                              wx_dx=WX.wx.layout_launches[True],
                              block_matmul=BM.block_matmul.launches,
@@ -1961,12 +2120,14 @@ def train_phase(torch, BM, WX):
     torch.cuda.reset_peak_memory_stats()
     BM.block_matmul.launches = 0
     BM.block_matmul.layout_launches.clear()
+    BM.block_matmul.route_launches.clear()
     t0 = time.perf_counter()
     hist = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = BM.block_matmul.launches
     by_layout = dict(BM.block_matmul.layout_launches)
+    routes = dict(BM.block_matmul.route_launches)
     peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
 
@@ -1985,6 +2146,8 @@ def train_phase(torch, BM, WX):
     check(layouts == want_layouts and sum(by_layout.values()) == launches,
           f"training launches by operand layout {by_layout}, want "
           f"{want_layouts}")
+    check(routes == {"sm90": launches}, f"training launches by route "
+          f"{routes}: every GEMM of the step is at least 64 wide")
     check(peak < PEAK_MEM_LIMIT, f"training peak memory {peak / 1e9:.2f} GB")
     check(len(hist) == TRAIN_STEPS
           and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
@@ -2011,7 +2174,7 @@ def train_phase(torch, BM, WX):
         rollout_schedule=sched, setup_s=setup_s, batch_host_s=batch_s,
         first_step_vs_xla=first, wall_s=wall, kernel_launches=launches,
         launches_per_step=[5 + 54 * r for r in sched],
-        launches_by_layout=layouts,
+        launches_by_layout=layouts, launches_by_route=routes,
         loss=[h["loss"] for h in hist],
         grad_norm=[h["grad_norm"] for h in hist],
         lr=[h["lr"] for h in hist],
@@ -2054,6 +2217,7 @@ def main():
     from repro_torch.kernels import ref
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import ring as RING
+    from repro_torch.kernels import sm90 as SM90
     from repro_torch.kernels import ssd_chunk as SSD
     from repro_torch.kernels import wx as WX
 
@@ -2071,7 +2235,7 @@ def main():
          nvcc_seconds=[lib.build_info.get("seconds") for lib in libs],
          libraries=[lib.build_info["library"] for lib in libs])
 
-    rows, mamba_rows, worst = kernel_phase(torch, BM, ref)
+    rows, mamba_rows, worst = kernel_phase(torch, BM, SM90, ref)
     ssd_rows, ssd_worst = ssd_phase(torch, SSD, ref)
     counted = (BM.block_matmul, SSD.ssd_intra_chunk, WX.wx, RING.ring_fwd,
                RING.ring_bwd, CANNON.cannon_step)
@@ -2085,8 +2249,8 @@ def main():
     legacy_phase(torch, BM, eng, fields)
     del eng, fields
     torch.cuda.empty_cache()
-    bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, ref)
-    wx_rows, wx_worst = wx_phase(torch, WX, ref)
+    bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, SM90, ref)
+    wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
     train_launches, train, t2, t1, t2m = train_phase(torch, BM, WX)
@@ -2095,15 +2259,21 @@ def main():
 
     step = [r for r in rows if r["per_step"]]
 
+    # a row's key, or (wmma_ms of a row that runs the WMMA loop anyway) its
+    # kernel time
+    def get(r, key):
+        return r.get(key, r["kernel_ms"])
+
     def per_step(key):
-        return sum(r[key] * r["per_step"] for r in step)
+        return sum(get(r, key) * r["per_step"] for r in step)
 
     def per_train_step(key):
-        return sum(r[key] * r["per_train_step"] for r in rows + bwd_rows)
+        return sum(get(r, key) * r["per_train_step"] for r in rows + bwd_rows)
 
     def per_wx_step(key):
-        # the q = 1 rows at batch 1: this card's path, per sample-step
-        return sum(r[key] * r["per_train_step"] for r in wx_rows
+        # the q = 1 rows at batch 1 (dx at one term, as the path runs it):
+        # this card's path, per sample-step
+        return sum(r.get(key, 0.0) * r["per_train_step"] for r in wx_rows
                    if r["batch"] == 1 and r["shape"].startswith("q1."))
 
     def per_ring_step(kind, key):
@@ -2122,7 +2292,7 @@ def main():
     def per_mamba(tag, key):
         # the block_matmul launches of one mamba2-130m forward (tag "fwd",
         # sequence 4096, batch 2) or one decode step (tag "decode", batch 4)
-        return sum(r[key] * r["per_path"] for r in mamba_rows
+        return sum(get(r, key) * r["per_path"] for r in mamba_rows
                    if r["shape"].startswith(tag + "."))
 
     # the ssd launches of one mamba2-130m forward (sequence 4096, batch 2):
@@ -2167,9 +2337,14 @@ def main():
                              "mamba_forward": fwd_launches["block_matmul"],
                              "mamba_generate": gen_launches["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
+        "train_launches_by_route": train["launches_by_route"],
         "max_abs_err": max(worst, bwd_worst),
-        # times: the 14 GEMMs of one bf16 forecast step at bucket 1
+        # times: the 14 GEMMs of one bf16 forecast step at bucket 1 (the
+        # kernel's with its per-call padding, of which pad_ms; wmma_ms the
+        # WMMA loop's on the same operands, bit for bit the same result)
         "ms": per_step("kernel_ms"),
+        "pad_ms": per_step("pad_ms"),
+        "wmma_ms": per_step("wmma_ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
@@ -2178,12 +2353,15 @@ def main():
         # the 59 GEMMs of one training sample-step at rollout 1 (batch 1):
         # forward, remat and GELU recomputes, dx and dw
         "train_ms": per_train_step("kernel_ms"),
+        "train_pad_ms": per_train_step("pad_ms"),
+        "train_wmma_ms": per_train_step("wmma_ms"),
         "train_plain_ms": per_train_step("plain_ms"),
         "train_bound_ms": per_train_step("bound_ms"),
         "train_library_ms": per_train_step("library_ms"),
         # the 97 GEMMs of one mamba2-130m forward (sequence 4096, batch 2)
         # and of one of its decode steps (batch 4)
         "mamba_forward_ms": per_mamba("fwd", "kernel_ms"),
+        "mamba_forward_wmma_ms": per_mamba("fwd", "wmma_ms"),
         "mamba_forward_plain_ms": per_mamba("fwd", "plain_ms"),
         "mamba_forward_bound_ms": per_mamba("fwd", "bound_ms"),
         "mamba_forward_library_ms": per_mamba("fwd", "library_ms"),
@@ -2205,15 +2383,24 @@ def main():
             "train_2d_mesh": [a + b for a, b in zip(mesh_launches["wx_fwd"],
                                                     mesh_launches["wx_dx"])]},
         "max_abs_err": wx_worst,
+        "dx_terms_by_path": {"train_2d": t2["wx_dx_terms"],
+                             "train_2d_mesh": t2m["wx_dx_terms"]},
         # times: the 18 wx launches of one 2-D training sample-step at q = 1
         # and r = 1 (batch 1): the 12 forward-layout launches (forward and
-        # the checkpoint's rerun) and the 6 f32 dx launches
+        # the checkpoint's rerun) and the 6 dx launches (one split term,
+        # as the path runs them), each with its per-call padding of w (of
+        # which pad_ms) and, dx, its split pass (split_ms); fma_dx_ms the
+        # f32 FMA kernel that took dx before, on the same operands
         "ms": per_wx_step("kernel_ms"),
+        "pad_ms": per_wx_step("pad_ms"),
+        "split_ms": per_wx_step("split_ms"),
+        "fma_dx_ms": per_wx_step("fma_ms"),
         "plain_ms": per_wx_step("plain_ms"),
         "bound_ms": per_wx_step("bound_ms"),
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                          for r in wx_rows) else "bytes"),
-        # torch.matmul (+ the f32 add of the accumulator, forward rows)
+        # torch.matmul (+ the f32 add of the accumulator, forward rows;
+        # f32 for dx)
         "library_ms": per_wx_step("library_ms"),
         "shapes": wx_rows,
     }, dict(ring_entry("fwd", 214), shapes=ring_rows),

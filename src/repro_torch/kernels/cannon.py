@@ -20,9 +20,9 @@ block_matmul's (``kernels/build.py``), from its own source and the headers
 it includes.
 
 The bf16 kernel reads w and x through TMA tensor maps, so each may have
-padded rows (``ring.row_stride``; the plan: ``ring.tma_operands_cannon``):
+padded rows (``sm90.row_stride``; the plan: ``sm90.tma_operands_cannon``):
 the loop's callers pad the rank's own blocks once per loop
-(``ring.pad_rows``), the receive slots hold the padded layout, and the
+(``sm90.pad_rows``), the receive slots hold the padded layout, and the
 hops copy it.
 """
 from __future__ import annotations
@@ -32,11 +32,12 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import ring
+from repro_torch.kernels import ring, sm90
 from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.ref import wx_ref
-from repro_torch.kernels.ring import (Buffer, _addr, _check_buffer,
-                                      _check_hop, row_stride, span_bytes)
+from repro_torch.kernels.ring import Buffer, _check_buffer, _check_hop
+from repro_torch.kernels.sm90 import addr as _addr
+from repro_torch.kernels.sm90 import row_stride, span_bytes
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -68,14 +69,8 @@ def kernel_attrs(out_bf16: bool = False, f32: bool = False
     """Registers, local (spill) bytes, static and dynamic shared bytes and
     block size of a Cannon kernel: bf16 operands (the Hopper loop) with an
     f32 or bf16 out, or the f32 kernel.  Loads the library."""
-    build()
-    out = (ctypes.c_int * 5)()
-    rc = LIBRARY.lib.cannon_attrs(int(f32), int(out_bf16), out)
-    if rc != 0:
-        raise RuntimeError(f"cannon_attrs: CUDA error {rc} "
-                           f"({LIBRARY.error_string(rc)})")
-    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
-                     "dynamic_shared_bytes", "threads"), out))
+    return sm90.kernel_attrs(LIBRARY, "cannon_attrs", int(f32),
+                             int(out_bf16))
 
 
 def _vec16(src: Buffer, dst: Optional[Buffer]) -> int:
@@ -92,7 +87,7 @@ def cannon_step(w: Buffer, x: Buffer, out: torch.Tensor, *, first: bool,
     ``w_dest = w``, ``x_dest = x`` where given (the predecessors' receive
     slots, in the layout of w and x; None at the last step).  w and x are
     tensors or receive slots, with dense rows at any row stride: bf16 on
-    the card at strides that TMA takes (``ring.check_tma``), f32 there
+    the card at strides that TMA takes (``sm90.check_tma``), f32 there
     contiguous; out is contiguous."""
     if len(w.shape) != 2 or len(x.shape) != 3 or w.shape[1] != x.shape[1]:
         raise ValueError(f"cannon: needs w [M, K] and x [L, K, N]; got "
@@ -127,9 +122,9 @@ def cannon_step(w: Buffer, x: Buffer, out: torch.Tensor, *, first: bool,
                          f"K={k}")
     bf16 = w.dtype == torch.bfloat16
     if bf16:
-        ops = ring.tma_operands_cannon(ll, m, n, k)
-        lds = (ring.check_tma(w, ops["w"], "cannon"),
-               ring.check_tma(x, ops["x"], "cannon"))
+        ops = sm90.tma_operands_cannon(ll, m, n, k)
+        lds = (sm90.check_tma(w, ops["w"], "cannon"),
+               sm90.check_tma(x, ops["x"], "cannon"))
     elif row_stride(w) != k or row_stride(x) != n:
         raise ValueError("cannon: the f32 kernel takes w and x contiguous")
     build()
@@ -171,8 +166,8 @@ def cannon_fwd_all(ws: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
             for w, x in zip(ws, xs)]
     # each rank's blocks in the layout the kernel reads (padded rows where
     # TMA needs them), once per loop; the slots hold the same layout
-    ws = [ring.pad_rows(w) for w in ws]
-    xs = [ring.pad_rows(x) for x in xs]
+    ws = [sm90.pad_rows(w) for w in ws]
+    xs = [sm90.pad_rows(x) for x in xs]
     w_slots = [[ring.empty_rows_like(w) for _ in range(2)] for w in ws]
     x_slots = [[ring.empty_rows_like(x) for _ in range(2)] for x in xs]
     for s in range(q):

@@ -5,7 +5,7 @@
 // block_matmul(), wrapped by kernels/ops.py::matmul / matmul_nd / mixer_mlp
 // and by the custom VJP _matmul_bwd) of the JAX package.  It carries every
 // GEMM of a WeatherMixer forecast step and of a training step, forward and
-// backward.
+// backward, and every linear of the Mamba-2 model.
 //
 //   A [M, K] is read from x, stored either [M, K] (K contiguous, x_t = 0)
 //   or [K, M] (M contiguous, x_t = 1);
@@ -16,8 +16,7 @@
 // The backward GEMMs need the transposed reads: dx = dz @ w reads w [N, K]
 // as B = w.T (w_t = 1), and dw = dz.T @ x reads dz [M, N] as A = dz.T
 // (x_t = 1) and x [M, K] as B = x.T (w_t = 1).  No operand is transposed in
-// device memory: the tile loads run along whichever dimension is contiguous,
-// and the WMMA fragments are loaded row_major or col_major to match.
+// device memory: the loads run along whichever dimension is contiguous.
 //
 // The sum over K is kept in f32; the bias is added in f32 and the epilogue
 // (none | gelu, tanh form | silu) runs on the f32 value before the one
@@ -29,36 +28,38 @@
 // being memory-bound in bf16.  So the kernel is bound by tensor-core FLOPs,
 // and what matters is how close the MMA issue rate gets to the card's peak.
 //
-// Design (simple first, correct on ragged shapes; the tile main loops are
-// in gemm_core.cuh, shared with wx.cu, and this file adds the epilogues):
-//   * bf16: 128x128 output tile per block of 8 warps (each warp 64x32),
-//     K in steps of 32 through a 3-stage cp.async ring in shared memory,
-//     WMMA 16x16x16 bf16 fragments (mma.sync on the tensor cores) with f32
-//     accumulators.  A K-contiguous operand lands in shared memory as
-//     [128 rows][32 k], an M- or N-contiguous one as [32 k][128 rows]; the
-//     f32 tile then goes through shared memory once for the bias +
-//     activation epilogue and a masked store.
+// Design, three routes (the wrapper picks one by dtype and shape):
+//   * bf16, the Hopper loop (gemm_sm90.cuh): wgmma m64n256k16 from
+//     128-byte-swizzled shared memory, fed by a TMA producer thread
+//     through a 4-stage mbarrier ring of [128 x 64] A and [64 x 256] B
+//     tiles, one persistent 384-thread block per SM walking the [128 x
+//     256] output tiles.  Every layout: A K-major (x [M, K]) or M-major (x
+//     stored [K, M]); B K-major (w [N, K], transpose-B off) or N-major (w
+//     stored [K, N]).  The epilogue runs on the accumulator registers:
+//     bias, activation and one rounding per element, stored in bf16 pairs.
+//     Each operand carries its own row stride (TMA takes multiples of 16
+//     bytes: the wrapper pads rows of 16,380 once per call).
+//   * bf16, the WMMA loop (gemm_core.cuh): 128x128 tiles, cp.async in
+//     32-wide k-steps, mma.sync through WMMA fragments, the f32 tile
+//     through shared memory.  The wrapper takes it where a [128 x 256]
+//     tile would be mostly empty (M or N under 64: Mamba-2's decode, M =
+//     4, and its in_dt, N = 24).
 //   * f32: exact f32 FMA on the CUDA cores (no TF32), 128x128 tile, each
-//     thread 8x8 outputs; K runs sequentially per output element.  The
-//     loaders read along the contiguous dimension of each layout.
-//   * Ragged edges are masked in the kernel: rows past M/N and k past K are
-//     zero-filled in shared memory (cp.async with src-size 0), and the
-//     store is masked.  Nothing is padded in device memory.
-//   * Global loads use the widest vector that the row stride and base
-//     pointer of every operand, as stored, allow (16, 8, 4 bytes, or 2 with
-//     plain loads): a bf16 row of 16,380 elements is 32,760 bytes, not a
-//     multiple of 16, so tok_fc1's x and tok_fc2's dz run 8-byte copies.
-//     The wrapper picks the width; the kernel is templated on it.
-//   * Batch invariance and determinism: the K order of every output element
-//     is fixed by K alone (the same k-tiles in the same order, no split-K),
-//     so row r of C does not depend on how many rows share the launch, and
-//     a training step gives the same bits run to run.
+//     thread 8x8 outputs; K runs sequentially per output element.
 //
-// Left for later: wgmma and TMA (the only path to the card's full tensor-core
-// rate), a warp-specialised producer, a persistent tile scheduler, and
-// bank-conflict-free swizzled shared-memory layouts.
+// Bit for bit across the two bf16 routes: both zero the accumulators and
+// give each output element the same k16 steps, 2 * ceil(K / 32) of them,
+// in K order (wgmma's k16 step rounds as mma.sync's on this card: checked
+// by chip_smoke.py and the card tests at every smoke shape), the same
+// epilogue (apply_epilogue below, one source) and the same rounding.  No
+// split-K, no atomics: row r of C does not depend on how many rows share
+// the launch, and a training step gives the same bits run to run.
+//
+// Ragged edges: TMA fills zeros past every edge of an operand (the WMMA
+// loop's cp.async with src-size 0 likewise), and the stores are masked.
 
 #include "gemm_core.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -80,7 +81,162 @@ __device__ __forceinline__ float apply_epilogue(float v, int epi) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: tensor cores through WMMA (gemm::bf16_tile)
+// bf16 operands on the Hopper loop (gemm_sm90.cuh)
+// ---------------------------------------------------------------------------
+
+// Tiles: C [M, N] in sm90::grouped_tile's order.  A = x, K-major
+// ([M, K], row stride ld_x) or M-major (XT: [K, M]); B = w, K-major
+// ([N, K], row stride ld_w) or N-major (WT: [K, N]).
+template <bool XT, bool WT, int EPI>
+struct BmProblem {
+  static constexpr bool B_KMAJOR = !WT;
+  const CUtensorMap* mx;
+  const CUtensorMap* mw;
+  const float* bias;
+  bf16* y;
+  int M, N, K, tiles_m, tiles_n, vec2;
+
+  __device__ int tiles() const { return tiles_m * tiles_n; }
+
+  __device__ sm90::Tile tile(int t) const {
+    int tm, tn;
+    sm90::grouped_tile(t, tiles_m, tiles_n, tm, tn);
+    return {0, tm * sm90::BM, tn * sm90::BN, 0, K};
+  }
+
+  __device__ bool a_mn(int) const { return XT; }
+
+  __device__ void load(const sm90::Tile& tl, int k0, uint32_t a, uint32_t b,
+                       uint32_t bar) const {
+    if (XT) {
+      sm90::tma_load(a, mx, tl.m0, k0, 0, bar);
+      sm90::tma_load(a + sm90::BOX_BYTES, mx, tl.m0 + 64, k0, 0, bar);
+    } else {
+      sm90::tma_load(a, mx, k0, tl.m0, 0, bar);
+    }
+    if (WT) {
+#pragma unroll
+      for (int i = 0; i < sm90::BN / 64; ++i)
+        sm90::tma_load(b + i * sm90::BOX_BYTES, mw, tl.n0 + 64 * i, k0, 0,
+                       bar);
+    } else {
+      sm90::tma_load(b, mw, k0, tl.n0, 0, bar);
+      sm90::tma_load(b + 2 * sm90::BOX_BYTES, mw, k0, tl.n0 + 128, 0, bar);
+    }
+  }
+
+  __device__ void store(const sm90::Tile& tl, const float (&acc)[sm90::ACC],
+                        int row, int col) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row + 8 * h;
+      if (gm >= M) continue;
+      bf16* o = y + size_t(gm) * N;
+#pragma unroll
+      for (int j = 0; j < sm90::BN / 8; ++j) {
+        const int gn = col + 8 * j;
+        if (gn >= N) continue;
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const bool two = gn + 1 < N;
+        if (bias != nullptr) {
+          v0 += bias[gn];
+          if (two) v1 += bias[gn + 1];
+        }
+        v0 = apply_epilogue(v0, EPI);
+        v1 = apply_epilogue(v1, EPI);
+        if (vec2) {  // N even: gn < N means gn + 1 < N
+          sm90::store_pair(o + gn, v0, v1);
+        } else {
+          store_out(o + gn, v0);
+          if (two) store_out(o + gn + 1, v1);
+        }
+      }
+    }
+  }
+
+  __device__ void copy(int, int) const {}
+};
+
+template <bool XT, bool WT, int EPI>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+bm_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+               const __grid_constant__ CUtensorMap mw,
+               BmProblem<XT, WT, EPI> st) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BmProblem<XT, WT, EPI> p = st;
+  p.mx = &mx;
+  p.mw = &mw;
+  sm90::run(p, smem_raw);
+}
+
+template <bool XT, bool WT, int EPI>
+int launch_sm90(const void* x, const void* w, const void* bias, void* y,
+                int M, int N, int K, int ld_x, int ld_w, int vec2,
+                cudaStream_t s) {
+  auto kernel = bm_sm90_kernel<XT, WT, EPI>;
+  static const int reg_err = sm90::check_registers(kernel);
+  if (reg_err != 0) return reg_err;
+  CUtensorMap mx, mw;
+  const int mx_err = XT ? sm90::make_map(&mx, x, M, K, 1, ld_x, 64, 64)
+                        : sm90::make_map(&mx, x, K, M, 1, ld_x, 64, 128);
+  const int mw_err = WT ? sm90::make_map(&mw, w, N, K, 1, ld_w, 64, 64)
+                        : sm90::make_map(&mw, w, K, N, 1, ld_w, 64, 128);
+  if (mx_err != 0 || mw_err != 0) return sm90::TENSOR_MAP_ERROR;
+  BmProblem<XT, WT, EPI> st;
+  st.mx = st.mw = nullptr;
+  st.bias = static_cast<const float*>(bias);
+  st.y = static_cast<bf16*>(y);
+  st.M = M;
+  st.N = N;
+  st.K = K;
+  st.tiles_m = (M + sm90::BM - 1) / sm90::BM;
+  st.tiles_n = (N + sm90::BN - 1) / sm90::BN;
+  st.vec2 = vec2;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(sm90::SMEM_BYTES));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<sm90::grid_size(st.tiles_m * st.tiles_n, false), sm90::THREADS,
+           sm90::SMEM_BYTES, s>>>(mx, mw, st);
+  return int(cudaGetLastError());
+}
+
+template <int EPI>
+int launch_sm90_layout(const void* x, const void* w, const void* bias,
+                       void* y, int M, int N, int K, int ld_x, int ld_w,
+                       int x_t, int w_t, int vec2, cudaStream_t s) {
+  if (x_t && w_t)
+    return launch_sm90<true, true, EPI>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                        vec2, s);
+  if (x_t)
+    return launch_sm90<true, false, EPI>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                         vec2, s);
+  if (w_t)
+    return launch_sm90<false, true, EPI>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                         vec2, s);
+  return launch_sm90<false, false, EPI>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                        vec2, s);
+}
+
+template <bool XT, bool WT>
+int sm90_attrs(int epi, int* out) {
+  switch (epi) {
+    case EPI_NONE:
+      return sm90::kernel_attrs(bm_sm90_kernel<XT, WT, EPI_NONE>,
+                                sm90::SMEM_BYTES, out);
+    case EPI_GELU:
+      return sm90::kernel_attrs(bm_sm90_kernel<XT, WT, EPI_GELU>,
+                                sm90::SMEM_BYTES, out);
+    case EPI_SILU:
+      return sm90::kernel_attrs(bm_sm90_kernel<XT, WT, EPI_SILU>,
+                                sm90::SMEM_BYTES, out);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands: tensor cores through WMMA (gemm::bf16_tile), for shapes
+// whose [128 x 256] tiles would be mostly empty
 // ---------------------------------------------------------------------------
 
 template <int VE, bool XT, bool WT>
@@ -132,6 +288,18 @@ cudaError_t launch_bf16_layout(const void* x, const void* w,
   return launch_bf16<VE, false, false>(x, w, bias, y, M, N, K, epi, s);
 }
 
+template <int VE>
+int wmma_attrs(int x_t, int w_t, int* out) {
+  const size_t smem = gemm::SMEM_BF16;
+  if (x_t && w_t)
+    return sm90::kernel_attrs(bm_bf16_kernel<VE, true, true>, smem, out);
+  if (x_t)
+    return sm90::kernel_attrs(bm_bf16_kernel<VE, true, false>, smem, out);
+  if (w_t)
+    return sm90::kernel_attrs(bm_bf16_kernel<VE, false, true>, smem, out);
+  return sm90::kernel_attrs(bm_bf16_kernel<VE, false, false>, smem, out);
+}
+
 // ---------------------------------------------------------------------------
 // f32 operands: exact FMA on the CUDA cores (gemm::f32_tile)
 // ---------------------------------------------------------------------------
@@ -179,9 +347,33 @@ cudaError_t launch_f32(const void* x, const void* w, const void* bias,
 
 // ---------------------------------------------------------------------------
 // C interface (bound with ctypes).  Each returns the cudaError_t of the
-// launch; the caller raises on anything but 0.  x_t / w_t: 0 = the operand
-// is stored K-contiguous ([M, K] / [N, K]), 1 = stored [K, M] / [K, N].
+// launch, or sm90::TENSOR_MAP_ERROR / sm90::REGISTER_ERROR; the caller
+// raises on anything but 0.  x_t / w_t: 0 = the operand is stored
+// K-contiguous ([M, K] / [N, K]), 1 = stored [K, M] / [K, N].
+// block_matmul_sm90 takes each operand's row stride (ld_x, ld_w: multiples
+// of 8 elements, bases 16-byte aligned); vec2: N is even and y 4-byte
+// aligned (pairs of columns per store).  block_matmul_bf16 (the WMMA
+// loop) and block_matmul_f32 take the operands contiguous.
 // ---------------------------------------------------------------------------
+
+extern "C" int block_matmul_sm90(const void* x, const void* w,
+                                 const void* bias, void* y, int M, int N,
+                                 int K, int ld_x, int ld_w, int epi, int x_t,
+                                 int w_t, int vec2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case EPI_NONE:
+      return launch_sm90_layout<EPI_NONE>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                          x_t, w_t, vec2, s);
+    case EPI_GELU:
+      return launch_sm90_layout<EPI_GELU>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                          x_t, w_t, vec2, s);
+    case EPI_SILU:
+      return launch_sm90_layout<EPI_SILU>(x, w, bias, y, M, N, K, ld_x, ld_w,
+                                          x_t, w_t, vec2, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
 
 extern "C" int block_matmul_bf16(const void* x, const void* w,
                                  const void* bias, void* y, int M, int N,
@@ -212,6 +404,39 @@ extern "C" int block_matmul_f32(const void* x, const void* w,
   return launch_f32<false, false>(x, w, bias, y, M, N, K, epi, s);
 }
 
+// Attributes of a kernel variant (sm90::kernel_attrs: registers, local
+// bytes, static and dynamic shared bytes, block size): route 0 the Hopper
+// loop at (x_t, w_t, epi), 1 the WMMA loop at load width vec_bytes and
+// (x_t, w_t), 2 the f32 kernel at (x_t, w_t).
+extern "C" int block_matmul_attrs(int route, int x_t, int w_t, int epi,
+                                  int vec_bytes, int* out) {
+  if (route == 0) {
+    if (x_t && w_t) return sm90_attrs<true, true>(epi, out);
+    if (x_t) return sm90_attrs<true, false>(epi, out);
+    if (w_t) return sm90_attrs<false, true>(epi, out);
+    return sm90_attrs<false, false>(epi, out);
+  }
+  if (route == 2) {
+    if (x_t && w_t)
+      return sm90::kernel_attrs(bm_f32_kernel<true, true>, 0, out);
+    if (x_t) return sm90::kernel_attrs(bm_f32_kernel<true, false>, 0, out);
+    if (w_t) return sm90::kernel_attrs(bm_f32_kernel<false, true>, 0, out);
+    return sm90::kernel_attrs(bm_f32_kernel<false, false>, 0, out);
+  }
+  if (route != 1) return int(cudaErrorInvalidValue);
+  switch (vec_bytes) {
+    case 16: return wmma_attrs<8>(x_t, w_t, out);
+    case 8: return wmma_attrs<4>(x_t, w_t, out);
+    case 4: return wmma_attrs<2>(x_t, w_t, out);
+    case 2: return wmma_attrs<1>(x_t, w_t, out);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" const char* block_matmul_error_string(int err) {
+  if (err == sm90::TENSOR_MAP_ERROR)
+    return "cuTensorMapEncodeTiled refused an operand";
+  if (err == sm90::REGISTER_ERROR)
+    return "the kernel's register count leaves setmaxnreg no room";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

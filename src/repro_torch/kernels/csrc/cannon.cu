@@ -95,6 +95,7 @@ struct CannonStep {
   }
 
   __device__ bool a_mn(int) const { return false; }
+  static constexpr bool B_KMAJOR = false;
 
   __device__ void load(const sm90::Tile& tl, int k0, uint32_t a, uint32_t b,
                        uint32_t bar) const {

@@ -1,7 +1,8 @@
-// gemm_sm90.cuh -- the Hopper main loop of the port's redesigned bf16 GEMM
-// kernels (cannon.cu's step and ring.cu's backward step): a persistent,
-// warp-specialised loop that feeds the tensor cores through TMA and
-// mbarriers, with the epilogue straight from the accumulator registers.
+// gemm_sm90.cuh -- the Hopper main loop of the port's bf16 GEMM kernels
+// (block_matmul.cu, wx.cu, cannon.cu's step and ring.cu's backward step):
+// a persistent, warp-specialised loop that feeds the tensor cores through
+// TMA and mbarriers, with the epilogue straight from the accumulator
+// registers.
 //
 //   * Block: 384 threads.  Warpgroups 0 and 1 are the consumers, each 64
 //     rows of a [128 x 256] output tile; warpgroup 2 is the producer: its
@@ -14,7 +15,9 @@
 //     [64 x 256] bf16 in 128-byte-swizzled shared memory, with a full and
 //     an empty mbarrier per stage.  A is K-major ([rows][k], one TMA box of
 //     [128][64]) or M-major ([k][rows], two boxes of [64][64]); B is
-//     N-major ([k][n], four boxes of [64][64]).  A [128 x 256] tile moves
+//     N-major ([k][n], four boxes of [64][64]) or K-major ([n][k], two
+//     boxes of [128][64]: the 256 rows of one 32 KiB stage, read by wgmma
+//     with transpose-B off).  A [128 x 256] tile moves
 //     48 KiB from L2 per k-tile of 4.2 MFLOP, a third less per FLOP than
 //     a [128 x 128] one.  Every operand is read
 //     through a 3-D tensor map {cols, rows, batch} whose row stride is the
@@ -39,6 +42,7 @@
 //   int tiles() const;                     the output tiles of the launch
 //   Tile tile(int t) const;                kind, m0, n0, l, K of tile t
 //   bool a_mn(int kind) const;             A stored M-major for this kind
+//   static constexpr bool B_KMAJOR;        B stored K-major (else N-major)
 //   void load(const Tile&, int k0, uint32_t a, uint32_t b, uint32_t bar)
 //                                          the TMA loads of one stage
 //   void store(const Tile&, const float (&acc)[ACC], int row, int col)
@@ -78,6 +82,24 @@ constexpr size_t SMEM_BYTES =
 struct Tile {
   int kind, m0, n0, l, k;
 };
+
+// The order of a [tiles_m x tiles_n] grid of output tiles that
+// block_matmul and wx walk: bands of GROUP_M rows of tiles, column by
+// column within a band, so that the tiles in flight at once (one per SM)
+// share a few row panels of A and column panels of B in L2 instead of
+// streaming a B wider than L2 once per row of tiles.  The order changes
+// which SM computes a tile, not how: the bits are the same in any order.
+constexpr int GROUP_M = 8;
+
+__device__ __forceinline__ void grouped_tile(int t, int tiles_m, int tiles_n,
+                                             int& tm, int& tn) {
+  const int per_band = GROUP_M * tiles_n;
+  const int first = (t / per_band) * GROUP_M;
+  const int rows = tiles_m - first < GROUP_M ? tiles_m - first : GROUP_M;
+  const int r = t % per_band;
+  tm = first + r % rows;
+  tn = r / rows;
+}
 
 // gemm_core.cuh's k16 steps for a reduction of length K, and the k-tiles
 // of BK = 64 that hold them.
@@ -176,8 +198,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
 }
 
 // d += A [64 x 16] @ B [16 x 256], A K-major (TA = 0) or M-major (TA = 1),
-// B N-major; scale-d = 1 on every step.
-template <int TA>
+// B K-major (TB = 0) or N-major (TB = 1); scale-d = 1 on every step.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -203,7 +225,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da,
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127 "
       "}, "
-      "%128, %129, p, 1, 1, %131, 1;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -231,7 +253,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------------
@@ -241,7 +263,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da,
 // Issue (and commit as one group) the k16 steps of the k-tile at a (A) and
 // b (B).  Warpgroup g's 64 rows of A start BOX_BYTES * g into the A tile
 // in both layouts (64 K-major rows of 128 B, or the second [64][64] box).
-template <bool AMN>
+// A K-major operand steps 32 bytes along its 128-byte rows per k16 step,
+// an M- or N-major one 16 k-rows of 128 bytes.
+template <bool AMN, bool BKM>
 __device__ __forceinline__ void ktile(float (&acc)[ACC], uint32_t a,
                                       uint32_t b, bool four, int g) {
   const uint32_t ag = a + g * BOX_BYTES;
@@ -252,8 +276,9 @@ __device__ __forceinline__ void ktile(float (&acc)[ACC], uint32_t a,
     if (kk < 2 || four) {
       const uint64_t da = AMN ? wgmma_desc(ag + kk * 2048, BOX_BYTES, 1024)
                               : wgmma_desc(ag + kk * 32, 16, 1024);
-      const uint64_t db = wgmma_desc(b + kk * 2048, BOX_BYTES, 1024);
-      wgmma_m64n256k16<AMN ? 1 : 0>(acc, da, db);
+      const uint64_t db = BKM ? wgmma_desc(b + kk * 32, 16, 1024)
+                              : wgmma_desc(b + kk * 2048, BOX_BYTES, 1024);
+      wgmma_m64n256k16<AMN ? 1 : 0, BKM ? 0 : 1>(acc, da, db);
     }
   }
   wgmma_commit();
@@ -323,9 +348,9 @@ __device__ __forceinline__ void run(const P& p, unsigned char* smem_raw) {
         mbar_wait(full(s), ph);
         const bool four = steps - k16 >= 4;
         if (amn) {
-          ktile<true>(acc, stage_a(s), stage_b(s), four, g);
+          ktile<true, P::B_KMAJOR>(acc, stage_a(s), stage_b(s), four, g);
         } else {
-          ktile<false>(acc, stage_a(s), stage_b(s), four, g);
+          ktile<false, P::B_KMAJOR>(acc, stage_a(s), stage_b(s), four, g);
         }
         wgmma_wait<1>();
         if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));

@@ -191,6 +191,7 @@ struct RingBwdStep {
   }
 
   __device__ bool a_mn(int kind) const { return kind == 0; }
+  static constexpr bool B_KMAJOR = false;
 
   __device__ void load(const sm90::Tile& tl, int k0, uint32_t a, uint32_t b,
                        uint32_t bar) const {

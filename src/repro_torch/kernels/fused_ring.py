@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import comm
-from repro_torch.kernels import cannon, ops, ring
+from repro_torch.kernels import cannon, ops, ring, sm90
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.wx import wx
 
@@ -157,9 +157,9 @@ def _card_backward(x2, w, dy2, group, p, me, need_dx):
         dx = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
     # x, w and dy in the layout the kernel reads (rows padded where TMA
     # needs it), once per call; the slots hold dy's layout
-    x2, w, dy2 = ring.pad_rows(x2), ring.pad_rows(w), ring.pad_rows(dy2)
-    ld = ring.row_stride(dy2)
-    ws = ring.workspace(group, ring.span_bytes(dy2), x2.device)
+    x2, w, dy2 = sm90.pad_rows(x2), sm90.pad_rows(w), sm90.pad_rows(dy2)
+    ld = sm90.row_stride(dy2)
+    ws = ring.workspace(group, sm90.span_bytes(dy2), x2.device)
     stream = torch.cuda.current_stream(x2.device)
     for s in range(p):
         stream.synchronize()
@@ -237,8 +237,11 @@ class _WxAcc(torch.autograd.Function):
 
       * da = dy;
       * dx [L, t, c] = w.T @ dy_l through the same kernel, w read across its
-        rows and cast to dy's dtype (the reference's
-        ``w.T.astype(dy.dtype)``), the result cast to x's dtype;
+        rows, the result cast to x's dtype.  The reference casts w to dy's
+        dtype (``w.T.astype(dy.dtype)``); a bf16 w against an f32 dy goes
+        to the kernel as it is (its dx entry: dy split into bf16 terms, on
+        the tensor cores, every product exact in f32 as the reference's);
+        any other w is cast;
       * dw [m, t] = sum_l dy_l @ x_l.T through block_matmul, dy cast to x's
         dtype, the result cast to w's dtype.  As in the reference, L is
         folded into the contraction as (L, c): dy is copied [m, L, c] (the
@@ -264,8 +267,10 @@ class _WxAcc(torch.autograd.Function):
             xt = x.permute(1, 0, 2).reshape(t, ll * c).contiguous()
             dw = block_matmul(dyt.view(m, ll * c), xt).to(w.dtype)
         if ctx.needs_input_grad[1]:
-            dx = wx(w.to(dy.dtype), dy, None, out_dtype=dy.dtype,
-                    w_t=True).to(x.dtype)
+            wd = w if (w.dtype, dy.dtype) == (torch.bfloat16,
+                                              torch.float32) \
+                else w.to(dy.dtype)
+            dx = wx(wd, dy, None, out_dtype=dy.dtype, w_t=True).to(x.dtype)
         if ctx.needs_input_grad[2]:
             da = dy
         return dw, dx, da, None
@@ -317,11 +322,11 @@ def _hop_bytes(ll: int, m_l: int, t_l: int, c_l: int,
                x_dtype: torch.dtype):
     """The bytes of a Cannon step's two hops, w [m_l, t_l] and x [ll, t_l,
     c_l], in the layout the kernel reads (bf16 rows padded to
-    ``ring.tma_ld``)."""
+    ``sm90.tma_ld``)."""
     e = x_dtype.itemsize
 
     def ld(cols):
-        return ring.tma_ld(cols) if x_dtype == torch.bfloat16 else cols
+        return sm90.tma_ld(cols) if x_dtype == torch.bfloat16 else cols
     return m_l * ld(t_l) * e, ll * t_l * ld(c_l) * e
 
 
@@ -359,10 +364,10 @@ def _card_cannon(w, x, dom_group, tp_group, model_group, q, out_dt):
                       device=x.device)
     # the blocks in the layout the kernel reads (rows padded where TMA
     # needs it), once per loop; the slots hold the same layout
-    w, x = ring.pad_rows(w), ring.pad_rows(x)
-    ld_w, ld_x = ring.row_stride(w), ring.row_stride(x)
-    w_ws = ring.workspace(tp_group, ring.span_bytes(w), x.device, peer=-1)
-    x_ws = ring.workspace(dom_group, ring.span_bytes(x), x.device, peer=-1)
+    w, x = sm90.pad_rows(w), sm90.pad_rows(x)
+    ld_w, ld_x = sm90.row_stride(w), sm90.row_stride(x)
+    w_ws = ring.workspace(tp_group, sm90.span_bytes(w), x.device, peer=-1)
+    x_ws = ring.workspace(dom_group, sm90.span_bytes(x), x.device, peer=-1)
     stream = torch.cuda.current_stream(x.device)
 
     def slot(ws, i, t, ld, own):

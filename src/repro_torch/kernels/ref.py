@@ -3,7 +3,7 @@
 They are the oracles the kernels are held against on the card, and the path
 a kernel's wrapper takes for a tensor that lies on the CPU.  Each mirrors
 ``repro/kernels/ref.py`` (``wx_ref``: ``repro/kernels/fused_ring.py``'s
-``_wx_raw``; the ring steps: one grid step of its ``_ring_fwd_kernel`` and
+``_wx_raw``, and ``split_bf16x3`` the split of its dx route; the ring steps: one grid step of its ``_ring_fwd_kernel`` and
 ``_ring_bwd_kernel``; ``cannon_ref``: its ``_cannon_kernel`` over a mesh;
 ``ssd_intra_ref``: ``repro/kernels/ssd_chunk.py::_kernel``): f32 accumulation (bf16 products are exact in f32,
 so an f32 product of the up-cast operands is the reference's
@@ -110,6 +110,21 @@ def wx_ref(w: torch.Tensor, x: torch.Tensor, a: Optional[torch.Tensor] = None,
     if a is not None:
         out = a.float() + out
     return out.to(out_dtype)
+
+
+def split_bf16x3(x: torch.Tensor):
+    """An f32 tensor as three bf16 terms (the plain version of ``wx.cu``'s
+    split pass): ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x -
+    hi - mid)``, each rounded to nearest even; the differences are exact in
+    f32.  ``hi + mid + lo == x`` exactly wherever the remainders stay above
+    bf16's smallest subnormal (|x| >= 2^-110), and ``mid == lo == 0``
+    where x is bf16-exact.  Returns (hi, mid, lo)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def ring_fwd_step_ref(x: torch.Tensor, w_chunk: torch.Tensor,

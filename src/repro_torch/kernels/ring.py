@@ -19,16 +19,13 @@ device memory that torch does not own: this rank's own (a raw
 rank held in the same process may also be a tensor: the kernel code is the
 same.
 
-The bf16 backward (and the Cannon's bf16 step, ``kernels/cannon.py``) read
-their operands through TMA tensor maps (``csrc/gemm_sm90.cuh``), which take
-only row strides and base addresses in multiples of 16 bytes.  So every
-such operand carries its own row stride ``ld`` (``row_stride``): a tensor
-whose rows are padded is a view ``buf[..., :cols]`` of a wider buffer, a
-slot a ``DeviceBuffer`` with ``ld``.  ``tma_operands_*`` plan each
-operand's ``ld`` and boxes from the shapes; the callers that run a ring or
-Cannon call pad the rank's own operands once per call (``pad_rows``), the
-slots hold the padded layout and the hops copy it; the wrappers check each
-operand (``check_tma``) and raise on what the kernel does not take.
+The bf16 backward reads its operands through TMA tensor maps
+(``csrc/gemm_sm90.cuh``), so each carries its own row stride: the planning
+(``tma_operands_ring_bwd``, ``check_tma``, ``pad_rows``: ``kernels/sm90.py``,
+imported here under the names this module has had) is shared with the
+other kernels on that loop.  The callers that run a ring call pad the
+rank's own operands once per call, the slots hold the padded layout and
+the hops copy it.
 
 On a CUDA tensor ``ring_fwd`` / ``ring_bwd`` launch the kernel, or raise;
 on CPU tensors they compute the plain versions (``ref.ring_fwd_step_ref``,
@@ -48,25 +45,22 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import sm90
 from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.ref import ring_bwd_step_ref, ring_fwd_step_ref
+# the TMA planning of the Hopper loop, shared with block_matmul, wx and the
+# Cannon step (``kernels/sm90.py``), under the names this module has had
+from repro_torch.kernels.sm90 import (  # noqa: F401
+    BOX_K, BOX_MN, H100_SMS, SM90_TILE, TMA_ALIGN, TMA_MAX_BOX,
+    TMA_SWIZZLE_BYTES, TmaOperand, check_tma, pad_rows, persistent_grid,
+    plan_operand, row_stride, sm90_tiles, span_bytes, tma_ld,
+    tma_operands_cannon, tma_operands_ring_bwd)
+from repro_torch.kernels.sm90 import addr as _addr
+from repro_torch.kernels.sm90 import itemsize as _itemsize
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
 _TILE = 128
-# TMA (csrc/gemm_sm90.cuh): a tensor map's base address and row strides in
-# multiples of 16 bytes, dimensions below 2^32, strides below 2^40 bytes, a
-# box side of at most 256 elements and, under the 128-byte swizzle, a box
-# row of at most 128 bytes
-TMA_ALIGN = 16
-TMA_MAX_BOX = 256
-TMA_SWIZZLE_BYTES = 128
-BOX_MN = (64, 64)     # (inner, outer): [64 k][64 m or n], M- or N-major
-BOX_K = (64, 128)     # [128 rows][64 k], K-major
-# the Hopper loop's output tile (rows, columns) and the SMs of an H100 SXM
-# (the persistent grid's size when the runtime is not asked)
-SM90_TILE = (128, 256)
-H100_SMS = 132
 # a workspace (two slots) larger than this raises: the counterpart of the
 # reference's VMEM guard (fused_ring.py:84-137), which falls back to the
 # chunk walk instead
@@ -136,169 +130,6 @@ class DeviceBuffer:
 Buffer = Union[torch.Tensor, DeviceBuffer]
 
 
-def _addr(b: Optional[Buffer]) -> Optional[int]:
-    if b is None:
-        return None
-    return b.data_ptr() if isinstance(b, torch.Tensor) else b.ptr
-
-
-def _itemsize(dtype: torch.dtype) -> int:
-    return torch.finfo(dtype).bits // 8
-
-
-def row_stride(b: Buffer) -> Optional[int]:
-    """The elements between b's rows when its rows are dense and its outer
-    dimensions packed around them (``[..., rows, cols]`` at strides
-    ``(..., rows * ld, ld, 1)``), else None."""
-    if isinstance(b, DeviceBuffer):
-        return b.shape[-1] if b.ld is None else b.ld
-    if b.dim() < 2:
-        return b.shape[-1] if b.is_contiguous() else None
-    if b.shape[-1] > 1 and b.stride(-1) != 1:
-        return None
-    ld = b.stride(-2)
-    if ld < b.shape[-1]:
-        if b.shape[-2] > 1:
-            return None
-        ld = b.shape[-1]
-    want = ld
-    for i in range(b.dim() - 2, -1, -1):
-        if b.shape[i] > 1 and b.stride(i) != want:
-            return None
-        want *= b.shape[i]
-    return ld
-
-
-def span_bytes(b: Buffer) -> int:
-    """The bytes b spans from its first element to the end of its last
-    row, padding included (what a hop copies)."""
-    return math.prod(b.shape[:-1]) * row_stride(b) * _itemsize(b.dtype)
-
-
-def tma_ld(cols: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """The least row stride (elements) at or above ``cols`` that TMA
-    takes: a multiple of 16 bytes."""
-    per = TMA_ALIGN // _itemsize(dtype)
-    return -(-cols // per) * per
-
-
-@dataclasses.dataclass(frozen=True)
-class TmaOperand:
-    """How the Hopper loop reads one bf16 operand: its logical shape, the
-    row stride ``ld`` its buffer gets (``tma_ld``), and the TMA boxes
-    (inner, outer) it is read in."""
-    name: str
-    shape: Tuple[int, ...]
-    ld: int
-    boxes: Tuple[Tuple[int, int], ...]
-
-    @property
-    def padded(self) -> bool:
-        return self.ld > self.shape[-1]
-
-    def describe(self) -> str:
-        pad = (f" (rows padded from {self.shape[-1]})" if self.padded
-               else "")
-        boxes = ", ".join(f"{o}x{i}" for i, o in self.boxes)
-        return f"TMA, ld {self.ld}{pad}, boxes {boxes}"
-
-
-def plan_operand(name: str, shape, boxes) -> TmaOperand:
-    """``TmaOperand`` for a bf16 operand of ``shape`` read in ``boxes``;
-    raises ValueError on what a tensor map cannot describe."""
-    shape = tuple(int(v) for v in shape)
-    if len(shape) not in (2, 3) or min(shape) < 1:
-        raise ValueError(f"{name}: a TMA operand is [rows, cols] or [batch, "
-                         f"rows, cols] with every side >= 1; got "
-                         f"{list(shape)}")
-    ld = tma_ld(shape[-1])
-    if max(shape) >= 1 << 32 or math.prod(shape[:-1]) * ld * 2 >= 1 << 40:
-        raise ValueError(f"{name}: {list(shape)} exceeds a tensor map's "
-                         f"dimensions or strides")
-    for inner, outer in boxes:
-        if max(inner, outer) > TMA_MAX_BOX or inner * 2 > TMA_SWIZZLE_BYTES:
-            raise ValueError(f"{name}: box {outer}x{inner} exceeds TMA's "
-                             f"(sides <= {TMA_MAX_BOX}, rows <= "
-                             f"{TMA_SWIZZLE_BYTES} bytes)")
-    return TmaOperand(name, shape, ld, tuple(boxes))
-
-
-def tma_operands_ring_bwd(rows: int, d: int, mc: int, need_dx: bool = True
-                          ) -> Dict[str, TmaOperand]:
-    """The bf16 backward step's operands: x [R, D] and w_j [MC, D] read
-    N-major, cur [R, MC] read M-major (dw) and K-major (dx)."""
-    ops = {"x": plan_operand("x", (rows, d), (BOX_MN,)),
-           "cur": plan_operand("cur", (rows, mc),
-                               (BOX_MN, BOX_K) if need_dx else (BOX_MN,))}
-    if need_dx:
-        ops["w_j"] = plan_operand("w_j", (mc, d), (BOX_MN,))
-    return ops
-
-
-def tma_operands_cannon(ll: int, m: int, n: int, k: int
-                        ) -> Dict[str, TmaOperand]:
-    """The bf16 Cannon step's operands: w [M, K] read K-major, x [L, K, N]
-    read N-major."""
-    return {"w": plan_operand("w", (m, k), (BOX_K,)),
-            "x": plan_operand("x", (ll, k, n), (BOX_MN,))}
-
-
-def check_tma(b: Buffer, op: TmaOperand, who: str) -> int:
-    """Raise ValueError unless b can be read as ``op`` through a tensor
-    map: bf16, op's shape, dense rows at a row stride (returned) that is
-    a multiple of 16 bytes, its base 16-byte aligned."""
-    ld = row_stride(b)
-    problems = []
-    if b.dtype != torch.bfloat16:
-        problems.append(f"dtype {b.dtype}, not bfloat16")
-    if tuple(b.shape) != op.shape:
-        problems.append(f"shape {list(b.shape)}, not {list(op.shape)}")
-    if ld is None:
-        problems.append("rows not dense at one row stride")
-    elif ld * 2 % TMA_ALIGN:
-        problems.append(f"row stride {ld} elements is not a multiple of "
-                        f"{TMA_ALIGN} bytes (pad the rows to "
-                        f"{tma_ld(b.shape[-1])}: ring.pad_rows)")
-    if _addr(b) % TMA_ALIGN:
-        problems.append(f"base address not {TMA_ALIGN}-byte aligned")
-    if problems:
-        raise ValueError(f"{who}: {op.name} cannot be read through TMA: "
-                         + "; ".join(problems))
-    return ld
-
-
-def pad_rows(t: torch.Tensor) -> torch.Tensor:
-    """t itself when its rows already suit TMA (bf16 rows at a row stride
-    of a multiple of 16 bytes, the base aligned), else a copy into a
-    buffer whose rows are padded to ``tma_ld`` (the view ``buf[...,
-    :cols]``).  Other dtypes come back as they are."""
-    if t.dtype != torch.bfloat16:
-        return t
-    ld = row_stride(t)
-    if ld is not None and ld * 2 % TMA_ALIGN == 0 \
-            and t.data_ptr() % TMA_ALIGN == 0:
-        return t
-    cols = t.shape[-1]
-    buf = torch.empty((*t.shape[:-1], tma_ld(cols)), dtype=t.dtype,
-                      device=t.device)
-    view = buf[..., :cols]
-    view.copy_(t)
-    return view
-
-
-def persistent_grid(tiles: int, hop: bool, sms: int = H100_SMS) -> int:
-    """The blocks of a Hopper-loop launch (``gemm_sm90.cuh::grid_size``):
-    one per SM, at most one per tile, every SM when there is a hop."""
-    if hop or tiles > sms:
-        return sms
-    return max(tiles, 1)
-
-
-def sm90_tiles(rows: int, cols: int) -> int:
-    """The Hopper loop's output tiles over a [rows, cols] result."""
-    return -(-rows // SM90_TILE[0]) * -(-cols // SM90_TILE[1])
-
-
 def ring_bwd_tiles(rows: int, d: int, mc: int, need_dx: bool = True
                    ) -> Tuple[int, int]:
     """The bf16 backward step's dw tiles (dw_j [MC, D]) and dx tiles (dx
@@ -311,12 +142,7 @@ def kernel_attrs(kernel: int, vec_bytes: int = 16) -> Dict[str, int]:
     block size of a ring kernel (``ring_attrs``: 0 the bf16 backward, 1
     the f32 backward, 2 the bf16 forward at ``vec_bytes``, 3 the f32
     forward).  Loads the library."""
-    build()
-    out = (ctypes.c_int * 5)()
-    _raise_on(LIBRARY.lib.ring_attrs(kernel, vec_bytes, out),
-              f"ring_attrs({kernel})")
-    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
-                     "dynamic_shared_bytes", "threads"), out))
+    return sm90.kernel_attrs(LIBRARY, "ring_attrs", kernel, vec_bytes)
 
 
 def _vec_bytes(*operands: Buffer) -> int:

@@ -362,8 +362,8 @@ def test_wx_rejects_bad_inputs(case, exc):
 
 def test_cannon_step_calls_wx_and_block_matmul(monkeypatch):
     """One step: one wx launch forward; backward one wx (dx, w read across
-    its rows, in the cotangent's dtype) and one block_matmul (dw, L folded
-    into the contraction)."""
+    its rows: the bf16 w as it is, against the f32 cotangent, wx's dx
+    entry) and one block_matmul (dw, L folded into the contraction)."""
     calls = []
 
     def count(name, real):
@@ -380,7 +380,7 @@ def test_cannon_step_calls_wx_and_block_matmul(monkeypatch):
     assert calls == [("wx", False, torch.bfloat16)]
     dw, dx = torch.autograd.grad(y, (w, x), torch.randn(3, 8, 5))
     assert sorted(calls[1:], key=str) == [("bm", False, torch.bfloat16),
-                                          ("wx", True, torch.float32)]
+                                          ("wx", True, torch.bfloat16)]
     assert dw.dtype == dx.dtype == torch.bfloat16
 
 

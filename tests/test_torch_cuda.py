@@ -19,6 +19,7 @@ from repro_torch.kernels import block_matmul as BM
 from repro_torch.kernels import cannon as CANNON
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring as RING
+from repro_torch.kernels import sm90 as SM90
 from repro_torch.kernels import ssd_chunk as SSD
 from repro_torch.kernels import wx as WX
 
@@ -143,6 +144,90 @@ def test_layout_variant_matches_plain_version(cuda, dtype, x_t, w_t, mkn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("x_t,w_t", [(False, False), (False, True),
+                                     (True, False), (True, True)])
+@pytest.mark.parametrize("epilogue", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("mkn", [(300, 700, 130), (129, 97, 257),
+                                 (200, 16380, 72), (1000, 333, 4419)])
+def test_sm90_route_matches_plain_and_wmma_bitwise(cuda, x_t, w_t, epilogue,
+                                                   bias, mkn):
+    """The Hopper loop (bf16, M and N at least 64) in every layout,
+    epilogue and bias, at ragged M, N, K and stored rows of 97, 129, 333
+    or 16,380 elements (padded per call): within the bf16 bound of the
+    plain version, and bit for bit the WMMA loop on the same operands."""
+    m, k, n = mkn
+    x, w, b = _inputs(cuda, m, k, n, torch.bfloat16, bias)
+    xs = x.t().contiguous() if x_t else x
+    ws = w.t().contiguous() if w_t else w
+    assert BM.route(m, n, torch.bfloat16) == "sm90"
+    routes = dict(BM.block_matmul.route_launches)
+    y = BM.block_matmul(xs, ws, b, epilogue, x_t=x_t, w_t=w_t)
+    torch.cuda.synchronize()
+    assert BM.block_matmul.route_launches["sm90"] == routes.get("sm90",
+                                                                0) + 1
+    r = ref.block_matmul_ref(xs, ws, b, epilogue, x_t=x_t, w_t=w_t)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               r.float().cpu().numpy(), rtol=TOL[y.dtype],
+                               atol=TOL[y.dtype])
+    y_w = BM.block_matmul(xs, ws, b, epilogue, x_t=x_t, w_t=w_t,
+                          route_name="wmma")
+    assert torch.equal(y, y_w)
+
+
+@pytest.mark.cuda
+def test_route_rule_and_counter(cuda):
+    """M or N under 64 (Mamba-2's decode, M = 4; its in_dt, N = 24) takes
+    the WMMA loop, the rest the Hopper loop, f32 the FMA tiles; each
+    launch counts once under its route.  A route the dtype has not raises
+    before launching."""
+    cases = [((4, 768, 1536), "wmma"), ((8192, 768, 24), "wmma"),
+             ((64, 100, 64), "sm90"), ((300, 50, 130), "sm90")]
+    for (m, k, n), want in cases:
+        x, w, _ = _inputs(cuda, m, k, n, torch.bfloat16, bias=False)
+        before = dict(BM.block_matmul.route_launches)
+        BM.block_matmul(x, w)
+        assert BM.block_matmul.route_launches[want] == before.get(want,
+                                                                  0) + 1
+    x, w, _ = _inputs(cuda, 70, 30, 80, torch.float32, bias=False)
+    before = BM.block_matmul.launches
+    for bad in ("sm90", "wmma", "tpu"):
+        with pytest.raises(ValueError, match="route"):
+            BM.block_matmul(x, w, route_name=bad)
+    assert BM.block_matmul.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("who", ["block_matmul", "wx"])
+def test_sm90_wrappers_pad_what_tma_cannot_take_and_raise_on_layouts(
+        cuda, who):
+    """block_matmul and wx pad, once per call, a contiguous bf16 operand
+    whose rows or base TMA cannot take (rows of 97 elements; a base 2
+    bytes off 16), with the same bits as an aligned copy; a layout they do
+    not take (not contiguous) raises ValueError and launches nothing."""
+    bf = torch.bfloat16
+    x = torch.randn(130, 97, generator=cuda, device="cuda").to(bf)
+    off = torch.empty(130 * 97 + 1, dtype=bf, device="cuda")[1:].view(
+        130, 97)
+    off.copy_(x)
+    assert off.data_ptr() % 16 and SM90.pad_rows(off) is not off
+    if who == "block_matmul":
+        w = torch.randn(140, 97, generator=cuda, device="cuda").to(bf)
+        assert torch.equal(BM.block_matmul(off, w), BM.block_matmul(x, w))
+        before = BM.block_matmul.launches
+        with pytest.raises(ValueError, match="contiguous"):
+            BM.block_matmul(x.t().contiguous().t(), w)
+        assert BM.block_matmul.launches == before
+    else:
+        xs = torch.randn(2, 97, 72, generator=cuda, device="cuda").to(bf)
+        assert torch.equal(WX.wx(off, xs), WX.wx(x, xs))
+        before = WX.wx.launches
+        with pytest.raises(ValueError, match="contiguous"):
+            WX.wx(x.t().contiguous().t(), xs)
+        assert WX.wx.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_backward(cuda, dtype):
     from repro_torch.kernels import ops
@@ -255,8 +340,8 @@ def test_wx_wrapper_rejects_bad_inputs(cuda, case, exc):
     w, x, a = _wx_inputs(cuda, 2, 64, 48, 32, torch.bfloat16, torch.float32,
                          False, True)
     kw = {}
-    if case == "dtype":
-        x = x.float()
+    if case == "dtype":     # a bf16 w may meet an f32 x (dx), not the reverse
+        w = w.float()
     elif case == "k":
         x = x[:, :40].contiguous()
     elif case == "a_shape":
@@ -273,6 +358,68 @@ def test_wx_wrapper_rejects_bad_inputs(cuda, case, exc):
     with pytest.raises(exc):
         WX.wx(w, x, a, **kw)
     assert WX.wx.launches == before
+
+
+# dx against a float64 oracle, max-normalised: f32 accumulation of exact
+# products (~1e-6 of the max here); dropping the second and third terms of
+# an inexact dy errs by bf16's rounding of dy (~1e-3)
+WX_DX_F64_TOL = 1e-4
+
+
+def _max_rel64(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [1, 3])
+@pytest.mark.parametrize("w_t", [True, False])
+@pytest.mark.parametrize("shape", [(1, 300, 700, 130), (2, 129, 97, 257),
+                                   (3, 64, 8190, 40), (1, 4420, 33, 97)])
+def test_wx_dx_split_terms(cuda, terms, w_t, shape):
+    """The dx entry, a bf16 w with an f32 x: one split term where x is
+    bf16-exact, three where it is not, as the card's counts record; within
+    1e-4 of the plain version and of a float64 oracle (max-normalised),
+    where contracting the first term alone would not be."""
+    ll, m, t, c = shape
+    w, x, a = _wx_inputs(cuda, ll, m, t, c, torch.bfloat16, torch.float32,
+                         w_t, True)
+    x = torch.randn(ll, t, c, generator=cuda, device="cuda")
+    if terms == 1:
+        x = x.to(torch.bfloat16).float()
+    WX.reset_dx_terms()
+    before = WX.wx.launches
+    y = WX.wx(w, x, a, w_t=w_t)
+    torch.cuda.synchronize()
+    assert WX.wx.launches == before + 1
+    assert WX.dx_terms() == {1: int(terms == 1), 3: int(terms == 3)}
+    r = ref.wx_ref(w, x, a, w_t=w_t)
+    np.testing.assert_allclose(y.cpu().numpy(), r.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    wd = w.double().t() if w_t else w.double()
+    oracle = a.double() + torch.matmul(wd, x.double())
+    assert _max_rel64(y, oracle) <= WX_DX_F64_TOL
+    if terms == 3:
+        hi_only = WX.wx(w, x.to(torch.bfloat16), a, w_t=w_t)
+        assert _max_rel64(hi_only, oracle) > WX_DX_F64_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 33, 40), (1, 7, 97), (3, 129, 4420)])
+def test_wx_split_pass_is_the_plain_split(cuda, shape):
+    """The split pass's three terms equal ref.split_bf16x3's bit for bit
+    (rows padded to what TMA takes), and its flag is set exactly when a
+    second or third term is not zero."""
+    x = torch.randn(*shape, generator=cuda, device="cuda") * torch.exp2(
+        torch.randint(-60, 60, shape, generator=cuda, device="cuda").float())
+    for v, want_flag in ((x, True), (x.to(torch.bfloat16).float(), False)):
+        parts, flag = WX.split_terms(v)
+        torch.cuda.synchronize()
+        ll = shape[0]
+        assert SM90.row_stride(parts) == SM90.tma_ld(shape[-1])
+        for i, term in enumerate(ref.split_bf16x3(v)):
+            assert torch.equal(parts[i * ll:(i + 1) * ll], term)
+        assert bool(flag.item()) == want_flag
 
 
 @pytest.mark.cuda
@@ -301,8 +448,9 @@ def test_cannon_step_grads_match_cpu(cuda, dtype):
 @pytest.mark.cuda
 def test_2d_step_launch_counts_and_none_parity(cuda):
     """One 2-D training forward and backward on the 1x1 mesh: 18 r wx and
-    5 + 30 r block_matmul launches at 3 blocks with remat, and the
-    gradients of the scheme="none" step within the bf16 bound."""
+    5 + 30 r block_matmul launches at 3 blocks with remat, every dx launch
+    at one split term, and the gradients of the scheme="none" step within
+    the bf16 bound."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import tree as ptree
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -317,10 +465,13 @@ def test_2d_step_launch_counts_and_none_parity(cuda):
     batch = eng.pipeline.get(0, 1)
     m0, g0 = value_and_grad(eng.params, batch, eng.cfg, eng.jcfg, 1)
     bm, wx = BM.block_matmul.launches, WX.wx.launches
+    WX.reset_dx_terms()
     m2, g2 = value_and_grad(eng.params, batch, eng.cfg.replace(scheme="2d"),
                             eng.jcfg.replace(scheme="2d"), 1)
     torch.cuda.synchronize()
     assert (BM.block_matmul.launches - bm, WX.wx.launches - wx) == (35, 18)
+    # the 6 dx launches each contracted one split term: dy is bf16-exact
+    assert WX.dx_terms() == {1: 6, 3: 0}
     assert abs(float(m2["loss"]) - float(m0["loss"])) <= 5e-2 * abs(
         float(m0["loss"]))
     for a, b in zip(ptree.leaves(g2), ptree.leaves(g0)):
@@ -626,15 +777,25 @@ def test_sm90_wrappers_raise_on_rows_tma_does_not_take(cuda, who, case):
 
 @pytest.mark.cuda
 def test_sm90_kernels_start_with_the_registers_setmaxnreg_moves(cuda):
-    """The Hopper-loop kernels run 384 threads, one block per SM, and start
+    """The Hopper-loop kernels (Cannon, the ring's backward, every
+    block_matmul and wx variant) run 384 threads, one block per SM, start
     with enough registers for setmaxnreg to give the consumers 232 and the
-    producer 40 (else the launch refuses, rather than wait forever)."""
+    producer 40 (else the launch refuses, rather than wait forever), and
+    spill nothing."""
     need = 232 * 256 + 40 * 128
-    for attrs in (CANNON.kernel_attrs(), CANNON.kernel_attrs(out_bf16=True),
-                  RING.kernel_attrs(0)):
+    variants = [CANNON.kernel_attrs(), CANNON.kernel_attrs(out_bf16=True),
+                RING.kernel_attrs(0)]
+    variants += [BM.kernel_attrs("sm90", x_t, w_t, epi)
+                 for x_t in (False, True) for w_t in (False, True)
+                 for epi in ("none", "gelu", "silu")]
+    variants += [WX.kernel_attrs("sm90", w_t, out_bf16)
+                 for w_t in (False, True) for out_bf16 in (False, True)]
+    for attrs in variants:
         assert attrs["threads"] >= 384
         assert attrs["registers"] * 384 >= need, attrs
         assert attrs["dynamic_shared_bytes"] <= 232448
+        assert attrs["local_bytes"] == 0, attrs   # no spills (GELU too)
+    assert WX.kernel_attrs("split")["local_bytes"] == 0
 
 
 @pytest.mark.cuda

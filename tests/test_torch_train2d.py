@@ -21,6 +21,7 @@ loss-parity bound).  Replicated parameters and two runs of one seed are
 held bit for bit.
 """
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -170,7 +171,9 @@ def _rank_main(rank, init, out_dir):
         config=EngineConfig(steps=BF16_STEPS, batch=2, log_every=1,
                             prefetch=0, telemetry=False, seed=0,
                             precision="bf16", pipeline="sync-full"))
-    res["bf16/loss"] = np.array([h["loss"] for h in eng.run()])
+    with _recording_dx() as seen:
+        res["bf16/loss"] = np.array([h["loss"] for h in eng.run()])
+    res["bf16/dx_seen"] = np.array(seen, dtype=bool).reshape(-1, 3)
     res.update(_count_calls(mesh))
     np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
     dist.destroy_process_group()
@@ -217,6 +220,26 @@ def _count_calls(mesh):
         for mod, name, real, _ in patches:
             setattr(mod, name, real)
     return out
+
+
+@contextlib.contextmanager
+def _recording_dx():
+    """fused_ring.wx, recording for each dx call (w read across its rows)
+    whether w is bf16, the cotangent f32, and the cotangent bf16-exact:
+    what lets wx's dx route contract one split term."""
+    seen = []
+    real = fused_ring.wx
+
+    def recording(w, x, a=None, **kw):
+        if kw.get("w_t"):
+            seen.append([w.dtype == torch.bfloat16, x.dtype == torch.float32,
+                         bool(torch.equal(x, x.to(torch.bfloat16).float()))])
+        return real(w, x, a, **kw)
+    fused_ring.wx = recording
+    try:
+        yield seen
+    finally:
+        fused_ring.wx = real
 
 
 def _env(**kw):
@@ -446,6 +469,33 @@ def test_2d_kernel_calls_per_step(monkeypatch, rollout, remat):
     wx_per = 18 if remat else 12
     bm_per = 30 if remat else 24
     assert calls == {"wx": wx_per * rollout, "bm": 5 + bm_per * rollout}
+
+
+def test_2d_dx_cotangent_is_bf16_exact_at_q1():
+    """Under the bf16 policy the cotangent that reaches every wx dx of a
+    2-D step at q = 1 is the f32 image of a bf16 one (the Cannon product
+    is cast to bf16 before anything reads it, and the step loop passes
+    da = dy through), against a bf16 w: the condition under which wx's dx
+    route contracts one split term (``WX.dx_terms`` on the card)."""
+    eng = TrainEngine("weathermixer-1b", reduced=False, device="cpu",
+                      config_override=_port_cfg(_tiny(n_layers=3)),
+                      config=EngineConfig(steps=1, batch=2, prefetch=0,
+                                          precision="bf16", telemetry=False))
+    batch = eng.pipeline.get(0, 1)
+    with _recording_dx() as seen:
+        step.value_and_grad(eng.params, batch, eng.cfg.replace(scheme="2d"),
+                            eng.jcfg.replace(scheme="2d"), 1)
+    assert len(seen) == 6 and all(all(s) for s in seen), seen
+
+
+def test_2x2_dx_cotangent_is_bf16_exact(ranks):
+    """The same on the 2x2 mesh: every dx of the bf16 training run's
+    steps (the fused Cannon's VJP, the step loop recomputed: 2 blocks, two
+    token-mix linears, q = 2 steps each, 8 a step) on every rank takes a
+    bf16 w and a bf16-exact f32 cotangent."""
+    for res in ranks.values():
+        seen = res["bf16/dx_seen"]
+        assert len(seen) == 8 * BF16_STEPS and seen.all(), seen
 
 
 if __name__ == "__main__":
