@@ -48,7 +48,11 @@ printed as a JSON line:
      forecast step, every request bitwise equal to its solo bucket-1
      rollout, 14 kernel launches per device step;
   4. the legacy path (the config's own dtypes: bf16 weights, f32
-     activations, f32 kernel) for one step against the plain version;
+     activations, f32 kernel; ``launch/serve.py`` without ``--precision``)
+     for one step against the plain version; then its device time per
+     step beside the plain step's, its 14 f32 kernel launches alone and
+     the same 14 products by torch.matmul (f32, TF32 off) at its shapes,
+     and the f32 bound of its GEMMs;
   5. the backward GEMMs of the six shapes (bucket 1): dx = dz @ w and
      dw = dz.T @ x through the kernel's transposed-operand variants,
      against the plain version, each timed beside the plain version, the
@@ -70,10 +74,12 @@ printed as a JSON line:
      block_matmul's products and its plain version, the backward's dw
      against block_matmul's dw of the gathered cotangent and its dx
      accumulator against the plain one and, in bf16, bit for bit against
-     the wx step loop; rank 0's launches timed (the backward also with dx
-     off) beside the plain steps, cuBLAS chunk products with the adds, and
-     the bound, each row with every operand's load path, the kernels'
-     registers, local and shared bytes, and the backward's tiles and waves;
+     the wx step loop; rank 0's launches timed (with the per-call padding
+     of the operands TMA cannot take, also timed alone; the backward also
+     with dx off) beside the plain steps, cuBLAS chunk products with the
+     adds, and the bound, each row with every operand's load path (the
+     bf16 TMA plans of both steps), the kernels' registers, local and
+     shared bytes, and both steps' tiles and waves;
   8. the Cannon kernel (``cannon_shape``) at the two full-width token-mix
      shapes of a 2x2 rank, batch 1 and 2 in bf16, and tok_fc1 in f32, the
      four ranks held in one process (rank (i, j) writes the slots of
@@ -254,6 +260,18 @@ def sm_count(torch):
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def blocks_per_sm(attrs):
+    """Blocks of a kernel that fit on one SM at once, by its registers
+    (allocated in steps of 8 a thread), its shared bytes (plus 1 KiB the
+    runtime reserves) and its threads: the divisor of a one-block-per-tile
+    launch's waves."""
+    regs = -(-attrs["registers"] // 8) * 8
+    shared = (attrs["static_shared_bytes"] + attrs["dynamic_shared_bytes"]
+              + 1024)
+    return max(1, min(65536 // (regs * attrs["threads"]), 233472 // shared,
+                      2048 // attrs["threads"]))
+
+
 def bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi, x_t, w_t):
     """What a block_matmul launch at this shape runs: its route, its
     kernel's registers, spills and shared bytes, its operands' load paths,
@@ -261,11 +279,19 @@ def bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi, x_t, w_t):
     operands whose rows TMA cannot take (0 where none is padded)."""
     path = BM.route(m, n, x.dtype)
     if path != "sm90":
-        vb = BM.vec_bytes(x, w) if path == "wmma" else 4
+        if path == "wmma":
+            vb = BM.vec_bytes(x, w)
+            loads = f"{vb} B"
+        else:       # 16 B where the contiguous side is a multiple of 4
+            vb = 16
+            loads = {name: "16 B" if side % 4 == 0 else "4 B"
+                     for name, side in (("x", m if x_t else k),
+                                        ("w", n if w_t else k))}
+        attrs = BM.kernel_attrs(path, x_t, w_t, epi, vb)
         blocks = -(-m // 128) * -(-n // 128)
-        return dict(route=path, loads=f"{vb} B",
-                    kernel=BM.kernel_attrs(path, x_t, w_t, epi, vb),
-                    tiles=blocks, grid=blocks, waves=blocks / sm_count(torch),
+        return dict(route=path, loads=loads, kernel=attrs, tiles=blocks,
+                    grid=blocks, blocks_per_sm=blocks_per_sm(attrs),
+                    waves=blocks / (blocks_per_sm(attrs) * sm_count(torch)),
                     pad_ms=0.0)
     ops = SM90.tma_operands_block_matmul(m, n, k, x_t, w_t)
     tiles = SM90.sm90_tiles(m, n)
@@ -670,12 +696,15 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
         check(bf16_err <= MAMBA_BF16_TOL,
               f"mamba bf16 logits vs f32: {bf16_err:.3e} of the mean")
         ms32 = cuda_ms(lambda: M.apply(params32, batch, cfg32, jcfg), 2)
+        # the same f32 forward with every GEMM a cuBLAS call (TF32 off)
+        xla_ms32 = cuda_ms(lambda: M.apply(params32, batch, cfg32,
+                                           jcfg.replace(kernel="xla")), 2)
     torch.cuda.empty_cache()
     tokens = MAMBA_SEQ * MAMBA_BATCH
     emit(phase="mamba_forward", seq=MAMBA_SEQ, batch=MAMBA_BATCH,
          launches=launches, block_matmul_routes=routes, ms_per_forward=ms,
          tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
-         f32_ms_per_forward=ms32,
+         f32_ms_per_forward=ms32, f32_xla_ms_per_forward=xla_ms32,
          f32_vs_plain_ssd=ssd_err, f32_vs_xla=xla_err, tol_f32=MAMBA_F32_TOL,
          bf16_vs_f32_mean=bf16_err, tol_bf16_mean=MAMBA_BF16_TOL,
          bf16_vs_f32_top1_agree=bf16_top1)
@@ -893,6 +922,12 @@ def gemm_flops_per_request(cfg):
 
 
 def legacy_phase(torch, BM, eng, fields):
+    """The legacy path (what ``launch/serve.py`` runs without
+    ``--precision``: bf16 weights, f32 activations, 14 f32 kernel launches
+    a step) for one step against the plain step; then the device time of a
+    step, of the plain step (its GEMMs cuBLAS f32 calls), of the step's 14
+    kernel launches alone at its shapes and of the same 14 products by
+    torch.matmul in f32 (TF32 off), beside the f32 bound of its GEMMs."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.shapes import jigsaw_for
     from repro_torch.models import registry as M
@@ -909,13 +944,41 @@ def legacy_phase(torch, BM, eng, fields):
         launches = BM.block_matmul.launches
         plain = M.forecast_step(eng.params, x, cfg,
                                 jcfg.replace(kernel="xla"))
-    check(launches == 14, f"legacy step launched the kernel {launches} "
-          "times (want 14)")
-    check(bool(torch.isfinite(out).all()), "legacy step: non-finite output")
-    err = rel_err(out, plain)
-    check(err <= STEP_TOL["legacy"], f"legacy f32 step vs plain: {err:.3e}")
-    emit(phase="legacy_f32", launches=launches, out_dtype=str(out.dtype),
-         step_vs_plain_rel_err=err, step_tol=STEP_TOL["legacy"])
+        check(launches == 14, f"legacy step launched the kernel {launches} "
+              "times (want 14)")
+        check(bool(torch.isfinite(out).all()),
+              "legacy step: non-finite output")
+        err = rel_err(out, plain)
+        check(err <= STEP_TOL["legacy"],
+              f"legacy f32 step vs plain: {err:.3e}")
+        out_dtype = str(out.dtype)
+        del out, plain
+        step_ms = cuda_ms(lambda: M.forecast_step(eng.params, x, cfg, jcfg),
+                          2)
+        plain_ms = cuda_ms(lambda: M.forecast_step(
+            eng.params, x, cfg, jcfg.replace(kernel="xla")), 2)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gemm_ms = library_ms = 0.0
+    for label, m, k, n, epi, name, per_step, _ in SHAPES:
+        if not per_step:
+            continue
+        a = torch.randn(m, k, generator=gen, device="cuda")
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).to(torch.bfloat16).float()
+        b = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        gemm_ms += per_step * cuda_ms(lambda: BM.block_matmul(a, w, b, epi),
+                                      3)
+        library_ms += per_step * cuda_ms(lambda: torch.matmul(a, w.t()), 3)
+        del a, w, b
+    torch.cuda.empty_cache()
+    row = dict(launches=launches, out_dtype=out_dtype,
+               step_vs_plain_rel_err=err, step_tol=STEP_TOL["legacy"],
+               step_ms=step_ms, plain_step_ms=plain_ms, gemm_ms=gemm_ms,
+               library_ms=library_ms,
+               bound_ms=1e3 * gemm_flops_per_request(cfg)
+               / PEAK_FLOPS["float32"])
+    emit(phase="legacy_f32", **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1090,7 +1153,8 @@ def wx_phase(torch, WX, SM90, ref):
                                f64_rel_err=f64_err, f64_tol=WX_DX_F64_TOL,
                                split_ms=cuda_ms(lambda: WX.split_terms(dy)),
                                fma_ms=cuda_ms(lambda: WX.wx(
-                                   w32, dy, None, w_t=True), 2))
+                                   w32, dy, None, w_t=True), 2),
+                               fma_kernel=WX.kernel_attrs("f32", True))
                 else:
                     bound, bound_by = wx_bound_ms(ll, gm, gn, gk, 2, 8)
                     row.update(dtype="bfloat16")
@@ -1170,11 +1234,12 @@ def ring_phase(torch, BM, RING, WX, ref):
     in bf16, bit for bit the wx step loop that the kernel replaces (acc =
     wx(cur_s, w_j[None], acc): the WMMA loop, the same epilogue); dx that
     accumulator rounded.  Then rank 0's p launches timed, forward and
-    backward (the backward with its per-call padding of x, w and dy, and
-    with dx off: dw alone), beside the plain steps, the library's
-    (torch.matmul chunk products and the adds) and the bound; each row
-    names every operand's load path, each kernel's registers, local and
-    shared bytes, and the backward's tiles and waves.  On one card a hop is
+    backward (with their per-call padding of x and w, and dy, whose time
+    the row also gives alone; the backward also with dx off: dw alone),
+    beside the plain steps, the library's (torch.matmul chunk products and
+    the adds) and the bound; each row names every operand's load path
+    (the bf16 TMA plans), each kernel's registers, local and shared bytes,
+    and both steps' tiles and waves.  On one card a hop is
     a store into device memory, not an NVLink write."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
@@ -1255,8 +1320,10 @@ def ring_phase(torch, BM, RING, WX, ref):
         need_dx = label != "encoder"        # the encoder's input is data
 
         def fwd_kernel():
+            # as fused_ring._card_forward: x and w padded once per call
+            xp, wp = RING.pad_rows(x), RING.pad_rows(w)
             for s in range(p):
-                RING.ring_fwd(x, w, (-1 - s) % p,
+                RING.ring_fwd(xp, wp, (-1 - s) % p,
                               None if s == 0 else slots[(s - 1) % 2],
                               out if s == p - 1 else slots[s % 2])
 
@@ -1307,25 +1374,39 @@ def ring_phase(torch, BM, RING, WX, ref):
                     acc.copy_(z) if s == 0 else acc.add_(z)
 
         bf16 = name == "bfloat16"
-        # the forward loads every operand at one width: the widest that
-        # x and each launch's w_j allow; the backward reads through TMA
-        vb = (min(RING._vec_bytes(x, w[j * mc:]) for j in range(p))
-              if bf16 else 4)
+        sms = sm_count(torch)
         n_dw, n_dx = RING.ring_bwd_tiles(rows, dl, mc, need_dx)
-        grid = RING.persistent_grid(n_dw + n_dx, p > 1, sm_count(torch))
-        fwd_blocks = -(-rows // 128) * -(-mc // 128)
+        grid = RING.persistent_grid(n_dw + n_dx, p > 1, sms)
+        if bf16:
+            # both steps read through TMA, each operand at its own stride
+            fwd_tiles = RING.sm90_tiles(rows, mc)
+            fwd_grid = RING.persistent_grid(fwd_tiles, False, sms)
+            fwd_loads = {k: op.describe() for k, op in
+                         RING.tma_operands_ring_fwd(rows, dl, mc).items()}
+            bwd_loads = {k: op.describe() for k, op in
+                         RING.tma_operands_ring_bwd(rows, dl, mc,
+                                                    need_dx).items()}
+        else:
+            # one [128 x 128] tile a block, blocks_per_sm of them at once
+            fwd_tiles = -(-rows // 128) * -(-mc // 128)
+            fwd_grid = blocks_per_sm(RING.kernel_attrs(3)) * sms
+            fwd_loads = bwd_loads = "f32 FMA loop: 16 B (rows % 4 == 0)"
+
+        def pad_ms(*ts):
+            padded = [t for t in ts if RING.pad_rows(t) is not t]
+            return (cuda_ms(lambda: [RING.pad_rows(t) for t in padded])
+                    if padded else 0.0)
+
         row = dict(shape=label, p=p, rows=rows, d=d, m=m, dtype=name,
                    fwd_calls_per_train_step=n_fwd,
                    bwd_calls_per_train_step=n_bwd,
-                   fwd_loads={"x": f"{vb} B", "w_j": f"{vb} B"},
-                   bwd_loads=({k: op.describe() for k, op in
-                               RING.tma_operands_ring_bwd(
-                                   rows, dl, mc, need_dx).items()}
-                              if bf16 else "4 B (f32 FMA tiles)"),
-                   fwd_kernel=RING.kernel_attrs(2 if bf16 else 3, vb),
+                   fwd_route="sm90" if bf16 else "f32",
+                   fwd_loads=fwd_loads, bwd_loads=bwd_loads,
+                   fwd_kernel=RING.kernel_attrs(2 if bf16 else 3),
                    bwd_kernel=RING.kernel_attrs(0 if bf16 else 1),
-                   fwd_blocks=fwd_blocks,
-                   fwd_waves=fwd_blocks / sm_count(torch),
+                   fwd_tiles=fwd_tiles, fwd_grid=fwd_grid,
+                   fwd_waves=fwd_tiles / fwd_grid,
+                   fwd_pad_ms=pad_ms(x, w), bwd_pad_ms=pad_ms(x, w, dy),
                    bwd_tiles={"dw": n_dw, "dx": n_dx}, bwd_grid=grid,
                    bwd_waves=(n_dw + n_dx) / grid,
                    fwd_max_abs_err=fwd_err, fwd_tol=tol,
@@ -1463,17 +1544,19 @@ def cannon_phase(torch, CANNON, WX, RING, ref):
 
         bound, bound_by = cannon_bound_ms(ll, m, t, c, q, name)
         bf16 = name == "bfloat16"
-        tiles = ll * RING.sm90_tiles(m, c)
-        grid = RING.persistent_grid(tiles, True, sm_count(torch))
+        attrs = CANNON.kernel_attrs(f32=not bf16)
+        if bf16:
+            tiles = ll * RING.sm90_tiles(m, c)
+            grid = RING.persistent_grid(tiles, True, sm_count(torch))
+        else:       # one [128 x 128] tile a block, blocks_per_sm at once
+            tiles = ll * -(-m // 128) * -(-c // 128)
+            grid = blocks_per_sm(attrs) * sm_count(torch)
         row = dict(shape=label, q=q, batch=ll, m=m, t=t, c=c, dtype=name,
                    calls_per_train_step=calls,
                    loads=({k: op.describe() for k, op in
                            RING.tma_operands_cannon(ll, m, c, t).items()}
-                          if bf16 else "4 B (f32 FMA tiles)"),
-                   kernel=CANNON.kernel_attrs(f32=not bf16),
-                   tiles=tiles if bf16 else None,
-                   grid=grid if bf16 else None,
-                   waves=tiles / grid if bf16 else None,
+                          if bf16 else "f32 FMA loop: 16 B (rows % 4 == 0)"),
+                   kernel=attrs, tiles=tiles, grid=grid, waves=tiles / grid,
                    bitwise_step_loop=True, max_abs_err=err,
                    tol=WX_TOL[name], kernel_ms=cuda_ms(kernel),
                    plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library),
@@ -2246,7 +2329,7 @@ def main():
     del mparams
     torch.cuda.empty_cache()
     eng, fields, serve_launches = serve_phase(torch, BM)
-    legacy_phase(torch, BM, eng, fields)
+    legacy = legacy_phase(torch, BM, eng, fields)
     del eng, fields
     torch.cuda.empty_cache()
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, SM90, ref)
@@ -2350,6 +2433,13 @@ def main():
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                          for r in step) else "bytes"),
         "library_ms": per_step("library_ms"),
+        # the legacy path (f32 activations, 14 f32 launches a step): the
+        # step, its 14 launches alone, the same products by torch.matmul
+        # in f32, and their f32 bound
+        "legacy_step_ms": legacy["step_ms"],
+        "legacy_ms": legacy["gemm_ms"],
+        "legacy_library_ms": legacy["library_ms"],
+        "legacy_bound_ms": legacy["bound_ms"],
         # the 59 GEMMs of one training sample-step at rollout 1 (batch 1):
         # forward, remat and GELU recomputes, dx and dw
         "train_ms": per_train_step("kernel_ms"),

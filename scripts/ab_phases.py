@@ -10,12 +10,14 @@ ROOT is a checkout (this repository, or another commit unpacked with
 ``kernel_bwd_shape``, ``wx_shape``, ``ring_shape`` or ``cannon_shape``.
 The script imports ROOT's ``chip_smoke.py`` and ROOT's ``src/`` (its
 kernels build from ROOT's sources into ROOT's ``build/kernels/``).  For
-the first three phases it first hashes (SHA-256) the output of ROOT's
-kernel at every shape of the phase from inputs made here from a fixed seed,
-the same in every checkout: block_matmul's forward (bias and epilogue as
-the smoke rows, the small shapes too), its dx and dw, wx's bf16 forward
-with an f32 accumulator; one line ``{"ab": ROOT, "phase": ..., "hash":
-{case: hex, ...}}``.  Then it runs the phase with its own checks, prints
+each phase it first hashes (SHA-256) the output of ROOT's kernels at
+every shape of the phase from inputs made here from a fixed seed, the
+same in every checkout: block_matmul's forward (bias and epilogue as the
+smoke rows, the small shapes too, in bf16 and f32), its dx and dw (a
+ragged f32 shape too), wx's forward with an f32 and a bf16 accumulator
+and, in f32, its forward and dx, the forward ring's outputs of every
+rank (bf16 at p = 2 and 4, tok_fc1 in f32) and the f32 Cannon's; one
+line ``{"ab": ROOT, "phase": ..., "hash": {case: hex, ...}}``.  Then it runs the phase with its own checks, prints
 its rows as chip_smoke.py does, and one line ``{"ab": ROOT, "phase": ...,
 "ms": {row: kernel ms, ...}}``.  Run it for the two commits in turns (A,
 B, B, A) and compare within the call; ``--compare`` prints, per phase,
@@ -35,7 +37,7 @@ def _digest(torch, y):
                           .tobytes()).hexdigest()[:16]
 
 
-def _hashes(name, smoke, torch, BM, WX):
+def _hashes(name, smoke, torch, BM, WX, RING, CANNON):
     """{case: hash} of ROOT's kernel outputs at the phase's shapes, from
     inputs made from seed 7 per case (the same in every checkout)."""
     out = {}
@@ -47,29 +49,38 @@ def _hashes(name, smoke, torch, BM, WX):
         return (scale * torch.randn(*shape, generator=g, device="cuda")
                 ).to(dtype)
 
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     if name == "kernel_shape":
-        cases = [(f"small{(m, k, n)}.{epi}", m, k, n, epi)
+        # the small shapes in both dtypes (K of 13 and 97: the f32 loop's
+        # 4-byte loads), the smoke shapes (tok_fc1 in f32 with GELU too),
+        # the Mamba-2 shapes
+        cases = [(f"small{(m, k, n)}.{epi}{'.f32' if dt == f32 else ''}",
+                  m, k, n, epi, dt)
+                 for dt in (bf, f32)
                  for m, k, n in [(1, 1, 1), (7, 13, 5), (300, 700, 130),
                                  (129, 97, 257), (200, 16380, 72)]
                  for epi in ("none", "gelu", "silu")]
-        cases += [(label, m, k, n, epi) for label, m, k, n, epi, dt, *_
-                  in smoke.SHAPES if dt == "bfloat16"]
-        cases += [(label, m, k, n, "none")
+        cases += [(label, m, k, n, epi, getattr(torch, dt))
+                  for label, m, k, n, epi, dt, *_ in smoke.SHAPES]
+        cases += [(label, m, k, n, "none", bf)
                   for label, m, k, n, _ in smoke.MAMBA_SHAPES]
-        for label, m, k, n, epi in cases:
+        for label, m, k, n, epi, dt in cases:
             g = gen()
-            x, w = randn(g, m, k), randn(g, n, k, scale=k ** -0.5)
-            b = randn(g, n, scale=0.1)
+            x, w = randn(g, m, k, dtype=dt), randn(g, n, k, scale=k ** -0.5,
+                                                   dtype=dt)
+            b = randn(g, n, scale=0.1, dtype=dt)
             out[label] = _digest(torch, BM.block_matmul(x, w, b, epi))
     elif name == "kernel_bwd_shape":
-        for label, m, k, n, _, dt, *_ in smoke.SHAPES:
-            if dt != "bfloat16":
-                continue
+        # the smoke shapes' dx and dw (tok_fc1's in f32 too), and a ragged
+        # f32 shape whose K and N are not multiples of 4
+        cases = [(label, m, k, n, getattr(torch, dt))
+                 for label, m, k, n, _, dt, *_ in smoke.SHAPES]
+        cases.append(("ragged_f32", 129, 97, 257, f32))
+        for label, m, k, n, dt in cases:
             g = gen()
-            x, w = randn(g, m, k, scale=m ** -0.5), randn(g, n, k,
-                                                          scale=k ** -0.5)
-            dz = randn(g, m, n)
+            x, w = (randn(g, m, k, scale=m ** -0.5, dtype=dt),
+                    randn(g, n, k, scale=k ** -0.5, dtype=dt))
+            dz = randn(g, m, n, dtype=dt)
             out[f"{label}.dx"] = _digest(torch, BM.block_matmul(dz, w,
                                                                 w_t=True))
             out[f"{label}.dw"] = _digest(torch, BM.block_matmul(
@@ -80,11 +91,50 @@ def _hashes(name, smoke, torch, BM, WX):
                 g = gen()
                 w = randn(g, m, t, scale=t ** -0.5)
                 x = randn(g, ll, t, c)
-                a = randn(g, ll, m, c, dtype=torch.float32)
+                a = randn(g, ll, m, c, dtype=f32)
                 out[f"{label}.fwd L={ll}"] = _digest(torch, WX.wx(w, x, a))
                 # the forward with a bf16 accumulator, as bf16_pure runs it
                 out[f"{label}.fwd bf16 L={ll}"] = _digest(torch, WX.wx(
                     w, x, a.to(bf), out_dtype=bf))
+            # f32 operands: the forward and dx (w read across its rows)
+            g = gen()
+            w = randn(g, m, t, scale=t ** -0.5, dtype=f32)
+            x = randn(g, 1, t, c, dtype=f32)
+            a = randn(g, 1, m, c, dtype=f32)
+            dy = randn(g, 1, m, c, dtype=f32)
+            out[f"{label}.fwd f32"] = _digest(torch, WX.wx(w, x, a))
+            out[f"{label}.dx f32"] = _digest(torch, WX.wx(w, dy, None,
+                                                          w_t=True))
+            del w, x, a, dy
+            torch.cuda.empty_cache()
+    elif name == "ring_shape":
+        # the forward ring's outputs of p ranks held in one process
+        cases = [(p, shape, bf) for p in smoke.RING_PS
+                 for shape in smoke.RING_SHAPES]
+        cases.append((2, smoke.RING_SHAPES[1], f32))
+        for p, (label, rows, d, m, *_), dt in cases:
+            g = gen()
+            xs = [randn(g, rows, d // p, dtype=dt) for _ in range(p)]
+            ws = [randn(g, m, d // p, scale=d ** -0.5, dtype=dt)
+                  for _ in range(p)]
+            outs = RING.ring_fwd_all(xs, ws)
+            for r, y in enumerate(outs):
+                out[f"{label} p={p} {str(dt)[6:]} rank {r}"] = _digest(
+                    torch, y)
+            del xs, ws, outs
+            torch.cuda.empty_cache()
+    elif name == "cannon_shape":
+        # the f32 Cannon kernel of q x q ranks held in one process
+        q = smoke.CANNON_Q
+        for label, m, t, c, _ in smoke.CANNON_SHAPES:
+            g = gen()
+            ws = [randn(g, m, t, scale=t ** -0.5, dtype=f32)
+                  for _ in range(q * q)]
+            xs = [randn(g, 1, t, c, dtype=f32) for _ in range(q * q)]
+            for r, y in enumerate(CANNON.cannon_fwd_all(ws, xs, q)):
+                out[f"{label} f32 rank {r}"] = _digest(torch, y)
+            del ws, xs
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return out
 
@@ -141,11 +191,9 @@ def main(argv):
               "ring_shape": smoke.ring_phase,
               "cannon_shape": smoke.cannon_phase}
     for name in argv[1:]:
-        if name in ("kernel_shape", "kernel_bwd_shape", "wx_shape"):
-            print(json.dumps({"ab": str(root), "phase": name,
-                              "hash": _hashes(name, smoke, torch,
-                                              block_matmul, wx)}),
-                  flush=True)
+        print(json.dumps({"ab": str(root), "phase": name,
+                          "hash": _hashes(name, smoke, torch, block_matmul,
+                                          wx, ring, cannon)}), flush=True)
         fn = phases[name]
         got = fn(*(mods[p] for p in inspect.signature(fn).parameters))
         rows = got[0] + (got[1] if name == "kernel_shape" else [])

@@ -48,7 +48,7 @@ ROUTES = {"sm90": 0, "wmma": 1, "f32": 2}   # block_matmul_attrs' numbering
 SM90_MIN_SIDE = 64
 
 _MAX_GRID_Y = 65535
-_TILE = 128                      # output tile edge of the WMMA and f32 loops
+_TILE = 128                      # output tile edge of the WMMA loop
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -171,7 +171,7 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"block_matmul: no route {route_name!r} for "
                              f"{x.dtype}")
         path = route_name
-    if k == 0 or (path != "sm90"
+    if k == 0 or (path == "wmma"
                   and (m + _TILE - 1) // _TILE > _MAX_GRID_Y):
         raise ValueError(f"block_matmul: unsupported shape M={m}, K={k}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)

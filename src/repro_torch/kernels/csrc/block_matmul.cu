@@ -44,7 +44,8 @@
 //     through shared memory.  The wrapper takes it where a [128 x 256]
 //     tile would be mostly empty (M or N under 64: Mamba-2's decode, M =
 //     4, and its in_dt, N = 24).
-//   * f32: exact f32 FMA on the CUDA cores (no TF32), 128x128 tile, each
+//   * f32: exact f32 FMA on the CUDA cores (no TF32), gemm_core.cuh's
+//     pipelined loop: 128x128 tiles in bands of 8 rows of tiles, each
 //     thread 8x8 outputs; K runs sequentially per output element.
 //
 // Bit for bit across the two bf16 routes: both zero the accumulators and
@@ -304,25 +305,27 @@ int wmma_attrs(int x_t, int w_t, int* out) {
 // f32 operands: exact FMA on the CUDA cores (gemm::f32_tile)
 // ---------------------------------------------------------------------------
 
+// Tiles: C [M, N] in sm90::grouped_tile's bands of 8 rows of tiles, one
+// [128 x 128] tile a block.
 template <bool XT, bool WT>
-__global__ void __launch_bounds__(gemm::FTHREADS)
+__global__ void __launch_bounds__(gemm::FTHREADS, 2)
 bm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, float* __restrict__ y,
-              int M, int N, int K, int epi) {
-  __shared__ __align__(16) float As[gemm::FBK][gemm::FLD];  // As[k][m]
-  __shared__ __align__(16) float Bs[gemm::FBK][gemm::FLD];  // Bs[k][n]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * gemm::FBM, n0 = blockIdx.x * gemm::FBN;
+              int M, int N, int K, int epi, int tiles_m, int tiles_n) {
+  __shared__ __align__(16) gemm::F32Smem sm;
+  int tm, tn;
+  sm90::grouped_tile(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  const int m0 = tm * gemm::FBM, n0 = tn * gemm::FBN;
   float acc[8][8];
-  gemm::f32_tile<XT, WT>(x, w, M, N, K, m0, n0, As, Bs, acc);
+  gemm::f32_tile<XT, WT>(x, w, M, N, K, m0, n0, sm, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty * 8 + i;
+    const int gm = m0 + gemm::f32_row(i);
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx * 8 + j;
+      const int gn = n0 + gemm::f32_col(j);
       if (gn >= N) continue;
       float v = acc[i][j];
       if (bias != nullptr) v += bias[gn];
@@ -335,11 +338,12 @@ template <bool XT, bool WT>
 cudaError_t launch_f32(const void* x, const void* w, const void* bias,
                        void* y, int M, int N, int K, int epi,
                        cudaStream_t stream) {
-  const dim3 grid((N + gemm::FBN - 1) / gemm::FBN,
-                  (M + gemm::FBM - 1) / gemm::FBM);
-  bm_f32_kernel<XT, WT><<<grid, gemm::FTHREADS, 0, stream>>>(
+  const int tiles_m = (M + gemm::FBM - 1) / gemm::FBM;
+  const int tiles_n = (N + gemm::FBN - 1) / gemm::FBN;
+  bm_f32_kernel<XT, WT><<<tiles_m * tiles_n, gemm::FTHREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(y), M, N, K, epi);
+      static_cast<const float*>(bias), static_cast<float*>(y), M, N, K, epi,
+      tiles_m, tiles_n);
   return cudaGetLastError();
 }
 

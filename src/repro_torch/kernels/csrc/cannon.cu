@@ -56,7 +56,8 @@
 // hops are copied by the producer warpgroup's three idle warps while the
 // consumers compute, 16 bytes a thread when the sizes and addresses
 // allow, else 2.  The f32 variant (exact FMA on the CUDA cores,
-// gemm_core.cuh) takes w and x contiguous; no bf16 path runs it.
+// gemm_core.cuh's two-stage loop) takes w and x contiguous; no bf16 path
+// runs it.
 
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
@@ -201,11 +202,11 @@ int launch_bf16(const void* w, const void* x, void* out, void* w_dest,
 }
 
 // ---------------------------------------------------------------------------
-// f32: exact FMA on the CUDA cores (gemm_core.cuh), unchanged
+// f32: exact FMA on the CUDA cores (gemm_core.cuh's pipelined loop)
 // ---------------------------------------------------------------------------
 
-// The blocks of one f32 launch: n_gemm output tiles (l-major, then row
-// tiles, then column tiles), then n_copy blocks that copy w to w_dest and
+// The blocks of one f32 launch: n_gemm output tiles (l-major, then in
+// sm90::grouped_tile's bands of 8 rows of tiles), then n_copy blocks that copy w to w_dest and
 // x to x_dest (either may be null).
 struct Step {
   void* w_dest;
@@ -223,34 +224,33 @@ __device__ __forceinline__ void copy_part(const void* w, const void* x,
 }
 
 template <typename OutT>
-__global__ void __launch_bounds__(gemm::FTHREADS)
+__global__ void __launch_bounds__(gemm::FTHREADS, 2)
 cannon_f32_kernel(const float* __restrict__ w, const float* __restrict__ x,
                   OutT* out, Step st) {
-  __shared__ __align__(16) float As[gemm::FBK][gemm::FLD];
-  __shared__ __align__(16) float Bs[gemm::FBK][gemm::FLD];
+  __shared__ __align__(16) gemm::F32Smem sm;
   const int b = blockIdx.x;
   if (b >= st.n_gemm) {
     copy_part(w, x, st, b - st.n_gemm);
     return;
   }
   const size_t l = b / st.tiles_mn;
-  const int t = b % st.tiles_mn;
-  const int m0 = (t / st.tiles_n) * gemm::FBM;
-  const int n0 = (t % st.tiles_n) * gemm::FBN;
+  int tm, tn;
+  sm90::grouped_tile(b % st.tiles_mn, st.tiles_mn / st.tiles_n, st.tiles_n,
+                     tm, tn);
+  const int m0 = tm * gemm::FBM, n0 = tn * gemm::FBN;
   const int M = st.M, N = st.N, K = st.K;
   float acc[8][8];
-  gemm::f32_tile<false, true>(w, x + l * size_t(K) * N, M, N, K, m0, n0, As,
-                              Bs, acc);
+  gemm::f32_tile<false, true>(w, x + l * size_t(K) * N, M, N, K, m0, n0, sm,
+                              acc);
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = l * size_t(M) * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty * 8 + i;
+    const int gm = m0 + gemm::f32_row(i);
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx * 8 + j;
+      const int gn = n0 + gemm::f32_col(j);
       if (gn >= N) continue;
       const size_t o = base + size_t(gm) * N + gn;
       float v = acc[i][j];

@@ -5,17 +5,20 @@
 // B [N, K] read from `b`, stored [N, K] or [K, N] (BT).  The kernels add
 // their own epilogues.
 //
-//   * bf16: 8 warps, each 64 x 32 of the tile; K in steps of 32 through a
-//     3-stage cp.async ring in shared memory; WMMA 16x16x16 bf16 fragments
-//     (mma.sync on the tensor cores) with f32 accumulators.  A K-contiguous
-//     operand lands in shared memory as [128 rows][32 k], an M- or
-//     N-contiguous one as [32 k][128 rows], and the fragment is loaded
-//     row_major or col_major to match.  The finished tile is left in shared
-//     memory as f32 [128][LDC].
+//   * bf16 (block_matmul's route under 64 wide; the other bf16 launches
+//     run gemm_sm90.cuh): 8 warps, each 64 x 32 of the tile; K in steps of
+//     32 through a 3-stage cp.async ring in shared memory; WMMA 16x16x16
+//     bf16 fragments (mma.sync on the tensor cores) with f32 accumulators.
+//     A K-contiguous operand lands in shared memory as [128 rows][32 k], an
+//     M- or N-contiguous one as [32 k][128 rows], and the fragment is
+//     loaded row_major or col_major to match.  The finished tile is left in
+//     shared memory as f32 [128][LDC].
 //   * f32: exact f32 FMA on the CUDA cores (no TF32), each thread 8 x 8
-//     outputs held in registers; K runs in order per output element.
+//     outputs held in registers; K runs in order per output element, in
+//     k-tiles of 16 through two shared-memory stages (below).
 //   * Ragged edges: rows past M/N and k past K are zero-filled in shared
-//     memory (cp.async with src-size 0); the epilogues mask the store.
+//     memory (cp.async with src-size 0, or zeros stored); the epilogues
+//     mask the store.
 //   * The K order of every output element is fixed by K alone (the same
 //     k-tiles in the same order, no split-K), so a row does not depend on
 //     how many rows share the launch, and results repeat bit for bit.
@@ -215,75 +218,177 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ a,
 // ---------------------------------------------------------------------------
 // f32 operands: exact FMA on the CUDA cores
 // ---------------------------------------------------------------------------
+//
+// Bound: f32 FMAs on the CUDA cores (67 TFLOP/s on an H100 SXM; the
+// tensor cores' TF32 would round the operands).  Each output is one fmaf
+// chain over k in ascending order from 0.0f, 8 * ceil(K / 8) steps (k past
+// K reads 0 in both operands, so no 0 * inf enters the chain): the chain
+// of a loop in k-tiles of 8, whatever FBK, so a result's bits depend on K
+// alone.
+// What the design does about the bound:
+//   * two shared-memory stages of FBK = 16: k-tile t+1 is fetched while t
+//     computes, one __syncthreads per k-tile.  An operand stored [K, rows]
+//     (k-major, T = true) lands by cp.async; one stored [rows, K] (T =
+//     false) is loaded into registers and stored transposed after the
+//     compute;
+//   * 16-byte global loads where the base and the row stride allow (K % 4
+//     == 0 for [rows, K], rows % 4 == 0 for [K, rows]), else 4 bytes, with
+//     the same zeros;
+//   * warps of 32 x 64 outputs: lane (lane / 8, lane % 8) holds 2 x 2
+//     sub-tiles of 4 x 4 (rows 16 apart, columns 32 apart), so a warp's
+//     float4 reads of a k-row touch 16 and 32 consecutive floats: no bank
+//     conflicts, 64 FMAs per four shared reads;
+//   * 33 KiB of static shared memory and at most 128 registers, so two
+//     blocks share an SM.
 
-constexpr int FBM = 128, FBN = 128, FBK = 8, FTHREADS = 256;
-constexpr int FLD = FBM + 4;  // 528 B rows: float4 reads stay aligned
+constexpr int FBM = 128, FBN = 128, FBK = 16, FTHREADS = 256, FSTAGES = 2;
+constexpr int FLD = FBM + 4;  // 528 B rows: float4 reads and cp.async
+                              // destinations stay aligned, and a [rows, K]
+                              // operand's transposed stores conflict at
+                              // most two ways
 
-// Fill Ts[k][r] (r < 128 rows of the tile at row0, k < FBK at k0) from an
-// operand stored [rows, K] (T = false) or [K, rows] (T = true); each thread
-// loads 4 values, neighbouring threads along the contiguous dimension.
+// The block's shared staging: A and B k-tiles [k][rows] per stage.
+struct F32Smem {
+  float a[FSTAGES][FBK][FLD];
+  float b[FSTAGES][FBK][FLD];
+};
+
+// Row (i < 8) and column (j < 8) within the [FBM x FBN] tile of the
+// output this thread holds in acc[i][j].
+__device__ __forceinline__ int f32_row(int i) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / 2) * 32 + (i / 4) * 16 + (lane / 8) * 4 + i % 4;
+}
+__device__ __forceinline__ int f32_col(int j) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % 2) * 64 + (j / 4) * 32 + (lane % 8) * 4 + j % 4;
+}
+
+// Start the k-tile at k0 of one operand (128 rows from row0) towards Ts
+// [FBK][FLD]: stored [K, rows] (T), by cp.async straight into Ts; stored
+// [rows, K], into this thread's registers r (two float4 along K), which
+// f32_land stores.  Zeros past `rows` and K.  vec: 16-byte loads.
 template <bool T>
-__device__ __forceinline__ void load_f32(float (*Ts)[FLD], const float* g,
-                                         int rows, int K, int row0, int k0,
-                                         int tid) {
-  if constexpr (T) {
-    const int r = tid % FBM, kb = (tid / FBM) * 4;
-    const int gr = row0 + r;
+__device__ __forceinline__ void f32_fetch(float (*Ts)[FLD], float4 (&r)[2],
+                                          const float* g, int rows, int K,
+                                          int row0, int k0, bool vec,
+                                          int tid) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + kb + j;
-      Ts[kb + j][r] = (gr < rows && gk < K) ? g[size_t(gk) * rows + gr]
-                                            : 0.0f;
-    }
-  } else {
-    const int r = tid / 2, kb = (tid % 2) * 4;
-    const int gr = row0 + r;
+  for (int c = 0; c < 2; ++c) {
+    const int idx = tid + c * FTHREADS;
+    if constexpr (T) {
+      const int kk = idx / 32, rr = (idx % 32) * 4;
+      const int gk = k0 + kk, gr = row0 + rr;
+      const float* p = g + size_t(gk) * rows + gr;
+      if (vec) {
+        const bool ok = gk < K && gr < rows;
+        cp_async<16>(&Ts[kk][rr], ok ? p : g, ok);
+      } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + kb + j;
-      Ts[kb + j][r] = (gr < rows && gk < K) ? g[size_t(gr) * K + gk] : 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = gk < K && gr + e < rows;
+          cp_async<4>(&Ts[kk][rr + e], ok ? p + e : g, ok);
+        }
+      }
+    } else {
+      const int gr = row0 + idx / 4, gk = k0 + (idx % 4) * 4;
+      const float* p = g + size_t(gr) * K + gk;
+      if (vec) {
+        r[c] = gr < rows && gk < K ? *reinterpret_cast<const float4*>(p)
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        const bool in = gr < rows;
+        r[c].x = in && gk < K ? p[0] : 0.0f;
+        r[c].y = in && gk + 1 < K ? p[1] : 0.0f;
+        r[c].z = in && gk + 2 < K ? p[2] : 0.0f;
+        r[c].w = in && gk + 3 < K ? p[3] : 0.0f;
+      }
     }
   }
 }
 
-// The f32 tile (m0, n0) of A @ B.T into registers: thread (tx, ty) =
-// (tid % 16, tid / 16) holds rows m0 + ty*8 + [0, 8) and columns
-// n0 + tx*8 + [0, 8) in acc.  As and Bs are the block's shared k-major
-// staging tiles.
+// Store a [rows, K] operand's registers (f32_fetch<false>) into Ts,
+// transposed.
+template <bool T>
+__device__ __forceinline__ void f32_land(float (*Ts)[FLD],
+                                         const float4 (&r)[2], int tid) {
+  if constexpr (!T) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int idx = tid + c * FTHREADS;
+      const int rr = idx / 4, kb = (idx % 4) * 4;
+      Ts[kb][rr] = r[c].x;
+      Ts[kb + 1][rr] = r[c].y;
+      Ts[kb + 2][rr] = r[c].z;
+      Ts[kb + 3][rr] = r[c].w;
+    }
+  }
+}
+
+// The f32 tile (m0, n0) of A @ B.T into registers: acc[i][j] is output
+// (m0 + f32_row(i), n0 + f32_col(j)).  A [M, K] is read from a, stored
+// [M, K] or [K, M] (AT); B [N, K] from b, stored [N, K] or [K, N] (BT).
 template <bool AT, bool BT>
 __device__ __forceinline__ void f32_tile(const float* __restrict__ a,
                                          const float* __restrict__ b, int M,
                                          int N, int K, int m0, int n0,
-                                         float (*As)[FLD], float (*Bs)[FLD],
-                                         float (&acc)[8][8]) {
+                                         F32Smem& sm, float (&acc)[8][8]) {
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;      // 16 x 16 threads, 8 x 8 each
+  const bool va = (AT ? M : K) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool vb = (BT ? N : K) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const int ar = f32_row(0), bc = f32_col(0);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    load_f32<AT>(As, a, M, K, m0, k0, tid);
-    load_f32<BT>(Bs, b, N, K, n0, k0, tid);
-    __syncthreads();
+  float4 ra[2], rb[2];
+  const int nk = (K + FBK - 1) / FBK;
+  f32_fetch<AT>(sm.a[0], ra, a, M, K, m0, 0, va, tid);
+  f32_fetch<BT>(sm.b[0], rb, b, N, K, n0, 0, vb, tid);
+  f32_land<AT>(sm.a[0], ra, tid);
+  f32_land<BT>(sm.b[0], rb, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int t = 0; t < nk; ++t) {
+    const int cur = t & 1;
+    const bool more = t + 1 < nk;
+    if (more) {
+      f32_fetch<AT>(sm.a[cur ^ 1], ra, a, M, K, m0, (t + 1) * FBK, va, tid);
+      f32_fetch<BT>(sm.b[cur ^ 1], rb, b, N, K, n0, (t + 1) * FBK, vb, tid);
+      cp_async_commit();
+    }
+    // the last k-tile runs its second 8 steps only where some k of them is
+    // below K: 8 * ceil(K / 8) steps in all
+    const bool full = K - t * FBK > FBK / 2;
+    const float(*As)[FLD] = sm.a[cur];
+    const float(*Bs)[FLD] = sm.b[cur];
 #pragma unroll
     for (int kk = 0; kk < FBK; ++kk) {
-      float av[8], bv[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+      if (kk < FBK / 2 || full) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ar]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ar + 16]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][bc]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][bc + 32]);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
-    __syncthreads();
+    if (more) {
+      f32_land<AT>(sm.a[cur ^ 1], ra, tid);
+      f32_land<BT>(sm.b[cur ^ 1], rb, tid);
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage cur ^ 1 is full, stage cur free
   }
 }
 

@@ -68,28 +68,34 @@
 // Bound: at weathermixer-1b's full width every step is a GEMM of 1,000+
 // FLOP per byte it must move (the hop is R x MC in the wire dtype, read
 // once and written once), above the ~295 FLOP/byte ridge: tensor-core
-// FLOPs bound it.  The forward runs block_matmul's main loops
-// (gemm_core.cuh); the f32 variants run the exact FMA tiles.
+// FLOPs bound it.  The f32 variants run gemm_core.cuh's exact FMA loop on
+// the CUDA cores.
 //
-// The bf16 backward (what its design does about the bound): the Hopper
+// What the bf16 design does about the bound: both steps run the Hopper
 // loop of gemm_sm90.cuh, wgmma fed by a TMA producer warp through a
 // 4-stage mbarrier ring of [128 x 256] tiles, one persistent 384-thread
-// block per SM walking the launch's tiles, the long dw tiles (K = R) first
-// and the short dx tiles (K = MC) after them, so that the dx tiles fill
-// the dw tiles' last wave; the epilogue from the accumulator registers.
-// Each operand has its own row stride `ld` (a multiple of 8 elements,
-// which TMA takes), so one operand's odd rows (tok_fc1's x and w: 8,190 or
-// 4,095 bf16; tok_fc2's dy) cost its own padding, not every operand's
-// load width: the caller pads x, w and dy once per ring call where their
-// rows need it, and the receive slots hold cur in that layout.  dw is bit
-// for bit block_matmul's dw of the gathered cotangent and dx's f32
-// accumulator bit for bit wx's step loop (acc = wx(cur, w_j[None], acc)):
-// the same k16 steps in the same K order, the same roundings.  The hop is
-// copied by the producer warpgroup's three idle warps while the consumers
-// compute.
+// block per SM walking the launch's tiles, the epilogue from the
+// accumulator registers.  Each operand has its own row stride `ld` (a
+// multiple of 8 elements, which TMA takes), so one operand's odd rows
+// (tok_fc1's x and w: 8,190 or 4,095 bf16; tok_fc2's dy) cost its own
+// padding, not every operand's load width: the caller pads x, w and dy
+// once per ring call where their rows need it, and the backward's receive
+// slots hold cur in that layout.
+//   * Forward: the chunk product's tiles in bands of 8 rows of tiles
+//     (sm90::grouped_tile), x and w_j both K-major; the epilogue runs the
+//     cast chain above on the accumulators and stores tot straight into
+//     the successor's slot (or the output), in bf16 pairs where MC is
+//     even.  Bit for bit the ring of block_matmul's products: the same k16
+//     steps, 2 * ceil(K / 32), in K order, the same roundings.
+//   * Backward: the long dw tiles (K = R) first and the short dx tiles (K
+//     = MC) after them, so that the dx tiles fill the dw tiles' last wave.
+//     dw is bit for bit block_matmul's dw of the gathered cotangent and
+//     dx's f32 accumulator bit for bit wx's step loop (acc = wx(cur,
+//     w_j[None], acc)): the same k16 steps in the same K order, the same
+//     roundings.  The hop is copied by the producer warpgroup's three idle
+//     warps while the consumers compute.
 //
-// Left for later: wgmma and TMA in the forward, and a single persistent
-// launch per ring.
+// Left for later: a single persistent launch per ring.
 
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
@@ -114,19 +120,30 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// One output element of a forward step: y is the f32 chunk product.
+// fwd's cast chain for one output element: y is the f32 chunk product, a
+// the arrived partial (read as f32) when has_prev; returns tot, which the
+// caller rounds to the wire dtype T.
 template <typename T>
-__device__ __forceinline__ void fwd_store(float y, const T* prev, T* dest,
-                                          size_t o, bool acc_bf16) {
+__device__ __forceinline__ float fwd_total(float y, float a, bool has_prev,
+                                           bool acc_bf16) {
   float v = to_float(from_float<T>(y));        // y.astype(wire)
   if (acc_bf16) v = round_bf16(v);             // .astype(acc)
-  if (prev != nullptr) {
-    float a = to_float(prev[o]);               // prev.astype(acc)
-    if (acc_bf16) a = round_bf16(a);
+  if (has_prev) {
+    if (acc_bf16) a = round_bf16(a);           // prev.astype(acc)
     v = a + v;
     if (acc_bf16) v = round_bf16(v);
   }
-  dest[o] = from_float<T>(v);                  // tot.astype(wire)
+  return v;
+}
+
+// One output element of a forward step: dest[o] = tot.astype(wire).
+template <typename T>
+__device__ __forceinline__ void fwd_store(float y, const T* prev, T* dest,
+                                          size_t o, bool acc_bf16) {
+  const bool has_prev = prev != nullptr;
+  dest[o] = from_float<T>(
+      fwd_total<T>(y, has_prev ? to_float(prev[o]) : 0.0f, has_prev,
+                   acc_bf16));
 }
 
 // One element of the dx accumulator: v is this step's f32 product.
@@ -139,27 +156,110 @@ __device__ __forceinline__ void dx_store(float v, float* dx_acc, T* dx,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through WMMA (gemm::bf16_tile)
+// bf16: the Hopper loop (gemm_sm90.cuh)
 // ---------------------------------------------------------------------------
 
-template <int VE>
-__global__ void __launch_bounds__(gemm::THREADS)
-ring_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wj,
-                     const bf16* prev, bf16* dest, int R, int MC, int K,
-                     int acc_bf16) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * gemm::BM, n0 = blockIdx.x * gemm::BN;
-  gemm::bf16_tile<VE, false, false>(x, wj, R, MC, K, m0, n0, smem_raw);
+// The bf16 forward step on the Hopper loop.  Tiles: the chunk product y
+// [R, MC] in sm90::grouped_tile's bands; A = x [R, K], K-major (row stride
+// ld_x); B = w_j [MC, K], K-major (row stride ld_w), read with transpose-B
+// off, as block_matmul's forward.  The epilogue is fwd_store's cast chain
+// on the accumulator registers, written straight to dest (the successor's
+// slot, or the output): the store is the hop.  prev and dest are
+// contiguous [R, MC].
+struct RingFwdStep {
+  static constexpr bool B_KMAJOR = true;
+  const CUtensorMap* m_x;
+  const CUtensorMap* m_wj;
+  const bf16* prev;
+  bf16* dest;
+  int R, MC, K, tiles_m, tiles_n, acc_bf16, vec2;
 
-  const float* Cs = reinterpret_cast<const float*>(smem_raw);
-  for (int idx = threadIdx.x; idx < gemm::BM * gemm::BN;
-       idx += gemm::THREADS) {
-    const int r = idx / gemm::BN, c = idx % gemm::BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < R && gn < MC)
-      fwd_store(Cs[r * gemm::LDC + c], prev, dest, size_t(gm) * MC + gn,
-                acc_bf16 != 0);
+  __device__ int tiles() const { return tiles_m * tiles_n; }
+
+  __device__ sm90::Tile tile(int t) const {
+    int tm, tn;
+    sm90::grouped_tile(t, tiles_m, tiles_n, tm, tn);
+    return {0, tm * sm90::BM, tn * sm90::BN, 0, K};
   }
+
+  __device__ bool a_mn(int) const { return false; }
+
+  __device__ void load(const sm90::Tile& tl, int k0, uint32_t a, uint32_t b,
+                       uint32_t bar) const {
+    sm90::tma_load(a, m_x, k0, tl.m0, 0, bar);
+    sm90::tma_load(b, m_wj, k0, tl.n0, 0, bar);
+    sm90::tma_load(b + 2 * sm90::BOX_BYTES, m_wj, k0, tl.n0 + 128, 0, bar);
+  }
+
+  __device__ void store(const sm90::Tile&, const float (&acc)[sm90::ACC],
+                        int row, int col) const {
+    const bool has_prev = prev != nullptr, ab = acc_bf16 != 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row + 8 * h;
+      if (gm >= R) continue;
+      const size_t o = size_t(gm) * MC;
+#pragma unroll
+      for (int j = 0; j < sm90::BN / 8; ++j) {
+        const int gn = col + 8 * j;
+        if (gn >= MC) continue;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (vec2) {  // MC even: gn < MC means gn + 1 < MC
+          const float2 a = has_prev ? sm90::load_pair(prev + o + gn)
+                                    : make_float2(0.0f, 0.0f);
+          sm90::store_pair(dest + o + gn,
+                           fwd_total<bf16>(v0, a.x, has_prev, ab),
+                           fwd_total<bf16>(v1, a.y, has_prev, ab));
+        } else {
+          fwd_store(v0, prev, dest, o + gn, ab);
+          if (gn + 1 < MC) fwd_store(v1, prev, dest, o + gn + 1, ab);
+        }
+      }
+    }
+  }
+
+  __device__ void copy(int, int) const {}
+};
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+ring_fwd_bf16_kernel(const __grid_constant__ CUtensorMap m_x,
+                     const __grid_constant__ CUtensorMap m_wj,
+                     RingFwdStep st) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  RingFwdStep p = st;
+  p.m_x = &m_x;
+  p.m_wj = &m_wj;
+  sm90::run(p, smem_raw);
+}
+
+int launch_fwd_bf16(const void* x, const void* wj, const void* prev,
+                    void* dest, int R, int MC, int K, int ld_x, int ld_w,
+                    int acc_bf16, int vec2, cudaStream_t s) {
+  auto kernel = ring_fwd_bf16_kernel;
+  static const int reg_err = sm90::check_registers(kernel);
+  if (reg_err != 0) return reg_err;
+  CUtensorMap m_x, m_wj;
+  if (sm90::make_map(&m_x, x, K, R, 1, ld_x, 64, 128) != 0 ||
+      sm90::make_map(&m_wj, wj, K, MC, 1, ld_w, 64, 128) != 0)
+    return sm90::TENSOR_MAP_ERROR;
+  RingFwdStep st;
+  st.m_x = st.m_wj = nullptr;
+  st.prev = static_cast<const bf16*>(prev);
+  st.dest = static_cast<bf16*>(dest);
+  st.R = R;
+  st.MC = MC;
+  st.K = K;
+  st.tiles_m = (R + sm90::BM - 1) / sm90::BM;
+  st.tiles_n = (MC + sm90::BN - 1) / sm90::BN;
+  st.acc_bf16 = acc_bf16;
+  st.vec2 = vec2;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(sm90::SMEM_BYTES));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<sm90::grid_size(st.tiles_m * st.tiles_n, false), sm90::THREADS,
+           sm90::SMEM_BYTES, s>>>(m_x, m_wj, st);
+  return int(cudaGetLastError());
 }
 
 // The bf16 backward step on the Hopper loop (gemm_sm90.cuh).  Tiles: the
@@ -265,23 +365,6 @@ ring_bwd_bf16_kernel(const __grid_constant__ CUtensorMap m_cur_mn,
   sm90::run(p, smem_raw);
 }
 
-template <int VE>
-cudaError_t launch_fwd_bf16(const void* x, const void* wj, const void* prev,
-                            void* dest, int R, int MC, int K, int acc_bf16,
-                            cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ring_fwd_bf16_kernel<VE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(gemm::SMEM_BF16));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((MC + gemm::BN - 1) / gemm::BN,
-                  (R + gemm::BM - 1) / gemm::BM);
-  ring_fwd_bf16_kernel<VE><<<grid, gemm::THREADS, gemm::SMEM_BF16, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wj),
-      static_cast<const bf16*>(prev), static_cast<bf16*>(dest), R, MC, K,
-      acc_bf16);
-  return cudaGetLastError();
-}
-
 int launch_bwd_bf16(const void* x, const void* wj, const void* cur,
                     void* fwd, void* dx_acc, void* dx, void* dw_j, int R,
                     int D, int MC, int ld_x, int ld_w, int ld_c, int first,
@@ -331,23 +414,27 @@ int launch_bwd_bf16(const void* x, const void* wj, const void* cur,
 // f32: exact FMA on the CUDA cores (gemm::f32_tile)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(gemm::FTHREADS)
+// Tiles: y [R, MC] in sm90::grouped_tile's bands, one [128 x 128] tile a
+// block.
+__global__ void __launch_bounds__(gemm::FTHREADS, 2)
 ring_fwd_f32_kernel(const float* __restrict__ x,
                     const float* __restrict__ wj, const float* prev,
                     float* dest, int R, int MC, int K, int acc_bf16) {
-  __shared__ __align__(16) float As[gemm::FBK][gemm::FLD];
-  __shared__ __align__(16) float Bs[gemm::FBK][gemm::FLD];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * gemm::FBM, n0 = blockIdx.x * gemm::FBN;
+  __shared__ __align__(16) gemm::F32Smem sm;
+  const int tiles_m = (R + gemm::FBM - 1) / gemm::FBM;
+  const int tiles_n = (MC + gemm::FBN - 1) / gemm::FBN;
+  int tm, tn;
+  sm90::grouped_tile(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  const int m0 = tm * gemm::FBM, n0 = tn * gemm::FBN;
   float acc[8][8];
-  gemm::f32_tile<false, false>(x, wj, R, MC, K, m0, n0, As, Bs, acc);
+  gemm::f32_tile<false, false>(x, wj, R, MC, K, m0, n0, sm, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty * 8 + i;
+    const int gm = m0 + gemm::f32_row(i);
     if (gm >= R) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx * 8 + j;
+      const int gn = n0 + gemm::f32_col(j);
       if (gn < MC)
         fwd_store(acc[i][j], prev, dest, size_t(gm) * MC + gn,
                   acc_bf16 != 0);
@@ -355,14 +442,16 @@ ring_fwd_f32_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(gemm::FTHREADS)
+// Blocks: the dw tiles of dw_j [MC, D], then the dx tiles of dx [R, D],
+// each in sm90::grouped_tile's bands, then n_copy blocks that copy cur to
+// fwd.
+__global__ void __launch_bounds__(gemm::FTHREADS, 2)
 ring_bwd_f32_kernel(const float* __restrict__ x,
                     const float* __restrict__ wj, const float* cur,
                     float* fwd, float* dx_acc, float* dx, float* dw_j, int R,
                     int D, int MC, int first, int last, int n_dw, int n_dx,
                     int n_copy, int vec16) {
-  __shared__ __align__(16) float As[gemm::FBK][gemm::FLD];
-  __shared__ __align__(16) float Bs[gemm::FBK][gemm::FLD];
+  __shared__ __align__(16) gemm::F32Smem sm;
   const int tiles_n = (D + gemm::FBN - 1) / gemm::FBN;
   int b = blockIdx.x;
   if (b >= n_dw + n_dx) {
@@ -372,22 +461,23 @@ ring_bwd_f32_kernel(const float* __restrict__ x,
   }
   const bool is_dw = b < n_dw;
   if (!is_dw) b -= n_dw;
-  const int m0 = (b / tiles_n) * gemm::FBM, n0 = (b % tiles_n) * gemm::FBN;
+  int tm, tn;
+  sm90::grouped_tile(b, (is_dw ? n_dw : n_dx) / tiles_n, tiles_n, tm, tn);
+  const int m0 = tm * gemm::FBM, n0 = tn * gemm::FBN;
   float acc[8][8];
   if (is_dw) {
-    gemm::f32_tile<true, true>(cur, x, MC, D, R, m0, n0, As, Bs, acc);
+    gemm::f32_tile<true, true>(cur, x, MC, D, R, m0, n0, sm, acc);
   } else {
-    gemm::f32_tile<false, true>(cur, wj, R, D, MC, m0, n0, As, Bs, acc);
+    gemm::f32_tile<false, true>(cur, wj, R, D, MC, m0, n0, sm, acc);
   }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int rows = is_dw ? MC : R;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty * 8 + i;
+    const int gm = m0 + gemm::f32_row(i);
     if (gm >= rows) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx * 8 + j;
+      const int gn = n0 + gemm::f32_col(j);
       if (gn >= D) continue;
       const size_t o = size_t(gm) * D + gn;
       if (is_dw) {
@@ -414,18 +504,17 @@ inline int tiles(int rows, int cols, int t) {
 // encoder's input is data).  acc_bf16: the accumulator dtype is bf16.
 // ---------------------------------------------------------------------------
 
+// ring_fwd_bf16: x [R, K] (row stride ld_x), w [M, K] (row stride ld_w),
+// prev and dest [R, MC] contiguous.  vec2: MC is even and prev, dest
+// 4-byte aligned (pairs of columns per access).
 extern "C" int ring_fwd_bf16(const void* x, const void* w, const void* prev,
                              void* dest, int R, int MC, int K, int j,
-                             int acc_bf16, int vec_bytes, void* stream) {
+                             int ld_x, int ld_w, int acc_bf16, int vec2,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* wj = static_cast<const bf16*>(w) + size_t(j) * MC * K;
-  switch (vec_bytes) {
-    case 16: return launch_fwd_bf16<8>(x, wj, prev, dest, R, MC, K, acc_bf16, s);
-    case 8: return launch_fwd_bf16<4>(x, wj, prev, dest, R, MC, K, acc_bf16, s);
-    case 4: return launch_fwd_bf16<2>(x, wj, prev, dest, R, MC, K, acc_bf16, s);
-    case 2: return launch_fwd_bf16<1>(x, wj, prev, dest, R, MC, K, acc_bf16, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  const void* wj = static_cast<const bf16*>(w) + size_t(j) * MC * ld_w;
+  return launch_fwd_bf16(x, wj, prev, dest, R, MC, K, ld_x, ld_w, acc_bf16,
+                         vec2, s);
 }
 
 extern "C" int ring_fwd_f32(const void* x, const void* w, const void* prev,
@@ -433,9 +522,7 @@ extern "C" int ring_fwd_f32(const void* x, const void* w, const void* prev,
                             int acc_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wj = static_cast<const float*>(w) + size_t(j) * MC * K;
-  const dim3 grid((MC + gemm::FBN - 1) / gemm::FBN,
-                  (R + gemm::FBM - 1) / gemm::FBM);
-  ring_fwd_f32_kernel<<<grid, gemm::FTHREADS, 0, s>>>(
+  ring_fwd_f32_kernel<<<tiles(R, MC, gemm::FBM), gemm::FTHREADS, 0, s>>>(
       static_cast<const float*>(x), wj, static_cast<const float*>(prev),
       static_cast<float*>(dest), R, MC, K, acc_bf16);
   return int(cudaGetLastError());
@@ -516,21 +603,13 @@ extern "C" int ring_ipc_handle_bytes() {
 
 // Attributes of a kernel (sm90::kernel_attrs: registers, local bytes,
 // static and dynamic shared bytes, block size): 0 the bf16 backward, 1 the
-// f32 backward, 2 the bf16 forward at load width vec_bytes, 3 the f32
-// forward.
-extern "C" int ring_attrs(int kernel, int vec_bytes, int* out) {
+// f32 backward, 2 the bf16 forward, 3 the f32 forward.
+extern "C" int ring_attrs(int kernel, int* out) {
   switch (kernel) {
     case 0: return sm90::kernel_attrs(ring_bwd_bf16_kernel, sm90::SMEM_BYTES, out);
     case 1: return sm90::kernel_attrs(ring_bwd_f32_kernel, 0, out);
+    case 2: return sm90::kernel_attrs(ring_fwd_bf16_kernel, sm90::SMEM_BYTES, out);
     case 3: return sm90::kernel_attrs(ring_fwd_f32_kernel, 0, out);
-    case 2: break;
-    default: return int(cudaErrorInvalidValue);
-  }
-  switch (vec_bytes) {
-    case 16: return sm90::kernel_attrs(ring_fwd_bf16_kernel<8>, gemm::SMEM_BF16, out);
-    case 8: return sm90::kernel_attrs(ring_fwd_bf16_kernel<4>, gemm::SMEM_BF16, out);
-    case 4: return sm90::kernel_attrs(ring_fwd_bf16_kernel<2>, gemm::SMEM_BF16, out);
-    case 2: return sm90::kernel_attrs(ring_fwd_bf16_kernel<1>, gemm::SMEM_BF16, out);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -53,8 +53,9 @@
 // adds one to counts[terms] (block 0's first thread), so a run can show
 // how many terms its dx launches took.
 //
-// f32 operands (the fp32 policy) keep gemm_core.cuh's exact FMA tiles on
-// the CUDA cores, blockIdx.z = l.
+// f32 operands (the fp32 policy) run gemm_core.cuh's exact FMA loop on the
+// CUDA cores: [128 x 128] tiles, l-major, then in bands of 8 rows of
+// tiles.
 
 #include "gemm_core.cuh"
 #include "gemm_sm90.cuh"
@@ -278,27 +279,31 @@ wx_split_kernel(const float* __restrict__ x, bf16* __restrict__ parts,
 // f32 operands: exact FMA on the CUDA cores (gemm::f32_tile)
 // ---------------------------------------------------------------------------
 
+// Tiles: l-major, then out[l] [M, N] in sm90::grouped_tile's bands, one
+// [128 x 128] tile a block.
 template <bool WT, typename OutT>
-__global__ void __launch_bounds__(gemm::FTHREADS)
+__global__ void __launch_bounds__(gemm::FTHREADS, 2)
 wx_f32_kernel(const float* __restrict__ w, const float* __restrict__ x,
-              const OutT* a, OutT* out, int M, int N, int K) {
-  __shared__ __align__(16) float As[gemm::FBK][gemm::FLD];  // As[k][m]
-  __shared__ __align__(16) float Bs[gemm::FBK][gemm::FLD];  // Bs[k][n]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * gemm::FBM, n0 = blockIdx.x * gemm::FBN;
-  const size_t l = blockIdx.z;
+              const OutT* a, OutT* out, int M, int N, int K, int tiles_m,
+              int tiles_n) {
+  __shared__ __align__(16) gemm::F32Smem sm;
+  const size_t l = blockIdx.x / (tiles_m * tiles_n);
+  int tm, tn;
+  sm90::grouped_tile(blockIdx.x % (tiles_m * tiles_n), tiles_m, tiles_n, tm,
+                     tn);
+  const int m0 = tm * gemm::FBM, n0 = tn * gemm::FBN;
   float acc[8][8];
-  gemm::f32_tile<WT, true>(w, x + l * size_t(K) * N, M, N, K, m0, n0, As,
-                           Bs, acc);
+  gemm::f32_tile<WT, true>(w, x + l * size_t(K) * N, M, N, K, m0, n0, sm,
+                           acc);
 
   const size_t base = l * size_t(M) * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty * 8 + i;
+    const int gm = m0 + gemm::f32_row(i);
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx * 8 + j;
+      const int gn = n0 + gemm::f32_col(j);
       if (gn >= N) continue;
       const size_t o = base + size_t(gm) * N + gn;
       float v = acc[i][j];
@@ -312,11 +317,13 @@ template <bool WT, typename OutT>
 cudaError_t launch_f32(const void* w, const void* x, const void* a,
                        void* out, int L, int M, int N, int K,
                        cudaStream_t stream) {
-  const dim3 grid((N + gemm::FBN - 1) / gemm::FBN,
-                  (M + gemm::FBM - 1) / gemm::FBM, L);
-  wx_f32_kernel<WT, OutT><<<grid, gemm::FTHREADS, 0, stream>>>(
+  const int tiles_m = (M + gemm::FBM - 1) / gemm::FBM;
+  const int tiles_n = (N + gemm::FBN - 1) / gemm::FBN;
+  wx_f32_kernel<WT, OutT><<<L * tiles_m * tiles_n, gemm::FTHREADS, 0,
+                            stream>>>(
       static_cast<const float*>(w), static_cast<const float*>(x),
-      static_cast<const OutT*>(a), static_cast<OutT*>(out), M, N, K);
+      static_cast<const OutT*>(a), static_cast<OutT*>(out), M, N, K, tiles_m,
+      tiles_n);
   return cudaGetLastError();
 }
 
@@ -326,6 +333,14 @@ cudaError_t launch_f32_layout(const void* w, const void* x, const void* a,
                               cudaStream_t s) {
   if (w_t) return launch_f32<true, OutT>(w, x, a, out, L, M, N, K, s);
   return launch_f32<false, OutT>(w, x, a, out, L, M, N, K, s);
+}
+
+int f32_attrs(int w_t, int out_bf16, int* out) {
+  if (w_t)
+    return out_bf16 ? sm90::kernel_attrs(wx_f32_kernel<true, bf16>, 0, out)
+                    : sm90::kernel_attrs(wx_f32_kernel<true, float>, 0, out);
+  return out_bf16 ? sm90::kernel_attrs(wx_f32_kernel<false, bf16>, 0, out)
+                  : sm90::kernel_attrs(wx_f32_kernel<false, float>, 0, out);
 }
 
 template <bool WT>
@@ -397,12 +412,14 @@ extern "C" int wx_f32(const void* w, const void* x, const void* a, void* out,
 
 // Attributes of a kernel variant (sm90::kernel_attrs: registers, local
 // bytes, static and dynamic shared bytes, block size): kernel 0 the Hopper
-// loop at (w_t, out_bf16), 1 the split pass (pairs of columns).
+// loop at (w_t, out_bf16), 1 the split pass (pairs of columns), 2 the f32
+// kernel at (w_t, out_bf16).
 extern "C" int wx_attrs(int kernel, int w_t, int out_bf16, int* out) {
   switch (kernel) {
     case 0: return w_t ? sm90_attrs<true>(out_bf16, out)
                        : sm90_attrs<false>(out_bf16, out);
     case 1: return sm90::kernel_attrs(wx_split_kernel<2>, 0, out);
+    case 2: return f32_attrs(w_t, out_bf16, out);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -129,6 +129,9 @@ def _card_forward(x2, w, group, p, me, accum_dtype):
     mc = w.shape[0] // p
     shape = (rows, mc)
     out = torch.empty(shape, dtype=x2.dtype, device=x2.device)
+    # x and w in the layout the kernel reads (rows padded where TMA needs
+    # it), once per call; the partials in the slots are contiguous
+    x2, w = sm90.pad_rows(x2), sm90.pad_rows(w)
     ws = ring.workspace(group, rows * mc * x2.element_size(), x2.device)
     stream = torch.cuda.current_stream(x2.device)
     for s in range(p):

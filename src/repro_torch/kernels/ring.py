@@ -19,13 +19,16 @@ device memory that torch does not own: this rank's own (a raw
 rank held in the same process may also be a tensor: the kernel code is the
 same.
 
-The bf16 backward reads its operands through TMA tensor maps
-(``csrc/gemm_sm90.cuh``), so each carries its own row stride: the planning
-(``tma_operands_ring_bwd``, ``check_tma``, ``pad_rows``: ``kernels/sm90.py``,
+The bf16 steps, forward and backward, run the Hopper loop
+(``csrc/gemm_sm90.cuh``) and read their operands through TMA tensor maps,
+so each carries its own row stride: the planning (``tma_operands_ring_fwd``,
+``tma_operands_ring_bwd``, ``check_tma``, ``pad_rows``: ``kernels/sm90.py``,
 imported here under the names this module has had) is shared with the
 other kernels on that loop.  The callers that run a ring call pad the
-rank's own operands once per call, the slots hold the padded layout and
-the hops copy it.
+rank's own x and w (and, backward, dy) once per call; the backward's slots
+hold dy's padded layout and the hops copy it, while the forward's partials
+(``prev``, ``dest``) are contiguous.  The f32 steps run the exact FMA loop
+of ``csrc/gemm_core.cuh`` on contiguous operands.
 
 On a CUDA tensor ``ring_fwd`` / ``ring_bwd`` launch the kernel, or raise;
 on CPU tensors they compute the plain versions (``ref.ring_fwd_step_ref``,
@@ -54,13 +57,11 @@ from repro_torch.kernels.sm90 import (  # noqa: F401
     BOX_K, BOX_MN, H100_SMS, SM90_TILE, TMA_ALIGN, TMA_MAX_BOX,
     TMA_SWIZZLE_BYTES, TmaOperand, check_tma, pad_rows, persistent_grid,
     plan_operand, row_stride, sm90_tiles, span_bytes, tma_ld,
-    tma_operands_cannon, tma_operands_ring_bwd)
+    tma_operands_cannon, tma_operands_ring_bwd, tma_operands_ring_fwd)
 from repro_torch.kernels.sm90 import addr as _addr
 from repro_torch.kernels.sm90 import itemsize as _itemsize
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Y = 65535
-_TILE = 128
 # a workspace (two slots) larger than this raises: the counterpart of the
 # reference's VMEM guard (fused_ring.py:84-137), which falls back to the
 # chunk walk instead
@@ -71,8 +72,7 @@ SLOT_GRANULE = 64 << 20
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ring_fwd_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                  i32, vp]
+    lib.ring_fwd_bf16.argtypes = [vp, vp, vp, vp] + [i32] * 8 + [vp]
     lib.ring_fwd_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                  vp]
     lib.ring_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [i32] * 11 \
@@ -85,7 +85,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ring_slots_close.argtypes = [vp]
     lib.ring_slots_free.argtypes = [vp]
     lib.ring_ipc_handle_bytes.argtypes = []
-    lib.ring_attrs.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.ring_attrs.argtypes = [i32, ctypes.POINTER(i32)]
     for fn in ("ring_fwd_bf16", "ring_fwd_f32", "ring_bwd_bf16",
                "ring_bwd_f32", "ring_slots_alloc", "ring_slots_open",
                "ring_slots_close", "ring_slots_free",
@@ -137,26 +137,12 @@ def ring_bwd_tiles(rows: int, d: int, mc: int, need_dx: bool = True
     return sm90_tiles(mc, d), sm90_tiles(rows, d) if need_dx else 0
 
 
-def kernel_attrs(kernel: int, vec_bytes: int = 16) -> Dict[str, int]:
+def kernel_attrs(kernel: int) -> Dict[str, int]:
     """Registers, local (spill) bytes, static and dynamic shared bytes and
     block size of a ring kernel (``ring_attrs``: 0 the bf16 backward, 1
-    the f32 backward, 2 the bf16 forward at ``vec_bytes``, 3 the f32
-    forward).  Loads the library."""
-    return sm90.kernel_attrs(LIBRARY, "ring_attrs", kernel, vec_bytes)
-
-
-def _vec_bytes(*operands: Buffer) -> int:
-    """The widest global-load width (16, 8, 4 or 2 bytes) that every
-    contiguous operand's base address and row stride allow (``vec_bytes``
-    of ``kernels/block_matmul.py``, for slots too; a batch stride is a
-    multiple of the row stride)."""
-    def ok(b, vb):
-        es = torch.finfo(b.dtype).bits // 8
-        return _addr(b) % vb == 0 and b.shape[-1] * es % vb == 0
-    for vb in (16, 8, 4):
-        if all(ok(b, vb) for b in operands):
-            return vb
-    return 2
+    the f32 backward, 2 the bf16 forward, 3 the f32 forward).  Loads the
+    library."""
+    return sm90.kernel_attrs(LIBRARY, "ring_attrs", kernel)
 
 
 def _check_buffer(b: Buffer, name: str, shape, dtype, device,
@@ -183,7 +169,7 @@ def _check_hop(src: Buffer, dest: Optional[Buffer], name: str,
                          f"its source {row_stride(src)}")
 
 
-def _check_operands(x, w, mc, padded: bool = False):
+def _check_operands(x, w, mc):
     if x.dim() != 2 or w.dim() != 2 or w.shape[1] != x.shape[1]:
         raise ValueError(f"ring: needs x [R, K] and w [M, K]; got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -196,12 +182,13 @@ def _check_operands(x, w, mc, padded: bool = False):
         raise ValueError(f"ring: a chunk of {mc} rows does not divide w's "
                          f"{w.shape[0]} rows")
     if x.device.type == "cuda":
-        if padded:
-            if row_stride(x) is None or row_stride(w) is None:
-                raise ValueError("ring: x and w must have dense rows")
-        elif not (x.is_contiguous() and w.is_contiguous()):
-            raise ValueError("ring: x and w must be contiguous")
-        if x.shape[1] == 0 or (x.shape[0] + _TILE - 1) // _TILE > _MAX_GRID_Y:
+        if row_stride(x) is None or row_stride(w) is None:
+            raise ValueError("ring: x and w must have dense rows")
+        if x.dtype == torch.float32 and not (x.is_contiguous()
+                                             and w.is_contiguous()):
+            raise ValueError("ring: the f32 kernels take x and w "
+                             "contiguous")
+        if x.shape[1] == 0:
             raise ValueError(f"ring: unsupported shape R={x.shape[0]}, "
                              f"K={x.shape[1]}")
     elif x.device.type != "cpu":
@@ -218,7 +205,9 @@ def ring_fwd(x: torch.Tensor, w: torch.Tensor, j: int,
     """One forward ring step: ``dest = wire(acc(prev) + acc(wire(x @
     w_j.T)))`` with w_j = w[j*MC:(j+1)*MC], MC = dest's columns, wire =
     x.dtype, acc = ``accum_dtype`` (x's dtype when None); ``prev`` [R, MC]
-    in the wire dtype, or None at step 0."""
+    in the wire dtype, or None at step 0.  x and w may have padded rows
+    (``row_stride``): in bf16 on the card each must (``check_tma``), and
+    the f32 kernel takes them contiguous; prev and dest are contiguous."""
     rows, k = x.shape
     mc = dest.shape[1]
     _check_operands(x, w, mc)
@@ -234,16 +223,23 @@ def ring_fwd(x: torch.Tensor, w: torch.Tensor, j: int,
     if x.device.type == "cpu":
         dest.copy_(ring_fwd_step_ref(x, w[j * mc:(j + 1) * mc], prev, acc))
         return
+    if x.dtype == torch.bfloat16:
+        ops = tma_operands_ring_fwd(rows, k, mc)
+        ld_x = check_tma(x, ops["x"], "ring_fwd")
+        check_tma(w[j * mc:(j + 1) * mc], ops["w_j"], "ring_fwd")
+        vec2 = int(mc % 2 == 0 and all(_addr(b) % 4 == 0 for b in
+                                       (prev, dest) if b is not None))
     build()
     lib = LIBRARY.lib
     with torch.cuda.device(x.device):
-        args = (x.data_ptr(), w.data_ptr(), _addr(prev), _addr(dest), rows,
-                mc, k, j, int(acc == torch.bfloat16))
+        ptrs = (x.data_ptr(), w.data_ptr(), _addr(prev), _addr(dest), rows,
+                mc, k, j)
+        acc_bf16 = int(acc == torch.bfloat16)
         if x.dtype == torch.bfloat16:
-            rc = lib.ring_fwd_bf16(*args, _vec_bytes(x, w[j * mc:]),
-                                   _stream(x.device))
+            rc = lib.ring_fwd_bf16(*ptrs, ld_x, row_stride(w), acc_bf16,
+                                   vec2, _stream(x.device))
         else:
-            rc = lib.ring_fwd_f32(*args, _stream(x.device))
+            rc = lib.ring_fwd_f32(*ptrs, acc_bf16, _stream(x.device))
     _raise_on(rc, f"ring_fwd launch at R={rows} MC={mc} K={k} {x.dtype}")
     ring_fwd.launches += 1
 
@@ -262,7 +258,7 @@ def ring_bwd(x: torch.Tensor, w: torch.Tensor, j: int, cur: Buffer,
     takes them contiguous; dw, dx_acc and dx are contiguous."""
     rows, k = x.shape
     mc = cur.shape[1]
-    _check_operands(x, w, mc, padded=True)
+    _check_operands(x, w, mc)
     if not 0 <= j < w.shape[0] // mc:
         raise ValueError(f"ring: chunk {j} of {w.shape[0] // mc}")
     _check_buffer(cur, "cur", (rows, mc), x.dtype, x.device, padded=True)
@@ -297,9 +293,8 @@ def ring_bwd(x: torch.Tensor, w: torch.Tensor, j: int, cur: Buffer,
             check_tma(w[j * mc:(j + 1) * mc], ops["w_j"], "ring_bwd")
         vec2 = int(k % 2 == 0 and all(_addr(b) % 8 == 0 for b in
                                       (dw, dx_acc, dx) if b is not None))
-    elif any(row_stride(b) != b.shape[-1] for b in (x, w, cur)):
-        raise ValueError("ring_bwd: the f32 kernel takes x, w and cur "
-                         "contiguous")
+    elif row_stride(cur) != cur.shape[-1]:
+        raise ValueError("ring_bwd: the f32 kernel takes cur contiguous")
     build()
     lib = LIBRARY.lib
     nbytes = span_bytes(cur)
@@ -351,6 +346,9 @@ def ring_fwd_all(xs, ws, *, accum_dtype: Optional[torch.dtype]
     slots = _local_slots(xs, mc)
     outs = [torch.empty((x.shape[0], mc), dtype=x.dtype, device=x.device)
             for x in xs]
+    # each rank's x and w in the layout the kernel reads (padded rows
+    # where TMA needs them), once per ring call
+    xs, ws = ([pad_rows(t) for t in ts] for ts in (xs, ws))
     for s in range(p):
         for r in range(p):
             prev = None if s == 0 else slots[r][(s - 1) % 2]

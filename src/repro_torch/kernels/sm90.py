@@ -1,6 +1,6 @@
 """Operand planning for the Hopper main loop (``csrc/gemm_sm90.cuh``): what
 the wrappers of every kernel on that loop (``block_matmul``, ``wx``, the
-ring's bf16 backward, the Cannon step) need before a launch.
+ring's bf16 steps, the Cannon step) need before a launch.
 
 The loop reads each bf16 operand through a TMA tensor map, which takes only
 row strides and base addresses in multiples of 16 bytes.  So every such
@@ -140,6 +140,15 @@ def tma_operands_ring_bwd(rows: int, d: int, mc: int, need_dx: bool = True
     if need_dx:
         ops["w_j"] = plan_operand("w_j", (mc, d), (BOX_MN,))
     return ops
+
+
+def tma_operands_ring_fwd(rows: int, k: int, mc: int
+                          ) -> Dict[str, TmaOperand]:
+    """The ring's bf16 forward step: x [R, K] read K-major in a [128][64]
+    box, w_j [MC, K] read K-major in two [128][64] boxes (the B tile's 256
+    rows, transpose-B off)."""
+    return {"x": plan_operand("x", (rows, k), (BOX_K,)),
+            "w_j": plan_operand("w_j", (mc, k), (BOX_K,))}
 
 
 def tma_operands_cannon(ll: int, m: int, n: int, k: int

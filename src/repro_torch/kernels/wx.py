@@ -40,8 +40,6 @@ from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.ref import wx_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID = 65535
-_TILE = 128
 SPLIT_TERMS = 3
 
 
@@ -71,12 +69,12 @@ def build() -> bool:
 def kernel_attrs(kernel: str = "sm90", w_t: bool = False,
                  out_bf16: bool = False) -> Dict[str, int]:
     """Registers, local (spill) bytes, static and dynamic shared bytes and
-    block size of a wx kernel: ``"sm90"`` (the Hopper loop, at w_t and
-    out_bf16) or ``"split"`` (the dx route's split pass).  Loads the
-    library."""
+    block size of a wx kernel: ``"sm90"`` (the Hopper loop) or ``"f32"``
+    (the exact FMA loop), at w_t and out_bf16, or ``"split"`` (the dx
+    route's split pass).  Loads the library."""
     return sm90.kernel_attrs(LIBRARY, "wx_attrs",
-                             {"sm90": 0, "split": 1}[kernel], int(w_t),
-                             int(out_bf16))
+                             {"sm90": 0, "split": 1, "f32": 2}[kernel],
+                             int(w_t), int(out_bf16))
 
 
 # one int32 [4] per device: the split route's launches by term count (1 or
@@ -172,8 +170,7 @@ def wx(w: torch.Tensor, x: torch.Tensor, a: Optional[torch.Tensor] = None,
             and (a is None or a.is_contiguous())):
         raise ValueError("wx needs contiguous w, x and a")
     f32 = w.dtype == torch.float32
-    if k == 0 or (f32 and (ll > _MAX_GRID
-                           or (m + _TILE - 1) // _TILE > _MAX_GRID)):
+    if k == 0:
         raise ValueError(f"wx: unsupported shape L={ll}, M={m}, K={k}")
     out = torch.empty((ll, m, n), dtype=out_dtype, device=x.device)
     if ll == 0 or m == 0 or n == 0:

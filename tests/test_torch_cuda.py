@@ -607,6 +607,102 @@ def test_ring_bwd_odd_strides_and_cancelling_inputs(cuda, inputs, p, rows,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["randn", "wide"])
+@pytest.mark.parametrize("accum", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,rows,dl,m", [(2, 300, 97, 262), (3, 129, 200, 771),
+                                         (4, 77, 1000, 516), (2, 200, 40, 600),
+                                         (2, 1, 8, 4)])
+def test_ring_fwd_sm90_bitwise_block_matmul_at_ragged_shapes(cuda, inputs,
+                                                             accum, p, rows,
+                                                             dl, m):
+    """The bf16 forward on the Hopper loop at ragged R, MC and K (not
+    multiples of 128, 256 or 64; MC odd: 131, 257, 129, scalar stores; K
+    of 40, under one 64-wide box), rows of 97 and 1,000 bf16 (x and w
+    padded by ring_fwd_all), an f32 and a bf16 accumulator, and inputs
+    that cancel across a wide exponent range: every rank bit for bit the
+    ring of block_matmul's products; p launches per rank."""
+    mc = m // p
+    if inputs == "wide":
+        xs = [_wide(cuda, (rows, dl)) for _ in range(p)]
+        ws = [_wide(cuda, (m, dl)) for _ in range(p)]
+    else:
+        xs, ws, _ = _ring_case(cuda, p, rows, dl, m, torch.bfloat16)
+    f0 = RING.ring_fwd.launches
+    outs = RING.ring_fwd_all(xs, ws, accum_dtype=accum)
+    torch.cuda.synchronize()
+    assert RING.ring_fwd.launches - f0 == p * p
+    parts = [BM.block_matmul(x, w) for x, w in zip(xs, ws)]
+    ring = ref.ring_walk_all(lambda r, j: parts[r][:, j * mc:(j + 1) * mc],
+                             p, torch.bfloat16, accum)
+    for r in range(p):
+        assert torch.equal(outs[r], ring[r]), r
+
+
+def _f64_rel(y, oracle):
+    return float((y.double() - oracle).abs().max()
+                 / oracle.abs().max().clamp_min(1e-300))
+
+
+# f32 shapes (m, k, n) for the exact FMA loop: K % 4 != 0 (4-byte loads),
+# rows under 16, K under one k-tile of 16, and the smoke run's long K
+F32_SHAPES = [(5, 3, 7), (12, 9, 200), (129, 97, 257), (300, 700, 130),
+              (1, 1, 1), (33, 16380, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", F32_SHAPES)
+def test_f32_loop_against_f64_oracle_in_every_layout(cuda, mkn):
+    """block_matmul in f32 at ragged shapes, each operand stored either
+    way (x [M, K] or [K, M], w [N, K] or [K, N]): within 1e-4
+    (max-normalised) of a float64 oracle, and the four layouts bit for bit
+    each other: the loop gives every output one fmaf chain in K order
+    whatever the layout and the load width."""
+    m, k, n = mkn
+    x, w, _ = _inputs(cuda, m, k, n, torch.float32, bias=False)
+    oracle = x.double() @ w.double().t()
+    got = {}
+    for x_t in (False, True):
+        for w_t in (False, True):
+            xs = x.t().contiguous() if x_t else x
+            ws = w.t().contiguous() if w_t else w
+            got[(x_t, w_t)] = BM.block_matmul(xs, ws, x_t=x_t, w_t=w_t)
+    torch.cuda.synchronize()
+    base = got[(False, False)]
+    assert _f64_rel(base, oracle) <= 1e-4
+    assert all(torch.equal(y, base) for y in got.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 129, 97, 262), (3, 33, 40, 9),
+                                   (2, 5, 3, 14)])
+def test_f32_loop_kernels_agree_bit_for_bit(cuda, shape):
+    """The five f32 kernels run one loop: at ragged shapes (K of 97, 40 and
+    3; rows under 16) the ring forward is bit for bit the ring of
+    block_matmul's f32 products and the ring backward's dw block_matmul's
+    dw; the Cannon (q = 2) is bit for bit the wx step loop, and wx is bit
+    for bit block_matmul with w read across its rows."""
+    p, rows, dl, m = shape
+    mc = m // p
+    xs, ws, dys = _ring_case(cuda, p, rows, dl, m, torch.float32)
+    outs = RING.ring_fwd_all(xs, ws)
+    _, dws, _ = RING.ring_bwd_all(xs, ws, dys)
+    parts = [BM.block_matmul(x, w) for x, w in zip(xs, ws)]
+    ring = ref.ring_walk_all(lambda r, j: parts[r][:, j * mc:(j + 1) * mc],
+                             p, torch.float32, torch.float32)
+    gathered = torch.cat(dys, dim=1)
+    for r in range(p):
+        assert torch.equal(outs[r], ring[r])
+        assert torch.equal(dws[r], BM.block_matmul(gathered, xs[r],
+                                                   x_t=True, w_t=True))
+    cws, cxs = _cannon_case(cuda, 2, 2, rows, dl, mc, torch.float32)
+    got = CANNON.cannon_fwd_all(cws, cxs, 2)
+    loop = ref.cannon_walk_all(lambda w, x, a: WX.wx(w, x, a), cws, cxs, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, loop))
+    y = WX.wx(cws[0], cxs[0][:1])
+    assert torch.equal(y[0], BM.block_matmul(cws[0], cxs[0][0], w_t=True))
+
+
+@pytest.mark.cuda
 def test_ring_bf16_accumulator_and_step_errors(cuda):
     """accum_dtype=bf16 under an f32 wire rounds the chunk products, the
     arrived partials and every hop's add to bf16, as the plain walk does
@@ -777,14 +873,14 @@ def test_sm90_wrappers_raise_on_rows_tma_does_not_take(cuda, who, case):
 
 @pytest.mark.cuda
 def test_sm90_kernels_start_with_the_registers_setmaxnreg_moves(cuda):
-    """The Hopper-loop kernels (Cannon, the ring's backward, every
+    """The Hopper-loop kernels (Cannon, the ring's two steps, every
     block_matmul and wx variant) run 384 threads, one block per SM, start
     with enough registers for setmaxnreg to give the consumers 232 and the
     producer 40 (else the launch refuses, rather than wait forever), and
     spill nothing."""
     need = 232 * 256 + 40 * 128
     variants = [CANNON.kernel_attrs(), CANNON.kernel_attrs(out_bf16=True),
-                RING.kernel_attrs(0)]
+                RING.kernel_attrs(0), RING.kernel_attrs(2)]
     variants += [BM.kernel_attrs("sm90", x_t, w_t, epi)
                  for x_t in (False, True) for w_t in (False, True)
                  for epi in ("none", "gelu", "silu")]
@@ -796,6 +892,26 @@ def test_sm90_kernels_start_with_the_registers_setmaxnreg_moves(cuda):
         assert attrs["dynamic_shared_bytes"] <= 232448
         assert attrs["local_bytes"] == 0, attrs   # no spills (GELU too)
     assert WX.kernel_attrs("split")["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_f32_kernels_spill_nothing_and_fit_two_blocks_an_sm(cuda):
+    """The five kernels on the f32 loop (every block_matmul layout, wx and
+    Cannon with an f32 or bf16 out, the ring's two steps): 256 threads, no
+    spills, the loop's two stages of static shared memory, and at most 128
+    registers, so two blocks share an SM."""
+    variants = [BM.kernel_attrs("f32", x_t, w_t)
+                for x_t in (False, True) for w_t in (False, True)]
+    variants += [WX.kernel_attrs("f32", w_t, out_bf16)
+                 for w_t in (False, True) for out_bf16 in (False, True)]
+    variants += [CANNON.kernel_attrs(out_bf16=o, f32=True)
+                 for o in (False, True)]
+    variants += [RING.kernel_attrs(1), RING.kernel_attrs(3)]
+    for attrs in variants:
+        assert attrs["threads"] >= 256, attrs
+        assert attrs["local_bytes"] == 0, attrs
+        assert attrs["registers"] <= 128, attrs
+        assert attrs["static_shared_bytes"] == 2 * 2 * 16 * 132 * 4, attrs
 
 
 @pytest.mark.cuda

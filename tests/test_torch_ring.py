@@ -360,6 +360,45 @@ def test_ring_step_rounds_in_the_accumulator_dtype():
         assert float(dest) == want, acc
 
 
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_ring_fwd_on_padded_operands_equals_the_contiguous_call(with_prev,
+                                                                acc):
+    """x and w with rows of 9 bf16 padded to 16 (``pad_rows``, as the
+    callers hand them to the Hopper forward) give the step the contiguous
+    operands give, bit for bit, with or without an arrived partial."""
+    rng = np.random.default_rng(11)
+    rows, k, mc, p = 7, 9, 5, 3
+    x, w = _bf16(rng, rows, k), _bf16(rng, mc * p, k)
+    prev = _bf16(rng, rows, mc) if with_prev else None
+    xp, wp = ring.pad_rows(x), ring.pad_rows(w)
+    assert ring.row_stride(xp) == ring.row_stride(wp) == 16
+    for j in range(p):
+        want = torch.empty(rows, mc, dtype=torch.bfloat16)
+        got = torch.empty(rows, mc, dtype=torch.bfloat16)
+        ring.ring_fwd(x, w, j, prev, want, accum_dtype=acc)
+        ring.ring_fwd(xp, wp, j, prev, got, accum_dtype=acc)
+        assert torch.equal(got, want), j
+
+
+@pytest.mark.parametrize("p", [2, 3])
+def test_one_process_ring_fwd_with_odd_rows_is_the_plain_forward(p):
+    """ring_fwd_all pads each rank's x and w where their rows need it (rows
+    of 13 bf16) and keeps the partials contiguous: bit for bit the plain
+    forward ring (ring_fwd_all_ref)."""
+    rng = np.random.default_rng(p)
+    xs = [_bf16(rng, 6, 13) for _ in range(p)]
+    ws = [_bf16(rng, 5 * p, 13) for _ in range(p)]
+    got = ring.ring_fwd_all(xs, ws)
+    want = ref.ring_fwd_all_ref(xs, ws, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("case,exc", [
     ("m_not_divisible", ValueError), ("gspmd", NotImplementedError),
     ("unknown_impl", ValueError), ("config_gspmd", NotImplementedError),

@@ -1,7 +1,8 @@
-"""block_matmul and wx on the Hopper loop (``csrc/gemm_sm90.cuh``), on the
-CPU: their TMA operand plans at every shape of ``chip_smoke.py``, the
-route rule, the split of wx's dx route (``ref.split_bf16x3``) and the dx
-entry's CPU path against the reference's VJP.
+"""block_matmul, wx and the ring's forward step on the Hopper loop
+(``csrc/gemm_sm90.cuh``), on the CPU: their TMA operand plans at every
+shape of ``chip_smoke.py``, the route rule, the split of wx's dx route
+(``ref.split_bf16x3``) and the dx entry's CPU path against the
+reference's VJP.
 
 The plans are held to a stride rule computed here apart from the code
 (the least multiple of 8 bf16, 16 bytes, at or above a row's width) and
@@ -140,13 +141,57 @@ def test_wx_plans_at_the_smoke_shapes(label, m, t, c, ll, w_t):
     assert not ops["x"].padded
 
 
+# chip_smoke.py's RING_SHAPES: (label, rows, d, m) of x [rows, d] @ w.T,
+# each of p ranks holding d/p of x's and w's columns
+RING_SHAPES = [("encoder", T, PD, D), ("tok_fc1", D, T, D_TOK),
+               ("tok_fc2", D, D_TOK, T), ("ch_fc1", T, D, D_CH),
+               ("ch_fc2", T, D_CH, D), ("decoder", T, D, PD)]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("label,rows,d,m", RING_SHAPES)
+def test_ring_fwd_plans_at_the_smoke_shapes(p, label, rows, d, m):
+    """The bf16 forward step reads x [R, D/p] and w_j [M/p, D/p] K-major in
+    [128][64] boxes (w_j's 256-row B tile in two, transpose-B off); each
+    ld is the width rounded up to 16 bytes, padded exactly where the width
+    is not a multiple of 8: tok_fc1's x and w_j (rows of 8,190 at p = 2,
+    4,095 at p = 4), no other."""
+    dl, mc = d // p, m // p
+    ops = SM90.tma_operands_ring_fwd(rows, dl, mc)
+    assert set(ops) == {"x", "w_j"}
+    assert ops["x"].shape == (rows, dl) and ops["w_j"].shape == (mc, dl)
+    for op in ops.values():
+        assert op.boxes == ((64, 128),)
+        assert op.ld == _ld(dl) and op.ld * 2 % 16 == 0
+        assert "TMA" in op.describe()
+    padded = {k for k, op in ops.items() if op.padded}
+    assert padded == ({"x", "w_j"} if label == "tok_fc1" else set())
+
+
+@pytest.mark.parametrize("rows,k,mc,ld", [(300, 4095, 4095, 4096),
+                                          (129, 8190, 2160, 8192),
+                                          (77, 40, 131, 40), (1, 5, 3, 8)])
+def test_ring_fwd_plan_edges(rows, k, mc, ld):
+    """Rows of 4,095 and 8,190 bf16 padded to the next 16 bytes (4,096 and
+    8,192), an odd MC (w_j's rows are not padded: only the row width is),
+    and K under one 64-wide box (40 needs no padding, 5 pads to 8)."""
+    ops = SM90.tma_operands_ring_fwd(rows, k, mc)
+    assert (ops["x"].ld, ops["w_j"].ld) == (ld, ld)
+    assert ops["x"].padded == ops["w_j"].padded == (k % 8 != 0)
+    assert ops["w_j"].shape == (mc, k)
+    x = RING.pad_rows(torch.zeros(rows, k, dtype=BF))
+    w = RING.pad_rows(torch.zeros(3 * mc, k, dtype=BF))
+    assert RING.check_tma(x, ops["x"], "test") == ld
+    assert RING.check_tma(w[mc:2 * mc], ops["w_j"], "test") == ld
+
+
 def test_plans_live_in_one_module():
     """The planning the ring and the Cannon step used is the shared one:
     ring's names resolve to kernels/sm90.py's."""
     for name in ("tma_ld", "TmaOperand", "plan_operand", "check_tma",
                  "pad_rows", "persistent_grid", "sm90_tiles", "row_stride",
                  "span_bytes", "tma_operands_ring_bwd",
-                 "tma_operands_cannon"):
+                 "tma_operands_ring_fwd", "tma_operands_cannon"):
         assert getattr(RING, name) is getattr(SM90, name), name
 
 
