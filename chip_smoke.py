@@ -27,15 +27,23 @@ printed as a JSON line:
      the per-call padding's time, and every Hopper-loop result held bit for
      bit against the WMMA loop's on the same operands (timed too);
   2b. the ssd_chunk kernel (``ssd_shape``) against its plain version: small
-     ragged chunks in f32 and bf16 and a chunk whose decay overflows exp
-     above the diagonal (the output must be finite), then mamba2-130m's
-     groups at sequence 2048 (batch 1) and 4096 (batch 2) in f32, timed
-     beside the plain version, the closest library composition (bmm,
-     where, * dt, bmm) and the bound;
+     ragged chunks in f32 and bf16 (the TMA route), an odd width (Q = 37,
+     N = 5, P = 3: the element-load route) and a chunk whose decay
+     overflows exp above the diagonal (the output must be finite), then
+     the [G, Q, N] entry at mamba2-130m's groups at sequence 2048 (batch 1)
+     and 4096 (batch 2) in f32, and the heads entry at one layer's own
+     layout (sequence 4096, batch 2: bit for bit the [G, Q, N] entry on the
+     groups arrangement of repeats and copies), each timed beside
+     the plain version, the closest library composition (bmm, where, *
+     dt, bmm; at the model's layout after the same copies), the bound and,
+     for the model row, the groups arrangement; each row with its route,
+     registers, spills, shared bytes, stages and blocks per SM;
   2c. ``mamba_forward``: the full-width mamba2-130m forward (24 layers,
      random bf16 weights from seed 0) at sequence 4096 and batch 2 on
-     ``TokenDataset`` rows, 24 ssd and 97 block_matmul launches, logits
-     finite, its time and tokens/s; then, on the same weights in f32, the
+     ``TokenDataset`` rows, 24 ssd launches (all on the heads entry's
+     TMA route) and 97 block_matmul launches, logits finite, its time,
+     tokens/s and the 24 ssd launches' time inside a forward; then, on the
+     same weights in f32, the
      forward against the same with the plain SSD term and with
      ``kernel="xla"``, and the bf16 logits against the f32 ones;
   2d. ``mamba_generate``: ``serve.step.generate`` at batch 4 (64-token
@@ -159,7 +167,8 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     and epilogue); against the plain Cannon the wx tolerances;
   * the ssd kernel: f32 2e-4 / 2e-4 (the reference's own kernel tolerance:
     sums of N = 128 and Q = 64 terms in another order), bf16 3e-2 / 3e-2
-    (att and y rounded to bf16);
+    (att and y rounded to bf16); its heads entry bit for bit its [G, Q, N]
+    entry (the same fmaf chains);
   * mamba2-130m logits, judged in f32 (the seed's weights up-cast, where
     only summation orders differ): max|a - b| / max|b| 1e-3 against the
     plain SSD term and against ``kernel="xla"``; token-wise decode against
@@ -504,6 +513,74 @@ def ssd_bound_ms(g, q, n, p, dtype_name):
                                        else "bytes")
 
 
+def ssd_heads_bound_ms(bsz, s, h, p, g, n, q, dtype_name):
+    """The model's layout: x read and y written once (operand type), dt and
+    dac read once (f32), B and C read once (not once per head); s once per
+    (batch, chunk, group), 2 n per (i, j <= i) pair, and y per head, 2 p
+    per pair, at the operand type's peak."""
+    es = 4 if dtype_name == "float32" else 2
+    nbytes = es * (2 * bsz * s * h * p + 2 * bsz * s * g * n) + 8 * bsz * s * h
+    ops = (bsz * s // q) * q * (q + 1) * (g * n + h * p)
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# an odd width (N = 5, P = 3: rows of 20 and 12 bytes) that TMA
+# cannot take: the kernel's scalar route
+SSD_ODD = (37, 5, 3)
+# mamba2-130m's layer at sequence 4096, batch 2: (batch, seq, heads, head
+# width, groups, state)
+SSD_LAYER = (MAMBA_BATCH, MAMBA_SEQ, SSD_HEADS, SSD_P, 1, SSD_N)
+
+
+def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype):
+    """x [b, s, h, p], dt [b, s, h] = softplus(N(0, 1)), dac its
+    within-chunk cumsum of dt * A (the model's initial A by head), B, C
+    [b, s, g, n]: contiguous, as the bf16 forward hands them over."""
+    x = torch.randn(bsz, s, h, p, generator=gen, device="cuda").to(dtype)
+    bm = (0.3 * torch.randn(bsz, s, g, n, generator=gen, device="cuda")
+          ).to(dtype)
+    cm = (0.3 * torch.randn(bsz, s, g, n, generator=gen, device="cuda")
+          ).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, s, h, generator=gen, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    dac = torch.cumsum((dt * a).unflatten(1, (-1, SSD_Q)), dim=2).flatten(
+        1, 2)
+    return x, dt, dac, bm, cm
+
+
+def ssd_groups(x, dt, dac, bm, cm, q):
+    """The heads layout as ``_ssd_chunked`` laid it out for the [G, Q, N]
+    entry before the heads entry existed: B and C repeated over the heads,
+    every operand copied into (batch, chunk, head) groups."""
+    bsz, s, h, _ = x.shape
+    rep = h // bm.shape[2]
+
+    def groups(t):
+        t = t.reshape((bsz, s // q, q) + t.shape[2:]).movedim(3, 2)
+        return t.reshape((bsz * (s // q) * h, q) + t.shape[4:]).contiguous()
+    return (groups(cm.repeat_interleave(rep, 2)),
+            groups(bm.repeat_interleave(rep, 2)), groups(x), groups(dt),
+            groups(dac))
+
+
+def ssd_route(SSD, fn):
+    """The route of one launch of ``fn`` (route_launches cleared before)."""
+    SSD.ssd_intra_chunk.route_launches.clear()
+    out = fn()
+    (key, n), = SSD.ssd_intra_chunk.route_launches.items()
+    check(n == 1, f"ssd: {n} launches in one call")
+    return out, key.split(".")[1]
+
+
+def ssd_kernel_fields(torch, SSD, dtype, n, p, heads_per_item, items):
+    attrs = SSD.kernel_attrs(dtype, n, p, heads_per_item)
+    return dict(kernel=attrs, blocks_per_sm=blocks_per_sm(attrs),
+                items=items, grid=min(items, sm_count(torch)))
+
+
 def ssd_phase(torch, SSD, ref):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -517,18 +594,20 @@ def ssd_phase(torch, SSD, ref):
     n_small = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for q in (64, 37):
-            for n in (32, 128):
-                for p in (16, 64):
-                    args = ssd_inputs(torch, gen, 6, q, n, p, dtype,
-                                      decay=0.1)
-                    y = SSD.ssd_intra_chunk(*args)
-                    torch.cuda.synchronize()
-                    err, ok = errors(y, ref.ssd_intra_ref(*args), name)
-                    check(ok, f"ssd small {name} Q={q} N={n} P={p}: max err "
-                              f"{err:.3e}")
-                    worst = max(worst, err)
-                    n_small += 1
+        cases = [(q, n, p) for q in (64, 37) for n in (32, 128)
+                 for p in (16, 64)] + [SSD_ODD]
+        for q, n, p in cases:
+            args = ssd_inputs(torch, gen, 6, q, n, p, dtype, decay=0.1)
+            y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_chunk(*args))
+            torch.cuda.synchronize()
+            want = "scalar" if (q, n, p) == SSD_ODD else "tma"
+            check(rt == want, f"ssd small {name} Q={q} N={n} P={p}: route "
+                              f"{rt}, want {want}")
+            err, ok = errors(y, ref.ssd_intra_ref(*args), name)
+            check(ok, f"ssd small {name} Q={q} N={n} P={p}: max err "
+                      f"{err:.3e}")
+            worst = max(worst, err)
+            n_small += 1
         # dac decaying fast enough that exp overflows above the diagonal
         args = ssd_inputs(torch, gen, 4, 64, 128, 64, dtype, decay=16.0)
         dac = args[4]
@@ -551,7 +630,7 @@ def ssd_phase(torch, SSD, ref):
     for label, g in SSD_SHAPES:
         c, b, x, dt, dac = args = ssd_inputs(torch, gen, g, q, n, p,
                                              torch.float32)
-        y = SSD.ssd_intra_chunk(*args)
+        y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_chunk(*args))
         torch.cuda.synchronize()
         err, ok = errors(y, ref.ssd_intra_ref(*args), "float32")
         check(ok and bool(torch.isfinite(y).all()),
@@ -565,15 +644,62 @@ def ssd_phase(torch, SSD, ref):
             return torch.bmm(att * dt[:, None, :], x)
         bound, bound_by = ssd_bound_ms(g, q, n, p, "float32")
         row = dict(shape=label, g=g, q=q, n=n, p=p, dtype="float32",
-                   max_abs_err=err, tol=SSD_TOL["float32"],
+                   route=rt, max_abs_err=err, tol=SSD_TOL["float32"],
                    kernel_ms=cuda_ms(lambda: SSD.ssd_intra_chunk(*args), 20),
                    library_ms=cuda_ms(library, 10),
                    plain_ms=cuda_ms(lambda: ref.ssd_intra_ref(*args), 10),
-                   bound_ms=bound, bound_by=bound_by)
+                   bound_ms=bound, bound_by=bound_by,
+                   **ssd_kernel_fields(torch, SSD, torch.float32, n, p, 1, g))
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         emit(phase="ssd_shape", **row)
         rows.append(row)
         del c, b, x, dt, dac, args, y
+    torch.cuda.empty_cache()
+
+    # the model's layout: the heads entry on _ssd_chunked's tensors as they
+    # lie, bit for bit the [G, Q, N] entry on the groups arrangement
+    # (repeat, groups() copies), whose time is its yardstick
+    bsz, s, h, p, g, n = SSD_LAYER
+    args = ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, torch.float32)
+    y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_heads(*args, q))
+    torch.cuda.synchronize()
+
+    def arrangement():
+        yg = SSD.ssd_intra_chunk(*ssd_groups(*args, q))
+        return yg.reshape(bsz, s // q, h, q, p).movedim(2, 3).reshape(
+            bsz, s, h, p)
+    check(torch.equal(y, arrangement()), "ssd heads entry is not bit for "
+          "bit the [G, Q, N] entry on the copied groups")
+    err, ok = errors(y, ref.ssd_intra_heads_ref(*args, q), "float32")
+    check(ok and bool(torch.isfinite(y).all()),
+          f"ssd model_layout: max err {err:.3e}")
+    worst = max(worst, err)
+
+    def library():
+        c, b, x, dt, dac = ssd_groups(*args, q)
+        sm = torch.bmm(c, b.transpose(1, 2))
+        att = torch.where(tri, sm * torch.exp(dac[:, :, None]
+                                              - dac[:, None, :]), 0.0)
+        return torch.bmm(att * dt[:, None, :], x)
+    bound, bound_by = ssd_heads_bound_ms(bsz, s, h, p, g, n, q, "float32")
+    triples = bsz * (s // q) * g
+    shares = SSD.head_shares(triples, h // g, sm_count(torch))
+    row = dict(shape=f"model_layout.seq{s}.b{bsz}", batch=bsz, seq=s,
+               heads=h, groups=g, q=q, n=n, p=p, dtype="float32", route=rt,
+               max_abs_err=err, tol=SSD_TOL["float32"],
+               kernel_ms=cuda_ms(lambda: SSD.ssd_intra_heads(*args, q), 20),
+               arrangement_ms=cuda_ms(arrangement, 10),
+               copies_ms=cuda_ms(lambda: ssd_groups(*args, q), 10),
+               library_ms=cuda_ms(library, 10),
+               plain_ms=cuda_ms(lambda: ref.ssd_intra_heads_ref(*args, q),
+                                10),
+               bound_ms=bound, bound_by=bound_by, head_shares=shares,
+               **ssd_kernel_fields(torch, SSD, torch.float32, n, p,
+                                   -(-(h // g) // shares), triples * shares))
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    emit(phase="ssd_shape", **row)
+    rows.append(row)
+    del args, y
     torch.cuda.empty_cache()
     return rows, worst
 
@@ -602,14 +728,34 @@ MAMBA_FWD_ROUTES = {"sm90": 3 * MAMBA_LAYERS + 1, "wmma": MAMBA_LAYERS}
 
 @contextmanager
 def plain_ssd(ops, ref):
-    """The model's forward with ``ref.ssd_intra_ref`` in place of the ssd
-    kernel (``ops.ssd_intra``, which ``_ssd_chunked`` calls): the only
-    difference from the kernel's forward."""
-    saved, ops.ssd_intra = ops.ssd_intra, ref.ssd_intra_ref
+    """The model's forward with ``ref.ssd_intra_heads_ref`` in place of the
+    ssd kernel (``ops.ssd_intra_heads``, which ``_ssd_chunked`` calls): the
+    only difference from the kernel's forward."""
+    saved, ops.ssd_intra_heads = ops.ssd_intra_heads, ref.ssd_intra_heads_ref
     try:
         yield
     finally:
-        ops.ssd_intra = saved
+        ops.ssd_intra_heads = saved
+
+
+@contextmanager
+def timed_ssd(torch, ops, spans):
+    """Record a CUDA event pair around every call of ``ops.ssd_intra_heads``
+    (the intra term's launch inside a forward) into ``spans``."""
+    real = ops.ssd_intra_heads
+
+    def timed(*args):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        y = real(*args)
+        b.record()
+        spans.append((a, b))
+        return y
+    ops.ssd_intra_heads = timed
+    try:
+        yield
+    finally:
+        ops.ssd_intra_heads = real
 
 
 def mamba_setup(torch):
@@ -661,10 +807,15 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
         torch.cuda.synchronize()
         launches = read_counts(kernels)
         routes = read_routes(kernels)
+        ssd_routes = dict(next(fn for fn in kernels if fn.__name__
+                               == "ssd_intra_chunk").route_launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # ------------------------------------------------------------------
         check(routes == MAMBA_FWD_ROUTES, f"mamba forward block_matmul "
               f"routes {routes}, want {MAMBA_FWD_ROUTES}")
+        check(ssd_routes == {"heads.tma": MAMBA_LAYERS},
+              f"mamba forward ssd routes {ssd_routes}, want "
+              f"{MAMBA_LAYERS} heads-entry launches on the TMA route")
         check(launches["ssd_intra_chunk"] == MAMBA_LAYERS
               and launches["block_matmul"] == 4 * MAMBA_LAYERS + 1,
               f"mamba forward launches {launches} (want {MAMBA_LAYERS} ssd, "
@@ -674,6 +825,12 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
               and bool(torch.isfinite(logits).all()),
               f"mamba logits {tuple(logits.shape)} not finite or misshapen")
         ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 3)
+        # the intra term's launches inside one more forward
+        spans = []
+        with timed_ssd(torch, ops, spans):
+            M.apply(params, batch, cfg, jcfg)
+        torch.cuda.synchronize()
+        ssd_ms = sum(a.elapsed_time(b) for a, b in spans)
 
         # f32: the kernel forward against the plain SSD term (the only
         # difference) and against kernel="xla"; bf16 against f32
@@ -702,13 +859,15 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
     torch.cuda.empty_cache()
     tokens = MAMBA_SEQ * MAMBA_BATCH
     emit(phase="mamba_forward", seq=MAMBA_SEQ, batch=MAMBA_BATCH,
-         launches=launches, block_matmul_routes=routes, ms_per_forward=ms,
-         tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
+         launches=launches, block_matmul_routes=routes,
+         ssd_routes=ssd_routes, ms_per_forward=ms,
+         tokens_per_s=tokens / (ms / 1e3), ssd_ms_in_forward=ssd_ms,
+         peak_mem_gb=peak_gb,
          f32_ms_per_forward=ms32, f32_xla_ms_per_forward=xla_ms32,
          f32_vs_plain_ssd=ssd_err, f32_vs_xla=xla_err, tol_f32=MAMBA_F32_TOL,
          bf16_vs_f32_mean=bf16_err, tol_bf16_mean=MAMBA_BF16_TOL,
          bf16_vs_f32_top1_agree=bf16_top1)
-    return launches
+    return launches, ssd_routes, ssd_ms
 
 
 def decode_logits(torch, M, params, prompts, cfg, jcfg, cache_dtype):
@@ -2323,8 +2482,8 @@ def main():
     counted = (BM.block_matmul, SSD.ssd_intra_chunk, WX.wx, RING.ring_fwd,
                RING.ring_bwd, CANNON.cannon_step)
     mcfg, mjcfg, mparams = mamba_setup(torch)
-    fwd_launches = mamba_forward_phase(torch, counted, OPS, ref, mcfg, mjcfg,
-                                       mparams)
+    fwd_launches, fwd_ssd_routes, fwd_ssd_ms = mamba_forward_phase(
+        torch, counted, OPS, ref, mcfg, mjcfg, mparams)
     gen_launches = mamba_generate_phase(torch, counted, mcfg, mjcfg, mparams)
     del mparams
     torch.cuda.empty_cache()
@@ -2379,8 +2538,10 @@ def main():
                    if r["shape"].startswith(tag + "."))
 
     # the ssd launches of one mamba2-130m forward (sequence 4096, batch 2):
-    # one per layer at G = 3072
-    ssd_fwd = next(r for r in ssd_rows if r["shape"] == "seq4096.b2")
+    # one per layer at the model's layout (the main path), and the [G, Q, N]
+    # entry at the same groups (G = 3072)
+    ssd_fwd = next(r for r in ssd_rows if r["shape"].startswith("model_"))
+    ssd_grp = next(r for r in ssd_rows if r["shape"] == "seq4096.b2")
 
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
@@ -2525,14 +2686,25 @@ def main():
             "mamba_forward": fwd_launches["ssd_intra_chunk"],
             "mamba_generate": gen_launches["ssd_intra_chunk"]},
         "max_abs_err": ssd_worst,
+        "launches_by_route": {"mamba_forward": fwd_ssd_routes},
         # times: the 24 launches of one mamba2-130m forward (sequence 4096,
-        # batch 2, G = 3072 groups each)
+        # batch 2) at the model's layout, the main path's entry (plain: the
+        # groups arrangement and ref.ssd_intra_ref; library: the same
+        # copies, torch.bmm, torch.where, * dt, torch.bmm, TF32 off;
+        # arrangement: the copies and the [G, Q, N] launch that took the
+        # term before); in_forward: the 24 launches timed inside a forward
         "ms": MAMBA_LAYERS * ssd_fwd["kernel_ms"],
         "plain_ms": MAMBA_LAYERS * ssd_fwd["plain_ms"],
         "bound_ms": MAMBA_LAYERS * ssd_fwd["bound_ms"],
         "bound_by": ssd_fwd["bound_by"],
-        # torch.bmm, torch.where, * dt, torch.bmm (TF32 off)
         "library_ms": MAMBA_LAYERS * ssd_fwd["library_ms"],
+        "arrangement_ms": MAMBA_LAYERS * ssd_fwd["arrangement_ms"],
+        "in_forward_ms": fwd_ssd_ms,
+        # the [G, Q, N] entry at the same groups (G = 3072 a launch)
+        "groups_ms": MAMBA_LAYERS * ssd_grp["kernel_ms"],
+        "groups_plain_ms": MAMBA_LAYERS * ssd_grp["plain_ms"],
+        "groups_bound_ms": MAMBA_LAYERS * ssd_grp["bound_ms"],
+        "groups_library_ms": MAMBA_LAYERS * ssd_grp["library_ms"],
         "shapes": ssd_rows,
     }])
     print(card, flush=True)

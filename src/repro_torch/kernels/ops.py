@@ -5,7 +5,8 @@ engine that ``JigsawConfig(kernel="pallas")`` selects, ``matmul_nd`` runs it
 over the last dim of any-rank x, and ``mixer_mlp`` is the WeatherMixer MLP
 as two kernel calls with the GELU fused into the first one's epilogue; all
 three are differentiable.  ``ssd_intra`` is the Mamba-2 intra-chunk term
-(forward only).
+(forward only), and ``ssd_intra_heads`` the same term read at the model's
+layout.
 The reference pads every dim to its block grid; the Hopper kernel masks
 ragged edges itself, so nothing is padded here.
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.ref import act_grad
+from repro_torch.kernels import ssd_chunk
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
 
 
@@ -107,3 +109,14 @@ def ssd_intra(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     the mamba2 tensors out as G = (batch, chunk, head) groups.  Not
     differentiable: the port runs the ssm family's forward only so far."""
     return ssd_intra_chunk(c, b, x, dt, dac)
+
+
+def ssd_intra_heads(x: torch.Tensor, dt: torch.Tensor, dac: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """The same term at the model's layout (``kernels/ssd_chunk.py``):
+    x [b, s, h, p]; dt, dac [b, s, h]; B, C [b, s, g, n] with g head
+    groups, read where they lie -> y_intra [b, s, h, p].  The caller
+    (``models/layers.py::_ssd_chunked``) pads the sequence to whole chunks.
+    Not differentiable."""
+    return ssd_chunk.ssd_intra_heads(x, dt, dac, B, C, chunk)

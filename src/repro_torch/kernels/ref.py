@@ -246,3 +246,28 @@ def ssd_intra_ref(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     att = torch.where(tri[None], s * torch.exp(seg), 0.0) * dt[:, None, :]
     y = torch.einsum("gij,gjp->gip", att.to(x.dtype).float(), x.float())
     return y.to(x.dtype)
+
+
+def ssd_intra_heads_ref(x: torch.Tensor, dt: torch.Tensor, dac: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor,
+                        chunk: int) -> torch.Tensor:
+    """The intra-chunk term of every head and chunk at the model's layout:
+    x [b, s, h, p]; dt, dac [b, s, h]; B, C [b, s, g, n] (head k reads
+    group k // (h // g)); s a whole number of chunks.  Returns y_intra
+    [b, s, h, p].  The arrangement ``_ssd_chunked`` made before the kernel
+    read the model's layout: B and C repeated over the heads, every operand
+    copied into G = (batch, chunk, head) groups of ``chunk`` rows, then
+    ``ssd_intra_ref`` and y laid back."""
+    bsz, s, h, p = x.shape
+    nc = s // chunk
+    rep = h // B.shape[2]
+
+    def groups(t):  # [b, s, h, ...] -> [b * nc * h, chunk, ...]
+        t = t.reshape((bsz, nc, chunk) + t.shape[2:]).movedim(3, 2)
+        return t.reshape((bsz * nc * h, chunk) + t.shape[4:]).contiguous()
+
+    y = ssd_intra_ref(groups(C.repeat_interleave(rep, dim=2)),
+                      groups(B.repeat_interleave(rep, dim=2)), groups(x),
+                      groups(dt), groups(dac))
+    return y.reshape(bsz, nc, h, chunk, p).movedim(2, 3).reshape(bsz, s, h,
+                                                                   p)

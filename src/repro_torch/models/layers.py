@@ -124,23 +124,25 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     A: [h] (negative); B, C: [b, s, g, n] with g groups broadcast to h.
     Returns y [b, s, h, p] and the final state [b, h, p, n].
 
-    The intra-chunk (attention-like) term goes through ``ops.ssd_intra``,
-    the hand-written kernel on the card: the [b, nc, l, h, ...] chunk
-    tensors are laid out as G = (b, nc, h) groups, made contiguous, and y
-    is laid back.  The chunk states, the inter-chunk recurrence (a loop
-    over chunks, the reference's ``lax.scan``) and ``y_inter`` stay plain
-    torch, as the reference's plain jnp.  A ragged sequence is zero-padded
-    to whole chunks (dt = 0 there, so the padding adds nothing)."""
+    The intra-chunk (attention-like) term goes through
+    ``ops.ssd_intra_heads``, the hand-written kernel on the card, which
+    reads x, dt, the within-chunk cumsum and the un-repeated B and C where
+    they lie and writes y_intra [b, s, h, p].  The chunk states, the
+    inter-chunk recurrence (a loop over chunks, the reference's
+    ``lax.scan``) and ``y_inter`` stay plain torch, as the reference's
+    plain jnp, on B and C repeated over the heads.  A ragged sequence is
+    zero-padded to whole chunks (dt = 0 there, so the padding adds
+    nothing)."""
     b, s, h, p = x.shape
     g = B.shape[2]
     rep = h // g
-    Bh = B.repeat_interleave(rep, dim=2)             # [b, s, h, n]
-    Ch = C.repeat_interleave(rep, dim=2)
     if s % chunk != 0:
         pad = chunk - s % chunk
-        x, dt, Bh, Ch = (_pad_seq(t, pad) for t in (x, dt, Bh, Ch))
+        x, dt, B, C = (_pad_seq(t, pad) for t in (x, dt, B, C))
     sp = x.shape[1]
     nc = sp // chunk
+    Bh = B.repeat_interleave(rep, dim=2)             # [b, sp, h, n]
+    Ch = C.repeat_interleave(rep, dim=2)
 
     def ck(t):  # [b, s, ...] -> [b, nc, chunk, ...]
         return t.reshape((b, nc, chunk) + t.shape[2:])
@@ -149,13 +151,8 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     dA = dtc * A[None, None, None, :]                 # [b, nc, l, h] (<= 0)
     dA_cum = torch.cumsum(dA, dim=2)                  # within-chunk
 
-    def groups(t):  # [b, nc, l, h, ...] -> [b * nc * h, l, ...]
-        t = t.movedim(3, 2)
-        return t.reshape((b * nc * h, chunk) + t.shape[4:]).contiguous()
-
-    y_intra = ops.ssd_intra(groups(Cc), groups(Bc), groups(xc), groups(dtc),
-                            groups(dA_cum))
-    y_intra = y_intra.reshape(b, nc, h, chunk, p).movedim(2, 3)
+    y_intra = ops.ssd_intra_heads(x, dt, dA_cum.reshape(b, sp, h), B, C,
+                                  chunk).reshape(b, nc, chunk, h, p)
 
     # chunk states: sum_j exp(dA_cum[end] - dA_cum[j]) dt_j B_j x_j^T
     decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)   # [b,nc,l,h]

@@ -997,6 +997,144 @@ def test_ssd_wrapper_rejects_non_contiguous(cuda):
                             b, x, dt, dac)
 
 
+def _heads_inputs(gen, bsz, s, h, p, g, n, dtype, wide=False):
+    """x [b, s, h, p], dt, dac [b, s, h] (dac the within-chunk cumsum of
+    dt * A at chunk 64), B, C [b, s, g, n].  ``wide``: x, B and C are
+    column slices of one [b, s, h p + 2 g n + 8] buffer, as the model's
+    split of its conv output (rows of a stride other than their width)."""
+    if wide:
+        buf = torch.randn(bsz, s, h * p + 2 * g * n + 8, generator=gen,
+                          device="cuda")
+        buf[..., h * p:] *= 0.3
+        buf = buf.to(dtype)
+        x = buf[..., :h * p].unflatten(-1, (h, p))
+        bm = buf[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        cm = buf[..., h * p + g * n:h * p + 2 * g * n].unflatten(-1, (g, n))
+    else:
+        x = torch.randn(bsz, s, h, p, generator=gen, device="cuda").to(dtype)
+        bm = (0.3 * torch.randn(bsz, s, g, n, generator=gen,
+                                device="cuda")).to(dtype)
+        cm = (0.3 * torch.randn(bsz, s, g, n, generator=gen,
+                                device="cuda")).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bsz, s, h, generator=gen, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    dac = torch.cumsum((dt * a).unflatten(1, (-1, 64)), dim=2).flatten(1, 2)
+    return x, dt, dac, bm, cm
+
+
+def _as_groups(x, dt, dac, bm, cm, chunk):
+    """The heads layout copied into [G, Q, N] groups, as the model laid it
+    out before the heads entry."""
+    bsz, s, h, _ = x.shape
+    rep = h // bm.shape[2]
+    nc = s // chunk
+
+    def groups(t):
+        t = t.reshape((bsz, nc, chunk) + t.shape[2:]).movedim(3, 2)
+        return t.reshape((bsz * nc * h, chunk) + t.shape[4:]).contiguous()
+    return (groups(cm.repeat_interleave(rep, 2)),
+            groups(bm.repeat_interleave(rep, 2)), groups(x), groups(dt),
+            groups(dac))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 256, 24, 64, 1, 128, False),
+                                   (2, 256, 24, 64, 1, 128, True),
+                                   (1, 192, 8, 32, 2, 64, True),
+                                   (3, 128, 4, 16, 4, 32, False)])
+def test_ssd_heads_entry_is_the_groups_entry_bit_for_bit(cuda, dtype,
+                                                         shape):
+    """The model's entry, reading x, dt, dac, B and C where they lie (one,
+    two and four head groups; operands as slices of one wide buffer too),
+    equals the [G, Q, N] entry on the same operands copied into groups, bit
+    for bit (the same fmaf chains); one launch a call, on the TMA
+    route."""
+    *dims, wide = shape
+    args = _heads_inputs(cuda, *dims, dtype, wide=wide)
+    SSD.ssd_intra_chunk.route_launches.clear()
+    before = SSD.ssd_intra_chunk.launches
+    y = SSD.ssd_intra_heads(*args, 64)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == before + 1
+    assert SSD.ssd_intra_chunk.route_launches == {"heads.tma": 1}
+    bsz, s, h, p = args[0].shape
+    want = SSD.ssd_intra_chunk(*_as_groups(*args, 64))
+    want = want.reshape(bsz, s // 64, h, 64, p).movedim(2, 3).reshape(
+        bsz, s, h, p)
+    assert torch.equal(y, want)
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(),
+        ref.ssd_intra_heads_ref(*args, 64).float().cpu().numpy(),
+        rtol=2e-4 if dtype == torch.float32 else 3e-2,
+        atol=2e-4 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqnp", [(5, 37, 5, 3), (3, 64, 7, 9),
+                                  (4, 20, 4, 6)])
+def test_ssd_odd_widths_take_the_scalar_route(cuda, dtype, gqnp):
+    """Rows that TMA cannot take (odd N or P, a bf16 row of 8
+    bytes) go through the kernel's element-load route, counted, one launch,
+    within the kernel tolerance of the plain version."""
+    args = _ssd_inputs(cuda, *gqnp, dtype)
+    SSD.ssd_intra_chunk.route_launches.clear()
+    before = SSD.ssd_intra_chunk.launches
+    y = SSD.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == before + 1
+    assert SSD.ssd_intra_chunk.route_launches == {"groups.scalar": 1}
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ref.ssd_intra_ref(*args).float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_heads_entry_odd_widths_take_the_scalar_route(cuda):
+    """The model's entry at an odd state width (n = 5): the scalar route,
+    bit for bit the groups entry (which takes that route too)."""
+    args = _heads_inputs(cuda, 2, 128, 4, 6, 2, 5, torch.float32)
+    SSD.ssd_intra_chunk.route_launches.clear()
+    y = SSD.ssd_intra_heads(*args, 64)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.route_launches == {"heads.scalar": 1}
+    want = SSD.ssd_intra_chunk(*_as_groups(*args, 64))
+    assert torch.equal(y, want.reshape(2, 2, 4, 64, 6).movedim(2, 3)
+                       .reshape(2, 128, 4, 6))
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_calls_the_heads_entry(cuda, monkeypatch):
+    """``_ssd_chunked`` on the card: one heads-entry launch, B and C passed
+    un-repeated and x, dt as they lie (no groups copy), the result within
+    the scan tolerance of the plain arrangement."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import _ssd_chunked
+    x, dt, _, bm, cm = _heads_inputs(cuda, 2, 256, 8, 32, 2, 64,
+                                     torch.float32, wide=True)
+    a = -torch.linspace(1.0, 16.0, 8, device="cuda")
+    seen = []
+    real = ops.ssd_intra_heads
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    monkeypatch.setattr(ops, "ssd_intra_heads", spy)
+    SSD.ssd_intra_chunk.route_launches.clear()
+    y, state = _ssd_chunked(x, dt, a, bm, cm, 64)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.route_launches == {"heads.tma": 1}
+    (xa, dta, _, ba, ca, _), = seen
+    assert xa is x and dta is dt and ba is bm and ca is cm
+    monkeypatch.setattr(ops, "ssd_intra_heads", ref.ssd_intra_heads_ref)
+    y_p, state_p = _ssd_chunked(x, dt, a, bm, cm, 64)
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(state, state_p, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_mamba_forward_and_decode_launch_counts(cuda):
     """The ssm family on the card (reduced config, kernel="pallas"): one

@@ -4,7 +4,11 @@ package's.
 The same numpy inputs (made from a seed) go through ``repro`` (the Pallas
 kernel ``ops.ssd_intra`` in interpret mode, its jnp oracle
 ``ref.ssd_intra_ref`` and the model's ``_ssd_chunked``) and through
-``repro_torch`` (on the CPU the wrapper takes the plain PyTorch version).
+``repro_torch`` (on the CPU the wrappers take the plain PyTorch version:
+for the model's heads entry, the groups arrangement and ``ssd_intra_ref``,
+held here bit for bit to that arrangement written out).  The kernel's
+shared-memory plan, its route rule and its head shares are checked here
+too; they decide what the card runs.
 Tolerances: the kernel term 2e-4 in f32 (the reference's own,
 ``tests/test_kernels.py``); with bf16 x, one bf16 step of the output
 (2^-7 relative) plus 2e-4 against the reference's kernel, since both round
@@ -174,3 +178,168 @@ def test_kernel_term_is_the_scan_of_one_chunk():
     y_k = y_k.reshape(bsz, h, s, p).movedim(1, 2)
     np.testing.assert_allclose(y_k.numpy(), y_full.numpy(), rtol=SCAN_TOL,
                                atol=SCAN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the heads entry (the model's layout): plain version, checks, plan, route
+# ---------------------------------------------------------------------------
+
+def _heads_inputs(bsz, s, h, p, g, n, chunk=64, seed=4, valid=None):
+    """x [b, s, h, p], dt, dac (the within-chunk cumsum of dt * A) [b, s,
+    h], B, C [b, s, g, n] as f32 tensors; s a whole number of chunks.
+    Positions from ``valid`` on are zero-padding, as ``_pad_seq`` makes it
+    (dt = 0 there, so dac stays at the chunk's last value)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(bsz, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.normal(size=(bsz, s, h)), 0.0).astype(np.float32)
+    bm = (0.3 * rng.normal(size=(bsz, s, g, n))).astype(np.float32)
+    cm = (0.3 * rng.normal(size=(bsz, s, g, n))).astype(np.float32)
+    for t in (x, dt, bm, cm):
+        t[:, valid:] = 0
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    dac = np.cumsum((dt * a).reshape(bsz, s // chunk, chunk, h),
+                    axis=2).reshape(bsz, s, h).astype(np.float32)
+    return tuple(torch.from_numpy(v) for v in (x, dt, dac, bm, cm))
+
+
+def _groups_arrangement(x, dt, dac, bm, cm, chunk):
+    """What ``_ssd_chunked`` did before the heads entry: B and C repeated
+    over the heads, each operand copied into (batch, chunk, head) groups,
+    the [G, Q, N] term, y laid back."""
+    bsz, s, h, p = x.shape
+    rep, nc = h // bm.shape[2], s // chunk
+
+    def groups(t):
+        t = t.reshape((bsz, nc, chunk) + t.shape[2:]).movedim(3, 2)
+        return t.reshape((bsz * nc * h, chunk) + t.shape[4:]).contiguous()
+    y = ref.ssd_intra_ref(groups(cm.repeat_interleave(rep, dim=2)),
+                          groups(bm.repeat_interleave(rep, dim=2)),
+                          groups(x), groups(dt), groups(dac))
+    return y.reshape(bsz, nc, h, chunk, p).movedim(2, 3).reshape(bsz, s, h, p)
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_heads_entry_plain_is_the_groups_arrangement(s, groups):
+    """On the CPU the heads entry is the groups arrangement plus
+    ``ref.ssd_intra_ref`` bit for bit, so the model's CPU results do not
+    move; at s = 100 the sequence is zero-padded to two chunks first, as
+    ``_ssd_chunked`` pads it."""
+    sp = -(-s // 64) * 64
+    x, dt, dac, bm, cm = _heads_inputs(2, sp, 4, 8, groups, 16, valid=s)
+    before = SSD.ssd_intra_chunk.launches
+    y = ops.ssd_intra_heads(x, dt, dac, bm, cm, 64)
+    assert SSD.ssd_intra_chunk.launches == before
+    assert y.shape == (2, sp, 4, 8)
+    assert torch.equal(y, _groups_arrangement(x, dt, dac, bm, cm, 64))
+
+
+def test_heads_entry_matches_reference_kernel():
+    """The heads entry against the reference's Pallas kernel (interpret
+    mode) on the reference's own arrangement of the same operands, at the
+    kernel tolerance, with two head groups and a chunk of 32."""
+    x, dt, dac, bm, cm = _heads_inputs(1, 64, 4, 16, 2, 32, chunk=32)
+    y = SSD.ssd_intra_heads(x, dt, dac, bm, cm, 32).numpy()
+
+    def groups(t):
+        t = t.reshape((1, 2, 32) + t.shape[2:]).movedim(3, 2)
+        return jnp.asarray(t.reshape((8, 32) + t.shape[4:]).numpy())
+    want = rops.ssd_intra(groups(cm.repeat_interleave(2, dim=2)),
+                          groups(bm.repeat_interleave(2, dim=2)), groups(x),
+                          groups(dt), groups(dac))
+    want = np.asarray(want).reshape(1, 2, 4, 32, 16).transpose(
+        0, 1, 3, 2, 4).reshape(1, 64, 4, 16)
+    np.testing.assert_allclose(y, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("x_inner_stride", ValueError), ("b_inner_stride", ValueError),
+    ("heads_not_groups", ValueError), ("dt_heads", ValueError),
+    ("ragged_sequence", ValueError), ("chunk_too_long", ValueError),
+    ("x_float64", TypeError), ("mixed_dtype", TypeError),
+    ("bf16_dac", TypeError)])
+def test_heads_wrapper_rejects_bad_inputs(case, exc):
+    """A non-unit inner stride, a head count that does not split into the
+    groups, a mismatched dt, a sequence that is not whole chunks, a chunk
+    over 64 and a wrong dtype raise on either device, before a launch."""
+    x, dt, dac, bm, cm = _heads_inputs(2, 128, 4, 8, 2, 16)
+    chunk = 64
+    if case == "x_inner_stride":
+        x = torch.cat([x, x], dim=-1)[..., ::2]
+    elif case == "b_inner_stride":
+        bm = torch.cat([bm, bm], dim=-1)[..., ::2]
+    elif case == "heads_not_groups":
+        bm, cm = (torch.cat([t, t[:, :, :1]], dim=2) for t in (bm, cm))
+    elif case == "dt_heads":
+        dt = dt[:, :, :3]
+    elif case == "ragged_sequence":
+        chunk = 48
+    elif case == "chunk_too_long":
+        chunk = 128
+    elif case == "x_float64":
+        x = x.double()
+    elif case == "mixed_dtype":
+        bm = bm.bfloat16()
+    elif case == "bf16_dac":
+        dac = dac.bfloat16()
+    before = SSD.ssd_intra_chunk.launches
+    with pytest.raises(exc):
+        SSD.ssd_intra_heads(x, dt, dac, bm, cm, chunk)
+    assert SSD.ssd_intra_chunk.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("np_", [(128, 64), (128, 128), (5, 3), (32, 16),
+                                 (96, 72), (1, 1)])
+@pytest.mark.parametrize("heads", [1, 24])
+def test_plan_fits_a_block(dtype, np_, heads):
+    """Every width the wrapper takes fits one block's 232,448 bytes with at
+    least two x stages; a C/B row takes whole 128-byte boxes (TMA's
+    128-byte swizzle) and an x row a 16-byte pitch."""
+    n, p = np_
+    pl = SSD.plan(n, p, dtype, heads)
+    es = 4 if dtype == torch.float32 else 2
+    assert pl.smem_bytes <= SSD.SMEM_LIMIT
+    assert 2 <= pl.x_stages <= SSD.MAX_X_STAGES
+    assert 1 <= pl.cb_stages <= SSD.MAX_CB_STAGES
+    assert (pl.boxes - 1) * 128 < n * es <= pl.boxes * 128
+    assert pl.x_pitch % 16 == 0 and p * es <= pl.x_pitch < p * es + 16
+
+
+def test_plan_at_mamba2_widths():
+    """mamba2-130m (f32, N = 128, P = 64): the [G, Q, N] entry's one-head
+    items take two C/B stages and two x stages (216,192 bytes); the model's
+    24-head items go two heads at a time, with one C/B stage and four x
+    stages (217,216)."""
+    assert SSD.plan(128, 64, torch.float32, 1) == SSD.Plan(
+        2, 2, 4, 256, False, 216192)
+    assert SSD.plan(128, 64, torch.float32, 24) == SSD.Plan(
+        1, 4, 4, 256, True, 217216)
+
+
+def test_route_rule():
+    """TMA where x, B and C have 16-byte aligned bases, rows and
+    strides (the model's tensors, contiguous or column slices of its conv
+    output); element loads for odd widths, a bf16 row of 8 bytes or a base
+    off by one element."""
+    x, _, _, bm, cm = _heads_inputs(2, 128, 4, 8, 1, 16)
+    assert SSD.route(x, bm, cm) == "tma"
+    wide = torch.zeros(2, 128, 4 * 8 + 2 * 16)
+    xs = wide[..., :32].unflatten(-1, (4, 8))
+    bs, cs = (wide[..., k:k + 16].unflatten(-1, (1, 16)) for k in (32, 48))
+    assert SSD.route(xs, bs, cs) == "tma"
+    assert SSD.route(torch.zeros(6, 37, 5), torch.zeros(6, 37, 3)) == "scalar"
+    assert SSD.route(torch.zeros(3, 64, 4, dtype=torch.bfloat16)) == "scalar"
+    assert SSD.route(torch.zeros(3, 64, 8, dtype=torch.bfloat16)) == "tma"
+    assert SSD.route(torch.zeros(2 * 64 * 16 + 1)[1:].view(2, 64, 16)) == \
+        "scalar"
+
+
+@pytest.mark.parametrize("items,rep,shares", [(128, 24, 1), (32, 24, 4),
+                                              (1, 1, 1), (10, 24, 13),
+                                              (3072, 1, 1), (1, 24, 24)])
+def test_head_shares(items, rep, shares):
+    """The heads of a group are split only where the (batch, chunk, group)
+    items leave SMs idle, never into more shares than heads; mamba2-130m at
+    sequence 4096, batch 2 (128 items) keeps s once per item."""
+    assert SSD.head_shares(items, rep, 132) == shares
