@@ -8,9 +8,10 @@ in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s and ``mamba2-130m``'s full published widths, through
 the entry points a user calls: the Mamba-2 forward and greedy generation,
 forecast serving, one-GPU training, the 2-D Jigsaw (Cannon) training step
-at q = 1 and on a 2x2 mesh of four ranks sharing the card, and the 1-D
-Jigsaw (ring) training step on two ranks sharing the card.  Phases, each
-printed as a JSON line:
+at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
+Jigsaw (ring) training step on two ranks sharing the card, and both
+schemes' model groups replicated over a data axis of two (ZeRO-1, the
+1-D FSDP hybrid).  Phases, each printed as a JSON line:
 
   1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu,
      wx.cu, ring.cu, cannon.cu and ssd_chunk.cu, one nvcc each, started
@@ -122,6 +123,32 @@ printed as a JSON line:
      kernel launches per step of rollout r, finite losses, peak memory
      under 80 GB; then a second run of the same seed, whose loss and
      grad-norm history must equal the first's bit for bit;
+  9b. the data axis, with this process's engines freed, each phase this
+     file re-run as rank processes sharing the card (``--train-data-rank``)
+     on the train phase's weights (seed 0) and first batch of two, each
+     rank reading its one row (``pipeline="sharded"``), two ``dispatch``
+     steps at r = 1 in each of two runs in the same processes:
+     ``train_data_2d``, ``TrainEngine(mesh_model=1, mesh_data=2,
+     scheme="2d")`` at full width and depth, without ZeRO-1 and then with
+     it: the paper's headline layout (data-parallel copies of a model
+     group) at the size a card holds twice, and ZeRO-1 where it halves the
+     12 GB of masters and moments a rank; ``train_data_1d``,
+     ``TrainEngine(mesh_model=2, mesh_data=2, scheme="1d",
+     impl="ring_fused")`` with ZeRO-1, without the FSDP hybrid and then
+     with it (``shard_params_over_data``): two model groups' rings on one
+     card, each with its own IPC slots, and the weights cut over data.
+     Checks: each rank reads 1/2 (1/4) of the batch's bytes, bit for bit
+     its rows and block of the whole batch; a step's launches per rank are
+     ``train_2d``'s (18 r wx, every dx at one split term, 5 + 30 r
+     block_matmul) or ``train_1d``'s ((2 + 24 r) p ring_fwd, (2 + 12 r) p
+     ring_bwd, no block_matmul); step 1's loss and grad norm within 5e-2
+     of the train phase's scheme="none" step on the same batch; the two
+     runs' losses, grad norms and final parameters bit for bit; with
+     ZeRO-1 a rank's optimizer-state bytes at most half of those without
+     plus the leaves it keeps whole; under the FSDP hybrid half the weight
+     bytes; each run's summed peak under 80 GB; printed: the device time
+     per sample-step beside its bound, the data all-reduces' time and the
+     bytes through host memory, and the batch read's ``data_wait``;
   10. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -145,9 +172,10 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     step rounds each GEMM to bf16 before its bias and activation, the
     kernel after, through 3 blocks of bf16 residual stream); legacy f32
     1e-4;
-  * first training step against ``kernel="xla"``, and the 2-D step
-    against the ``scheme="none"`` step: loss and grad norm relative, each
-    gradient leaf max|a - b| / max|b|, all 5e-2 (the reference's bf16
+  * first training step against ``kernel="xla"``, and the 2-D step and
+    the data phases' first steps against the ``scheme="none"`` step: loss
+    and grad norm relative, each gradient leaf max|a - b| / max|b| (not
+    in the data phases), all 5e-2 (the reference's bf16
     loss-parity bound; the same rounding difference as the forecast step,
     through the backward too: the 2-D branch rounds each GEMM to bf16
     before its bias and GELU, the none path after);
@@ -2305,6 +2333,315 @@ def train_2d_worker(rank, tmp):
     return 0
 
 
+TRAIN_DATA = 2          # data ranks of the data-parallel phases
+
+
+def data_handoff(torch, eng, batch0):
+    """What the data-parallel phases take from the train phase, written
+    before its run moves the weights: the first batch (on the host) and
+    each 1-D model rank's shard fingerprint of the seed-0 weights (the 2-D
+    data ranks hold them whole)."""
+    import tempfile
+    from repro_torch.convert import shard_params_1d
+    from repro_torch.core import tree as ptree
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    torch.save({k: v.cpu() for k, v in batch0.items()}, tmp / "batch.pt")
+
+    def sums(tree):
+        return [float(t.double().sum()) for t in ptree.leaves(tree)]
+    prints = {"2d": sums(eng.params)}
+    for r in range(TRAIN_1D_P):
+        prints[f"1d{r}"] = sums(shard_params_1d(eng.params, r, TRAIN_1D_P))
+    (tmp / "fingerprints.json").write_text(json.dumps(prints))
+    return tmp
+
+
+def train_data_phase(torch, kind, tmp, r0, none_loss, none_norm, cfg):
+    """One of the data-parallel phases: ``TrainEngine`` on TRAIN_DATA
+    copies of a model group, this file re-run as its rank processes
+    sharing the card (``--train-data-rank``), each reading its row of the
+    train phase's first batch of two (``pipeline="sharded"``), two
+    ``dispatch`` steps at r = 1 in each of two runs in the same processes:
+    kind "2d" at (data 2, 1x1) without ZeRO-1 and then with it; kind "1d"
+    at (data 2, p 2), ``impl="ring_fused"`` with ZeRO-1, without the FSDP
+    hybrid and then with it.  Checks: reads, launches, step 1 against the
+    train phase's scheme="none" step, the two runs bit for bit, optimizer
+    or weight bytes, the summed peaks."""
+    p = 1 if kind == "2d" else TRAIN_1D_P
+    n = TRAIN_DATA * p
+    (tmp / "meta.json").write_text(json.dumps(dict(kind=kind, rollout=r0)))
+    res, wall = run_ranks("--train-data-rank", tmp, n)
+    if kind == "2d":
+        want = dict(wx=18 * r0, wx_dx=6 * r0, block_matmul=5 + 30 * r0,
+                    ring_fwd=0, ring_bwd=0)
+    else:
+        want = dict(wx=0, wx_dx=0, block_matmul=0,
+                    ring_fwd=(2 + 24 * r0) * p, ring_bwd=(2 + 12 * r0) * p)
+    for r, x in enumerate(res):
+        for run in x["runs"]:
+            check(run["launches"] == want, f"train_data_{kind} rank {r}: "
+                  f"launches {run['launches']}, want {want}")
+            if kind == "2d":
+                check(run["dx_terms"] == {"1": want["wx_dx"], "3": 0},
+                      f"train_data_2d rank {r}: dx launches by term count "
+                      f"{run['dx_terms']}, want all at one term")
+        check(x["block_equal"], f"train_data_{kind} rank {r}: its batch is "
+              "not its rows and block of the whole batch")
+        check(x["read_share"] == 1 / n, f"train_data_{kind} rank {r} read "
+              f"{x['read_share']} of the batch's bytes, want 1/{n}")
+        a, b = x["runs"]
+        check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+              and x["params_equal"], f"train_data_{kind} rank {r}: the two "
+              f"runs differ: {a['loss']} {b['loss']} {a['grad_norm']} "
+              f"{b['grad_norm']} params equal {x['params_equal']}")
+    loss, norm = res[0]["runs"][0]["loss"], res[0]["runs"][0]["grad_norm"]
+    check(all(run["loss"] == loss and run["grad_norm"] == norm
+              for x in res for run in x["runs"]),
+          f"train_data_{kind}: the ranks report different histories")
+    peaks = [[x["runs"][i]["peak_mem_gb"] for x in res] for i in range(2)]
+    first = dict(loss=loss[0], loss_none=none_loss,
+                 loss_rel_err=abs(loss[0] - none_loss) / abs(none_loss),
+                 grad_norm=norm[0], grad_norm_none=none_norm,
+                 grad_norm_rel_err=abs(norm[0] - none_norm) / none_norm,
+                 tol=TRAIN_TOL)
+    check(first["loss_rel_err"] <= TRAIN_TOL
+          and first["grad_norm_rel_err"] <= TRAIN_TOL,
+          f"train_data_{kind} step 1 vs scheme='none': {first}")
+    for i in range(2):
+        check(sum(peaks[i]) < PEAK_MEM_LIMIT, f"train_data_{kind} run {i}: "
+              f"the ranks' peaks sum to {sum(peaks[i]):.2f} GB")
+    opt = [[x["runs"][i]["opt_bytes"] for x in res] for i in range(2)]
+    weights = [[x["runs"][i]["weight_bytes"] for x in res] for i in range(2)]
+    if kind == "2d":
+        for x in res:
+            a, b = x["runs"]
+            check(b["opt_bytes"] <= a["opt_bytes"] / 2 + b["residue_bytes"]
+                  and b["opt_bytes"] < a["opt_bytes"],
+                  f"train_data_2d: ZeRO-1 keeps {b['opt_bytes']} bytes of "
+                  f"optimizer state against {a['opt_bytes']} without "
+                  f"(residue {b['residue_bytes']})")
+    else:
+        for x in res:
+            a, b = x["runs"]
+            ratio = b["weight_bytes"] / a["weight_bytes"]
+            check(abs(ratio - 0.5) < 0.01, f"train_data_1d: the FSDP "
+                  f"hybrid keeps {ratio:.4f} of the weight bytes")
+    # the ranks run at once on the one card, which works through the
+    # batch's two samples in the slowest rank's time (as train_2d_mesh)
+    device_ms = max(x["fwd_ms"] + x["bwd_ms"] for x in res) / TRAIN_BATCH
+    stats = dict(
+        ranks=n, mesh=f"data {TRAIN_DATA}, " + ("1x1" if kind == "2d"
+                                                else f"p {p}"),
+        rollout=r0, pipeline="sharded",
+        runs=(["zero1=False", "zero1=True"] if kind == "2d" else
+              ["zero1, fsdp=False", "zero1, fsdp=True"]),
+        loss=loss, grad_norm=norm, first_step_vs_none=first,
+        runs_bitwise_equal=True,
+        launches_per_rank=[[r["launches"] for r in x["runs"]] for x in res],
+        read_bytes=[x["read_bytes"] for x in res],
+        read_share=[x["read_share"] for x in res],
+        opt_state_bytes=opt, opt_residue_bytes=[[
+            r["residue_bytes"] for r in x["runs"]] for x in res],
+        weight_bytes=weights,
+        peak_mem_gb=peaks, peak_mem_gb_sum=[sum(v) for v in peaks],
+        slots_gb=[[r["slots_gb"] for r in x["runs"]] for x in res],
+        collectives_through_host=[x["runs"][0]["through_host"] for x in res],
+        gb_through_host=[x["runs"][0]["through_host_gb"] for x in res],
+        step_s=[[r["step_s"] for r in x["runs"]] for x in res],
+        device_fwd_ms=[x["fwd_ms"] for x in res],
+        device_bwd_ms=[x["bwd_ms"] for x in res],
+        batch=TRAIN_BATCH, rows_per_rank=TRAIN_BATCH // TRAIN_DATA,
+        device_fwd_bwd_ms_per_sample=device_ms,
+        bound_ms_per_sample=(train_2d_bound_ms_per_sample(cfg, r0)
+                             if kind == "2d" else
+                             train_1d_bound_ms_per_sample(p)),
+        data_wait_s=[x["read_s"] for x in res],
+        data_wait_share=[x["read_s"] / (x["read_s"] + sum(
+            sum(r["step_s"]) for r in x["runs"])) for x in res],
+        wall_s=wall, setup_s=[[r["setup_s"] for r in x["runs"]]
+                              for x in res])
+    if kind == "2d":
+        stats.update(
+            data_all_reduce_ms=[x["all_reduce_ms"] for x in res],
+            data_all_reduce_gb=[x["all_reduce_gb"] for x in res])
+    emit(phase=f"train_data_{kind}", **stats)
+    return stats
+
+
+def train_data_worker(rank, tmp):
+    """One rank of ``train_data_phase`` (this file run with
+    ``--train-data-rank``): the engine on the data mesh, its rows and block
+    of the first batch held against the whole batch, and two runs of two
+    dispatch steps each, the first step's launches counted; then the
+    forward and backward timed and, for kind "2d", the data all-reduces of
+    one step; results to rank<r>.json."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.kernels import ring as RING
+    from repro_torch.kernels import wx as WX
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.models import weathermixer as W
+    from repro_torch.train import step as STEP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    meta = json.loads((tmp / "meta.json").read_text())
+    kind, r0 = meta["kind"], meta["rollout"]
+    p = 1 if kind == "2d" else TRAIN_1D_P
+    runs = ([dict(zero1=False), dict(zero1=True)] if kind == "2d"
+            else [dict(zero1=True, fsdp=False), dict(zero1=True, fsdp=True)])
+    whole = torch.load(tmp / "batch.pt")
+    prints = json.loads((tmp / "fingerprints.json").read_text())
+    out = dict(runs=[])
+    batch = kept = None
+    for i, run in enumerate(runs):
+        t0 = time.perf_counter()
+        eng = TrainEngine(
+            "weathermixer-1b", reduced=False, mesh_model=p,
+            mesh_data=TRAIN_DATA, scheme=kind,
+            impl="ring_fused" if kind == "1d" else None, device="cuda",
+            config_override=get_config("weathermixer-1b").replace(
+                shard_params_over_data=run.get("fsdp", False)),
+            config=EngineConfig(steps=2, batch=TRAIN_BATCH,
+                                precision="bf16", lr=1e-4, seed=0,
+                                pipeline="sharded", prefetch=0,
+                                telemetry=False, zero1=run["zero1"]))
+        setup_s = time.perf_counter() - t0
+        mesh, cfg, jcfg = eng.mesh, eng.cfg, eng.jcfg
+        check(cfg.remat and cfg.kernel == "pallas" and cfg.n_layers == 3
+              and mesh.data_size == TRAIN_DATA and mesh.model_size == p
+              and jcfg.fsdp == run.get("fsdp", False)
+              and dist.get_backend() == "gloo", "unexpected data config")
+        if i == 0:
+            key = "2d" if kind == "2d" else f"1d{mesh.r}"
+            check([float(t.double().sum()) for t in ptree.leaves(eng.params)]
+                  == prints[key], "train_data: the engine's weights are not "
+                  "the train phase's")
+            t1 = time.perf_counter()
+            batch = eng.pipeline.get(0, r0)
+            torch.cuda.synchronize()
+            out["read_s"] = time.perf_counter() - t1
+            out["block_equal"] = all(
+                torch.equal(batch[k].cpu(), W.field_block(whole[k], cfg,
+                                                          jcfg))
+                for k in whole)
+            out["read_bytes"] = eng.pipeline.stats.rank_bytes["fields"][
+                mesh.rank]
+            out["read_share"] = out["read_bytes"] / (
+                whole["fields"].numel() * 4)
+            del whole
+
+        # -- the data path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in (BM.block_matmul, WX.wx, RING.ring_fwd, RING.ring_bwd):
+            f.launches = 0
+        WX.wx.layout_launches.clear()
+        WX.reset_dx_terms()
+        comm.through_host.clear()
+        comm.through_host_bytes.clear()
+        t1 = time.perf_counter()
+        m1 = eng.dispatch(batch, r0)
+        torch.cuda.synchronize()
+        step_s = [time.perf_counter() - t1]
+        rec = dict(launches=dict(wx=WX.wx.launches,
+                                 wx_dx=WX.wx.layout_launches[True],
+                                 block_matmul=BM.block_matmul.launches,
+                                 ring_fwd=RING.ring_fwd.launches,
+                                 ring_bwd=RING.ring_bwd.launches),
+                   dx_terms=WX.dx_terms(),
+                   through_host=dict(comm.through_host),
+                   through_host_gb=sum(comm.through_host_bytes.values())
+                   / 1e9)
+        # ------------------------------------------------------------------
+        t1 = time.perf_counter()
+        m2 = eng.dispatch(batch, r0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        leaves = ptree.leaves(eng.params)
+        dims = (ptree.leaves(eng.zero1.dims) if eng.zero1 is not None
+                else [None] * len(leaves))
+        rec.update(
+            loss=[float(m["loss"]) for m in (m1, m2)],
+            grad_norm=[float(m["grad_norm"]) for m in (m1, m2)],
+            step_s=step_s, setup_s=setup_s,
+            # the IPC slots are raw cudaMallocs, outside torch's allocator
+            slots_gb=RING.workspace_bytes() / 1e9,
+            peak_mem_gb=(torch.cuda.max_memory_allocated()
+                         + RING.workspace_bytes()) / 1e9,
+            opt_bytes=eng.opt_state_bytes(),
+            residue_bytes=sum(
+                t.numel() * t.element_size()
+                for k in ("mu", "nu", "master") if k in eng.opt_state
+                for t, dim in zip(ptree.leaves(eng.opt_state[k]), dims)
+                if dim is None),
+            weight_bytes=sum(
+                t.numel() * t.element_size() for path, t in _paths(eng.params)
+                if path[-1] == "w"))
+        out["runs"].append(rec)
+        if i == 0:
+            # the forward and backward (every rank at once: the loss is
+            # reduced over all of them) and, 2-D, the data all-reduces of
+            # a step
+            out["fwd_ms"], out["bwd_ms"] = fwd_bwd_ms(torch, eng.params,
+                                                      batch, cfg, jcfg, r0)
+            if kind == "2d":
+                out["all_reduce_ms"], out["all_reduce_gb"] = \
+                    timed_all_reduces(torch, comm, STEP, eng, batch, r0)
+            kept = [t.cpu() for t in leaves]
+        else:
+            def same(a, b):
+                if a.shape != b.shape:      # the FSDP hybrid's block of a
+                    n = b.shape[0]
+                    a = a.narrow(0, mesh.data_index * n, n)
+                return torch.equal(a, b.cpu())
+            out["params_equal"] = all(same(a, b)
+                                      for a, b in zip(kept, leaves))
+        eng.close()
+        del eng, m1, m2, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _paths(tree):
+    from repro_torch.core import tree as ptree
+    found = []
+    ptree.map_with_path(lambda path, t: found.append((path, t)), tree)
+    return found
+
+
+def timed_all_reduces(torch, comm, STEP, eng, batch, r0):
+    """The host time of every all-reduce of one step's gradients and loss
+    (each synchronised before and after; the step's own forward and
+    backward not counted), and the bytes they sum."""
+    real = comm.all_reduce_
+    spent = [0.0, 0]
+
+    def timed(x, *groups):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(x, *groups)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += x.numel() * x.element_size()
+        return out
+    comm.all_reduce_ = timed
+    try:
+        STEP.value_and_grad(eng.params, batch, eng.cfg, eng.jcfg, r0,
+                            eng.param_specs)
+    finally:
+        comm.all_reduce_ = real
+    return 1e3 * spent[0], spent[1] / 1e9
+
+
 def train_phase(torch, BM, WX):
     import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -2354,6 +2691,8 @@ def train_phase(torch, BM, WX):
     stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
     stats_1d = train_1d_phase(torch, eng, batch0, r0, mk, gk)
     stats_2dm = train_2d_mesh_phase(torch, eng, batch0, r0, mk, gk)
+    handoff = data_handoff(torch, eng, batch0)
+    none_loss, none_norm = float(mk["loss"]), float(global_norm(gk))
     del gk
     torch.cuda.empty_cache()
 
@@ -2440,7 +2779,18 @@ def train_phase(torch, BM, WX):
     emit(phase="train_repeat", bitwise_equal=True,
          loss=[h["loss"] for h in hist2])
     torch.cuda.empty_cache()
-    return launches, stats, stats_2d, stats_1d, stats_2dm
+
+    # the data-parallel phases, with this process's engines freed
+    import shutil
+    try:
+        t0 = time.perf_counter()
+        stats_d = {kind: train_data_phase(torch, kind, handoff, r0,
+                                          none_loss, none_norm, cfg)
+                   for kind in ("2d", "1d")}
+        emit(phase="train_data", wall_s=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(handoff, ignore_errors=True)
+    return launches, stats, stats_2d, stats_1d, stats_2dm, stats_d
 
 
 def main():
@@ -2495,9 +2845,15 @@ def main():
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
-    train_launches, train, t2, t1, t2m = train_phase(torch, BM, WX)
+    train_launches, train, t2, t1, t2m, td = train_phase(torch, BM, WX)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
+    # the data phases' launches per rank (each run's first step)
+    data_launches = {kind: {k: [sum(r[k] for r in x) for x in
+                                td[kind]["launches_per_rank"]]
+                            for k in ("wx", "block_matmul", "ring_fwd",
+                                      "ring_bwd")}
+                     for kind in td}
 
     step = [r for r in rows if r["per_step"]]
 
@@ -2545,13 +2901,15 @@ def main():
 
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
+        data = data_launches["1d"][f"ring_{kind}"]
         return {
             "name": f"ring_{kind}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": f"src/repro/kernels/fused_ring.py:{line}",
-            "launches": sum(launches),
-            "launches_by_path": {"train_1d": launches},
+            "launches": sum(launches) + sum(data),
+            "launches_by_path": {"train_1d": launches,
+                                 "train_data_1d": data},
             "max_abs_err": ring_worst[kind],
             # times: one rank's launches of a 1-D training sample-step at
             # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
@@ -2573,11 +2931,14 @@ def main():
         "replaces": "src/repro/kernels/block_matmul.py:37",
         "launches": serve_launches + train_launches
         + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"])
+        + sum(data_launches["2d"]["block_matmul"])
         + fwd_launches["block_matmul"] + gen_launches["block_matmul"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches,
                              "train_2d": t2["block_matmul_launches"],
                              "train_2d_mesh": mesh_launches["block_matmul"],
+                             "train_data_2d":
+                             data_launches["2d"]["block_matmul"],
                              "mamba_forward": fwd_launches["block_matmul"],
                              "mamba_generate": gen_launches["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
@@ -2628,11 +2989,12 @@ def main():
         "source": "src/repro_torch/kernels/csrc/wx.cu",
         "replaces": "src/repro/kernels/fused_ring.py:521",
         "launches": t2["wx_launches"] + sum(mesh_launches["wx_fwd"])
-        + sum(mesh_launches["wx_dx"]),
+        + sum(mesh_launches["wx_dx"]) + sum(data_launches["2d"]["wx"]),
         "launches_by_path": {
             "train_2d": t2["wx_launches"],
             "train_2d_mesh": [a + b for a, b in zip(mesh_launches["wx_fwd"],
-                                                    mesh_launches["wx_dx"])]},
+                                                    mesh_launches["wx_dx"])],
+            "train_data_2d": data_launches["2d"]["wx"]},
         "max_abs_err": wx_worst,
         "dx_terms_by_path": {"train_2d": t2["wx_dx_terms"],
                              "train_2d_mesh": t2m["wx_dx_terms"]},
@@ -2720,6 +3082,8 @@ if __name__ == "__main__":
             sys.exit(train_1d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-2d-rank"]:
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--train-data-rank"]:
+            sys.exit(train_data_worker(int(sys.argv[2]), sys.argv[3]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -13,9 +13,11 @@ Both functions go through numpy, so neither package imports the other:
       ``models/weathermixer.py::param_spec_2d``);
   ``gather_params_2d(shards, q)``  every rank's shard -> the whole tree,
       bit for bit;
-  ``shard_params_1d(tree, r, p)`` / ``gather_params_1d(shards, p)``  the
-      same for rank r of a p-rank 1-D Jigsaw mesh (``param_spec_1d``: every
-      ``w`` cut along its contracting dim, every ``b`` along its out dim);
+  ``shard_params_1d(tree, r, p, d, data, fsdp)`` /
+      ``gather_params_1d(shards, p, data, fsdp)``  the same for rank (d, r)
+      of a (data, model=p) 1-D Jigsaw mesh (``param_spec_1d``: every ``w``
+      cut along its contracting dim, and under the FSDP hybrid its out dim
+      over data; every ``b`` along its out dim);
   ``params_from_npz(path)``  a reference pytree saved flat with
       ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port.
 
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as ptree
-from repro_torch.core.sharding import MDOM_AXIS, Mesh, Mesh1D
+from repro_torch.core.sharding import (DATA_AXIS, MDOM_AXIS, MODEL_AXIS,
+                                      Mesh, Mesh1D, sanitize_spec)
 from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
@@ -151,32 +154,50 @@ def gather_params_2d(shards, q: int):
         shards[0])
 
 
-def shard_params_1d(tree, r: int, p: int):
-    """Rank r's shard of a whole parameter tree on a p-rank 1-D mesh:
-    every ``w`` cut along its contracting (last) dim, every ``b`` along its
-    (last) dim, ``scale``, ``bias`` and ``blend`` whole.  Leaves are numpy
-    arrays or tensors; the shard's leaves own their memory."""
-    mesh = Mesh1D(p=p, r=r)
-    return ptree.map_with_path(
-        lambda path, a: _own(mesh.block(a, param_spec_1d(path, a.ndim))),
-        tree)
+def shard_params_1d(tree, r: int, p: int, d: int = 0, data: int = 1,
+                    fsdp: bool = False):
+    """Rank (d, r)'s shard of a whole parameter tree on a (data, model=p)
+    1-D mesh: every ``w`` cut along its contracting (last) dim and, under
+    the FSDP hybrid (``fsdp``), along its out dim over the ``data`` ranks
+    where their count divides it; every ``b`` along its (last) dim;
+    ``scale``, ``bias`` and ``blend`` whole (``param_spec_1d``,
+    sanitized).  Leaves are numpy arrays or tensors; the shard's leaves own
+    their memory."""
+    mesh = Mesh1D(p=p, r=r, data_size=data, data_index=d)
+
+    def shard(path, a):
+        spec = sanitize_spec(a.shape, param_spec_1d(path, a.ndim, fsdp),
+                             mesh)
+        return _own(mesh.block(a, spec))
+    return ptree.map_with_path(shard, tree)
 
 
-def gather_params_1d(shards, p: int):
-    """The whole tree from the p shards, listed in rank order; replicated
-    leaves are taken from rank 0."""
-    if len(shards) != p:
+def gather_params_1d(shards, p: int, data: int = 1, fsdp: bool = False):
+    """The whole tree from the data x p shards, listed in rank order
+    d * p + r; replicated leaves are taken from rank 0.  Under ``fsdp`` a
+    ``w``'s whole out dim is p times its linear's bias block (the bias is
+    never cut over data), which says whether its shards were cut."""
+    if len(shards) != p * data:
         raise ValueError(f"gather_params_1d: {len(shards)} shards for "
-                         f"{p} ranks")
+                         f"{data} x {p} ranks")
+
+    def cat(leaves, dim):
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.cat(leaves, dim)
+        return np.concatenate(leaves, dim)
 
     def gather(path, *leaves):
-        cut = [d for d, a in enumerate(param_spec_1d(path, leaves[0].ndim))
-               if a]
-        if not cut:
-            return _own(leaves[0])
-        cat = torch.cat if isinstance(leaves[0], torch.Tensor) \
-            else np.concatenate
-        return _own(cat(leaves, cut[0]))
+        spec = param_spec_1d(path, leaves[0].ndim, fsdp)
+        if DATA_AXIS in spec:
+            out = p * _leaf_at(shards[0], path[:-1] + ("b",)).shape[-1]
+            if out % data:
+                spec = tuple(None if e == DATA_AXIS else e for e in spec)
+        cut = spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+        per_data = [leaves[k] if cut is None else cat(leaves[k:k + p], cut)
+                    for k in range(0, len(leaves), p)]
+        if DATA_AXIS in spec:
+            return _own(cat(per_data, spec.index(DATA_AXIS)))
+        return _own(per_data[0])
 
     return ptree.map_with_path(
         lambda path, _: gather(path, *(_leaf_at(s, path) for s in shards)),

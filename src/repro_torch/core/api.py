@@ -44,6 +44,9 @@ class JigsawConfig:
     # this rank's place on the mesh: Mesh1D under "1d", Mesh under "2d"
     # (None: a one-rank mesh)
     mesh: Optional[Union[Mesh, Mesh1D]] = None
+    # scheme="1d": the FSDP hybrid, each weight's out dim also cut over
+    # the data axis (core/jigsaw.py::jigsaw_linear)
+    fsdp: bool = False
 
     def __post_init__(self):
         # fail fast on unknown knobs and on the 1-D impl that is not ported
@@ -118,7 +121,8 @@ def linear_apply(params, x: torch.Tensor,
     if cfg.scheme == "1d":
         y = jigsaw_linear(x, params["w"], params.get("b"), mesh=cfg.mesh_1d,
                           impl=cfg.impl, accum_dtype=cfg.accum_dtype,
-                          kernel=cfg.kernel, compute_dtype=cfg.compute_dtype)
+                          kernel=cfg.kernel, compute_dtype=cfg.compute_dtype,
+                          fsdp=cfg.fsdp)
         return act(epilogue)(y)
     x, w, b = _cast_operands(x, params["w"], params.get("b"),
                              cfg.compute_dtype)

@@ -18,7 +18,8 @@ collective:
       in rank order, in one library call (the ring form of the same
       gather, the reference's ``_rank_order_all_gather``, is
       ``kernels/fused_ring.py::ring_all_gather``); its backward is the
-      reduce-scatter of the cotangent;
+      reduce-scatter of the cotangent; ``gather_shards`` is the same gather
+      of a parameter's shards (the FSDP hybrid), reduce-scattering in f32;
   ``reduce_scatter(x, group, dim)``  the sum over ``group``, of which rank
       r keeps chunk r along ``dim`` (``psum_scatter(tiled=True)``, the 1-D
       ``rs`` impl); its backward is the all-gather;
@@ -163,13 +164,16 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduce.apply(x, group)
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum over ``group`` outside autograd (gradients, metrics);
-    a bf16 tensor is summed in f32 and rounded once."""
-    if group is None:
+def all_reduce_(x: torch.Tensor, *groups) -> torch.Tensor:
+    """In-place sum over each of ``groups`` in turn (None: none) outside
+    autograd (gradients, metrics); a bf16 tensor is summed in f32 and
+    rounded once, after the last group."""
+    groups = [g for g in groups if g is not None]
+    if not groups:
         return x
     acc = x.float().contiguous()         # x itself when f32 and contiguous
-    _all_reduce(acc, group)
+    for group in groups:
+        _all_reduce(acc, group)
     return x if acc is x else x.copy_(acc)
 
 
@@ -221,6 +225,30 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _gather(dy, ctx.group, ctx.dim), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _scatter_sum(dy.float(), ctx.group, ctx.dim).to(dy.dtype), \
+            None, None
+
+
+def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A parameter's shards (the FSDP hybrid's out-dim blocks) gathered
+    over ``group`` along ``dim`` in rank order, differentiable: the
+    backward reduce-scatters the cotangent in f32 and rounds it once, as
+    ``all_reduce_`` sums the gradient of a parameter each rank holds whole,
+    so the two layouts give a rank the same gradient bits (a two-rank sum
+    is one IEEE addition either way)."""
+    if group is None:
+        return x
+    return _GatherShards.apply(x, group, dim % x.dim())
 
 
 def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

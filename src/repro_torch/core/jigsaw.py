@@ -161,18 +161,40 @@ def jigsaw_matmul_1d(x: torch.Tensor, w: torch.Tensor, *, mesh: Mesh1D,
     return comm.all_reduce(partial, group).narrow(-1, me * chunk, chunk)
 
 
+def fsdp_cut(m: int, mesh: Mesh1D) -> bool:
+    """Whether the FSDP hybrid cuts a 1-D weight of out dim ``m`` over the
+    data axis: there is more than one data rank and their count divides it
+    (the reference's ``fsdp_ok``; else the weight stays whole on every
+    data rank)."""
+    return mesh.data_size > 1 and m % mesh.data_size == 0
+
+
 def jigsaw_linear(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None, *, mesh: Mesh1D,
                   impl: str = "rs",
                   accum_dtype: Optional[torch.dtype] = torch.float32,
                   kernel: str = "xla",
-                  compute_dtype: Optional[torch.dtype] = None
-                  ) -> torch.Tensor:
+                  compute_dtype: Optional[torch.dtype] = None,
+                  fsdp: bool = False) -> torch.Tensor:
     """1-D Jigsaw linear ``x @ w.T + b`` on the rank's blocks: x
     [..., d/p], w [m, d/p], b [m/p] (the rank's chunk of the bias; added
-    after the reduce, no communication) -> [..., m/p].  The reference's
-    FSDP hybrid (``w_data_sharded``) is not ported: it needs the data axis
-    (``launch/shapes.py::jigsaw_for`` raises for it)."""
+    after the reduce, no communication) -> [..., m/p].
+
+    ``fsdp`` (the FSDP hybrid, the reference's ``w_data_sharded``): where
+    ``fsdp_cut`` holds for the whole out dim m = p * len(b) (the bias
+    block is never cut over data), w is this data rank's [m/data, d/p]
+    block of it, and its blocks are all-gathered over the data group in
+    rank order before the product (the reference's ``core/jigsaw.py:
+    399-401``); the gather's backward reduce-scatters dw over data, the one
+    data reduction such a weight's gradient gets.  The gather runs on the
+    stored parameter, before the policy cast."""
+    if fsdp and mesh.data_size > 1:
+        if b is None:
+            raise ValueError("jigsaw_linear: the FSDP hybrid reads the "
+                             "whole out dim from the bias block; this "
+                             "linear has none")
+        if fsdp_cut(mesh.p * b.shape[-1], mesh):
+            w = comm.gather_shards(w, mesh.data_group, -2)
     x, w, b = _cast_operands(x, w, b, compute_dtype)
     if x.shape[-1] != w.shape[1]:
         raise ValueError(f"jigsaw_linear: x {tuple(x.shape)} and w "

@@ -2,17 +2,18 @@
 the device, and prefetched by a background thread (the port of
 ``repro/data/pipeline.py``; one process is one rank).
 
-On one device (``mesh=None``) both modes read the whole batch.  On a mesh
+On one device (``mesh=None``) both modes read the whole batch. On a mesh
 ``"sync-full"`` makes the whole batch on every rank (the model cuts its
 block), and ``"sharded"`` reads only this rank's block (paper §5: every
 model-parallel rank loads its slice): the ``_ReadPlan`` of each key lists
-the boxes of the grid whose pixels make up the block that
-``models/weathermixer.py::field_block`` cuts from the patchified fields
-(``launch/specs.py::batch_specs``), and the pipeline hands the model that
-block, [B, T/q, p*p*C/q] under 2-D, [B, T, p*p*C/p] under 1-D, bit-equal
-to cutting the whole batch.  A token band need not be whole patch rows, so
-a block is up to three boxes of patches by up to five of in-patch pixels.
-``PipelineStats`` counts the bytes each rank reads.
+its data rank's rows of the batch and the boxes of the grid whose pixels
+make up the block that ``models/weathermixer.py::field_block`` cuts from
+the patchified fields (``launch/specs.py::block_specs``), and the pipeline
+hands the model that block, [b, T/q, p*p*C/q] under 2-D, [b, T, p*p*C/p]
+under 1-D (b = B / data, or B where the data extent does not divide it),
+bit-equal to cutting the whole batch.  A token band need not be whole
+patch rows, so a block is up to three boxes of patches by up to five of
+in-patch pixels.  ``PipelineStats`` counts the bytes each rank reads.
 
 Batches are a pure function of (seed, step, horizon); the prefetch thread
 changes timing only, never values.
@@ -34,9 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core.sharding import Spec, block_range
+from repro_torch.core.sharding import Spec, block_range, sanitize_batch
 from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
-from repro_torch.launch.specs import batch_specs
+from repro_torch.launch.specs import block_specs
 
 MODES = ("sharded", "sync-full")
 
@@ -48,11 +49,11 @@ MODES = ("sharded", "sync-full")
 @dataclasses.dataclass
 class PipelineStats:
     """Host-side read accounting, updated by the pipeline once per batch:
-    ``rank_bytes[key][rank]``, the bytes each rank read (``rank`` = i * q +
-    j on the mesh, -1 for a whole-batch read): what ``io_bytes_per_rank``
-    models.  One process is one rank, so every byte read was made here
-    (the reference's ``generated_bytes`` deduplicates the reads of the
-    devices one host feeds, and has no counterpart).
+    ``rank_bytes[key][rank]``, the bytes each rank read (``rank`` the
+    global rank, ``Mesh.rank``; -1 for a whole-batch read): what
+    ``io_bytes_per_rank`` models. One process is one rank, so every byte
+    read was made here (the reference's ``generated_bytes`` deduplicates
+    the reads of the devices one host feeds, and has no counterpart).
 
     ``record_batch`` applies one batch's reads under the tracer's lock and
     adds the totals to its counters in the same critical section, so the
@@ -126,21 +127,25 @@ class _Read:
 @dataclasses.dataclass(frozen=True, eq=False)
 class _ReadPlan:
     """This rank's reads for a batch spec: the block's shape
-    [B, tokens, patch dim] and the boxes that fill it.  Built once per
-    pipeline and spec (specs and shapes are step-invariant), so the keys
-    of one spec share it."""
+    [b, tokens, patch dim], its rows of the batch and the boxes that fill
+    it.  Built once per pipeline and spec (specs and shapes are
+    step-invariant), so the keys of one spec share it."""
     shape: Tuple[int, int, int]
+    rows: slice
     reads: Tuple[_Read, ...]
 
 
 def read_plan(spec: Spec, mesh, batch: int, lat: int, lon: int,
               channels: int, patch: int) -> _ReadPlan:
-    """The boxes of the [B, lat, lon, C] grid whose pixels make up this
-    rank's block under ``spec`` of the patchified fields [B, T, p*p*C]
-    (``weathermixer.patchify``: tokens patch-row-major, the patch dim
-    [in-patch row, in-patch col, channel])."""
+    """The rows of the batch and the boxes of the [B, lat, lon, C] grid
+    whose pixels make up this rank's block under ``spec`` of the
+    patchified fields [B, T, p*p*C] (``weathermixer.patchify``: tokens
+    patch-row-major, the patch dim [in-patch row, in-patch col, channel]):
+    the rows [d*b, (d+1)*b) of data rank d (b = B / data; every row where
+    the data extent does not divide B, ``sanitize_batch``)."""
     p = patch
     grid = (lat // p, lon // p)
+    r0, r1 = block_range(mesh, sanitize_batch(spec, mesh, batch)[0], batch)
     t0, t1 = block_range(mesh, spec[1], grid[0] * grid[1])
     k0, k1 = block_range(mesh, spec[2], p * p * channels)
     reads = []
@@ -159,7 +164,8 @@ def read_plan(spec: Spec, mesh, batch: int, lat: int, lon: int,
                 tokens=slice(tok, tok + dims[0] * dims[2]),
                 cols=slice(col, col + dims[1] * dims[3] * dims[4]),
                 dims=dims))
-    return _ReadPlan((batch, t1 - t0, k1 - k0), tuple(reads))
+    return _ReadPlan((r1 - r0, t1 - t0, k1 - k0), slice(r0, r1),
+                     tuple(reads))
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +204,8 @@ class WeatherBatchSource:
                           for k in self.keys}
             got = self.ds.sample_index(
                 step, self.batch_size,
-                [(r.lat, r.lon, r.chan) for r in plan.reads], horizon)
+                [(r.lat, r.lon, r.chan) for r in plan.reads], horizon,
+                rows=plan.rows)
             for r, box in zip(plan.reads, got):
                 na, ni, nb, nj, nc = r.dims
                 for k, v in box.items():
@@ -214,7 +221,7 @@ class InputPipeline:
 
     ``mesh``: this rank's ``Mesh`` or ``Mesh1D``, or None (one device);
     ``specs``: the batch keys' specs over the patchified fields
-    (``launch/specs.py::batch_specs``), required with a mesh.
+    (``launch/specs.py::block_specs``), required with a mesh.
     ``prefetch`` is the number of batches the background thread keeps in
     flight (0: batches are made on the caller's thread).  ``cursor`` is the
     next step the pipeline will serve: batches are pure functions of the
@@ -236,8 +243,7 @@ class InputPipeline:
         self.source = source
         self.mesh = mesh
         self.specs = specs or {}
-        self.rank = (-1 if mesh is None
-                     else mesh.dom_index * mesh.tp_size + mesh.tp_index)
+        self.rank = -1 if mesh is None else mesh.rank
         self.mode = mode
         self.prefetch = int(prefetch)
         self.stats = PipelineStats()
@@ -416,8 +422,8 @@ def make_pipeline(cfg, *, batch_size: int, mode: str = "sharded",
                   prefetch: int = 2, seed: int = 0, device="cuda",
                   mesh=None) -> InputPipeline:
     """The pipeline of a mixer-family ModelConfig; on a ``mesh`` its
-    batches are laid out by ``launch/specs.py::batch_specs``."""
-    specs = None if mesh is None else batch_specs(cfg, mesh.rules)
+    batches are laid out by ``launch/specs.py::block_specs``."""
+    specs = None if mesh is None else block_specs(cfg, mesh.rules)
     return InputPipeline(make_source(cfg, batch_size, seed=seed), mesh=mesh,
                          specs=specs, mode=mode, prefetch=prefetch,
                          device=device)

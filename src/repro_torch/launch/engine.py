@@ -6,11 +6,15 @@ The engine owns
   * the config, the precision policy and the ``JigsawConfig``: on one
     device ``scheme="none"`` (the whole contraction is local, as the
     reference forces whenever ``mesh_model * mesh_data == 1``); with
-    ``mesh_model=p`` ranks ``scheme="1d"`` on a (data=1, model=p) mesh
+    ``mesh_model=p`` ranks ``scheme="1d"`` on a (data, model=p) mesh
     (``impl`` picks how each linear's reduce completes), or with
-    ``mesh_model=q*q`` ranks ``scheme="2d"`` on a (data=1, mdom=q, mtp=q)
-    mesh, one process per rank (``launch/mesh.py``), each holding its
-    shard of the parameters and of the optimizer state;
+    ``mesh_model=q*q`` ranks ``scheme="2d"`` on a (data, mdom=q, mtp=q)
+    mesh, ``mesh_data`` copies of the model group, one process per rank
+    (``launch/mesh.py``), each holding its shard of the parameters
+    (``launch/specs.py::param_specs``; under 1-D with the config's
+    ``shard_params_over_data`` the FSDP hybrid cuts the weights over data
+    too) and of the optimizer state (ZeRO-1, ``EngineConfig.zero1``: each
+    data rank keeps its slice of the moments and masters);
   * the parameters and the Adam state, updated in place each step;
   * one step function per rollout length (the paper's §6 randomized
     rollout: step i runs ``r_sched[i]`` passes of the processor);
@@ -20,12 +24,12 @@ The engine owns
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
-only its block of the batch (``pipeline="sharded"``, the default: paper
-§5), or makes the whole batch and takes its block (``"sync-full"``: the
-same blocks, bit for bit); every rank computes the same loss and gradient
-norm, and rank 0 alone prints and writes the metrics.  Left for later
-slices (ROADMAP.md): checkpoints and resume, preemption, ZeRO-1 and a data
-axis (queue 1 item 8) and the analytic cost model.  ``close()`` releases
+only its block of the batch, its data rank's rows of it (``pipeline=
+"sharded"``, the default: paper §5), or makes the whole batch and takes its
+block (``"sync-full"``: the same blocks, bit for bit); every rank computes
+the same loss and gradient norm, and rank 0 alone prints and writes the
+metrics.  Left for later slices (ROADMAP.md): checkpoints and resume,
+preemption and the analytic cost model.  ``close()`` releases
 the ring's and the Cannon's IPC workspaces (collective).
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
@@ -51,6 +55,7 @@ from repro_torch.core import precision
 from repro_torch.core import tree as ptree
 from repro_torch.data.pipeline import InputPipeline, make_pipeline
 from repro_torch.kernels import ring
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
@@ -79,6 +84,7 @@ class EngineConfig:
                                # "sync-full" (the whole batch); the same
                                # batches on 1 device
     prefetch: int = 2          # 0 disables the background thread
+    zero1: bool = False        # ZeRO-1: shard optimizer state over data
     metrics_out: Optional[str] = None
     metrics_format: str = "jsonl"  # "jsonl" (append per flush) | "json"
                                # (whole history at the end of the run)
@@ -103,10 +109,6 @@ class TrainEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainEngine: CUDA is not available; pass "
                                "device='cpu' to train on the CPU")
-        if mesh_data > 1:
-            raise NotImplementedError(
-                "TrainEngine: mesh_data > 1 is not ported yet (ROADMAP.md, "
-                "queue 1 item 8: data-parallel axis and ZeRO-1)")
         if config.metrics_format not in ("jsonl", "json"):
             raise ValueError(
                 f"unknown metrics_format {config.metrics_format!r} "
@@ -135,7 +137,8 @@ class TrainEngine:
                     "the collectives to GSPMD in the reference, which has "
                     "no torch counterpart; pass scheme='1d' or '2d'")
             make = make_ring_mesh if cfg.scheme == "1d" else make_host_mesh
-            self.mesh = make(model=mesh_model, device=self.device)
+            self.mesh = make(model=mesh_model, data=mesh_data,
+                             device=self.device)
             if self.device.type == "cuda":
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
@@ -144,8 +147,7 @@ class TrainEngine:
             cfg = cfg.replace(scheme="none", impl="rs")
         self.cfg = cfg
         self.jcfg = jigsaw_for(cfg).replace(mesh=self.mesh)
-        self.is_rank0 = self.mesh is None or (
-            self.mesh.dom_index == self.mesh.tp_index == 0)
+        self.is_rank0 = self.mesh is None or self.mesh.rank == 0
 
         self.tracer = telemetry.Tracer(enabled=config.telemetry)
         telemetry.set_tracer(self.tracer)
@@ -155,7 +157,8 @@ class TrainEngine:
             mesh_data=mesh_data, scheme=cfg.scheme, impl=self.jcfg.impl,
             kernel=cfg.kernel,
             precision=self.policy.name, steps=config.steps,
-            batch=config.batch, rollout=config.rollout, accum=config.accum)
+            batch=config.batch, rollout=config.rollout, accum=config.accum,
+            zero1=config.zero1)
 
         if init_params is None:
             self.params = M.init(cfg, seed=config.seed, device=self.device)
@@ -170,18 +173,28 @@ class TrainEngine:
                                dtype=pdt if config.precision
                                and p.is_floating_point() else p.dtype,
                                copy=True), init_params)
+        # the shards' specs and ZeRO-1's cut, from the whole parameters
+        self.param_specs = self.zero1 = None
         if self.mesh is not None:
             # every rank holds the whole init; each keeps its shard
             m = self.mesh
-            self.params = (shard_params_1d(self.params, m.r, m.p)
-                           if cfg.scheme == "1d"
-                           else shard_params_2d(self.params, m.i, m.j, m.q))
+            self.param_specs = specs.sanitize_tree(
+                self.params, specs.param_specs(self.params, cfg, m.rules), m)
+            if config.zero1 and m.data_size > 1:
+                self.zero1 = adam.Zero1(
+                    specs.zero1_dims(self.params, self.param_specs, m),
+                    m.data_index, m.data_size, m.data_group)
+            self.params = (
+                shard_params_1d(self.params, m.r, m.p, m.data_index,
+                                m.data_size, self.jcfg.fsdp)
+                if cfg.scheme == "1d"
+                else shard_params_2d(self.params, m.i, m.j, m.q))
         pol = self.policy
         self.adam_cfg = adam.AdamConfig(
             weight_decay=0.0, master_weights=pol.master_weights,
             state_dtype=None if pol.moment_dtype is None
             else precision.name_of(pol.moment_dtype))
-        self.opt_state = adam.init(self.params, self.adam_cfg)
+        self.opt_state = adam.init(self.params, self.adam_cfg, self.zero1)
         self.lr_fn = partial(
             sched.warmup_cosine, base_lr=config.lr,
             warmup_steps=max(config.steps // 10, 1),
@@ -191,7 +204,8 @@ class TrainEngine:
         self.step_fns = {
             r: make_train_step(cfg, self.jcfg, adam_cfg=self.adam_cfg,
                                lr_fn=self.lr_fn, rollout=r,
-                               accum=config.accum)
+                               accum=config.accum, specs=self.param_specs,
+                               zero1=self.zero1)
             for r in range(1, config.rollout + 1)}
         r_rng = np.random.default_rng(config.seed + 1)
         self.r_sched = (
@@ -204,6 +218,12 @@ class TrainEngine:
         self.history: List[Dict] = []
         self._metrics_flushed = 0   # history records already appended
         self.step_idx = 0
+
+    def opt_state_bytes(self) -> int:
+        """This rank's bytes of optimizer state: moments, and masters
+        where the policy keeps them (ZeRO-1 divides them by the data
+        extent, but for the leaves it leaves whole)."""
+        return adam.state_bytes(self.opt_state)
 
     def _make_pipeline(self, prefetch: int) -> InputPipeline:
         return make_pipeline(self.cfg, batch_size=self.config.batch,

@@ -12,14 +12,12 @@ def jigsaw_for(cfg: ModelConfig) -> JigsawConfig:
     # legacy (no named policy): compute_dtype stays unset, so linears see
     # the params' and activations' own dtypes, as in the reference
     cd = None if pol.name == "legacy" else pol.compute_dtype
-    # impl applies to scheme="1d" only (the reference passes it always and
-    # warns when another scheme ignores it)
+    # impl and the FSDP hybrid apply to scheme="1d" only (the reference
+    # passes both always: its impl warns when another scheme ignores it,
+    # and its 2-D linears never read fsdp)
     one_d = cfg.scheme == "1d"
-    if one_d and cfg.shard_params_over_data:
-        raise NotImplementedError(
-            "shard_params_over_data (the FSDP-hybrid weight layout) needs "
-            "the data axis (ROADMAP.md, queue 1 item 8)")
     return JigsawConfig(scheme=cfg.scheme,
                         impl=cfg.impl if one_d else "rs",
+                        fsdp=one_d and cfg.shard_params_over_data,
                         kernel=cfg.kernel, accum_dtype=pol.accum_dtype,
                         compute_dtype=cd)

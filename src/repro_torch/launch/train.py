@@ -7,11 +7,13 @@ flags that are ported, plus ``--device`` and ``--init-params``).
       [--precision bf16] [--kernel pallas|xla] [--pipeline sharded] \\
       [--prefetch 2] [--metrics-out m.jsonl] [--device cuda|cpu]
 
-1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank (the
-launcher gives each its rank and the rendezvous; gloo on the CPU, NCCL on
-GPUs, gloo for ranks that share a card: four ranks of the 2x2 mesh fit on
-one H100).  Each rank reads only its block of the batch (``--pipeline
-sharded``, the default; ``sync-full`` makes the whole batch on every rank):
+1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
+group replicated ``--mesh-data`` times (the launcher gives each process
+its rank and the rendezvous; gloo on the CPU, NCCL on GPUs, gloo for ranks
+that share a card: four ranks of the 2x2 mesh fit on one H100).  Each rank
+reads only its block of its data rank's rows of the batch (``--pipeline
+sharded``, the default; ``sync-full`` makes the whole batch on every rank);
+``--zero1`` shards the optimizer state over data:
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
@@ -19,6 +21,9 @@ sharded``, the default; ``sync-full`` makes the whole batch on every rank):
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 4 \\
       --scheme 2d [--full] [--device cpu] ...
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --mesh-model 2 \\
+      --mesh-data 2 --scheme 1d --zero1 [--device cpu] ...
 
 ``--impl`` (1-D only) defaults to the config's own (weathermixer-1b:
 ``ring_chunked``).
@@ -44,7 +49,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
           telemetry: bool = True, pipeline: str = "sharded",
           prefetch: int = 2, accum: int = 1, eval_every: int = 0,
           device: str = "cuda", mesh_model: int = 1, mesh_data: int = 1,
-          scheme: str = None, impl: str = None, init_params: str = None):
+          scheme: str = None, impl: str = None, init_params: str = None,
+          zero1: bool = False):
     """Functional entry point; returns (history, params).  ``init_params``:
     an npz of reference weights (``convert.params_from_npz``)."""
     engine = TrainEngine(
@@ -57,7 +63,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
             log_every=log_every, seed=seed, precision=precision,
             metrics_out=metrics_out, metrics_format=metrics_format,
             trace=trace, telemetry=telemetry, pipeline=pipeline,
-            prefetch=prefetch, accum=accum, eval_every=eval_every))
+            prefetch=prefetch, accum=accum, eval_every=eval_every,
+            zero1=zero1))
     try:
         history = engine.run()
     except BaseException:
@@ -101,7 +108,11 @@ def main(argv=None):
                     help="model-parallel ranks (p for --scheme 1d, q*q for "
                          "2d), one process each")
     ap.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel ranks (only 1 is ported)")
+                    help="data-parallel copies of the model mesh (the run "
+                         "takes mesh-model x mesh-data processes)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1: shard the optimizer state (moments, "
+                         "masters) over the data axis")
     ap.add_argument("--scheme", default=None, choices=["1d", "2d", "none"],
                     help="Jigsaw scheme on a mesh (default: the config's)")
     ap.add_argument("--impl", default=None,
@@ -131,7 +142,8 @@ def main(argv=None):
           prefetch=args.prefetch, accum=args.accum,
           eval_every=args.eval_every, device=args.device,
           mesh_model=args.mesh_model, mesh_data=args.mesh_data,
-          scheme=args.scheme, impl=args.impl, init_params=args.init_params)
+          scheme=args.scheme, impl=args.impl, init_params=args.init_params,
+          zero1=args.zero1)
 
 
 if __name__ == "__main__":

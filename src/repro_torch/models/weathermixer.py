@@ -14,17 +14,19 @@ two).
 2 + 4 * n_layers launches per forecast step; in training the backward
 GEMMs run it too (``kernels/ops.py``).
 
-``scheme="1d"``: 1-D Jigsaw on p ranks (``jcfg.mesh``, a ``Mesh1D``).
-Each rank holds its shard of the parameters (``convert.shard_params_1d``:
-every ``w`` cut along its contracting dim, every ``b`` along its out dim)
-and its block of the patchified fields (the patch dim cut).  The encoder,
-the four mixing linears of each block and the decoder are
-``jigsaw_linear`` (a reduce-scatter by ``jcfg.impl``), GELU after the
-reduce; the token mix moves the cut from the feature dim to the token dim
-with an all-to-all (the reference's swap to [B, C, T] with T on the model
-axis, ``weathermixer.py:106-115``) and back before the residual add; the
-LayerNorms reduce over the tp group.  The decoder's output stays cut: the
-blend runs per rank in patch space, and the loss is taken per rank
+``scheme="1d"``: 1-D Jigsaw on p ranks (``jcfg.mesh``, a ``Mesh1D``). Each
+rank holds its shard of the parameters (``convert.shard_params_1d``: every
+``w`` cut along its contracting dim, every ``b`` along its out dim) and its
+block of the patchified fields (the patch dim cut). The encoder, the four
+mixing linears of each block and the decoder are ``jigsaw_linear`` (a
+reduce-scatter by ``jcfg.impl``), GELU after the reduce; the token mix
+moves the cut from the feature dim to the token dim with an all-to-all (the
+reference's swap to [B, C, T] with T on the model axis,
+``weathermixer.py:106-115``) and back before the residual add; the
+LayerNorms reduce over the tp group. Under the FSDP hybrid (``jcfg.fsdp``)
+each weight's out dim is also cut over the data ranks and gathered before
+its product (``core/jigsaw.py::jigsaw_linear``). The decoder's output stays
+cut: the blend runs per rank in patch space, and the loss is taken per rank
 (``train/step.py``), as under 2-D.
 
 ``scheme="2d"``: 2-D Jigsaw on a q x q mesh (``jcfg.mesh``).  Each rank
@@ -36,7 +38,8 @@ and decoder are ``jigsaw_linear_2d`` (Cannon), the token mix
 ``kernel="pallas"``), with GELU outside the linears as in the reference's
 2-D branch; the LayerNorms reduce over the mtp group, and the blend runs
 per rank in patch space.  Under either scheme ``apply`` returns the rank's
-block of the forecast in patch space.
+block of the forecast in patch space, for its data rank's rows of the
+batch (every data rank of a mesh runs the same model group's program).
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, linear_apply,
                                   linear_init, mlp_apply)
 from repro_torch.core.jigsaw import jigsaw_linear_2d, jigsaw_linear_2d_t
 from repro_torch.core.precision import dtype_of
-from repro_torch.core.sharding import RULES_1D, RULES_2D, Spec
+from repro_torch.core.sharding import (DATA_AXIS, RULES_1D, RULES_2D, Spec,
+                                      sanitize_batch)
 from repro_torch.kernels.ref import act
 from repro_torch.models import layers as L
 
@@ -135,17 +139,23 @@ def param_spec_2d(path: Sequence[Any], ndim: int) -> Spec:
                      f"{'/'.join(map(str, path))}")
 
 
-def param_spec_1d(path: Sequence[Any], ndim: int) -> Spec:
+def param_spec_1d(path: Sequence[Any], ndim: int, fsdp: bool = False
+                  ) -> Spec:
     """The 1-D spec of the parameter leaf at ``path`` (the 1-D rule of
     ``repro/launch/specs.py``): every ``w`` [out, in] on its contracting
-    (last) dim, every ``b`` on its (last) dim; LayerNorm ``scale`` and
-    ``bias`` and ``blend`` replicated."""
+    (last) dim and, under the FSDP hybrid (``fsdp``), its out dim on the
+    data axis; every ``b`` on its (last) dim; LayerNorm ``scale`` and
+    ``bias`` and ``blend`` replicated.  Where the data extent does not
+    divide the out dim, ``sanitize_spec`` drops the data entry."""
     name = path[-1]
     dims: list = [None] * ndim
     if name in _REPLICATED:
         return tuple(dims)
     if name == "w":
-        return RULES_1D.weight(ndim)
+        dims = list(RULES_1D.weight(ndim))
+        if fsdp and ndim >= 2:
+            dims[-2] = DATA_AXIS
+        return tuple(dims)
     if name == "b":
         dims[-1] = RULES_1D.tp_axis
         return tuple(dims)
@@ -233,16 +243,18 @@ def processor(params, x: torch.Tensor, cfg: ModelConfig,
 
 def field_block(fields: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig
                 ) -> torch.Tensor:
-    """This rank's block of the patchified fields [B, lat, lon, C]: under
-    2-D [B, T/q, p*p*C/q] (tokens cut along mdom, the patch dim along
-    mtp), under 1-D [B, T, p*p*C/p] (the patch dim cut).  A block already
-    cut ([B, tokens, patch dim]: what the sharded input pipeline hands
-    over, ``data/pipeline.py``) is returned as it is."""
+    """This rank's block of the patchified fields [B, lat, lon, C]: its
+    data rank's rows (all of them where the data extent does not divide B)
+    and, under 2-D, [T/q, p*p*C/q] of each (tokens cut along mdom, the
+    patch dim along mtp), under 1-D [T, p*p*C/p] (the patch dim cut).  A
+    block already cut ([b, tokens, patch dim]: what the sharded input
+    pipeline hands over, ``data/pipeline.py``) is returned as it is."""
     if fields.dim() == 3:
         return fields
     mesh = jcfg.rank_mesh
-    return mesh.block(patchify(fields, cfg.wm_patch),
-                      mesh.rules.act(3, domain_dim=1))
+    spec = sanitize_batch(mesh.rules.act(3, domain_dim=1), mesh,
+                          fields.shape[0])
+    return mesh.block(patchify(fields, cfg.wm_patch), spec)
 
 
 def blend_weights(blend: torch.Tensor, cfg: ModelConfig, jcfg: JigsawConfig

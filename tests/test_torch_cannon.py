@@ -201,24 +201,25 @@ def _rank_main(rank, init, out_dir):
 
 
 class Launched:
-    """The reference's subprocess (four emulated devices) and the port's
-    four gloo ranks of one test module, started together: each runs the
-    module file as a script, and their results are read when a test first
-    needs them."""
+    """The reference's subprocess (``devices`` emulated devices) and the
+    port's ``ranks`` gloo ranks of one test module, started together: each
+    runs the module file as a script, and their results are read when a
+    test first needs them (four of each unless the module asks for
+    others)."""
 
-    def __init__(self, tmp, script):
-        self.tmp = tmp
+    def __init__(self, tmp, script, ranks=Q * Q, devices=Q * Q):
+        self.tmp, self.n = tmp, ranks
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         init = f"file://{tmp / 'store'}"
         self.ranks = [subprocess.Popen(
             [sys.executable, script, "--rank", str(r), init, str(tmp)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(Q * Q)]
+            text=True) for r in range(ranks)]
         self.ref_path = tmp / "reference.npz"
         self.ref = subprocess.Popen(
             [sys.executable, script, "--reference", str(self.ref_path)],
-            env=dict(env, JAX_PLATFORMS="cpu",
-                     XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+            env=dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+                f"--xla_force_host_platform_device_count={devices}")),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     @staticmethod
@@ -232,10 +233,11 @@ class Launched:
             assert p.returncode == 0, f"{what} failed:\n{err[-3000:]}"
 
     def rank_results(self):
-        """{(i, j): results} of the four ranks."""
+        """{coordinates: results} of the ranks (each saves its coordinates
+        on its mesh as "ij": (i, j) on the 2x2 mesh)."""
         self._wait(self.ranks, "a rank")
         res = [dict(np.load(self.tmp / f"rank{r}.npz"))
-               for r in range(Q * Q)]
+               for r in range(self.n)]
         return {tuple(r["ij"]): r for r in res}
 
     def reference(self):

@@ -1185,6 +1185,84 @@ def test_2x2_mesh_four_processes_on_one_card(cuda, tmp_path):
         assert r["block_equal"] and r["read_share"] == 0.25
 
 
+@pytest.mark.cuda
+def test_data_mesh_four_processes_on_one_card(cuda, tmp_path):
+    """A (data 2, p 2) 1-D mesh of four processes on one card, each model
+    group's ring slots mapped by CUDA IPC apart from the other's: each
+    rank reads 1/4 of the batch, a step at r = 1 (3 blocks, remat) runs
+    52 ring_fwd and 28 ring_bwd launches and no block_matmul, and two
+    steps with ZeRO-1, and with ZeRO-1 and the FSDP hybrid, give the
+    losses, grad norms and parameters of the run without either bit for
+    bit; the FSDP hybrid holds half of each weight."""
+    res = _run_ranks("--data-rank", tmp_path, 4)
+    for r in res:
+        assert r["read_share"] == 0.25
+        for tag in ("base", "zero1", "fsdp"):
+            assert r[tag]["launches"] == dict(ring_fwd=52, ring_bwd=28,
+                                              block_matmul=0), (tag, r)
+            assert r[tag]["loss"] == r["base"]["loss"]
+            assert r[tag]["grad_norm"] == r["base"]["grad_norm"]
+        assert r["zero1"]["params_equal"] and r["fsdp"]["params_equal"]
+        assert r["fsdp"]["weight_share"] == 0.5
+    assert all(r["base"]["loss"] == res[0]["base"]["loss"] for r in res)
+
+
+def _data_rank_main(r, n, init, out_dir):
+    """One rank of ``test_data_mesh_four_processes_on_one_card``."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as ptree
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    os.environ["LOCAL_RANK"] = str(r)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    res, kept = {}, None
+    for tag, fsdp, zero1 in (("base", False, False), ("zero1", False, True),
+                             ("fsdp", True, True)):
+        cfg = get_config("weathermixer-1b").reduced().replace(
+            wm_lat=20, wm_lon=24, wm_channels=4, wm_patch=4, d_model=64,
+            wm_d_tok=64, wm_d_ch=64, kernel="pallas", remat=True,
+            n_layers=3, shard_params_over_data=fsdp)
+        eng = TrainEngine("weathermixer-1b", reduced=False,
+                          config_override=cfg, mesh_model=2, mesh_data=2,
+                          scheme="1d", impl="ring_fused", device="cuda",
+                          config=EngineConfig(steps=2, batch=2,
+                                              precision="bf16", prefetch=0,
+                                              zero1=zero1))
+        batch = eng.pipeline.get(0, 1)
+        res["read_share"] = (eng.pipeline.stats.rank_bytes["fields"]
+                             [eng.mesh.rank] / (2 * 20 * 24 * 4 * 4))
+        for f in (RING.ring_fwd, RING.ring_bwd, BM.block_matmul):
+            f.launches = 0
+        m1 = eng.dispatch(batch, 1)
+        torch.cuda.synchronize()
+        launches = dict(ring_fwd=RING.ring_fwd.launches,
+                        ring_bwd=RING.ring_bwd.launches,
+                        block_matmul=BM.block_matmul.launches)
+        m2 = eng.dispatch(batch, 1)
+        leaves = [t.cpu() for t in ptree.leaves(eng.params)]
+        rec = dict(launches=launches,
+                   loss=[float(m["loss"]) for m in (m1, m2)],
+                   grad_norm=[float(m["grad_norm"]) for m in (m1, m2)])
+        if kept is None:
+            kept = leaves
+        else:
+            def same(a, b):
+                if a.shape != b.shape:      # the FSDP hybrid's block of a
+                    a = a.narrow(0, eng.mesh.data_index * b.shape[0],
+                                 b.shape[0])
+                return torch.equal(a, b)
+            rec["params_equal"] = all(same(a, b)
+                                      for a, b in zip(kept, leaves))
+            rec["weight_share"] = sum(
+                b.numel() for a, b in zip(kept, leaves) if b.dim() == 2) / sum(
+                a.numel() for a in kept if a.dim() == 2)
+        res[tag] = rec
+        eng.close()
+    (Path(out_dir) / f"--data-rank{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
 def _run_ranks(mode, tmp_path, n=2, timeout=300):
     """This file run as n scripts in ``mode`` on the one card, joined by a
     file store; returns their JSON results."""
@@ -1415,5 +1493,6 @@ if __name__ == "__main__":
     mode, rank, n, init, out, *extra = sys.argv[1:]
     main = {"--ring-rank": _ring_rank_main,
             "--cannon-rank": _cannon_rank_main,
+            "--data-rank": _data_rank_main,
             "--gloo-probe": _gloo_probe_main}[mode]
     main(int(rank), int(n), init, out, *extra)

@@ -27,7 +27,7 @@ from repro_torch.core.sharding import RULES_1D, RULES_2D, Mesh, Mesh1D
 from repro_torch.data.pipeline import _boxes, make_pipeline
 from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
 from repro_torch.launch.shapes import jigsaw_for
-from repro_torch.launch.specs import batch_specs
+from repro_torch.launch.specs import batch_specs, block_specs
 from repro_torch.models import weathermixer as W
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -127,13 +127,18 @@ def test_one_device_reads_the_whole_batch(mode):
 
 
 def test_batch_specs_are_the_model_layout():
-    """The batch's spec over the patchified fields is the activations':
-    tokens over mdom and the patch dim over mtp (2-D), the patch dim over
-    the model axis (1-D); the mixer family only."""
+    """The spec of a rank's block of the patchified fields
+    (``block_specs``) is the activations': the batch dim over the data
+    axis, tokens over mdom and the patch dim over mtp (2-D), the patch dim
+    over the model axis (1-D); ``batch_specs`` is the reference's over the
+    grid; the mixer family only."""
     cfg = _cfg()
-    assert batch_specs(cfg, RULES_2D) == {"fields": (None, "mdom", "mtp"),
-                                          "target": (None, "mdom", "mtp")}
-    assert batch_specs(cfg, RULES_1D)["fields"] == (None, None, "model")
+    data = ("data",)
+    assert block_specs(cfg, RULES_2D) == {"fields": (data, "mdom", "mtp"),
+                                          "target": (data, "mdom", "mtp")}
+    assert block_specs(cfg, RULES_1D)["fields"] == (data, None, "model")
+    assert batch_specs(cfg, RULES_2D)["fields"] == (data, None, "mdom",
+                                                    "mtp")
     with pytest.raises(NotImplementedError, match="mixer"):
         batch_specs(get_config("internlm2-1.8b"), RULES_2D)
 

@@ -37,9 +37,9 @@ from repro_torch.convert import (gather_params_1d, params_from_numpy,
 from repro_torch.core import tree as ptree
 from repro_torch.core.api import JigsawConfig
 from repro_torch.core.jigsaw import jigsaw_linear, jigsaw_matmul_1d
-from repro_torch.core.sharding import Mesh1D
+from repro_torch.core.sharding import RULES_1D, Mesh1D
 from repro_torch.kernels import ref, ring
-from repro_torch.launch.shapes import jigsaw_for
+from repro_torch.launch.specs import param_specs
 
 ROOT = Path(__file__).resolve().parents[1]
 PS = (2, 4)
@@ -402,13 +402,15 @@ def test_one_process_ring_fwd_with_odd_rows_is_the_plain_forward(p):
 @pytest.mark.parametrize("case,exc", [
     ("m_not_divisible", ValueError), ("gspmd", NotImplementedError),
     ("unknown_impl", ValueError), ("config_gspmd", NotImplementedError),
-    ("config_fsdp", NotImplementedError),
+    ("config_fsdp", NotImplementedError), ("fsdp_no_bias", ValueError),
     ("step_chunk", ValueError), ("step_dtype", TypeError),
     ("step_dest", ValueError), ("linear_blocks", ValueError)])
 def test_bad_inputs_raise(case, exc):
     """Inputs the 1-D path does not take raise before any collective: an
-    out dim p does not divide, the impls that are not ported, blocks that
-    do not contract, a ring step outside its chunks or with mismatched
+    out dim p does not divide, the impls that are not ported, the FSDP
+    hybrid's layout for a family whose layout is not ported, an FSDP
+    linear with no bias to tell its whole out dim, blocks that do not
+    contract, a ring step outside its chunks or with mismatched
     buffers."""
     mesh = Mesh1D(p=2, r=0)         # no group: nothing may communicate
     x, w = torch.randn(3, 4), torch.randn(6, 4)
@@ -422,8 +424,11 @@ def test_bad_inputs_raise(case, exc):
         elif case == "config_gspmd":
             JigsawConfig(scheme="1d", impl="gspmd")
         elif case == "config_fsdp":
-            jigsaw_for(get_config("weathermixer-1b").replace(
-                scheme="1d", shard_params_over_data=True))
+            param_specs({}, get_config("mamba2-130m").replace(
+                scheme="1d", shard_params_over_data=True), RULES_1D)
+        elif case == "fsdp_no_bias":
+            jigsaw_linear(x, w, mesh=Mesh1D(p=2, r=0, data_size=2),
+                          fsdp=True)
         elif case == "step_chunk":
             ring.ring_fwd(x, w, 2, None, torch.empty(3, 3))
         elif case == "step_dtype":

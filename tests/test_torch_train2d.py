@@ -413,7 +413,7 @@ def test_cli_2x2_history_matches_reference_and_repeats(reference,
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_model=4, mesh_data=2, scheme="2d"), "item 8"),
+    (dict(mesh_model=1, mesh_data=2, scheme="none"), "GSPMD"),
     (dict(mesh_model=4, scheme="none"), "GSPMD")])
 def test_engine_mesh_paths_not_ported_raise(kw, match):
     pipeline = "sync-full" if kw.get("scheme") == "none" else "sharded"
