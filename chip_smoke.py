@@ -119,10 +119,28 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      cannon, 12 r + 12 r wx (every dx at one split term) and 10 + 60 r
      block_matmul launches per rank, held against the none step and, bit for bit in loss and grad norm,
      against the step with ``fused_cannon_t`` forced to the step loop
-     (``train_2d_mesh``); then the run, with 5 + 54 r
+     (``train_2d_mesh``), after which the four ranks save a checkpoint
+     (``eng.save(..., block=True)``: each rank's bytes about a quarter of
+     the total, the sum every leaf exactly once) that this process serves
+     on one device (``ForecastEngine(ckpt=)``, bf16), its lead-1 forecast
+     bit for bit that of the same seed-0 weights handed in whole (ckpt
+     part (b)); then the run, with 5 + 54 r
      kernel launches per step of rollout r, finite losses, peak memory
-     under 80 GB; then a second run of the same seed, whose loss and
-     grad-norm history must equal the first's bit for bit;
+     under 80 GB; then a second run of the same seed saving ``ck-1``,
+     ``ck-2`` and ``ck`` under the async writer, whose loss, grad-norm and
+     lr history must equal the first's bit for bit, and a fresh
+     ``TrainEngine(resume=ck-1)`` (step 2, cursor 2) whose one step (5 +
+     54 r block_matmul launches) equals both runs' step 2 bit for bit and
+     whose final params and optimizer state are ``ck``'s bit for bit (ckpt
+     part (a)); the ``ckpt`` line prints the bytes a save, the loop's
+     ``ckpt_submit`` seconds, the background write's seconds and GB/s, the
+     restore seconds, the run's step spans (none starts with a write
+     under way: each write ends inside the next batch's making), one
+     step's synchronised wall time on the first batch without and with an
+     async save of the first run's engine in flight
+     (``steps_beside_a_write``), and the card.  The checkpoint directories live under
+     ``out/chip_smoke_ckpt`` (free disk checked first: too little fails)
+     and are removed when each part ends;
   9b. the data axis, with this process's engines freed, each phase this
      file re-run as rank processes sharing the card (``--train-data-rank``)
      on the train phase's weights (seed 0) and first batch of two, each
@@ -228,6 +246,9 @@ TRAIN_STEPS = 3           # seed 0's rollout schedule: r = 1, 2, 2
 TRAIN_BATCH = 2
 TRAIN_ROLLOUT = 2
 PEAK_MEM_LIMIT = 80e9
+# the checkpoint directories (out/ is ignored by git); each part's is
+# removed when it ends
+CKPT_ROOT = ROOT / "out" / "chip_smoke_ckpt"
 
 
 class SmokeFailure(Exception):
@@ -2115,14 +2136,18 @@ def run_ranks(flag, tmp, n, timeout=600):
             for r in range(n)], wall
 
 
-def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
+def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads,
+                        ckpt_need, card):
     """One 2-D (scheme="2d") forward and backward on a 2x2 mesh of four
     rank processes sharing this card (gloo between them; each rank's
     Cannon slots mapped into its predecessors by CUDA IPC), through the
     TrainEngine with per-rank reads (pipeline="sharded") on the train
     phase's weights (the same seed) and first step's batch, held against
     this process's scheme="none" step and, bit for bit, against the same
-    step with fused_cannon_t forced to the step loop."""
+    step with fused_cannon_t forced to the step loop.  Then the ranks save
+    a checkpoint (``eng.save(..., block=True)``), which this process
+    serves on one device (``ckpt_serve_part``); returns (stats, the ckpt
+    part's numbers)."""
     import shutil
     import tempfile
     from repro_torch.convert import shard_params_2d
@@ -2130,6 +2155,7 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
     from repro_torch.optim.adam import global_norm
     q, n = TRAIN_2D_Q, TRAIN_2D_Q ** 2
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))
+    ck, _ = ckpt_dir("2x2", ckpt_need)
     try:
         t0 = time.perf_counter()
         torch.save({k: v.cpu() for k, v in batch0.items()},
@@ -2143,12 +2169,15 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
             torch.save({"grads": ptree.map(lambda t: t.cpu(), shard),
                         "fingerprint": fingerprint}, tmp / f"none{r}.pt")
             del shard
-        (tmp / "meta.json").write_text(json.dumps(dict(rollout=r0)))
+        (tmp / "meta.json").write_text(json.dumps(dict(
+            rollout=r0, ckpt=str(ck / "ck"))))
         torch.cuda.empty_cache()
         handoff_s = time.perf_counter() - t0
         res, wall = run_ranks("--train-2d-rank", tmp, n)
+        ckpt_b = ckpt_serve_part(torch, eng, ck / "ck", res, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        ckpt_drop(ck)
 
     want = dict(cannon=24 * r0, wx_fwd=12 * r0, wx_dx=12 * r0,
                 block_matmul=10 + 60 * r0, ring=0)
@@ -2208,7 +2237,7 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads):
     check(sum(peaks) < PEAK_MEM_LIMIT, f"train_2d_mesh: the four ranks' "
           f"peaks sum to {sum(peaks):.2f} GB")
     emit(phase="train_2d_mesh", **stats)
-    return stats
+    return stats, ckpt_b
 
 
 def train_2d_worker(rank, tmp):
@@ -2237,7 +2266,8 @@ def train_2d_worker(rank, tmp):
     from repro_torch.train.step import _norm_args, value_and_grad
     torch.backends.cuda.matmul.allow_tf32 = False
     tmp = Path(tmp)
-    r0 = json.loads((tmp / "meta.json").read_text())["rollout"]
+    meta = json.loads((tmp / "meta.json").read_text())
+    r0 = meta["rollout"]
     t0 = time.perf_counter()
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       mesh_model=TRAIN_2D_Q ** 2, scheme="2d",
@@ -2327,6 +2357,13 @@ def train_2d_worker(rank, tmp):
     res["loss_step_loop"] = float(m2["loss"])
     res["grad_norm_step_loop"] = float(global_norm(g2, **norm_args))
     del g2
+    # the ckpt phase's part (b): every rank saves its blocks (no update
+    # was made: the weights are seed 0's); rank 0 merges the manifest
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save(meta["ckpt"], block=True)
+    res["ckpt_save_s"] = time.perf_counter() - t0
+    res["ckpt_bytes"] = eng.last_save.bytes_per_rank[eng.mesh.rank]
     (tmp / f"rank{rank}.json").write_text(json.dumps(res))
     eng.close()
     dist.destroy_process_group()
@@ -2642,7 +2679,212 @@ def timed_all_reduces(torch, comm, STEP, eng, batch, r0):
     return 1e3 * spent[0], spent[1] / 1e9
 
 
-def train_phase(torch, BM, WX):
+def ckpt_bytes(eng):
+    """The bytes of a checkpoint of a one-device engine's params and
+    optimizer state (every leaf once, the int32 step too)."""
+    from repro_torch.core import tree as ptree
+    from repro_torch.optim.adam import state_bytes
+    return (sum(t.numel() * t.element_size()
+                for t in ptree.leaves(eng.params))
+            + state_bytes(eng.opt_state) + 4)
+
+
+def ckpt_dir(part, need):
+    """A fresh directory for one part of the ckpt phase under CKPT_ROOT,
+    after checking that the disk has ``need`` bytes free (too little room
+    fails the phase); returns (path, free bytes)."""
+    import shutil
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    path = CKPT_ROOT / part
+    shutil.rmtree(path, ignore_errors=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    check(free >= need, f"ckpt {part}: {free / 1e9:.1f} GB free under "
+          f"{CKPT_ROOT}, the part writes {need / 1e9:.1f} GB")
+    path.mkdir()
+    return path, free
+
+
+def ckpt_drop(path):
+    """Remove a part's directory (and CKPT_ROOT once empty)."""
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        CKPT_ROOT.rmdir()
+    except OSError:
+        pass
+
+
+def manifest_bytes(path):
+    """Every leaf's bytes in a checkpoint's manifest, each counted once."""
+    import math
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.checkpoint.manifest import dtype_entry
+    man = load_manifest(str(path))
+    return sum(math.prod(e.shape) * dtype_entry(e.dtype)[1].itemsize
+               for g in man.groups.values() for e in g.values())
+
+
+def span_times(tracer, name):
+    """[(start us, duration us)] of a tracer's spans named ``name``."""
+    return [(e["ts"], e["dur"]) for e in tracer.chrome_events()
+            if e.get("ph") == "X" and e["name"] == name]
+
+
+def ckpt_serve_part(torch, eng, path, ranks, card):
+    """Part (b) of the ckpt phase: the 2x2 mesh's checkpoint (its four
+    ranks saved after their forward and backward, no update) served on
+    one device by ``ForecastEngine(ckpt=)`` under the bf16 policy; its
+    lead-1 forecast must equal, bit for bit, the forecast from the same
+    seed-0 weights handed in whole (the train engine's, not yet
+    updated)."""
+    import numpy as np
+    from repro_torch.serve.engine import ForecastEngine, ServeConfig
+    total = manifest_bytes(path)
+    per = [x["ckpt_bytes"] for x in ranks]
+    check(sum(per) == total, f"ckpt 2x2: the ranks wrote {per} bytes, "
+          f"the leaves hold {total}")
+    check(all(abs(b - total / 4) <= 0.05 * total / 4 for b in per),
+          f"ckpt 2x2: per-rank bytes {per} are not about {total / 4:.0f}")
+    scfg = ServeConfig(buckets=(1,), precision="bf16", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = ForecastEngine("weathermixer-1b", reduced=False, ckpt=str(path),
+                            device="cuda", config=scfg)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(served.restored_step == 0, f"ckpt 2x2: restored step "
+          f"{served.restored_step}, want 0")
+    handed = ForecastEngine("weathermixer-1b", reduced=False,
+                            params=eng.params, device="cuda", config=scfg)
+    x = np.random.default_rng(0).standard_normal(
+        served.field_shape, dtype=np.float32)
+    outs = []
+    for e in (served, handed):
+        r = e.submit(x, 1)
+        e.drain()
+        outs.append(torch.from_numpy(r.outputs[1]))
+    check(bool(torch.isfinite(outs[0]).all())
+          and torch.equal(outs[0], outs[1]),
+          "ckpt 2x2: the served checkpoint's lead-1 forecast differs from "
+          "the forecast of the same weights handed in whole")
+    del served, handed
+    torch.cuda.empty_cache()
+    return dict(card=card, bytes=total, bytes_per_rank=per,
+                save_s_per_rank=[x["ckpt_save_s"] for x in ranks],
+                write_gb_s=total / 1e9 / max(x["ckpt_save_s"]
+                                             for x in ranks),
+                serving_restore_s=restore_s, forecast_bitwise_equal=True)
+
+
+def ckpt_inflight_steps(torch, eng, batch, r, need, reps=5):
+    """One training step's wall time (host and device, synchronised) on
+    the same batch without and with an async checkpoint write of the
+    engine in flight (``eng.save``, 14 GB streamed by the writer thread
+    while the steps run); the directory is removed at the end."""
+    path, _ = ckpt_dir("inflight", need)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.dispatch(batch, r)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    try:
+        idle = [timed() for _ in range(reps)]
+        t0 = time.perf_counter()
+        eng.save(str(path / "ck"), block=False)
+        submit_s = time.perf_counter() - t0
+        busy = []
+        while len(busy) < reps and eng._writer.in_flight:
+            busy.append(timed())
+        eng.wait_checkpoints()
+        write_s = time.perf_counter() - t0 - submit_s
+    finally:
+        ckpt_drop(path)
+    check(busy, "ckpt: the write ended before a step could run beside it")
+    return dict(rollout=r, step_s_idle=idle, step_s_write_in_flight=busy,
+                ckpt_submit_s=submit_s, submit_to_written_s=write_s)
+
+
+def ckpt_resume_part(torch, BM, engine, hist, path, card):
+    """Part (a) of the ckpt phase: the train phase's second run saves
+    ``ck-1`` (step 2), ``ck-2`` and the final ``ck`` under the async writer
+    and must repeat the first run bit for bit; a fresh
+    ``TrainEngine(resume=ck-1)`` (step 2, cursor 2) runs step 2, whose
+    record must equal both runs' step 2 bit for bit, and ends with the
+    params and optimizer state of ``ck`` bit for bit."""
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.core import tree as ptree
+    keys = ("loss", "grad_norm", "lr")
+    eng2 = engine(ckpt=str(path / "ck"), ckpt_every=1)
+    hist2 = eng2.run()
+    torch.cuda.synchronize()
+    same = ([tuple(h[k] for k in keys) for h in hist]
+            == [tuple(h[k] for k in keys) for h in hist2])
+    check(same, f"two runs of one seed differ (the second saving "
+          f"checkpoints): {hist} vs {hist2}")
+    emit(phase="train_repeat", bitwise_equal=True,
+         loss=[h["loss"] for h in hist2])
+    saved = eng2.last_save.total_bytes
+    submit = [d / 1e6 for _, d in span_times(eng2.tracer, "ckpt_submit")]
+    writes = span_times(eng2.tracer, "ckpt.write")
+    steps = []
+    for ts, dur in span_times(eng2.tracer, "step"):
+        # a write of an earlier step's checkpoint under way as it starts
+        busy = any(w0 < ts < w0 + wd for w0, wd in writes)
+        steps.append({"ms": dur / 1e3, "write_in_flight": busy})
+    check(len(submit) == 3 and len(writes) == 3, f"ckpt: {len(submit)} "
+          f"submits and {len(writes)} background writes, want 3 each")
+    del eng2
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng3 = engine(resume=str(path / "ck-1"))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(eng3.step_idx == 2 and eng3.pipeline.state() == {"cursor": 2}
+          and eng3.opt_state["step"] == 2, f"resumed at step "
+          f"{eng3.step_idx}, cursor {eng3.pipeline.state()}")
+    # the resumed step: counts to 0 just before, read just after
+    BM.block_matmul.launches = 0
+    hist3 = eng3.run()
+    torch.cuda.synchronize()
+    launches = BM.block_matmul.launches
+    r2 = int(eng3.r_sched[2])
+    check(launches == 5 + 54 * r2, f"the resumed step made {launches} "
+          f"block_matmul launches, want {5 + 54 * r2}")
+    check(len(hist3) == 1 and all(hist3[0][k] == hist[2][k]
+                                  == hist2[2][k] for k in keys),
+          f"resumed step 2 {hist3} differs from the runs' {hist[2]}")
+    t0 = time.perf_counter()
+    final = {g: restore_tree(str(path / "ck"), g, like=tree)
+             for g, tree in (("params", eng3.params),
+                             ("opt_state", eng3.opt_state))}
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for g, tree in (("params", eng3.params), ("opt_state", eng3.opt_state)):
+        for a, b in zip(ptree.leaves(tree), ptree.leaves(final[g])):
+            check(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                  else a == b, f"resumed {g} differ from the final "
+                  "checkpoint's")
+    del eng3, final
+    torch.cuda.empty_cache()
+    writes_s = [d / 1e6 for _, d in writes]
+    return dict(card=card, bytes_per_save=saved, saves=3,
+                ckpt_submit_s=submit, write_s=writes_s,
+                write_gb_s=[saved / 1e9 / w for w in writes_s],
+                resume_engine_s=resume_s, restore_to_card_s=restore_s,
+                restore_gb_s=saved / 1e9 / restore_s,
+                step_ms=steps, resumed_rollout=r2,
+                resumed_block_matmul_launches=launches,
+                resumed_step_bitwise_equal=True,
+                final_state_bitwise_equal=True)
+
+
+def train_phase(torch, BM, WX, card):
+    import dataclasses
     import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     from repro_torch.optim.adam import global_norm
@@ -2653,9 +2895,9 @@ def train_phase(torch, BM, WX):
                         rollout=TRAIN_ROLLOUT, precision="bf16", lr=1e-4,
                         log_every=1, seed=0)
 
-    def engine():
+    def engine(**kw):
         return TrainEngine("weathermixer-1b", reduced=False, device="cuda",
-                           config=ecfg)
+                           config=dataclasses.replace(ecfg, **kw))
 
     t0 = time.perf_counter()
     eng = engine()
@@ -2690,7 +2932,9 @@ def train_phase(torch, BM, WX):
     # the 2-D path on the same weights and batch, before the run moves them
     stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
     stats_1d = train_1d_phase(torch, eng, batch0, r0, mk, gk)
-    stats_2dm = train_2d_mesh_phase(torch, eng, batch0, r0, mk, gk)
+    need = 1.05 * ckpt_bytes(eng)
+    stats_2dm, ckpt_b = train_2d_mesh_phase(torch, eng, batch0, r0, mk, gk,
+                                            need, card)
     handoff = data_handoff(torch, eng, batch0)
     none_loss, none_norm = float(mk["loss"]), float(global_norm(gk))
     del gk
@@ -2750,6 +2994,7 @@ def train_phase(torch, BM, WX):
         for r in range(1, TRAIN_ROLLOUT + 1)}
     bound_ms = {r: 1e3 * train_flops_per_sample(cfg, r)
                 / PEAK_FLOPS["bfloat16"] for r in device_ms}
+    inflight = ckpt_inflight_steps(torch, eng, batch0, r0, need)
     stats = dict(
         params=cfg.param_count(), batch=TRAIN_BATCH, steps=TRAIN_STEPS,
         rollout_schedule=sched, setup_s=setup_s, batch_host_s=batch_s,
@@ -2771,13 +3016,15 @@ def train_phase(torch, BM, WX):
     del eng, batch0
     torch.cuda.empty_cache()
 
-    # the same seed again: the history must repeat bit for bit
-    hist2 = engine().run()
-    same = ([(h["loss"], h["grad_norm"]) for h in hist]
-            == [(h["loss"], h["grad_norm"]) for h in hist2])
-    check(same, f"two runs of one seed differ: {hist} vs {hist2}")
-    emit(phase="train_repeat", bitwise_equal=True,
-         loss=[h["loss"] for h in hist2])
+    # the same seed again, saving checkpoints: the history must repeat
+    # bit for bit; then the resume from its first checkpoint
+    path, free = ckpt_dir("resume", 3 * need)
+    try:
+        ckpt_a = ckpt_resume_part(torch, BM, engine, hist, path, card)
+    finally:
+        ckpt_drop(path)
+    emit(phase="ckpt", disk_free_gb=free / 1e9, resume=ckpt_a,
+         steps_beside_a_write=inflight, serve_2x2=ckpt_b)
     torch.cuda.empty_cache()
 
     # the data-parallel phases, with this process's engines freed
@@ -2790,7 +3037,7 @@ def train_phase(torch, BM, WX):
         emit(phase="train_data", wall_s=time.perf_counter() - t0)
     finally:
         shutil.rmtree(handoff, ignore_errors=True)
-    return launches, stats, stats_2d, stats_1d, stats_2dm, stats_d
+    return launches, stats, stats_2d, stats_1d, stats_2dm, stats_d, ckpt_a
 
 
 def main():
@@ -2845,7 +3092,8 @@ def main():
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
-    train_launches, train, t2, t1, t2m, td = train_phase(torch, BM, WX)
+    train_launches, train, t2, t1, t2m, td, ck = train_phase(torch, BM, WX,
+                                                             card)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -2932,9 +3180,12 @@ def main():
         "launches": serve_launches + train_launches
         + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"])
         + sum(data_launches["2d"]["block_matmul"])
-        + fwd_launches["block_matmul"] + gen_launches["block_matmul"],
+        + fwd_launches["block_matmul"] + gen_launches["block_matmul"]
+        + ck["resumed_block_matmul_launches"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches,
+                             "ckpt_resume":
+                             ck["resumed_block_matmul_launches"],
                              "train_2d": t2["block_matmul_launches"],
                              "train_2d_mesh": mesh_launches["block_matmul"],
                              "train_data_2d":

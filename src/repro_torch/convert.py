@@ -18,6 +18,11 @@ Both functions go through numpy, so neither package imports the other:
       of a (data, model=p) 1-D Jigsaw mesh (``param_spec_1d``: every ``w``
       cut along its contracting dim, and under the FSDP hybrid its out dim
       over data; every ``b`` along its out dim);
+  ``param_bounds(path, shape, mesh, fsdp)``  the [start, stop) bounds
+      of each dim of a rank's shard in the whole leaf: the inverse of
+      ``shard_params_1d`` / ``_2d`` (``whole[bounds]`` is the shard), what
+      a sharded checkpoint records of each rank's block
+      (``block_bounds`` under any spec);
   ``params_from_npz(path)``  a reference pytree saved flat with
       ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port.
 
@@ -36,7 +41,8 @@ import torch
 
 from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import (DATA_AXIS, MDOM_AXIS, MODEL_AXIS,
-                                      Mesh, Mesh1D, sanitize_spec)
+                                      Mesh, Mesh1D, Spec, block_range,
+                                      sanitize_spec)
 from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
@@ -202,6 +208,25 @@ def gather_params_1d(shards, p: int, data: int = 1, fsdp: bool = False):
     return ptree.map_with_path(
         lambda path, _: gather(path, *(_leaf_at(s, path) for s in shards)),
         shards[0])
+
+
+def block_bounds(mesh, spec: Spec, shape) -> tuple:
+    """[start, stop) of each dim of the rank's block of a whole array of
+    ``shape`` cut under ``spec`` (sanitized) on ``mesh``."""
+    return tuple(block_range(mesh, e, n) for e, n in zip(spec, shape))
+
+
+def param_bounds(path, shape, mesh, fsdp: bool = False) -> tuple:
+    """The bounds in the whole parameter leaf at ``path`` (of ``shape``:
+    the reference's stacked leaf or the port's per-layer one) of the
+    rank's shard on ``mesh``: ``param_spec_1d`` on a ``Mesh1D`` (with the
+    FSDP hybrid's ``fsdp``), ``param_spec_2d`` on a ``Mesh``, sanitized.
+    ``whole[tuple(slice(*b) for b in bounds)]`` is the leaf of
+    ``shard_params_1d`` / ``shard_params_2d``."""
+    ndim = len(shape)
+    spec = (param_spec_1d(path, ndim, fsdp) if isinstance(mesh, Mesh1D)
+            else param_spec_2d(path, ndim))
+    return block_bounds(mesh, sanitize_spec(shape, spec, mesh), shape)
 
 
 def _leaf_at(tree, path):

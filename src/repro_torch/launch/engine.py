@@ -20,7 +20,13 @@ The engine owns
     rollout: step i runs ``r_sched[i]`` passes of the processor);
   * the input pipeline (prefetch thread, copies to the device);
   * eval on held-out steps, the metrics history and its JSONL/JSON file,
-    and the span tracer (``data_wait`` / ``step`` / ``dispatch``).
+    and the span tracer (``data_wait`` / ``step`` / ``dispatch``);
+  * zero-redundancy sharded checkpoints in the reference's on-disk format
+    (``repro_torch.checkpoint``: each rank writes its own blocks, the
+    file writes stream from a background thread, keep-last-k GC and the
+    best-eval marker), and exact resume (``EngineConfig(resume=...)``:
+    params, optimizer state, step, pipeline cursor) from a checkpoint of
+    either package on any mesh.
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -28,9 +34,9 @@ only its block of the batch, its data rank's rows of it (``pipeline=
 "sharded"``, the default: paper §5), or makes the whole batch and takes its
 block (``"sync-full"``: the same blocks, bit for bit); every rank computes
 the same loss and gradient norm, and rank 0 alone prints and writes the
-metrics.  Left for later slices (ROADMAP.md): checkpoints and resume,
-preemption and the analytic cost model.  ``close()`` releases
-the ring's and the Cannon's IPC workspaces (collective).
+metrics.  Left for later slices (ROADMAP.md): preemption (the resilience
+layer) and the analytic cost model.  ``close()`` releases the ring's and
+the Cannon's IPC workspaces (collective).
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       config=EngineConfig(steps=10, batch=2, rollout=2,
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from functools import partial
 from typing import Dict, List, Optional
@@ -48,11 +55,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import telemetry
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import shard_params_1d, shard_params_2d
 from repro_torch.core import precision
 from repro_torch.core import tree as ptree
+from repro_torch.core.sharding import DATA_AXIS
 from repro_torch.data.pipeline import InputPipeline, make_pipeline
 from repro_torch.kernels import ring
 from repro_torch.launch import specs
@@ -85,6 +94,11 @@ class EngineConfig:
                                # batches on 1 device
     prefetch: int = 2          # 0 disables the background thread
     zero1: bool = False        # ZeRO-1: shard optimizer state over data
+    ckpt: Optional[str] = None
+    ckpt_every: int = 0        # 0 = only a final checkpoint (if ckpt set)
+    keep_ckpts: int = 0        # keep last k periodic ckpts (0 = keep all)
+    resume: Optional[str] = None   # checkpoint dir: exact-resume from it
+    async_save: bool = True    # background checkpoint writes
     metrics_out: Optional[str] = None
     metrics_format: str = "jsonl"  # "jsonl" (append per flush) | "json"
                                # (whole history at the end of the run)
@@ -218,6 +232,17 @@ class TrainEngine:
         self.history: List[Dict] = []
         self._metrics_flushed = 0   # history records already appended
         self.step_idx = 0
+        # async sharded checkpointing: snapshot on this thread, stream
+        # files from a background one
+        self._writer = ckpt.AsyncCheckpointWriter()
+        self.last_save = None      # Snapshot of the most recent save
+        self._ckpt_history: List[str] = []   # periodic dirs, oldest first
+        self._prune_backlog: List[str] = []  # GC'd paths pending deletion
+        self._stale_ckpt_error: Optional[BaseException] = None
+        self.best_val = float("inf")
+        self.best_ckpt: Optional[str] = None
+        if config.resume:
+            self._restore(config.resume)
 
     def opt_state_bytes(self) -> int:
         """This rank's bytes of optimizer state: moments, and masters
@@ -279,6 +304,7 @@ class TrainEngine:
                     if self.is_rank0:
                         print(f"step {i:5d}  loss {m['loss']:.4f}  "
                               f"lr {m['lr']:.2e}  ({m['wall_s']}s)")
+                pending_val = None
                 if c.eval_every and i and i % c.eval_every == 0:
                     with tr.span("eval", step=i):
                         em = self.evaluate()
@@ -287,6 +313,18 @@ class TrainEngine:
                     if self.is_rank0:
                         print(f"step {i:5d}  val_loss "
                               f"{em['val_loss']:.4f}")
+                    pending_val = em["val_loss"]
+                if c.ckpt and c.ckpt_every and i and i % c.ckpt_every == 0:
+                    self.save(f"{c.ckpt}-{i}", periodic=True)
+                if pending_val is not None:
+                    # after the save: when eval and ckpt cadences align,
+                    # the marker points at THIS step's checkpoint
+                    self._mark_best(pending_val)
+        if c.ckpt:
+            self.save(c.ckpt)
+            if self.is_rank0:
+                print(f"checkpoint -> {c.ckpt}")
+        self.wait_checkpoints()    # barrier for in-flight writes
         self._write_metrics(final=True)
         self._export_telemetry()
         return self.history
@@ -319,6 +357,203 @@ class TrainEngine:
         jsonl = telemetry.jsonl_path_for(c.trace)
         self.tracer.export_jsonl(jsonl)
         print(f"trace -> {c.trace} (+ {jsonl})")
+
+    # -- checkpointing ---------------------------------------------------
+    def _ckpt_specs(self):
+        """The spec trees of this rank's blocks of each checkpoint group
+        (None on one device): the params' sanitized specs; the optimizer
+        state's the same, with the data axis on the dim ZeRO-1 cuts."""
+        if self.mesh is None:
+            return None
+
+        def state_spec(spec, dim):
+            if dim is None:
+                return spec
+            return tuple(DATA_AXIS if d == dim else e
+                         for d, e in enumerate(spec))
+
+        dims = (self.zero1.dims if self.zero1 is not None
+                else ptree.map(lambda _: None, self.param_specs))
+        ospec = ptree.map(state_spec, self.param_specs, dims)
+        opt = {"step": (), "mu": ospec, "nu": ospec}
+        if "master" in self.opt_state:
+            opt["master"] = ospec
+        return {"params": self.param_specs, "opt_state": opt}
+
+    def save(self, path: str, block: Optional[bool] = None,
+             periodic: bool = False) -> None:
+        """Sharded checkpoint of params/opt_state/step + resume state.
+
+        Each rank writes only its own blocks (no gather); with
+        ``config.async_save`` the device->host snapshot happens here and
+        the file writes stream from a background thread while training
+        continues (``wait_checkpoints`` is the barrier).  On a mesh every
+        rank calls this at the same step: each writes its shard file and
+        index fragment, and rank 0's writer merges the fragments into the
+        manifest.
+
+        ``periodic=True`` registers the path for keep-last-k GC
+        (``EngineConfig(keep_ckpts=k)``): once more than k periodic
+        checkpoints exist, the oldest are deleted -- except the one the
+        ``best`` marker points at.  Rank 0 deletes them, only AFTER the
+        new checkpoint is complete."""
+        c = self.config
+        block = (not c.async_save) if block is None else block
+        prune = []
+        if periodic:
+            self._ckpt_history.append(path)
+            if c.keep_ckpts > 0:
+                keep = set(self._ckpt_history[-c.keep_ckpts:])
+                if self.best_ckpt:
+                    keep.add(self.best_ckpt)
+                prune = [p for p in self._ckpt_history if p not in keep]
+                self._ckpt_history = [p for p in self._ckpt_history
+                                      if p not in prune]
+                # re-queue paths whose earlier prune never ran (a failed
+                # async write skips its prune) so GC'd dirs cannot leak
+                prune += [p for p in self._prune_backlog
+                          if p not in prune and p not in keep
+                          and os.path.isdir(p)]
+        else:
+            # final saves drain the backlog too: this may be the run's
+            # last save, so an orphaned prune list would leak GC'd
+            # directories forever
+            prune = [p for p in self._prune_backlog if os.path.isdir(p)]
+        self._prune_backlog = prune
+        # the reference's keys: either package's _restore reads them
+        extra = {"arch": self.arch, "reduced": self.reduced,
+                 "seed": c.seed, "steps": c.steps, "rollout": c.rollout,
+                 "scheme": self.cfg.scheme,
+                 "precision": self.policy.name,
+                 "pipeline": self.pipeline.state(),
+                 "best": {"val": (None if self.best_val == float("inf")
+                                  else self.best_val),
+                          "ckpt": self.best_ckpt},
+                 "ckpt_history": list(self._ckpt_history),
+                 "prune_backlog": list(self._prune_backlog)}
+        try:
+            self._writer.wait()
+        except Exception as e:
+            # a FAILED earlier async write surfaces at the writer's
+            # in-flight guard.  It must not abort THIS save; its prune
+            # list stays queued in _prune_backlog, and the error is
+            # re-raised at the next wait_checkpoints() barrier.
+            print(f"[ckpt] earlier async checkpoint write failed: {e!r}; "
+                  f"proceeding with save of {path!r}")
+            self._stale_ckpt_error = e
+        m = self.mesh
+        # ckpt_submit covers the synchronous part the train loop pays
+        # for: the device->host snapshot (plus, under block=True, the
+        # whole write); the background streaming shows up as ckpt.write
+        # spans on the writer thread's own track
+        with self.tracer.span("ckpt_submit", path=path, block=block,
+                              step=self.step_idx):
+            self.last_save = self._writer.save(
+                path, {"params": self.params,
+                       "opt_state": self.opt_state},
+                step=self.step_idx, extra=extra, mesh=m,
+                specs=self._ckpt_specs(), block=block,
+                prune=prune if self.is_rank0 else [],
+                process_index=0 if m is None else m.rank,
+                process_count=1 if m is None
+                else m.data_size * m.model_size)
+
+    def _mark_best(self, val_loss: float) -> None:
+        """Track the best eval loss; point the ``<ckpt>-best.json`` marker
+        (rank 0 writes it) at the newest periodic checkpoint at-or-before
+        the eval when it improves.  ``eval_step``/``val_loss`` describe
+        the weights that were evaluated, ``ckpt_step`` the (possibly
+        earlier) checkpoint the path refers to."""
+        if val_loss >= self.best_val:
+            return
+        self.best_val = float(val_loss)
+        if not (self.config.ckpt and self._ckpt_history):
+            return
+        self.best_ckpt = self._ckpt_history[-1]
+        if not self.is_rank0:
+            return
+        suffix = self.best_ckpt.rsplit("-", 1)[-1]
+        marker = {"path": self.best_ckpt, "val_loss": self.best_val,
+                  "eval_step": self.step_idx,
+                  "ckpt_step": int(suffix) if suffix.isdigit() else None}
+        with open(f"{self.config.ckpt}-best.json", "w") as f:
+            json.dump(marker, f, indent=1)
+
+    def wait_checkpoints(self) -> None:
+        """Barrier for in-flight checkpoint writes (re-raises their
+        errors on this thread) -- including an absorbed error from an
+        earlier failed write that ``save`` proceeded past."""
+        self._writer.wait()
+        if self._stale_ckpt_error is not None:
+            err, self._stale_ckpt_error = self._stale_ckpt_error, None
+            raise err
+
+    def _restore(self, path: str) -> None:
+        """Exact resume: params, optimizer state (with Adam's step), the
+        loop's step index and the pipeline's cursor -- an interrupted run
+        continues with a bit-identical history.
+
+        The restore is elastic: the checkpoint may come from either
+        package and any mesh.  Each rank reads, from the manifest's global
+        bounds, only its blocks of THIS engine's own param and ZeRO-1
+        layouts, into its own tensors.  The pipeline needs no refit: its
+        read plans come from the current mesh, only the cursor is
+        restored."""
+        c = self.config
+        man = ckpt.load_manifest(path)
+        for field in ("seed", "rollout", "steps"):
+            want, got = getattr(c, field), man.extra.get(field)
+            if got is not None and got != want:
+                raise ValueError(
+                    f"resume {path!r}: checkpoint {field}={got} != engine "
+                    f"{field}={want} -- the rollout schedule / lr "
+                    f"schedule would diverge; pass the saved value")
+        arch = man.extra.get("arch")
+        if arch is not None and arch != self.arch:
+            raise ValueError(f"resume {path!r}: checkpoint arch {arch!r} "
+                             f"!= engine arch {self.arch!r}")
+        prec = man.extra.get("precision")
+        if prec is not None and prec != self.policy.name:
+            hint = ("omit --precision (the checkpoint predates the "
+                    "policy presets)" if prec == "legacy"
+                    else f"pass --precision {prec}")
+            raise ValueError(
+                f"resume {path!r}: checkpoint precision {prec!r} != engine "
+                f"policy {self.policy.name!r} -- param dtypes and the "
+                f"master-weight state would not line up; {hint}")
+        cur_shape = (None if self.mesh is None
+                     else tuple(self.mesh.shape.values()))
+        if (man.mesh_shape is not None and cur_shape is not None
+                and tuple(man.mesh_shape) != cur_shape and self.is_rank0):
+            print(f"[resume] elastic reshard: checkpoint mesh "
+                  f"{tuple(man.mesh_shape)} -> current mesh {cur_shape}")
+        specs = self._ckpt_specs() or {}
+        for group, tree in (("params", self.params),
+                            ("opt_state", self.opt_state)):
+            ckpt.restore_tree(path, group, out=tree, mesh=self.mesh,
+                              specs=specs.get(group), manifest=man)
+        self.step_idx = man.step
+        self.pipeline.set_state(man.extra.get("pipeline",
+                                              {"cursor": man.step}))
+        # best-marker state: the synchronously-written <ckpt>-best.json is
+        # authoritative (the manifest's copy can be one eval stale when
+        # the eval and ckpt cadences align); manifest extra is the
+        # fallback when this run has no ckpt or the marker is gone
+        best = man.extra.get("best") or {}
+        marker_file = f"{c.ckpt}-best.json" if c.ckpt else None
+        if marker_file and os.path.exists(marker_file):
+            with open(marker_file) as f:
+                mk = json.load(f)
+            best = {"val": mk.get("val_loss"), "ckpt": mk.get("path")}
+        if best.get("val") is not None:
+            self.best_val = float(best["val"])
+            self.best_ckpt = best.get("ckpt")
+        self._ckpt_history = [p for p in man.extra.get("ckpt_history", [])
+                              if os.path.isdir(p)]
+        # deletions the dead process never ran: re-queued at the next save
+        self._prune_backlog = [
+            p for p in man.extra.get("prune_backlog", [])
+            if os.path.isdir(p)]
 
     def close(self, collective: bool = True) -> None:
         """Release what outlives the steps: the ring's and the Cannon's IPC

@@ -2,11 +2,13 @@
 (the counterpart of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch weathermixer-1b \\
-      [--full] [--precision bf16] [--requests 8] [--leads 1,2] \\
-      [--buckets 1,2,4] [--mode continuous|drain] [--coalesce-ms 0] \\
-      [--device cuda|cpu]
+      [--full] [--ckpt out/ck-100] [--precision bf16] [--requests 8] \\
+      [--leads 1,2] [--buckets 1,2,4] [--mode continuous|drain] \\
+      [--coalesce-ms 0] [--device cuda|cpu]
 
-The engine serves fresh weights from ``--seed``.  Requests are synthetic
+``--ckpt`` restores the params group of any training checkpoint (either
+package's, any saving mesh; cast to the serving precision); without it the
+engine serves fresh weights from ``--seed``.  Requests are synthetic
 initial conditions from the weather dataset, submitted up-front with leads
 cycling through ``--leads``; the engine batches continuously at
 rollout-step boundaries and reports requests/s and latency percentiles.
@@ -23,7 +25,7 @@ from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
 from repro_torch.serve.engine import ForecastEngine, ServeConfig
 
 
-def serve(arch: str, *, requests: int = 32,
+def serve(arch: str, *, ckpt: Optional[str] = None, requests: int = 32,
           leads: Sequence[int] = (1, 2, 4, 8),
           precision: Optional[str] = None, mode: str = "continuous",
           buckets: Sequence[int] = (1, 2, 4, 8), coalesce_ms: float = 0.0,
@@ -33,7 +35,7 @@ def serve(arch: str, *, requests: int = 32,
     """Build an engine, push ``requests`` synthetic forecasts through it,
     and return ``(results, engine, wall_seconds)``."""
     engine = ForecastEngine(
-        arch, reduced=reduced, config_override=config_override,
+        arch, reduced=reduced, ckpt=ckpt, config_override=config_override,
         device=device,
         config=ServeConfig(buckets=tuple(buckets), mode=mode,
                            coalesce_s=coalesce_ms / 1e3,
@@ -55,7 +57,9 @@ def serve(arch: str, *, requests: int = 32,
     wall = time.perf_counter() - t0
     if not quiet:
         s = engine.summary(results)
-        print(f"[serve] {arch} (fresh init) on {engine.device} "
+        src = (f"ckpt {ckpt} (step {engine.restored_step})" if ckpt
+               else "fresh init")
+        print(f"[serve] {arch} ({src}) on {engine.device} "
               f"precision={engine.policy.name} mode={mode}")
         print(f"[serve] {requests} requests in {wall:.2f}s = "
               f"{requests / wall:.3f} req/s | p50 {s['p50_s'] * 1e3:.1f}ms "
@@ -73,6 +77,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="weathermixer-1b", choices=MIXER_IDS)
     ap.add_argument("--full", action="store_true",
                     help="full (non-reduced) config -- needs a GPU")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params of this training checkpoint "
+                         "(default: fresh weights from --seed)")
     ap.add_argument("--precision", default=None,
                     choices=["fp32", "bf16", "bf16_pure"],
                     help="serving precision policy")
@@ -93,7 +100,7 @@ def main(argv=None):
                          "spans + latency histograms")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    serve(args.arch, requests=args.requests,
+    serve(args.arch, ckpt=args.ckpt, requests=args.requests,
           leads=[int(x) for x in args.leads.split(",")],
           precision=args.precision, mode=args.mode,
           buckets=[int(x) for x in args.buckets.split(",")],

@@ -28,6 +28,17 @@ sharded``, the default; ``sync-full`` makes the whole batch on every rank);
 ``--impl`` (1-D only) defaults to the config's own (weathermixer-1b:
 ``ring_chunked``).
 
+Checkpoints, in the reference's on-disk format (``repro_torch.checkpoint``:
+either package's restore reads the other's), each rank writing only its
+own blocks, the writes in the background unless ``--sync-save``:
+
+  ... --ckpt out/ck [--ckpt-every 50] [--keep-ckpts 3] [--sync-save]
+  ... --resume out/ck-50          # the same --steps/--seed/--rollout
+
+``--ckpt-every k`` saves ``out/ck-<i>`` after every k-th step i (and the
+final ``out/ck``); ``--resume`` continues bit for bit from any of them, on
+any mesh (each rank reads only its blocks of the new layout).
+
 Reduced configs (the default) run real optimization on the synthetic
 weather data; ``--full`` trains the published width and needs a GPU.
 ``--device`` defaults to cuda and fails without a card.
@@ -50,7 +61,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
           prefetch: int = 2, accum: int = 1, eval_every: int = 0,
           device: str = "cuda", mesh_model: int = 1, mesh_data: int = 1,
           scheme: str = None, impl: str = None, init_params: str = None,
-          zero1: bool = False):
+          zero1: bool = False, ckpt: str = None, ckpt_every: int = 0,
+          keep_ckpts: int = 0, resume: str = None, async_save: bool = True):
     """Functional entry point; returns (history, params).  ``init_params``:
     an npz of reference weights (``convert.params_from_npz``)."""
     engine = TrainEngine(
@@ -64,7 +76,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
             metrics_out=metrics_out, metrics_format=metrics_format,
             trace=trace, telemetry=telemetry, pipeline=pipeline,
             prefetch=prefetch, accum=accum, eval_every=eval_every,
-            zero1=zero1))
+            zero1=zero1, ckpt=ckpt, ckpt_every=ckpt_every,
+            keep_ckpts=keep_ckpts, resume=resume, async_save=async_save))
     try:
         history = engine.run()
     except BaseException:
@@ -123,6 +136,19 @@ def main(argv=None):
     ap.add_argument("--init-params", default=None,
                     help="start from the weights in this npz (a reference "
                          "pytree saved flat, keys joined with '/')")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path prefix: periodic saves go to "
+                         "<ckpt>-<step>, the final one to <ckpt>")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save every k steps (0 = final save only)")
+    ap.add_argument("--keep-ckpts", type=int, default=0,
+                    help="keep only the last k periodic checkpoints "
+                         "(0 = keep all; the best-eval one is spared)")
+    ap.add_argument("--resume", default=None,
+                    help="resume exactly from this checkpoint directory")
+    ap.add_argument("--sync-save", action="store_true",
+                    help="write checkpoints on the training thread "
+                         "(default: a background writer)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches prefetched by the background thread "
                          "(0 = synchronous)")
@@ -143,7 +169,9 @@ def main(argv=None):
           eval_every=args.eval_every, device=args.device,
           mesh_model=args.mesh_model, mesh_data=args.mesh_data,
           scheme=args.scheme, impl=args.impl, init_params=args.init_params,
-          zero1=args.zero1)
+          zero1=args.zero1, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
+          keep_ckpts=args.keep_ckpts, resume=args.resume,
+          async_save=not args.sync_save)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,12 @@ engine owns:
     coalesce or grow, or, in ``drain`` mode, to wait for the batch to
     empty.
 
+The weights come from ``ckpt=`` (the params group of a training
+checkpoint of either package and any mesh, in the reference's format:
+``checkpoint/serving.py``, shapes checked and dtypes cast to the serving
+policy; ``restored_step`` is its step), else ``params=`` (whole, in the
+port's layout), else a fresh init from ``config.seed``.
+
 Requests are ``submit()``-ed (thread-safe) and return future-style
 ``ForecastResult`` handles; ``drain()`` (or the ``start()`` background
 thread) advances boundaries until the queue empties.  The engine runs on
@@ -73,10 +79,19 @@ def _cast_params(params, param_dtype: torch.dtype, device):
     return walk(params)
 
 
+def _param_shapes(cfg):
+    """The model's params under ``cfg`` as fake tensors: shapes and
+    dtypes, no memory (the reference's ``jax.eval_shape`` of init)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return M.init(cfg, seed=0, device="cpu")
+
+
 class ForecastEngine:
     """Batched autoregressive forecast serving on one device."""
 
     def __init__(self, arch: str, *, reduced: bool = True, params=None,
+                 ckpt: Optional[str] = None,
                  config: ServeConfig = ServeConfig(),
                  config_override=None, clock=time.monotonic,
                  device="cuda"):
@@ -117,7 +132,15 @@ class ForecastEngine:
         self._clock = clock
         self._sleep = time.sleep
 
-        if params is None:
+        # -- params: restore > passed-in > fresh init -----------------------
+        self.restored_step = None
+        if ckpt is not None:
+            from repro_torch.checkpoint.serving import restore_serving_params
+            params, man = restore_serving_params(
+                ckpt, arch=arch, like=_param_shapes(cfg),
+                device=self.device)
+            self.restored_step = man.step
+        elif params is None:
             params = M.init(cfg, seed=config.seed, device=self.device)
         else:
             params = _cast_params(params, self.policy.param_dtype,

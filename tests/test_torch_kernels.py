@@ -164,9 +164,10 @@ def test_vec_bytes_follows_row_stride(k, want):
                         .view(3, k), w) == 2
 
 
-_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?:[.\s,]|$)"
-                     r"|import_module\(\s*['\"](?:jax|repro)[.'\"]",
-                     re.MULTILINE)
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|ml_dtypes|repro)"
+                     r"(?:[.\s,]|$)"
+                     r"|import_module\(\s*['\"](?:jax|ml_dtypes|repro)"
+                     r"[.'\"]", re.MULTILINE)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -177,7 +178,8 @@ def test_port_imports_neither_jax_nor_reference():
              for f in files}
     assert {"core/comm.py", "core/jigsaw.py", "core/sharding.py",
             "kernels/build.py", "kernels/fused_ring.py", "kernels/ring.py",
-            "kernels/wx.py", "launch/mesh.py"} <= names
+            "kernels/wx.py", "launch/mesh.py", "checkpoint/manifest.py",
+            "checkpoint/sharded.py", "checkpoint/writer.py"} <= names
     bad = {str(f.relative_to(ROOT)): m.group(0).strip()
            for f in files for m in [_IMPORT.search(f.read_text())] if m}
     assert not bad, bad
