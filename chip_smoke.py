@@ -7,7 +7,8 @@ from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s and ``mamba2-130m``'s full published widths, through
 the entry points a user calls: the Mamba-2 forward and greedy generation,
-forecast serving, one-GPU training, the 2-D Jigsaw (Cannon) training step
+forecast serving, one-GPU training (and its preemption, supervised
+relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
 Jigsaw (ring) training step on two ranks sharing the card, and both
 schemes' model groups replicated over a data axis of two (ZeRO-1, the
@@ -141,6 +142,23 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      (``steps_beside_a_write``), and the card.  The checkpoint directories live under
      ``out/chip_smoke_ckpt`` (free disk checked first: too little fails)
      and are removed when each part ends;
+  9a. ``preempt``, the resilience path, with the train phase's engines
+     freed: ``resilience.Supervisor`` runs the training CLI
+     (``repro_torch.launch.train.main``: ``--full --precision bf16``, the
+     train phase's seed 0, batch 2, rollout up to 2, lr 1e-4 and 3 steps,
+     ``--ckpt``) as child processes, this file re-run with
+     ``--preempt-child`` so each reports its launches and its tracer's
+     events, under ``REPRO_PREEMPT_AT_STEP=0``: child 0 signals itself
+     after step 0, takes a final synchronous save at ``ck-0`` and exits
+     75; the supervisor relaunches at once with ``--resume ck-0``; child
+     1 runs steps 1 and 2 and saves ``ck``.  Checks: attempts [75, 0],
+     resumes [None, ck-0], no backoff, the children's logged steps [0]
+     and [1, 2], their (loss, lr, grad_norm) the train phase's history
+     bit for bit, ``ck-0`` complete and outranked by ``ck``, 5 + 54 r
+     block_matmul launches per step in each child; printed: the bytes a
+     save, the final save's seconds, the seconds from the signal to child
+     0's exit and from the relaunch to child 1's first step (two 14 GB
+     saves under ``out/chip_smoke_ckpt/preempt``, removed after);
   9b. the data axis, with this process's engines freed, each phase this
      file re-run as rank processes sharing the card (``--train-data-rank``)
      on the train phase's weights (seed 0) and first batch of two, each
@@ -2113,7 +2131,8 @@ def run_ranks(flag, tmp, n, timeout=600):
     card, joined through ``env://`` on a free port; returns their
     rank<r>.json results and the wall seconds."""
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n))
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n))
     procs = []
     try:
         t0 = time.perf_counter()
@@ -2883,6 +2902,122 @@ def ckpt_resume_part(torch, BM, engine, hist, path, card):
                 final_state_bitwise_equal=True)
 
 
+PREEMPT_AT = 0          # the chaos hook's step: the first child stops after it
+
+
+def preempt_child(out, argv):
+    """One child of the preempt phase (this file run with
+    ``--preempt-child out args...``): the training CLI,
+    ``repro_torch.launch.train.main(args)``, then its exit code, its
+    block_matmul launches (counted from 0 in this fresh process), and its
+    tracer's step spans and preemption events with the exit's time, on
+    the host's monotonic clock (``perf_counter_ns``, shared by the
+    processes of one machine), into the JSON file ``out``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch import telemetry
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.launch import train
+    code = 0
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    exit_ns = time.perf_counter_ns()
+    tr = telemetry.get_tracer()
+    events = [dict(name=e["name"], t_ns=tr.t0_ns + int(e["ts"] * 1e3),
+                   dur_ns=int(e.get("dur", 0) * 1e3), args=e.get("args"))
+              for e in tr.chrome_events() if e.get("ph") in ("X", "i")
+              and (e["name"] == "step" or e["name"].startswith("preempt."))]
+    Path(out).write_text(json.dumps(dict(
+        code=code, block_matmul_launches=BM.block_matmul.launches,
+        exit_ns=exit_ns, events=events)))
+    return code
+
+
+def preempt_phase(torch, hist, sched, path, card):
+    """The resilience path at full width: ``resilience.Supervisor`` runs
+    the training CLI (``--full --precision bf16``, the train phase's
+    seed, batch, rollout, lr and steps) as child processes with
+    ``REPRO_PREEMPT_AT_STEP=0``.  Child 0 signals itself after step 0,
+    takes a final synchronous save at ``ck-0`` and exits 75; the
+    supervisor relaunches at once with ``--resume ck-0``; child 1 runs
+    steps 1 and 2 and saves ``ck``.  The children's (loss, lr, grad_norm)
+    must equal the train phase's history bit for bit."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import checkpoint_complete, latest_checkpoint
+    from repro_torch.launch import resilience
+    env = dict(os.environ, **{resilience.PREEMPT_ENV: str(PREEMPT_AT)})
+    launched_ns = []
+
+    def build(resume, attempt):
+        return ([sys.executable, str(Path(__file__).resolve()),
+                 "--preempt-child", str(path / f"c{attempt}.json"),
+                 "--full", "--precision", "bf16", "--batch", str(TRAIN_BATCH),
+                 "--rollout", str(TRAIN_ROLLOUT), "--lr", "1e-4",
+                 "--log-every", "1", "--seed", "0", "--steps",
+                 str(TRAIN_STEPS), "--ckpt", str(path / "ck"),
+                 "--metrics-out", str(path / f"m{attempt}.jsonl")]
+                + (["--resume", resume] if resume else []))
+
+    def run_cmd(argv):
+        n = len(launched_ns)
+        with open(path / f"c{n}.log", "w") as log:
+            launched_ns.append(time.perf_counter_ns())
+            return subprocess.call(argv, env=env, stdout=log,
+                                   stderr=subprocess.STDOUT, timeout=900)
+
+    def logs():
+        return "".join((path / f"c{n}.log").read_text()[-3000:]
+                       for n in range(len(launched_ns)))
+
+    t0 = time.perf_counter()
+    sup = resilience.Supervisor(build, ckpt_root=str(path), prefix="ck",
+                                max_restarts=1, env=env, run_cmd=run_cmd)
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    check(rc == 0 and sup.attempts == [resilience.RESUMABLE_EXIT_CODE, 0],
+          f"preempt: exit codes {sup.attempts}, want [75, 0]:\n{logs()}")
+    check(sup.resumes == [None, str(path / f"ck-{PREEMPT_AT}")]
+          and sup.backoffs == [], f"preempt: resumes {sup.resumes}, "
+          f"backoffs {sup.backoffs}")
+    kids = [json.loads((path / f"c{n}.json").read_text()) for n in (0, 1)]
+    logged = [[json.loads(x) for x in (path / f"m{n}.jsonl").read_text()
+               .splitlines() if x.strip()] for n in (0, 1)]
+    check([[h["step"] for h in m] for m in logged] == [[0], [1, 2]],
+          f"preempt: the children logged steps "
+          f"{[[h['step'] for h in m] for m in logged]}, want [[0], [1, 2]]")
+    keys = ("loss", "lr", "grad_norm")
+    got = [tuple(h[k] for k in keys) for h in logged[0] + logged[1]]
+    want = [tuple(h[k] for k in keys) for h in hist]
+    check(got == want, f"preempt: the supervised history {got} is not the "
+          f"train phase's {want} bit for bit")
+    ck0 = path / f"ck-{PREEMPT_AT}"
+    check(checkpoint_complete(str(ck0))
+          and latest_checkpoint(str(path), prefix="ck") == str(path / "ck"),
+          "preempt: ck-0 incomplete or not outranked by the final ck")
+    launches = [k["block_matmul_launches"] for k in kids]
+    want_l = [5 + 54 * sched[0], sum(5 + 54 * r for r in sched[1:])]
+    check(launches == want_l, f"preempt: the children made {launches} "
+          f"block_matmul launches, want {want_l}")
+
+    def first(kid, name):
+        return next(e for e in kid["events"] if e["name"] == name)
+    sigterm = first(kids[0], "preempt.chaos_sigterm")
+    final = first(kids[0], "preempt.final_save")
+    step1 = first(kids[1], "step")
+    return dict(
+        card=card, wall_s=wall, attempts=sup.attempts,
+        resumes=[r and Path(r).name for r in sup.resumes],
+        history_bitwise_equal=True, bytes_per_save=manifest_bytes(ck0),
+        final_save_s=final["args"]["dur_s"],
+        signal_to_exit_s=(kids[0]["exit_ns"] - sigterm["t_ns"]) / 1e9,
+        relaunch_to_first_step_s=(step1["t_ns"] + step1["dur_ns"]
+                                  - launched_ns[1]) / 1e9,
+        child_wall_s=[(k["exit_ns"] - t) / 1e9
+                      for k, t in zip(kids, launched_ns)],
+        block_matmul_launches=launches)
+
+
 def train_phase(torch, BM, WX, card):
     import dataclasses
     import math
@@ -3027,6 +3162,14 @@ def train_phase(torch, BM, WX, card):
          steps_beside_a_write=inflight, serve_2x2=ckpt_b)
     torch.cuda.empty_cache()
 
+    # the supervised, preempted and resumed run in child processes
+    path, free = ckpt_dir("preempt", 2 * need)
+    try:
+        pre = preempt_phase(torch, hist, sched, path, card)
+    finally:
+        ckpt_drop(path)
+    emit(phase="preempt", disk_free_gb=free / 1e9, **pre)
+
     # the data-parallel phases, with this process's engines freed
     import shutil
     try:
@@ -3037,7 +3180,8 @@ def train_phase(torch, BM, WX, card):
         emit(phase="train_data", wall_s=time.perf_counter() - t0)
     finally:
         shutil.rmtree(handoff, ignore_errors=True)
-    return launches, stats, stats_2d, stats_1d, stats_2dm, stats_d, ckpt_a
+    return (launches, stats, stats_2d, stats_1d, stats_2dm, stats_d, ckpt_a,
+            pre)
 
 
 def main():
@@ -3092,8 +3236,8 @@ def main():
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
-    train_launches, train, t2, t1, t2m, td, ck = train_phase(torch, BM, WX,
-                                                             card)
+    train_launches, train, t2, t1, t2m, td, ck, pre = train_phase(
+        torch, BM, WX, card)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -3181,11 +3325,13 @@ def main():
         + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"])
         + sum(data_launches["2d"]["block_matmul"])
         + fwd_launches["block_matmul"] + gen_launches["block_matmul"]
-        + ck["resumed_block_matmul_launches"],
+        + ck["resumed_block_matmul_launches"]
+        + sum(pre["block_matmul_launches"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches,
                              "ckpt_resume":
                              ck["resumed_block_matmul_launches"],
+                             "preempt": pre["block_matmul_launches"],
                              "train_2d": t2["block_matmul_launches"],
                              "train_2d_mesh": mesh_launches["block_matmul"],
                              "train_data_2d":
@@ -3335,6 +3481,8 @@ if __name__ == "__main__":
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-data-rank"]:
             sys.exit(train_data_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--preempt-child"]:
+            sys.exit(preempt_child(sys.argv[2], sys.argv[3:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core.sharding import Spec, block_range, sanitize_batch
-from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
+from repro_torch.data.weather import (Cancelled, WeatherDataConfig,
+                                      WeatherDataset)
 from repro_torch.launch.specs import block_specs
 
 MODES = ("sharded", "sync-full")
@@ -186,8 +187,11 @@ class WeatherBatchSource:
         self._memo_key: Any = None
         self._memo: Dict[str, np.ndarray] = {}
 
-    def full_batch(self, step: int, horizon: int) -> Dict[str, np.ndarray]:
-        return self.ds.sample_batch(step, self.batch_size, horizon=horizon)
+    def full_batch(self, step: int, horizon: int,
+                   cancel: Optional[threading.Event] = None
+                   ) -> Dict[str, np.ndarray]:
+        return self.ds.sample_batch(step, self.batch_size, horizon=horizon,
+                                    cancel=cancel)
 
     def plan(self, spec: Spec, mesh) -> _ReadPlan:
         c = self.ds.cfg
@@ -195,24 +199,25 @@ class WeatherBatchSource:
                          c.channels, self.patch)
 
     def read_key(self, key: str, step: int, horizon: int,
-                 plan: _ReadPlan) -> np.ndarray:
+                 plan: _ReadPlan,
+                 cancel: Optional[threading.Event] = None) -> np.ndarray:
         """``key``'s block under ``plan``; fields and target share one
-        plan, so one read of its boxes serves both (memoised per step)."""
+        plan, so one read of its boxes serves both (memoised per step; a
+        cancelled read memoises nothing)."""
         if self._memo_key != (step, horizon, plan):
-            self._memo_key = (step, horizon, plan)
-            self._memo = {k: np.empty(plan.shape, np.float32)
-                          for k in self.keys}
+            memo = {k: np.empty(plan.shape, np.float32) for k in self.keys}
             got = self.ds.sample_index(
                 step, self.batch_size,
                 [(r.lat, r.lon, r.chan) for r in plan.reads], horizon,
-                rows=plan.rows)
+                rows=plan.rows, cancel=cancel)
             for r, box in zip(plan.reads, got):
                 na, ni, nb, nj, nc = r.dims
                 for k, v in box.items():
-                    self._memo[k][:, r.tokens, r.cols] = (
+                    memo[k][:, r.tokens, r.cols] = (
                         v.reshape(-1, na, ni, nb, nj, nc)
                         .transpose(0, 1, 3, 2, 4, 5)
                         .reshape(-1, na * nb, ni * nj * nc))
+            self._memo_key, self._memo = (step, horizon, plan), memo
         return self._memo[key]
 
 
@@ -254,24 +259,31 @@ class InputPipeline:
         self._thread: Optional[threading.Thread] = None
 
     # -- host-side ------------------------------------------------------
-    def host_batch(self, step: int, horizon: int = 1
+    def host_batch(self, step: int, horizon: int = 1,
+                   cancel: Optional[threading.Event] = None
                    ) -> Dict[str, np.ndarray]:
         """The full batch on the host."""
-        return self.source.full_batch(step, horizon)
+        return self.source.full_batch(step, horizon, cancel)
 
     # -- device-side ----------------------------------------------------
-    def get(self, step: int, horizon: int = 1) -> Dict[str, torch.Tensor]:
+    def get(self, step: int, horizon: int = 1,
+            cancel: Optional[threading.Event] = None
+            ) -> Dict[str, torch.Tensor]:
         """The batch for ``step`` on the pipeline's device, copied on the
         current stream: the whole batch, or on a mesh in ``"sharded"`` mode
-        this rank's block."""
+        this rank's block.  Raises ``weather.Cancelled`` once ``cancel`` is
+        set (checked between the host's chunks of work, and before the
+        copy to the device: none starts after it)."""
         reads: list = []
         if self.mesh is None or self.mode == "sync-full":
-            host = self.host_batch(step, horizon)
+            host = self.host_batch(step, horizon, cancel)
             if self.mesh is not None:
                 reads.extend((k, -1, v.nbytes) for k, v in host.items())
         else:
-            host = {k: self._assemble(k, step, horizon, reads)
+            host = {k: self._assemble(k, step, horizon, reads, cancel)
                     for k in self.source.keys}
+        if cancel is not None and cancel.is_set():
+            raise Cancelled()
         out = {k: self._to_device(v) for k, v in host.items()}
         self.stats.record_batch(reads, steps=1)
         return out
@@ -285,12 +297,13 @@ class InputPipeline:
             self.stats.record_batch([], plan_builds=1)
         return plan
 
-    def _assemble(self, key: str, step: int, horizon: int,
-                  reads: list) -> np.ndarray:
+    def _assemble(self, key: str, step: int, horizon: int, reads: list,
+                  cancel: Optional[threading.Event] = None) -> np.ndarray:
         """This rank's block of ``key`` from its plan's reads; the read's
         record is appended to ``reads`` for the caller's one
         ``record_batch``."""
-        block = self.source.read_key(key, step, horizon, self._plan_for(key))
+        block = self.source.read_key(key, step, horizon,
+                                     self._plan_for(key), cancel)
         reads.append((key, self.rank, block.nbytes))
         return block
 
@@ -341,7 +354,7 @@ class InputPipeline:
                                else contextlib.nullcontext())
                         with ctx:
                             batch = self.get(start_step + i,
-                                             int(horizons[i]))
+                                             int(horizons[i]), stop)
                         if side is not None:
                             side.synchronize()
                     while not stop.is_set():
@@ -352,6 +365,8 @@ class InputPipeline:
                             break
                         except queue.Full:
                             continue
+            except Cancelled:                # stop() mid-batch
+                return
             except BaseException as e:       # surfaced on the consumer
                 q.put((None, e))
 
@@ -364,7 +379,13 @@ class InputPipeline:
                 # depth before the blocking get: 0 means the consumer is
                 # about to stall on the producer
                 tr.gauge("pipeline.queue_depth", q.qsize())
-                batch, err = q.get()
+                while True:
+                    try:
+                        batch, err = q.get(timeout=0.1)
+                        break
+                    except queue.Empty:
+                        if stop.is_set():        # stop() from elsewhere
+                            return
                 if err is not None:
                     raise err
                 if side is not None:
@@ -379,9 +400,11 @@ class InputPipeline:
             self.stop()
 
     def stop(self, timeout: float = 5.0) -> bool:
-        """Cancel the prefetch worker: set its stop flag, drain the queue so
-        a blocked ``put`` wakes up, and join with ``timeout``.  Returns True
-        when the thread is down (idempotent)."""
+        """Cancel the prefetch worker: set its stop flag (the batch it is
+        making stops at its next chunk of host work, and starts no copy
+        to the device), drain the queue so a blocked ``put`` wakes up, and
+        join with ``timeout``.  Returns True when the thread is down
+        (idempotent; call again to join longer)."""
         t, q, stop = self._thread, self._queue, self._stop_event
         if t is None:
             return True
@@ -396,7 +419,6 @@ class InputPipeline:
         if not alive:
             self._queue = self._stop_event = self._thread = None
         return not alive
-
 
     # -- modeled I/O -----------------------------------------------------
     def io_bytes_per_rank(self, n_ranks: int) -> int:

@@ -6,9 +6,18 @@ coefficients are a pure function of (seed, sample_index, channel), so every
 grid point is an independent closed form of its indices and any
 (lat, lon, channel) slice can be generated alone.  The values are
 bit-equal to the reference's.  One change: ``_eval`` works through the
-channels a few at a time.  The reference builds a
-[B, C, modes, lat, lon] float64 intermediate, about 4.6 GB per sample at
-the full 728x1440x69 grid; here it is [B, chunk, modes, lat, lon].
+channels a few at a time, the chunks spread over the process's pool of
+threads (numpy's ufuncs and einsum release the GIL).  The reference
+builds a [B, C, modes, lat, lon] float64 intermediate, about 4.6 GB per
+sample at the full 728x1440x69 grid; here it is [B, chunk, modes, lat,
+lon] per thread.  Each chunk writes its own channels of the output with
+the reference's arithmetic, so neither the chunk size nor the pool
+changes a bit.  A call runs at most ``host_workers`` chunks at once: the
+cores this process may use, shared among the ranks of the host
+(``LOCAL_WORLD_SIZE``), less one left to the training loop and the
+checkpoint writer, and no more than the available memory holds.  A
+``cancel`` event (the input pipeline's stop) is checked between chunks:
+the evaluation raises ``Cancelled``.
 
 The "forecast" target is the same field advanced by one phase step
 (advection + mild nonlinearity).
@@ -16,8 +25,72 @@ The "forecast" target is the same field advanced by one phase step
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
+
+# float64 [B, chunk, modes, lat, lon] arrays alive at once while a chunk
+# is evaluated: the two products of ``s`` and their sum
+CHUNK_TEMPS = 3
+# the share of the host's available memory the pool's chunks may hold
+MEM_SHARE = 0.5
+# below this many bytes of temporaries a chunk, handing chunks to threads
+# costs more than it saves: the caller's thread evaluates them
+POOL_MIN_CHUNK_BYTES = 8 << 20
+
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_lock = threading.Lock()
+
+
+class Cancelled(Exception):
+    """A field evaluation stopped between chunks: its ``cancel`` event was
+    set (the input pipeline's ``stop``)."""
+
+
+def _check(cancel: Optional[threading.Event]) -> None:
+    if cancel is not None and cancel.is_set():
+        raise Cancelled()
+
+
+def _available_bytes() -> int:
+    """The host's available memory (``MemAvailable``), or its free pages
+    where /proc/meminfo is missing."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def host_workers(chunk_bytes: int) -> int:
+    """Chunks of ``chunk_bytes`` temporaries each to evaluate at once: the
+    cores this process may use, divided among the ranks that share the
+    host (``LOCAL_WORLD_SIZE``, set by the launchers), less one for the
+    training loop's own host work (the copies to and from the card, the
+    checkpoint writer), and no more chunks in flight than ``MEM_SHARE``
+    of the available memory, divided the same way, holds."""
+    local = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
+    cores = len(os.sched_getaffinity(0))
+    by_mem = int(MEM_SHARE * _available_bytes() / local) // max(chunk_bytes, 1)
+    return max(1, min(cores // local - 1, by_mem))
+
+
+def _field_pool() -> ThreadPoolExecutor:
+    """The process's one pool of field threads, made at first use; it
+    starts a thread only when a call has more chunks running than it has
+    idle threads."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                       thread_name_prefix="weather-fields")
+        return _pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +125,13 @@ class WeatherDataset:
         return amp, fla, flo, phs
 
     def _eval(self, sample_idx, lat_ix, lon_ix, chan_ix, t: float,
-              chan_chunk: int = 4) -> np.ndarray:
+              chan_chunk: int = 4,
+              cancel: Optional[threading.Event] = None) -> np.ndarray:
         """Evaluate fields at time offset t on an index sub-grid, working
-        through ``chan_chunk`` channels at a time.
+        through ``chan_chunk`` channels at a time, ``host_workers`` chunks
+        at once on the field pool (on the caller's thread where a chunk is
+        too small to pay for a thread); raises ``Cancelled`` once
+        ``cancel`` is set, checked between chunks.
         Returns [B, len(lat_ix), len(lon_ix), len(chan_ix)] float32."""
         c = self.cfg
         coeffs = tuple(a[:, chan_ix] for a in self._coeffs(sample_idx))
@@ -62,7 +139,8 @@ class WeatherDataset:
         lo = 2 * np.pi * lon_ix[None, :] / c.lon      # [1, Lo]
         out = np.empty((len(sample_idx), len(lat_ix), len(lon_ix),
                         len(chan_ix)), np.float32)
-        for c0 in range(0, len(chan_ix), chan_chunk):
+
+        def chunk(c0):
             amp, fla, flo, phs = (a[:, c0:c0 + chan_chunk] for a in coeffs)
             # field = sum_m amp * sin(f_la*la + f_lo*lo + phase + t)
             #   evaluated separably: sin(A+B) = sinA cosB + cosA sinB
@@ -77,21 +155,56 @@ class WeatherDataset:
             # mild nonlinearity so the map is not purely linear
             f = f + 0.1 * f ** 2
             out[..., c0:c0 + chan_chunk] = f
+
+        starts = range(0, len(chan_ix), chan_chunk)
+        per = (CHUNK_TEMPS * 8 * len(sample_idx) * c.n_modes
+               * min(chan_chunk, len(chan_ix)) * len(lat_ix) * len(lon_ix))
+        n = min(1 if per < POOL_MIN_CHUNK_BYTES else host_workers(per),
+                len(starts))
+        if n <= 1:
+            for c0 in starts:
+                _check(cancel)
+                chunk(c0)
+        else:
+            # n threads take the chunks in turn until none is left, the
+            # stop is set, or a chunk failed
+            todo = iter(starts)
+            lock, failed = threading.Lock(), threading.Event()
+
+            def drain():
+                while not (failed.is_set() or
+                           (cancel is not None and cancel.is_set())):
+                    with lock:
+                        c0 = next(todo, None)
+                    if c0 is None:
+                        return
+                    try:
+                        chunk(c0)
+                    except BaseException:
+                        failed.set()
+                        raise
+
+            for fut in [_field_pool().submit(drain) for _ in range(n)]:
+                fut.result()
+        _check(cancel)
         return out
 
     # -- public API ------------------------------------------------------
     def sample_batch(self, step: int, batch_size: int,
-                     horizon: int = 1) -> dict:
+                     horizon: int = 1,
+                     cancel: Optional[threading.Event] = None) -> dict:
         """``horizon``: number of dt steps between input and target (the
         rollout fine-tuning target is the state ``horizon`` steps ahead,
-        paper §6)."""
+        paper §6).  ``cancel``: as ``_eval``'s."""
         idx = np.arange(batch_size, dtype=np.int64) + step * batch_size
         lat = np.arange(self.cfg.lat)
         lon = np.arange(self.cfg.lon)
         ch = np.arange(self.cfg.channels)
-        x = self._eval(idx, lat, lon, ch, 0.0)
-        y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase)
+        x = self._eval(idx, lat, lon, ch, 0.0, cancel=cancel)
+        y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase,
+                       cancel=cancel)
         if self.cfg.noise:
+            _check(cancel)
             r = np.random.default_rng(
                 np.random.SeedSequence([self.cfg.seed, 999, step]))
             y = y + self.cfg.noise * r.normal(size=y.shape).astype(np.float32)
@@ -114,22 +227,25 @@ class WeatherDataset:
                         ).astype(np.float32)
 
     def sample_index(self, step: int, batch_size: int, boxes,
-                     horizon: int = 1, rows=slice(None)) -> list:
+                     horizon: int = 1, rows=slice(None),
+                     cancel: Optional[threading.Event] = None) -> list:
         """Domain-parallel read by index arrays: for each box ``(lat_ix,
         lon_ix, chan_ix)`` of the grid, the fields and target of the
         ``rows`` of the batch at those points, [b, len(lat_ix),
         len(lon_ix), len(chan_ix)], bit-equal to indexing
         ``sample_batch(..., horizon=horizon)``'s with ``np.ix_``; only the
         boxes are evaluated.  The noise is per full grid (regenerated, once
-        for all boxes, and indexed)."""
+        for all boxes, and indexed).  ``cancel``: as ``_eval``'s."""
         idx = (np.arange(batch_size, dtype=np.int64)
                + step * batch_size)[rows]
         noise = self._noise(step, batch_size)[rows] if self.cfg.noise \
             else None
+        _check(cancel)
         out = []
         for lat, lon, ch in boxes:
-            x = self._eval(idx, lat, lon, ch, 0.0)
-            y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase)
+            x = self._eval(idx, lat, lon, ch, 0.0, cancel=cancel)
+            y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase,
+                           cancel=cancel)
             if noise is not None:
                 y = y + self.cfg.noise * noise[np.ix_(np.arange(len(idx)),
                                                       lat, lon, ch)]

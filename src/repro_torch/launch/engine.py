@@ -26,7 +26,13 @@ The engine owns
     file writes stream from a background thread, keep-last-k GC and the
     best-eval marker), and exact resume (``EngineConfig(resume=...)``:
     params, optimizer state, step, pipeline cursor) from a checkpoint of
-    either package on any mesh.
+    either package on any mesh;
+  * preemption (``EngineConfig.preemption``, or the ``preempt_at_step``
+    chaos hook; ``launch/resilience.py``): a SIGTERM or SIGUSR1 lets the
+    in-flight step finish, then the run takes a final synchronous save
+    and raises ``Preempted``.  On a mesh the ranks agree after every step
+    (one MAX all-reduce of the flag), so all of them stop after the same
+    step and take part in the same save, whichever was signalled.
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -34,9 +40,9 @@ only its block of the batch, its data rank's rows of it (``pipeline=
 "sharded"``, the default: paper §5), or makes the whole batch and takes its
 block (``"sync-full"``: the same blocks, bit for bit); every rank computes
 the same loss and gradient norm, and rank 0 alone prints and writes the
-metrics.  Left for later slices (ROADMAP.md): preemption (the resilience
-layer) and the analytic cost model.  ``close()`` releases the ring's and
-the Cannon's IPC workspaces (collective).
+metrics.  Left for a later slice (ROADMAP.md): the analytic cost model.
+``close()`` releases the ring's and the Cannon's IPC workspaces
+(collective).
 
     eng = TrainEngine("weathermixer-1b", reduced=False,
                       config=EngineConfig(steps=10, batch=2, rollout=2,
@@ -54,6 +60,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch import telemetry
@@ -64,7 +71,7 @@ from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import DATA_AXIS
 from repro_torch.data.pipeline import InputPipeline, make_pipeline
 from repro_torch.kernels import ring
-from repro_torch.launch import specs
+from repro_torch.launch import resilience, specs
 from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
@@ -105,6 +112,9 @@ class EngineConfig:
     telemetry: bool = True     # span tracing (counters stay live)
     trace: Optional[str] = None    # Chrome trace-event export path; a
                                # sibling .jsonl gets the step records
+    preemption: bool = False   # SIGTERM/SIGUSR1 -> final save + Preempted
+    preempt_at_step: Optional[int] = None  # chaos hook: self-SIGTERM
+                               # after this step (or REPRO_PREEMPT_AT_STEP)
 
 
 class TrainEngine:
@@ -241,6 +251,8 @@ class TrainEngine:
         self._stale_ckpt_error: Optional[BaseException] = None
         self.best_val = float("inf")
         self.best_ckpt: Optional[str] = None
+        self.preempt_stats: Optional[Dict] = None  # final-save timing
+        self.preempt_origin: Optional[int] = None  # signalled rank
         if config.resume:
             self._restore(config.resume)
 
@@ -268,66 +280,167 @@ class TrainEngine:
     # -- the loop --------------------------------------------------------
     def run(self) -> List[Dict]:
         """Train from ``step_idx`` to ``config.steps``; returns the metrics
-        history (one record per log step and per eval)."""
+        history (one record per log step and per eval).
+
+        With ``config.preemption`` (or the ``preempt_at_step`` chaos hook)
+        a SIGTERM/SIGUSR1 lets the in-flight step complete, then takes a
+        final SYNCHRONOUS checkpoint and raises ``resilience.Preempted``
+        (DESIGN.md §12's orderly exit)."""
         c = self.config
         start = self.step_idx
         tr = self.tracer
-        t0 = time.time()
-        it = iter(self.pipeline.iterate(self.r_sched[start:],
-                                        start_step=start))
-        t_prev = time.perf_counter()
-        for i in range(start, c.steps):
-            # data_wait: time the loop spends blocked on the input pipeline
-            # (0 when prefetch is ahead)
-            with tr.span("data_wait", step=i) as dw:
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    break
-            r = int(self.r_sched[i])
-            with tr.span("step", step=i, rollout=r):
-                with tr.span("dispatch", step=i):
-                    metrics = self.dispatch(batch, r)
-                # per-step wall time = submit-to-submit delta: launches are
-                # asynchronous, so the device time of step i surfaces as
-                # backpressure on step i+1 (and at every metrics read)
-                now = time.perf_counter()
-                wall, t_prev = now - t_prev, now
-                tr.step_record(step=i, rollout=r, dur_s=wall,
-                               data_wait_s=dw.dur_s)
-                if i % c.log_every == 0 or i == c.steps - 1:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["step"] = i
-                    m["wall_s"] = round(time.time() - t0, 1)
-                    self.history.append(m)
-                    self._write_metrics()
-                    if self.is_rank0:
-                        print(f"step {i:5d}  loss {m['loss']:.4f}  "
-                              f"lr {m['lr']:.2e}  ({m['wall_s']}s)")
-                pending_val = None
-                if c.eval_every and i and i % c.eval_every == 0:
-                    with tr.span("eval", step=i):
-                        em = self.evaluate()
-                    self.history.append(dict(em, step=i, eval=True))
-                    self._write_metrics()
-                    if self.is_rank0:
-                        print(f"step {i:5d}  val_loss "
-                              f"{em['val_loss']:.4f}")
-                    pending_val = em["val_loss"]
-                if c.ckpt and c.ckpt_every and i and i % c.ckpt_every == 0:
-                    self.save(f"{c.ckpt}-{i}", periodic=True)
-                if pending_val is not None:
-                    # after the save: when eval and ckpt cadences align,
-                    # the marker points at THIS step's checkpoint
-                    self._mark_best(pending_val)
+        handler = None
+        if c.preemption or c.preempt_at_step is not None:
+            handler = resilience.PreemptionHandler(
+                preempt_at_step=c.preempt_at_step).install()
+        try:
+            t0 = time.time()
+            it = iter(self.pipeline.iterate(self.r_sched[start:],
+                                            start_step=start))
+            t_prev = time.perf_counter()
+            for i in range(start, c.steps):
+                # data_wait: time the loop spends blocked on the input
+                # pipeline (0 when prefetch is ahead)
+                with tr.span("data_wait", step=i) as dw:
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                r = int(self.r_sched[i])
+                with tr.span("step", step=i, rollout=r):
+                    with tr.span("dispatch", step=i):
+                        metrics = self.dispatch(batch, r)
+                    # per-step wall time = submit-to-submit delta: launches
+                    # are asynchronous, so the device time of step i
+                    # surfaces as backpressure on step i+1 (and at every
+                    # metrics read)
+                    now = time.perf_counter()
+                    wall, t_prev = now - t_prev, now
+                    tr.step_record(step=i, rollout=r, dur_s=wall,
+                                   data_wait_s=dw.dur_s)
+                    if i % c.log_every == 0 or i == c.steps - 1:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["step"] = i
+                        m["wall_s"] = round(time.time() - t0, 1)
+                        self.history.append(m)
+                        self._write_metrics()
+                        if self.is_rank0:
+                            print(f"step {i:5d}  loss {m['loss']:.4f}  "
+                                  f"lr {m['lr']:.2e}  ({m['wall_s']}s)")
+                    pending_val = None
+                    if c.eval_every and i and i % c.eval_every == 0:
+                        with tr.span("eval", step=i):
+                            em = self.evaluate()
+                        self.history.append(dict(em, step=i, eval=True))
+                        self._write_metrics()
+                        if self.is_rank0:
+                            print(f"step {i:5d}  val_loss "
+                                  f"{em['val_loss']:.4f}")
+                        pending_val = em["val_loss"]
+                    if c.ckpt and c.ckpt_every and i \
+                            and i % c.ckpt_every == 0:
+                        self.save(f"{c.ckpt}-{i}", periodic=True)
+                    if pending_val is not None:
+                        # after the save: when eval and ckpt cadences
+                        # align, the marker points at THIS step's
+                        # checkpoint
+                        self._mark_best(pending_val)
+                if handler is not None and self._agree_stop(i, handler):
+                    self._preempt_finalize(i, handler)
+            if c.ckpt:
+                self.save(c.ckpt)
+                if self.is_rank0:
+                    print(f"checkpoint -> {c.ckpt}")
+            self.wait_checkpoints()    # barrier for in-flight writes
+            self._write_metrics(final=True)
+            self._export_telemetry()
+            return self.history
+        finally:
+            if handler is not None:
+                handler.uninstall()
+
+    def _agree_stop(self, i: int, handler) -> bool:
+        """Whether the run stops after step ``i``.  On one device, the
+        handler's flag.  On a mesh, one MAX all-reduce over the world of
+        (rank + 1 if this rank's flag is up, else 0): every rank stops
+        after the same step if any was signalled, and learns the highest
+        signalled rank (``preempt_origin``)."""
+        flag = handler.poll(i)
+        if self.mesh is None:
+            self.preempt_origin = 0 if flag else None
+            return flag
+        origin = self._world_max(self.mesh.rank + 1 if flag else 0) - 1
+        self.preempt_origin = origin if origin >= 0 else None
+        return origin >= 0
+
+    def _world_max(self, value: int) -> int:
+        """The MAX of one integer over the world group (a mesh only)."""
+        dev = (self.device if dist.get_backend() == "nccl"
+               else torch.device("cpu"))
+        code = torch.tensor([value], dtype=torch.int64, device=dev)
+        dist.all_reduce(code, op=dist.ReduceOp.MAX)
+        return int(code.item())
+
+    def _preempt_finalize(self, i: int, handler) -> None:
+        """Orderly preemption exit: the step that was in flight has
+        completed.  Stop the prefetch thread, drain (and absorb) any
+        pending async-write error, take a final SYNCHRONOUS checkpoint,
+        persist the metrics history and the trace, and raise ``Preempted``
+        for ``launch/train.py`` to turn into the resumable exit code.  On a
+        mesh every rank comes here after the same step: each writes its
+        blocks of the save, and rank 0 merges the manifest."""
+        c = self.config
+        sig = handler.received
+        self.tracer.event("preempt.signal", signum=sig, step=i,
+                          origin_rank=self.preempt_origin)
+        if self.is_rank0:
+            print(f"[preempt] signal {sig} after step {i} (origin rank "
+                  f"{self.preempt_origin}): final synchronous save, then "
+                  f"resumable exit")
+        # the producer stops at its next chunk of host work; a thread
+        # still in numpy or a copy to the card at exit could turn the
+        # resumable exit into a crash, so the exit waits for it (bounded)
+        if not (self.pipeline.stop(timeout=5.0)
+                or self.pipeline.stop(timeout=120.0)):
+            print("[preempt] the input pipeline's thread did not stop in "
+                  "125 s; exiting beside it")
+        try:
+            self.wait_checkpoints()
+        except Exception as e:
+            # an EARLIER async write failed; its prune list is still in
+            # _prune_backlog (re-queued by the next save) -- it must not
+            # abort the final preemption save, which may become the only
+            # durable copy of this run segment
+            print(f"[preempt] pending async save had failed: {e!r}; "
+                  f"final save proceeds")
+        path, save_s = None, None
         if c.ckpt:
-            self.save(c.ckpt)
+            path = f"{c.ckpt}-{i}"
+            # the periodic cadence may have saved this very step: that
+            # save is the preemption checkpoint only if its write finished
+            # whole (a failed one was absorbed just above).  Rank 0 merges
+            # the manifest, so its view, taken after its writer is done,
+            # decides for every rank: the final save stays collective
+            saved = (self._ckpt_history[-1:] == [path]
+                     and self.is_rank0 and ckpt.checkpoint_complete(path))
+            if self.mesh is not None:
+                saved = bool(self._world_max(int(saved)))
+            if not saved:
+                t0 = time.time()
+                self.save(path, block=True,
+                          periodic=path not in self._ckpt_history)
+                save_s = time.time() - t0
+                self.tracer.event("preempt.final_save", step=i,
+                                  dur_s=save_s, path=path)
             if self.is_rank0:
-                print(f"checkpoint -> {c.ckpt}")
-        self.wait_checkpoints()    # barrier for in-flight writes
+                print(f"[preempt] checkpoint durable -> {path}")
+        self.preempt_stats = {"step": i, "final_save_s": save_s}
         self._write_metrics(final=True)
+        # flush the trace BEFORE raising: the Preempted exit is exactly
+        # when the operator needs to see where the run's time went
         self._export_telemetry()
-        return self.history
+        raise resilience.Preempted(step=self.step_idx, checkpoint=path,
+                                   signum=sig)
 
     def _write_metrics(self, final: bool = False) -> None:
         """Persist the history: ``jsonl`` appends the records added since

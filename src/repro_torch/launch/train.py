@@ -39,6 +39,20 @@ own blocks, the writes in the background unless ``--sync-save``:
 final ``out/ck``); ``--resume`` continues bit for bit from any of them, on
 any mesh (each rank reads only its blocks of the new layout).
 
+Preemption (``launch/resilience.py``): a SIGTERM or SIGUSR1 lets the step
+in flight finish, takes a final synchronous save at ``<ckpt>-<step>`` and
+exits 75 (``RESUMABLE_EXIT_CODE``; "[preempt] ..."); on a mesh every rank
+stops after the same step.  ``REPRO_PREEMPT_AT_STEP=N`` sends the signal
+after step N.  ``--supervise`` relaunches the run (``--max-restarts``,
+default 3) from the latest complete checkpoint under ``--ckpt``'s
+directory: at once after exit 75, with backoff after a crash.  On a mesh
+it launches the ranks itself, one process each, and takes the world's
+code (``torch.distributed.run`` would report the ranks' 75 as its own
+failure), so it is run once, not under torchrun:
+
+  ... --ckpt out/ck --supervise [--max-restarts 3] \
+      [--mesh-model 2 --mesh-data 2 --scheme 1d --device cpu]
+
 Reduced configs (the default) run real optimization on the synthetic
 weather data; ``--full`` trains the published width and needs a GPU.
 ``--device`` defaults to cuda and fails without a card.
@@ -46,9 +60,14 @@ weather data; ``--full`` trains the published width and needs a GPU.
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+
+import torch.distributed as dist
 
 from repro_torch.configs.registry import MIXER_IDS
 from repro_torch.convert import params_from_npz
+from repro_torch.launch import resilience
 from repro_torch.launch.engine import EngineConfig, TrainEngine
 
 
@@ -62,7 +81,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
           device: str = "cuda", mesh_model: int = 1, mesh_data: int = 1,
           scheme: str = None, impl: str = None, init_params: str = None,
           zero1: bool = False, ckpt: str = None, ckpt_every: int = 0,
-          keep_ckpts: int = 0, resume: str = None, async_save: bool = True):
+          keep_ckpts: int = 0, resume: str = None, async_save: bool = True,
+          preemption: bool = False, preempt_at_step: int = None):
     """Functional entry point; returns (history, params).  ``init_params``:
     an npz of reference weights (``convert.params_from_npz``)."""
     engine = TrainEngine(
@@ -77,7 +97,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
             trace=trace, telemetry=telemetry, pipeline=pipeline,
             prefetch=prefetch, accum=accum, eval_every=eval_every,
             zero1=zero1, ckpt=ckpt, ckpt_every=ckpt_every,
-            keep_ckpts=keep_ckpts, resume=resume, async_save=async_save))
+            keep_ckpts=keep_ckpts, resume=resume, async_save=async_save,
+            preemption=preemption, preempt_at_step=preempt_at_step))
     try:
         history = engine.run()
     except BaseException:
@@ -157,21 +178,51 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the relaunch Supervisor: restart on "
+                         "resumable exits and crashes, resuming from the "
+                         "latest complete checkpoint (needs --ckpt; on a "
+                         "mesh it launches the ranks itself)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="relaunch budget under --supervise")
     args = ap.parse_args(argv)
-    train(args.arch, steps=args.steps, batch=args.batch,
-          reduced=not args.full, kernel=args.kernel,
-          precision=args.precision, rollout=args.rollout, lr=args.lr,
-          log_every=args.log_every, seed=args.seed,
-          metrics_out=args.metrics_out,
-          metrics_format=args.metrics_format, trace=args.trace,
-          telemetry=not args.no_telemetry, pipeline=args.pipeline,
-          prefetch=args.prefetch, accum=args.accum,
-          eval_every=args.eval_every, device=args.device,
-          mesh_model=args.mesh_model, mesh_data=args.mesh_data,
-          scheme=args.scheme, impl=args.impl, init_params=args.init_params,
-          zero1=args.zero1, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
-          keep_ckpts=args.keep_ckpts, resume=args.resume,
-          async_save=not args.sync_save)
+    if args.supervise:
+        if not args.ckpt:
+            ap.error("--supervise requires --ckpt (the supervisor "
+                     "discovers resume points under its directory)")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            ap.error("--supervise launches the ranks itself: run it once, "
+                     "not under torch.distributed.run")
+        sys.exit(resilience.supervise_train_cli(
+            args, sys.argv[1:] if argv is None else argv))
+    code = 0
+    try:
+        train(args.arch, steps=args.steps, batch=args.batch,
+              reduced=not args.full, kernel=args.kernel,
+              precision=args.precision, rollout=args.rollout, lr=args.lr,
+              log_every=args.log_every, seed=args.seed,
+              metrics_out=args.metrics_out,
+              metrics_format=args.metrics_format, trace=args.trace,
+              telemetry=not args.no_telemetry, pipeline=args.pipeline,
+              prefetch=args.prefetch, accum=args.accum,
+              eval_every=args.eval_every, device=args.device,
+              mesh_model=args.mesh_model, mesh_data=args.mesh_data,
+              scheme=args.scheme, impl=args.impl, init_params=args.init_params,
+              zero1=args.zero1, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
+              keep_ckpts=args.keep_ckpts, resume=args.resume,
+              async_save=not args.sync_save, preemption=True)
+    except resilience.Preempted as p:
+        print(f"[train] {p}; exiting resumable "
+              f"({resilience.RESUMABLE_EXIT_CODE})")
+        code = resilience.RESUMABLE_EXIT_CODE
+    if dist.is_initialized():
+        # every rank finished or stopped after the same step: leave the
+        # process group together, before the interpreter tears down
+        # gloo's threads (a rank exiting beside a peer's last collective
+        # can abort, turning 0 or 75 into a crash)
+        dist.barrier()
+        dist.destroy_process_group()
+    sys.exit(code)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,22 @@
 """The port's copy of the synthetic weather data against the reference's.
 
 The copy evaluates a few channels at a time (the reference's intermediate
-is ~4.6 GB per sample at the full grid); the values must stay bit-equal.
+is ~4.6 GB per sample at the full grid), the chunks on a pool of threads;
+the values must stay bit-equal, whatever the chunk and the pool.  The
+tests below set the number of chunks run at once (``host_workers``) and
+let chunks of these small grids go to the pool (``POOL_MIN_CHUNK_BYTES``).
 """
+import os
+import threading
+import time
+
 import numpy as np
 import pytest
 
 from repro.data.weather import WeatherDataConfig as RefConfig
 from repro.data.weather import WeatherDataset as RefDataset
+from repro_torch.data import weather
+from repro_torch.data.pipeline import InputPipeline, WeatherBatchSource
 from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
 
 
@@ -40,3 +49,80 @@ def test_channel_chunking_does_not_change_values(chunk):
                          np.arange(9))
     assert np.array_equal(ds._eval(idx, lat, lon, ch, 0.3, chan_chunk=chunk),
                           ds._eval(idx, lat, lon, ch, 0.3, chan_chunk=9))
+
+
+# -- the host's fields on a worker pool ---------------------------------
+
+def _workers(monkeypatch, n):
+    """Every field evaluation runs ``n`` chunks at once, small ones too."""
+    monkeypatch.setattr(weather, "host_workers", lambda chunk_bytes: n)
+    monkeypatch.setattr(weather, "POOL_MIN_CHUNK_BYTES", 0)
+
+
+@pytest.mark.parametrize("workers", [1, 2, 4])
+@pytest.mark.parametrize("chunk", [1, 3, 4, 100])
+def test_pool_is_bit_equal_to_reference(monkeypatch, workers, chunk):
+    """Any pool size and chunk size: the reference's ``sample_batch`` and
+    ``_eval`` bit for bit (each chunk writes its own channels)."""
+    _workers(monkeypatch, workers)
+    kw = dict(lat=16, lon=32, channels=13, seed=4)
+    ref = RefDataset(RefConfig(**kw))
+    ds = WeatherDataset(WeatherDataConfig(**kw))
+    idx, lat, lon, ch = (np.arange(3) + 6, np.arange(16), np.arange(32),
+                         np.arange(13))
+    assert np.array_equal(
+        ds._eval(idx, lat, lon, ch, 0.7, chan_chunk=chunk),
+        ref._eval(idx, lat, lon, ch, 0.7))
+    want = ref.sample_batch(2, 3, horizon=2)
+    got = ds.sample_batch(2, 3, horizon=2)
+    for k in ("fields", "target"):
+        assert np.array_equal(got[k], want[k])
+
+
+def test_host_workers_share_cores_and_memory(monkeypatch):
+    """The pool takes the cores this process may use, divided among the
+    ranks of the host, less one for the loop, and no more chunks than half
+    the available memory holds."""
+    cores = len(os.sched_getaffinity(0))
+    avail = 64 << 30
+    monkeypatch.setattr(weather, "_available_bytes", lambda: avail)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert weather.host_workers(1) == max(1, cores - 1)
+    assert weather.host_workers(avail) == 1
+    assert weather.host_workers(avail // 8) == max(1, min(cores - 1, 4))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert weather.host_workers(1) == max(1, cores // 4 - 1)
+    assert weather.host_workers(avail // 8) == 1
+
+
+def test_cancel_between_chunks(monkeypatch):
+    _workers(monkeypatch, 2)
+    ds = WeatherDataset(WeatherDataConfig(lat=8, lon=16, channels=9))
+    ev = threading.Event()
+    ev.set()
+    with pytest.raises(weather.Cancelled):
+        ds.sample_batch(0, 2, cancel=ev)
+
+
+def test_pipeline_stop_mid_batch_returns_promptly(monkeypatch):
+    """A batch that takes seconds to make: ``stop()`` during it returns
+    True within 5 s (the producer stops at its next chunk), and a consumer
+    waiting on the batch ends."""
+    _workers(monkeypatch, 2)
+    ds = WeatherDataset(WeatherDataConfig(lat=182, lon=360, channels=512))
+    pipe = InputPipeline(WeatherBatchSource(ds, 2, patch=2), prefetch=1,
+                         device="cpu")
+    it = pipe.iterate([1, 1])
+    consumer = threading.Thread(target=lambda: list(it), daemon=True)
+    consumer.start()
+    t0 = time.monotonic()
+    while pipe._thread is None:
+        assert time.monotonic() - t0 < 30
+        time.sleep(0.01)
+    time.sleep(0.5)                       # inside the first batch
+    t0 = time.monotonic()
+    assert pipe.stop(timeout=5.0)
+    assert time.monotonic() - t0 < 5.0
+    consumer.join(timeout=5.0)
+    assert not consumer.is_alive()
+    assert pipe.cursor == 0               # no batch was made
