@@ -49,14 +49,34 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      forward against the same with the plain SSD term and with
      ``kernel="xla"``, and the bf16 logits against the f32 ones;
   2d. ``mamba_generate``: ``serve.step.generate`` at batch 4 (64-token
-     prompts, 32 new tokens; token-wise prefill, then decode steps), no ssd
-     launch and 97 block_matmul launches per step, tokens in range, the
-     token-wise logits at every prompt position against the teacher-forced
-     forward (judged in f32, printed in bf16), the time of a decode step;
-  3. full-width serving under the bf16 policy: requests admitted before and
-     during a rollout, outputs finite, one lead-1 forecast against the plain
-     forecast step, every request bitwise equal to its solo bucket-1
-     rollout, 14 kernel launches per device step;
+     prompts, 32 new tokens; token-wise prefill, then decode steps) through
+     the captured decode step (``graph_serve_step``, captured before the
+     counted run), then eagerly (``graph=False``): the tokens equal, no ssd
+     launch and 97 block_matmul launches per step in both (the graphed
+     ones counted by replay), tokens in range, the token-wise logits at
+     every prompt position against the teacher-forced forward (judged in
+     f32, printed in bf16), a decode step's device (CUDA events) and host
+     time, graphed and eager;
+  3. full-width serving under the bf16 policy: the engine's per-bucket CUDA
+     graphs (buckets 1, 2, 4, captured by ``warmup()``, 14 launches each),
+     then an eager engine (``graphs=False``) on the same weights, each
+     serving the same seven requests admitted before and during a rollout:
+     0 setups or captures after warmup, 14 kernel launches per device step
+     (counted by replay), outputs finite and the two runs' bit for bit, one
+     lead-1 forecast against the plain forecast step, every request
+     bitwise equal to its solo bucket-1 rollout; a step's device and host
+     ms per mode and bucket, ms per request-step, the graphs' pool and the
+     peak memory;
+  3b. ``serve_data`` (run after ``train_2d_mesh``'s save, see 9):
+     ``ForecastEngine(mesh_data=2)``, this file re-run as two rank
+     processes sharing the card (``--serve-data-rank``), each rebuilding
+     the serve phase's weights from seed 0: rank 0's outputs of the same
+     seven requests (bucket 1 whole on both ranks, 2 and 4 split) bit for
+     bit the serve phase's, 14 launches a step on each rank, 0 setups
+     after warmup; then both ranks restore the 2x2 mesh's checkpoint, its
+     lead-1 forecast bit for bit the one-device restore's; printed: ms per
+     step, the bytes through host memory per admit and per peel, the
+     restore seconds per rank;
   4. the legacy path (the config's own dtypes: bf16 weights, f32
      activations, f32 kernel; ``launch/serve.py`` without ``--precision``)
      for one step against the plain version; then its device time per
@@ -125,9 +145,14 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      the total, the sum every leaf exactly once) that this process serves
      on one device (``ForecastEngine(ckpt=)``, bf16), its lead-1 forecast
      bit for bit that of the same seed-0 weights handed in whole (ckpt
-     part (b)); then the run, with 5 + 54 r
-     kernel launches per step of rollout r, finite losses, peak memory
-     under 80 GB; then a second run of the same seed saving ``ck-1``,
+     part (b)) and two serving ranks restore (``serve_data``); then the
+     run, with 5 + 54 r kernel launches per step of rollout r, finite
+     losses, peak memory under 80 GB, every step record's ``mfu`` in (0,
+     1], ``achieved_tflops`` and ``comm_fraction`` (the cost model's, at
+     the H100's datasheet peaks), ``trace_report``'s ``--check`` passing
+     on the run's JSONL and its verdict, the cost model's FLOPs per
+     sample-step beside this file's floor count; then a second run of the
+     same seed saving ``ck-1``,
      ``ck-2`` and ``ck`` under the async writer, whose loss, grad-norm and
      lr history must equal the first's bit for bit, and a fresh
      ``TrainEngine(resume=ck-1)`` (step 2, cursor 2) whose one step (5 +
@@ -949,11 +974,30 @@ def decode_logits(torch, M, params, prompts, cfg, jcfg, cache_dtype):
     return torch.stack(got, 1), cache
 
 
+def decode_step_times(torch, fn, reps=10):
+    """A decode step's device ms (CUDA events over ``reps``) and host wall
+    ms (each step synchronised)."""
+    dev = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return dev, 1e3 * (time.perf_counter() - t0) / reps
+
+
 def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
     from repro_torch.models import registry as M
     from repro_torch.serve import step as S
     prompts = token_rows(torch, cfg, GEN_PROMPT, GEN_BATCH, 1)
     max_len = GEN_PROMPT + GEN_STEPS
+    # the decode step's graph, captured before the counted run (its eager
+    # warm-up step launches too)
+    t0 = time.perf_counter()
+    S.graph_serve_step(params, cfg, jcfg, M.init_cache(
+        cfg, GEN_BATCH, max_len, dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
     # -- the main path: counts to 0 just before, read just after -----------
     torch.cuda.synchronize()
     zero_counts(kernels)
@@ -965,18 +1009,31 @@ def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
     launches = read_counts(kernels)
     routes = read_routes(kernels)
     # ----------------------------------------------------------------------
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out_eager = S.generate(params, prompts, cfg, jcfg, steps=GEN_STEPS,
+                           max_len=max_len, graph=False)
+    torch.cuda.synchronize()
+    wall_eager = time.perf_counter() - t0
+    launches_eager = read_counts(kernels)
     n_steps = GEN_PROMPT + GEN_STEPS - 1      # token-wise prefill + decode
+    per_step = 4 * MAMBA_LAYERS + 1
     check(routes == {"wmma": launches["block_matmul"]},
           f"generate's block_matmul routes {routes}: M = {GEN_BATCH} takes "
           "the WMMA loop")
-    check(launches["ssd_intra_chunk"] == 0,
-          f"{launches['ssd_intra_chunk']} ssd launches on the decode path")
-    check(launches["block_matmul"] == n_steps * (4 * MAMBA_LAYERS + 1),
-          f"generate launches {launches} (want {4 * MAMBA_LAYERS + 1} "
-          f"block_matmul per step, {n_steps} steps)")
+    for mode, n in (("graphed", launches), ("eager", launches_eager)):
+        check(n["ssd_intra_chunk"] == 0,
+              f"{n['ssd_intra_chunk']} ssd launches on the {mode} decode "
+              "path")
+        check(n["block_matmul"] == n_steps * per_step,
+              f"{mode} generate launches {n} (want {per_step} block_matmul "
+              f"per step, {n_steps} steps)")
     check(tuple(out.shape) == (GEN_BATCH, GEN_STEPS)
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"generated tokens {tuple(out.shape)} out of range")
+    check(torch.equal(out, out_eager), "generate: the graphed tokens "
+          f"{out[0, :8].tolist()} differ from the eager ones "
+          f"{out_eager[0, :8].tolist()}")
     cfg32, params32 = mamba_f32(torch, cfg, params)
     with torch.no_grad():
         # decode consistency: token-wise logits at every prompt position
@@ -997,16 +1054,28 @@ def mamba_generate_phase(torch, kernels, cfg, jcfg, params):
                          f"{float(err32.max()):.3e}")
         step = S.make_serve_step(cfg, jcfg)
         nxt = out[:, -1:]
-        step_ms = cuda_ms(lambda: step(params, cache, nxt), 10)
+        eager_ms = decode_step_times(torch, lambda: step(params, cache, nxt))
+        g = S.graph_serve_step(params, cfg, jcfg, cache)
+        g.tokens_in.copy_(nxt)
+        graph_ms = decode_step_times(torch, g.replay)
+    S.clear_graphs()
     emit(phase="mamba_generate", batch=GEN_BATCH, prompt=GEN_PROMPT,
-         new_tokens=GEN_STEPS, launches=launches, block_matmul_routes=routes,
-         wall_s=wall,
+         new_tokens=GEN_STEPS, launches=launches,
+         launches_eager=launches_eager, block_matmul_routes=routes,
+         block_matmul_per_step=launches["block_matmul"] / n_steps,
+         graphed_equals_eager=True, capture_s=capture_s,
+         wall_s=wall, wall_s_eager=wall_eager,
          host_ms_per_step=1e3 * wall / n_steps,
-         device_ms_per_decode_step=step_ms,
+         host_ms_per_step_eager=1e3 * wall_eager / n_steps,
+         device_ms_per_decode_step=graph_ms[0],
+         host_ms_per_decode_step=graph_ms[1],
+         device_ms_per_decode_step_eager=eager_ms[0],
+         host_ms_per_decode_step_eager=eager_ms[1],
          f32_decode_max_abs_err=float(err32.max()), tol=MAMBA_DECODE_TOL,
          bf16_decode_max_abs_err=bf16_abs, bf16_decode_mean_rel=bf16_mean,
          first_tokens=out[0, :8].tolist())
-    return launches
+    return {k: launches[k] + launches_eager[k] for k in launches}, \
+        launches, launches_eager
 
 
 # ---------------------------------------------------------------------------
@@ -1037,15 +1106,74 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def serve_phase(torch, BM):
+def sha(a):
+    """SHA-256 (16 hex digits) of an array's bytes."""
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+# (sample, lead) of the served requests: samples cycle 0,1,2 and leads
+# 3,1,2; the first runs alone for one step, the rest join it mid-rollout
+SERVE_PLAN = [(i % 3, (i + 2) % 3 + 1) for i in range(7)]
+SERVE_BUCKETS = (1, 2, 4)
+
+
+def serve_requests(eng, fields):
+    """SERVE_PLAN through ``eng`` (rank 0 of a mesh too): the first request
+    alone for one step, the rest joining it; returns the requests."""
+    s, lead = SERVE_PLAN[0]
+    reqs = [eng.submit(fields[s], lead)]
+    check(eng.step_once() == "step", "first step did not run")
+    reqs += [eng.submit(fields[s], lead) for s, lead in SERVE_PLAN[1:]]
+    eng.drain()
+    return reqs
+
+
+def serve_hashes(reqs):
+    """[{lead: sha}] of every request's outputs, in submit order."""
+    return [{str(k): sha(v) for k, v in sorted(r.outputs.items())}
+            for r in reqs]
+
+
+def step_times(torch, eng, fields, reps=3):
+    """Per bucket: a step's device ms (CUDA events over ``reps`` steps),
+    its host wall ms (each step synchronised), and ms per request-step, on
+    the bucket's buffer filled with the samples."""
+    import numpy as np
+    out = {}
+    for b in SERVE_BUCKETS:
+        eng._form(b)
+        eng._state.copy_(torch.from_numpy(np.stack(
+            [fields[i % len(fields)] for i in range(b)])))
+        dev = cuda_ms(eng._step, reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng._step()
+            torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / reps
+        out[b] = dict(device_ms=dev, host_ms=host,
+                      ms_per_request_step=dev / b)
+    eng._state.zero_()
+    return out
+
+
+def serve_phase(torch, BM, handoff):
+    """Forecast serving at full width under the bf16 policy: the seven
+    requests of SERVE_PLAN through the engine's per-bucket CUDA graphs
+    (captured by ``warmup()``), then through an eager engine
+    (``graphs=False``) on the same weights; the samples and the graphed
+    outputs' hashes go to ``handoff`` for ``serve_data``."""
+    import numpy as np
     from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
     from repro_torch.models import registry as M
     from repro_torch.serve.engine import ForecastEngine, ServeConfig
 
     t0 = time.perf_counter()
+    scfg = ServeConfig(buckets=SERVE_BUCKETS, precision="bf16", seed=0)
     eng = ForecastEngine("weathermixer-1b", reduced=False, device="cuda",
-                         config=ServeConfig(buckets=(1, 2, 4),
-                                            precision="bf16", seed=0))
+                         config=scfg)
     perturb_(eng.params, torch)
     cfg = eng.cfg
     ds = WeatherDataset(WeatherDataConfig(lat=cfg.wm_lat, lon=cfg.wm_lon,
@@ -1056,41 +1184,60 @@ def serve_phase(torch, BM):
                                range(n_samples)))
     setup_s = time.perf_counter() - t0
     warm = eng.warmup()
+    check(eng.graphs and sorted(eng._graphs) == list(SERVE_BUCKETS)
+          and all(g.launches_of() == 14 for g in eng._graphs.values()),
+          f"serve: graphs {sorted(eng._graphs)} with block_matmul launches "
+          f"{[g.launches_of() for g in eng._graphs.values()]} (want one "
+          "per bucket, 14 each)")
+    eager = ForecastEngine("weathermixer-1b", reduced=False, device="cuda",
+                           params=eng.params,
+                           config=scfg.replace(graphs=False))
+    check(eager.params["encoder"]["w"] is eng.params["encoder"]["w"],
+          "serve: the eager engine does not share the weights")
+    warm_eager = eager.warmup()
     emit(phase="serve_setup", params=cfg.param_count(),
          param_dtype=cfg.param_dtype, field_shape=list(eng.field_shape),
          setup_s=setup_s, warmup_s=eng.stats["warmup_s"],
-         warm_setups=warm)
+         warm_setups=warm, graphs_captured=len(eng._graphs),
+         graph_pool_bytes=eng.stats["graph_pool_bytes"],
+         eager_warmup_s=eager.stats["warmup_s"])
 
-    # -- the main path: counts to 0 just before, read just after -----------
-    # (sample, lead): samples cycle 0,1,2 and leads 3,1,2; the first runs
-    # alone for one step, the rest join it mid-rollout
-    plan = [(i % n_samples, (i + 2) % 3 + 1) for i in range(7)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    BM.block_matmul.launches = 0
-    t_start = time.perf_counter()
-    reqs = [eng.submit(fields[plan[0][0]], plan[0][1])]
-    check(eng.step_once() == "step", "first step did not run")
-    reqs += [eng.submit(fields[s], lead) for s, lead in plan[1:]]
-    eng.drain()
-    wall = time.perf_counter() - t_start
-    launches = BM.block_matmul.launches
-    steps = eng.stats["device_steps"]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # ----------------------------------------------------------------------
-
-    check(all(r.done() for r in reqs), "not every request was delivered")
-    check(launches == 14 * steps,
-          f"{launches} kernel launches for {steps} device steps (want 14 "
-          "per step)")
-    check(eng.stats["compiles"] == warm, "serving set something up after "
-          "warmup")
-    check(eng.sched.counters["grown"] >= 1, "no request joined mid-rollout")
-    for r in reqs:
-        for lead, out in r.outputs.items():
-            check(out.shape == eng.field_shape and bool(
-                torch.isfinite(torch.from_numpy(out)).all()),
-                f"request {r.rid} lead {lead}: bad output")
+    runs = {}
+    for mode, e in (("graphed", eng), ("eager", eager)):
+        # -- the main path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        BM.block_matmul.launches = 0
+        steps0 = e.stats["device_steps"]
+        t_start = time.perf_counter()
+        reqs = serve_requests(e, fields)
+        wall = time.perf_counter() - t_start
+        launches = BM.block_matmul.launches
+        steps = e.stats["device_steps"] - steps0
+        # ------------------------------------------------------------------
+        runs[mode] = dict(reqs=reqs, wall=wall, launches=launches,
+                          steps=steps,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          reserved_gb=torch.cuda.memory_reserved() / 1e9)
+        check(all(r.done() for r in reqs), f"serve {mode}: not every "
+              "request was delivered")
+        check(launches == 14 * steps, f"serve {mode}: {launches} kernel "
+              f"launches for {steps} device steps (want 14 per step)")
+        check(e.sched.counters["grown"] >= 1, f"serve {mode}: no request "
+              "joined mid-rollout")
+        for r in reqs:
+            for lead, out in r.outputs.items():
+                check(out.shape == eng.field_shape and bool(
+                    torch.isfinite(torch.from_numpy(out)).all()),
+                    f"serve {mode}: request {r.rid} lead {lead}: bad output")
+    check(eng.stats["compiles"] == warm, "serve: graphs or buffers set up "
+          f"after warmup ({eng.stats['compiles']} setups, {warm} at warmup)")
+    check(eager.stats["compiles"] == warm_eager, "serve eager: set up "
+          "after warmup")
+    reqs = runs["graphed"]["reqs"]
+    hashes = serve_hashes(reqs)
+    check(hashes == serve_hashes(runs["eager"]["reqs"]),
+          "serve: the graphed outputs differ from the eager ones")
 
     # every request (all but the first admitted mid-rollout, the first
     # carried through two grows) against its solo bucket-1 rollout, bitwise
@@ -1100,7 +1247,6 @@ def serve_phase(torch, BM):
             state = eng._forecast(state)
         return state[0].cpu().numpy()
 
-    import numpy as np
     mismatched = [r.rid for r in reqs
                   if not np.array_equal(r.result(), solo(r.fields,
                                                          r.max_lead))]
@@ -1117,26 +1263,168 @@ def serve_phase(torch, BM):
     check(step_err <= STEP_TOL["bf16"],
           f"bf16 forecast step vs plain: {step_err:.3e}")
 
-    # device time of one step at each bucket
-    step_ms = {}
-    for b in (1, 2, 4):
-        state = torch.from_numpy(np.stack([fields[i % n_samples]
-                                           for i in range(b)])).cuda()
-        step_ms[b] = cuda_ms(lambda: eng._forecast(state), 2)
+    # a step's time at each bucket, graphed and eager
+    times = {mode: step_times(torch, e, fields)
+             for mode, e in (("graphed", eng), ("eager", eager))}
+    np.save(handoff / "fields.npy", np.stack(fields))
+    (handoff / "serve.json").write_text(json.dumps(dict(
+        plan=SERVE_PLAN, hashes=hashes, steps=runs["graphed"]["steps"])))
     s = eng.summary(reqs)
-    emit(phase="serve", requests=len(reqs), device_steps=steps,
-         kernel_launches=launches, launches_per_step=launches / steps,
-         wall_s=wall, req_per_s=len(reqs) / wall,
+    emit(phase="serve", requests=len(reqs),
+         device_steps=runs["graphed"]["steps"],
+         kernel_launches={m: r["launches"] for m, r in runs.items()},
+         launches_per_step=runs["graphed"]["launches"]
+         / runs["graphed"]["steps"],
+         wall_s={m: r["wall"] for m, r in runs.items()},
+         req_per_s={m: len(reqs) / r["wall"] for m, r in runs.items()},
          p50_s=s["p50_s"], p95_s=s["p95_s"], formed=s["formed"],
          grown=s["grown"], compiles_after_warmup=s["compiles"] - warm,
+         graphed_equals_eager_bitwise=True,
          step_span_mean_s=eng.tracer.span_summary()["serve.step"]["mean_s"],
-         step_ms_by_bucket=step_ms,
-         ms_per_request_step_bucket4=step_ms[4] / 4,
+         step_span_mean_s_eager=eager.tracer.span_summary()[
+             "serve.step"]["mean_s"],
+         step_ms_by_mode_and_bucket=times,
+         ms_per_request_step_bucket4=times["graphed"][4]["device_ms"] / 4,
          bound_ms_per_request_step=1e3 * gemm_flops_per_request(cfg)
          / PEAK_FLOPS["bfloat16"],
-         peak_mem_gb=peak_gb, midrollout_bitwise=True,
+         graph_pool_bytes=eng.stats["graph_pool_bytes"],
+         peak_mem_gb={m: r["peak_gb"] for m, r in runs.items()},
+         reserved_gb={m: r["reserved_gb"] for m, r in runs.items()},
+         midrollout_bitwise=True,
          step_vs_plain_rel_err=step_err, step_tol=STEP_TOL["bf16"])
-    return eng, fields, launches
+    del eager
+    torch.cuda.empty_cache()
+    return eng, fields, {m: r["launches"] for m, r in runs.items()}
+
+
+def serve_data_phase(torch, handoff, ck, restore_sha, card):
+    """``ForecastEngine(mesh_data=2)``: this file re-run as two rank
+    processes sharing the card (``--serve-data-rank``, gloo between them),
+    each with the whole weathermixer-1b under bf16, rebuilt from seed 0 and
+    the same ``perturb_(seed=1)`` as the serve phase (no weights handed
+    over; the samples are).  Rank 0 serves SERVE_PLAN (bucket 1 whole on
+    both ranks, buckets 2 and 4 split) and its outputs must be the serve
+    phase's bit for bit; then both ranks restore the 2x2 mesh's checkpoint
+    ``ck`` (``ForecastEngine(ckpt=, mesh_data=2)``), whose lead-1 forecast
+    must be the one-device restore's (``restore_sha``) bit for bit."""
+    meta = json.loads((handoff / "serve.json").read_text())
+    meta.update(ckpt=str(ck), restore_sha=restore_sha)
+    (handoff / "serve_data.json").write_text(json.dumps(meta))
+    res, wall = run_ranks("--serve-data-rank", handoff, 2)
+    r0 = res[0]
+    check(r0["hashes"] == meta["hashes"], "serve_data: rank 0's outputs "
+          "differ from the one-device engine's")
+    check(r0["restore_sha"] == restore_sha,
+          "serve_data: the 2x2 checkpoint's lead-1 forecast on two ranks "
+          "differs from the one-device restore's")
+    for r, x in enumerate(res):
+        check(x["compiles_after_warmup"] == 0, f"serve_data rank {r} set "
+              "something up after warmup")
+        check(x["launches"] == 14 * x["device_steps"]
+              and x["device_steps"] == meta["steps"],
+              f"serve_data rank {r}: {x['launches']} launches in "
+              f"{x['device_steps']} steps (want 14 a step, "
+              f"{meta['steps']} steps)")
+        check(x["graphs"] == 3, f"serve_data rank {r}: {x['graphs']} graphs")
+
+    def per(what):
+        n = r0["through_host"].get(f"{what}/serve", 0)
+        return r0["through_host_bytes"].get(f"{what}/serve", 0) / n \
+            if n else 0
+    stats = dict(ranks=2, card=card, requests=len(meta["plan"]),
+                 device_steps=r0["device_steps"],
+                 launches_per_rank=[x["launches"] for x in res],
+                 bitwise_one_device=True, restore_bitwise_one_device=True,
+                 rows_per_rank={"1": 1, "2": 1, "4": 2},
+                 step_ms_per_rank=[x["step_ms"] for x in res],
+                 wall_s_per_rank=[x["serve_s"] for x in res],
+                 through_host=[x["through_host"] for x in res],
+                 through_host_bytes=[x["through_host_bytes"] for x in res],
+                 bytes_per_admit_rank0=per("admit"),
+                 bytes_per_peel_rank0=per("peel"),
+                 graph_pool_bytes=[x["graph_pool_bytes"] for x in res],
+                 peak_mem_gb=[x["peak_mem_gb"] for x in res],
+                 setup_s=[x["setup_s"] for x in res],
+                 restore_s_per_rank=[x["restore_s"] for x in res],
+                 wall_s=wall)
+    emit(phase="serve_data", **stats)
+    return stats
+
+
+def serve_data_worker(rank, tmp):
+    """One rank of ``serve_data_phase`` (this file run with
+    ``--serve-data-rank``); results to rank<r>.json."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import comm
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.serve.engine import ForecastEngine, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    meta = json.loads((tmp / "serve_data.json").read_text())
+    t0 = time.perf_counter()
+    eng = ForecastEngine("weathermixer-1b", reduced=False, device="cuda",
+                         mesh_data=2, config=ServeConfig(
+                             buckets=SERVE_BUCKETS, precision="bf16",
+                             seed=0))
+    perturb_(eng.params, torch)
+    warm = eng.warmup()
+    out = dict(setup_s=time.perf_counter() - t0, graphs=len(eng._graphs),
+               graph_pool_bytes=eng.stats["graph_pool_bytes"])
+    fields = np.load(tmp / "fields.npy") if rank == 0 else None
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    BM.block_matmul.launches = 0
+    comm.through_host.clear()
+    comm.through_host_bytes.clear()
+    t0 = time.perf_counter()
+    if rank == 0:
+        reqs = serve_requests(eng, fields)
+        eng.close()
+        out["hashes"] = serve_hashes(reqs)
+    else:
+        eng.serve_worker()
+    torch.cuda.synchronize()
+    out.update(serve_s=time.perf_counter() - t0,
+               launches=BM.block_matmul.launches,
+               device_steps=eng.stats["device_steps"],
+               compiles_after_warmup=eng.stats["compiles"] - warm,
+               step_ms=1e3 * eng.tracer.span_summary()["serve.step"][
+                   "mean_s"],
+               through_host=dict(comm.through_host),
+               through_host_bytes=dict(comm.through_host_bytes),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # ----------------------------------------------------------------------
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = ForecastEngine("weathermixer-1b", reduced=False, device="cuda",
+                            ckpt=meta["ckpt"], mesh_data=2,
+                            config=ServeConfig(buckets=(1,),
+                                               precision="bf16", seed=0))
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    served.warmup()
+    if rank == 0:
+        x = np.random.default_rng(0).standard_normal(
+            served.field_shape, dtype=np.float32)
+        r = served.submit(x, 1)
+        served.drain()
+        served.close()
+        out["restore_sha"] = sha(r.outputs[1])
+    else:
+        served.serve_worker()
+        out["restore_sha"] = None
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
 
 
 def gemm_flops_per_request(cfg):
@@ -2156,7 +2444,7 @@ def run_ranks(flag, tmp, n, timeout=600):
 
 
 def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads,
-                        ckpt_need, card):
+                        ckpt_need, card, serve_handoff):
     """One 2-D (scheme="2d") forward and backward on a 2x2 mesh of four
     rank processes sharing this card (gloo between them; each rank's
     Cannon slots mapped into its predecessors by CUDA IPC), through the
@@ -2165,8 +2453,9 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads,
     this process's scheme="none" step and, bit for bit, against the same
     step with fused_cannon_t forced to the step loop.  Then the ranks save
     a checkpoint (``eng.save(..., block=True)``), which this process
-    serves on one device (``ckpt_serve_part``); returns (stats, the ckpt
-    part's numbers)."""
+    serves on one device (``ckpt_serve_part``) and two serving ranks
+    restore (``serve_data_phase``); returns (stats, the ckpt part's
+    numbers, serve_data's)."""
     import shutil
     import tempfile
     from repro_torch.convert import shard_params_2d
@@ -2194,6 +2483,8 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads,
         handoff_s = time.perf_counter() - t0
         res, wall = run_ranks("--train-2d-rank", tmp, n)
         ckpt_b = ckpt_serve_part(torch, eng, ck / "ck", res, card)
+        serve_data = serve_data_phase(torch, serve_handoff, ck / "ck",
+                                      ckpt_b["forecast_sha"], card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         ckpt_drop(ck)
@@ -2256,7 +2547,7 @@ def train_2d_mesh_phase(torch, eng, batch0, r0, none_metrics, none_grads,
     check(sum(peaks) < PEAK_MEM_LIMIT, f"train_2d_mesh: the four ranks' "
           f"peaks sum to {sum(peaks):.2f} GB")
     emit(phase="train_2d_mesh", **stats)
-    return stats, ckpt_b
+    return stats, ckpt_b, serve_data
 
 
 def train_2d_worker(rank, tmp):
@@ -2504,6 +2795,7 @@ def train_data_phase(torch, kind, tmp, r0, none_loss, none_norm, cfg):
         collectives_through_host=[x["runs"][0]["through_host"] for x in res],
         gb_through_host=[x["runs"][0]["through_host_gb"] for x in res],
         step_s=[[r["step_s"] for r in x["runs"]] for x in res],
+        cost_model_metrics=[[r["cost"] for r in x["runs"]] for x in res],
         device_fwd_ms=[x["fwd_ms"] for x in res],
         device_bwd_ms=[x["bwd_ms"] for x in res],
         batch=TRAIN_BATCH, rows_per_rank=TRAIN_BATCH // TRAIN_DATA,
@@ -2626,6 +2918,8 @@ def train_data_worker(rank, tmp):
             loss=[float(m["loss"]) for m in (m1, m2)],
             grad_norm=[float(m["grad_norm"]) for m in (m1, m2)],
             step_s=step_s, setup_s=setup_s,
+            # what a step record of these steps carries
+            cost=[eng.cost_model.metrics(t, r0) for t in step_s],
             # the IPC slots are raw cudaMallocs, outside torch's allocator
             slots_gb=RING.workspace_bytes() / 1e9,
             peak_mem_gb=(torch.cuda.max_memory_allocated()
@@ -2792,7 +3086,8 @@ def ckpt_serve_part(torch, eng, path, ranks, card):
                 save_s_per_rank=[x["ckpt_save_s"] for x in ranks],
                 write_gb_s=total / 1e9 / max(x["ckpt_save_s"]
                                              for x in ranks),
-                serving_restore_s=restore_s, forecast_bitwise_equal=True)
+                serving_restore_s=restore_s, forecast_bitwise_equal=True,
+                forecast_sha=sha(outs[0].numpy()))
 
 
 def ckpt_inflight_steps(torch, eng, batch, r, need, reps=5):
@@ -3018,7 +3313,49 @@ def preempt_phase(torch, hist, sched, path, card):
         block_matmul_launches=launches)
 
 
-def train_phase(torch, BM, WX, card):
+RECORD_KEYS = ("step", "rollout", "dur_s", "data_wait_s", "mfu",
+               "achieved_tflops", "comm_fraction", "through_host_bytes")
+
+
+def train_cost_part(eng, recs, cfg):
+    """The train run's step records (``mfu``, ``achieved_tflops``,
+    ``comm_fraction`` from the engine's cost model), ``trace_report``'s
+    ``--check`` and verdict on its JSONL, and the cost model's FLOPs
+    beside this file's own floor count."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import trace_report as TR
+    check(recs and all(0 < r["mfu"] <= 1 and r["achieved_tflops"] > 0
+                       and 0 <= r["comm_fraction"] <= 1 for r in recs),
+          f"train step records' derived fields: {recs}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        path = str(tmp / "train.trace.jsonl")
+        eng.tracer.export_jsonl(path)
+        meta, steps, *_ = TR.split_records(TR.load_records(path))
+        fails = TR.check(meta, steps)
+        verdict = TR.verdict(TR.attribution(meta, steps))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not fails, f"trace_report --check on the train run: {fails}")
+    cm = eng.cost_model
+    return dict(
+        records=[{k: r.get(k) for k in RECORD_KEYS} for r in recs],
+        trace_check="OK", verdict=verdict,
+        peak_flops=cm.peak_flops, link_bw=cm.link_bw,
+        flops_per_sample_step=cm.flops_per_step / cm.batch,
+        floor_flops_per_sample_step=train_flops_per_sample(cfg, 1),
+        # the cost model (the reference's) counts 4 forwards of every
+        # linear: forward, backward twice, the remat re-forward, the
+        # encoder and decoder too, and dx of the encoder's input; the
+        # floor counts the launches the path runs: remat per block only,
+        # no dx of the input, and each block's two GELU pre-activation
+        # recomputes: + 3 encoder-sized GEMMs, - 3 (tok_fc + ch_fc)
+        difference="+3 encoder GEMMs (remat of encoder and decoder, dx "
+                   "of the input) - 3 x (tok + ch GELU recomputes)")
+
+
+def train_phase(torch, BM, WX, card, serve_handoff):
     import dataclasses
     import math
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -3068,8 +3405,8 @@ def train_phase(torch, BM, WX, card):
     stats_2d = train_2d_phase(torch, BM, WX, eng, batch0, r0, mk, gk)
     stats_1d = train_1d_phase(torch, eng, batch0, r0, mk, gk)
     need = 1.05 * ckpt_bytes(eng)
-    stats_2dm, ckpt_b = train_2d_mesh_phase(torch, eng, batch0, r0, mk, gk,
-                                            need, card)
+    stats_2dm, ckpt_b, serve_data = train_2d_mesh_phase(
+        torch, eng, batch0, r0, mk, gk, need, card, serve_handoff)
     handoff = data_handoff(torch, eng, batch0)
     none_loss, none_norm = float(mk["loss"]), float(global_norm(gk))
     del gk
@@ -3113,6 +3450,7 @@ def train_phase(torch, BM, WX, card):
           and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                   for h in hist), f"bad training history {hist}")
     recs = eng.tracer.step_records()
+    cost = train_cost_part(eng, recs, cfg)
     wait_s = sum(r["data_wait_s"] for r in recs)
     step_ms = {}
     for r in sorted(set(sched)):
@@ -3146,7 +3484,7 @@ def train_phase(torch, BM, WX, card):
         bound_ms_per_sample_step=bound_ms,
         data_wait_s=wait_s,
         data_wait_share=wait_s / sum(r["dur_s"] for r in recs),
-        peak_mem_gb=peak / 1e9)
+        peak_mem_gb=peak / 1e9, cost_model=cost)
     emit(phase="train", **stats)
     del eng, batch0
     torch.cuda.empty_cache()
@@ -3181,7 +3519,7 @@ def train_phase(torch, BM, WX, card):
     finally:
         shutil.rmtree(handoff, ignore_errors=True)
     return (launches, stats, stats_2d, stats_1d, stats_2dm, stats_d, ckpt_a,
-            pre)
+            pre, serve_data)
 
 
 def main():
@@ -3225,19 +3563,39 @@ def main():
     mcfg, mjcfg, mparams = mamba_setup(torch)
     fwd_launches, fwd_ssd_routes, fwd_ssd_ms = mamba_forward_phase(
         torch, counted, OPS, ref, mcfg, mjcfg, mparams)
-    gen_launches = mamba_generate_phase(torch, counted, mcfg, mjcfg, mparams)
+    gen_launches, gen_graphed, gen_eager = mamba_generate_phase(
+        torch, counted, mcfg, mjcfg, mparams)
     del mparams
     torch.cuda.empty_cache()
-    eng, fields, serve_launches = serve_phase(torch, BM)
-    legacy = legacy_phase(torch, BM, eng, fields)
-    del eng, fields
-    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+    handoff = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        eng, fields, serve_launches = serve_phase(torch, BM, handoff)
+        legacy = legacy_phase(torch, BM, eng, fields)
+        del eng, fields
+        torch.cuda.empty_cache()
+        return after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card,
+                           handoff, rows, mamba_rows, worst, ssd_rows,
+                           ssd_worst, fwd_launches, fwd_ssd_routes,
+                           fwd_ssd_ms, gen_launches, gen_graphed, gen_eager,
+                           serve_launches, legacy)
+    finally:
+        shutil.rmtree(handoff, ignore_errors=True)
+
+
+def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
+                rows, mamba_rows, worst, ssd_rows, ssd_worst, fwd_launches,
+                fwd_ssd_routes, fwd_ssd_ms, gen_launches, gen_graphed,
+                gen_eager, serve_launches, legacy):
+    """The phases after serving (``serve_data`` reads ``handoff``), and
+    the ``kernels`` line."""
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, SM90, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
-    train_launches, train, t2, t1, t2m, td, ck, pre = train_phase(
-        torch, BM, WX, card)
+    train_launches, train, t2, t1, t2m, td, ck, pre, sd = train_phase(
+        torch, BM, WX, card, handoff)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -3321,13 +3679,16 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:37",
-        "launches": serve_launches + train_launches
+        "launches": sum(serve_launches.values())
+        + sum(sd["launches_per_rank"]) + train_launches
         + t2["block_matmul_launches"] + sum(mesh_launches["block_matmul"])
         + sum(data_launches["2d"]["block_matmul"])
         + fwd_launches["block_matmul"] + gen_launches["block_matmul"]
         + ck["resumed_block_matmul_launches"]
         + sum(pre["block_matmul_launches"]),
-        "launches_by_path": {"serve": serve_launches,
+        "launches_by_path": {"serve": serve_launches["graphed"],
+                             "serve_eager": serve_launches["eager"],
+                             "serve_data": sd["launches_per_rank"],
                              "train": train_launches,
                              "ckpt_resume":
                              ck["resumed_block_matmul_launches"],
@@ -3337,7 +3698,9 @@ def main():
                              "train_data_2d":
                              data_launches["2d"]["block_matmul"],
                              "mamba_forward": fwd_launches["block_matmul"],
-                             "mamba_generate": gen_launches["block_matmul"]},
+                             "mamba_generate": gen_graphed["block_matmul"],
+                             "mamba_generate_eager":
+                             gen_eager["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
         "max_abs_err": max(worst, bwd_worst),
@@ -3481,6 +3844,8 @@ if __name__ == "__main__":
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-data-rank"]:
             sys.exit(train_data_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--serve-data-rank"]:
+            sys.exit(serve_data_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--preempt-child"]:
             sys.exit(preempt_child(sys.argv[2], sys.argv[3:]))
         sys.exit(main())

@@ -55,14 +55,17 @@ def _cast_like(params, like):
 def restore_serving_params(path: str, *, arch: Optional[str] = None,
                            like=None, device="cpu"
                            ) -> Tuple[object, Manifest]:
-    """Restore a training checkpoint's params for serving on one device.
+    """Restore a training checkpoint's params for serving on one device,
+    or on each rank of a data-only serving mesh: every rank calls this and
+    reads the whole params group (no collective; the saving mesh may be
+    any, of either package).
 
     path   : sharded checkpoint directory (any saving topology).
     arch   : expected arch id; mismatches against the manifest raise
              (checkpoints without the ``arch`` extra pass through).
     like   : optional params tree under the SERVING config -- shapes
              validated, dtypes cast (see ``_cast_like``).
-    device : where the params land (whole; serving is one device).
+    device : where the params land (whole on every serving rank).
 
     Returns ``(params, manifest)`` -- the manifest carries training
     metadata (step, precision, scheme) for logging/validation.

@@ -52,9 +52,16 @@ is the opposite rotation.
 card the Cannon kernel, the rotations between steps in-kernel; at q = 1 one
 wx launch); ``kernel="xla"`` runs plain PyTorch products accumulated in
 ``accum_dtype``, as the reference's dot_general.
+
+The analytic wire model at the end (``CommVolume``, ``CommSchedule`` and
+their functions) is a copy of the reference's, pure arithmetic: the bytes
+a rank sends for one linear's forward under each scheme, which
+``telemetry/accounting.py`` turns into the step records'
+``comm_fraction``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -286,3 +293,95 @@ def jigsaw_linear_2d_t(x: torch.Tensor, w: torch.Tensor,
     y = jigsaw_matmul_2d_t(x, w, mesh=mesh, accum_dtype=accum_dtype,
                            kernel=kernel).to(x.dtype)
     return y if b is None else y + b[:, None]
+
+
+# --------------------------------------------------------------------------
+# Analytic communication volume (the reference's, for the cost model)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CommVolume:
+    """Bytes sent per device for one linear layer's forward pass."""
+    scheme: str
+    bytes_per_device: float
+
+
+def comm_volume_jigsaw_1d(tokens: int, m: int, p: int, dtype_bytes: int = 2
+                          ) -> CommVolume:
+    # ring reduce-scatter of [tokens, m]: (p-1) chunks of tokens*m/p each.
+    return CommVolume("jigsaw-1d", (p - 1) / p * tokens * m * dtype_bytes)
+
+
+def comm_volume_megatron_pair(tokens: int, d: int, p: int,
+                              dtype_bytes: int = 2) -> CommVolume:
+    # Megatron fuses two linears around one allreduce of [tokens, d]:
+    # ring allreduce = 2 (p-1)/p * bytes.
+    return CommVolume("megatron-pair",
+                      2 * (p - 1) / p * tokens * d * dtype_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CommSchedule:
+    """Per-hop accounting of an explicit ring schedule (one linear fwd).
+
+    ``flops_per_hop`` is the local GEMM work the schedule exposes
+    *between* consecutive sends -- the compute available to hide each
+    hop.  The monolithic ``ring`` finishes its single GEMM before hop 0,
+    so it exposes zero overlappable work; ``ring_chunked`` exposes one
+    output-chunk GEMM per hop (the paper's overlap).
+    """
+    scheme: str
+    hops: int
+    bytes_per_hop: float
+    flops_per_hop: float
+    bytes_per_device: float
+
+    def overlap_ratio(self, link_bw: float, peak_flops: float) -> float:
+        """compute-time / comm-time per hop (>= 1: the hop is hidden)."""
+        if self.bytes_per_hop == 0:
+            return float("inf")
+        t_comm = self.bytes_per_hop / link_bw
+        t_comp = self.flops_per_hop / peak_flops
+        return t_comp / t_comm if t_comm else float("inf")
+
+
+def comm_schedule_jigsaw_1d(tokens: int, m: int, d_local: int, p: int,
+                            dtype_bytes: int = 2, chunked: bool = True,
+                            impl: Optional[str] = None) -> CommSchedule:
+    """Hop-level schedule of the explicit 1-D Jigsaw ring.
+
+    All three schedules move the same (p-1)/p * tokens * m bytes per
+    device; they differ in what compute is still pending while each hop's
+    send is in flight:
+
+      ring         : nothing (the single GEMM finished before hop 0),
+      ring_chunked : one output-chunk GEMM (2 * tokens * d_local * m/p
+                     flops) between hops,
+      ring_fused   : the same chunk GEMM plus the hop add (tokens * m/p
+                     flops), inside the ring step kernel.
+
+    ``impl`` ("ring" | "ring_chunked" | "ring_fused") supersedes the
+    legacy ``chunked`` bool when given.
+    """
+    if impl is None:
+        impl = "ring_chunked" if chunked else "ring"
+    if impl not in ("ring", "ring_chunked", "ring_fused"):
+        raise ValueError(f"comm_schedule_jigsaw_1d: unknown impl {impl!r}")
+    hop_bytes = tokens * (m / p) * dtype_bytes
+    chunk_flops = 2.0 * tokens * d_local * (m / p)
+    flops = {"ring": 0.0, "ring_chunked": chunk_flops,
+             "ring_fused": chunk_flops + tokens * (m / p)}[impl]
+    return CommSchedule(
+        scheme="jigsaw-1d-" + impl,
+        hops=p - 1, bytes_per_hop=hop_bytes,
+        flops_per_hop=flops,
+        bytes_per_device=(p - 1) * hop_bytes)
+
+
+def comm_volume_jigsaw_2d(tokens: int, m: int, q: int, dtype_bytes: int = 2
+                          ) -> CommVolume:
+    # Cannon on q x q grid: per step each rank forwards its X block
+    # [tokens/q, d/q] and W block [m/q, d/q]; 2(q-1) block sends + skews.
+    # Expressed in output-proportional terms for comparability.
+    blk = tokens / q * m / q
+    return CommVolume("jigsaw-2d", 2 * (q - 1) * blk * dtype_bytes)

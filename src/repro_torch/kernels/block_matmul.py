@@ -26,7 +26,9 @@ PyTorch headers, so the build takes seconds; ``kernels/build.py``).
 ``block_matmul.launches`` counts the launches of the kernel,
 ``block_matmul.layout_launches`` the same launches by operand layout
 ``(x_t, w_t)`` and ``block_matmul.route_launches`` by route; nothing else
-adds to them.
+adds to them, but for the replays of a captured CUDA graph, which
+``kernels/graphs.py::CountedGraph`` adds (a launch recorded during a
+capture runs nothing, so the capture takes it back out).
 """
 from __future__ import annotations
 

@@ -24,7 +24,8 @@ made before this entry existed).  Nothing falls back from one to the other.
 
 Both entries count into ``ssd_intra_chunk.launches``, and by entry and
 route into ``ssd_intra_chunk.route_launches`` (``"groups.tma"``,
-``"heads.scalar"``, ...); nothing else adds to them.  The route is
+``"heads.scalar"``, ...); nothing else adds to them, but for the replays
+of a captured CUDA graph (``kernels/graphs.py::CountedGraph``).  The route is
 ``"tma"`` (x, B and C through TMA tensor maps) where they have 16-byte
 aligned bases, strides and rows, else ``"scalar"`` (element loads), inside
 the same kernel.  The library is built like block_matmul's

@@ -40,7 +40,11 @@ only its block of the batch, its data rank's rows of it (``pipeline=
 "sharded"``, the default: paper §5), or makes the whole batch and takes its
 block (``"sync-full"``: the same blocks, bit for bit); every rank computes
 the same loss and gradient norm, and rank 0 alone prints and writes the
-metrics.  Left for a later slice (ROADMAP.md): the analytic cost model.
+metrics.  Every step record carries ``mfu``, ``achieved_tflops`` and
+``comm_fraction`` from the analytic cost model
+(``telemetry/accounting.py``, the H100's peaks; its constants stamped into
+the trace's meta header for ``launch/trace_report.py``) and the step's
+measured ``through_host_bytes`` (``core/comm.py``'s counters).
 ``close()`` releases the ring's and the Cannon's IPC workspaces
 (collective).
 
@@ -173,8 +177,12 @@ class TrainEngine:
         self.jcfg = jigsaw_for(cfg).replace(mesh=self.mesh)
         self.is_rank0 = self.mesh is None or self.mesh.rank == 0
 
+        # the analytic cost model turns each step's wall time into mfu /
+        # comm_fraction / achieved_tflops (telemetry/accounting.py)
         self.tracer = telemetry.Tracer(enabled=config.telemetry)
         telemetry.set_tracer(self.tracer)
+        self.cost_model = telemetry.build_cost_model(
+            cfg, n_model=mesh_model, n_data=mesh_data, batch=config.batch)
         self.tracer.set_meta(
             surface="train", arch=arch, reduced=reduced,
             device=str(self.device), mesh_model=mesh_model,
@@ -182,7 +190,7 @@ class TrainEngine:
             kernel=cfg.kernel,
             precision=self.policy.name, steps=config.steps,
             batch=config.batch, rollout=config.rollout, accum=config.accum,
-            zero1=config.zero1)
+            zero1=config.zero1, cost_model=self.cost_model.as_meta())
 
         if init_params is None:
             self.params = M.init(cfg, seed=config.seed, device=self.device)
@@ -298,6 +306,7 @@ class TrainEngine:
             it = iter(self.pipeline.iterate(self.r_sched[start:],
                                             start_step=start))
             t_prev = time.perf_counter()
+            host_prev = telemetry.measured_comm_bytes()
             for i in range(start, c.steps):
                 # data_wait: time the loop spends blocked on the input
                 # pipeline (0 when prefetch is ahead)
@@ -316,8 +325,13 @@ class TrainEngine:
                     # metrics read)
                     now = time.perf_counter()
                     wall, t_prev = now - t_prev, now
+                    host = telemetry.measured_comm_bytes()
                     tr.step_record(step=i, rollout=r, dur_s=wall,
-                                   data_wait_s=dw.dur_s)
+                                   data_wait_s=dw.dur_s,
+                                   through_host_bytes=host - host_prev,
+                                   **self.cost_model.metrics(wall,
+                                                             rollout=r))
+                    host_prev = host
                     if i % c.log_every == 0 or i == c.steps - 1:
                         m = {k: float(v) for k, v in metrics.items()}
                         m["step"] = i

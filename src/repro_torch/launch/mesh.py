@@ -99,7 +99,9 @@ def make_ring_mesh(model: int = 4, data: int = 1, *,
 
 def make_host_mesh(model: int = 4, data: int = 1, *, device="cuda") -> Mesh:
     """This rank's place on a (data, mdom=q, mtp=q) mesh with q*q = model
-    (the reference's ``make_host_mesh(two_d=True)``).
+    (the reference's ``make_host_mesh(two_d=True)``).  ``model=1, data=n``
+    is the serving mesh of ``serve/engine.py``: n ranks, each the whole
+    model, the data group the world.
 
     A one-rank mesh needs no process group.  Otherwise the process group
     and the card as ``_join`` sets them (the ranks can share one card,

@@ -4,8 +4,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch weathermixer-1b \\
       [--full] [--ckpt out/ck-100] [--precision bf16] [--requests 8] \\
       [--leads 1,2] [--buckets 1,2,4] [--mode continuous|drain] \\
-      [--coalesce-ms 0] [--device cuda|cpu]
+      [--coalesce-ms 0] [--device cuda|cpu] [--no-graphs]
 
+  # data-parallel serving: n ranks, each the whole model (gloo on one card)
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.serve --mesh-data 2
+
+``--mesh-data n`` serves on n ranks of a data-only mesh and must run as
+``WORLD_SIZE = n`` ranks under ``torch.distributed.run``: rank 0 takes the
+requests, runs the scheduler and prints the report; the others follow its
+ticks (``ForecastEngine.serve_worker``).  On CUDA each bucket's step is a
+CUDA graph captured at warmup; ``--no-graphs`` runs it eagerly.
 ``--ckpt`` restores the params group of any training checkpoint (either
 package's, any saving mesh; cast to the serving precision); without it the
 engine serves fresh weights from ``--seed``.  Requests are synthetic
@@ -17,6 +26,7 @@ rollout-step boundaries and reports requests/s and latency percentiles.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
@@ -31,36 +41,52 @@ def serve(arch: str, *, ckpt: Optional[str] = None, requests: int = 32,
           buckets: Sequence[int] = (1, 2, 4, 8), coalesce_ms: float = 0.0,
           seed: int = 0, reduced: bool = True, warmup: bool = True,
           trace: Optional[str] = None, config_override=None,
-          device: str = "cuda", quiet: bool = False):
+          device: str = "cuda", quiet: bool = False, mesh_data: int = 1,
+          graphs: bool = True):
     """Build an engine, push ``requests`` synthetic forecasts through it,
-    and return ``(results, engine, wall_seconds)``."""
+    and return ``(results, engine, wall_seconds)``.  With ``mesh_data > 1``
+    every rank calls this: rank 0 serves and returns its results, the
+    others follow it and return ``([], engine, wall_seconds)``."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != mesh_data:
+        raise ValueError(f"--mesh-data {mesh_data} needs {mesh_data} ranks "
+                         f"(torch.distributed.run --nproc-per-node "
+                         f"{mesh_data}); WORLD_SIZE is {world}")
     engine = ForecastEngine(
         arch, reduced=reduced, ckpt=ckpt, config_override=config_override,
-        device=device,
+        device=device, mesh_data=mesh_data,
         config=ServeConfig(buckets=tuple(buckets), mode=mode,
                            coalesce_s=coalesce_ms / 1e3,
-                           precision=precision, seed=seed, trace=trace))
-    cfg = engine.cfg
-    ds = WeatherDataset(WeatherDataConfig(
-        lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
-        seed=seed))
-    fields = ds.sample_fields(0, requests)
+                           precision=precision, seed=seed, trace=trace,
+                           graphs=graphs))
+    quiet = quiet or engine.rank != 0
     if warmup:
         engine.warmup()
         if not quiet:
             print(f"[serve] warmup: {engine.stats['compiles']} setups "
                   f"in {engine.stats['warmup_s']:.2f}s")
+    if engine.rank != 0:
+        t0 = time.perf_counter()
+        engine.serve_worker()
+        return [], engine, time.perf_counter() - t0
+    cfg = engine.cfg
+    ds = WeatherDataset(WeatherDataConfig(
+        lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
+        seed=seed))
+    fields = ds.sample_fields(0, requests)
     t0 = time.perf_counter()
     results = [engine.submit(fields[i], leads[i % len(leads)])
                for i in range(requests)]
     engine.drain()
     wall = time.perf_counter() - t0
+    engine.close()
     if not quiet:
         s = engine.summary(results)
         src = (f"ckpt {ckpt} (step {engine.restored_step})" if ckpt
                else "fresh init")
-        print(f"[serve] {arch} ({src}) on {engine.device} "
-              f"precision={engine.policy.name} mode={mode}")
+        print(f"[serve] {arch} ({src}) on {engine.device} x{mesh_data} "
+              f"precision={engine.policy.name} mode={mode} "
+              f"graphs={engine.graphs}")
         print(f"[serve] {requests} requests in {wall:.2f}s = "
               f"{requests / wall:.3f} req/s | p50 {s['p50_s'] * 1e3:.1f}ms "
               f"p95 {s['p95_s'] * 1e3:.1f}ms | {s['device_steps']} rollout "
@@ -99,13 +125,20 @@ def main(argv=None):
                     help="Chrome trace-event export path for the serving "
                          "spans + latency histograms")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel serving ranks (run this many under "
+                         "torch.distributed.run)")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="run every step eagerly (CUDA graphs per bucket "
+                         "are the default on CUDA)")
     args = ap.parse_args(argv)
     serve(args.arch, ckpt=args.ckpt, requests=args.requests,
           leads=[int(x) for x in args.leads.split(",")],
           precision=args.precision, mode=args.mode,
           buckets=[int(x) for x in args.buckets.split(",")],
           coalesce_ms=args.coalesce_ms, seed=args.seed,
-          reduced=not args.full, trace=args.trace, device=args.device)
+          reduced=not args.full, trace=args.trace, device=args.device,
+          mesh_data=args.mesh_data, graphs=not args.no_graphs)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,10 @@ describe exactly the blocks the port's ranks hold: ``param_specs``
 (sanitized) those that ``convert.shard_params_1d`` / ``_2d`` cut,
 ``block_specs`` the block of the patchified fields a rank reads
 (``data/pipeline.py``), and ``zero1_dims`` where ZeRO-1 cuts a leaf's
-optimizer state.  ``cache_specs`` (serving's KV/SSM caches) waits for
-data-parallel serving (ROADMAP.md, queue 1 item 11).
+optimizer state.  ``state_spec`` places the forecast engine's state
+buffer of a batch bucket on the serving mesh (``serve/engine.py``).
+``cache_specs`` (the language models' KV/SSM caches on a mesh) comes with
+the dry-run (ROADMAP.md, queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.core.sharding import (DATA_AXIS, ShardingRules, Spec,
 from repro_torch.models import weathermixer
 
 __all__ = ["param_specs", "opt_specs", "batch_specs", "block_specs",
-           "sanitize_spec", "sanitize_tree", "zero1_dims"]
+           "sanitize_spec", "sanitize_tree", "state_spec", "zero1_dims"]
 
 
 def _mixer_only(cfg: ModelConfig, what: str) -> None:
@@ -109,6 +111,14 @@ def block_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, Spec]:
     layout; the port has no GSPMD, so a rank reads this block instead, the
     same bytes per rank and no collective."""
     return {k: rules.act(3, domain_dim=1) for k in batch_specs(cfg, rules)}
+
+
+def state_spec(b: int, mesh, ndim: int = 4) -> Spec:
+    """The spec of a serving bucket's state [b, lat, lon, C] on a data-only
+    mesh: its rows cut over the data axis where the axis' extent divides
+    ``b``, else whole on every rank (the reference's ``sanitize_spec`` of
+    ``P("data")``, as its engine's ``_state_sharding``)."""
+    return sanitize_spec((b,) + (1,) * (ndim - 1), (DATA_AXIS,), mesh)
 
 
 def sanitize_tree(shapes_tree, spec_tree, mesh):

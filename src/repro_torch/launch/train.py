@@ -129,7 +129,10 @@ def main(argv=None):
     ap.add_argument("--metrics-format", default="jsonl",
                     choices=["jsonl", "json"])
     ap.add_argument("--trace", default=None,
-                    help="Chrome trace-event export path")
+                    help="Chrome trace-event export path (load in "
+                         "Perfetto); a sibling .jsonl gets the per-step "
+                         "mfu/comm_fraction records for "
+                         "launch/trace_report.py")
     ap.add_argument("--no-telemetry", action="store_true",
                     help="disable span tracing (counters stay live)")
     ap.add_argument("--seed", type=int, default=0)

@@ -10,7 +10,9 @@ between the two).
 ``apply`` is the teacher-forced forward: under ``kernel="pallas"`` its
 4 * n_layers + 1 linears run the block_matmul kernel, and each layer's
 intra-chunk SSD term one launch of the ssd_chunk kernel.  ``decode_step`` is
-the recurrent single-token step (no SSD launch).  The port runs this family
+the recurrent single-token step (no SSD launch); it writes the cache that
+``init_cache`` made in place, and allocates nothing that outlives it, so
+``serve/step.py`` can capture it in a CUDA graph.  The port runs this family
 forward only: training (the LM loss, the token batch source, the SSD term's
 backward) is ROADMAP.md queue 1 item 14.
 """
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import DEFAULT_JIGSAW, JigsawConfig
-from repro_torch.core.precision import dtype_of
+from repro_torch.core.precision import dtype_of, policy_of
 from repro_torch.models import layers as L
 
 
@@ -83,11 +85,24 @@ def apply(params, batch, cfg: ModelConfig,
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def conv_dtype(cfg: ModelConfig, dtype=torch.bfloat16) -> torch.dtype:
+    """The dtype of the conv window that ``decode_step`` writes into a
+    cache of ``dtype``: ``dtype`` promoted with the activations' (the
+    policy's compute dtype; the params' under the legacy policy, which
+    casts nothing), as the reference's concatenate of the window and the
+    new token promotes.  bf16 -> f32 is exact."""
+    pol = policy_of(cfg)
+    act = pol.param_dtype if pol.name == "legacy" else pol.compute_dtype
+    return torch.promote_types(dtype, act)
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """The decode state, O(1) in sequence length: per layer the conv window
-    [B, K-1, conv_dim] in ``dtype`` and the SSM state [B, H, P, N] in f32,
-    stacked on a leading layer dim as in the reference."""
+    [B, K-1, conv_dim] in ``conv_dtype(cfg, dtype)`` (``dtype``, or the
+    activations' where those are wider: the dtype the step writes) and the
+    SSM state [B, H, P, N] in f32, stacked on a leading layer dim as in the
+    reference."""
     del max_len
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -97,7 +112,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return {
         "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device),
         "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
-                             conv_dim), dtype=dtype, device=device),
+                             conv_dim), dtype=conv_dtype(cfg, dtype),
+                            device=device),
         "ssm": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_heads,
                             cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=torch.float32, device=device),
@@ -108,22 +124,23 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                 jcfg: JigsawConfig = DEFAULT_JIGSAW):
     """One token per row: logits [B, 1, vocab_padded] and the cache.
 
-    The new states are written into ``cache`` in place (the reference
-    donates the cache to XLA), and the same dict is returned.  Where the
-    conv window promotes to a wider dtype than the cache's (f32 activations
-    against a bf16 cache), ``cache["conv"]`` is replaced by a tensor of that
-    dtype, as the reference's returned cache has; bf16 -> f32 is exact."""
+    The new states are written into ``cache``'s tensors in place (the
+    reference donates the cache to XLA), and the same dict is returned.
+    The conv window must be in the dtype the step writes
+    (``conv_dtype``, as ``init_cache`` makes it): a narrower one raises
+    rather than rounding the window."""
     x = L.embed_apply(params["embed"], tokens)
     conv, ssm = cache["conv"], cache["ssm"]
     for i, lp in enumerate(params["layers"]):
         x, ns = _mixer(lp, x, cfg, jcfg,
                        state={"conv": conv[i], "ssm": ssm[i]})
         if ns["conv"].dtype != conv.dtype:
-            conv = conv.to(ns["conv"].dtype)
+            raise TypeError(f"decode_step: the conv window is "
+                            f"{ns['conv'].dtype}, the cache's {conv.dtype}; "
+                            "make the cache with init_cache")
         conv[i].copy_(ns["conv"])
         ssm[i].copy_(ns["ssm"])
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x, jcfg)
-    cache["conv"] = conv
     cache["pos"] += 1
     return logits, cache

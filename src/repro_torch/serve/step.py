@@ -2,7 +2,14 @@
 ``repro/serve/step.py``).
 
 ``make_serve_step`` builds the single-token decode step; ``generate`` runs
-the prompt through ``prefill`` and then ``steps - 1`` decode steps.  A
+the prompt through ``prefill`` and then ``steps - 1`` decode steps.
+``graph_serve_step`` is the counterpart of the reference's
+``jit_serve_step``: one captured CUDA graph of the decode step per (cfg,
+jcfg, batch, cache dtype) and weights, whose static buffers are the token
+in, the token out and the cache (``kernels/graphs.py::CountedGraph``: the
+kernels' launch counters count its replays).  On the card ``generate``
+replays it for every step, the token-wise prefill's among them
+(``graph=None``); ``graph=False`` keeps the eager loop, the comparison.  A
 family without a fused prefill (the ssm family, as in the reference) is
 prefilled token by token through the same decode step
 (``prefill_tokenwise``).  Each step writes the model's cache in place
@@ -16,12 +23,14 @@ parameters lie: on the card unless the caller made them on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as ptree
 from repro_torch.core.api import JigsawConfig
+from repro_torch.kernels.graphs import CountedGraph
 from repro_torch.models import registry as M
 
 
@@ -79,17 +88,118 @@ def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
     return nxt, cache
 
 
+class GraphedStep:
+    """One decode step captured in a CUDA graph on static buffers:
+    ``tokens_in`` [B, 1] int32, ``tokens_out`` [B, 1] int32 and ``cache``
+    (``init_cache``'s tensors, written in place).  ``load`` copies a cache
+    in; each ``replay`` reads ``tokens_in`` and ``cache`` and writes the
+    next tokens and the cache."""
+
+    def __init__(self, params, cfg: ModelConfig, jcfg: JigsawConfig,
+                 batch: int, cache_dtype: torch.dtype, device):
+        # the graph reads these tensors where they lie: hold them
+        self.params = params
+        self.ptrs = _leaf_ptrs(params)
+        self.cache = M.init_cache(cfg, batch, 0, dtype=cache_dtype,
+                                  device=device)
+        self.tokens_in = torch.zeros((batch, 1), dtype=torch.int32,
+                                     device=device)
+        step = make_serve_step(cfg, jcfg)
+
+        def body():
+            nxt, _ = step(params, self.cache, self.tokens_in)
+            return nxt
+
+        with torch.no_grad():
+            body()                  # eager once: attributes set, pool primed
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        self.graph = CountedGraph()
+        self.tokens_out = self.graph.capture(body)
+
+    def load(self, cache: Dict[str, torch.Tensor]) -> None:
+        """Copy ``cache`` (``init_cache``'s layout) into the static one."""
+        for k, v in self.cache.items():
+            v.copy_(cache[k])
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.tokens_out
+
+
+_GRAPHS: Dict[tuple, GraphedStep] = {}
+
+
+def _leaf_ptrs(params) -> tuple:
+    return tuple(t.data_ptr() for t in ptree.leaves(params))
+
+
+def graph_serve_step(params, cfg: ModelConfig, jcfg: JigsawConfig,
+                     cache: Dict[str, torch.Tensor]) -> GraphedStep:
+    """The captured decode step for ``cache``'s batch and dtype, with
+    ``cache`` loaded into its static cache.  One per (cfg, jcfg, batch,
+    cache dtype, device), captured at first use; weights other than those
+    it was captured with (other tensors) capture it anew in its place.
+    The steps hold their weights: ``clear_graphs()`` lets them go.  A
+    capture that fails raises."""
+    conv = cache["conv"]
+    if conv.device.type != "cuda":
+        raise ValueError(f"graph_serve_step needs a cache on cuda, not "
+                         f"{conv.device}")
+    batch, dtype = conv.shape[1], conv.dtype
+    key = (cfg, jcfg, batch, dtype, conv.device)
+    g = _GRAPHS.get(key)
+    if g is None or g.ptrs != _leaf_ptrs(params):
+        _GRAPHS.pop(key, None)
+        g = _GRAPHS[key] = GraphedStep(params, cfg, jcfg, batch, dtype,
+                                       conv.device)
+    g.load(cache)
+    return g
+
+
+def clear_graphs() -> None:
+    """Drop every captured decode step (and its hold on the weights)."""
+    _GRAPHS.clear()
+
+
 @torch.no_grad()
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
              jcfg: JigsawConfig, *, steps: int, max_len: int,
-             fused: Optional[bool] = None) -> torch.Tensor:
+             fused: Optional[bool] = None,
+             graph: Optional[bool] = None) -> torch.Tensor:
     """Greedy generation: prefill, then ``steps - 1`` decode steps.
     Returns the ``steps`` new tokens [B, steps] (int32) on the prompts'
-    device."""
-    nxt, cache = prefill(params, prompts, cfg, jcfg, max_len, fused=fused)
-    step = make_serve_step(cfg, jcfg)
-    out = [nxt]
-    for _ in range(steps - 1):
-        nxt, cache = step(params, cache, nxt)
-        out.append(nxt)
-    return torch.cat(out, dim=1)
+    device.  ``graph`` (None: on CUDA) replays ``graph_serve_step``'s
+    captured step for every decode step and every step of a token-wise
+    prefill; False runs them eagerly; True on the CPU raises."""
+    if graph is None:
+        graph = prompts.is_cuda
+    if not graph:
+        nxt, cache = prefill(params, prompts, cfg, jcfg, max_len,
+                             fused=fused)
+        step = make_serve_step(cfg, jcfg)
+        out = [nxt]
+        for _ in range(steps - 1):
+            nxt, cache = step(params, cache, nxt)
+            out.append(nxt)
+        return torch.cat(out, dim=1)
+    if not prompts.is_cuda:
+        raise ValueError("generate(graph=True) needs prompts on cuda")
+    b, s = prompts.shape
+    out = torch.empty((b, steps), dtype=torch.int32, device=prompts.device)
+    if fused or (fused is None
+                 and hasattr(M.module_for(cfg), "prefill_cache")):
+        nxt, cache = prefill(params, prompts, cfg, jcfg, max_len, fused=True)
+        g = graph_serve_step(params, cfg, jcfg, cache)
+    else:
+        # token-wise prefill, through the captured step
+        g = graph_serve_step(params, cfg, jcfg, M.init_cache(
+            cfg, b, max_len, dtype=torch.bfloat16, device=prompts.device))
+        for t in range(s):
+            g.tokens_in.copy_(prompts[:, t:t + 1])
+            nxt = g.replay()
+    out[:, :1].copy_(nxt)
+    for i in range(1, steps):
+        g.tokens_in.copy_(out[:, i - 1:i])
+        out[:, i:i + 1].copy_(g.replay())
+    return out

@@ -246,8 +246,11 @@ def test_pallas_forward_launches_nothing_on_the_cpu(model):
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
 def test_decode_steps_and_cache_match_reference(model, cache_dtype):
     """init_cache's state, then twelve decode steps: the logits and the
-    conv and SSM states after each (with a bf16 cache the conv window
-    promotes to f32 after the first step, in both)."""
+    conv and SSM states after each.  With a bf16 cache and f32 activations
+    the reference's conv window promotes to f32 at the first step; the
+    port's ``init_cache`` makes it f32 at once (the dtype the step writes,
+    so the step writes in place), and equal to the reference's after
+    every step."""
     cfg, rcfg, params, rparams = model
     tokens = _tokens(cfg, 2, 12, step=1)
     cache = M.init_cache(cfg, 2, 14, dtype=getattr(torch, cache_dtype),
@@ -255,8 +258,8 @@ def test_decode_steps_and_cache_match_reference(model, cache_dtype):
     rcache = RM.init_cache(rcfg, 2, 14, dtype=getattr(jnp, cache_dtype))
     for k in ("pos", "conv", "ssm"):
         assert tuple(cache[k].shape) == rcache[k].shape
-        assert str(cache[k].dtype).removeprefix("torch.") == \
-            str(rcache[k].dtype)
+        want = "float32" if k == "conv" else str(rcache[k].dtype)
+        assert str(cache[k].dtype).removeprefix("torch.") == want
         assert not cache[k].any()
     jcfg, rjcfg = jigsaw_for(cfg), RSH.jigsaw_for(rcfg)
     for t in range(12):
@@ -354,14 +357,20 @@ def test_prefill_has_no_fused_path():
 
 
 def test_module_decode_promotes_bf16_conv_cache(model):
-    """With f32 activations a bf16 conv cache promotes to f32 after one
-    step (the reference's concatenate promotes); the SSM state stays f32
-    and is updated in place."""
+    """With f32 activations a bf16 cache's conv window is f32 (the
+    reference's concatenate promotes it at the first step; ``init_cache``
+    makes it so at once), and the step writes the conv window and the SSM
+    state in place; a narrower window than the step writes raises."""
     cfg, _, params, _ = model
     cache = mamba.init_cache(cfg, 1, 4, device="cpu")
-    ssm = cache["ssm"]
+    conv, ssm = cache["conv"], cache["ssm"]
+    assert conv.dtype == torch.float32
     _, cache = mamba.decode_step(params, cache,
                                  torch.zeros((1, 1), dtype=torch.int32), cfg)
-    assert cache["conv"].dtype == torch.float32
+    assert cache["conv"] is conv and conv.any()
     assert cache["ssm"] is ssm and ssm.any()
     assert int(cache["pos"][0]) == 1
+    cache["conv"] = conv.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="init_cache"):
+        mamba.decode_step(params, cache,
+                          torch.zeros((1, 1), dtype=torch.int32), cfg)
