@@ -5,8 +5,11 @@
 
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
-``weathermixer-1b``'s and ``mamba2-130m``'s full published widths, through
+``weathermixer-1b``'s, ``mamba2-130m``'s, ``h2o-danube-1.8b``'s and
+``gemma3-27b``'s full published widths (gemma3 cut in depth), through
 the entry points a user calls: the Mamba-2 forward and greedy generation,
+the dense transformer's forward and generation (fused prefill, graphed
+decode on rolling and local:global KV caches),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -210,7 +213,44 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      bytes; each run's summed peak under 80 GB; printed: the device time
      per sample-step beside its bound, the data all-reduces' time and the
      bytes through host memory, and the batch read's ``data_wait``;
-  10. the ``kernels`` line, the card's name and power limit, and the last
+  10. ``dense_forward``, with the training and data phases' memory
+     freed: ``h2o-danube-1.8b`` whole (24 layers, random bf16 weights from
+     seed 0) at sequence 4608 and batch 2 on ``TokenDataset`` rows, so its
+     4,096-token sliding window masks the last 512 positions: 169
+     block_matmul launches (24 x 7 + the head), all on the Hopper loop,
+     logits finite, the forward's ms and tokens/s beside
+     ``launch/analysis.py``'s FLOP floor at the bf16 peak; on the same
+     weights in f32, ``kernel="pallas"`` against ``kernel="xla"``, the bf16
+     logits against the f32 ones, and the f32 forward with
+     ``sliding_window=None``: its logits inside the window as the
+     windowed forward's, every position past it changed; then
+     block_matmul at the forward's 8 GEMM shapes (9,216 rows), timed
+     beside its plain version, ``F.linear`` and the bound;
+  11. ``dense_generate``: ``serve.step.generate`` on the same weights at
+     batch 4 from 4,160-token prompts (past the window) with 32 new
+     tokens: the fused prefill, then the decode step captured before the
+     counted run (``graph_serve_step``) replayed on the 4,096-slot
+     rolling cache; then eagerly (``graph=False``): the tokens equal, 169
+     block_matmul launches a step (the prefill's forward one step; the
+     graphed ones counted by replay, the decode steps on the WMMA loop),
+     no capture in the counted run; in f32 the decode logits along the
+     generated tokens (from a fused f32 prefill) against the
+     teacher-forced forward of prompt + output, and the fused prefill of
+     64-token prompts against the token-wise one; a decode step's device
+     (CUDA events) and host ms, graphed and eager; block_matmul at the
+     step's 4-row shapes beside ``F.linear`` and the bound, and the step's
+     bound (weights and KV cache at the memory rate);
+  12. ``gemma3_generate``: ``gemma3-27b`` at its published width cut in
+     depth to 8 layers (one 5:1 local:global period and the 2-layer
+     leftover, for the published 62 = 10 * 6 + 2; seed-0 bf16 weights),
+     ``generate`` at batch 2 from 64-token prompts prefilled token by
+     token through the captured step (a local:global stack has no fused
+     prefill), 16 new tokens; then eagerly: the tokens equal, 49
+     block_matmul launches a step (8 x 6 + the head), no capture in the
+     counted run; in f32 the token-wise logits at every prompt position
+     against the teacher-forced forward; the step's times, and
+     block_matmul at its 2-row shapes, as in 11;
+  13. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -264,7 +304,16 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     the teacher-forced forward 5e-3 / 5e-3 elementwise (the reference's
     own); the bf16 forward against the f32 one by mean|a - b| / mean|b|
     0.3, a gross-fault check only: the random-weight bf16 residual stream
-    amplifies rounding through 24 layers (``MAMBA_BF16_TOL``).
+    amplifies rounding through 24 layers (``MAMBA_BF16_TOL``);
+  * the transformer phases (``DENSE_*_TOL``), judged in f32 likewise:
+    pallas against xla 1e-3 max-normalised; token-wise decode against the
+    teacher-forced forward 5e-3 / 5e-3; the fused prefill against the
+    token-wise one: the next tokens equal, the f32 caches rtol 5e-3 /
+    atol 1e-4 (the reference's ``test_fused_prefill_parity``); the bf16
+    forward against the f32 one 0.1 of the mean (a gross-fault check);
+    past the window every position's logits change by more than ten
+    times the largest difference inside it (where the two forwards are
+    the same arithmetic).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -449,6 +498,54 @@ MAMBA_SHAPES = [(f"{tag}.{name}", m, k, n, per)
                                         ("out_proj", 1536, 768, MAMBA_LAYERS),
                                         ("head", 768, 50432, 1))]
 
+def lm_gemm_rows(torch, BM, SM90, ref, gen, shapes):
+    """block_matmul at a language model's GEMM shapes in bf16, no bias:
+    (label, M, K, N, epilogue, launches per path) each against its plain
+    version, timed beside it, the library call (``F.linear``, with the
+    tanh GELU where the epilogue has it) and the bound; each row with its
+    route fields and, on the Hopper loop, bit for bit the WMMA loop."""
+    import torch.nn.functional as F
+    rows, worst = [], 0.0
+    for label, m, k, n, epi, per_path in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).bfloat16()
+        y = BM.block_matmul(x, w, None, epi)
+        torch.cuda.synchronize()
+        err, ok = gemm_errors(y, ref.block_matmul_ref(x, w, None, epi),
+                              "bfloat16")
+        check(ok, f"{label} {(m, k, n)}: max err {err:.3e}")
+        worst = max(worst, err)
+        if epi == "gelu":
+            def library():
+                return F.gelu(F.linear(x, w), approximate="tanh")
+        else:
+            def library():
+                return F.linear(x, w)
+        bound, bound_by = gemm_bound_ms(m, n, k, "bfloat16", False)
+        row = dict(shape=label, m=m, n=n, k=k, dtype="bfloat16",
+                   epilogue=epi, per_path=per_path,
+                   **bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi,
+                                     False, False),
+                   max_abs_err=err, tol=GEMM_TOL["bfloat16"],
+                   kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w, None,
+                                                             epi), 10),
+                   library_ms=cuda_ms(library, 10),
+                   plain_ms=cuda_ms(lambda: ref.block_matmul_ref(
+                       x, w, None, epi), 3),
+                   bound_ms=bound, bound_by=bound_by)
+        if row["route"] == "sm90":
+            row["wmma_ms"] = check_routes_agree(torch, BM, y,
+                                                (x, w, None, epi), {}, label)
+            row["bitwise_wmma"] = True
+        row["tflops"] = 2e-9 * m * n * k / row["kernel_ms"]
+        emit(phase="kernel_shape", **row)
+        rows.append(row)
+        del x, w, y
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
 def kernel_phase(torch, BM, SM90, ref):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -521,32 +618,10 @@ def kernel_phase(torch, BM, SM90, ref):
         del x, w, b, y
         torch.cuda.empty_cache()
 
-    mamba_rows = []
-    for label, m, k, n, per_path in MAMBA_SHAPES:
-        x, w, _ = inputs(m, k, n, torch.bfloat16, False)
-        y = BM.block_matmul(x, w)
-        torch.cuda.synchronize()
-        err, ok = gemm_errors(y, ref.block_matmul_ref(x, w), "bfloat16")
-        check(ok, f"{label} {(m, k, n)}: max err {err:.3e}")
-        worst = max(worst, err)
-        bound, bound_by = gemm_bound_ms(m, n, k, "bfloat16", False)
-        row = dict(shape=label, m=m, n=n, k=k, dtype="bfloat16",
-                   epilogue="none", per_path=per_path,
-                   **bm_route_fields(torch, BM, SM90, x, w, m, n, k, "none",
-                                     False, False),
-                   max_abs_err=err, tol=GEMM_TOL["bfloat16"],
-                   kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w), 10),
-                   library_ms=cuda_ms(lambda: F.linear(x, w), 10),
-                   plain_ms=cuda_ms(lambda: ref.block_matmul_ref(x, w), 3),
-                   bound_ms=bound, bound_by=bound_by)
-        if row["route"] == "sm90":
-            row["wmma_ms"] = check_routes_agree(torch, BM, y, (x, w), {},
-                                                label)
-            row["bitwise_wmma"] = True
-        row["tflops"] = 2e-9 * m * n * k / row["kernel_ms"]
-        emit(phase="kernel_shape", **row)
-        mamba_rows.append(row)
-        del x, w, y
+    mamba_rows, mamba_worst = lm_gemm_rows(
+        torch, BM, SM90, ref, gen, [(label, m, k, n, "none", per)
+                                    for label, m, k, n, per in MAMBA_SHAPES])
+    worst = max(worst, mamba_worst)
     torch.cuda.empty_cache()
     return rows, mamba_rows, worst
 
@@ -3522,6 +3597,419 @@ def train_phase(torch, BM, WX, card, serve_handoff):
             pre, serve_data)
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the transformer family (dense): h2o-danube-1.8b whole, and
+# gemma3-27b at full width cut in depth
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b as published (24 layers, d_model 2560, 32 heads of 80, 8
+# KV heads, SwiGLU d_ff 6912, vocab 32,000, untied head, sliding window
+# 4096 on every layer; 1,831,201,280 parameters, 3.7 GB in bf16): the
+# forward at sequence 4608 and batch 2, so the window masks the last 512
+# positions; generate at batch 4 from 4,160-token prompts (past the
+# window: the rolling cache's 4,096 slots wrap) with 32 new tokens; the
+# fused prefill against the token-wise one on 64-token prompts
+DENSE_ARCH, DENSE_SEQ, DENSE_BATCH = "h2o-danube-1.8b", 4608, 2
+DENSE_GEN_BATCH, DENSE_GEN_PROMPT, DENSE_GEN_STEPS = 4, 4160, 32
+DENSE_PARITY_PROMPT = 64
+# gemma3-27b at its published width (d_model 5376, 32 heads of 128, 16 KV
+# heads, qk_norm, GELU FFN 21,504, local window 1024, tied 262,144 vocab),
+# cut in depth from 62 layers to 8: one whole 5:1 local:global period and
+# the 2-layer leftover, standing for the published 62 = 10 * 6 + 2 (about
+# 3.8 B parameters, 7.6 GB in bf16).  Batch 2, 64-token prompts prefilled
+# token by token through the captured step (the reference has no fused
+# prefill for a local:global stack), 16 new tokens
+GEMMA_ARCH, GEMMA_LAYERS = "gemma3-27b", 8
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS = 2, 64, 16
+# Tolerances, judged in f32 (the seed's bf16 weights up-cast, TF32 off):
+# the forward's logits kernel="pallas" against kernel="xla" max|a - b| /
+# max|b| 1e-3 (as mamba's: only summation orders differ); token-wise
+# decode against the teacher-forced forward elementwise at the
+# reference's 5e-3 (tests/test_decode_consistency.py); the fused prefill
+# against the token-wise one at the reference's test_fused_prefill_parity
+# bounds (the next tokens equal, the f32 caches rtol 5e-3 / atol 1e-4).
+# The bf16 forward against the f32 one by mean|a - b| / mean|b| 0.1, a
+# gross-fault check: a random-weight bf16 residual stream amplifies
+# rounding through the layers (1.7 % for h2o's 24 layers and 0.8 % for
+# gemma3's 8 at narrower widths on the CPU; zeros or a wrong layout give
+# ~100 %).
+DENSE_F32_TOL = 1e-3
+DENSE_DECODE_TOL = 5e-3
+DENSE_BF16_TOL = 0.1
+PARITY_RTOL, PARITY_ATOL = 5e-3, 1e-4
+
+
+def dense_per_step(cfg):
+    """block_matmul launches of one forward or decode step: q, k, v, o and
+    the FFN's (gate, up, down; fc1, fc2 for the GELU kind) a layer, and
+    the head."""
+    return (4 + (3 if cfg.ffn_kind == "swiglu" else 2)) * cfg.n_layers + 1
+
+
+def dense_gemm_shapes(cfg, tag, m):
+    """(label, M, K, N, epilogue, launches per forward or step) of a
+    transformer's linears at M rows."""
+    d, hd = cfg.d_model, cfg.d_head
+    qo, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    ffn = ([("gate", d, cfg.d_ff, "none"), ("up", d, cfg.d_ff, "none"),
+            ("down", cfg.d_ff, d, "none")] if cfg.ffn_kind == "swiglu"
+           else [("fc1", d, cfg.d_ff, "gelu"), ("fc2", cfg.d_ff, d, "none")])
+    per = [("q", d, qo, "none"), ("k", d, kv, "none"), ("v", d, kv, "none"),
+           ("o", qo, d, "none")] + ffn
+    out = [(f"{tag}.{name}", m, k, n, epi, cfg.n_layers)
+           for name, k, n, epi in per]
+    return out + [(f"{tag}.head", m, d, cfg.vocab_padded, "none", 1)]
+
+
+def per_rows(rows, key):
+    """The sum over a path's GEMM rows of ``key`` times the row's launches
+    per path (the WMMA loop's rows have no ``wmma_ms``: their own time)."""
+    return sum(r.get(key, r["kernel_ms"]) * r["per_path"] for r in rows)
+
+
+def dense_setup(torch, arch, **over):
+    """The config (``over`` replacing fields of the published one), the
+    one-device kernel config, seed-0 bf16 weights on the card, and the
+    same weights in f32 with their config."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import JigsawConfig
+    from repro_torch.models import registry as M
+    cfg = get_config(arch).replace(**over)
+    jcfg = JigsawConfig(scheme="none", kernel="pallas")
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg32, params32 = mamba_f32(torch, cfg, params)
+    emit(phase="dense_setup", arch=arch, params=cfg.param_count(),
+         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+         vocab_padded=cfg.vocab_padded, param_dtype=cfg.param_dtype,
+         windows=sorted(set(map(str, (cfg.layer_window(i)
+                                      for i in range(cfg.n_layers))))),
+         init_s=init_s, mem_gb=torch.cuda.memory_allocated() / 1e9)
+    return cfg, jcfg, params, cfg32, params32
+
+
+def dense_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                        cfg32, params32):
+    """h2o-danube-1.8b's forward: 169 block_matmul launches, all on the
+    Hopper loop; then in f32 pallas against xla, bf16 against f32, and
+    the window against no window."""
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16, flops_forward
+    from repro_torch.models import registry as M
+    batch = {"tokens": token_rows(torch, cfg, DENSE_SEQ, DENSE_BATCH, 0)}
+    per = dense_per_step(cfg)
+    with torch.no_grad():
+        # -- the main path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        logits, _ = M.apply(params, batch, cfg, jcfg)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        routes = read_routes(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # ------------------------------------------------------------------
+        check(launches["block_matmul"] == per
+              and sum(launches.values()) == per,
+              f"dense forward launches {launches} (want {per} block_matmul)")
+        check(routes == {"sm90": per}, f"dense forward routes {routes}")
+        check(tuple(logits.shape) == (DENSE_BATCH, DENSE_SEQ,
+                                      cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all()),
+              f"dense logits {tuple(logits.shape)} not finite or misshapen")
+        ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 3)
+
+        # f32: pallas against xla; bf16 against f32; the window's effect
+        ref32, _ = M.apply(params32, batch, cfg32, jcfg)
+        bf16_err = mean_rel(logits.float(), ref32)
+        bf16_top1 = float((logits.float().argmax(-1)
+                           == ref32.argmax(-1)).float().mean())
+        del logits
+        xla, _ = M.apply(params32, batch, cfg32, jcfg.replace(kernel="xla"))
+        xla_err = rel_err(ref32, xla)
+        del xla
+        full, _ = M.apply(params32, batch,
+                          cfg32.replace(sliding_window=None), jcfg)
+        w = cfg.sliding_window
+        # inside the window the two forwards are the same arithmetic; per
+        # position past it, the largest change over the vocab
+        inside = float((full[:, :w] - ref32[:, :w]).abs().max())
+        moved = (full[:, w:] - ref32[:, w:]).abs().amax(dim=-1)
+        del full, ref32
+    torch.cuda.empty_cache()
+    check(xla_err <= DENSE_F32_TOL,
+          f"dense f32 logits, pallas vs xla: {xla_err:.3e}")
+    check(bf16_err <= DENSE_BF16_TOL,
+          f"dense bf16 logits vs f32: {bf16_err:.3e} of the mean")
+    check(bool((moved > 10 * inside).all()),
+          f"dense f32 logits past position {w}: "
+          f"{int((moved <= 10 * inside).sum())} positions within ten times "
+          f"the inside difference ({inside:.3e}) of the unwindowed "
+          "forward's (the window took no effect)")
+    flops = flops_forward(cfg, DENSE_BATCH, DENSE_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+        cfg, "h2o.fwd", DENSE_BATCH * DENSE_SEQ))
+    tokens = DENSE_SEQ * DENSE_BATCH
+    out = dict(seq=DENSE_SEQ, batch=DENSE_BATCH, launches=launches,
+               block_matmul_routes=routes, ms_per_forward=ms,
+               tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
+               flops=flops, flops_total=sum(flops.values()),
+               floor_ms=1e3 * sum(flops.values()) / PEAK_FLOPS_BF16,
+               block_matmul_ms=per_rows(rows, "kernel_ms"),
+               block_matmul_bound_ms=per_rows(rows, "bound_ms"),
+               block_matmul_library_ms=per_rows(rows, "library_ms"),
+               block_matmul_plain_ms=per_rows(rows, "plain_ms"),
+               f32_vs_xla=xla_err, tol_f32=DENSE_F32_TOL,
+               bf16_vs_f32_mean=bf16_err, tol_bf16_mean=DENSE_BF16_TOL,
+               bf16_vs_f32_top1_agree=bf16_top1, window=w,
+               window_inside_max_abs=inside,
+               window_min_change_past=float(moved.min()))
+    emit(phase="dense_forward", arch=cfg.arch_id, **out)
+    return out, rows, worst
+
+
+def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
+                  max_len, fused, what):
+    """``generate`` through the captured decode step (captured before the
+    counted run), then eagerly: the tokens equal, ``dense_per_step``
+    launches a step in both (a fused prefill's forward is one step; the
+    graphed steps counted by replay), no capture in the counted run.
+    Returns the tokens and a dict of counts and times."""
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    b, s = prompts.shape
+    t0 = time.perf_counter()
+    g0 = S.graph_serve_step(params, cfg, jcfg, M.init_cache(
+        cfg, b, max_len, dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out = S.generate(params, prompts, cfg, jcfg, steps=steps,
+                     max_len=max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    routes = read_routes(kernels)
+    # ----------------------------------------------------------------------
+    graphs = list(S._GRAPHS.values())
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out_eager = S.generate(params, prompts, cfg, jcfg, steps=steps,
+                           max_len=max_len, graph=False)
+    torch.cuda.synchronize()
+    wall_eager = time.perf_counter() - t0
+    launches_eager = read_counts(kernels)
+    per = dense_per_step(cfg)
+    n_steps = steps if fused else s + steps - 1
+    check(graphs == [g0], f"{what}: {len(graphs)} captured steps after the "
+          "counted run, want the one captured before it")
+    for mode, n in (("graphed", launches), ("eager", launches_eager)):
+        check(n["block_matmul"] == n_steps * per
+              and sum(n.values()) == n_steps * per,
+              f"{what} {mode} launches {n} (want {per} block_matmul a "
+              f"step, {n_steps} steps)")
+    # the decode steps' M = batch rows take the WMMA loop, a fused
+    # prefill's forward the Hopper loop
+    want_routes = {"wmma": (n_steps - fused) * per}
+    if fused:
+        want_routes["sm90"] = per
+    check(routes == want_routes, f"{what} routes {routes}, want "
+          f"{want_routes}")
+    check(tuple(out.shape) == (b, steps)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{what} tokens {tuple(out.shape)} out of range")
+    check(torch.equal(out, out_eager), f"{what}: the graphed tokens "
+          f"{out[0, :8].tolist()} differ from the eager ones "
+          f"{out_eager[0, :8].tolist()}")
+    return out, dict(launches=launches, launches_eager=launches_eager,
+                     block_matmul_routes=routes,
+                     block_matmul_per_step=launches["block_matmul"]
+                     / n_steps, steps_counted=n_steps,
+                     graphed_equals_eager=True, captures=len(graphs),
+                     capture_s=capture_s, wall_s=wall,
+                     wall_s_eager=wall_eager)
+
+
+def lm_step_times(torch, cfg, jcfg, params, cache, nxt):
+    """A decode step's device and host ms, eager, then graphed, on
+    ``cache`` (written in place by both)."""
+    from repro_torch.serve import step as S
+    with torch.no_grad():
+        step = S.make_serve_step(cfg, jcfg)
+        eager = decode_step_times(torch, lambda: step(params, cache, nxt))
+        g = S.graph_serve_step(params, cfg, jcfg, cache)
+        g.tokens_in.copy_(nxt)
+        graphed = decode_step_times(torch, g.replay)
+    return dict(device_ms_per_decode_step=graphed[0],
+                host_ms_per_decode_step=graphed[1],
+                device_ms_per_decode_step_eager=eager[0],
+                host_ms_per_decode_step_eager=eager[1])
+
+
+def decode_bound(torch, cfg, cache, rows):
+    """A decode step's least time: its linears' weights (the GEMM rows'
+    bounds: bytes at M = batch rows) and the KV cache read once at the
+    card's memory rate, and block_matmul's part of it."""
+    cache_bytes = sum(t.numel() * t.element_size() for k, t in cache.items()
+                      if k != "pos")
+    gemm = per_rows(rows, "bound_ms")
+    return dict(cache_shapes={k: list(t.shape) for k, t in cache.items()},
+                kv_cache_bytes=cache_bytes,
+                step_bound_ms=gemm + 1e3 * cache_bytes / PEAK_BYTES,
+                block_matmul_ms=per_rows(rows, "kernel_ms"),
+                block_matmul_bound_ms=gemm,
+                block_matmul_library_ms=per_rows(rows, "library_ms"),
+                block_matmul_plain_ms=per_rows(rows, "plain_ms"))
+
+
+def dense_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                         cfg32, params32):
+    """h2o-danube-1.8b's ``generate``: the fused prefill of 4,160-token
+    prompts, then the captured decode step on the 4,096-slot rolling
+    cache; eager; the decode logits against the teacher-forced forward
+    (f32); the fused prefill against the token-wise one (f32)."""
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    prompts = token_rows(torch, cfg, DENSE_GEN_PROMPT, DENSE_GEN_BATCH, 1)
+    max_len = DENSE_GEN_PROMPT + DENSE_GEN_STEPS
+    out, runs = lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts,
+                              DENSE_GEN_STEPS, max_len, True,
+                              "dense generate")
+    with torch.no_grad():
+        # the decode logits along the generated tokens, from a fused f32
+        # prefill, against the teacher-forced f32 forward of prompt +
+        # output
+        logits, cache = M.prefill_cache(params32, {"tokens": prompts},
+                                        cfg32, jcfg, max_len,
+                                        dtype=torch.float32)
+        got = [logits[:, -1]]
+        del logits
+        for i in range(1, DENSE_GEN_STEPS):
+            lg, cache = M.decode_step(params32, cache, out[:, i - 1:i],
+                                      cfg32, jcfg)
+            got.append(lg[:, 0])
+        del cache
+        got = torch.stack(got, 1)
+        seq = torch.cat([prompts, out[:, :-1]], dim=1)
+        want, _ = M.apply(params32, {"tokens": seq}, cfg32, jcfg)
+        want = want[:, DENSE_GEN_PROMPT - 1:].contiguous()
+        err32 = (got - want).abs()
+        decode_ok = bool((err32 <= DENSE_DECODE_TOL
+                          + DENSE_DECODE_TOL * want.abs()).all())
+        decode_err = float(err32.max())
+        del got, want, err32
+        torch.cuda.empty_cache()
+        check(decode_ok, f"dense f32 decode vs teacher-forced: max abs "
+                         f"{decode_err:.3e}")
+        # the fused prefill against the token-wise one (64-token prompts)
+        short = prompts[:, :DENSE_PARITY_PROMPT]
+        n_f, c_f = S.prefill(params32, short, cfg32, jcfg,
+                             2 * DENSE_PARITY_PROMPT,
+                             cache_dtype=torch.float32, fused=True)
+        n_t, c_t = S.prefill_tokenwise(params32, short, cfg32, jcfg,
+                                       2 * DENSE_PARITY_PROMPT,
+                                       cache_dtype=torch.float32)
+        parity = {k: float((c_f[k] - c_t[k]).abs().max()) for k in "kv"}
+        parity_ok = torch.equal(n_f, n_t) and torch.equal(
+            c_f["pos"], c_t["pos"]) and all(
+            torch.allclose(c_f[k], c_t[k], rtol=PARITY_RTOL,
+                           atol=PARITY_ATOL) for k in "kv")
+        del c_f, c_t
+        check(parity_ok, f"dense fused prefill vs token-wise: next tokens "
+              f"equal {torch.equal(n_f, n_t)}, cache max abs {parity}")
+        # a decode step's time, on the bf16 cache of a fused prefill
+        nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
+        times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+        cfg, "h2o.decode", DENSE_GEN_BATCH))
+    bound = decode_bound(torch, cfg, cache, rows)
+    del cache
+    S.clear_graphs()
+    torch.cuda.empty_cache()
+    res = dict(runs, **times, **bound, batch=DENSE_GEN_BATCH,
+               prompt=DENSE_GEN_PROMPT, new_tokens=DENSE_GEN_STEPS,
+               rolling_slots=cfg.sliding_window,
+               f32_decode_max_abs_err=decode_err, tol=DENSE_DECODE_TOL,
+               parity_prompt=DENSE_PARITY_PROMPT,
+               parity_cache_max_abs=parity, parity_next_equal=True,
+               first_tokens=out[0, :8].tolist())
+    emit(phase="dense_generate", arch=cfg.arch_id, **res)
+    return res, rows, worst
+
+
+def gemma3_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                          cfg32, params32):
+    """gemma3-27b (8 layers) ``generate``: 64-token prompts prefilled token
+    by token through the captured step, 16 new tokens; eager; the
+    token-wise logits at every prompt position against the teacher-forced
+    forward (f32)."""
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    prompts = token_rows(torch, cfg, GEMMA_PROMPT, GEMMA_BATCH, 2)
+    max_len = GEMMA_PROMPT + GEMMA_STEPS
+    out, runs = lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts,
+                              GEMMA_STEPS, max_len, False, "gemma3 generate")
+    with torch.no_grad():
+        want, _ = M.apply(params32, {"tokens": prompts}, cfg32, jcfg)
+        got, _ = decode_logits(torch, M, params32, prompts, cfg32, jcfg,
+                               torch.float32)
+        err32 = (got - want).abs()
+        decode_ok = bool((err32 <= DENSE_DECODE_TOL
+                          + DENSE_DECODE_TOL * want.abs()).all())
+        decode_err = float(err32.max())
+        del got, want, err32
+        check(decode_ok, f"gemma3 f32 decode vs teacher-forced: max abs "
+                         f"{decode_err:.3e}")
+        nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
+        times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+        cfg, "gemma3.decode", GEMMA_BATCH))
+    bound = decode_bound(torch, cfg, cache, rows)
+    del cache
+    S.clear_graphs()
+    torch.cuda.empty_cache()
+    res = dict(runs, **times, **bound, batch=GEMMA_BATCH,
+               prompt=GEMMA_PROMPT, new_tokens=GEMMA_STEPS,
+               n_layers=cfg.n_layers, published_layers=62,
+               f32_decode_max_abs_err=decode_err, tol=DENSE_DECODE_TOL,
+               first_tokens=out[0, :8].tolist())
+    emit(phase="gemma3_generate", arch=cfg.arch_id, **res)
+    return res, rows, worst
+
+
+def transformer_phases(torch, BM, SM90, ref):
+    """The three transformer phases, each phase's weights freed before the
+    next; returns their results and GEMM rows, and the worst GEMM error."""
+    from repro_torch.kernels.graphs import counted_kernels
+    kernels = counted_kernels()
+    torch.cuda.empty_cache()
+    cfg, jcfg, params, cfg32, params32 = dense_setup(torch, DENSE_ARCH)
+    fwd, fwd_rows, w1 = dense_forward_phase(torch, kernels, BM, SM90, ref,
+                                            cfg, jcfg, params, cfg32,
+                                            params32)
+    gen, gen_rows, w2 = dense_generate_phase(torch, kernels, BM, SM90, ref,
+                                             cfg, jcfg, params, cfg32,
+                                             params32)
+    del params, params32
+    torch.cuda.empty_cache()
+    cfg, jcfg, params, cfg32, params32 = dense_setup(
+        torch, GEMMA_ARCH, n_layers=GEMMA_LAYERS)
+    gem, gem_rows, w3 = gemma3_generate_phase(torch, kernels, BM, SM90, ref,
+                                              cfg, jcfg, params, cfg32,
+                                              params32)
+    del params, params32
+    torch.cuda.empty_cache()
+    return (fwd, gen, gem), (fwd_rows, gen_rows, gem_rows), max(w1, w2, w3)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3596,6 +4084,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     cannon_rows, cannon_worst = cannon_phase(torch, CANNON, WX, RING, ref)
     train_launches, train, t2, t1, t2m, td, ck, pre, sd = train_phase(
         torch, BM, WX, card, handoff)
+    (dfwd, dgen, gem), (dfwd_rows, dgen_rows, gem_rows), lm_worst = \
+        transformer_phases(torch, BM, SM90, ref)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -3640,8 +4130,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     def per_mamba(tag, key):
         # the block_matmul launches of one mamba2-130m forward (tag "fwd",
         # sequence 4096, batch 2) or one decode step (tag "decode", batch 4)
-        return sum(get(r, key) * r["per_path"] for r in mamba_rows
-                   if r["shape"].startswith(tag + "."))
+        return per_rows([r for r in mamba_rows
+                         if r["shape"].startswith(tag + ".")], key)
 
     # the ssd launches of one mamba2-130m forward (sequence 4096, batch 2):
     # one per layer at the model's layout (the main path), and the [G, Q, N]
@@ -3685,7 +4175,10 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(data_launches["2d"]["block_matmul"])
         + fwd_launches["block_matmul"] + gen_launches["block_matmul"]
         + ck["resumed_block_matmul_launches"]
-        + sum(pre["block_matmul_launches"]),
+        + sum(pre["block_matmul_launches"])
+        + dfwd["launches"]["block_matmul"]
+        + sum(x[k]["block_matmul"] for x in (dgen, gem)
+              for k in ("launches", "launches_eager")),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -3700,10 +4193,20 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "mamba_forward": fwd_launches["block_matmul"],
                              "mamba_generate": gen_graphed["block_matmul"],
                              "mamba_generate_eager":
-                             gen_eager["block_matmul"]},
+                             gen_eager["block_matmul"],
+                             "dense_forward":
+                             dfwd["launches"]["block_matmul"],
+                             "dense_generate":
+                             dgen["launches"]["block_matmul"],
+                             "dense_generate_eager":
+                             dgen["launches_eager"]["block_matmul"],
+                             "gemma3_generate":
+                             gem["launches"]["block_matmul"],
+                             "gemma3_generate_eager":
+                             gem["launches_eager"]["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
-        "max_abs_err": max(worst, bwd_worst),
+        "max_abs_err": max(worst, bwd_worst, lm_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1 (the
         # kernel's with its per-call padding, of which pad_ms; wmma_ms the
         # WMMA loop's on the same operands, bit for bit the same result)
@@ -3740,9 +4243,27 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "mamba_decode_step_ms": per_mamba("decode", "kernel_ms"),
         "mamba_decode_step_bound_ms": per_mamba("decode", "bound_ms"),
         "mamba_decode_step_library_ms": per_mamba("decode", "library_ms"),
+        # the 169 GEMMs of one h2o-danube-1.8b forward (sequence 4608, batch
+        # 2) and of one of its decode steps (batch 4), the 49 of one
+        # gemma3-27b (8 layers) decode step (batch 2); plain: ref.py in
+        # f32; library: F.linear (with the tanh GELU for gemma3's fc1)
+        "dense_forward_ms": per_rows(dfwd_rows, "kernel_ms"),
+        "dense_forward_wmma_ms": per_rows(dfwd_rows, "wmma_ms"),
+        "dense_forward_plain_ms": per_rows(dfwd_rows, "plain_ms"),
+        "dense_forward_bound_ms": per_rows(dfwd_rows, "bound_ms"),
+        "dense_forward_library_ms": per_rows(dfwd_rows, "library_ms"),
+        "dense_decode_step_ms": per_rows(dgen_rows, "kernel_ms"),
+        "dense_decode_step_plain_ms": per_rows(dgen_rows, "plain_ms"),
+        "dense_decode_step_bound_ms": per_rows(dgen_rows, "bound_ms"),
+        "dense_decode_step_library_ms": per_rows(dgen_rows, "library_ms"),
+        "gemma3_decode_step_ms": per_rows(gem_rows, "kernel_ms"),
+        "gemma3_decode_step_plain_ms": per_rows(gem_rows, "plain_ms"),
+        "gemma3_decode_step_bound_ms": per_rows(gem_rows, "bound_ms"),
+        "gemma3_decode_step_library_ms": per_rows(gem_rows, "library_ms"),
         "shapes": rows,
         "shapes_bwd": bwd_rows,
         "shapes_mamba": mamba_rows,
+        "shapes_dense": dfwd_rows + dgen_rows + gem_rows,
     }, {
         "name": "wx",
         "route": "cuda",

@@ -5,8 +5,8 @@ Every architecture gets a ``configs/<id>.py`` exporting ``CONFIG`` (exact
 published dimensions, source cited) built on this dataclass.  ``reduced()``
 derives the CPU smoke-test variant of the same family.  The fields and
 ``reduced()`` are those of the JAX package, so a config built here equals
-its reference field by field; ``param_count()`` covers the mixer and ssm
-families, the ones the port runs so far.
+its reference field by field, and ``param_count()`` is the reference's
+formula for every family.
 """
 from __future__ import annotations
 
@@ -192,22 +192,41 @@ class ModelConfig:
             n += D * pin + pin  # decoder
             n += 2  # blend
             return n
-        if self.family == "ssm":
-            # the reference's LM count for an all-SSM stack (it leaves out
-            # each layer's conv bias, conv_dim values, as the reference does)
-            V = self.vocab_padded
+        V = self.vocab_padded
+        n += V * D
+        if not self.tie_embeddings:
             n += V * D
-            if not self.tie_embeddings:
-                n += V * D
+        hd = self.d_head
+        attn = D * self.n_heads * hd + 2 * D * (self.n_kv_heads * hd) \
+            + self.n_heads * hd * D if self.n_heads else 0
+        ffn_dense = (3 if self.ffn_kind == "swiglu" else 2) * D * self.d_ff
+        ffn_moe = self.n_experts * ffn_dense + self.n_experts * D
+        ssm = 0
+        if self.ssm_heads:
+            # (each Mamba-2 layer's conv bias, conv_dim values, is left
+            # out, as the reference leaves it out)
             din = self.ssm_d_inner
             dinp = (2 * din + 2 * self.ssm_groups * self.ssm_state
                     + self.ssm_heads)
             ssm = D * dinp + din * D \
                 + self.ssm_conv * (din + 2 * self.ssm_groups * self.ssm_state) \
                 + 3 * self.ssm_heads + din
-            n += self.n_layers * (ssm + D)
-            n += D  # final norm
-            return n
-        raise NotImplementedError(
-            f"param_count for family {self.family!r} is not ported yet "
-            "(ROADMAP.md, queue 1 item 14: model zoo)")
+        for i in range(self.n_layers):
+            if self.family == "ssm":
+                n += ssm + D
+                continue
+            if self.is_attn_layer(i):
+                n += attn + D
+            else:
+                n += ssm + D
+            if self.is_moe_layer(i):
+                n += ffn_moe + D
+            elif self.d_ff:
+                n += ffn_dense + D
+        n += D  # final norm
+        if self.enc_dec:
+            enc_per = attn + ffn_dense + 3 * D
+            dec_cross = attn + D
+            n += self.n_enc_layers * enc_per + self.n_layers * dec_cross
+            n += 4096 * D  # learned decoder position table
+        return n

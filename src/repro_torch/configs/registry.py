@@ -1,12 +1,14 @@
 """Config registry: ``get_config(arch_id)``.
 
-The port runs the mixer family and ``mamba2-130m`` (the ssm family's
-forward and generation) so far.  The ids of the other families are listed,
-as in ``repro/configs/registry.py``, and raise until their slice of the port
+The port runs the mixer family, ``mamba2-130m`` (the ssm family's forward
+and generation) and the dense and VLM transformers (forward and serving)
+so far.  The ids of the other families (moe, hybrid, audio) are listed, as
+in ``repro/configs/registry.py``, and raise until their slice of the port
 lands.
 """
 from __future__ import annotations
 
+import importlib
 from typing import List
 
 from repro_torch.configs.base import ModelConfig
@@ -26,20 +28,21 @@ ARCH_IDS: List[str] = [
 ]
 
 MIXER_IDS: List[str] = ["weathermixer-1b"]
-SSM_IDS: List[str] = ["mamba2-130m"]
+
+# the ported ids, by the module that holds each config
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_")
+               for a in ("weathermixer-1b", "mamba2-130m", "internlm2-1.8b",
+                         "h2o-danube-1.8b", "stablelm-3b", "gemma3-27b",
+                         "pixtral-12b")}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in MIXER_IDS + SSM_IDS:
+    if arch_id not in _MODULE_FOR:
         raise NotImplementedError(
             f"{arch_id!r} is not ported yet: the port has "
-            f"{MIXER_IDS + SSM_IDS} "
-            "(ROADMAP.md, queue 1 item 14: model zoo)")
-    if arch_id == "mamba2-130m":
-        from repro_torch.configs import mamba2_130m
-        return mamba2_130m.CONFIG
-    from repro_torch.configs import weathermixer_1b
-    return weathermixer_1b.CONFIG
+            f"{list(_MODULE_FOR)} (ROADMAP.md, queue 1 item 14: model zoo)")
+    return importlib.import_module(
+        "repro_torch.configs." + _MODULE_FOR[arch_id]).CONFIG
 

@@ -138,6 +138,16 @@ def linear_apply(params, x: torch.Tensor,
 # MLP (two linears + GELU) -- the WeatherMixer building block
 # ---------------------------------------------------------------------------
 
+def mlp_init(gen: torch.Generator, d_in: int, d_hidden: int, d_out: int, *,
+             dtype=torch.float32, bias: bool = True, device=None):
+    """``fc1`` [d_hidden, d_in] then ``fc2`` [d_out, d_hidden], each
+    ``linear_init`` from ``gen``."""
+    return {"fc1": linear_init(gen, d_in, d_hidden, dtype=dtype, bias=bias,
+                               device=device),
+            "fc2": linear_init(gen, d_hidden, d_out, dtype=dtype, bias=bias,
+                               device=device)}
+
+
 def mlp_apply(params, x: torch.Tensor,
               cfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
     """``gelu(x @ w1.T + b1) @ w2.T + b2``.  Under kernel="pallas" and

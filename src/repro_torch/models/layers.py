@@ -1,8 +1,12 @@
 """Shared building blocks of the port (``repro/models/layers.py``): the
-LayerNorm and RMSNorm, the precision boundary cast, the Mamba-2 mixer and
-the tied embedding / LM head.  Plain PyTorch, except where the reference
-calls a kernel: the linears (``core/api.py``) and the Mamba-2 intra-chunk
-term (``kernels/ops.py::ssd_intra``).  Norms compute in f32 and cast
+LayerNorm and RMSNorm, the precision boundary cast, rotary embeddings,
+attention (GQA; causal, sliding-window; the decode step's KV cache), the
+feed-forward variants, the Mamba-2 mixer and the tied embedding / LM
+head.  Plain PyTorch, except where the reference calls a
+kernel: the linears (``core/api.py``) and the Mamba-2 intra-chunk term
+(``kernels/ops.py::ssd_intra``).  The reference computes attention in
+plain jnp, outside any Pallas kernel, so the port's is plain torch in the
+reference's order of roundings (``sdpa``).  Norms compute in f32 and cast
 back."""
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import comm
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
-                                  linear_apply, linear_init)
+                                  linear_apply, linear_init, mlp_apply,
+                                  mlp_init)
 from repro_torch.core.sharding import Mesh, Mesh1D
 from repro_torch.kernels import ops
 
@@ -69,6 +74,252 @@ def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5,
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] or [S].  Rotates the pairs
+    (even half, odd half), as llama; the angles in f32, the output in x's
+    dtype."""
+    half = x.shape[-1] // 2
+    freq = torch.arange(half, dtype=torch.float32, device=x.device)
+    inv = 1.0 / (theta ** (freq / half))
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * inv               # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; full-causal / sliding-window)
+# ---------------------------------------------------------------------------
+
+def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, d_head: int, *, dtype=torch.float32,
+                   bias: bool = False, device=None):
+    kw = dict(dtype=dtype, bias=bias, device=device)
+    return {"wq": linear_init(gen, d_model, n_heads * d_head, **kw),
+            "wk": linear_init(gen, d_model, n_kv_heads * d_head, **kw),
+            "wv": linear_init(gen, d_model, n_kv_heads * d_head, **kw),
+            "wo": linear_init(gen, n_heads * d_head, d_model, **kw)}
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, Hkv, hd] -> [B, S, Hkv * n_rep, hd], each kv head repeated
+    for the n_rep query heads of its group."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
+         window: Optional[int] = None,
+         kv_mask: Optional[torch.Tensor] = None,
+         soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Scaled dot-product attention, the GQA repeat done by the caller.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, H, hd]; q_pos [B, Sq] or [Sq] and
+    kv_pos [B, Skv] or [Skv] the absolute positions of the queries and
+    keys (a rolling cache's slots hold positions out of order); kv_mask
+    [B, Skv] the valid cache slots.  The reference's order of roundings:
+    the scores in f32 (each product of q and k exact in f32, never rounded
+    to q's dtype), then the scale, the soft cap and the -1e30 mask; the
+    softmax in f32, the probabilities cast to q's dtype, then ``@ v``.
+    1-D positions keep the mask [Sq, Skv], batch-free."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores.mul_(scale)
+    if soft_cap is not None:
+        scores = torch.tanh(scores / soft_cap) * soft_cap
+    dq = q_pos[..., :, None]            # [.., Sq, 1]
+    dk = kv_pos[..., None, :]           # [.., 1, Skv]
+    mask = None
+    if causal:
+        mask = dk <= dq
+    if window is not None:
+        m = dq - dk < window
+        mask = m if mask is None else mask & m
+    if kv_mask is not None:
+        m = kv_mask[..., None, :].expand(*kv_mask.shape[:-1], dq.shape[-2],
+                                         kv_mask.shape[-1])
+        mask = m if mask is None else mask & m
+    if mask is not None:
+        mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
+        scores.masked_fill_(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                 causal: bool = True, window: Optional[int] = None,
+                 q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Memory-bounded attention: query chunks, each with an online softmax
+    over key/value chunks (the flash-attention recurrence in plain torch),
+    so the largest score buffer is [B, H, q_chunk, kv_chunk].  1-D
+    positions only, no kv_mask or soft cap (``attention_apply`` takes
+    ``sdpa`` there)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if q_pos.ndim != 1 or kv_pos.ndim != 1:
+        raise ValueError("sdpa_chunked: 1-D positions only")
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = -(-sq // q_chunk), -(-skv // kv_chunk)
+    q_pad, kv_pad = nq * q_chunk - sq, nk * kv_chunk - skv
+    if q_pad:
+        q = _pad_seq(q, q_pad)
+        q_pos = F.pad(q_pos, (0, q_pad), value=-(2 ** 30))
+    if kv_pad:
+        k, v = _pad_seq(k, kv_pad), _pad_seq(v, kv_pad)
+        kv_pos = F.pad(kv_pos, (0, kv_pad), value=2 ** 30)
+    qc = q.reshape(b, nq, q_chunk, h, hd).permute(1, 0, 3, 2, 4)
+    kc = k.reshape(b, nk, kv_chunk, h, hd).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, nk, kv_chunk, h, hd).permute(1, 0, 3, 2, 4)
+    qp = q_pos.reshape(nq, q_chunk)
+    kp = kv_pos.reshape(nk, kv_chunk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for qi, qpi in zip(qc, qp):                     # [B, H, Qc, hd], [Qc]
+        m = torch.full((b, h, q_chunk), -math.inf, **f32)
+        l = torch.zeros((b, h, q_chunk), **f32)
+        acc = torch.zeros((b, h, q_chunk, hd), **f32)
+        for ki, vi, kpi in zip(kc, vc, kp):
+            s = torch.einsum("bhqd,bhkd->bhqk", qi.float(), ki.float()) * scale
+            msk = None
+            if causal:
+                msk = kpi[None, :] <= qpi[:, None]
+            if window is not None:
+                mw = qpi[:, None] - kpi[None, :] < window
+                msk = mw if msk is None else msk & mw
+            if msk is not None:
+                s = s.masked_fill(~msk[None, None], -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vi.dtype), vi)
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(
+        b, nq * q_chunk, h, hd)
+    return out[:, :sq]
+
+
+def attention_apply(params, x: torch.Tensor, *, n_heads: int,
+                    n_kv_heads: int, d_head: int, positions: torch.Tensor,
+                    cfg: JigsawConfig = DEFAULT_JIGSAW,
+                    window: Optional[int] = None,
+                    rope_theta: Optional[float] = 10000.0,
+                    soft_cap: Optional[float] = None,
+                    kv_cache: Optional[dict] = None, rolling: bool = False,
+                    collect_kv: bool = False,
+                    qk_norm: Optional[dict] = None, q_chunk: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The causal self-attention layer: the q, k, v projections, qk_norm
+    (RMSNorm over d_head), RoPE, attention, the output projection.
+
+    Training / prefill: x [B, S, D], positions [S] (or [B, S]), no cache;
+    ``collect_kv`` returns every position's post-RoPE k and v, before the
+    GQA repeat ({"k", "v"}: what the decode branch would have cached token
+    by token).  Decode: x [B, 1, D], positions [B, 1], kv_cache = {"k":
+    [B, S_max, Hkv, hd], "v": ..., "pos": [B] the next write offset}: the
+    new k and v are written into the cache's tensors in place, at slot
+    ``pos % S_max`` (``rolling``, a sliding-window cache) or ``min(pos,
+    S_max - 1)``, and attention reads the whole cache; returns {"k", "v"}
+    (the same tensors) and "pos" + 1.  Everything is computed on the
+    device from ``pos``, with no host read, so the step can be captured
+    in a CUDA graph.  Not ported yet: the reference's cross-attention
+    (``x_kv``, non-causal; the enc-dec family, ROADMAP.md queue 1 item
+    14) and its ``kv_spec`` (the cache's layout on a mesh: the port's LM
+    path runs on one device)."""
+    b, s, _ = x.shape
+    q = linear_apply(params["wq"], x, cfg).reshape(b, s, n_heads, d_head)
+    k = linear_apply(params["wk"], x, cfg).reshape(b, s, n_kv_heads, d_head)
+    v = linear_apply(params["wv"], x, cfg).reshape(b, s, n_kv_heads, d_head)
+    if qk_norm is not None:
+        q = rmsnorm_apply(qk_norm["q"], q)
+        k = rmsnorm_apply(qk_norm["k"], k)
+    if rope_theta is not None:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+
+    n_rep = n_heads // n_kv_heads
+    new_cache = None
+    if kv_cache is not None:
+        ck, cv, pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+        s_max = ck.shape[1]
+        # floor modulo (Python's): slot - i below goes negative
+        slot = (torch.remainder(pos, s_max) if rolling
+                else pos.clamp(max=s_max - 1))
+        rows = (torch.arange(b, device=pos.device), slot.long())
+        ck.index_put_(rows, k[:, 0].to(ck.dtype))
+        cv.index_put_(rows, v[:, 0].to(cv.dtype))
+        slot_idx = torch.arange(s_max, device=pos.device)[None, :]
+        if rolling:
+            # slot i holds absolute position pos - ((slot - i) % s_max)
+            kv_pos = pos[:, None] - torch.remainder(slot[:, None] - slot_idx,
+                                                    s_max)
+        else:
+            kv_pos = slot_idx.expand(b, s_max)
+        kv_mask = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+        out = sdpa(q, _repeat_kv(ck.to(q.dtype), n_rep),
+                   _repeat_kv(cv.to(q.dtype), n_rep), q_pos=positions,
+                   kv_pos=kv_pos, causal=True, window=window,
+                   kv_mask=kv_mask, soft_cap=soft_cap)
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+    else:
+        if collect_kv:
+            new_cache = {"k": k, "v": v}
+        kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if q_chunk and positions.ndim == 1 and soft_cap is None:
+            out = sdpa_chunked(q, kk, vv, q_pos=positions, kv_pos=positions,
+                               window=window, q_chunk=q_chunk)
+        else:
+            out = sdpa(q, kk, vv, q_pos=positions, kv_pos=positions,
+                       window=window, soft_cap=soft_cap)
+    out = out.reshape(b, s, n_heads * d_head)
+    return linear_apply(params["wo"], out, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward variants
+# ---------------------------------------------------------------------------
+
+def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+             kind: str = "swiglu", dtype=torch.float32, bias: bool = False,
+             device=None):
+    kw = dict(dtype=dtype, bias=bias, device=device)
+    if kind == "swiglu":
+        return {"gate": linear_init(gen, d_model, d_ff, **kw),
+                "up": linear_init(gen, d_model, d_ff, **kw),
+                "down": linear_init(gen, d_ff, d_model, **kw)}
+    if kind == "gelu":
+        return mlp_init(gen, d_model, d_ff, d_model, **kw)
+    raise ValueError(kind)
+
+
+def ffn_apply(params, x: torch.Tensor,
+              cfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
+    """SwiGLU (``silu(gate) * up``, then ``down``) or the GELU MLP (under
+    kernel="pallas" its GELU rides the first GEMM's epilogue)."""
+    if "gate" in params:
+        g = linear_apply(params["gate"], x, cfg)
+        u = linear_apply(params["up"], x, cfg)
+        return linear_apply(params["down"], F.silu(g) * u, cfg)
+    return mlp_apply({"fc1": params["fc1"], "fc2": params["fc2"]}, x, cfg)
 
 
 # ---------------------------------------------------------------------------

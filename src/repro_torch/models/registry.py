@@ -1,14 +1,16 @@
-"""Architecture registry: family -> model module dispatch (the mixer and ssm
-families so far; the others arrive with ROADMAP.md queue 1 item 14)."""
+"""Architecture registry: family -> model module dispatch (the mixer, ssm,
+dense and vlm families so far; moe, hybrid and audio arrive with ROADMAP.md
+queue 1 item 14)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import JigsawConfig
-from repro_torch.models import mamba, weathermixer
+from repro_torch.models import mamba, transformer, weathermixer
 
-_FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba}
+_FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba, "dense": transformer,
+                  "vlm": transformer}
 
 
 def module_for(cfg: ModelConfig):
@@ -46,7 +48,7 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     """Fused prefill: one teacher-forced forward that also fills the cache.
     Families without one raise NotImplementedError, and ``serve/step.py``
     then prefills token by token (the ssm family has none, as in the
-    reference)."""
+    reference; the transformer's raises for local:global stacks)."""
     mod = module_for(cfg)
     if not hasattr(mod, "prefill_cache"):
         raise NotImplementedError(

@@ -5,21 +5,26 @@
 the prompt through ``prefill`` and then ``steps - 1`` decode steps.
 ``graph_serve_step`` is the counterpart of the reference's
 ``jit_serve_step``: one captured CUDA graph of the decode step per (cfg,
-jcfg, batch, cache dtype) and weights, whose static buffers are the token
-in, the token out and the cache (``kernels/graphs.py::CountedGraph``: the
-kernels' launch counters count its replays).  On the card ``generate``
-replays it for every step, the token-wise prefill's among them
-(``graph=None``); ``graph=False`` keeps the eager loop, the comparison.  A
-family without a fused prefill (the ssm family, as in the reference) is
-prefilled token by token through the same decode step
-(``prefill_tokenwise``).  Each step writes the model's cache in place
-(``models/mamba.py::decode_step``), which stands in for the reference's
-buffer donation, and keeps the output tokens on the device until one
-concatenate at the end.  Nothing here needs autograd: ``generate`` runs
-under ``torch.no_grad``.  The reference's ``extra_batch`` (the enc-dec
-family's encoder input) arrives with that family (ROADMAP.md, queue 1
-item 14).  Everything runs where the prompts and the
-parameters lie: on the card unless the caller made them on the CPU.
+jcfg, cache layout) and weights, whose static buffers are the token in,
+the token out and a cache shaped as the one it is given (the KV cache of
+the transformer family, uniform, rolling or local:global, or the ssm
+family's state; ``kernels/graphs.py::CountedGraph``: the kernels' launch
+counters count its replays).  On the card ``generate`` replays it for
+every decode step (``graph=None``); ``graph=False`` keeps the eager loop,
+the comparison.  The prompt goes through the family's fused prefill (one
+teacher-forced forward that fills the cache:
+``models/transformer.py::prefill_cache``) where it has one, and token by
+token through the same decode step where the fused prefill raises
+NotImplementedError (the ssm family, local:global stacks: as in the
+reference); on the card those steps are replays too.  Each step writes
+the model's cache in place (``decode_step``), which stands in for the
+reference's buffer donation, and keeps the output tokens on the device
+until one concatenate at the end.  Nothing here needs autograd:
+``generate`` runs under ``torch.no_grad``.  The reference's
+``extra_batch`` (the enc-dec family's encoder input) arrives with that
+family (ROADMAP.md, queue 1 item 14).  Everything runs where the prompts
+and the parameters lie: on the card unless the caller made them on the
+CPU.
 """
 from __future__ import annotations
 
@@ -91,19 +96,20 @@ def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
 class GraphedStep:
     """One decode step captured in a CUDA graph on static buffers:
     ``tokens_in`` [B, 1] int32, ``tokens_out`` [B, 1] int32 and ``cache``
-    (``init_cache``'s tensors, written in place).  ``load`` copies a cache
-    in; each ``replay`` reads ``tokens_in`` and ``cache`` and writes the
-    next tokens and the cache."""
+    (zeros shaped and typed as the ``cache`` given, which the step writes
+    in place).  ``load`` copies a cache of that layout in; each
+    ``replay`` reads ``tokens_in`` and ``cache`` and writes the next
+    tokens and the cache."""
 
     def __init__(self, params, cfg: ModelConfig, jcfg: JigsawConfig,
-                 batch: int, cache_dtype: torch.dtype, device):
+                 cache: Dict[str, torch.Tensor]):
         # the graph reads these tensors where they lie: hold them
         self.params = params
         self.ptrs = _leaf_ptrs(params)
-        self.cache = M.init_cache(cfg, batch, 0, dtype=cache_dtype,
-                                  device=device)
-        self.tokens_in = torch.zeros((batch, 1), dtype=torch.int32,
-                                     device=device)
+        self.cache = {k: torch.zeros_like(v) for k, v in cache.items()}
+        device = cache["pos"].device
+        self.tokens_in = torch.zeros((cache["pos"].shape[0], 1),
+                                     dtype=torch.int32, device=device)
         step = make_serve_step(cfg, jcfg)
 
         def body():
@@ -112,13 +118,14 @@ class GraphedStep:
 
         with torch.no_grad():
             body()                  # eager once: attributes set, pool primed
-        if torch.device(device).type == "cuda":
+        if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.graph = CountedGraph()
         self.tokens_out = self.graph.capture(body)
 
     def load(self, cache: Dict[str, torch.Tensor]) -> None:
-        """Copy ``cache`` (``init_cache``'s layout) into the static one."""
+        """Copy ``cache`` (the layout it was captured on) into the static
+        one."""
         for k, v in self.cache.items():
             v.copy_(cache[k])
 
@@ -134,25 +141,29 @@ def _leaf_ptrs(params) -> tuple:
     return tuple(t.data_ptr() for t in ptree.leaves(params))
 
 
+def _check_cuda(t: torch.Tensor, msg: str) -> None:
+    """The graphed paths run on the card: ValueError(msg) elsewhere."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{msg}, not {t.device}")
+
+
 def graph_serve_step(params, cfg: ModelConfig, jcfg: JigsawConfig,
                      cache: Dict[str, torch.Tensor]) -> GraphedStep:
-    """The captured decode step for ``cache``'s batch and dtype, with
-    ``cache`` loaded into its static cache.  One per (cfg, jcfg, batch,
-    cache dtype, device), captured at first use; weights other than those
-    it was captured with (other tensors) capture it anew in its place.
-    The steps hold their weights: ``clear_graphs()`` lets them go.  A
-    capture that fails raises."""
-    conv = cache["conv"]
-    if conv.device.type != "cuda":
-        raise ValueError(f"graph_serve_step needs a cache on cuda, not "
-                         f"{conv.device}")
-    batch, dtype = conv.shape[1], conv.dtype
-    key = (cfg, jcfg, batch, dtype, conv.device)
+    """The captured decode step for ``cache``'s layout, with ``cache``
+    loaded into its static cache.  One per (cfg, jcfg, cache layout,
+    device), captured at first use, where the layout is every leaf's name,
+    shape and dtype: the batch, the cache dtype and, where it shapes the
+    cache, max_len.  Weights other than those it was captured with (other
+    tensors) capture it anew in its place.  The steps hold their weights:
+    ``clear_graphs()`` lets them go.  A capture that fails raises."""
+    pos = cache["pos"]
+    _check_cuda(pos, "graph_serve_step needs a cache on cuda")
+    layout = tuple((k, tuple(v.shape), v.dtype) for k, v in cache.items())
+    key = (cfg, jcfg, layout, pos.device)
     g = _GRAPHS.get(key)
     if g is None or g.ptrs != _leaf_ptrs(params):
         _GRAPHS.pop(key, None)
-        g = _GRAPHS[key] = GraphedStep(params, cfg, jcfg, batch, dtype,
-                                       conv.device)
+        g = _GRAPHS[key] = GraphedStep(params, cfg, jcfg, cache)
     g.load(cache)
     return g
 
@@ -183,13 +194,18 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
             nxt, cache = step(params, cache, nxt)
             out.append(nxt)
         return torch.cat(out, dim=1)
-    if not prompts.is_cuda:
-        raise ValueError("generate(graph=True) needs prompts on cuda")
+    _check_cuda(prompts, "generate(graph=True) needs prompts on cuda")
     b, s = prompts.shape
     out = torch.empty((b, steps), dtype=torch.int32, device=prompts.device)
-    if fused or (fused is None
-                 and hasattr(M.module_for(cfg), "prefill_cache")):
-        nxt, cache = prefill(params, prompts, cfg, jcfg, max_len, fused=True)
+    cache = None
+    if fused is not False:
+        try:
+            nxt, cache = prefill(params, prompts, cfg, jcfg, max_len,
+                                 fused=True)
+        except NotImplementedError:
+            if fused:
+                raise
+    if cache is not None:
         g = graph_serve_step(params, cfg, jcfg, cache)
     else:
         # token-wise prefill, through the captured step

@@ -8,11 +8,17 @@
   function again): the forecast engine's per-bucket graphs and
   ``serve.step``'s captured decode step give the eager engine's and
   decode loop's outputs bit for bit, with no capture after ``warmup()``.
+* ``generate``'s graphed path on the CPU with the stand-in graph, for the
+  ssm family (its token-wise prefill replays the captured step) and the
+  transformer family's uniform, rolling and local:global caches (the
+  fused prefill, or the token-wise one where it raises): the tokens of
+  the eager loop bit for bit, one capture per cache layout.
 * ``models/mamba.py::init_cache`` makes the conv window in the dtype the
   decode step writes, and the eager decode's logits and tokens are those
   of the step before that change (the window promoted at the first step).
 * On the card (marked ``cuda``; skips here): graphed against eager for
-  both steps, bit for bit, the launches counted by replay.
+  both steps and for the transformer's decode on each kind of KV cache,
+  bit for bit, the launches counted by replay.
 """
 import collections
 from contextlib import contextmanager
@@ -279,7 +285,7 @@ def test_graphed_decode_on_stand_in_equals_eager(monkeypatch, counters):
     want = S.generate(params, prompts, cfg, jcfg, steps=6, max_len=12,
                       graph=False)
     cache = M.init_cache(cfg, 2, 12, dtype=torch.bfloat16, device="cpu")
-    g = S.GraphedStep(params, cfg, jcfg, 2, cache["conv"].dtype, "cpu")
+    g = S.GraphedStep(params, cfg, jcfg, cache)
     g.load(cache)
     with torch.no_grad():
         for t in range(prompts.shape[1]):
@@ -296,6 +302,77 @@ def test_graphed_decode_on_stand_in_equals_eager(monkeypatch, counters):
                    graph=True)
     with pytest.raises(ValueError, match="cache on cuda"):
         S.graph_serve_step(params, cfg, jcfg, cache)
+
+
+# (family's config, overrides, fused prefill): the ssm family, and the
+# transformer's uniform, rolling and local:global caches (8 layers: one
+# whole 5:1 period, its global layer, and the 2-layer leftover)
+GEN_CASES = {"ssm": ("mamba2-130m", {}, False),
+             "uniform": ("internlm2-1.8b", {}, True),
+             "rolling": ("h2o-danube-1.8b", {"sliding_window": 6}, True),
+             "period": ("gemma3-27b", {"n_layers": 8, "local_window": 5},
+                        False)}
+
+
+def _lm(case, seed=0):
+    arch, over, fused = GEN_CASES[case]
+    cfg = get_config(arch).reduced().replace(**over)
+    return cfg, jigsaw_for(cfg), M.init(cfg, seed=seed, device="cpu"), fused
+
+
+@pytest.mark.parametrize("case", sorted(GEN_CASES))
+def test_graphed_generate_on_stand_in_equals_eager(monkeypatch, counters,
+                                                   case):
+    """``generate``'s graphed path (the stand-in graph, the device check
+    lifted) against the eager loop: the same tokens bit for bit, for the
+    ssm family's state (a token-wise prefill, every prompt step a replay;
+    as before the transformer family's caches) and each KV cache (the
+    fused prefill, then replays; local:global stacks token-wise); a
+    second call with the same weights and layout reuses the capture."""
+    monkeypatch.setattr(S, "CountedGraph", StandInGraph)
+    monkeypatch.setattr(S, "_check_cuda", lambda t, msg: None)
+    S.clear_graphs()
+    cfg, jcfg, params, fused = _lm(case, seed=3)
+    prompts = torch.tensor([[1, 5, 9, 2, 7, 3, 3, 8, 1],
+                            [4, 4, 8, 0, 6, 2, 9, 9, 5]], dtype=torch.int32)
+    steps, max_len = 6, 16
+    want = S.generate(params, prompts, cfg, jcfg, steps=steps,
+                      max_len=max_len, graph=False)
+    got = S.generate(params, prompts, cfg, jcfg, steps=steps,
+                     max_len=max_len, graph=True)
+    assert torch.equal(got, want)
+    assert len(S._GRAPHS) == 1
+    (g,) = S._GRAPHS.values()
+    replays = steps - 1 + (0 if fused else prompts.shape[1])
+    assert g.graph.graph.replays == replays
+    again = S.generate(params, prompts, cfg, jcfg, steps=steps,
+                       max_len=max_len, graph=True)
+    assert torch.equal(again, want) and list(S._GRAPHS.values()) == [g]
+    assert g.graph.graph.replays == 2 * replays
+    S.clear_graphs()
+
+
+def test_graph_key_follows_the_cache_layout(monkeypatch):
+    """One capture per cache layout: a KV cache of another max_len or
+    dtype captures anew; the ssm state of these configs does not (O(1) in
+    max_len, and its conv window is in the f32 the step writes for either
+    cache dtype); the static cache is shaped and typed as the one given."""
+    monkeypatch.setattr(S, "CountedGraph", StandInGraph)
+    monkeypatch.setattr(S, "_check_cuda", lambda t, msg: None)
+    S.clear_graphs()
+    for case, n_graphs in (("period", 3), ("ssm", 1)):
+        cfg, jcfg, params, _ = _lm(case)
+        for max_len, dtype in ((8, torch.bfloat16), (12, torch.bfloat16),
+                               (12, torch.float32)):
+            cache = M.init_cache(cfg, 2, max_len, dtype=dtype, device="cpu")
+            g = S.graph_serve_step(params, cfg, jcfg, cache)
+            assert sorted(g.cache) == sorted(cache)
+            for k, v in cache.items():
+                assert (g.cache[k].shape, g.cache[k].dtype) == (v.shape,
+                                                                v.dtype)
+                assert g.cache[k] is not v and torch.equal(g.cache[k], v)
+        assert len(S._GRAPHS) == n_graphs, case
+        S.clear_graphs()
 
 
 @pytest.fixture
@@ -349,3 +426,32 @@ def test_graphed_forecast_and_decode_on_card(cuda):
     assert torch.equal(out, S.generate(params, prompts, mcfg, mj, steps=6,
                                        max_len=16, graph=False))
     S.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_graphed_transformer_decode_on_card(cuda):
+    """On the card, ``kernel="pallas"``: the transformer's captured decode
+    step on each kind of KV cache (the fused prefill, or token by token
+    through the graph on the local:global stack) against the eager loop,
+    bit for bit, with 7 L + 1 block_matmul launches a step (q, k, v, o,
+    gate, up, down; the head) counted by replay, 6 L + 1 for gemma3's gelu
+    FFN."""
+    prompts = torch.randint(0, 1000, (4, 9), dtype=torch.int32,
+                            device="cuda")
+    for case in ("uniform", "rolling", "period"):
+        arch, over, fused = GEN_CASES[case]
+        cfg = get_config(arch).reduced().replace(kernel="pallas", **over)
+        jcfg = jigsaw_for(cfg)
+        params = M.init(cfg, seed=0, device="cuda")
+        per_step = (6 if cfg.ffn_kind == "gelu" else 7) * cfg.n_layers + 1
+        BM.block_matmul.launches = 0
+        out = S.generate(params, prompts, cfg, jcfg, steps=6, max_len=16)
+        n_replays = 5 + (0 if fused else prompts.shape[1])
+        # the fused prefill's forward launches per_step too, and the
+        # capture's eager warm-up step
+        want = n_replays * per_step + per_step * (1 + fused)
+        assert BM.block_matmul.launches == want, case
+        assert torch.equal(out, S.generate(params, prompts, cfg, jcfg,
+                                           steps=6, max_len=16,
+                                           graph=False)), case
+        S.clear_graphs()
