@@ -5,11 +5,14 @@
 
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
-``weathermixer-1b``'s, ``mamba2-130m``'s, ``h2o-danube-1.8b``'s and
-``gemma3-27b``'s full published widths (gemma3 cut in depth), through
-the entry points a user calls: the Mamba-2 forward and greedy generation,
-the dense transformer's forward and generation (fused prefill, graphed
-decode on rolling and local:global KV caches),
+``weathermixer-1b``'s, ``mamba2-130m``'s, ``h2o-danube-1.8b``'s,
+``gemma3-27b``'s, ``phi3.5-moe-42b-a6.6b``'s and
+``jamba-1.5-large-398b``'s full published widths (gemma3 and phi3.5 cut
+in depth, jamba to one period and half its experts), through the entry
+points a user calls: the Mamba-2 forward and greedy generation, the dense
+transformer's forward and generation (fused prefill, graphed decode on
+rolling and local:global KV caches), the MoE transformer's and the
+hybrid's forward and generation,
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -38,7 +41,9 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      the [G, Q, N] entry at mamba2-130m's groups at sequence 2048 (batch 1)
      and 4096 (batch 2) in f32, and the heads entry at one layer's own
      layout (sequence 4096, batch 2: bit for bit the [G, Q, N] entry on the
-     groups arrangement of repeats and copies), each timed beside
+     groups arrangement of repeats and copies) and at jamba's SSM slot
+     (sequence 2048, batch 1, 256 heads in 8 groups, state 128; the same
+     checks), each timed beside
      the plain version, the closest library composition (bmm, where, *
      dt, bmm; at the model's layout after the same copies), the bound and,
      for the model row, the groups arrangement; each row with its route,
@@ -250,8 +255,46 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      counted run; in f32 the token-wise logits at every prompt position
      against the teacher-forced forward; the step's times, and
      block_matmul at its 2-row shapes, as in 11;
-  13. the ``kernels`` line, the card's name and power limit, and the last
+  13. ``moe_forward``: ``phi3.5-moe-42b-a6.6b`` at its published width
+     cut in depth from 32 layers to 4 (all 16 experts, top-2; seed-0 bf16
+     weights) at sequence 4096 and batch 2 (8 groups of 1,024 tokens,
+     capacity 160 an expert and group): 21 block_matmul launches (q, k, v,
+     o and the f32 router a layer, the head), logits and aux finite, the
+     share of (token, k) slots dropped, the aux loss, ms and tokens/s
+     beside the FLOP floor; on the same weights in f32, ``kernel="pallas"``
+     against ``"xla"``: every layer's routes equal (a flip only at a near
+     tie, printed with its probability gap) and the logits within 1e-3
+     before any flip; bf16 against f32; block_matmul at the forward's
+     shapes;
+  14. ``moe_generate``: ``generate`` on the same weights at batch 4 from
+     1,024-token prompts (the fused prefill at capacity factor 1.25, then
+     decode steps at n_experts) with 32 new tokens, graphed then eager:
+     the tokens equal, 21 launches a step (by replay); in f32 at
+     capacity_factor = n_experts, decode along 16 prompt tokens after a
+     fused 64-token prefill against the teacher-forced forward, and the
+     fused prefill of 64-token prompts against the token-wise one; a
+     decode step's device and host ms, graphed and eager, against its
+     bytes bound (every expert's weights, since the dispatch runs every
+     expert, the linears' and the KV cache at the memory rate);
+     block_matmul at the step's 4-row shapes;
+  15. ``hybrid_forward`` and ``hybrid_generate``:
+     ``jamba-1.5-large-398b`` at its published width cut to one period (8
+     layers: SSM slots 0-3 and 5-7, attention at 4, MoE on the odd slots;
+     the reference asserts whole periods) and 8 of its 16 experts (top-2),
+     51.8 GB of seed-0 bf16 weights: the forward at sequence 2048, batch
+     1, with 7 ssd (heads entry) and 49 block_matmul launches, logits
+     finite, held against ``kernel="xla"`` on the same weights and both
+     against the same forward in f32 with the weights up-cast one slot at
+     a time (``HYBRID_XLA_FACTOR``); then ``generate`` at batch 2 from
+     64-token prompts prefilled token by token through the captured step
+     on the nested per-slot cache, 16 new tokens, graphed then eager: the
+     tokens equal, 49 launches a step and no ssd launch (by replay); the
+     step's times and bound as in 14; block_matmul at the forward's and
+     the step's shapes;
+  16. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
+
+Every phase line carries ``elapsed_s``, the seconds since the start.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 run outside a checkout, it exits non-zero and prints no result.
@@ -313,7 +356,14 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     forward against the f32 one 0.1 of the mean (a gross-fault check);
     past the window every position's logits change by more than ten
     times the largest difference inside it (where the two forwards are
-    the same arithmetic).
+    the same arithmetic);
+  * the moe phases likewise (a route that flips between the f32 pallas
+    and xla forwards must be a near tie, ``MOE_TIE_GAP``); the hybrid's
+    bf16 forward against ``kernel="xla"`` on the same weights, by
+    mean|a - b| / mean|f32|, at most twice the xla forward's distance from
+    the f32 one (``HYBRID_XLA_FACTOR``: both round the same products to
+    bf16 and differ only in the order of the f32 sums, so neither is
+    farther from the exact forward than the other).
 The plain versions run with ``torch.backends.cuda.matmul.allow_tf32 =
 False``, so their f32 products are full f32.
 """
@@ -341,6 +391,8 @@ PEAK_MEM_LIMIT = 80e9
 # the checkpoint directories (out/ is ignored by git); each part's is
 # removed when it ends
 CKPT_ROOT = ROOT / "out" / "chip_smoke_ckpt"
+# the start of this process: every phase line carries the seconds since
+T0 = time.perf_counter()
 
 
 class SmokeFailure(Exception):
@@ -353,6 +405,10 @@ def check(cond, msg):
 
 
 def emit(**kw):
+    """One JSON line; a phase line also carries ``elapsed_s``, the seconds
+    since this process started."""
+    if "phase" in kw:
+        kw["elapsed_s"] = time.perf_counter() - T0
     print(json.dumps(kw), flush=True)
 
 
@@ -499,21 +555,24 @@ MAMBA_SHAPES = [(f"{tag}.{name}", m, k, n, per)
                                         ("head", 768, 50432, 1))]
 
 def lm_gemm_rows(torch, BM, SM90, ref, gen, shapes):
-    """block_matmul at a language model's GEMM shapes in bf16, no bias:
-    (label, M, K, N, epilogue, launches per path) each against its plain
-    version, timed beside it, the library call (``F.linear``, with the
-    tanh GELU where the epilogue has it) and the bound; each row with its
-    route fields and, on the Hopper loop, bit for bit the WMMA loop."""
+    """block_matmul at a language model's GEMM shapes, no bias: (label, M,
+    K, N, epilogue, launches per path[, dtype name]; bf16 unless named:
+    the MoE router is f32) each against its plain version, timed beside
+    it, the library call (``F.linear``, with the tanh GELU where the
+    epilogue has it) and the bound; each row with its route fields and, on
+    the Hopper loop, bit for bit the WMMA loop."""
     import torch.nn.functional as F
     rows, worst = [], 0.0
-    for label, m, k, n, epi, per_path in shapes:
-        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    for label, m, k, n, epi, per_path, *dt in shapes:
+        name = dt[0] if dt else "bfloat16"
+        dtype = getattr(torch, name)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(n, k, generator=gen, device="cuda")
-             / k ** 0.5).bfloat16()
+             / k ** 0.5).to(dtype)
         y = BM.block_matmul(x, w, None, epi)
         torch.cuda.synchronize()
         err, ok = gemm_errors(y, ref.block_matmul_ref(x, w, None, epi),
-                              "bfloat16")
+                              name)
         check(ok, f"{label} {(m, k, n)}: max err {err:.3e}")
         worst = max(worst, err)
         if epi == "gelu":
@@ -522,12 +581,12 @@ def lm_gemm_rows(torch, BM, SM90, ref, gen, shapes):
         else:
             def library():
                 return F.linear(x, w)
-        bound, bound_by = gemm_bound_ms(m, n, k, "bfloat16", False)
-        row = dict(shape=label, m=m, n=n, k=k, dtype="bfloat16",
+        bound, bound_by = gemm_bound_ms(m, n, k, name, False)
+        row = dict(shape=label, m=m, n=n, k=k, dtype=name,
                    epilogue=epi, per_path=per_path,
                    **bm_route_fields(torch, BM, SM90, x, w, m, n, k, epi,
                                      False, False),
-                   max_abs_err=err, tol=GEMM_TOL["bfloat16"],
+                   max_abs_err=err, tol=GEMM_TOL[name],
                    kernel_ms=cuda_ms(lambda: BM.block_matmul(x, w, None,
                                                              epi), 10),
                    library_ms=cuda_ms(library, 10),
@@ -699,6 +758,9 @@ SSD_ODD = (37, 5, 3)
 # mamba2-130m's layer at sequence 4096, batch 2: (batch, seq, heads, head
 # width, groups, state)
 SSD_LAYER = (MAMBA_BATCH, MAMBA_SEQ, SSD_HEADS, SSD_P, 1, SSD_N)
+# jamba-1.5-large-398b's SSM slot in the hybrid forward (sequence 2048,
+# batch 1): 256 heads of 64 in 8 groups (32 heads a group), state 128
+SSD_JAMBA_LAYER = (1, 2048, 256, SSD_P, 8, SSD_N)
 
 
 def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype):
@@ -823,51 +885,57 @@ def ssd_phase(torch, SSD, ref):
         del c, b, x, dt, dac, args, y
     torch.cuda.empty_cache()
 
-    # the model's layout: the heads entry on _ssd_chunked's tensors as they
-    # lie, bit for bit the [G, Q, N] entry on the groups arrangement
-    # (repeat, groups() copies), whose time is its yardstick
-    bsz, s, h, p, g, n = SSD_LAYER
-    args = ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, torch.float32)
-    y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_heads(*args, q))
-    torch.cuda.synchronize()
+    # the models' layouts (mamba2-130m's layer, jamba's SSM slot): the heads
+    # entry on _ssd_chunked's tensors as they lie, bit for bit the
+    # [G, Q, N] entry on the groups arrangement (repeat, groups() copies),
+    # whose time is its yardstick
+    for tag, (bsz, s, h, p, g, n) in (("model_layout", SSD_LAYER),
+                                      ("jamba_layout", SSD_JAMBA_LAYER)):
+        args = ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n,
+                                torch.float32)
+        y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_heads(*args, q))
+        torch.cuda.synchronize()
 
-    def arrangement():
-        yg = SSD.ssd_intra_chunk(*ssd_groups(*args, q))
-        return yg.reshape(bsz, s // q, h, q, p).movedim(2, 3).reshape(
-            bsz, s, h, p)
-    check(torch.equal(y, arrangement()), "ssd heads entry is not bit for "
-          "bit the [G, Q, N] entry on the copied groups")
-    err, ok = errors(y, ref.ssd_intra_heads_ref(*args, q), "float32")
-    check(ok and bool(torch.isfinite(y).all()),
-          f"ssd model_layout: max err {err:.3e}")
-    worst = max(worst, err)
+        def arrangement():
+            yg = SSD.ssd_intra_chunk(*ssd_groups(*args, q))
+            return yg.reshape(bsz, s // q, h, q, p).movedim(2, 3).reshape(
+                bsz, s, h, p)
+        check(torch.equal(y, arrangement()), f"ssd heads entry at {tag} is "
+              "not bit for bit the [G, Q, N] entry on the copied groups")
+        err, ok = errors(y, ref.ssd_intra_heads_ref(*args, q), "float32")
+        check(ok and bool(torch.isfinite(y).all()),
+              f"ssd {tag}: max err {err:.3e}")
+        worst = max(worst, err)
 
-    def library():
-        c, b, x, dt, dac = ssd_groups(*args, q)
-        sm = torch.bmm(c, b.transpose(1, 2))
-        att = torch.where(tri, sm * torch.exp(dac[:, :, None]
-                                              - dac[:, None, :]), 0.0)
-        return torch.bmm(att * dt[:, None, :], x)
-    bound, bound_by = ssd_heads_bound_ms(bsz, s, h, p, g, n, q, "float32")
-    triples = bsz * (s // q) * g
-    shares = SSD.head_shares(triples, h // g, sm_count(torch))
-    row = dict(shape=f"model_layout.seq{s}.b{bsz}", batch=bsz, seq=s,
-               heads=h, groups=g, q=q, n=n, p=p, dtype="float32", route=rt,
-               max_abs_err=err, tol=SSD_TOL["float32"],
-               kernel_ms=cuda_ms(lambda: SSD.ssd_intra_heads(*args, q), 20),
-               arrangement_ms=cuda_ms(arrangement, 10),
-               copies_ms=cuda_ms(lambda: ssd_groups(*args, q), 10),
-               library_ms=cuda_ms(library, 10),
-               plain_ms=cuda_ms(lambda: ref.ssd_intra_heads_ref(*args, q),
-                                10),
-               bound_ms=bound, bound_by=bound_by, head_shares=shares,
-               **ssd_kernel_fields(torch, SSD, torch.float32, n, p,
-                                   -(-(h // g) // shares), triples * shares))
-    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-    emit(phase="ssd_shape", **row)
-    rows.append(row)
-    del args, y
-    torch.cuda.empty_cache()
+        def library():
+            c, b, x, dt, dac = ssd_groups(*args, q)
+            sm = torch.bmm(c, b.transpose(1, 2))
+            att = torch.where(tri, sm * torch.exp(dac[:, :, None]
+                                                  - dac[:, None, :]), 0.0)
+            return torch.bmm(att * dt[:, None, :], x)
+        bound, bound_by = ssd_heads_bound_ms(bsz, s, h, p, g, n, q,
+                                             "float32")
+        triples = bsz * (s // q) * g
+        shares = SSD.head_shares(triples, h // g, sm_count(torch))
+        row = dict(shape=f"{tag}.seq{s}.b{bsz}", batch=bsz, seq=s,
+                   heads=h, groups=g, q=q, n=n, p=p, dtype="float32",
+                   route=rt, max_abs_err=err, tol=SSD_TOL["float32"],
+                   kernel_ms=cuda_ms(lambda: SSD.ssd_intra_heads(*args, q),
+                                     20),
+                   arrangement_ms=cuda_ms(arrangement, 10),
+                   copies_ms=cuda_ms(lambda: ssd_groups(*args, q), 10),
+                   library_ms=cuda_ms(library, 10),
+                   plain_ms=cuda_ms(lambda: ref.ssd_intra_heads_ref(*args,
+                                                                    q), 10),
+                   bound_ms=bound, bound_by=bound_by, head_shares=shares,
+                   **ssd_kernel_fields(torch, SSD, torch.float32, n, p,
+                                       -(-(h // g) // shares),
+                                       triples * shares))
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        emit(phase="ssd_shape", **row)
+        rows.append(row)
+        del args, y
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -3639,26 +3707,69 @@ DENSE_BF16_TOL = 0.1
 PARITY_RTOL, PARITY_ATOL = 5e-3, 1e-4
 
 
-def dense_per_step(cfg):
-    """block_matmul launches of one forward or decode step: q, k, v, o and
-    the FFN's (gate, up, down; fc1, fc2 for the GELU kind) a layer, and
-    the head."""
-    return (4 + (3 if cfg.ffn_kind == "swiglu" else 2)) * cfg.n_layers + 1
+def _ffn_shapes(cfg, d):
+    """(name, K, N, epilogue, dtype name) of a dense FFN's linears."""
+    if cfg.ffn_kind == "swiglu":
+        return [("gate", d, cfg.d_ff, "none", "bfloat16"),
+                ("up", d, cfg.d_ff, "none", "bfloat16"),
+                ("down", cfg.d_ff, d, "none", "bfloat16")]
+    return [("fc1", d, cfg.d_ff, "gelu", "bfloat16"),
+            ("fc2", cfg.d_ff, d, "none", "bfloat16")]
 
 
-def dense_gemm_shapes(cfg, tag, m):
-    """(label, M, K, N, epilogue, launches per forward or step) of a
-    transformer's linears at M rows."""
+def lm_gemm_shapes(cfg, tag, m):
+    """(label, M, K, N, epilogue, launches per forward or decode step,
+    dtype name) of a language model's block_matmul launches at M rows: a
+    transformer layer's q, k, v, o and its FFN's linears, or a MoE layer's
+    router (f32: the reference routes ``x.astype(float32)`` on f32 router
+    weights, and the configs' legacy policy casts nothing); a hybrid
+    period's slots (an SSM slot's in_z, in_xbc, in_dt and out_proj, the
+    attention slot's q, k, v, o, then each slot's dense FFN or router)
+    over the periods; and the head.  Shapes shared by several slots are
+    one row with their launches summed."""
     d, hd = cfg.d_model, cfg.d_head
     qo, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    ffn = ([("gate", d, cfg.d_ff, "none"), ("up", d, cfg.d_ff, "none"),
-            ("down", cfg.d_ff, d, "none")] if cfg.ffn_kind == "swiglu"
-           else [("fc1", d, cfg.d_ff, "gelu"), ("fc2", cfg.d_ff, d, "none")])
-    per = [("q", d, qo, "none"), ("k", d, kv, "none"), ("v", d, kv, "none"),
-           ("o", qo, d, "none")] + ffn
-    out = [(f"{tag}.{name}", m, k, n, epi, cfg.n_layers)
-           for name, k, n, epi in per]
-    return out + [(f"{tag}.head", m, d, cfg.vocab_padded, "none", 1)]
+    attn = [("q", d, qo, "none", "bfloat16"), ("k", d, kv, "none", "bfloat16"),
+            ("v", d, kv, "none", "bfloat16"), ("o", qo, d, "none", "bfloat16")]
+    router = [("router", d, cfg.n_experts, "none", "float32")]
+    if cfg.family == "hybrid":
+        di = cfg.ssm_d_inner
+        ssm = [("in_z", d, di, "none", "bfloat16"),
+               ("in_xbc", d, di + 2 * cfg.ssm_groups * cfg.ssm_state, "none",
+                "bfloat16"),
+               ("in_dt", d, cfg.ssm_heads, "none", "bfloat16"),
+               ("out_proj", di, d, "none", "bfloat16")]
+        per = {}
+        for j in range(cfg.attn_every):
+            mixer = attn if cfg.is_attn_layer(j) else ssm
+            ffn = router if cfg.is_moe_layer(j) else _ffn_shapes(cfg, d)
+            for shape in mixer + ffn:
+                per[shape] = per.get(shape, 0) + cfg.n_layers // cfg.attn_every
+        per = list(per.items())
+    else:
+        ffn = router if cfg.is_moe_layer(0) else _ffn_shapes(cfg, d)
+        per = [(shape, cfg.n_layers) for shape in attn + ffn]
+    out = [(f"{tag}.{name}", m, k, n, epi, count, dt)
+           for (name, k, n, epi, dt), count in per]
+    return out + [(f"{tag}.head", m, d, cfg.vocab_padded, "none", 1,
+                   "bfloat16")]
+
+
+def lm_per_step(cfg):
+    """block_matmul launches of one forward or decode step."""
+    return sum(r[5] for r in lm_gemm_shapes(cfg, "", 1))
+
+
+def lm_routes(cfg, m):
+    """block_matmul's launches by route of one forward or decode step at M
+    rows (the MoE router's M: the tokens, padded to whole groups)."""
+    import torch
+    from repro_torch.kernels import block_matmul as BM
+    out = {}
+    for _, _, _, n, _, count, dt in lm_gemm_shapes(cfg, "", m):
+        rt = BM.route(m, n, getattr(torch, dt))
+        out[rt] = out.get(rt, 0) + count
+    return out
 
 
 def per_rows(rows, key):
@@ -3667,10 +3778,11 @@ def per_rows(rows, key):
     return sum(r.get(key, r["kernel_ms"]) * r["per_path"] for r in rows)
 
 
-def dense_setup(torch, arch, **over):
+def dense_setup(torch, arch, f32=True, **over):
     """The config (``over`` replacing fields of the published one), the
-    one-device kernel config, seed-0 bf16 weights on the card, and the
-    same weights in f32 with their config."""
+    one-device kernel config, seed-0 bf16 weights on the card, and (where
+    ``f32``) the same weights in f32 with their config (else None,
+    None)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import JigsawConfig
     from repro_torch.models import registry as M
@@ -3680,14 +3792,23 @@ def dense_setup(torch, arch, **over):
     params = M.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    cfg32, params32 = mamba_f32(torch, cfg, params)
-    emit(phase="dense_setup", arch=arch, params=cfg.param_count(),
+    cfg32, params32 = mamba_f32(torch, cfg, params) if f32 else (None, None)
+    extra = {}
+    if cfg.n_experts:
+        extra.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor)
+    if cfg.family == "hybrid":
+        extra.update(attn_every=cfg.attn_every, attn_offset=cfg.attn_offset,
+                     moe_every=cfg.moe_every, ssm_heads=cfg.ssm_heads,
+                     ssm_groups=cfg.ssm_groups, ssm_state=cfg.ssm_state)
+    emit(phase=f"{cfg.family}_setup", arch=arch, params=cfg.param_count(),
          n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
          n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
          vocab_padded=cfg.vocab_padded, param_dtype=cfg.param_dtype,
          windows=sorted(set(map(str, (cfg.layer_window(i)
                                       for i in range(cfg.n_layers))))),
-         init_s=init_s, mem_gb=torch.cuda.memory_allocated() / 1e9)
+         cut=over, f32_copy=f32, **extra, init_s=init_s,
+         mem_gb=torch.cuda.memory_allocated() / 1e9)
     return cfg, jcfg, params, cfg32, params32
 
 
@@ -3699,7 +3820,7 @@ def dense_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
     from repro_torch.launch.analysis import PEAK_FLOPS_BF16, flops_forward
     from repro_torch.models import registry as M
     batch = {"tokens": token_rows(torch, cfg, DENSE_SEQ, DENSE_BATCH, 0)}
-    per = dense_per_step(cfg)
+    per = lm_per_step(cfg)
     with torch.no_grad():
         # -- the main path: counts to 0 just before, read just after -------
         torch.cuda.synchronize()
@@ -3750,7 +3871,7 @@ def dense_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
           "forward's (the window took no effect)")
     flops = flops_forward(cfg, DENSE_BATCH, DENSE_SEQ)
     gen = torch.Generator(device="cuda").manual_seed(25)
-    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
         cfg, "h2o.fwd", DENSE_BATCH * DENSE_SEQ))
     tokens = DENSE_SEQ * DENSE_BATCH
     out = dict(seq=DENSE_SEQ, batch=DENSE_BATCH, launches=launches,
@@ -3774,9 +3895,11 @@ def dense_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
 def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
                   max_len, fused, what):
     """``generate`` through the captured decode step (captured before the
-    counted run), then eagerly: the tokens equal, ``dense_per_step``
+    counted run), then eagerly: the tokens equal, ``lm_per_step``
     launches a step in both (a fused prefill's forward is one step; the
-    graphed steps counted by replay), no capture in the counted run.
+    graphed steps counted by replay) on the routes ``lm_routes`` gives
+    (the decode steps' M = batch rows, a fused prefill's M = batch x
+    prompt), no capture in the counted run.
     Returns the tokens and a dict of counts and times."""
     from repro_torch.models import registry as M
     from repro_torch.serve import step as S
@@ -3805,7 +3928,7 @@ def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
     torch.cuda.synchronize()
     wall_eager = time.perf_counter() - t0
     launches_eager = read_counts(kernels)
-    per = dense_per_step(cfg)
+    per = lm_per_step(cfg)
     n_steps = steps if fused else s + steps - 1
     check(graphs == [g0], f"{what}: {len(graphs)} captured steps after the "
           "counted run, want the one captured before it")
@@ -3814,11 +3937,11 @@ def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
               and sum(n.values()) == n_steps * per,
               f"{what} {mode} launches {n} (want {per} block_matmul a "
               f"step, {n_steps} steps)")
-    # the decode steps' M = batch rows take the WMMA loop, a fused
-    # prefill's forward the Hopper loop
-    want_routes = {"wmma": (n_steps - fused) * per}
+    want_routes = {rt: n * (n_steps - fused)
+                   for rt, n in lm_routes(cfg, b).items()}
     if fused:
-        want_routes["sm90"] = per
+        for rt, n in lm_routes(cfg, b * s).items():
+            want_routes[rt] = want_routes.get(rt, 0) + n
     check(routes == want_routes, f"{what} routes {routes}, want "
           f"{want_routes}")
     check(tuple(out.shape) == (b, steps)
@@ -3852,20 +3975,29 @@ def lm_step_times(torch, cfg, jcfg, params, cache, nxt):
                 host_ms_per_decode_step_eager=eager[1])
 
 
-def decode_bound(torch, cfg, cache, rows):
+def decode_bound(torch, cfg, cache, rows, expert_bytes=0):
     """A decode step's least time: its linears' weights (the GEMM rows'
-    bounds: bytes at M = batch rows) and the KV cache read once at the
-    card's memory rate, and block_matmul's part of it."""
-    cache_bytes = sum(t.numel() * t.element_size() for k, t in cache.items()
-                      if k != "pos")
+    bounds: bytes at M = batch rows), the experts' weights of its MoE
+    layers (``expert_bytes``: every expert's, since the capacity dispatch
+    runs every expert) and the cache read once at the card's memory rate,
+    and block_matmul's part of it."""
+    from repro_torch.core import tree as ptree
+    leaves = [("/".join(map(str, path)), t)
+              for path, t in ptree.leaves_with_path(cache)
+              if path != ("pos",)]
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
     gemm = per_rows(rows, "bound_ms")
-    return dict(cache_shapes={k: list(t.shape) for k, t in cache.items()},
-                kv_cache_bytes=cache_bytes,
-                step_bound_ms=gemm + 1e3 * cache_bytes / PEAK_BYTES,
-                block_matmul_ms=per_rows(rows, "kernel_ms"),
-                block_matmul_bound_ms=gemm,
-                block_matmul_library_ms=per_rows(rows, "library_ms"),
-                block_matmul_plain_ms=per_rows(rows, "plain_ms"))
+    out = dict(cache_shapes={k: list(t.shape) for k, t in leaves},
+               kv_cache_bytes=cache_bytes,
+               step_bound_ms=gemm + 1e3 * (cache_bytes + expert_bytes)
+               / PEAK_BYTES,
+               block_matmul_ms=per_rows(rows, "kernel_ms"),
+               block_matmul_bound_ms=gemm,
+               block_matmul_library_ms=per_rows(rows, "library_ms"),
+               block_matmul_plain_ms=per_rows(rows, "plain_ms"))
+    if expert_bytes:
+        out["expert_bytes"] = expert_bytes
+    return out
 
 
 def dense_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
@@ -3927,7 +4059,7 @@ def dense_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
         nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
         times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
     gen = torch.Generator(device="cuda").manual_seed(26)
-    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
         cfg, "h2o.decode", DENSE_GEN_BATCH))
     bound = decode_bound(torch, cfg, cache, rows)
     del cache
@@ -3970,7 +4102,7 @@ def gemma3_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
         nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
         times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
     gen = torch.Generator(device="cuda").manual_seed(27)
-    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, dense_gemm_shapes(
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
         cfg, "gemma3.decode", GEMMA_BATCH))
     bound = decode_bound(torch, cfg, cache, rows)
     del cache
@@ -4008,6 +4140,453 @@ def transformer_phases(torch, BM, SM90, ref):
     del params, params32
     torch.cuda.empty_cache()
     return (fwd, gen, gem), (fwd_rows, gen_rows, gem_rows), max(w1, w2, w3)
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: the moe family (phi3.5-moe-42b-a6.6b cut in depth) and the
+# hybrid (jamba-1.5-large-398b: one period, half its experts)
+# ---------------------------------------------------------------------------
+
+# phi3.5-moe-42b-a6.6b at its published width (d_model 4096, 32 heads of
+# 128, 8 KV heads, 16 SwiGLU experts of 6,400, top-2, vocab 32,064, untied
+# head), cut in depth from 32 layers to 4 (5.47 B parameters, 10.9 GB in
+# bf16; with its f32 copy for the checks, 32.8 GB): the forward at 2 x
+# 4,096 tokens (8 groups of 1,024, capacity 160 an expert and group);
+# generate at batch 4 from 1,024-token prompts (the fused prefill), 32 new
+# tokens; in f32 at capacity_factor = n_experts (the reference's decode
+# convention), decode along 16 prompt tokens after a 64-token prefill
+# against the teacher-forced forward, and the fused prefill of 64-token
+# prompts against the token-wise one
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 4
+MOE_SEQ, MOE_BATCH = 4096, 2
+MOE_GEN_BATCH, MOE_GEN_PROMPT, MOE_GEN_STEPS = 4, 1024, 32
+MOE_PARITY_PROMPT, MOE_PARITY_NEXT = 64, 16
+# jamba-1.5-large-398b at its published width (d_model 8192, 64 heads of
+# 128, 8 KV heads, no RoPE; Mamba-2 slots of 256 heads of 64 in 8 groups,
+# state 128; SwiGLU d_ff 24,576; vocab 65,536, untied head), cut to one
+# period of its 8 layers (the reference asserts whole periods: SSM slots
+# 0-3 and 5-7, attention at 4, MoE on the odd slots) and to 8 of its 16
+# experts (top-2 kept): one period at 16 experts is 45.25 B parameters,
+# 90.5 GB in bf16, more than the card; at 8 it is 25.92 B, 51.8 GB.  The
+# forward at 1 x 2,048 tokens; generate at batch 2 from 64-token prompts
+# prefilled token by token through the captured step (the reference's
+# hybrid has no fused prefill), 16 new tokens
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_EXPERTS = "jamba-1.5-large-398b", 8, 8
+HYBRID_SEQ, HYBRID_BATCH = 2048, 1
+HYBRID_GEN_BATCH, HYBRID_GEN_PROMPT, HYBRID_GEN_STEPS = 2, 64, 16
+# A route that flips between two f32 forwards (kernel="pallas" against
+# "xla": only summation orders differ, the router's inputs agree to ~1e-6
+# relative) is a near tie: the first run's probabilities of the two
+# experts within MOE_TIE_GAP.  A flip at a wider gap is a fault.  The
+# logits are then held at every position before a row's first flip (a
+# flipped token changes its own later layers, through attention every
+# later position of its row, and through the capacity order the later
+# tokens of its group, which lie in the same row here).
+MOE_TIE_GAP = 1e-4
+# The hybrid's bf16 forward against kernel="xla" on the same bf16 weights
+# (no f32 copy fits beside them): the two differ only in the order of each
+# GEMM's f32 sums before the same bf16 rounding, so each is as far from
+# the exact forward as the other.  The exact forward is the same one in
+# f32, its weights up-cast one slot at a time; by the triangle inequality
+# the two bf16 forwards are then at most twice the library's distance
+# from it apart: mean|pallas - xla| <= HYBRID_XLA_FACTOR * mean|xla -
+# f32| (each over mean|f32|).  The bf16 forward against the f32 one is
+# held to DENSE_BF16_TOL of the mean, a gross-fault check.
+HYBRID_XLA_FACTOR = 2.0
+
+
+@contextmanager
+def recorded_routes(L, rec):
+    """Every ``moe_route`` call's (probs, gate_vals, gate_idx, pos, keep)
+    appended to ``rec`` (``moe_apply`` calls it through the module)."""
+    real = L.moe_route
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        rec.append(out)
+        return out
+    L.moe_route = recording
+    try:
+        yield
+    finally:
+        L.moe_route = real
+
+
+def dropped_share(rec):
+    """The share of (token, k) slots past their expert's capacity, over
+    the recorded layers."""
+    return float(sum((~r[4]).sum() for r in rec)
+                 / sum(r[4].numel() for r in rec))
+
+
+def route_flips(rec_a, rec_b, seq):
+    """Every (token, k) whose expert differs between two recorded runs:
+    its layer, row, position, k, the two experts and the first run's
+    probability gap between them; ``primary`` where no flip at an earlier
+    layer sits at or before its position in its row (a later flip there
+    may follow from that one).  And each row's first flipped position."""
+    flips, first = [], {}
+    for layer, (ra, rb) in enumerate(zip(rec_a, rec_b)):
+        probs, ia, ib = ra[0], ra[2], rb[2]
+        gs = ia.shape[1]
+        for g, t, k in (ia != ib).nonzero().tolist():
+            a, b = int(ia[g, t, k]), int(ib[g, t, k])
+            token = g * gs + t
+            row, pos = divmod(token, seq)
+            flips.append(dict(layer=layer, row=row, pos=pos, k=k,
+                              experts=[a, b], prob_gap=float(
+                                  (probs[g, t, a] - probs[g, t, b]).abs())))
+    for f in flips:
+        f["primary"] = not any(o["row"] == f["row"] and o["layer"]
+                               < f["layer"] and o["pos"] <= f["pos"]
+                               for o in flips)
+        first[f["row"]] = min(first.get(f["row"], f["pos"]), f["pos"])
+    return flips, first
+
+
+def held_rel_err(a, b, first):
+    """max|a - b| / max|b| over the positions before each row's first
+    flipped route (all of a row without one)."""
+    num = den = 0.0
+    for r in range(a.shape[0]):
+        n = first.get(r, a.shape[1])
+        if n:
+            num = max(num, float((a[r, :n] - b[r, :n]).abs().max()))
+            den = max(den, float(b[r, :n].abs().max()))
+    return num / den
+
+
+def expert_bytes(params):
+    from repro_torch.core import tree as ptree
+    blocks = params.get("layers") or [blk for pp in params["periods"]
+                                      for blk in pp.values()]
+    return sum(t.numel() * t.element_size() for blk in blocks if "moe" in blk
+               for t in ptree.leaves(blk["moe"]["experts"]))
+
+
+def moe_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                      cfg32, params32):
+    """phi3.5-moe (4 layers)'s forward: 21 block_matmul launches (q, k, v,
+    o and the router a layer, the head), the drops and the aux loss; in
+    f32 the routes and the logits of kernel="pallas" against "xla", and
+    bf16 against f32."""
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16, flops_forward
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+    batch = {"tokens": token_rows(torch, cfg, MOE_SEQ, MOE_BATCH, 0)}
+    per = lm_per_step(cfg)
+    want_routes = lm_routes(cfg, MOE_BATCH * MOE_SEQ)
+    rec = []
+    with torch.no_grad():
+        with recorded_routes(L, rec):
+            # -- the main path: counts to 0 just before, read just after ---
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(kernels)
+            logits, aux = M.apply(params, batch, cfg, jcfg)
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
+            routes = read_routes(kernels)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # --------------------------------------------------------------
+        check(launches["block_matmul"] == per
+              and sum(launches.values()) == per,
+              f"moe forward launches {launches} (want {per} block_matmul)")
+        check(routes == want_routes, f"moe forward routes {routes}, want "
+              f"{want_routes}")
+        check(tuple(logits.shape) == (MOE_BATCH, MOE_SEQ, cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(aux)),
+              f"moe logits {tuple(logits.shape)} or aux not finite")
+        check(len(rec) == cfg.n_layers, f"moe forward: {len(rec)} routings")
+        dropped, aux = dropped_share(rec), float(aux)
+        groups, gs = rec[0][2].shape[:2]
+        capacity = max(1, int(cfg.capacity_factor * cfg.top_k * gs
+                              / cfg.n_experts))
+        del rec
+        ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 3)
+
+        # f32: the routes and logits of pallas against xla; bf16 against f32
+        rec_p, rec_x = [], []
+        with recorded_routes(L, rec_p):
+            ref32, aux32 = M.apply(params32, batch, cfg32, jcfg)
+        bf16_err = mean_rel(logits.float(), ref32)
+        bf16_top1 = float((logits.float().argmax(-1)
+                           == ref32.argmax(-1)).float().mean())
+        del logits
+        with recorded_routes(L, rec_x):
+            xla, aux_x = M.apply(params32, batch, cfg32,
+                                 jcfg.replace(kernel="xla"))
+        flips, first = route_flips(rec_p, rec_x, MOE_SEQ)
+        xla_err = held_rel_err(ref32, xla, first)
+        aux_err = abs(float(aux32) - float(aux_x)) / abs(float(aux_x))
+        dropped32 = dropped_share(rec_p)
+        del xla, ref32, rec_p, rec_x
+    torch.cuda.empty_cache()
+    wide = [f for f in flips if f["primary"] and f["prob_gap"] > MOE_TIE_GAP]
+    check(not wide, f"moe f32 routes, pallas vs xla: {len(wide)} flipped "
+          f"at a probability gap above {MOE_TIE_GAP}: {wide[:4]}")
+    check(xla_err <= DENSE_F32_TOL, f"moe f32 logits, pallas vs xla: "
+          f"{xla_err:.3e} (before each row's first flipped route {first})")
+    check(bf16_err <= DENSE_BF16_TOL,
+          f"moe bf16 logits vs f32: {bf16_err:.3e} of the mean")
+    flops = flops_forward(cfg, MOE_BATCH, MOE_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
+        cfg, "phi3.5.fwd", MOE_BATCH * MOE_SEQ))
+    tokens = MOE_SEQ * MOE_BATCH
+    out = dict(seq=MOE_SEQ, batch=MOE_BATCH, n_layers=cfg.n_layers,
+               published_layers=32, groups=groups, group_size=gs,
+               capacity=capacity, launches=launches,
+               block_matmul_routes=routes, ms_per_forward=ms,
+               tokens_per_s=tokens / (ms / 1e3), peak_mem_gb=peak_gb,
+               dropped_share=dropped, aux=aux, flops=flops,
+               flops_total=sum(flops.values()),
+               floor_ms=1e3 * sum(flops.values()) / PEAK_FLOPS_BF16,
+               block_matmul_ms=per_rows(rows, "kernel_ms"),
+               block_matmul_bound_ms=per_rows(rows, "bound_ms"),
+               block_matmul_library_ms=per_rows(rows, "library_ms"),
+               block_matmul_plain_ms=per_rows(rows, "plain_ms"),
+               f32_dropped_share=dropped32, f32_vs_xla=xla_err,
+               tol_f32=DENSE_F32_TOL, f32_aux_vs_xla=aux_err,
+               f32_route_flips=len(flips), f32_flips=flips[:8],
+               tie_gap=MOE_TIE_GAP, bf16_vs_f32_mean=bf16_err,
+               tol_bf16_mean=DENSE_BF16_TOL, bf16_vs_f32_top1_agree=bf16_top1)
+    emit(phase="moe_forward", arch=cfg.arch_id, **out)
+    return out, rows, worst
+
+
+def moe_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                       cfg32, params32):
+    """phi3.5-moe (4 layers)'s ``generate``: the fused prefill of
+    1,024-token prompts, then the captured decode step; eager; in f32 at
+    capacity_factor = n_experts, decode against teacher-forced and the
+    fused prefill against the token-wise one."""
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    prompts = token_rows(torch, cfg, MOE_GEN_PROMPT, MOE_GEN_BATCH, 1)
+    max_len = MOE_GEN_PROMPT + MOE_GEN_STEPS
+    out, runs = lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts,
+                              MOE_GEN_STEPS, max_len, True, "moe generate")
+    cfgn = cfg32.replace(capacity_factor=float(cfg.n_experts))
+    n, m = MOE_PARITY_PROMPT, MOE_PARITY_NEXT
+    with torch.no_grad():
+        # decode along the prompts' next m tokens after a fused f32 prefill
+        # of n, against the teacher-forced f32 forward of n + m
+        seq = prompts[:, :n + m]
+        logits, cache = M.prefill_cache(params32, {"tokens": seq[:, :n]},
+                                        cfgn, jcfg, n + m,
+                                        dtype=torch.float32)
+        got = [logits[:, -1]]
+        for i in range(m):
+            lg, cache = M.decode_step(params32, cache, seq[:, n + i:n + i + 1],
+                                      cfgn, jcfg)
+            got.append(lg[:, 0])
+        got = torch.stack(got, 1)
+        want, _ = M.apply(params32, {"tokens": seq}, cfgn, jcfg)
+        want = want[:, n - 1:]
+        err32 = (got - want).abs()
+        decode_ok = bool((err32 <= DENSE_DECODE_TOL
+                          + DENSE_DECODE_TOL * want.abs()).all())
+        decode_err = float(err32.max())
+        del got, want, err32, cache
+        check(decode_ok, f"moe f32 decode vs teacher-forced: max abs "
+                         f"{decode_err:.3e}")
+        # the fused prefill against the token-wise one
+        n_f, c_f = S.prefill(params32, seq[:, :n], cfgn, jcfg, 2 * n,
+                             cache_dtype=torch.float32, fused=True)
+        n_t, c_t = S.prefill_tokenwise(params32, seq[:, :n], cfgn, jcfg,
+                                       2 * n, cache_dtype=torch.float32)
+        parity = {k: float((c_f[k] - c_t[k]).abs().max()) for k in "kv"}
+        parity_ok = torch.equal(n_f, n_t) and torch.equal(
+            c_f["pos"], c_t["pos"]) and all(
+            torch.allclose(c_f[k], c_t[k], rtol=PARITY_RTOL,
+                           atol=PARITY_ATOL) for k in "kv")
+        del c_f, c_t
+        check(parity_ok, f"moe fused prefill vs token-wise: next tokens "
+              f"equal {torch.equal(n_f, n_t)}, cache max abs {parity}")
+        # a decode step's time, on the bf16 cache of a fused prefill
+        nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
+        times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
+        cfg, "phi3.5.decode", MOE_GEN_BATCH))
+    bound = decode_bound(torch, cfg, cache, rows, expert_bytes(params))
+    del cache
+    S.clear_graphs()
+    torch.cuda.empty_cache()
+    res = dict(runs, **times, **bound, batch=MOE_GEN_BATCH,
+               prompt=MOE_GEN_PROMPT, new_tokens=MOE_GEN_STEPS,
+               n_layers=cfg.n_layers, published_layers=32,
+               decode_capacity_factor=float(cfg.n_experts),
+               f32_capacity_factor=float(cfg.n_experts),
+               f32_decode_max_abs_err=decode_err, tol=DENSE_DECODE_TOL,
+               parity_prompt=n, parity_cache_max_abs=parity,
+               parity_next_equal=True, first_tokens=out[0, :8].tolist())
+    emit(phase="moe_generate", arch=cfg.arch_id, **res)
+    return res, rows, worst
+
+
+def hybrid_f32_forward(torch, params, batch, cfg, jcfg):
+    """The hybrid's forward in f32 with every linear a cuBLAS call (TF32
+    off), its weights up-cast one slot at a time (an f32 copy of the whole
+    does not fit beside the bf16 weights): the exact forward the bf16 ones
+    are measured against."""
+    from repro_torch.core import tree as ptree
+    from repro_torch.models import hybrid as H
+    from repro_torch.models import layers as L
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    jx = jcfg.replace(kernel="xla")
+
+    def up(tree):
+        return ptree.map(lambda t: t.float(), tree)
+    x = L.embed_apply(params["embed"], batch["tokens"]).float()
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pp in params["periods"]:
+        for j in range(cfg.attn_every):
+            x, _, aux = H._slot_apply(up(pp[f"slot{j}"]), x, j, cfg32, jx,
+                                      positions, aux)
+    head = {k: up(params[k]) for k in ("final_norm", "lm_head", "embed")
+            if k in params and (k != "embed" or cfg.tie_embeddings)}
+    return H._lm_head(head, x, cfg32, jx)
+
+
+def hybrid_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params):
+    """jamba (one period, 8 experts): the bf16 forward at 1 x 2,048 tokens
+    (7 ssd and 49 block_matmul launches) against kernel="xla" and the
+    slot-wise f32 forward; then ``generate`` from 64-token prompts
+    prefilled token by token through the captured step, 16 new tokens,
+    graphed and eager (no ssd launch in decode)."""
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16, flops_forward
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    batch = {"tokens": token_rows(torch, cfg, HYBRID_SEQ, HYBRID_BATCH, 0)}
+    per = lm_per_step(cfg)
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    want_routes = lm_routes(cfg, HYBRID_BATCH * HYBRID_SEQ)
+    rec_p, rec_x = [], []
+    with torch.no_grad():
+        with recorded_routes(L, rec_p):
+            # -- the main path: counts to 0 just before, read just after ---
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(kernels)
+            logits, aux = M.apply(params, batch, cfg, jcfg)
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
+            routes = read_routes(kernels)
+            ssd_routes = dict(next(fn for fn in kernels if fn.__name__
+                                   == "ssd_intra_chunk").route_launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # --------------------------------------------------------------
+        check(launches["block_matmul"] == per
+              and launches["ssd_intra_chunk"] == n_ssm
+              and sum(launches.values()) == per + n_ssm,
+              f"hybrid forward launches {launches} (want {per} block_matmul,"
+              f" {n_ssm} ssd)")
+        check(routes == want_routes, f"hybrid forward routes {routes}, want "
+              f"{want_routes}")
+        check(sum(v for k, v in ssd_routes.items() if k.startswith("heads."))
+              == n_ssm, f"hybrid forward ssd routes {ssd_routes}, want "
+              f"{n_ssm} heads-entry launches")
+        check(tuple(logits.shape) == (HYBRID_BATCH, HYBRID_SEQ,
+                                      cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(aux)),
+              f"hybrid logits {tuple(logits.shape)} or aux not finite")
+        dropped, aux = dropped_share(rec_p), float(aux)
+        ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 2)
+        with recorded_routes(L, rec_x):
+            xla, _ = M.apply(params, batch, cfg, jcfg.replace(kernel="xla"))
+        flips, _ = route_flips(rec_p, rec_x, HYBRID_SEQ)
+        del rec_p, rec_x
+        ref32 = hybrid_f32_forward(torch, params, batch, cfg, jcfg)
+        pf, xf = logits.float(), xla.float()
+        d_px, d_xf, d_pf = mean_rel(pf, xf), mean_rel(xf, ref32), \
+            mean_rel(pf, ref32)
+        top1 = float((pf.argmax(-1) == ref32.argmax(-1)).float().mean())
+        del logits, xla, ref32, pf, xf
+    torch.cuda.empty_cache()
+    check(d_px <= HYBRID_XLA_FACTOR * d_xf,
+          f"hybrid bf16 logits, pallas vs xla: {d_px:.3e} of the mean, "
+          f"bound {HYBRID_XLA_FACTOR} x {d_xf:.3e} (xla vs f32)")
+    check(d_pf <= DENSE_BF16_TOL,
+          f"hybrid bf16 logits vs f32: {d_pf:.3e} of the mean")
+    flops = flops_forward(cfg, HYBRID_BATCH, HYBRID_SEQ)
+    fwd = dict(seq=HYBRID_SEQ, batch=HYBRID_BATCH, launches=launches,
+               block_matmul_routes=routes, ssd_routes=ssd_routes,
+               ms_per_forward=ms,
+               tokens_per_s=HYBRID_SEQ * HYBRID_BATCH / (ms / 1e3),
+               peak_mem_gb=peak_gb, dropped_share=dropped, aux=aux,
+               flops_total=sum(flops.values()),
+               floor_ms=1e3 * sum(flops.values()) / PEAK_FLOPS_BF16,
+               bf16_vs_xla_mean=d_px, xla_vs_f32_mean=d_xf,
+               bound_vs_xla=HYBRID_XLA_FACTOR * d_xf, bf16_vs_f32_mean=d_pf,
+               tol_bf16_mean=DENSE_BF16_TOL, bf16_vs_f32_top1_agree=top1,
+               route_flips_vs_xla=len(flips), flips=flips[:8])
+    emit(phase="hybrid_forward", arch=cfg.arch_id, **fwd)
+
+    prompts = token_rows(torch, cfg, HYBRID_GEN_PROMPT, HYBRID_GEN_BATCH, 2)
+    max_len = HYBRID_GEN_PROMPT + HYBRID_GEN_STEPS
+    out, runs = lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts,
+                              HYBRID_GEN_STEPS, max_len, False,
+                              "hybrid generate")
+    with torch.no_grad():
+        nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len)
+        times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    n_expert_bytes = expert_bytes(params)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
+        cfg, "jamba.decode", HYBRID_GEN_BATCH))
+    bound = decode_bound(torch, cfg, cache, rows, n_expert_bytes)
+    del cache
+    S.clear_graphs()
+    torch.cuda.empty_cache()
+    res = dict(runs, **times, **bound, batch=HYBRID_GEN_BATCH,
+               prompt=HYBRID_GEN_PROMPT, new_tokens=HYBRID_GEN_STEPS,
+               first_tokens=out[0, :8].tolist())
+    emit(phase="hybrid_generate", arch=cfg.arch_id, **res)
+    return fwd, res, rows, worst
+
+
+def moe_hybrid_phases(torch, BM, SM90, ref):
+    """The moe and hybrid phases, each model's weights freed before the
+    next; returns their results and GEMM rows, and the worst GEMM
+    error."""
+    from repro_torch.kernels.graphs import counted_kernels
+    kernels = counted_kernels()
+    torch.cuda.empty_cache()
+    cfg, jcfg, params, cfg32, params32 = dense_setup(
+        torch, MOE_ARCH, n_layers=MOE_LAYERS)
+    mfwd, mfwd_rows, w1 = moe_forward_phase(torch, kernels, BM, SM90, ref,
+                                            cfg, jcfg, params, cfg32,
+                                            params32)
+    mgen, mgen_rows, w2 = moe_generate_phase(torch, kernels, BM, SM90, ref,
+                                             cfg, jcfg, params, cfg32,
+                                             params32)
+    del params, params32
+    torch.cuda.empty_cache()
+    cfg, jcfg, params, _, _ = dense_setup(
+        torch, HYBRID_ARCH, f32=False, n_layers=HYBRID_LAYERS,
+        n_experts=HYBRID_EXPERTS)
+    hfwd, hgen, hgen_rows, w3 = hybrid_generate_phase(
+        torch, kernels, BM, SM90, ref, cfg, jcfg, params)
+    del params
+    torch.cuda.empty_cache()
+    # the hybrid forward's GEMM shapes, with its weights freed
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    hfwd_rows, w4 = lm_gemm_rows(torch, BM, SM90, ref, gen, lm_gemm_shapes(
+        cfg, "jamba.fwd", HYBRID_BATCH * HYBRID_SEQ))
+    sums = dict(block_matmul_ms=per_rows(hfwd_rows, "kernel_ms"),
+                block_matmul_bound_ms=per_rows(hfwd_rows, "bound_ms"),
+                block_matmul_library_ms=per_rows(hfwd_rows, "library_ms"),
+                block_matmul_plain_ms=per_rows(hfwd_rows, "plain_ms"))
+    hfwd.update(sums)
+    emit(phase="hybrid_forward_gemms", arch=cfg.arch_id, **sums)
+    return ((mfwd, mgen, hfwd, hgen),
+            (mfwd_rows, mgen_rows, hfwd_rows, hgen_rows), max(w1, w2, w3, w4))
 
 
 def main():
@@ -4086,6 +4665,9 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         torch, BM, WX, card, handoff)
     (dfwd, dgen, gem), (dfwd_rows, dgen_rows, gem_rows), lm_worst = \
         transformer_phases(torch, BM, SM90, ref)
+    (mfwd, mgen, hfwd, hgen), (mfwd_rows, mgen_rows, hfwd_rows,
+                               hgen_rows), mh_worst = \
+        moe_hybrid_phases(torch, BM, SM90, ref)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -4138,6 +4720,9 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     # entry at the same groups (G = 3072)
     ssd_fwd = next(r for r in ssd_rows if r["shape"].startswith("model_"))
     ssd_grp = next(r for r in ssd_rows if r["shape"] == "seq4096.b2")
+    ssd_jamba = next(r for r in ssd_rows
+                     if r["shape"].startswith("jamba_layout"))
+    n_jamba_ssd = hfwd["launches"]["ssd_intra_chunk"]
 
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
@@ -4178,6 +4763,9 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(pre["block_matmul_launches"])
         + dfwd["launches"]["block_matmul"]
         + sum(x[k]["block_matmul"] for x in (dgen, gem)
+              for k in ("launches", "launches_eager"))
+        + mfwd["launches"]["block_matmul"] + hfwd["launches"]["block_matmul"]
+        + sum(x[k]["block_matmul"] for x in (mgen, hgen)
               for k in ("launches", "launches_eager")),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
@@ -4203,10 +4791,21 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "gemma3_generate":
                              gem["launches"]["block_matmul"],
                              "gemma3_generate_eager":
-                             gem["launches_eager"]["block_matmul"]},
+                             gem["launches_eager"]["block_matmul"],
+                             "moe_forward": mfwd["launches"]["block_matmul"],
+                             "moe_generate":
+                             mgen["launches"]["block_matmul"],
+                             "moe_generate_eager":
+                             mgen["launches_eager"]["block_matmul"],
+                             "hybrid_forward":
+                             hfwd["launches"]["block_matmul"],
+                             "hybrid_generate":
+                             hgen["launches"]["block_matmul"],
+                             "hybrid_generate_eager":
+                             hgen["launches_eager"]["block_matmul"]},
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
-        "max_abs_err": max(worst, bwd_worst, lm_worst),
+        "max_abs_err": max(worst, bwd_worst, lm_worst, mh_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1 (the
         # kernel's with its per-call padding, of which pad_ms; wmma_ms the
         # WMMA loop's on the same operands, bit for bit the same result)
@@ -4241,6 +4840,7 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "mamba_forward_bound_ms": per_mamba("fwd", "bound_ms"),
         "mamba_forward_library_ms": per_mamba("fwd", "library_ms"),
         "mamba_decode_step_ms": per_mamba("decode", "kernel_ms"),
+        "mamba_decode_step_plain_ms": per_mamba("decode", "plain_ms"),
         "mamba_decode_step_bound_ms": per_mamba("decode", "bound_ms"),
         "mamba_decode_step_library_ms": per_mamba("decode", "library_ms"),
         # the 169 GEMMs of one h2o-danube-1.8b forward (sequence 4608, batch
@@ -4260,10 +4860,31 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "gemma3_decode_step_plain_ms": per_rows(gem_rows, "plain_ms"),
         "gemma3_decode_step_bound_ms": per_rows(gem_rows, "bound_ms"),
         "gemma3_decode_step_library_ms": per_rows(gem_rows, "library_ms"),
+        # the 21 GEMMs of one phi3.5-moe (4 layers) forward (sequence 4096,
+        # batch 2; the 4 routers in f32) and of one of its decode steps
+        # (batch 4); the 49 of one jamba (one period, 8 experts) forward
+        # (sequence 2048, batch 1) and decode step (batch 2)
+        "moe_forward_ms": per_rows(mfwd_rows, "kernel_ms"),
+        "moe_forward_plain_ms": per_rows(mfwd_rows, "plain_ms"),
+        "moe_forward_bound_ms": per_rows(mfwd_rows, "bound_ms"),
+        "moe_forward_library_ms": per_rows(mfwd_rows, "library_ms"),
+        "moe_decode_step_ms": per_rows(mgen_rows, "kernel_ms"),
+        "moe_decode_step_plain_ms": per_rows(mgen_rows, "plain_ms"),
+        "moe_decode_step_bound_ms": per_rows(mgen_rows, "bound_ms"),
+        "moe_decode_step_library_ms": per_rows(mgen_rows, "library_ms"),
+        "hybrid_forward_ms": per_rows(hfwd_rows, "kernel_ms"),
+        "hybrid_forward_plain_ms": per_rows(hfwd_rows, "plain_ms"),
+        "hybrid_forward_bound_ms": per_rows(hfwd_rows, "bound_ms"),
+        "hybrid_forward_library_ms": per_rows(hfwd_rows, "library_ms"),
+        "hybrid_decode_step_ms": per_rows(hgen_rows, "kernel_ms"),
+        "hybrid_decode_step_plain_ms": per_rows(hgen_rows, "plain_ms"),
+        "hybrid_decode_step_bound_ms": per_rows(hgen_rows, "bound_ms"),
+        "hybrid_decode_step_library_ms": per_rows(hgen_rows, "library_ms"),
         "shapes": rows,
         "shapes_bwd": bwd_rows,
         "shapes_mamba": mamba_rows,
         "shapes_dense": dfwd_rows + dgen_rows + gem_rows,
+        "shapes_moe_hybrid": mfwd_rows + mgen_rows + hfwd_rows + hgen_rows,
     }, {
         "name": "wx",
         "route": "cuda",
@@ -4324,12 +4945,20 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_chunk.py:25",
         "launches": fwd_launches["ssd_intra_chunk"]
-        + gen_launches["ssd_intra_chunk"],
+        + gen_launches["ssd_intra_chunk"]
+        + hfwd["launches"]["ssd_intra_chunk"]
+        + sum(hgen[k]["ssd_intra_chunk"]
+              for k in ("launches", "launches_eager")),
         "launches_by_path": {
             "mamba_forward": fwd_launches["ssd_intra_chunk"],
-            "mamba_generate": gen_launches["ssd_intra_chunk"]},
+            "mamba_generate": gen_launches["ssd_intra_chunk"],
+            "hybrid_forward": hfwd["launches"]["ssd_intra_chunk"],
+            "hybrid_generate": hgen["launches"]["ssd_intra_chunk"],
+            "hybrid_generate_eager":
+            hgen["launches_eager"]["ssd_intra_chunk"]},
         "max_abs_err": ssd_worst,
-        "launches_by_route": {"mamba_forward": fwd_ssd_routes},
+        "launches_by_route": {"mamba_forward": fwd_ssd_routes,
+                              "hybrid_forward": hfwd["ssd_routes"]},
         # times: the 24 launches of one mamba2-130m forward (sequence 4096,
         # batch 2) at the model's layout, the main path's entry (plain: the
         # groups arrangement and ref.ssd_intra_ref; library: the same
@@ -4348,6 +4977,12 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "groups_plain_ms": MAMBA_LAYERS * ssd_grp["plain_ms"],
         "groups_bound_ms": MAMBA_LAYERS * ssd_grp["bound_ms"],
         "groups_library_ms": MAMBA_LAYERS * ssd_grp["library_ms"],
+        # the 7 launches of one jamba forward (one period, sequence 2048,
+        # batch 1) at its SSM slots' layout (H 256, G 8, N 128, P 64)
+        "hybrid_forward_ms": n_jamba_ssd * ssd_jamba["kernel_ms"],
+        "hybrid_forward_plain_ms": n_jamba_ssd * ssd_jamba["plain_ms"],
+        "hybrid_forward_bound_ms": n_jamba_ssd * ssd_jamba["bound_ms"],
+        "hybrid_forward_library_ms": n_jamba_ssd * ssd_jamba["library_ms"],
         "shapes": ssd_rows,
     }])
     print(card, flush=True)

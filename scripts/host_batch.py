@@ -7,8 +7,12 @@ thread and on the worker pool, on one machine, in one process.
 1. ``sample_batch`` of ``weathermixer-1b``'s 728x1440x69 grid at batch 2,
    step 0, rollout horizon 1, made with one thread (each channel chunk in
    turn on the calling thread, as before the pool) and with the pool
-   (``host_workers``); the two must be equal bit for bit.  Printed: the
-   seconds of each and the pool's size.
+   (``host_workers``) three ways: as the pool first ran it (chunks of 4
+   channels and every latitude row, the noise drawn after the fields),
+   in tiles of a channel and ``TILE_BYTES`` of latitude rows with the
+   noise still after, and as it runs now (tiles, the noise drawn on the
+   pool beside the fields); all must be equal bit for bit.  Printed: the
+   seconds of each, the pool's size and the tile.
 2. Unless ``--no-train``: the full-width bf16 training run of
    ``chip_smoke.py``'s train phase (``TrainEngine``, batch 2, rollout up
    to 2, seed 0, ``--steps`` steps; needs a GPU; the kernel is built
@@ -45,26 +49,64 @@ def one_thread(fn):
         weather.host_workers = real
 
 
+class _Later:
+    """A future whose value is computed when it is asked for: the noise
+    drawn after the fields, as before it went to the pool."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def result(self):
+        return self.fn(*self.args)
+
+
+def patched(fn, chunks=False, noise_after=False):
+    """``fn()`` with the pool's first arrangement of the fields (chunks of
+    4 channels and every latitude row: ``chunks``) and the noise drawn
+    after the fields (``noise_after``)."""
+    cls = weather.WeatherDataset
+    real = weather.TILE_BYTES, cls._eval, cls._noise_async
+    if chunks:
+        weather.TILE_BYTES = 1 << 62
+        cls._eval = lambda self, *a, **kw: real[1](self, *a,
+                                                   **dict(kw, chan_chunk=4))
+    if noise_after:
+        cls._noise_async = lambda self, step, b: (
+            _Later(self._noise, step, b) if self.cfg.noise else None)
+    try:
+        return fn()
+    finally:
+        weather.TILE_BYTES, cls._eval, cls._noise_async = real
+
+
 def batches(cfg, batch):
     ds = weather.WeatherDataset(weather.WeatherDataConfig(
         lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels, seed=0))
     chunk = (weather.CHUNK_TEMPS * 8 * batch * ds.cfg.n_modes * 4
              * cfg.wm_lat * cfg.wm_lon)
+    workers = weather.host_workers(chunk)
+    runs = (("one_thread", one_thread),
+            ("pool_before", lambda f: patched(f, True, True)),
+            ("pool_tiles", lambda f: patched(f, False, True)),
+            ("pool", lambda f: f()))
     out = {}
-    for name, run in (("one_thread", one_thread), ("pool", lambda f: f())):
+    for name, run in runs:
         t0 = time.perf_counter()
         got = run(lambda: ds.sample_batch(0, batch, horizon=1))
         out[name] = (time.perf_counter() - t0, got)
-    equal = all(np.array_equal(out["one_thread"][1][k], out["pool"][1][k])
+    want = out["one_thread"][1]
+    equal = all(np.array_equal(want[k], got[k]) for _, got in out.values()
                 for k in ("fields", "target"))
     print(json.dumps(dict(
         what="sample_batch", batch=batch, grid=[cfg.wm_lat, cfg.wm_lon,
                                                cfg.wm_channels],
-        one_thread_s=out["one_thread"][0], pool_s=out["pool"][0],
-        pool_workers=weather.host_workers(chunk),
-        chunk_temp_bytes=chunk, bitwise_equal=equal)), flush=True)
+        **{f"{name}_s": t for name, (t, _) in out.items()},
+        pool_workers=workers, chunk_channels_before=4,
+        chunk_temp_bytes_before=chunk, tile_channels=1,
+        tile_temp_bytes=weather.TILE_BYTES, bitwise_equal=equal)),
+        flush=True)
     if not equal:
-        raise SystemExit("the pool's batch differs from one thread's")
+        raise SystemExit("the pool's batches differ from one thread's")
 
 
 def train(batch, steps):

@@ -1,9 +1,10 @@
 """Config registry: ``get_config(arch_id)``.
 
 The port runs the mixer family, ``mamba2-130m`` (the ssm family's forward
-and generation) and the dense and VLM transformers (forward and serving)
-so far.  The ids of the other families (moe, hybrid, audio) are listed, as
-in ``repro/configs/registry.py``, and raise until their slice of the port
+and generation), the dense, VLM and moe transformers and the hybrid
+``jamba-1.5-large-398b`` (forward and serving) so far.  The id of the
+audio family (``whisper-small``) is listed, as in
+``repro/configs/registry.py``, and raises until its slice of the port
 lands.
 """
 from __future__ import annotations
@@ -33,7 +34,8 @@ MIXER_IDS: List[str] = ["weathermixer-1b"]
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_")
                for a in ("weathermixer-1b", "mamba2-130m", "internlm2-1.8b",
                          "h2o-danube-1.8b", "stablelm-3b", "gemma3-27b",
-                         "pixtral-12b")}
+                         "pixtral-12b", "dbrx-132b", "phi3.5-moe-42b-a6.6b",
+                         "jamba-1.5-large-398b")}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -41,6 +41,12 @@ def map_with_path(fn: Callable, tree, path: tuple = ()):
     return fn(path, tree)
 
 
+def leaves_with_path(tree) -> List[tuple]:
+    """(path, leaf) for every leaf, in ``leaves`` order (``path`` as in
+    ``map_with_path``)."""
+    return leaves(map_with_path(lambda path, leaf: (path, leaf), tree))
+
+
 def unflatten(like, values):
     """A tree of ``like``'s structure holding ``values`` in leaf order."""
     it = iter(values)

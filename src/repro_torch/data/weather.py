@@ -6,18 +6,21 @@ coefficients are a pure function of (seed, sample_index, channel), so every
 grid point is an independent closed form of its indices and any
 (lat, lon, channel) slice can be generated alone.  The values are
 bit-equal to the reference's.  One change: ``_eval`` works through the
-channels a few at a time, the chunks spread over the process's pool of
-threads (numpy's ufuncs and einsum release the GIL).  The reference
-builds a [B, C, modes, lat, lon] float64 intermediate, about 4.6 GB per
-sample at the full 728x1440x69 grid; here it is [B, chunk, modes, lat,
-lon] per thread.  Each chunk writes its own channels of the output with
-the reference's arithmetic, so neither the chunk size nor the pool
-changes a bit.  A call runs at most ``host_workers`` chunks at once: the
-cores this process may use, shared among the ranks of the host
-(``LOCAL_WORLD_SIZE``), less one left to the training loop and the
-checkpoint writer, and no more than the available memory holds.  A
-``cancel`` event (the input pipeline's stop) is checked between chunks:
-the evaluation raises ``Cancelled``.
+grid in tiles of a channel and a block of latitude rows, the tiles
+spread over the process's pool of threads (numpy's ufuncs and einsum
+release the GIL).  The reference builds a [B, C, modes, lat, lon]
+float64 intermediate, about 4.6 GB per sample at the full 728x1440x69
+grid; here a tile's is about ``TILE_BYTES``, small enough that the
+allocator reuses its memory instead of faulting in fresh pages for every
+tile.  Each tile writes its own block of the output with the reference's
+arithmetic, so neither the tile nor the pool changes a bit.  A call runs
+at most ``host_workers`` tiles at once: the cores this process may use,
+shared among the ranks of the host (``LOCAL_WORLD_SIZE``), less one left
+to the training loop and the checkpoint writer, and no more than the
+available memory holds.  The target's noise (one draw of the whole
+batch's values from one stream) is drawn on the pool while the fields
+are evaluated.  A ``cancel`` event (the input pipeline's stop) is checked
+between tiles: the evaluation raises ``Cancelled``.
 
 The "forecast" target is the same field advanced by one phase step
 (advection + mild nonlinearity).
@@ -32,12 +35,14 @@ from typing import Optional
 
 import numpy as np
 
-# float64 [B, chunk, modes, lat, lon] arrays alive at once while a chunk
+# float64 [B, channels, modes, lat, lon] arrays alive at once while a tile
 # is evaluated: the two products of ``s`` and their sum
 CHUNK_TEMPS = 3
+# the temporaries of one tile: its latitude rows are as many as fit
+TILE_BYTES = 16 << 20
 # the share of the host's available memory the pool's chunks may hold
 MEM_SHARE = 0.5
-# below this many bytes of temporaries a chunk, handing chunks to threads
+# below this many bytes of temporaries a tile, handing tiles to threads
 # costs more than it saves: the caller's thread evaluates them
 POOL_MIN_CHUNK_BYTES = 8 << 20
 
@@ -125,13 +130,14 @@ class WeatherDataset:
         return amp, fla, flo, phs
 
     def _eval(self, sample_idx, lat_ix, lon_ix, chan_ix, t: float,
-              chan_chunk: int = 4,
+              chan_chunk: int = 1,
               cancel: Optional[threading.Event] = None) -> np.ndarray:
-        """Evaluate fields at time offset t on an index sub-grid, working
-        through ``chan_chunk`` channels at a time, ``host_workers`` chunks
-        at once on the field pool (on the caller's thread where a chunk is
-        too small to pay for a thread); raises ``Cancelled`` once
-        ``cancel`` is set, checked between chunks.
+        """Evaluate fields at time offset t on an index sub-grid, in tiles
+        of at most ``chan_chunk`` channels and as many latitude rows as
+        keep a tile's temporaries within ``TILE_BYTES``, ``host_workers``
+        tiles at once on the field pool (on the caller's thread where a
+        tile is too small to pay for a thread); raises ``Cancelled`` once
+        ``cancel`` is set, checked between tiles.
         Returns [B, len(lat_ix), len(lon_ix), len(chan_ix)] float32."""
         c = self.cfg
         coeffs = tuple(a[:, chan_ix] for a in self._coeffs(sample_idx))
@@ -139,12 +145,17 @@ class WeatherDataset:
         lo = 2 * np.pi * lon_ix[None, :] / c.lon      # [1, Lo]
         out = np.empty((len(sample_idx), len(lat_ix), len(lon_ix),
                         len(chan_ix)), np.float32)
+        width = max(1, min(chan_chunk, len(chan_ix)))
+        row = (CHUNK_TEMPS * 8 * len(sample_idx) * c.n_modes * width
+               * len(lon_ix))
+        rows = max(1, min(len(lat_ix), TILE_BYTES // max(row, 1)))
 
-        def chunk(c0):
-            amp, fla, flo, phs = (a[:, c0:c0 + chan_chunk] for a in coeffs)
+        def tile(c0, l0):
+            amp, fla, flo, phs = (a[:, c0:c0 + width] for a in coeffs)
             # field = sum_m amp * sin(f_la*la + f_lo*lo + phase + t)
             #   evaluated separably: sin(A+B) = sinA cosB + cosA sinB
-            arg_lat = fla[:, :, :, None] * la[None, None]     # [B, C, M, La]
+            arg_lat = (fla[:, :, :, None]
+                       * la[None, None, :, l0:l0 + rows])     # [B, C, M, La]
             arg_lon = (flo[:, :, :, None] * lo[None, None]
                        + phs[:, :, :, None] + t)              # [B, C, M, Lo]
             s = (np.sin(arg_lat)[:, :, :, :, None]
@@ -154,32 +165,32 @@ class WeatherDataset:
             f = np.einsum("bcm,bcmxy->bxyc", amp, s) / np.sqrt(c.n_modes)
             # mild nonlinearity so the map is not purely linear
             f = f + 0.1 * f ** 2
-            out[..., c0:c0 + chan_chunk] = f
+            out[:, l0:l0 + rows, :, c0:c0 + width] = f
 
-        starts = range(0, len(chan_ix), chan_chunk)
-        per = (CHUNK_TEMPS * 8 * len(sample_idx) * c.n_modes
-               * min(chan_chunk, len(chan_ix)) * len(lat_ix) * len(lon_ix))
+        tiles = [(c0, l0) for c0 in range(0, len(chan_ix), width)
+                 for l0 in range(0, len(lat_ix), rows)]
+        per = row * rows
         n = min(1 if per < POOL_MIN_CHUNK_BYTES else host_workers(per),
-                len(starts))
+                len(tiles))
         if n <= 1:
-            for c0 in starts:
+            for c0, l0 in tiles:
                 _check(cancel)
-                chunk(c0)
+                tile(c0, l0)
         else:
-            # n threads take the chunks in turn until none is left, the
-            # stop is set, or a chunk failed
-            todo = iter(starts)
+            # n threads take the tiles in turn until none is left, the
+            # stop is set, or a tile failed
+            todo = iter(tiles)
             lock, failed = threading.Lock(), threading.Event()
 
             def drain():
                 while not (failed.is_set() or
                            (cancel is not None and cancel.is_set())):
                     with lock:
-                        c0 = next(todo, None)
-                    if c0 is None:
+                        item = next(todo, None)
+                    if item is None:
                         return
                     try:
-                        chunk(c0)
+                        tile(*item)
                     except BaseException:
                         failed.set()
                         raise
@@ -200,14 +211,13 @@ class WeatherDataset:
         lat = np.arange(self.cfg.lat)
         lon = np.arange(self.cfg.lon)
         ch = np.arange(self.cfg.channels)
+        noise = self._noise_async(step, batch_size)
         x = self._eval(idx, lat, lon, ch, 0.0, cancel=cancel)
         y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase,
                        cancel=cancel)
-        if self.cfg.noise:
+        if noise is not None:
             _check(cancel)
-            r = np.random.default_rng(
-                np.random.SeedSequence([self.cfg.seed, 999, step]))
-            y = y + self.cfg.noise * r.normal(size=y.shape).astype(np.float32)
+            y = y + self.cfg.noise * noise.result()
         return {"fields": x, "target": y}
 
     def sample_fields(self, step: int, batch_size: int) -> np.ndarray:
@@ -226,6 +236,13 @@ class WeatherDataset:
         return r.normal(size=(batch_size, c.lat, c.lon, c.channels)
                         ).astype(np.float32)
 
+    def _noise_async(self, step: int, batch_size: int):
+        """``_noise`` drawn on the field pool, beside the evaluation of the
+        fields (a future; None without noise)."""
+        if not self.cfg.noise:
+            return None
+        return _field_pool().submit(self._noise, step, batch_size)
+
     def sample_index(self, step: int, batch_size: int, boxes,
                      horizon: int = 1, rows=slice(None),
                      cancel: Optional[threading.Event] = None) -> list:
@@ -238,14 +255,16 @@ class WeatherDataset:
         for all boxes, and indexed).  ``cancel``: as ``_eval``'s."""
         idx = (np.arange(batch_size, dtype=np.int64)
                + step * batch_size)[rows]
-        noise = self._noise(step, batch_size)[rows] if self.cfg.noise \
-            else None
-        _check(cancel)
+        pending = self._noise_async(step, batch_size)
+        noise = None
         out = []
         for lat, lon, ch in boxes:
             x = self._eval(idx, lat, lon, ch, 0.0, cancel=cancel)
             y = self._eval(idx, lat, lon, ch, horizon * self.cfg.dt_phase,
                            cancel=cancel)
+            if pending is not None and noise is None:
+                _check(cancel)
+                noise = pending.result()[rows]
             if noise is not None:
                 y = y + self.cfg.noise * noise[np.ix_(np.arange(len(idx)),
                                                       lat, lon, ch)]

@@ -1,10 +1,12 @@
 """Shared building blocks of the port (``repro/models/layers.py``): the
 LayerNorm and RMSNorm, the precision boundary cast, rotary embeddings,
 attention (GQA; causal, sliding-window; the decode step's KV cache), the
-feed-forward variants, the Mamba-2 mixer and the tied embedding / LM
-head.  Plain PyTorch, except where the reference calls a
-kernel: the linears (``core/api.py``) and the Mamba-2 intra-chunk term
-(``kernels/ops.py::ssd_intra``).  The reference computes attention in
+feed-forward variants, the mixture of experts (GShard top-k routing with
+capacity drops), the Mamba-2 mixer and the tied embedding / LM head.
+Plain PyTorch, except where the reference calls a kernel: the linears
+(``core/api.py``; the MoE router among them) and the Mamba-2 intra-chunk
+term (``kernels/ops.py::ssd_intra``).  The experts' products are plain
+einsums, as the reference's.  The reference computes attention in
 plain jnp, outside any Pallas kernel, so the port's is plain torch in the
 reference's order of roundings (``sdpa``).  Norms compute in f32 and cast
 back."""
@@ -320,6 +322,133 @@ def ffn_apply(params, x: torch.Tensor,
         u = linear_apply(params["up"], x, cfg)
         return linear_apply(params["down"], F.silu(g) * u, cfg)
     return mlp_apply({"fc1": params["fc1"], "fc2": params["fc2"]}, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k router, capacity-based one-hot dispatch, GShard)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             *, kind: str = "swiglu", dtype=torch.float32, device=None):
+    """The reference's tree: the f32 router [E, d_model] (no bias) and the
+    experts' stacked weights, [E, d_ff, d_model] in, [E, d_model, d_ff]
+    out, drawn in f32 from ``gen`` and cast to ``dtype``."""
+    device = gen.device if device is None else device
+    router = linear_init(gen, d_model, n_experts, dtype=torch.float32,
+                         bias=False, device=device)
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) / math.sqrt(fan_in)).to(dtype)
+    up = (n_experts, d_ff, d_model)
+    down = (n_experts, d_model, d_ff)
+    if kind == "swiglu":
+        experts = {"gate": normal(up, d_model), "up": normal(up, d_model),
+                   "down": normal(down, d_ff)}
+    elif kind == "gelu":
+        experts = {"fc1": normal(up, d_model), "fc2": normal(down, d_ff)}
+    else:
+        raise ValueError(kind)
+    return {"router": router, "experts": experts}
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last dim in x's dtype: exp(x - max),
+    then over its sum."""
+    u = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return u / u.sum(dim=-1, keepdim=True)
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: a comparison with an arange, so an index outside
+    [0, n) gives a row of zeros (``F.one_hot`` raises there)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` of two operands: both in their promoted dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def moe_route(router, xg: torch.Tensor, top_k: int, capacity: int,
+              cfg: JigsawConfig = DEFAULT_JIGSAW):
+    """The router of ``moe_apply`` on the groups xg [G, gs, D]: the f32
+    router linear (``scheme="none"``: a block_matmul launch under
+    ``kernel="pallas"``), the softmax, the top k of a stable descending
+    sort (ties to the lower index, as ``jax.lax.top_k``), the gates
+    normalised over the k, and each (token, k)'s place in its expert's
+    buffer: the exclusive cumsum over the flattened (token, k) order,
+    kept where below ``capacity``.  Returns (probs [G, gs, E], gate_vals,
+    gate_idx, pos, keep [G, gs, k]); no host read."""
+    logits = linear_apply(router, xg.float(), cfg.replace(scheme="none"))
+    probs = _softmax(logits)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :top_k], idx[..., :top_k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
+        min=1e-9)
+    g, gs, e = probs.shape
+    onehot = _one_hot(gate_idx, e, torch.int32)             # [G, gs, k, E]
+    flat = onehot.reshape(g, gs * top_k, e)
+    before = (torch.cumsum(flat, dim=1) - flat).reshape(g, gs, top_k, e)
+    pos = (before * onehot).sum(dim=-1)                     # [G, gs, k]
+    return probs, gate_vals, gate_idx, pos, pos < capacity
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25,
+              cfg: JigsawConfig = DEFAULT_JIGSAW,
+              group_size: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style grouped MoE: (output [B, S, D], aux loss).  The tokens
+    are split into groups of ``group_size`` (the last one zero-padded; its
+    pad rows are routed and count in the aux loss, as in the reference),
+    each routed on its own (``moe_route``) with capacity ``max(1,
+    int(capacity_factor * top_k * gs / E))`` a group and expert, so a
+    token past its expert's capacity is dropped (adds nothing).  The
+    dispatch and combine one-hots [G, gs, E, C] are built one k at a time
+    in x's dtype; the expert products are plain einsums, as the
+    reference's (it calls no kernel there).  The aux loss is the
+    Switch/GShard load balance over all groups."""
+    b, s, d = x.shape
+    e = params["router"]["w"].shape[0]
+    t = b * s
+    xt = x.reshape(t, d)
+    gs = min(group_size, t)
+    pad = (-t) % gs
+    if pad:
+        xt = torch.cat([xt, xt.new_zeros((pad, d))])
+    g = xt.shape[0] // gs
+    xg = xt.reshape(g, gs, d)
+    capacity = max(1, int(capacity_factor * top_k * gs / e))
+    probs, gate_vals, gate_idx, pos, keep = moe_route(
+        params["router"], xg, top_k, capacity, cfg)
+
+    me = probs.float().mean(dim=(0, 1)).to(probs.dtype)            # [E]
+    ce = _one_hot(gate_idx, e, torch.int32).sum(dim=2).float().mean(
+        dim=(0, 1))
+    aux = e * (me * ce).sum()
+
+    dispatch = x.new_zeros((g, gs, e, capacity))
+    combine = x.new_zeros((g, gs, e, capacity))
+    for kk in range(top_k):
+        term = (_one_hot(gate_idx[..., kk], e, x.dtype)[..., None]
+                * _one_hot(pos[..., kk], capacity, x.dtype)[..., None, :])
+        term = term * keep[..., kk, None, None].to(x.dtype)
+        dispatch = dispatch + term
+        combine = combine + term * gate_vals[..., kk, None, None].to(x.dtype)
+
+    xe = _einsum("gtec,gtd->gecd", dispatch, xg)                # [G, E, C, D]
+    w = params["experts"]
+    if "gate" in w:
+        gt = _einsum("gecd,efd->gecf", xe, w["gate"])
+        u = _einsum("gecd,efd->gecf", xe, w["up"])
+        ye = _einsum("gecf,edf->gecd", F.silu(gt) * u, w["down"])
+    else:
+        h = F.gelu(_einsum("gecd,efd->gecf", xe, w["fc1"]),
+                   approximate="tanh")
+        ye = _einsum("gecf,edf->gecd", h, w["fc2"])
+    yt = _einsum("gtec,gecd->gtd", combine, ye).reshape(g * gs, d)
+    return yt[:t].reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

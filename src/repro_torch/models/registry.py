@@ -1,5 +1,5 @@
 """Architecture registry: family -> model module dispatch (the mixer, ssm,
-dense and vlm families so far; moe, hybrid and audio arrive with ROADMAP.md
+dense, vlm, moe and hybrid families so far; audio arrives with ROADMAP.md
 queue 1 item 14)."""
 from __future__ import annotations
 
@@ -7,10 +7,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import JigsawConfig
-from repro_torch.models import mamba, transformer, weathermixer
+from repro_torch.models import hybrid, mamba, transformer, weathermixer
 
 _FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba, "dense": transformer,
-                  "vlm": transformer}
+                  "vlm": transformer, "moe": transformer, "hybrid": hybrid}
 
 
 def module_for(cfg: ModelConfig):
@@ -47,8 +47,8 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
                   max_len: int, dtype=torch.bfloat16):
     """Fused prefill: one teacher-forced forward that also fills the cache.
     Families without one raise NotImplementedError, and ``serve/step.py``
-    then prefills token by token (the ssm family has none, as in the
-    reference; the transformer's raises for local:global stacks)."""
+    then prefills token by token (the ssm and hybrid families have none, as
+    in the reference; the transformer's raises for local:global stacks)."""
     mod = module_for(cfg)
     if not hasattr(mod, "prefill_cache"):
         raise NotImplementedError(

@@ -1,10 +1,10 @@
-"""The decoder-only transformer LM: the dense and VLM families
+"""The decoder-only transformer LM: the dense, VLM and moe families
 (``internlm2-1.8b``, ``h2o-danube-1.8b``, ``stablelm-3b``, ``gemma3-27b``,
-``pixtral-12b``).
+``pixtral-12b``, ``dbrx-132b``, ``phi3.5-moe-42b-a6.6b``).
 
 The port of ``repro/models/transformer.py``: token embedding (after the
 VLM's patch embeddings, when given) -> n_layers of (norm, attention,
-residual, norm, FFN, residual) -> final norm -> the LM head (tied, or its
+residual, norm, FFN or MoE, residual) -> final norm -> the LM head (tied, or its
 own ``lm_head``).  Parameters are a dict of tensors as in the reference,
 except that ``params["layers"]`` is a list with one dict per layer where
 the reference stacks the layers on a leading dim for ``lax.scan``
@@ -17,11 +17,15 @@ from one teacher-forced forward (uniform stacks), and ``decode_step``
 takes one token per row, writing the cache in place with every slot and
 mask computed on the device from ``cache["pos"]``, so ``serve/step.py``
 can capture it in a CUDA graph.  Under ``kernel="pallas"`` every linear
-(q, k, v, o, the FFN's, the head) is a block_matmul launch.
+(q, k, v, o, the FFN's or the MoE router, the head) is a block_matmul
+launch; the experts' products are plain einsums, as the reference's.  A
+MoE layer routes with ``cfg.capacity_factor`` in ``apply`` and
+``prefill_cache`` (tokens past an expert's capacity are dropped) and
+with ``n_experts`` in ``decode_step`` (the reference's rule: a decode
+step never drops), and ``apply`` returns the sum of their aux losses.
 
-Not ported here: the ``moe`` family's layers (``moe_apply``; ROADMAP.md
-queue 1 item 14) and the reference's ``_kv_spec`` (the cache's layout on
-a mesh: the port's LM path runs on one device).
+Not ported here: the reference's ``_kv_spec`` (the cache's layout on a
+mesh: the port's LM path runs on one device).
 """
 from __future__ import annotations
 
@@ -48,12 +52,6 @@ def _norm_apply(cfg: ModelConfig, p, x):
             else L.rmsnorm_apply(p, x))
 
 
-def _moe_refused(cfg: ModelConfig):
-    return NotImplementedError(
-        f"{cfg.arch_id}: the moe layers are not ported yet (ROADMAP.md, "
-        "queue 1 item 14: model zoo)")
-
-
 def layer_init(gen: torch.Generator, cfg: ModelConfig, device):
     """One decoder layer's params: the reference's tree."""
     dtype = dtype_of(cfg.param_dtype)
@@ -67,10 +65,12 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, device):
     if cfg.qk_norm:
         p["qk_norm"] = {"q": L.rmsnorm_init(cfg.d_head, device=device),
                         "k": L.rmsnorm_init(cfg.d_head, device=device)}
-    if cfg.is_moe_layer(0):
-        raise _moe_refused(cfg)
-    p["ffn"] = L.ffn_init(gen, cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind,
-                          dtype=dtype, device=device)
+    if cfg.is_moe_layer(0):      # the uniform-MoE stacks (dbrx, phi3.5)
+        p["moe"] = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                              kind=cfg.ffn_kind, dtype=dtype, device=device)
+    else:
+        p["ffn"] = L.ffn_init(gen, cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind,
+                              dtype=dtype, device=device)
     return p
 
 
@@ -105,8 +105,10 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
-                 window: int, kv_cache=None, rolling=False, collect_kv=False):
-    """One decoder layer: (x, the layer's new cache or collected k/v)."""
+                 window: int, kv_cache=None, rolling=False, collect_kv=False,
+                 aux_in=0.0):
+    """One decoder layer: (x, the layer's new cache or collected k/v, the
+    aux loss ``aux_in`` plus the MoE layer's)."""
     h = _norm_apply(cfg, lp["attn_norm"], x)
     attn_out, new_cache = L.attention_apply(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -117,9 +119,14 @@ def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
     x = x + attn_out
     h = _norm_apply(cfg, lp["ffn_norm"], x)
     if "moe" in lp:
-        raise _moe_refused(cfg)
-    x = x + L.ffn_apply(lp["ffn"], h, jcfg)
-    return x, new_cache
+        # decode: a few tokens in flight; never drop (capacity >= tokens)
+        cf = cfg.capacity_factor if kv_cache is None else float(cfg.n_experts)
+        out, aux = L.moe_apply(lp["moe"], h, top_k=cfg.top_k,
+                               capacity_factor=cf, cfg=jcfg)
+        aux_in = aux_in + aux
+    else:
+        out = L.ffn_apply(lp["ffn"], h, jcfg)
+    return x + out, new_cache, aux_in
 
 
 def _head(params, x, cfg: ModelConfig, jcfg: JigsawConfig):
@@ -135,17 +142,18 @@ def apply(params, batch, cfg: ModelConfig,
     """The teacher-forced forward.  batch: {"tokens": [B, S]} (and, for
     the VLM, "embeds": [B, P, D], the vision frontend's patch embeddings,
     put before the text).  Returns the logits [B, P + S, vocab_padded] and
-    the reference's aux loss (0: no MoE layer).  ``cfg.remat`` does not
-    apply: the port runs this family forward only."""
+    the reference's aux loss (f32: the MoE layers' sum, 0 without them).
+    ``cfg.remat`` does not apply: the port runs this family forward
+    only."""
     x = L.embed_apply(params["embed"], batch["tokens"])
     if batch.get("embeds") is not None:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, w in zip(params["layers"], layer_windows(cfg)):
-        x, _ = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg, positions=positions,
-                            window=w)
-    logits = _head(params, x, cfg, jcfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, aux = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg,
+                                 positions=positions, window=w, aux_in=aux)
+    return _head(params, x, cfg, jcfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +233,9 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     x = L.embed_apply(params["embed"], tokens)
     positions = torch.arange(s, device=x.device)
     for i, (lp, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
-        x, kv = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg, positions=positions,
-                             window=w, collect_kv=True)
+        x, kv, _ = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg,
+                                positions=positions, window=w,
+                                collect_kv=True)
         cache["k"][i][:, slots] = kv["k"][:, s - m:].to(dtype)
         cache["v"][i][:, slots] = kv["v"][:, s - m:].to(dtype)
     cache["pos"].fill_(s)
@@ -246,10 +255,10 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     positions = pos[:, None]
 
     def run(lp, h, window, kc, vc, rolling):
-        h, _ = _layer_apply(lp, h, cfg=cfg, jcfg=jcfg, positions=positions,
-                            window=window,
-                            kv_cache={"k": kc, "v": vc, "pos": pos},
-                            rolling=rolling)
+        h, _, _ = _layer_apply(lp, h, cfg=cfg, jcfg=jcfg,
+                               positions=positions, window=window,
+                               kv_cache={"k": kc, "v": vc, "pos": pos},
+                               rolling=rolling)
         return h
 
     layers = params["layers"]

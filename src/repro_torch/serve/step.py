@@ -7,16 +7,17 @@ the prompt through ``prefill`` and then ``steps - 1`` decode steps.
 ``jit_serve_step``: one captured CUDA graph of the decode step per (cfg,
 jcfg, cache layout) and weights, whose static buffers are the token in,
 the token out and a cache shaped as the one it is given (the KV cache of
-the transformer family, uniform, rolling or local:global, or the ssm
-family's state; ``kernels/graphs.py::CountedGraph``: the kernels' launch
+the transformer family, uniform, rolling or local:global, the ssm
+family's state, or the hybrid's nested per-slot buffers: any tree of
+tensors; ``kernels/graphs.py::CountedGraph``: the kernels' launch
 counters count its replays).  On the card ``generate`` replays it for
 every decode step (``graph=None``); ``graph=False`` keeps the eager loop,
 the comparison.  The prompt goes through the family's fused prefill (one
 teacher-forced forward that fills the cache:
 ``models/transformer.py::prefill_cache``) where it has one, and token by
 token through the same decode step where the fused prefill raises
-NotImplementedError (the ssm family, local:global stacks: as in the
-reference); on the card those steps are replays too.  Each step writes
+NotImplementedError (the ssm and hybrid families, local:global stacks:
+as in the reference); on the card those steps are replays too.  Each step writes
 the model's cache in place (``decode_step``), which stands in for the
 reference's buffer donation, and keeps the output tokens on the device
 until one concatenate at the end.  Nothing here needs autograd:
@@ -28,7 +29,7 @@ CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -96,17 +97,17 @@ def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
 class GraphedStep:
     """One decode step captured in a CUDA graph on static buffers:
     ``tokens_in`` [B, 1] int32, ``tokens_out`` [B, 1] int32 and ``cache``
-    (zeros shaped and typed as the ``cache`` given, which the step writes
-    in place).  ``load`` copies a cache of that layout in; each
-    ``replay`` reads ``tokens_in`` and ``cache`` and writes the next
-    tokens and the cache."""
+    (a tree of zeros shaped and typed as the ``cache`` given, flat or
+    nested, which the step writes in place).  ``load`` copies a cache of
+    that layout in; each ``replay`` reads ``tokens_in`` and ``cache`` and
+    writes the next tokens and the cache."""
 
     def __init__(self, params, cfg: ModelConfig, jcfg: JigsawConfig,
-                 cache: Dict[str, torch.Tensor]):
+                 cache: Dict[str, Any]):
         # the graph reads these tensors where they lie: hold them
         self.params = params
         self.ptrs = _leaf_ptrs(params)
-        self.cache = {k: torch.zeros_like(v) for k, v in cache.items()}
+        self.cache = ptree.map(torch.zeros_like, cache)
         device = cache["pos"].device
         self.tokens_in = torch.zeros((cache["pos"].shape[0], 1),
                                      dtype=torch.int32, device=device)
@@ -123,11 +124,10 @@ class GraphedStep:
         self.graph = CountedGraph()
         self.tokens_out = self.graph.capture(body)
 
-    def load(self, cache: Dict[str, torch.Tensor]) -> None:
+    def load(self, cache: Dict[str, Any]) -> None:
         """Copy ``cache`` (the layout it was captured on) into the static
-        one."""
-        for k, v in self.cache.items():
-            v.copy_(cache[k])
+        one, leaf by leaf."""
+        ptree.map(lambda dst, src: dst.copy_(src), self.cache, cache)
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
@@ -141,6 +141,13 @@ def _leaf_ptrs(params) -> tuple:
     return tuple(t.data_ptr() for t in ptree.leaves(params))
 
 
+def cache_layout(cache: Dict[str, Any]) -> tuple:
+    """A cache's layout: (name, shape, dtype) of every leaf, where the name
+    is a flat cache's key and a nested cache's path of keys."""
+    return tuple((path[0] if len(path) == 1 else path, tuple(v.shape),
+                  v.dtype) for path, v in ptree.leaves_with_path(cache))
+
+
 def _check_cuda(t: torch.Tensor, msg: str) -> None:
     """The graphed paths run on the card: ValueError(msg) elsewhere."""
     if t.device.type != "cuda":
@@ -148,18 +155,17 @@ def _check_cuda(t: torch.Tensor, msg: str) -> None:
 
 
 def graph_serve_step(params, cfg: ModelConfig, jcfg: JigsawConfig,
-                     cache: Dict[str, torch.Tensor]) -> GraphedStep:
+                     cache: Dict[str, Any]) -> GraphedStep:
     """The captured decode step for ``cache``'s layout, with ``cache``
     loaded into its static cache.  One per (cfg, jcfg, cache layout,
-    device), captured at first use, where the layout is every leaf's name,
-    shape and dtype: the batch, the cache dtype and, where it shapes the
-    cache, max_len.  Weights other than those it was captured with (other
+    device), captured at first use, where the layout is every leaf's name
+    (a nested cache's path), shape and dtype (``cache_layout``): the
+    batch, the cache dtype and, where it shapes the cache, max_len.  Weights other than those it was captured with (other
     tensors) capture it anew in its place.  The steps hold their weights:
     ``clear_graphs()`` lets them go.  A capture that fails raises."""
     pos = cache["pos"]
     _check_cuda(pos, "graph_serve_step needs a cache on cuda")
-    layout = tuple((k, tuple(v.shape), v.dtype) for k, v in cache.items())
-    key = (cfg, jcfg, layout, pos.device)
+    key = (cfg, jcfg, cache_layout(cache), pos.device)
     g = _GRAPHS.get(key)
     if g is None or g.ptrs != _leaf_ptrs(params):
         _GRAPHS.pop(key, None)

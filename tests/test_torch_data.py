@@ -1,10 +1,11 @@
 """The port's copy of the synthetic weather data against the reference's.
 
-The copy evaluates a few channels at a time (the reference's intermediate
-is ~4.6 GB per sample at the full grid), the chunks on a pool of threads;
-the values must stay bit-equal, whatever the chunk and the pool.  The
-tests below set the number of chunks run at once (``host_workers``) and
-let chunks of these small grids go to the pool (``POOL_MIN_CHUNK_BYTES``).
+The copy evaluates tiles of a few channels and latitude rows at a time
+(the reference's intermediate is ~4.6 GB per sample at the full grid),
+the tiles on a pool of threads; the values must stay bit-equal, whatever
+the tile and the pool.  The tests below set the number of tiles run at
+once (``host_workers``), let tiles of these small grids go to the pool
+(``POOL_MIN_CHUNK_BYTES``) and cut their latitude rows (``TILE_BYTES``).
 """
 import os
 import threading
@@ -77,6 +78,29 @@ def test_pool_is_bit_equal_to_reference(monkeypatch, workers, chunk):
     got = ds.sample_batch(2, 3, horizon=2)
     for k in ("fields", "target"):
         assert np.array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("rows", [1, 3, 7])
+def test_latitude_tiles_are_bit_equal_to_reference(monkeypatch, rows):
+    """Tiles of ``rows`` latitude rows (``TILE_BYTES`` set so), one or two
+    channels, on the pool and on one thread: the reference's ``_eval``
+    and ``sample_batch`` bit for bit, a ragged last block of rows too."""
+    kw = dict(lat=16, lon=32, channels=5, seed=6)
+    ref = RefDataset(RefConfig(**kw))
+    ds = WeatherDataset(WeatherDataConfig(**kw))
+    idx, lat, lon, ch = (np.arange(2) + 3, np.arange(16), np.arange(32),
+                         np.arange(5))
+    want = ref._eval(idx, lat, lon, ch, 0.4)
+    for workers in (1, 3):
+        _workers(monkeypatch, workers)
+        for width in (1, 2):
+            row = weather.CHUNK_TEMPS * 8 * 2 * ds.cfg.n_modes * width * 32
+            monkeypatch.setattr(weather, "TILE_BYTES", rows * row)
+            assert np.array_equal(
+                ds._eval(idx, lat, lon, ch, 0.4, chan_chunk=width), want)
+        got = ds.sample_batch(1, 2, horizon=3)
+        for k, v in ref.sample_batch(1, 2, horizon=3).items():
+            assert np.array_equal(got[k], v)
 
 
 def test_host_workers_share_cores_and_memory(monkeypatch):

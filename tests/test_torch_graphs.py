@@ -9,16 +9,19 @@
   ``serve.step``'s captured decode step give the eager engine's and
   decode loop's outputs bit for bit, with no capture after ``warmup()``.
 * ``generate``'s graphed path on the CPU with the stand-in graph, for the
-  ssm family (its token-wise prefill replays the captured step) and the
+  ssm family (its token-wise prefill replays the captured step), the
   transformer family's uniform, rolling and local:global caches (the
-  fused prefill, or the token-wise one where it raises): the tokens of
-  the eager loop bit for bit, one capture per cache layout.
+  fused prefill, or the token-wise one where it raises), the moe family's
+  and the hybrid's nested per-slot cache: the tokens of the eager loop
+  bit for bit, one capture per cache layout; ``cache_layout``'s key of a
+  flat cache as it was, and of a nested one by path.
 * ``models/mamba.py::init_cache`` makes the conv window in the dtype the
   decode step writes, and the eager decode's logits and tokens are those
   of the step before that change (the window promoted at the first step).
 * On the card (marked ``cuda``; skips here): graphed against eager for
-  both steps and for the transformer's decode on each kind of KV cache,
-  bit for bit, the launches counted by replay.
+  both steps, for the transformer's decode on each kind of KV cache and
+  for the hybrid's nested cache, bit for bit, the launches counted by
+  replay.
 """
 import collections
 from contextlib import contextmanager
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core import tree as ptree
 from repro_torch.kernels import block_matmul as BM
 from repro_torch.kernels import graphs as G
 from repro_torch.kernels import ssd_chunk as SSD
@@ -311,6 +315,14 @@ GEN_CASES = {"ssm": ("mamba2-130m", {}, False),
              "uniform": ("internlm2-1.8b", {}, True),
              "rolling": ("h2o-danube-1.8b", {"sliding_window": 6}, True),
              "period": ("gemma3-27b", {"n_layers": 8, "local_window": 5},
+                        False),
+             # the moe family (a KV cache; MoE layers routing the batch's
+             # tokens with capacity n_experts in decode), and the hybrid's
+             # nested cache (two periods of SSM + dense, SSM + MoE,
+             # attention + dense, SSM + MoE)
+             "moe": ("phi3.5-moe-42b-a6.6b", {}, True),
+             "hybrid": ("jamba-1.5-large-398b",
+                        {"attn_every": 4, "attn_offset": 2, "n_layers": 8},
                         False)}
 
 
@@ -373,6 +385,47 @@ def test_graph_key_follows_the_cache_layout(monkeypatch):
                 assert g.cache[k] is not v and torch.equal(g.cache[k], v)
         assert len(S._GRAPHS) == n_graphs, case
         S.clear_graphs()
+
+
+def test_cache_layout_key_of_a_flat_cache_is_unchanged():
+    """A flat cache's layout key is (key, shape, dtype) per leaf, as it
+    was before nested caches; a nested cache's names are paths of keys."""
+    flat = {"pos": torch.zeros(2, dtype=torch.int32),
+            "k": torch.zeros((3, 2, 4, 1, 8)),
+            "v": torch.zeros((3, 2, 4, 1, 8), dtype=torch.bfloat16)}
+    assert S.cache_layout(flat) == tuple(
+        (k, tuple(v.shape), v.dtype) for k, v in flat.items())
+    nested = {"pos": flat["pos"], "slots": {"slot0": {"k": flat["k"]},
+                                            "slot1": {"v": flat["v"]}}}
+    assert S.cache_layout(nested) == (
+        ("pos", (2,), torch.int32),
+        (("slots", "slot0", "k"), (3, 2, 4, 1, 8), torch.float32),
+        (("slots", "slot1", "v"), (3, 2, 4, 1, 8), torch.bfloat16))
+
+
+def test_nested_cache_graph_key_and_load(monkeypatch):
+    """The hybrid's nested cache: one capture per layout (its attention
+    slots' buffers follow max_len and the dtype), a static cache of the
+    same tree, zeros until ``load`` copies the given one in leaf by
+    leaf."""
+    monkeypatch.setattr(S, "CountedGraph", StandInGraph)
+    monkeypatch.setattr(S, "_check_cuda", lambda t, msg: None)
+    S.clear_graphs()
+    cfg, jcfg, params, _ = _lm("hybrid")
+    for max_len, dtype in ((8, torch.bfloat16), (12, torch.bfloat16),
+                           (12, torch.float32), (12, torch.float32)):
+        cache = M.init_cache(cfg, 2, max_len, dtype=dtype, device="cpu")
+        for i, leaf in enumerate(ptree.leaves(cache)):
+            leaf.fill_(i % 3)
+        g = S.graph_serve_step(params, cfg, jcfg, cache)
+        mine = ptree.leaves_with_path(g.cache)
+        assert [p for p, _ in mine] == [p for p, _ in
+                                        ptree.leaves_with_path(cache)]
+        for (_, a), b in zip(mine, ptree.leaves(cache)):
+            assert a is not b and torch.equal(a, b)
+            assert (a.shape, a.dtype) == (b.shape, b.dtype)
+    assert len(S._GRAPHS) == 3
+    S.clear_graphs()
 
 
 @pytest.fixture
@@ -455,3 +508,33 @@ def test_graphed_transformer_decode_on_card(cuda):
                                            steps=6, max_len=16,
                                            graph=False)), case
         S.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_graphed_hybrid_decode_on_card(cuda):
+    """On the card, ``kernel="pallas"``: ``generate`` through the captured
+    decode step on the hybrid's nested cache (a token-wise prefill, every
+    prompt step a replay) against the eager loop, bit for bit, one
+    capture; block_matmul launches a step counted by replay (4 a slot for
+    its mixer, 3 for a dense FFN, 1 for a MoE's router; the head), no ssd
+    launch in decode."""
+    arch, over, _ = GEN_CASES["hybrid"]
+    cfg = get_config(arch).reduced().replace(kernel="pallas", **over)
+    jcfg = jigsaw_for(cfg)
+    params = M.init(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, 1000, (2, 7), dtype=torch.int32,
+                            device="cuda")
+    S.clear_graphs()
+    S.graph_serve_step(params, cfg, jcfg, M.init_cache(
+        cfg, 2, 16, dtype=torch.bfloat16, device="cuda"))
+    per_step = sum(4 + (1 if cfg.is_moe_layer(j) else 3)
+                   for j in range(cfg.attn_every)) * (
+        cfg.n_layers // cfg.attn_every) + 1
+    BM.block_matmul.launches = SSD.ssd_intra_chunk.launches = 0
+    out = S.generate(params, prompts, cfg, jcfg, steps=6, max_len=16)
+    assert BM.block_matmul.launches == (7 + 5) * per_step
+    assert SSD.ssd_intra_chunk.launches == 0
+    assert len(S._GRAPHS) == 1
+    assert torch.equal(out, S.generate(params, prompts, cfg, jcfg, steps=6,
+                                       max_len=16, graph=False))
+    S.clear_graphs()

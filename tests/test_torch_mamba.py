@@ -89,7 +89,7 @@ def test_config_matches_reference():
 
 def test_other_lm_families_still_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
-        get_config("dbrx-132b")
+        get_config("whisper-small")
     from repro_torch.train.step import loss_fn
     with pytest.raises(NotImplementedError, match="item 14"):
         loss_fn(None, {}, get_config("mamba2-130m").reduced(), None)

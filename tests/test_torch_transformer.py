@@ -42,8 +42,10 @@ from repro.launch import shapes as RSH
 from repro.models import layers as RL
 from repro.models import registry as RM
 from repro.serve import step as RS
-from repro_torch.configs import (gemma3_27b, h2o_danube_1_8b, internlm2_1_8b,
-                                 pixtral_12b, stablelm_3b)
+from repro_torch.configs import (dbrx_132b, gemma3_27b, h2o_danube_1_8b,
+                                 internlm2_1_8b, jamba_1_5_large_398b,
+                                 phi3_5_moe_42b_a6_6b, pixtral_12b,
+                                 stablelm_3b)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
@@ -52,7 +54,6 @@ from repro_torch.kernels import block_matmul as BM
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import layers as L
 from repro_torch.models import registry as M
-from repro_torch.models import transformer as T
 from repro_torch.serve import step as S
 
 OP_TOL = 1e-5
@@ -61,9 +62,10 @@ DECODE_TOL = 5e-3
 
 PORTED = {"internlm2-1.8b": internlm2_1_8b, "h2o-danube-1.8b": h2o_danube_1_8b,
           "stablelm-3b": stablelm_3b, "gemma3-27b": gemma3_27b,
-          "pixtral-12b": pixtral_12b}
-REFUSED = ["dbrx-132b", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b",
-           "whisper-small"]
+          "pixtral-12b": pixtral_12b, "dbrx-132b": dbrx_132b,
+          "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b,
+          "jamba-1.5-large-398b": jamba_1_5_large_398b}
+REFUSED = ["whisper-small"]
 
 # the reduced configs the model tests run, by the cache each decodes on:
 # (arch, overrides)
@@ -170,15 +172,6 @@ def test_unported_ids_still_raise(arch):
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch).reduced()))
     with pytest.raises(NotImplementedError, match="item 14"):
         M.init(cfg, device="cpu")
-
-
-def test_moe_layers_raise():
-    """A dense config with experts: the moe branch is refused, naming the
-    item."""
-    cfg = get_config("internlm2-1.8b").reduced().replace(n_experts=4,
-                                                         top_k=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.init(cfg, device="cpu")
 
 
 def test_init_tree_matches_reference():

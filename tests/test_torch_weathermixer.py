@@ -99,7 +99,7 @@ def test_configs_match_reference():
 def test_registry_raises_for_unported_families():
     assert get_config("weathermixer-1b") == wm_cfg.CONFIG
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("dbrx-132b")
+        get_config("whisper-small")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
