@@ -6,13 +6,16 @@
 from the root of a checkout.  It builds the port's kernels from the sources
 in ``src/repro_torch/kernels/csrc`` and drives the port's main paths at
 ``weathermixer-1b``'s, ``mamba2-130m``'s, ``h2o-danube-1.8b``'s,
-``gemma3-27b``'s, ``phi3.5-moe-42b-a6.6b``'s and
-``jamba-1.5-large-398b``'s full published widths (gemma3 and phi3.5 cut
-in depth, jamba to one period and half its experts), through the entry
-points a user calls: the Mamba-2 forward and greedy generation, the dense
-transformer's forward and generation (fused prefill, graphed decode on
-rolling and local:global KV caches), the MoE transformer's and the
-hybrid's forward and generation,
+``gemma3-27b``'s, ``phi3.5-moe-42b-a6.6b``'s,
+``jamba-1.5-large-398b``'s and ``whisper-small``'s full published widths
+(gemma3 and phi3.5 cut in depth, jamba to one period and half its
+experts), through the entry points a user calls: the Mamba-2 forward and
+greedy generation, the dense transformer's forward and generation (fused
+prefill, graphed decode on rolling and local:global KV caches), the MoE
+transformer's and the hybrid's forward and generation, whisper's
+encoder-decoder forward and generation, language-model training
+(``TrainEngine`` on token batches: h2o-danube-1.8b and whisper-small whole,
+phi3.5-moe cut in depth),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -127,8 +130,8 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      beside the plain steps, torch.baddbmm per step and the bound, each
      row with the operands' load paths, the kernel's registers, local and
      shared bytes, tiles and waves; then q = 3 at a small size;
-  9. full-width training (``TrainEngine``, bf16 policy, batch 2, rollout
-     up to 2): the first step's loss, grad norm and per-leaf gradients
+  9. full-width training (``TrainEngine``, bf16 policy, batch 2, two
+     steps at rollouts 1 and 2): the first step's loss, grad norm and per-leaf gradients
      against the same step with ``kernel="xla"``; on the same weights and
      batch, one 2-D (``scheme="2d"``, the 1x1 mesh) forward and backward,
      with its 18 r wx and 5 + 30 r block_matmul launches, every dx launch
@@ -160,33 +163,37 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      the H100's datasheet peaks), ``trace_report``'s ``--check`` passing
      on the run's JSONL and its verdict, the cost model's FLOPs per
      sample-step beside this file's floor count; then a second run of the
-     same seed saving ``ck-1``,
-     ``ck-2`` and ``ck`` under the async writer, whose loss, grad-norm and
-     lr history must equal the first's bit for bit, and a fresh
-     ``TrainEngine(resume=ck-1)`` (step 2, cursor 2) whose one step (5 +
-     54 r block_matmul launches) equals both runs' step 2 bit for bit and
-     whose final params and optimizer state are ``ck``'s bit for bit (ckpt
-     part (a)); the ``ckpt`` line prints the bytes a save, the loop's
-     ``ckpt_submit`` seconds, the background write's seconds and GB/s, the
-     restore seconds, the run's step spans (none starts with a write
-     under way: each write ends inside the next batch's making), one
+     same seed with the chaos hook after step 0 (``preempt_at_step=0``:
+     a final synchronous save ``ck-0``, then ``Preempted``), whose step-0
+     loss, grad norm and lr must equal the first run's bit for bit, and a
+     fresh ``TrainEngine(resume=ck-0)`` (step 1, cursor 1) whose one step
+     (5 + 54 r block_matmul launches) equals the first run's step 1 bit
+     for bit and whose final params and optimizer state are the first
+     run's bit for bit (``bit_fingerprint``; ckpt part (a)); the ``ckpt``
+     line prints the bytes a save, the final save's submit and write
+     seconds and GB/s, the resumed engine's construction seconds (the
+     restore included), one
      step's synchronised wall time on the first batch without and with an
      async save of the first run's engine in flight
-     (``steps_beside_a_write``), and the card.  The checkpoint directories live under
+     (``steps_beside_a_write``; that checkpoint, written while the steps
+     update the state in place, is then restored to the card, timed by
+     itself, and must hold the state at the save bit for bit), and the
+     card.  The checkpoint directories
+     live under
      ``out/chip_smoke_ckpt`` (free disk checked first: too little fails)
      and are removed when each part ends;
   9a. ``preempt``, the resilience path, with the train phase's engines
      freed: ``resilience.Supervisor`` runs the training CLI
      (``repro_torch.launch.train.main``: ``--full --precision bf16``, the
-     train phase's seed 0, batch 2, rollout up to 2, lr 1e-4 and 3 steps,
+     train phase's seed 0, batch 2, rollout up to 2, lr 1e-4 and 2 steps,
      ``--ckpt``) as child processes, this file re-run with
      ``--preempt-child`` so each reports its launches and its tracer's
      events, under ``REPRO_PREEMPT_AT_STEP=0``: child 0 signals itself
      after step 0, takes a final synchronous save at ``ck-0`` and exits
      75; the supervisor relaunches at once with ``--resume ck-0``; child
-     1 runs steps 1 and 2 and saves ``ck``.  Checks: attempts [75, 0],
+     1 runs step 1 and saves ``ck``.  Checks: attempts [75, 0],
      resumes [None, ck-0], no backoff, the children's logged steps [0]
-     and [1, 2], their (loss, lr, grad_norm) the train phase's history
+     and [1], their (loss, lr, grad_norm) the train phase's history
      bit for bit, ``ck-0`` complete and outranked by ``ck``, 5 + 54 r
      block_matmul launches per step in each child; printed: the bytes a
      save, the final save's seconds, the seconds from the signal to child
@@ -195,8 +202,8 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
   9b. the data axis, with this process's engines freed, each phase this
      file re-run as rank processes sharing the card (``--train-data-rank``)
      on the train phase's weights (seed 0) and first batch of two, each
-     rank reading its one row (``pipeline="sharded"``), two ``dispatch``
-     steps at r = 1 in each of two runs in the same processes:
+     rank reading its one row (``pipeline="sharded"``), one ``dispatch``
+     step at r = 1 in each of two runs in the same processes:
      ``train_data_2d``, ``TrainEngine(mesh_model=1, mesh_data=2,
      scheme="2d")`` at full width and depth, without ZeRO-1 and then with
      it: the paper's headline layout (data-parallel copies of a model
@@ -291,7 +298,45 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      tokens equal, 49 launches a step and no ssd launch (by replay); the
      step's times and bound as in 14; block_matmul at the forward's and
      the step's shapes;
-  16. the ``kernels`` line, the card's name and power limit, and the last
+  16. ``audio_forward``: ``whisper-small`` whole (12 encoder and 12
+     decoder layers, random bf16 weights from seed 0) at batch 4 x 1,500
+     frames x 448 decoder tokens: 193 block_matmul launches (6 an encoder
+     layer, 10 a decoder layer, the head), all on the Hopper loop, logits
+     finite, ms and tokens/s beside the FLOP floor, the encoder's ms; on
+     the same weights in f32, ``kernel="pallas"`` against ``"xla"`` and
+     the bf16 logits against the f32 ones, each as a share of the mean
+     magnitude; block_matmul at the forward's shapes;
+  17. ``audio_generate``: ``generate`` on the same weights at batch 4 from
+     4-token prompts with the frames as ``extra_batch``, 64 new tokens:
+     the encoder once, the prompt token by token through the captured
+     step (whose static cache takes the encoder's states), then the
+     decode steps; graphed then eager: the tokens equal, 121 launches a
+     step by replay and 72 for the encoder; in f32 the token-wise logits
+     along prompt + output against the teacher-forced forward; a decode
+     step's device and host ms, graphed and eager, against its bytes
+     bound (the cross k and v recomputed from the encoder's 6,000 rows
+     every step, as the reference's), and the encoder's ms apart;
+  18. ``lm_train``: ``TrainEngine("h2o-danube-1.8b", reduced=False)``
+     whole under the bf16 policy with remat, batch 2 x 1,024 tokens of
+     ``TokenBatchSource`` rows, four steps: step 0's loss, grad norm and
+     every leaf's gradient against ``kernel="xla"`` on the same weights
+     and batch (``LM_TRAIN_TOL``, the leaves ``LM_LEAF_TOL``), beside
+     the noise floor (kernel="xla" with the input embedding one bf16
+     step off) and the same step with the LM head zeroed as the control
+     those bounds must refuse; the
+     run's block_matmul launches by layout (forward and recompute, dx,
+     dw: 675 a step), losses finite, the weights moved, every step
+     record's ``mfu``, ms a step and tokens/s with ``data_wait`` apart,
+     the peak memory; block_matmul at the step's shapes in its three
+     layouts;
+  19. ``audio_train``: whisper-small whole, two steps at batch 2 x 448
+     tokens with its frames (795 launches a step, the GELU recomputes
+     among them); ``moe_train``: ``phi3.5-moe-42b-a6.6b`` at its published
+     width cut from 32 layers to 2 (all 16 experts), one step at batch 2
+     x 1,024 under the config's own dtypes, its router on block_matmul's
+     f32 route forward and in its VJP (4 launches a layer), ``aux`` in
+     the metrics; for each, the checks of 18;
+  20. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
 Every phase line carries ``elapsed_s``, the seconds since the start.
@@ -384,7 +429,7 @@ PEAK_BYTES = 3.35e12                                   # HBM3, bytes/s
 GEMM_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 STEP_TOL = {"bf16": 5e-2, "legacy": 1e-4}
 TRAIN_TOL = 5e-2
-TRAIN_STEPS = 3           # seed 0's rollout schedule: r = 1, 2, 2
+TRAIN_STEPS = 2           # seed 0's rollout schedule: r = 1, 2
 TRAIN_BATCH = 2
 TRAIN_ROLLOUT = 2
 PEAK_MEM_LIMIT = 80e9
@@ -2296,6 +2341,31 @@ def leaf_rel_err(torch, got, want):
                for a, b in zip(ptree.leaves(got), ptree.leaves(want)))
 
 
+def leaf_errs(torch, got, want):
+    """The worst leaf of ``got`` against ``want`` by two measures, each
+    with its path: the largest difference over the largest magnitude (as
+    ``leaf_rel_err``), and the difference's norm over the leaf's norm."""
+    from repro_torch.core import tree as ptree
+    worst = {"max_leaf_rel_err": (0.0, None),
+             "max_leaf_norm_err": (0.0, None)}
+    for (path, a), b in zip(ptree.leaves_with_path(got),
+                            ptree.leaves(want)):
+        b = b.float()
+        d = a.float() - b
+        errs = {"max_leaf_rel_err":
+                float(d.abs().max() / b.abs().max().clamp_min(1e-30)),
+                "max_leaf_norm_err":
+                float(d.norm() / b.norm().clamp_min(1e-30))}
+        for k, e in errs.items():
+            if e > worst[k][0]:
+                worst[k] = (e, "/".join(map(str, path)))
+        del b, d
+    out = {}
+    for k, (e, at) in worst.items():
+        out.update({k: e, f"{k}_at": at})
+    return out
+
+
 def train_2d_phase(torch, BM, WX, eng, batch0, r0, none_metrics,
                    none_grads):
     """One 2-D forward and backward (scheme="2d" on the 1x1 mesh: each rank
@@ -2850,8 +2920,8 @@ def train_data_phase(torch, kind, tmp, r0, none_loss, none_norm, cfg):
     """One of the data-parallel phases: ``TrainEngine`` on TRAIN_DATA
     copies of a model group, this file re-run as its rank processes
     sharing the card (``--train-data-rank``), each reading its row of the
-    train phase's first batch of two (``pipeline="sharded"``), two
-    ``dispatch`` steps at r = 1 in each of two runs in the same processes:
+    train phase's first batch of two (``pipeline="sharded"``), one
+    ``dispatch`` step at r = 1 in each of two runs in the same processes:
     kind "2d" at (data 2, 1x1) without ZeRO-1 and then with it; kind "1d"
     at (data 2, p 2), ``impl="ring_fused"`` with ZeRO-1, without the FSDP
     hybrid and then with it.  Checks: reads, launches, step 1 against the
@@ -2962,8 +3032,8 @@ def train_data_phase(torch, kind, tmp, r0, none_loss, none_norm, cfg):
 def train_data_worker(rank, tmp):
     """One rank of ``train_data_phase`` (this file run with
     ``--train-data-rank``): the engine on the data mesh, its rows and block
-    of the first batch held against the whole batch, and two runs of two
-    dispatch steps each, the first step's launches counted; then the
+    of the first batch held against the whole batch, and two runs of one
+    dispatch step each, its launches counted; then the
     forward and backward timed and, for kind "2d", the data all-reduces of
     one step; results to rank<r>.json."""
     import gc
@@ -3050,16 +3120,11 @@ def train_data_worker(rank, tmp):
                    through_host_gb=sum(comm.through_host_bytes.values())
                    / 1e9)
         # ------------------------------------------------------------------
-        t1 = time.perf_counter()
-        m2 = eng.dispatch(batch, r0)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t1)
         leaves = ptree.leaves(eng.params)
         dims = (ptree.leaves(eng.zero1.dims) if eng.zero1 is not None
                 else [None] * len(leaves))
         rec.update(
-            loss=[float(m["loss"]) for m in (m1, m2)],
-            grad_norm=[float(m["grad_norm"]) for m in (m1, m2)],
+            loss=[float(m1["loss"])], grad_norm=[float(m1["grad_norm"])],
             step_s=step_s, setup_s=setup_s,
             # what a step record of these steps carries
             cost=[eng.cost_model.metrics(t, r0) for t in step_s],
@@ -3096,7 +3161,7 @@ def train_data_worker(rank, tmp):
             out["params_equal"] = all(same(a, b)
                                       for a, b in zip(kept, leaves))
         eng.close()
-        del eng, m1, m2, leaves
+        del eng, m1, leaves
         gc.collect()
         torch.cuda.empty_cache()
     (tmp / f"rank{rank}.json").write_text(json.dumps(out))
@@ -3237,7 +3302,12 @@ def ckpt_inflight_steps(torch, eng, batch, r, need, reps=5):
     """One training step's wall time (host and device, synchronised) on
     the same batch without and with an async checkpoint write of the
     engine in flight (``eng.save``, 14 GB streamed by the writer thread
-    while the steps run); the directory is removed at the end."""
+    while the steps run and update the params and optimizer state in
+    place); then that checkpoint, restored to the card by itself (timed),
+    must hold the state at the save bit for bit (``bit_fingerprint``) and
+    its step.  The directory is removed at the end."""
+    from repro_torch.checkpoint import io as ckio
+    from repro_torch.checkpoint import load_manifest
     path, _ = ckpt_dir("inflight", need)
 
     def timed():
@@ -3249,6 +3319,10 @@ def ckpt_inflight_steps(torch, eng, batch, r, need, reps=5):
 
     try:
         idle = [timed() for _ in range(reps)]
+        torch.cuda.synchronize()
+        want = bit_fingerprint(torch, {"params": eng.params,
+                                       "opt_state": eng.opt_state})
+        step = eng.step_idx
         t0 = time.perf_counter()
         eng.save(str(path / "ck"), block=False)
         submit_s = time.perf_counter() - t0
@@ -3257,84 +3331,119 @@ def ckpt_inflight_steps(torch, eng, batch, r, need, reps=5):
             busy.append(timed())
         eng.wait_checkpoints()
         write_s = time.perf_counter() - t0 - submit_s
+        check(busy, "ckpt: the write ended before a step could run "
+              "beside it")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = ckio.restore(str(path / "ck"),
+                                      like_params=eng.params,
+                                      like_opt=eng.opt_state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = bit_fingerprint(torch, {"params": params, "opt_state": opt})
+        saved_step = load_manifest(str(path / "ck")).step
+        del params, opt
+        torch.cuda.empty_cache()
     finally:
         ckpt_drop(path)
-    check(busy, "ckpt: the write ended before a step could run beside it")
+    check(got == want and saved_step == step, f"ckpt: the checkpoint "
+          f"written while {len(busy)} steps ran (step {saved_step}, want "
+          f"{step}) does not restore the state at the save bit for bit")
+    restored = ckpt_bytes(eng)
     return dict(rollout=r, step_s_idle=idle, step_s_write_in_flight=busy,
-                ckpt_submit_s=submit_s, submit_to_written_s=write_s)
+                ckpt_submit_s=submit_s, submit_to_written_s=write_s,
+                steps_during_write=len(busy), restore_s=restore_s,
+                restore_gb_s=restored / 1e9 / restore_s,
+                restored_bitwise_equal=True)
 
 
-def ckpt_resume_part(torch, BM, engine, hist, path, card):
-    """Part (a) of the ckpt phase: the train phase's second run saves
-    ``ck-1`` (step 2), ``ck-2`` and the final ``ck`` under the async writer
-    and must repeat the first run bit for bit; a fresh
-    ``TrainEngine(resume=ck-1)`` (step 2, cursor 2) runs step 2, whose
-    record must equal both runs' step 2 bit for bit, and ends with the
-    params and optimizer state of ``ck`` bit for bit."""
-    from repro_torch.checkpoint import restore_tree
+def bit_fingerprint(torch, tree):
+    """Each leaf's bits as two integers (the sum of its elements' bit
+    patterns, and their sum weighted by position): equal trees give equal
+    fingerprints, and a changed bit changes both sums.  Integer leaves as
+    they are."""
     from repro_torch.core import tree as ptree
+    out = []
+    for t in ptree.leaves(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+            continue
+        view = torch.int16 if t.element_size() == 2 else torch.int32
+        bits = t.detach().contiguous().view(view).reshape(-1).to(torch.int64)
+        pos = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+        out.append((int(bits.sum()), int((bits * pos).sum())))
+        del bits, pos
+    return out
+
+
+def ckpt_resume_part(torch, BM, engine, hist, final, path, card):
+    """Part (a) of the ckpt phase: the train phase's second run, with the
+    chaos hook after step 0 (``preempt_at_step=0``), takes its final
+    synchronous save at ``ck-0`` and stops (``Preempted``); its step 0
+    must repeat the first run's bit for bit.  A fresh
+    ``TrainEngine(resume=ck-0)`` (step 1, cursor 1) runs step 1, whose
+    record must equal the first run's step 1 bit for bit, and ends with
+    the first run's params and optimizer state bit for bit (``final``:
+    their ``bit_fingerprint``)."""
+    from repro_torch.checkpoint import checkpoint_complete
+    from repro_torch.launch import resilience
     keys = ("loss", "grad_norm", "lr")
-    eng2 = engine(ckpt=str(path / "ck"), ckpt_every=1)
-    hist2 = eng2.run()
+    eng2 = engine(ckpt=str(path / "ck"), preempt_at_step=0)
+    try:
+        eng2.run()
+        check(False, "ckpt: the second run was not preempted after step 0")
+    except resilience.Preempted as p:
+        check(p.checkpoint == str(path / "ck-0"), f"ckpt: preempted with "
+              f"{p.checkpoint}, want ck-0")
     torch.cuda.synchronize()
-    same = ([tuple(h[k] for k in keys) for h in hist]
+    hist2 = eng2.history
+    same = ([tuple(h[k] for k in keys) for h in hist[:1]]
             == [tuple(h[k] for k in keys) for h in hist2])
-    check(same, f"two runs of one seed differ (the second saving "
-          f"checkpoints): {hist} vs {hist2}")
+    check(same, f"two runs of one seed differ (the second saving a "
+          f"checkpoint): {hist[:1]} vs {hist2}")
     emit(phase="train_repeat", bitwise_equal=True,
          loss=[h["loss"] for h in hist2])
+    check(checkpoint_complete(str(path / "ck-0")), "ckpt: ck-0 incomplete")
     saved = eng2.last_save.total_bytes
     submit = [d / 1e6 for _, d in span_times(eng2.tracer, "ckpt_submit")]
     writes = span_times(eng2.tracer, "ckpt.write")
-    steps = []
-    for ts, dur in span_times(eng2.tracer, "step"):
-        # a write of an earlier step's checkpoint under way as it starts
-        busy = any(w0 < ts < w0 + wd for w0, wd in writes)
-        steps.append({"ms": dur / 1e3, "write_in_flight": busy})
-    check(len(submit) == 3 and len(writes) == 3, f"ckpt: {len(submit)} "
-          f"submits and {len(writes)} background writes, want 3 each")
+    check(len(submit) == 1 and len(writes) == 1, f"ckpt: {len(submit)} "
+          f"submits and {len(writes)} writes, want 1 each")
     del eng2
     torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng3 = engine(resume=str(path / "ck-1"))
+    eng3 = engine(resume=str(path / "ck-0"))
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
-    check(eng3.step_idx == 2 and eng3.pipeline.state() == {"cursor": 2}
-          and eng3.opt_state["step"] == 2, f"resumed at step "
+    check(eng3.step_idx == 1 and eng3.pipeline.state() == {"cursor": 1}
+          and eng3.opt_state["step"] == 1, f"resumed at step "
           f"{eng3.step_idx}, cursor {eng3.pipeline.state()}")
     # the resumed step: counts to 0 just before, read just after
     BM.block_matmul.launches = 0
     hist3 = eng3.run()
     torch.cuda.synchronize()
     launches = BM.block_matmul.launches
-    r2 = int(eng3.r_sched[2])
-    check(launches == 5 + 54 * r2, f"the resumed step made {launches} "
-          f"block_matmul launches, want {5 + 54 * r2}")
-    check(len(hist3) == 1 and all(hist3[0][k] == hist[2][k]
-                                  == hist2[2][k] for k in keys),
-          f"resumed step 2 {hist3} differs from the runs' {hist[2]}")
-    t0 = time.perf_counter()
-    final = {g: restore_tree(str(path / "ck"), g, like=tree)
-             for g, tree in (("params", eng3.params),
-                             ("opt_state", eng3.opt_state))}
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    for g, tree in (("params", eng3.params), ("opt_state", eng3.opt_state)):
-        for a, b in zip(ptree.leaves(tree), ptree.leaves(final[g])):
-            check(torch.equal(a, b) if isinstance(a, torch.Tensor)
-                  else a == b, f"resumed {g} differ from the final "
-                  "checkpoint's")
-    del eng3, final
+    r1 = int(eng3.r_sched[1])
+    check(launches == 5 + 54 * r1, f"the resumed step made {launches} "
+          f"block_matmul launches, want {5 + 54 * r1}")
+    check(len(hist3) == 1 and all(hist3[0][k] == hist[1][k] for k in keys),
+          f"resumed step 1 {hist3} differs from the first run's {hist[1]}")
+    got = bit_fingerprint(torch, {"params": eng3.params,
+                                  "opt_state": eng3.opt_state})
+    check(got == final, "the resumed run's params and optimizer state "
+          "differ from the first run's")
+    del eng3
     torch.cuda.empty_cache()
     writes_s = [d / 1e6 for _, d in writes]
-    return dict(card=card, bytes_per_save=saved, saves=3,
-                ckpt_submit_s=submit, write_s=writes_s,
+    return dict(card=card, bytes_per_save=saved, saves=1,
+                final_save_submit_s=submit, final_save_write_s=writes_s,
                 write_gb_s=[saved / 1e9 / w for w in writes_s],
-                resume_engine_s=resume_s, restore_to_card_s=restore_s,
-                restore_gb_s=saved / 1e9 / restore_s,
-                step_ms=steps, resumed_rollout=r2,
+                # the resumed engine's construction, the restore included
+                # (the restore alone: steps_beside_a_write's restore_s)
+                resume_engine_s=resume_s,
+                resumed_rollout=r1,
                 resumed_block_matmul_launches=launches,
                 resumed_step_bitwise_equal=True,
                 final_state_bitwise_equal=True)
@@ -3379,8 +3488,8 @@ def preempt_phase(torch, hist, sched, path, card):
     ``REPRO_PREEMPT_AT_STEP=0``.  Child 0 signals itself after step 0,
     takes a final synchronous save at ``ck-0`` and exits 75; the
     supervisor relaunches at once with ``--resume ck-0``; child 1 runs
-    steps 1 and 2 and saves ``ck``.  The children's (loss, lr, grad_norm)
-    must equal the train phase's history bit for bit."""
+    the remaining steps and saves ``ck``.  The children's (loss, lr,
+    grad_norm) must equal the train phase's history bit for bit."""
     sys.path.insert(0, str(SRC))
     from repro_torch.checkpoint import checkpoint_complete, latest_checkpoint
     from repro_torch.launch import resilience
@@ -3421,9 +3530,10 @@ def preempt_phase(torch, hist, sched, path, card):
     kids = [json.loads((path / f"c{n}.json").read_text()) for n in (0, 1)]
     logged = [[json.loads(x) for x in (path / f"m{n}.jsonl").read_text()
                .splitlines() if x.strip()] for n in (0, 1)]
-    check([[h["step"] for h in m] for m in logged] == [[0], [1, 2]],
+    want_steps = [[0], list(range(1, TRAIN_STEPS))]
+    check([[h["step"] for h in m] for m in logged] == want_steps,
           f"preempt: the children logged steps "
-          f"{[[h['step'] for h in m] for m in logged]}, want [[0], [1, 2]]")
+          f"{[[h['step'] for h in m] for m in logged]}, want {want_steps}")
     keys = ("loss", "lr", "grad_norm")
     got = [tuple(h[k] for k in keys) for h in logged[0] + logged[1]]
     want = [tuple(h[k] for k in keys) for h in hist]
@@ -3570,6 +3680,9 @@ def train_phase(torch, BM, WX, card, serve_handoff):
     routes = dict(BM.block_matmul.route_launches)
     peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
+    # the run's final state, before the timing steps below move it
+    final = bit_fingerprint(torch, {"params": eng.params,
+                                    "opt_state": eng.opt_state})
 
     sched = [int(r) for r in eng.r_sched]
     want = sum(5 + 54 * r for r in sched) * ecfg.accum
@@ -3632,11 +3745,12 @@ def train_phase(torch, BM, WX, card, serve_handoff):
     del eng, batch0
     torch.cuda.empty_cache()
 
-    # the same seed again, saving checkpoints: the history must repeat
-    # bit for bit; then the resume from its first checkpoint
-    path, free = ckpt_dir("resume", 3 * need)
+    # the same seed again, stopped after step 0 with a checkpoint: step 0
+    # must repeat bit for bit; then the resume from that checkpoint
+    path, free = ckpt_dir("resume", need)
     try:
-        ckpt_a = ckpt_resume_part(torch, BM, engine, hist, path, card)
+        ckpt_a = ckpt_resume_part(torch, BM, engine, hist, final, path,
+                                  card)
     finally:
         ckpt_drop(path)
     emit(phase="ckpt", disk_free_gb=free / 1e9, resume=ckpt_a,
@@ -3726,7 +3840,10 @@ def lm_gemm_shapes(cfg, tag, m):
     period's slots (an SSM slot's in_z, in_xbc, in_dt and out_proj, the
     attention slot's q, k, v, o, then each slot's dense FFN or router)
     over the periods; and the head.  Shapes shared by several slots are
-    one row with their launches summed."""
+    one row with their launches summed.  Whisper's (audio) are those of a
+    decode step at M rows (``audio_gemm_shapes``)."""
+    if cfg.family == "audio":
+        return audio_gemm_shapes(cfg, tag, m, 1)
     d, hd = cfg.d_model, cfg.d_head
     qo, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = [("q", d, qo, "none", "bfloat16"), ("k", d, kv, "none", "bfloat16"),
@@ -3766,8 +3883,8 @@ def lm_routes(cfg, m):
     import torch
     from repro_torch.kernels import block_matmul as BM
     out = {}
-    for _, _, _, n, _, count, dt in lm_gemm_shapes(cfg, "", m):
-        rt = BM.route(m, n, getattr(torch, dt))
+    for _, mm, _, n, _, count, dt in lm_gemm_shapes(cfg, "", m):
+        rt = BM.route(mm, n, getattr(torch, dt))
         out[rt] = out.get(rt, 0) + count
     return out
 
@@ -3893,13 +4010,15 @@ def dense_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
 
 
 def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
-                  max_len, fused, what):
+                  max_len, fused, what, extra_batch=None):
     """``generate`` through the captured decode step (captured before the
     counted run), then eagerly: the tokens equal, ``lm_per_step``
     launches a step in both (a fused prefill's forward is one step; the
     graphed steps counted by replay) on the routes ``lm_routes`` gives
     (the decode steps' M = batch rows, a fused prefill's M = batch x
-    prompt), no capture in the counted run.
+    prompt), no capture in the counted run.  With ``extra_batch`` (the
+    audio family's frames) each ``generate`` also runs the encoder once,
+    eagerly, on the Hopper loop.
     Returns the tokens and a dict of counts and times."""
     from repro_torch.models import registry as M
     from repro_torch.serve import step as S
@@ -3914,7 +4033,7 @@ def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
     zero_counts(kernels)
     t0 = time.perf_counter()
     out = S.generate(params, prompts, cfg, jcfg, steps=steps,
-                     max_len=max_len)
+                     max_len=max_len, extra_batch=extra_batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
@@ -3924,21 +4043,25 @@ def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
     zero_counts(kernels)
     t0 = time.perf_counter()
     out_eager = S.generate(params, prompts, cfg, jcfg, steps=steps,
-                           max_len=max_len, graph=False)
+                           max_len=max_len, extra_batch=extra_batch,
+                           graph=False)
     torch.cuda.synchronize()
     wall_eager = time.perf_counter() - t0
     launches_eager = read_counts(kernels)
     per = lm_per_step(cfg)
     n_steps = steps if fused else s + steps - 1
+    enc = audio_encode_launches(cfg) if extra_batch is not None else 0
     check(graphs == [g0], f"{what}: {len(graphs)} captured steps after the "
           "counted run, want the one captured before it")
     for mode, n in (("graphed", launches), ("eager", launches_eager)):
-        check(n["block_matmul"] == n_steps * per
-              and sum(n.values()) == n_steps * per,
+        check(n["block_matmul"] == n_steps * per + enc
+              and sum(n.values()) == n_steps * per + enc,
               f"{what} {mode} launches {n} (want {per} block_matmul a "
-              f"step, {n_steps} steps)")
+              f"step, {n_steps} steps, {enc} for the encoder)")
     want_routes = {rt: n * (n_steps - fused)
                    for rt, n in lm_routes(cfg, b).items()}
+    if enc:
+        want_routes["sm90"] = want_routes.get("sm90", 0) + enc
     if fused:
         for rt, n in lm_routes(cfg, b * s).items():
             want_routes[rt] = want_routes.get(rt, 0) + n
@@ -3952,7 +4075,7 @@ def lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts, steps,
           f"{out_eager[0, :8].tolist()}")
     return out, dict(launches=launches, launches_eager=launches_eager,
                      block_matmul_routes=routes,
-                     block_matmul_per_step=launches["block_matmul"]
+                     block_matmul_per_step=(launches["block_matmul"] - enc)
                      / n_steps, steps_counted=n_steps,
                      graphed_equals_eager=True, captures=len(graphs),
                      capture_s=capture_s, wall_s=wall,
@@ -4589,6 +4712,536 @@ def moe_hybrid_phases(torch, BM, SM90, ref):
             (mfwd_rows, mgen_rows, hfwd_rows, hgen_rows), max(w1, w2, w3, w4))
 
 
+# ---------------------------------------------------------------------------
+# phases 16-20: whisper-small (the audio family) whole, serving and
+# training, and language-model training: h2o-danube-1.8b whole and
+# phi3.5-moe-42b-a6.6b cut in depth
+# ---------------------------------------------------------------------------
+
+# whisper-small as published (12 encoder and 12 decoder layers, d_model
+# 768, 12 heads of 64, GELU FFN 3,072, vocab 51,865 padded to 51,968, tied
+# head, 1,500 stub frames; 0.241 B parameters, 0.48 GB in bf16): the
+# forward at batch 4 x 1,500 frames x 448 decoder tokens (whisper's own
+# ceiling); generate at batch 4 from 4-token prompts with the frames as
+# extra_batch, 64 new tokens (the token-wise prefill: the reference has
+# no fused one for the enc-dec family)
+AUDIO_ARCH = "whisper-small"
+AUDIO_BATCH, AUDIO_TOKENS = 4, 448
+AUDIO_GEN_BATCH, AUDIO_GEN_PROMPT, AUDIO_GEN_STEPS = 4, 4, 64
+# judged in f32 (the seed's weights up-cast), each as a share of the mean
+# magnitude: kernel="pallas" against "xla" 1e-3 (only summation orders
+# differ; the dense phases' bound), bf16 against f32 0.1 (a gross-fault
+# check, as DENSE_BF16_TOL); token-wise decode against the teacher-forced
+# forward elementwise at the reference's 5e-3 (DENSE_DECODE_TOL)
+AUDIO_F32_TOL = 1e-3
+# training, under the bf16 policy (bf16 weights and compute, f32 masters
+# and moments) with remat: h2o-danube-1.8b whole at batch 2 x 1,024
+# tokens, four steps; whisper-small whole at batch 2 x 448 tokens with its
+# frames, two steps; phi3.5-moe-42b-a6.6b cut from 32 layers to 2 (all 16
+# experts; 2.86 B parameters) at batch 2 x 1,024 tokens, one step, under
+# the config's own dtypes (bf16 weights and moments, no masters), so that
+# its router runs the reference's f32 product (``x.astype(float32)`` on
+# f32 weights) on block_matmul's f32 route, forward and VJP
+LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = \
+    "h2o-danube-1.8b", 2, 1024, 4
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_STEPS = 2, 2
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2, 1024
+# h2o's step 0 under kernel="pallas" against "xla" (same bf16 weights and
+# batch): the loss and the grad norm within LM_TRAIN_TOL relative, every
+# leaf's gradient within LM_LEAF_TOL (both the norm of its difference over
+# its norm and its largest difference over its largest magnitude); the
+# same step with the LM head zeroed is the control the bounds must refuse.
+# The leaves' bound is the looser: at random init the attention's k and q
+# gradients come from a softmax's centred differences, which a rounding
+# more or less moves by some percent (the smoke prints that noise floor)
+LM_TRAIN_TOL = 1e-2
+LM_LEAF_TOL = 1e-1
+
+
+def audio_gemm_shapes(cfg, tag, b, s):
+    """(label, M, K, N, epilogue, launches, dtype name) of whisper's
+    block_matmul launches for ``b`` rows of ``s`` decoder tokens: with
+    s > 1 the forward (the encoder at b x n_frames rows, the decoder at b x
+    s), with s == 1 a decode step (the decoder at b rows; every layer's
+    cross k and v projected anew from the encoder's b x n_frames states, as
+    the reference's).  Shapes shared by several linears are one row."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    me, md = b * cfg.n_frames, b * s
+    rows = {}
+
+    def add(name, m, k, n, epi, count):
+        key = (m, k, n, epi)
+        label, c = rows.get(key, (name, 0))
+        rows[key] = (label, c + count)
+    if s > 1:
+        e = cfg.n_enc_layers
+        add("enc.qkvo", me, d, d, "none", 4 * e)
+        add("enc.fc1", me, d, f, "gelu", e)
+        add("enc.fc2", me, f, d, "none", e)
+    add("dec.qkvo", md, d, d, "none", 6 * L)          # self q k v o, cross q o
+    add("dec.cross_kv", me, d, d, "none", 2 * L)
+    add("dec.fc1", md, d, f, "gelu", L)
+    add("dec.fc2", md, f, d, "none", L)
+    add("head", md, d, cfg.vocab_padded, "none", 1)
+    return [(f"{tag}.{label}", m, k, n, epi, c, "bfloat16")
+            for (m, k, n, epi), (label, c) in rows.items()]
+
+
+def audio_encode_launches(cfg):
+    """block_matmul launches of one ``encode``: q, k, v, o, fc1, fc2 a
+    layer."""
+    return 6 * cfg.n_enc_layers
+
+
+def audio_routes(cfg, b, s):
+    import torch
+    from repro_torch.kernels import block_matmul as BM
+    out = {}
+    for _, m, _, n, _, count, _ in audio_gemm_shapes(cfg, "", b, s):
+        rt = BM.route(m, n, torch.bfloat16)
+        out[rt] = out.get(rt, 0) + count
+    return out
+
+
+def audio_frames(torch, cfg, b, seed):
+    """Stub frame embeddings [b, n_frames, d_model], f32 normal draws."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.n_frames, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def audio_forward_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                        cfg32, params32):
+    """whisper-small's forward: 193 block_matmul launches (6 an encoder
+    layer, 10 a decoder layer, the head), all on the Hopper loop; then in
+    f32 pallas against xla and bf16 against f32."""
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16, flops_forward
+    from repro_torch.models import encdec as E
+    from repro_torch.models import registry as M
+    frames32 = audio_frames(torch, cfg, AUDIO_BATCH, 41)
+    tokens = token_rows(torch, cfg, AUDIO_TOKENS, AUDIO_BATCH, 0)
+    batch = {"frames": frames32.bfloat16(), "tokens": tokens}
+    per = sum(r[5] for r in audio_gemm_shapes(cfg, "", AUDIO_BATCH,
+                                              AUDIO_TOKENS))
+    want_routes = audio_routes(cfg, AUDIO_BATCH, AUDIO_TOKENS)
+    with torch.no_grad():
+        # -- the main path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        logits, aux = M.apply(params, batch, cfg, jcfg)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        routes = read_routes(kernels)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # ------------------------------------------------------------------
+        check(launches["block_matmul"] == per
+              and sum(launches.values()) == per,
+              f"audio forward launches {launches} (want {per} block_matmul)")
+        check(routes == want_routes, f"audio forward routes {routes}, want "
+              f"{want_routes}")
+        check(tuple(logits.shape) == (AUDIO_BATCH, AUDIO_TOKENS,
+                                      cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+              f"audio logits {tuple(logits.shape)} not finite or misshapen")
+        ms = cuda_ms(lambda: M.apply(params, batch, cfg, jcfg), 3)
+        enc_ms = cuda_ms(lambda: E.encode(params, batch["frames"], cfg,
+                                          jcfg), 3)
+        # f32: pallas against xla; bf16 against f32
+        b32 = {"frames": frames32, "tokens": tokens}
+        ref32, _ = M.apply(params32, b32, cfg32, jcfg)
+        bf16_err = mean_rel(logits.float(), ref32)
+        del logits
+        xla, _ = M.apply(params32, b32, cfg32, jcfg.replace(kernel="xla"))
+        xla_err = mean_rel(ref32, xla)
+        xla_max = rel_err(ref32, xla)
+        del xla, ref32
+    torch.cuda.empty_cache()
+    check(xla_err <= AUDIO_F32_TOL,
+          f"audio f32 logits, pallas vs xla: {xla_err:.3e} of the mean")
+    check(bf16_err <= DENSE_BF16_TOL,
+          f"audio bf16 logits vs f32: {bf16_err:.3e} of the mean")
+    flops = flops_forward(cfg, AUDIO_BATCH, AUDIO_TOKENS)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, audio_gemm_shapes(
+        cfg, "whisper.fwd", AUDIO_BATCH, AUDIO_TOKENS))
+    out = dict(batch=AUDIO_BATCH, frames=cfg.n_frames, tokens=AUDIO_TOKENS,
+               launches=launches, block_matmul_routes=routes,
+               ms_per_forward=ms, encode_ms=enc_ms,
+               tokens_per_s=AUDIO_BATCH * AUDIO_TOKENS / (ms / 1e3),
+               frames_per_s=AUDIO_BATCH * cfg.n_frames / (ms / 1e3),
+               peak_mem_gb=peak_gb,
+               # launch/analysis.py's FLOP model (the reference's) counts
+               # the decoder's self-attention stack and head only; the
+               # GEMM rows' bound below counts every launch
+               analysis_flops_total=sum(flops.values()),
+               analysis_floor_ms=1e3 * sum(flops.values()) / PEAK_FLOPS_BF16,
+               block_matmul_ms=per_rows(rows, "kernel_ms"),
+               block_matmul_bound_ms=per_rows(rows, "bound_ms"),
+               block_matmul_library_ms=per_rows(rows, "library_ms"),
+               block_matmul_plain_ms=per_rows(rows, "plain_ms"),
+               f32_vs_xla_mean=xla_err, f32_vs_xla_max=xla_max,
+               tol_f32_mean=AUDIO_F32_TOL, bf16_vs_f32_mean=bf16_err,
+               tol_bf16_mean=DENSE_BF16_TOL)
+    emit(phase="audio_forward", arch=cfg.arch_id, **out)
+    return out, rows, worst
+
+
+def audio_generate_phase(torch, kernels, BM, SM90, ref, cfg, jcfg, params,
+                         cfg32, params32):
+    """whisper-small's ``generate`` with the frames as ``extra_batch``:
+    the encoder once, the 4-token prompts token by token through the
+    captured step (its static cache loaded with the encoder's states),
+    then the decode steps; eagerly; in f32 the token-wise logits along
+    prompt + output against the teacher-forced forward; the step's times
+    and the encoder's apart."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    prompts = token_rows(torch, cfg, AUDIO_GEN_PROMPT, AUDIO_GEN_BATCH, 1)
+    frames32 = audio_frames(torch, cfg, AUDIO_GEN_BATCH, 43)
+    extra = {"frames": frames32.bfloat16()}
+    max_len = AUDIO_GEN_PROMPT + AUDIO_GEN_STEPS
+    out, runs = lm_graph_runs(torch, kernels, cfg, jcfg, params, prompts,
+                              AUDIO_GEN_STEPS, max_len, False,
+                              "audio generate", extra_batch=extra)
+    with torch.no_grad():
+        seq = torch.cat([prompts, out[:, :-1]], dim=1)
+        want, _ = M.apply(params32, {"frames": frames32, "tokens": seq},
+                          cfg32, jcfg)
+        cache = S.start_cache(params32, seq, cfg32, jcfg, seq.shape[1],
+                              torch.float32, {"frames": frames32})
+        got = []
+        for t in range(seq.shape[1]):
+            lg, cache = M.decode_step(params32, cache, seq[:, t:t + 1],
+                                      cfg32, jcfg)
+            got.append(lg[:, 0])
+        del cache
+        got = torch.stack(got, 1)
+        err32 = (got - want).abs()
+        decode_ok = bool((err32 <= DENSE_DECODE_TOL
+                          + DENSE_DECODE_TOL * want.abs()).all())
+        decode_err = float(err32.max())
+        del got, want, err32
+        torch.cuda.empty_cache()
+        check(decode_ok, f"audio f32 decode vs teacher-forced: max abs "
+                         f"{decode_err:.3e}")
+        enc_ms = cuda_ms(lambda: E.encode(params, extra["frames"], cfg,
+                                          jcfg), 3)
+        nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len,
+                               extra_batch=extra)
+        times = lm_step_times(torch, cfg, jcfg, params, cache, nxt)
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    rows, worst = lm_gemm_rows(torch, BM, SM90, ref, gen, audio_gemm_shapes(
+        cfg, "whisper.decode", AUDIO_GEN_BATCH, 1))
+    bound = decode_bound(torch, cfg, cache, rows)
+    # the cross k and v recomputed from the encoder's states every step,
+    # every layer (the reference's arithmetic): their share of the step's
+    # block_matmul time
+    kv = [r for r in rows if r["shape"].endswith("cross_kv")]
+    del cache
+    S.clear_graphs()
+    torch.cuda.empty_cache()
+    res = dict(runs, **times, **bound, batch=AUDIO_GEN_BATCH,
+               prompt=AUDIO_GEN_PROMPT, new_tokens=AUDIO_GEN_STEPS,
+               encode_ms=enc_ms,
+               encode_launches=audio_encode_launches(cfg),
+               cross_kv_ms_per_step=per_rows(kv, "kernel_ms"),
+               cross_kv_bound_ms_per_step=per_rows(kv, "bound_ms"),
+               f32_decode_max_abs_err=decode_err, tol=DENSE_DECODE_TOL,
+               first_tokens=out[0, :8].tolist())
+    emit(phase="audio_generate", arch=cfg.arch_id, **res)
+    return res, rows, worst
+
+
+def lm_train_calls(cfg):
+    """block_matmul launches of one remat training step, by kind: the
+    forward, the remat recompute (every layer's, not the head's), dx, dw
+    (every linear's) and the GELU pre-activation recomputes of the FFNs'
+    first linear (``tests/test_torch_lm_train.py`` counts the same on the
+    CPU)."""
+    if cfg.family == "audio":
+        per = 6 * cfg.n_enc_layers + 10 * cfg.n_layers
+        gelu = cfg.n_enc_layers + cfg.n_layers
+    else:
+        per = (5 if cfg.n_experts else 7) * cfg.n_layers
+        gelu = 0
+    return dict(forward=per + 1, remat=per, dx=per + 1, dw=per + 1,
+                gelu=gelu)
+
+
+def lm_bwd_rows(torch, BM, SM90, ref, gen, shapes):
+    """dx = dz @ w (w read as w.T) and dw = dz.T @ x (both read across
+    their rows) at a language model's forward shapes (``lm_gemm_shapes``
+    rows: label, M, K, N, epilogue, launches, dtype), each against its
+    plain version, timed beside it, ``torch.matmul`` and the bound."""
+    rows, worst = [], 0.0
+    for label, m, k, n, _, per_path, name in shapes:
+        dtype = getattr(torch, name)
+        x = (torch.randn(m, k, generator=gen, device="cuda")
+             / m ** 0.5).to(dtype)
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).to(dtype)
+        dz = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+        for kind, a, b, x_t, (om, on, ok_), library in (
+                ("dx", dz, w, False, (m, k, n), lambda: torch.matmul(dz, w)),
+                ("dw", dz, x, True, (n, k, m),
+                 lambda: torch.matmul(dz.t(), x))):
+            def kernel(a=a, b=b, x_t=x_t):
+                return BM.block_matmul(a, b, x_t=x_t, w_t=True)
+
+            def plain(a=a, b=b, x_t=x_t):
+                return ref.block_matmul_ref(a, b, x_t=x_t, w_t=True)
+            y = kernel()
+            torch.cuda.synchronize()
+            err, ok = gemm_errors(y, plain(), name)
+            check(ok, f"{label}.{kind} {(om, on, ok_)} {name}: max err "
+                      f"{err:.3e}")
+            worst = max(worst, err)
+            bound, bound_by = gemm_bound_ms(om, on, ok_, name, False)
+            row = dict(shape=f"{label}.{kind}", m=om, n=on, k=ok_,
+                       dtype=name, x_t=x_t, w_t=True, per_path=per_path,
+                       route=BM.route(om, on, dtype), max_abs_err=err,
+                       tol=GEMM_TOL[name], kernel_ms=cuda_ms(kernel, 3),
+                       library_ms=cuda_ms(library, 3),
+                       plain_ms=cuda_ms(plain, 1), bound_ms=bound,
+                       bound_by=bound_by)
+            row["tflops"] = 2e-9 * om * on * ok_ / row["kernel_ms"]
+            emit(phase="kernel_bwd_shape", **row)
+            rows.append(row)
+            del y
+        del x, w, dz
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _moved(torch, before, params):
+    """Whether every sampled leaf changed (``before``: path -> copy)."""
+    from repro_torch.core import tree as ptree
+    now = dict(ptree.leaves_with_path(params))
+    return all(not torch.equal(now[p], t) for p, t in before.items())
+
+
+def _sample_leaves(params, n=4):
+    """Copies of a few weight leaves spread over the tree, by path."""
+    from repro_torch.core import tree as ptree
+    leaves = [(p, t) for p, t in ptree.leaves_with_path(params)
+              if t.ndim >= 2]
+    step = max(1, len(leaves) // n)
+    return {p: t.clone() for p, t in leaves[::step]}
+
+
+def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False):
+    """``TrainEngine(arch, reduced=False, kernel="pallas")`` on its token
+    batches: optionally step 0 against ``kernel="xla"`` on the same weights
+    and batch; then the run, its launches by layout and route counted
+    from 0 just before it; losses finite, the sampled weights moved, the
+    step records' ``mfu``; one step's device time after it.  Returns the
+    stats, the engine's config and its first batch's token count."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.engine import TrainEngine
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import value_and_grad
+    cfg0 = get_config(arch).replace(**cfg_over)
+    t0 = time.perf_counter()
+    eng = TrainEngine(arch, reduced=False, kernel="pallas", device="cuda",
+                      config_override=cfg0, config=ecfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check(cfg.remat and cfg.kernel == "pallas" and cfg.scheme == "none",
+          f"{what}: unexpected config remat={cfg.remat} "
+          f"kernel={cfg.kernel} scheme={cfg.scheme}")
+    first = None
+    if compare:
+        batch0 = eng.pipeline.get(0)
+        mx, gx = value_and_grad(eng.params, batch0, cfg,
+                                eng.jcfg.replace(kernel="xla"))
+        nx = float(global_norm(gx))
+
+        def versus_xla(m, g):
+            lk, lx, nk = float(m["loss"]), float(mx["loss"]), \
+                float(global_norm(g))
+            return dict(loss=lk, loss_xla=lx,
+                        loss_rel_err=abs(lk - lx) / abs(lx), grad_norm=nk,
+                        grad_norm_xla=nx,
+                        grad_norm_rel_err=abs(nk - nx) / nx,
+                        **leaf_errs(torch, g, gx))
+        mk, gk = value_and_grad(eng.params, batch0, cfg, eng.jcfg)
+        first = versus_xla(mk, gk)
+        del gk
+
+        def altered(change, jcfg):
+            """The step with ``change(True)`` made to the weights, then
+            ``change(False)`` putting them back bit for bit."""
+            change(True)
+            try:
+                m, g = value_and_grad(eng.params, batch0, cfg, jcfg)
+            finally:
+                change(False)
+            out = versus_xla(m, g)
+            del g
+            return out
+        # the noise floor: kernel="xla" again with every element of the
+        # input embedding one bf16 step off (its lowest bit flipped, which
+        # a second flip undoes), i.e. what one rounding more or less in
+        # the inputs moves
+        table = eng.params["embed"]["table"]
+        bits = table.view(torch.int16 if table.element_size() == 2
+                          else torch.int32)
+        noise = altered(lambda _: bits.bitwise_xor_(1),
+                        eng.jcfg.replace(kernel="xla"))
+        # the control, which the bounds must refuse: the LM head's weight
+        # zeroed (every logit 0, the loss ln V)
+        head = (table if cfg.tie_embeddings else eng.params["lm_head"]["w"])
+        keep = head.clone()
+        control = altered(lambda on: head.zero_() if on else head.copy_(keep),
+                          eng.jcfg)
+        del gx, keep, batch0
+        torch.cuda.empty_cache()
+        first.update(tol=LM_TRAIN_TOL, leaf_tol=LM_LEAF_TOL,
+                     noise_one_bf16_step=noise, control_zero_head=control)
+
+        def passes(r):
+            return (r["loss_rel_err"] <= LM_TRAIN_TOL
+                    and r["grad_norm_rel_err"] <= LM_TRAIN_TOL
+                    and r["max_leaf_norm_err"] <= LM_LEAF_TOL
+                    and r["max_leaf_rel_err"] <= LM_LEAF_TOL)
+        check(passes(first), f"{what} step 0 vs kernel='xla': {first}")
+        check(not passes(control), f"{what}: the zeroed-head control "
+              f"passes the bounds: {control}")
+    before = _sample_leaves(eng.params)
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counted())
+    BM.block_matmul.layout_launches.clear()
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counted())
+    routes = dict(BM.block_matmul.route_launches)
+    by_layout = dict(BM.block_matmul.layout_launches)
+    peak = torch.cuda.max_memory_allocated()
+    # ----------------------------------------------------------------------
+    steps = ecfg.steps
+    calls = lm_train_calls(cfg)
+    layouts = {"x,w": by_layout.get((False, False), 0),
+               "x,w.T (dx)": by_layout.get((False, True), 0),
+               "x.T,w.T (dw)": by_layout.get((True, True), 0)}
+    want_layouts = {"x,w": steps * (calls["forward"] + calls["remat"]
+                                    + calls["gelu"]),
+                    "x,w.T (dx)": steps * calls["dx"],
+                    "x.T,w.T (dw)": steps * calls["dw"]}
+    total = sum(want_layouts.values())
+    check(launches["block_matmul"] == total
+          and sum(launches.values()) == total and layouts == want_layouts,
+          f"{what}: launches {launches} by layout {layouts}, want "
+          f"{want_layouts}")
+    check(len(hist) == steps and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), f"{what}: bad history {hist}")
+    check(_moved(torch, before, eng.params), f"{what}: the weights did "
+          "not move")
+    check(peak < PEAK_MEM_LIMIT, f"{what}: peak memory {peak / 1e9:.2f} GB")
+    recs = eng.tracer.step_records()
+    check(len(recs) == steps and all(0 < r["mfu"] <= 1 for r in recs),
+          f"{what}: step records' mfu {[r.get('mfu') for r in recs]}")
+    tokens = ecfg.batch * ecfg.seq_len
+    # the steps after the first (its time holds the first launches' set-up)
+    later = recs[1:] or recs
+    step_s = sum(r["dur_s"] - r["data_wait_s"] for r in later) / len(later)
+    batch = eng.pipeline.get(steps)
+    device_ms = cuda_ms(lambda: eng.dispatch(batch), 1)
+    stats = dict(
+        arch=arch, params=cfg.param_count(), n_layers=cfg.n_layers,
+        precision=eng.policy.name, batch=ecfg.batch, seq_len=ecfg.seq_len,
+        steps=steps, setup_s=setup_s, wall_s=wall, first_step_vs_xla=first,
+        loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        metrics_keys=sorted(hist[0]), launches=launches,
+        launches_by_layout=layouts, launches_by_route=routes,
+        launches_per_step=calls, step_ms=1e3 * step_s,
+        tokens_per_s=tokens / step_s, device_step_ms=device_ms,
+        device_tokens_per_s=tokens / (device_ms / 1e3),
+        data_wait_s=[r["data_wait_s"] for r in recs],
+        mfu=[r["mfu"] for r in recs],
+        achieved_tflops=[r["achieved_tflops"] for r in recs],
+        peak_mem_gb=peak / 1e9, opt_state_gb=eng.opt_state_bytes() / 1e9,
+        params_moved=True)
+    if "aux" in hist[0]:
+        stats["aux"] = [h["aux"] for h in hist]
+    eng.close()
+    del eng, batch
+    torch.cuda.empty_cache()
+    return stats, cfg
+
+
+def counted():
+    from repro_torch.kernels.graphs import counted_kernels
+    return counted_kernels()
+
+
+def lm_train_phases(torch, BM, SM90, ref):
+    """``lm_train`` (h2o whole, four steps, step 0 against kernel="xla",
+    block_matmul at the step's shapes in its three layouts),
+    ``audio_train`` and ``moe_train``; returns their stats, the GEMM rows
+    and the worst GEMM error."""
+    from repro_torch.launch.engine import EngineConfig
+    torch.cuda.empty_cache()
+    base = dict(lr=1e-4, log_every=1, seed=0, prefetch=1)
+    lm, cfg = lm_train_run(torch, BM, LM_TRAIN_ARCH, {}, EngineConfig(
+        steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        precision="bf16", **base), "lm_train", compare=True)
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    m = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    shapes = lm_gemm_shapes(cfg, "h2o.train", m)
+    fwd_rows, w1 = lm_gemm_rows(torch, BM, SM90, ref, gen, [
+        # forward and the remat recompute (the head: forward only)
+        (lbl, mm, k, n, epi, c if lbl.endswith("head") else 2 * c, dt)
+        for lbl, mm, k, n, epi, c, dt in shapes])
+    bwd_rows, w2 = lm_bwd_rows(torch, BM, SM90, ref, gen, shapes)
+    rows = fwd_rows + bwd_rows
+    lm.update(block_matmul_ms=per_rows(rows, "kernel_ms"),
+              block_matmul_bound_ms=per_rows(rows, "bound_ms"),
+              block_matmul_library_ms=per_rows(rows, "library_ms"),
+              block_matmul_plain_ms=per_rows(rows, "plain_ms"))
+    emit(phase="lm_train", **lm)
+    audio, _ = lm_train_run(torch, BM, AUDIO_ARCH, {}, EngineConfig(
+        steps=AUDIO_TRAIN_STEPS, batch=AUDIO_TRAIN_BATCH,
+        seq_len=AUDIO_TOKENS, precision="bf16", **base), "audio_train")
+    emit(phase="audio_train", **audio)
+    moe, mcfg = lm_train_run(torch, BM, MOE_ARCH,
+                             {"n_layers": MOE_TRAIN_LAYERS}, EngineConfig(
+                                 steps=1, batch=MOE_TRAIN_BATCH,
+                                 seq_len=MOE_TRAIN_SEQ, **base), "moe_train")
+    check(moe["launches_by_route"].get("f32") == 4 * mcfg.n_layers
+          and moe["aux"][0] > 0, f"moe_train: the router's f32 launches "
+          f"{moe['launches_by_route']} (want {4 * mcfg.n_layers}: forward, "
+          f"remat, dx, dw a layer), aux {moe['aux']}")
+    emit(phase="moe_train", published_layers=32, **moe)
+    return (lm, audio, moe), rows, max(w1, w2)
+
+
+def audio_phases(torch, BM, SM90, ref):
+    """The two whisper serving phases on one set of weights."""
+    from repro_torch.kernels.graphs import counted_kernels
+    kernels = counted_kernels()
+    torch.cuda.empty_cache()
+    cfg, jcfg, params, cfg32, params32 = dense_setup(torch, AUDIO_ARCH)
+    fwd, fwd_rows, w1 = audio_forward_phase(torch, kernels, BM, SM90, ref,
+                                            cfg, jcfg, params, cfg32,
+                                            params32)
+    gen, gen_rows, w2 = audio_generate_phase(torch, kernels, BM, SM90, ref,
+                                             cfg, jcfg, params, cfg32,
+                                             params32)
+    del params, params32
+    torch.cuda.empty_cache()
+    return (fwd, gen), (fwd_rows, gen_rows), max(w1, w2)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4668,6 +5321,10 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     (mfwd, mgen, hfwd, hgen), (mfwd_rows, mgen_rows, hfwd_rows,
                                hgen_rows), mh_worst = \
         moe_hybrid_phases(torch, BM, SM90, ref)
+    (afwd, agen), (afwd_rows, agen_rows), au_worst = audio_phases(
+        torch, BM, SM90, ref)
+    (lmt, aut, mot), lmt_rows, lt_worst = lm_train_phases(torch, BM, SM90,
+                                                          ref)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -4765,8 +5422,10 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(x[k]["block_matmul"] for x in (dgen, gem)
               for k in ("launches", "launches_eager"))
         + mfwd["launches"]["block_matmul"] + hfwd["launches"]["block_matmul"]
-        + sum(x[k]["block_matmul"] for x in (mgen, hgen)
-              for k in ("launches", "launches_eager")),
+        + sum(x[k]["block_matmul"] for x in (mgen, hgen, agen)
+              for k in ("launches", "launches_eager"))
+        + afwd["launches"]["block_matmul"]
+        + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot)),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -4802,10 +5461,24 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "hybrid_generate":
                              hgen["launches"]["block_matmul"],
                              "hybrid_generate_eager":
-                             hgen["launches_eager"]["block_matmul"]},
+                             hgen["launches_eager"]["block_matmul"],
+                             "audio_forward":
+                             afwd["launches"]["block_matmul"],
+                             "audio_generate":
+                             agen["launches"]["block_matmul"],
+                             "audio_generate_eager":
+                             agen["launches_eager"]["block_matmul"],
+                             "lm_train": lmt["launches"]["block_matmul"],
+                             "audio_train": aut["launches"]["block_matmul"],
+                             "moe_train": mot["launches"]["block_matmul"]},
+        "lm_train_launches_by_layout": {
+            x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot)},
+        "lm_train_launches_by_route": {
+            x["arch"]: x["launches_by_route"] for x in (lmt, aut, mot)},
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
-        "max_abs_err": max(worst, bwd_worst, lm_worst, mh_worst),
+        "max_abs_err": max(worst, bwd_worst, lm_worst, mh_worst, au_worst,
+                           lt_worst),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1 (the
         # kernel's with its per-call padding, of which pad_ms; wmma_ms the
         # WMMA loop's on the same operands, bit for bit the same result)
@@ -4880,11 +5553,31 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "hybrid_decode_step_plain_ms": per_rows(hgen_rows, "plain_ms"),
         "hybrid_decode_step_bound_ms": per_rows(hgen_rows, "bound_ms"),
         "hybrid_decode_step_library_ms": per_rows(hgen_rows, "library_ms"),
+        # the 193 GEMMs of one whisper-small forward (batch 4, 1,500
+        # frames, 448 tokens) and the 121 of one of its decode steps
+        # (batch 4: the cross k and v of every layer projected anew from
+        # the 6,000 encoder rows); the 675 of one h2o-danube-1.8b training
+        # step (batch 2 x 1,024, remat: forward and recompute, dx, dw;
+        # plain: ref.py in f32; library: F.linear, torch.matmul)
+        "audio_forward_ms": per_rows(afwd_rows, "kernel_ms"),
+        "audio_forward_plain_ms": per_rows(afwd_rows, "plain_ms"),
+        "audio_forward_bound_ms": per_rows(afwd_rows, "bound_ms"),
+        "audio_forward_library_ms": per_rows(afwd_rows, "library_ms"),
+        "audio_decode_step_ms": per_rows(agen_rows, "kernel_ms"),
+        "audio_decode_step_plain_ms": per_rows(agen_rows, "plain_ms"),
+        "audio_decode_step_bound_ms": per_rows(agen_rows, "bound_ms"),
+        "audio_decode_step_library_ms": per_rows(agen_rows, "library_ms"),
+        "lm_train_step_ms": per_rows(lmt_rows, "kernel_ms"),
+        "lm_train_step_plain_ms": per_rows(lmt_rows, "plain_ms"),
+        "lm_train_step_bound_ms": per_rows(lmt_rows, "bound_ms"),
+        "lm_train_step_library_ms": per_rows(lmt_rows, "library_ms"),
         "shapes": rows,
         "shapes_bwd": bwd_rows,
         "shapes_mamba": mamba_rows,
         "shapes_dense": dfwd_rows + dgen_rows + gem_rows,
         "shapes_moe_hybrid": mfwd_rows + mgen_rows + hfwd_rows + hgen_rows,
+        "shapes_audio": afwd_rows + agen_rows,
+        "shapes_lm_train": lmt_rows,
     }, {
         "name": "wx",
         "route": "cuda",

@@ -2,8 +2,9 @@
 
 The reference keeps a model's parameters as a pytree of arrays whose
 layers are stacked on a leading layer dim: WeatherMixer's ``"blocks"``,
-the language models' ``"layers"``, the hybrid's ``"periods"``; the port
-keeps a list of per-layer (per-period) dicts there.
+the language models' ``"layers"``, the hybrid's ``"periods"``, the
+enc-dec's ``"enc_layers"`` and ``"dec_layers"``; the port keeps a list of
+per-layer (per-period) dicts there.
 Both functions go through numpy, so neither package imports the other:
 
   ``params_from_numpy(tree)``  reference pytree (numpy leaves) -> port;
@@ -48,7 +49,7 @@ from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
 # the entries of a parameter tree whose layers the reference stacks
-STACKED = ("blocks", "layers", "periods")
+STACKED = ("blocks", "layers", "periods", "enc_layers", "dec_layers")
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -69,8 +70,8 @@ def _to_numpy(t: torch.Tensor, bf16_dtype: Optional[Any]) -> np.ndarray:
 
 def params_from_numpy(tree, device="cuda"):
     """Reference pytree (numpy leaves) -> the port's params on ``device``
-    (the card unless the caller asks for the CPU); the stacked ``"blocks"``,
-    ``"layers"`` or ``"periods"`` are split into a list."""
+    (the card unless the caller asks for the CPU); each stacked entry
+    (``STACKED``) is split into a list."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("params_from_numpy: CUDA is not available; pass "

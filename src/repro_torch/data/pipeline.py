@@ -1,6 +1,14 @@
-"""The input pipeline: synthetic weather batches made on the host, copied to
-the device, and prefetched by a background thread (the port of
-``repro/data/pipeline.py``; one process is one rank).
+"""The input pipeline: synthetic weather batches, or the language models'
+token rows, made on the host, copied to the device, and prefetched by a
+background thread (the port of ``repro/data/pipeline.py``; one process is
+one rank).
+
+A language model's batches come from ``TokenBatchSource``: a data rank
+makes only its rows of ``tokens`` and ``labels`` (``TokenDataset.
+sample_shard``, bit for bit the rows of the whole batch); the VLM's
+``embeds`` and the audio family's ``frames`` are a full f32 draw per step,
+cut to the rank's rows.  ``make_source`` / ``make_pipeline`` pick the
+source by family.  The rest of this docstring is the weather source's.
 
 On one device (``mesh=None``) both modes read the whole batch. On a mesh
 ``"sync-full"`` makes the whole batch on every rank (the model cuts its
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core.sharding import Spec, block_range, sanitize_batch
+from repro_torch.data.tokens import TokenDataConfig, TokenDataset
 from repro_torch.data.weather import (Cancelled, WeatherDataConfig,
                                       WeatherDataset)
 from repro_torch.launch.specs import block_specs
@@ -220,20 +229,104 @@ class WeatherBatchSource:
             self._memo_key, self._memo = (step, horizon, plan), memo
         return self._memo[key]
 
+    def sync_block(self, value: np.ndarray, spec: Spec, mesh) -> np.ndarray:
+        """A key of the whole batch as ``"sync-full"`` hands it over: whole
+        (the model cuts its block, ``weathermixer.field_block``)."""
+        return value
+
+
+def _rows(spec: Spec, mesh, batch: int) -> slice:
+    """The rows of a batch of ``batch`` that ``spec``'s batch entry gives
+    this rank (every row where the data extent does not divide it)."""
+    return slice(*block_range(mesh, sanitize_batch(spec, mesh, batch)[0],
+                              batch))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _RowPlan:
+    """A data rank's rows of a token batch."""
+    rows: slice
+
+
+class TokenBatchSource:
+    """The language models' batches: ``tokens`` and ``labels`` rows of a
+    ``TokenDataset`` and, for the VLM and audio families, the dense side
+    inputs ``extras`` (name -> trailing shape: ``embeds`` [n_patches, D],
+    ``frames`` [n_frames, D]), an f32 normal draw from
+    ``np.random.default_rng(step)`` over the whole batch (the reference's:
+    preprocessed modality features), cut to the rank's rows.  A rank's
+    token rows come from ``sample_shard``: only its rows are made."""
+
+    def __init__(self, ds: TokenDataset, batch_size: int,
+                 extras: Optional[Dict[str, Tuple[int, ...]]] = None):
+        self.ds = ds
+        self.batch_size = batch_size
+        self.extras = dict(extras or {})
+        self.keys = ("tokens", "labels") + tuple(self.extras)
+        self._memo_key: Any = None
+        self._memo: Dict[Any, Dict[str, np.ndarray]] = {}
+
+    def _step_memo(self, step: int) -> Dict[Any, Dict[str, np.ndarray]]:
+        """The memo of ``step`` (rows read and extras drawn), emptied when
+        the step changes."""
+        if self._memo_key != step:
+            self._memo_key, self._memo = step, {}
+        return self._memo
+
+    def _extra(self, key: str, step: int) -> np.ndarray:
+        memo = self._step_memo(step).setdefault("extras", {})
+        if key not in memo:
+            rng = np.random.default_rng(step)
+            memo[key] = rng.normal(0, 1, (self.batch_size,)
+                                   + self.extras[key]).astype(np.float32)
+        return memo[key]
+
+    def full_batch(self, step: int, horizon: int,
+                   cancel: Optional[threading.Event] = None
+                   ) -> Dict[str, np.ndarray]:
+        del horizon, cancel
+        out = self.ds.sample_batch(step, self.batch_size)
+        for k in self.extras:
+            out[k] = self._extra(k, step)
+        return out
+
+    def plan(self, spec: Spec, mesh) -> _RowPlan:
+        return _RowPlan(_rows(spec, mesh, self.batch_size))
+
+    def read_key(self, key: str, step: int, horizon: int, plan: _RowPlan,
+                 cancel: Optional[threading.Event] = None) -> np.ndarray:
+        """``key``'s rows under ``plan`` (tokens and labels made once per
+        step and plan)."""
+        del horizon, cancel
+        if key in self.extras:
+            return np.ascontiguousarray(self._extra(key, step)[plan.rows])
+        memo = self._step_memo(step)
+        if plan not in memo:
+            memo[plan] = self.ds.sample_shard(step, self.batch_size,
+                                              row_slice=plan.rows)
+        return memo[plan][key]
+
+    def sync_block(self, value: np.ndarray, spec: Spec, mesh) -> np.ndarray:
+        """A key of the whole batch as ``"sync-full"`` hands it over: the
+        rank's rows (the model takes the rows it is given)."""
+        return np.ascontiguousarray(value[_rows(spec, mesh,
+                                                self.batch_size)])
+
 
 class InputPipeline:
     """Domain-parallel, prefetching input pipeline.
 
+    ``source``: a ``WeatherBatchSource`` or a ``TokenBatchSource``;
     ``mesh``: this rank's ``Mesh`` or ``Mesh1D``, or None (one device);
-    ``specs``: the batch keys' specs over the patchified fields
-    (``launch/specs.py::block_specs``), required with a mesh.
+    ``specs``: the batch keys' block specs (``launch/specs.py::
+    block_specs``), required with a mesh.
     ``prefetch`` is the number of batches the background thread keeps in
     flight (0: batches are made on the caller's thread).  ``cursor`` is the
     next step the pipeline will serve: batches are pure functions of the
     step, so it is the pipeline's whole state.
     """
 
-    def __init__(self, source: WeatherBatchSource, *, mesh=None,
+    def __init__(self, source, *, mesh=None,
                  specs: Optional[Dict[str, Spec]] = None,
                  mode: str = "sharded", prefetch: int = 2, device="cuda"):
         if mode not in MODES:
@@ -279,6 +372,9 @@ class InputPipeline:
             host = self.host_batch(step, horizon, cancel)
             if self.mesh is not None:
                 reads.extend((k, -1, v.nbytes) for k, v in host.items())
+                host = {k: self.source.sync_block(v, self.specs[k],
+                                                  self.mesh)
+                        for k, v in host.items()}
         else:
             host = {k: self._assemble(k, step, horizon, reads, cancel)
                     for k in self.source.keys}
@@ -428,24 +524,32 @@ class InputPipeline:
                                                 n_ranks)
 
 
-def make_source(cfg, batch_size: int, seed: int = 0) -> WeatherBatchSource:
-    """The batch source of a mixer-family ModelConfig."""
-    if cfg.family != "mixer":
-        raise NotImplementedError(
-            f"the port's pipeline serves the mixer family only; "
-            f"{cfg.arch_id} is {cfg.family!r} (ROADMAP.md, queue 1 item 14)")
-    ds = WeatherDataset(WeatherDataConfig(
-        lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
-        seed=seed))
-    return WeatherBatchSource(ds, batch_size, patch=cfg.wm_patch)
+def make_source(cfg, batch_size: int, seq_len: int = 128, seed: int = 0):
+    """The batch source of a ModelConfig's family: weather fields for the
+    mixer, token rows of ``seq_len`` for the language models (with the
+    VLM's ``embeds`` and the audio family's ``frames``)."""
+    if cfg.family == "mixer":
+        ds = WeatherDataset(WeatherDataConfig(
+            lat=cfg.wm_lat, lon=cfg.wm_lon, channels=cfg.wm_channels,
+            seed=seed))
+        return WeatherBatchSource(ds, batch_size, patch=cfg.wm_patch)
+    ds = TokenDataset(TokenDataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq_len, seed=seed))
+    extras: Dict[str, Tuple[int, ...]] = {}
+    if cfg.family == "vlm":
+        extras["embeds"] = (cfg.n_patches, cfg.d_model)
+    if cfg.family == "audio":
+        extras["frames"] = (cfg.n_frames, cfg.d_model)
+    return TokenBatchSource(ds, batch_size, extras)
 
 
-def make_pipeline(cfg, *, batch_size: int, mode: str = "sharded",
-                  prefetch: int = 2, seed: int = 0, device="cuda",
-                  mesh=None) -> InputPipeline:
-    """The pipeline of a mixer-family ModelConfig; on a ``mesh`` its
-    batches are laid out by ``launch/specs.py::block_specs``."""
+def make_pipeline(cfg, *, batch_size: int, seq_len: int = 128,
+                  mode: str = "sharded", prefetch: int = 2, seed: int = 0,
+                  device="cuda", mesh=None) -> InputPipeline:
+    """The pipeline of a ModelConfig; on a ``mesh`` its batches are laid
+    out by ``launch/specs.py::block_specs``."""
     specs = None if mesh is None else block_specs(cfg, mesh.rules)
-    return InputPipeline(make_source(cfg, batch_size, seed=seed), mesh=mesh,
-                         specs=specs, mode=mode, prefetch=prefetch,
-                         device=device)
+    return InputPipeline(make_source(cfg, batch_size, seq_len=seq_len,
+                                     seed=seed),
+                         mesh=mesh, specs=specs, mode=mode,
+                         prefetch=prefetch, device=device)

@@ -3,9 +3,10 @@
 
 Deterministic, learnable structure: an affine congruential walk with
 random restarts.  Every *row* is a pure function of its global sample index
-``step * batch_size + i`` (its own ``SeedSequence`` stream).  The rows are
-bit-equal to the reference's for the same config; the reference's per-rank
-``sample_shard`` arrives with LM training (ROADMAP.md queue 1 item 14).
+``step * batch_size + i`` (its own ``SeedSequence`` stream), so a data
+rank makes exactly the rows it owns (``sample_shard``), bit for bit a
+slice of the whole batch.  The rows are bit-equal to the reference's for
+the same config.
 """
 from __future__ import annotations
 
@@ -49,3 +50,16 @@ class TokenDataset:
     def sample_batch(self, step: int, batch_size: int) -> dict:
         idx = np.arange(batch_size, dtype=np.int64) + step * batch_size
         return self._rows(idx)
+
+    def sample_shard(self, step: int, batch_size: int,
+                     row_slice: slice = slice(None)) -> dict:
+        """The rows ``row_slice`` of step ``step``'s batch only: bit for bit
+        ``sample_batch(step, batch_size)`` sliced."""
+        idx = (np.arange(batch_size, dtype=np.int64)
+               + step * batch_size)[row_slice]
+        return self._rows(idx)
+
+    def io_bytes_per_rank(self, batch_size: int, n_ranks: int) -> int:
+        """Modelled bytes per data rank and step (tokens and labels, int32):
+        the row cut divides the read by the rank count."""
+        return 2 * 4 * batch_size * self.cfg.seq_len // n_ranks

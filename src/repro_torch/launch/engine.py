@@ -34,6 +34,13 @@ The engine owns
     (one MAX all-reduce of the flag), so all of them stop after the same
     step and take part in the same save, whichever was signalled.
 
+A language model (the dense, VLM, moe and audio families) trains on one
+device or on a data-only mesh (``mesh_model=1, mesh_data=n``: every rank
+holds the whole model, reads its rows of the batch of ``seq_len`` tokens
+and all-reduces the gradients over data; ZeRO-1 as for the mixer); a
+model mesh raises (``launch/specs.py::check_lm_mesh``), and so do the ssm
+and hybrid families (``train/step.py::check_trainable``).
+
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
 only its block of the batch, its data rank's rows of it (``pipeline=
@@ -80,7 +87,8 @@ from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
-from repro_torch.train.step import make_eval_step, make_train_step
+from repro_torch.train.step import (check_trainable, make_eval_step,
+                                    make_train_step)
 
 # held-out validation stream: step indices far past any training step
 EVAL_STEP_OFFSET = 1 << 20
@@ -91,6 +99,7 @@ class EngineConfig:
     """Step-dispatch policy of a TrainEngine."""
     steps: int = 100
     batch: int = 8
+    seq_len: int = 128         # tokens per row (the language models)
     rollout: int = 1           # randomized-rollout fine-tuning upper bound
     lr: float = 1e-3
     log_every: int = 10
@@ -133,6 +142,12 @@ class TrainEngine:
         """``init_params``: whole parameters in the port's layout (on a
         mesh each rank takes its shard of them); None draws them from
         ``config.seed``."""
+        cfg = config_override if config_override is not None \
+            else get_config(arch)
+        # what the port cannot train raises alike on any device
+        check_trainable(cfg)
+        specs.check_lm_mesh(cfg, mesh_model,
+                            fsdp=mesh_data > 1 and cfg.shard_params_over_data)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainEngine: CUDA is not available; pass "
@@ -144,8 +159,6 @@ class TrainEngine:
         self.arch = arch
         self.config = config
         self.reduced = reduced
-        cfg = config_override if config_override is not None \
-            else get_config(arch)
         if reduced:
             cfg = cfg.reduced()
         if scheme:
@@ -158,7 +171,14 @@ class TrainEngine:
             cfg = precision.apply_policy(cfg, config.precision)
         self.policy = precision.policy_of(cfg)
         self.mesh = None
-        if mesh_model * mesh_data > 1:
+        if cfg.family != "mixer":
+            # a language model: whole on every rank of a data-only mesh,
+            # each linear's contraction local
+            if mesh_data > 1:
+                self.mesh = make_ring_mesh(model=1, data=mesh_data,
+                                           device=self.device)
+            cfg = cfg.replace(scheme="none", impl="rs")
+        elif mesh_model * mesh_data > 1:
             if cfg.scheme not in ("1d", "2d"):
                 raise NotImplementedError(
                     f"TrainEngine: scheme={cfg.scheme!r} on a mesh leaves "
@@ -167,12 +187,11 @@ class TrainEngine:
             make = make_ring_mesh if cfg.scheme == "1d" else make_host_mesh
             self.mesh = make(model=mesh_model, data=mesh_data,
                              device=self.device)
-            if self.device.type == "cuda":
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
         else:
             # one device: the whole contraction is local
             cfg = cfg.replace(scheme="none", impl="rs")
+        if self.mesh is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
         self.jcfg = jigsaw_for(cfg).replace(mesh=self.mesh)
         self.is_rank0 = self.mesh is None or self.mesh.rank == 0
@@ -182,14 +201,16 @@ class TrainEngine:
         self.tracer = telemetry.Tracer(enabled=config.telemetry)
         telemetry.set_tracer(self.tracer)
         self.cost_model = telemetry.build_cost_model(
-            cfg, n_model=mesh_model, n_data=mesh_data, batch=config.batch)
+            cfg, n_model=mesh_model, n_data=mesh_data, batch=config.batch,
+            seq_len=config.seq_len)
         self.tracer.set_meta(
             surface="train", arch=arch, reduced=reduced,
             device=str(self.device), mesh_model=mesh_model,
             mesh_data=mesh_data, scheme=cfg.scheme, impl=self.jcfg.impl,
             kernel=cfg.kernel,
             precision=self.policy.name, steps=config.steps,
-            batch=config.batch, rollout=config.rollout, accum=config.accum,
+            batch=config.batch, seq_len=config.seq_len,
+            rollout=config.rollout, accum=config.accum,
             zero1=config.zero1, cost_model=self.cost_model.as_meta())
 
         if init_params is None:
@@ -211,16 +232,18 @@ class TrainEngine:
             # every rank holds the whole init; each keeps its shard
             m = self.mesh
             self.param_specs = specs.sanitize_tree(
-                self.params, specs.param_specs(self.params, cfg, m.rules), m)
+                self.params, specs.param_specs(self.params, cfg, m.rules),
+                m)
             if config.zero1 and m.data_size > 1:
                 self.zero1 = adam.Zero1(
                     specs.zero1_dims(self.params, self.param_specs, m),
                     m.data_index, m.data_size, m.data_group)
-            self.params = (
-                shard_params_1d(self.params, m.r, m.p, m.data_index,
-                                m.data_size, self.jcfg.fsdp)
-                if cfg.scheme == "1d"
-                else shard_params_2d(self.params, m.i, m.j, m.q))
+            if cfg.scheme == "1d":
+                self.params = shard_params_1d(self.params, m.r, m.p,
+                                              m.data_index, m.data_size,
+                                              self.jcfg.fsdp)
+            elif cfg.scheme == "2d":
+                self.params = shard_params_2d(self.params, m.i, m.j, m.q)
         pol = self.policy
         self.adam_cfg = adam.AdamConfig(
             weight_decay=0.0, master_weights=pol.master_weights,
@@ -272,6 +295,7 @@ class TrainEngine:
 
     def _make_pipeline(self, prefetch: int) -> InputPipeline:
         return make_pipeline(self.cfg, batch_size=self.config.batch,
+                             seq_len=self.config.seq_len,
                              mode=self.config.pipeline, prefetch=prefetch,
                              seed=self.config.seed, device=self.device,
                              mesh=self.mesh)

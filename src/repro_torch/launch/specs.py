@@ -12,6 +12,9 @@ describe exactly the blocks the port's ranks hold: ``param_specs``
 (``data/pipeline.py``), and ``zero1_dims`` where ZeRO-1 cuts a leaf's
 optimizer state.  ``state_spec`` places the forecast engine's state
 buffer of a batch bucket on the serving mesh (``serve/engine.py``).
+A language model (every family but the mixer) runs on a data-only mesh:
+its parameters are whole on every rank and its batch is cut by rows; a
+model axis over one raises (``check_lm_mesh``).
 ``cache_specs`` (the language models' KV/SSM caches on a mesh) comes with
 the dry-run (ROADMAP.md, queue 1 item 15).
 """
@@ -28,14 +31,21 @@ from repro_torch.core.sharding import (DATA_AXIS, ShardingRules, Spec,
 from repro_torch.models import weathermixer
 
 __all__ = ["param_specs", "opt_specs", "batch_specs", "block_specs",
-           "sanitize_spec", "sanitize_tree", "state_spec", "zero1_dims"]
+           "check_lm_mesh", "sanitize_spec", "sanitize_tree", "state_spec",
+           "zero1_dims"]
 
 
-def _mixer_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "mixer":
+def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False) -> None:
+    """NotImplementedError for a language model on a model mesh (``model``
+    ranks > 1), or with its weights cut over data by the FSDP hybrid
+    (``fsdp``): the reference lays it out by its 1-D ``param_specs`` tree,
+    which has no counterpart here yet."""
+    if cfg.family != "mixer" and (model > 1 or fsdp):
         raise NotImplementedError(
-            f"{what} covers the mixer family only; {cfg.arch_id} is "
-            f"{cfg.family!r} (ROADMAP.md, queue 1 item 14)")
+            f"{cfg.arch_id} ({cfg.family!r}) on a model mesh of {model} "
+            f"ranks{' or FSDP-cut over data' if fsdp else ''}: the "
+            "language models' sharded layout is not ported (ROADMAP.md, "
+            "queue 1 item 19); use a data-only mesh")
 
 
 def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
@@ -44,8 +54,12 @@ def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
     layout for the scheme (``weathermixer.PARAM_SPECS``) and, under 1-D
     with ``cfg.shard_params_over_data``, every weight's out dim on the data
     axis too (the FSDP hybrid; the reference's 2-D rule has no data
-    entry).  Leading stacked dims stay whole."""
-    _mixer_only(cfg, "param_specs")
+    entry).  Leading stacked dims stay whole.  A language model's leaves
+    are whole (every entry None), its data-only mesh's layout; the FSDP
+    hybrid's cut of them raises (``check_lm_mesh``)."""
+    if cfg.family != "mixer":
+        check_lm_mesh(cfg, 1, fsdp=cfg.shard_params_over_data)
+        return ptree.map(lambda a: (None,) * np.ndim(a), params)
     if rules.is_2d:
         return ptree.map_with_path(
             lambda path, a: weathermixer.param_spec_2d(path, a.ndim), params)
@@ -91,10 +105,20 @@ def opt_specs(moments, pspecs, zero1_axis: Optional[str] = None,
 
 
 def batch_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, Spec]:
-    """The specs of the batch's keys over the grid [B, lat, lon, C]: the
-    batch dim over the batch axes, and the sample itself cut (paper §5):
-    lon on mdom and C on mtp under 2-D, C on the model axis under 1-D."""
-    _mixer_only(cfg, "batch_specs")
+    """The specs of the batch's keys.  The mixer's over the grid [B, lat,
+    lon, C]: the batch dim over the batch axes, and the sample itself cut
+    (paper §5): lon on mdom and C on mtp under 2-D, C on the model axis
+    under 1-D.  A language model's: the rows of ``tokens`` and ``labels``
+    over the batch axes, and the VLM's ``embeds`` and the audio family's
+    ``frames`` [B, n, D] with D on the feature axis, as the reference's."""
+    if cfg.family != "mixer":
+        rows = (rules.batch_axes, None)
+        out = {"tokens": rows, "labels": rows}
+        if cfg.family == "vlm":
+            out["embeds"] = rows + (rules.tp_axis,)
+        if cfg.family == "audio":
+            out["frames"] = rows + (rules.tp_axis,)
+        return out
     if rules.is_2d:
         fields = (rules.batch_axes, None, rules.dom_axis, rules.tp_axis)
     else:
@@ -109,7 +133,10 @@ def block_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, Spec]:
     over the feature axis; ``weathermixer.field_block``).  The reference
     cuts the grid by ``batch_specs`` and lets GSPMD reshard it into this
     layout; the port has no GSPMD, so a rank reads this block instead, the
-    same bytes per rank and no collective."""
+    same bytes per rank and no collective.  A language model's blocks are
+    its ``batch_specs``."""
+    if cfg.family != "mixer":
+        return batch_specs(cfg, rules)
     return {k: rules.act(3, domain_dim=1) for k in batch_specs(cfg, rules)}
 
 

@@ -7,6 +7,20 @@ flags that are ported, plus ``--device`` and ``--init-params``).
       [--precision bf16] [--kernel pallas|xla] [--pipeline sharded] \\
       [--prefetch 2] [--metrics-out m.jsonl] [--device cuda|cpu]
 
+``--arch`` takes every id of ``configs/registry.py``.  The language
+models of the dense, VLM, moe and audio families train on synthetic token
+rows of ``--seq-len`` tokens (default 128; the VLM's patch embeddings and
+whisper's frames are random f32 draws), on one device or on a data-only
+mesh (``--mesh-data n``, ``--mesh-model 1``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch internlm2-1.8b --steps 5 --seq-len 32 --log-every 1
+
+The ssm and hybrid families (``mamba2-130m``, ``jamba-1.5-large-398b``)
+raise NotImplementedError: their forward runs the SSD term on a kernel
+that has no backward yet (ROADMAP.md, queue 1 item 18); so does a language
+model on a model mesh (``--mesh-model`` > 1; item 19).
+
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process
 its rank and the rendezvous; gloo on the CPU, NCCL on GPUs, gloo for ranks
@@ -54,7 +68,7 @@ failure), so it is run once, not under torchrun:
       [--mesh-model 2 --mesh-data 2 --scheme 1d --device cpu]
 
 Reduced configs (the default) run real optimization on the synthetic
-weather data; ``--full`` trains the published width and needs a GPU.
+data; ``--full`` trains the published width and needs a GPU.
 ``--device`` defaults to cuda and fails without a card.
 """
 from __future__ import annotations
@@ -65,13 +79,14 @@ import sys
 
 import torch.distributed as dist
 
-from repro_torch.configs.registry import MIXER_IDS
+from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.convert import params_from_npz
 from repro_torch.launch import resilience
 from repro_torch.launch.engine import EngineConfig, TrainEngine
 
 
 def train(arch: str, *, steps: int = 100, batch: int = 8,
+          seq_len: int = 128,
           reduced: bool = True, kernel: str = None, precision: str = None,
           rollout: int = 1, lr: float = 1e-3, log_every: int = 10,
           seed: int = 0, metrics_out: str = None,
@@ -91,7 +106,7 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
         impl=impl, init_params=(None if init_params is None
                      else params_from_npz(init_params, device="cpu")),
         config=EngineConfig(
-            steps=steps, batch=batch, rollout=rollout, lr=lr,
+            steps=steps, batch=batch, seq_len=seq_len, rollout=rollout, lr=lr,
             log_every=log_every, seed=seed, precision=precision,
             metrics_out=metrics_out, metrics_format=metrics_format,
             trace=trace, telemetry=telemetry, pipeline=pipeline,
@@ -110,9 +125,15 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="weathermixer-1b", choices=MIXER_IDS)
+    ap.add_argument("--arch", default="weathermixer-1b", choices=ARCH_IDS,
+                    help="any id of configs/registry.py; the ssm and "
+                         "hybrid families (mamba2-130m, "
+                         "jamba-1.5-large-398b) raise: their SSD term has "
+                         "no backward kernel yet (ROADMAP.md item 18)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="tokens per row (the language models)")
     ap.add_argument("--full", action="store_true",
                     help="full (non-reduced) config -- needs a GPU")
     ap.add_argument("--kernel", default=None, choices=["xla", "pallas"],
@@ -201,7 +222,7 @@ def main(argv=None):
     code = 0
     try:
         train(args.arch, steps=args.steps, batch=args.batch,
-              reduced=not args.full, kernel=args.kernel,
+              seq_len=args.seq_len, reduced=not args.full, kernel=args.kernel,
               precision=args.precision, rollout=args.rollout, lr=args.lr,
               log_every=args.log_every, seed=args.seed,
               metrics_out=args.metrics_out,

@@ -1,8 +1,9 @@
 """Shared building blocks of the port (``repro/models/layers.py``): the
 LayerNorm and RMSNorm, the precision boundary cast, rotary embeddings,
-attention (GQA; causal, sliding-window; the decode step's KV cache), the
-feed-forward variants, the mixture of experts (GShard top-k routing with
-capacity drops), the Mamba-2 mixer and the tied embedding / LM head.
+attention (GQA; causal, sliding-window, bidirectional and cross; the
+decode step's KV cache), the feed-forward variants, the mixture of experts
+(GShard top-k routing with capacity drops), the Mamba-2 mixer and the tied
+embedding / LM head.
 Plain PyTorch, except where the reference calls a kernel: the linears
 (``core/api.py``; the MoE router among them) and the Mamba-2 intra-chunk
 term (``kernels/ops.py::ssd_intra``).  The experts' products are plain
@@ -137,7 +138,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Skv] the valid cache slots.  The reference's order of roundings:
     the scores in f32 (each product of q and k exact in f32, never rounded
     to q's dtype), then the scale, the soft cap and the -1e30 mask; the
-    softmax in f32, the probabilities cast to q's dtype, then ``@ v``.
+    softmax in f32, the probabilities cast to q's dtype, then ``@ v`` (in
+    the promoted dtype where v's differs).
     1-D positions keep the mask [Sq, Skv], batch-free."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -161,7 +163,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores.masked_fill_(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     del scores
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    # jnp.einsum promotes mixed operands (bf16 queries against f32 keys
+    # and values: cross-attention to f32 encoder states)
+    return _einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -223,15 +227,21 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_apply(params, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, d_head: int, positions: torch.Tensor,
                     cfg: JigsawConfig = DEFAULT_JIGSAW,
-                    window: Optional[int] = None,
+                    causal: bool = True, window: Optional[int] = None,
                     rope_theta: Optional[float] = 10000.0,
                     soft_cap: Optional[float] = None,
                     kv_cache: Optional[dict] = None, rolling: bool = False,
                     collect_kv: bool = False,
+                    x_kv: Optional[torch.Tensor] = None,
                     qk_norm: Optional[dict] = None, q_chunk: int = 0
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The causal self-attention layer: the q, k, v projections, qk_norm
-    (RMSNorm over d_head), RoPE, attention, the output projection.
+    """The attention layer: the q, k, v projections, qk_norm (RMSNorm over
+    d_head), RoPE, attention, the output projection.  Causal self-attention
+    by default; ``causal=False`` is bidirectional (the enc-dec family's
+    encoder), and ``x_kv`` [B, F, D] makes it cross-attention: k and v
+    project ``x_kv``, RoPE is skipped, the keys sit at positions
+    ``arange(F)`` and no mask applies (the decoder attending to the
+    encoder's states; no cache).
 
     Training / prefill: x [B, S, D], positions [S] (or [B, S]), no cache;
     ``collect_kv`` returns every position's post-RoPE k and v, before the
@@ -243,18 +253,19 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
     S_max - 1)``, and attention reads the whole cache; returns {"k", "v"}
     (the same tensors) and "pos" + 1.  Everything is computed on the
     device from ``pos``, with no host read, so the step can be captured
-    in a CUDA graph.  Not ported yet: the reference's cross-attention
-    (``x_kv``, non-causal; the enc-dec family, ROADMAP.md queue 1 item
-    14) and its ``kv_spec`` (the cache's layout on a mesh: the port's LM
-    path runs on one device)."""
+    in a CUDA graph.  Not ported: the reference's ``kv_spec`` (the cache's
+    layout on a model mesh; the port's LM path runs on one device or a
+    data-only mesh)."""
     b, s, _ = x.shape
+    xkv = x if x_kv is None else x_kv
+    f = xkv.shape[1]
     q = linear_apply(params["wq"], x, cfg).reshape(b, s, n_heads, d_head)
-    k = linear_apply(params["wk"], x, cfg).reshape(b, s, n_kv_heads, d_head)
-    v = linear_apply(params["wv"], x, cfg).reshape(b, s, n_kv_heads, d_head)
+    k = linear_apply(params["wk"], xkv, cfg).reshape(b, f, n_kv_heads, d_head)
+    v = linear_apply(params["wv"], xkv, cfg).reshape(b, f, n_kv_heads, d_head)
     if qk_norm is not None:
         q = rmsnorm_apply(qk_norm["q"], q)
         k = rmsnorm_apply(qk_norm["k"], k)
-    if rope_theta is not None:
+    if rope_theta is not None and x_kv is None:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 
@@ -286,12 +297,16 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
         if collect_kv:
             new_cache = {"k": k, "v": v}
         kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        kv_pos = (positions if x_kv is None
+                  else torch.arange(f, device=x.device))
+        masked = causal and x_kv is None
         if q_chunk and positions.ndim == 1 and soft_cap is None:
-            out = sdpa_chunked(q, kk, vv, q_pos=positions, kv_pos=positions,
-                               window=window, q_chunk=q_chunk)
+            out = sdpa_chunked(q, kk, vv, q_pos=positions, kv_pos=kv_pos,
+                               causal=masked, window=window,
+                               q_chunk=q_chunk)
         else:
-            out = sdpa(q, kk, vv, q_pos=positions, kv_pos=positions,
-                       window=window, soft_cap=soft_cap)
+            out = sdpa(q, kk, vv, q_pos=positions, kv_pos=kv_pos,
+                       causal=masked, window=window, soft_cap=soft_cap)
     out = out.reshape(b, s, n_heads * d_head)
     return linear_apply(params["wo"], out, cfg), new_cache
 

@@ -1,23 +1,21 @@
-"""Architecture registry: family -> model module dispatch (the mixer, ssm,
-dense, vlm, moe and hybrid families so far; audio arrives with ROADMAP.md
-queue 1 item 14)."""
+"""Architecture registry: family -> model module dispatch (every family of
+``repro/models/registry.py``: mixer, ssm, dense, vlm, moe, hybrid and the
+enc-dec audio family)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import JigsawConfig
-from repro_torch.models import hybrid, mamba, transformer, weathermixer
+from repro_torch.models import (encdec, hybrid, mamba, transformer,
+                                weathermixer)
 
 _FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba, "dense": transformer,
-                  "vlm": transformer, "moe": transformer, "hybrid": hybrid}
+                  "vlm": transformer, "moe": transformer, "hybrid": hybrid,
+                  "audio": encdec}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in _FAMILY_MODULE:
-        raise NotImplementedError(
-            f"{cfg.arch_id} (family {cfg.family!r}) is not ported yet "
-            "(ROADMAP.md, queue 1 item 14: model zoo)")
     return _FAMILY_MODULE[cfg.family]
 
 
@@ -43,17 +41,36 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, jcfg: JigsawConfig):
     return module_for(cfg).decode_step(params, cache, tokens, cfg, jcfg)
 
 
+def start_cache(params, cache, extra_batch: dict, cfg: ModelConfig,
+                jcfg: JigsawConfig):
+    """Load a prompt's extra inputs into a fresh decode cache, in place
+    (the enc-dec family's encoder states of ``extra_batch["frames"]``);
+    a family that takes none leaves the cache as it is.  Returns it."""
+    mod = module_for(cfg)
+    if hasattr(mod, "start_cache"):
+        mod.start_cache(params, cache, extra_batch, cfg, jcfg)
+    return cache
+
+
+def has_fused_prefill(cfg: ModelConfig) -> bool:
+    """Whether the family has a fused prefill (``prefill_cache``); one that
+    has may still raise NotImplementedError for a layout it does not
+    take."""
+    return hasattr(module_for(cfg), "prefill_cache")
+
+
 def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
                   max_len: int, dtype=torch.bfloat16):
     """Fused prefill: one teacher-forced forward that also fills the cache.
     Families without one raise NotImplementedError, and ``serve/step.py``
-    then prefills token by token (the ssm and hybrid families have none, as
-    in the reference; the transformer's raises for local:global stacks)."""
-    mod = module_for(cfg)
-    if not hasattr(mod, "prefill_cache"):
+    then prefills token by token (the ssm, hybrid and audio families have
+    none, as in the reference; the transformer's raises for local:global
+    stacks)."""
+    if not has_fused_prefill(cfg):
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family}) has no fused prefill")
-    return mod.prefill_cache(params, batch, cfg, jcfg, max_len, dtype=dtype)
+    return module_for(cfg).prefill_cache(params, batch, cfg, jcfg, max_len,
+                                         dtype=dtype)
 
 
 def forecast_step(params, fields, cfg: ModelConfig, jcfg: JigsawConfig,

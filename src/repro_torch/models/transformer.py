@@ -25,13 +25,15 @@ with ``n_experts`` in ``decode_step`` (the reference's rule: a decode
 step never drops), and ``apply`` returns the sum of their aux losses.
 
 Not ported here: the reference's ``_kv_spec`` (the cache's layout on a
-mesh: the port's LM path runs on one device).
+model mesh: the port serves a language model on one device).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
@@ -143,16 +145,23 @@ def apply(params, batch, cfg: ModelConfig,
     the VLM, "embeds": [B, P, D], the vision frontend's patch embeddings,
     put before the text).  Returns the logits [B, P + S, vocab_padded] and
     the reference's aux loss (f32: the MoE layers' sum, 0 without them).
-    ``cfg.remat`` does not apply: the port runs this family forward
-    only."""
+    With ``cfg.remat`` and autograd recording, each layer is checkpointed
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body): only its inputs are kept, and its forward runs again
+    in the backward (the MoE routing has nothing random, so it routes the
+    same)."""
     x = L.embed_apply(params["embed"], batch["tokens"])
     if batch.get("embeds") is not None:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, w in zip(params["layers"], layer_windows(cfg)):
-        x, _, aux = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg,
-                                 positions=positions, window=w, aux_in=aux)
+        layer = partial(_layer_apply, cfg=cfg, jcfg=jcfg,
+                        positions=positions, window=w)
+        x, _, aux = (checkpoint(layer, lp, x, aux_in=aux,
+                                use_reentrant=False) if remat
+                     else layer(lp, x, aux_in=aux))
     return _head(params, x, cfg, jcfg), aux
 
 

@@ -116,7 +116,9 @@ def global_norm(tree, *, owned=None, group=None, pieces=None,
     if pieces is None:
         sums = [g.float().square().sum() for g, c in zip(leaves, counted)
                 if c]
-        total = torch.stack(sums).sum()
+        # a rank may count no leaf (a replica on a data-only mesh)
+        total = (torch.stack(sums).sum() if sums
+                 else torch.zeros((), device=leaves[0].device))
         return torch.sqrt(comm.all_reduce_(total, group))
 
     def squares(t):

@@ -17,15 +17,18 @@ teacher-forced forward that fills the cache:
 ``models/transformer.py::prefill_cache``) where it has one, and token by
 token through the same decode step where the fused prefill raises
 NotImplementedError (the ssm and hybrid families, local:global stacks:
-as in the reference); on the card those steps are replays too.  Each step writes
+as in the reference); on the card those steps are replays too.  The
+enc-dec family (audio) takes its encoder's input as ``extra_batch=
+{"frames": [B, n_frames, D]}``: the encoder runs once and its states go
+into the fresh cache's "enc" (cast to the cache dtype) before the first
+prompt token, on the captured step's static cache too; its prefill is
+token-wise, as the reference's.  Each step writes
 the model's cache in place (``decode_step``), which stands in for the
 reference's buffer donation, and keeps the output tokens on the device
 until one concatenate at the end.  Nothing here needs autograd:
-``generate`` runs under ``torch.no_grad``.  The reference's
-``extra_batch`` (the enc-dec family's encoder input) arrives with that
-family (ROADMAP.md, queue 1 item 14).  Everything runs where the prompts
-and the parameters lie: on the card unless the caller made them on the
-CPU.
+``generate`` runs under ``torch.no_grad``.  Everything runs where the
+prompts and the parameters lie: on the card unless the caller made them on
+the CPU.
 """
 from __future__ import annotations
 
@@ -55,15 +58,31 @@ def make_serve_step(cfg: ModelConfig, jcfg: JigsawConfig):
     return serve_step
 
 
+def start_cache(params, prompts: torch.Tensor, cfg: ModelConfig,
+                jcfg: JigsawConfig, max_len: int, cache_dtype=torch.bfloat16,
+                extra_batch: Optional[dict] = None):
+    """A fresh cache on the prompts' device for their batch, with the
+    prompt's ``extra_batch`` loaded by the family (``M.start_cache``: the
+    audio family's encoder states of its "frames" in "enc", cast to the
+    cache dtype)."""
+    cache = M.init_cache(cfg, prompts.shape[0], max_len, dtype=cache_dtype,
+                         device=prompts.device)
+    if extra_batch is not None:
+        with torch.no_grad():
+            M.start_cache(params, cache, extra_batch, cfg, jcfg)
+    return cache
+
+
 def prefill_tokenwise(params, prompts: torch.Tensor, cfg: ModelConfig,
                       jcfg: JigsawConfig, max_len: int,
-                      cache_dtype=torch.bfloat16):
-    """Token-by-token prefill through the decode step: a fresh cache on the
-    prompts' device, then one step per prompt position.  Returns the token
-    after the prompt [B, 1] and the cache."""
-    b, s = prompts.shape
-    cache = M.init_cache(cfg, b, max_len, dtype=cache_dtype,
-                         device=prompts.device)
+                      cache_dtype=torch.bfloat16,
+                      extra_batch: Optional[dict] = None):
+    """Token-by-token prefill through the decode step: a fresh cache
+    (``start_cache``), then one step per prompt position.  Returns the
+    token after the prompt [B, 1] and the cache."""
+    s = prompts.shape[1]
+    cache = start_cache(params, prompts, cfg, jcfg, max_len, cache_dtype,
+                        extra_batch)
     step = make_serve_step(cfg, jcfg)
     last = prompts[:, :1]
     for t in range(s):
@@ -71,16 +90,34 @@ def prefill_tokenwise(params, prompts: torch.Tensor, cfg: ModelConfig,
     return last, cache
 
 
+def _tokenwise_only(cfg: ModelConfig, extra_batch: Optional[dict],
+                    fused: Optional[bool]) -> bool:
+    """A prompt with ``extra_batch`` (the enc-dec family's input), and a
+    family with no fused prefill, prefill token by token (as the
+    reference); ``fused=True`` raises for them."""
+    if extra_batch is not None:
+        if fused:
+            raise NotImplementedError("fused prefill: no enc-dec support")
+        return True
+    if not M.has_fused_prefill(cfg):
+        if fused:
+            raise NotImplementedError(
+                f"{cfg.arch_id} ({cfg.family}) has no fused prefill")
+        return True
+    return fused is False
+
+
 def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
             jcfg: JigsawConfig, max_len: int, cache_dtype=torch.bfloat16,
+            extra_batch: Optional[dict] = None,
             fused: Optional[bool] = None):
     """Fill a fresh cache from the prompt.  ``fused=None`` takes the family's
     fused prefill where it has one and goes token-wise otherwise; True
-    forces the fused one (and raises where there is none); False forces the
-    token-wise path."""
-    if fused is False:
+    forces the fused one (and raises where there is none: the audio family
+    and ``extra_batch`` among them); False forces the token-wise path."""
+    if _tokenwise_only(cfg, extra_batch, fused):
         return prefill_tokenwise(params, prompts, cfg, jcfg, max_len,
-                                 cache_dtype)
+                                 cache_dtype, extra_batch)
     try:
         logits, cache = M.prefill_cache(params, {"tokens": prompts}, cfg,
                                         jcfg, max_len, dtype=cache_dtype)
@@ -182,18 +219,20 @@ def clear_graphs() -> None:
 @torch.no_grad()
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
              jcfg: JigsawConfig, *, steps: int, max_len: int,
+             extra_batch: Optional[dict] = None,
              fused: Optional[bool] = None,
              graph: Optional[bool] = None) -> torch.Tensor:
     """Greedy generation: prefill, then ``steps - 1`` decode steps.
     Returns the ``steps`` new tokens [B, steps] (int32) on the prompts'
-    device.  ``graph`` (None: on CUDA) replays ``graph_serve_step``'s
-    captured step for every decode step and every step of a token-wise
-    prefill; False runs them eagerly; True on the CPU raises."""
+    device.  ``extra_batch``: the audio family's {"frames"}.  ``graph``
+    (None: on CUDA) replays ``graph_serve_step``'s captured step for every
+    decode step and every step of a token-wise prefill; False runs them
+    eagerly; True on the CPU raises."""
     if graph is None:
         graph = prompts.is_cuda
     if not graph:
         nxt, cache = prefill(params, prompts, cfg, jcfg, max_len,
-                             fused=fused)
+                             extra_batch=extra_batch, fused=fused)
         step = make_serve_step(cfg, jcfg)
         out = [nxt]
         for _ in range(steps - 1):
@@ -204,7 +243,7 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     b, s = prompts.shape
     out = torch.empty((b, steps), dtype=torch.int32, device=prompts.device)
     cache = None
-    if fused is not False:
+    if not _tokenwise_only(cfg, extra_batch, fused):
         try:
             nxt, cache = prefill(params, prompts, cfg, jcfg, max_len,
                                  fused=True)
@@ -214,9 +253,10 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     if cache is not None:
         g = graph_serve_step(params, cfg, jcfg, cache)
     else:
-        # token-wise prefill, through the captured step
-        g = graph_serve_step(params, cfg, jcfg, M.init_cache(
-            cfg, b, max_len, dtype=torch.bfloat16, device=prompts.device))
+        # token-wise prefill, through the captured step: the fresh cache
+        # (with the encoder's states) is loaded into its static one
+        g = graph_serve_step(params, cfg, jcfg, start_cache(
+            params, prompts, cfg, jcfg, max_len, extra_batch=extra_batch))
         for t in range(s):
             g.tokens_in.copy_(prompts[:, t:t + 1])
             nxt = g.replay()

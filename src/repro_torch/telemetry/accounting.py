@@ -58,10 +58,17 @@ def _wire_dtype_bytes(cfg) -> int:
 
 def gemm_peak(cfg) -> float:
     """The card's peak FLOP/s for the dtype the step's GEMMs run in: the
-    policy's compute dtype, f32 under the legacy policy (f32 activations
-    make every launch an f32 one)."""
+    policy's compute dtype.  Under the legacy policy (no casts) a GEMM runs
+    in its activations' dtype: f32 for the mixer (its f32 fields make
+    every launch an f32 one), the stored weights' for a language model
+    (its residual stream is the embedding table's)."""
     pol = precision.policy_of(cfg)
-    dt = torch.float32 if pol.name == "legacy" else pol.compute_dtype
+    if pol.name != "legacy":
+        dt = pol.compute_dtype
+    elif cfg.family == "mixer":
+        dt = torch.float32
+    else:
+        dt = precision.dtype_of(cfg.param_dtype)
     return A.peak_flops(precision.name_of(dt))
 
 

@@ -1,6 +1,6 @@
-"""The weather loss: latitude- and pressure-level-weighted MSE (the port's
-copy of the mixer half of ``repro/train/loss.py``), and its per-rank part
-on a 2-D Jigsaw mesh."""
+"""The losses of ``repro/train/loss.py``: the weather loss (latitude- and
+pressure-level-weighted MSE) with its per-rank part on a Jigsaw mesh, and
+the language models' next-token cross-entropy."""
 from __future__ import annotations
 
 from typing import Optional
@@ -74,3 +74,32 @@ def weighted_sse(pred: torch.Tensor, target: torch.Tensor,
     if chan_w is not None:
         err = err * chan_w
     return err.sum()
+
+
+def lm_nll(logits: torch.Tensor, labels: torch.Tensor,
+           vocab_size: int) -> torch.Tensor:
+    """The next-token NLL of every position [B, S], in f32.  logits
+    [B, S, Vp] (Vp >= vocab_size: the padded ids get -1e30 added), labels
+    [B, S] int.  The gold logit is picked by comparison with an iota, not a
+    gather, as the reference's."""
+    vp = logits.shape[-1]
+    logits = logits.float()
+    ids = torch.arange(vp, device=logits.device)
+    if vp > vocab_size:
+        logits = logits + torch.where(ids >= vocab_size, -1e30, 0.0)
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = ids == labels[..., None]
+    gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    return logz - gold
+
+
+def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                     vocab_size: int,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean NLL (``lm_nll``) over the positions, or with ``mask``
+    ``sum(nll * mask) / max(sum(mask), 1)``."""
+    nll = lm_nll(logits, labels, vocab_size)
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,6 +1,14 @@
-"""Train steps: loss -> grad -> clip -> Adam (the port's copy of
-the mixer half of ``repro/train/step.py``), on one device or on the
-shards of a 1-D or 2-D Jigsaw mesh with a data axis.
+"""Train steps: loss -> grad -> clip -> Adam (the port of
+``repro/train/step.py``), on one device or on the shards of a 1-D or 2-D
+Jigsaw mesh with a data axis.
+
+The loss is the family's: the weather loss for the mixer, and for the
+language models (dense, VLM, moe, audio) the next-token cross-entropy
+plus ``AUX_WEIGHT`` times the MoE load-balance loss.  A language model
+trains on one device or on a data-only mesh (``jcfg.mesh`` a ``Mesh1D``
+of one model rank under ``scheme="none"``: every rank holds the whole
+model and its data rank's rows).  The ssm and hybrid families raise
+(``check_trainable``).
 
 Autograd takes the place of ``jax.value_and_grad``: the step runs the
 forward on detached views of the parameters that require grad (no copy),
@@ -36,11 +44,64 @@ from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
 from repro_torch.train import loss as losses
 
+AUX_WEIGHT = 0.01   # MoE load-balance loss weight
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """NotImplementedError for the ssm and hybrid families, on any device:
+    their forward runs the intra-chunk SSD term on ``ssd_chunk.cu``, which
+    has no backward yet, so autograd would carry no gradient through it on
+    the card."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training {cfg.arch_id} ({cfg.family!r}) needs the SSD term's "
+            "backward kernels (ROADMAP.md, queue 1 item 18)")
+
+
+def train_mesh(cfg: ModelConfig, jcfg: JigsawConfig):
+    """The mesh the step reduces over: the mixer's Jigsaw mesh
+    (``jcfg.rank_mesh``), a language model's data-only mesh (``jcfg.mesh``
+    under ``scheme="none"``), or None on one device."""
+    return jcfg.rank_mesh if cfg.family == "mixer" else jcfg.mesh
+
+
+def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
+    """The language models' (objective, metrics): ``lm_cross_entropy`` of
+    the logits (the VLM's last ``labels.shape[1]`` positions: text only)
+    plus ``AUX_WEIGHT`` times the aux loss; metrics {"loss", "nll",
+    "aux"}.  On a data mesh the objective is this rank's part: its NLL sum
+    over the token (or mask) count of all ranks, and its aux over the
+    data extent, so that the parts sum to the loss; the metrics are the
+    sums of the parts."""
+    logits, aux = M.apply(params, batch, cfg, jcfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    mask = batch.get("mask")
+    mesh = train_mesh(cfg, jcfg)
+    if mesh is None or mesh.mesh_group is None:
+        nll = losses.lm_cross_entropy(logits, labels, cfg.vocab_size,
+                                      mask=mask)
+        total = nll + AUX_WEIGHT * aux
+        return total, {"loss": total, "nll": nll, "aux": aux}
+    group = mesh.mesh_group
+    per = losses.lm_nll(logits, labels, cfg.vocab_size)
+    w = torch.ones_like(per) if mask is None else mask.float()
+    count = comm.all_reduce_(w.sum().detach(), group)
+    nll = (per * w).sum() / torch.clamp(count, min=1.0)
+    aux = aux / mesh.data_size
+    sums = comm.all_reduce_(torch.stack([nll, aux]).detach(), group)
+    return nll + AUX_WEIGHT * aux, {
+        "loss": sums[0] + AUX_WEIGHT * sums[1], "nll": sums[0],
+        "aux": sums[1]}
+
 
 def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
             rollout: int = 1):
     """Returns (objective, metrics dict): the scalar to differentiate, and
-    the loss.  Level weights apply from 69 channels on (the full ERA5
+    the loss.  The language models' is ``lm_loss_fn``; the ssm and hybrid
+    families raise (``check_trainable``).  The mixer's: level weights
+    apply from 69 channels on (the full ERA5
     variable set).  Under ``scheme="1d"`` / ``"2d"`` the objective is this
     rank's part, the weighted squared error of its block over the element
     count of the whole global batch (its rows times the data extent: where
@@ -50,10 +111,9 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     collectives' backward and over the data axis, are the loss's.  The
     metrics carry the whole loss (the parts all-reduced over every rank),
     the same on every rank."""
+    check_trainable(cfg)
     if cfg.family != "mixer":
-        raise NotImplementedError(
-            f"the port trains the mixer family only; {cfg.arch_id} is "
-            f"{cfg.family!r} (ROADMAP.md, queue 1 item 14: model zoo)")
+        return lm_loss_fn(params, batch, cfg, jcfg)
     pred, _ = M.apply(params, batch, cfg, jcfg, rollout=rollout)
     lat_w = losses.latitude_weights(cfg.wm_lat, device=pred.device)
     chan_w = (losses.pressure_level_weights(cfg.wm_channels,
@@ -81,10 +141,13 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
 def leaf_specs(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
     """The spec of each parameter shard: ``specs`` (the sanitized
     ``launch/specs.py::param_specs`` the shards were cut by) or, when None,
-    the model's own layout for the scheme.  The FSDP hybrid's layout
-    depends on the whole shapes, so a data mesh under it needs ``specs``."""
+    the model's own layout for the scheme (a language model's leaves are
+    whole on every rank).  The FSDP hybrid's layout depends on the whole
+    shapes, so a data mesh under it needs ``specs``."""
     if specs is not None:
         return specs
+    if cfg.family != "mixer":
+        return ptree.map(lambda p: (None,) * p.ndim, params)
     if jcfg.fsdp and jcfg.rank_mesh.data_size > 1:
         raise ValueError("the FSDP hybrid's layout needs the shards' specs "
                          "(launch/specs.py::param_specs, sanitized)")
@@ -96,7 +159,7 @@ def replica_axes(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
     """The tree of the mesh axes (model and data) each parameter shard is
     replicated over (``()`` for a weight block that one rank holds and,
     under the FSDP hybrid, cuts over data too)."""
-    mesh = jcfg.rank_mesh
+    mesh = train_mesh(cfg, jcfg)
     return ptree.map(lambda sp: replicated_axes(sp, mesh),
                      leaf_specs(params, cfg, jcfg, specs))
 
@@ -108,8 +171,10 @@ def _norm_args(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
     than one data rank each leaf's squares are summed in ``data`` pieces
     along the dim the FSDP hybrid cuts (its first dim the data extent
     divides), whoever holds them, so that the norm's bits do not depend on
-    the layout (``adam.global_norm``'s ``pieces``)."""
-    mesh = jcfg.rank_mesh
+    the layout (``adam.global_norm``'s ``pieces``).  A language model's
+    leaves are never cut over data: data rank 0 counts each whole, in the
+    one-device order, so the norm is the one device's bit for bit."""
+    mesh = train_mesh(cfg, jcfg)
     if mesh is None or mesh.mesh_group is None:
         return {}
     specs = leaf_specs(params, cfg, jcfg, specs)
@@ -117,6 +182,8 @@ def _norm_args(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
                                      replicated_axes(sp, mesh)), specs)
     if mesh.data_size == 1:
         return {"owned": owned, "group": mesh.model_group}
+    if cfg.family != "mixer":
+        return {"owned": owned, "group": mesh.mesh_group}
     n = mesh.data_size
 
     def piece(p, sp):
@@ -143,7 +210,7 @@ def value_and_grad(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
         loss, metrics = loss_fn(ptree.unflatten(params, live), batch, cfg,
                                 jcfg, rollout)
         grads = torch.autograd.grad(loss, live)
-    mesh = jcfg.rank_mesh
+    mesh = train_mesh(cfg, jcfg)
     if mesh is not None and mesh.mesh_group is not None:
         for g, axes in zip(grads, ptree.leaves(
                 replica_axes(params, cfg, jcfg, specs))):

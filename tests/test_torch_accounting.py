@@ -150,10 +150,14 @@ def test_build_cost_model_equals_reference(n_model, n_data, scheme, impl,
 
 def test_cost_model_peak_follows_the_gemm_dtype():
     """The peak of the dtype the step's GEMMs run in: the policy's compute
-    dtype, f32 under the legacy policy (f32 activations)."""
+    dtype; under the legacy policy f32 for the mixer (f32 activations),
+    the stored weights' dtype for a language model (its embedding's)."""
     from repro_torch.core import precision as P
     cfg = get_config(WM)
     assert telemetry.gemm_peak(cfg) == A.PEAK_FLOPS_F32
+    lm = get_config("phi3.5-moe-42b-a6.6b")
+    assert telemetry.gemm_peak(lm) == A.PEAK_FLOPS_BF16
+    assert telemetry.gemm_peak(lm.reduced()) == A.PEAK_FLOPS_F32
     for name, peak in (("bf16", A.PEAK_FLOPS_BF16),
                        ("bf16_pure", A.PEAK_FLOPS_BF16),
                        ("fp32", A.PEAK_FLOPS_F32)):

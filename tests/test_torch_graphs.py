@@ -19,8 +19,9 @@
   decode step writes, and the eager decode's logits and tokens are those
   of the step before that change (the window promoted at the first step).
 * On the card (marked ``cuda``; skips here): graphed against eager for
-  both steps, for the transformer's decode on each kind of KV cache and
-  for the hybrid's nested cache, bit for bit, the launches counted by
+  both steps, for the transformer's decode on each kind of KV cache, for
+  the hybrid's nested cache and for whisper's (the encoder's states
+  loaded into the static cache), bit for bit, the launches counted by
   replay.
 """
 import collections
@@ -537,4 +538,28 @@ def test_graphed_hybrid_decode_on_card(cuda):
     assert len(S._GRAPHS) == 1
     assert torch.equal(out, S.generate(params, prompts, cfg, jcfg, steps=6,
                                        max_len=16, graph=False))
+    S.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_graphed_audio_generate_on_card(cuda):
+    """On the card, ``kernel="pallas"``: ``generate`` with frames through
+    the captured decode step against the eager loop, bit for bit, with 10
+    L + 1 block_matmul launches a step counted by replay."""
+    cfg = get_config("whisper-small").reduced().replace(kernel="pallas")
+    jcfg = jigsaw_for(cfg)
+    params = M.init(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, 1000, (4, 4), dtype=torch.int32,
+                            device="cuda")
+    frames = torch.randn(4, cfg.n_frames, cfg.d_model, device="cuda")
+    kw = dict(steps=6, max_len=16, extra_batch={"frames": frames})
+    out = S.generate(params, prompts, cfg, jcfg, **kw)
+    BM.block_matmul.launches = 0
+    again = S.generate(params, prompts, cfg, jcfg, **kw)
+    per_step = 10 * cfg.n_layers + 1
+    enc = 6 * cfg.n_enc_layers
+    assert BM.block_matmul.launches == enc + (4 + 5) * per_step
+    assert torch.equal(out, again)
+    assert torch.equal(out, S.generate(params, prompts, cfg, jcfg,
+                                       graph=False, **kw))
     S.clear_graphs()

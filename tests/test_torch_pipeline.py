@@ -131,7 +131,7 @@ def test_batch_specs_are_the_model_layout():
     (``block_specs``) is the activations': the batch dim over the data
     axis, tokens over mdom and the patch dim over mtp (2-D), the patch dim
     over the model axis (1-D); ``batch_specs`` is the reference's over the
-    grid; the mixer family only."""
+    grid.  A language model's blocks are its rows."""
     cfg = _cfg()
     data = ("data",)
     assert block_specs(cfg, RULES_2D) == {"fields": (data, "mdom", "mtp"),
@@ -139,8 +139,10 @@ def test_batch_specs_are_the_model_layout():
     assert block_specs(cfg, RULES_1D)["fields"] == (data, None, "model")
     assert batch_specs(cfg, RULES_2D)["fields"] == (data, None, "mdom",
                                                     "mtp")
-    with pytest.raises(NotImplementedError, match="mixer"):
-        batch_specs(get_config("internlm2-1.8b"), RULES_2D)
+    rows = (data, None)
+    assert batch_specs(get_config("internlm2-1.8b"), RULES_2D) == \
+        block_specs(get_config("internlm2-1.8b"), RULES_2D) == \
+        {"tokens": rows, "labels": rows}
 
 
 def test_indexed_reads_match_slices_of_the_batch():

@@ -97,9 +97,14 @@ def test_configs_match_reference():
 
 
 def test_registry_raises_for_unported_families():
+    """Every family's config is served; what is still unported raises
+    naming its ROADMAP item (training the ssm family), and an unknown id
+    is a KeyError."""
     assert get_config("weathermixer-1b") == wm_cfg.CONFIG
+    assert get_config("whisper-small").family == "audio"
+    from repro_torch.train.step import check_trainable
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+        check_trainable(get_config("mamba2-130m"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
