@@ -14,8 +14,8 @@ greedy generation, the dense transformer's forward and generation (fused
 prefill, graphed decode on rolling and local:global KV caches), the MoE
 transformer's and the hybrid's forward and generation, whisper's
 encoder-decoder forward and generation, language-model training
-(``TrainEngine`` on token batches: h2o-danube-1.8b and whisper-small whole,
-phi3.5-moe cut in depth),
+(``TrainEngine`` on token batches: mamba2-130m, h2o-danube-1.8b and
+whisper-small whole, phi3.5-moe cut in depth, jamba reduced),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -24,8 +24,8 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
 1-D FSDP hybrid).  Phases, each printed as a JSON line:
 
   1. the card (``nvidia-smi``) and the kernel builds (block_matmul.cu,
-     wx.cu, ring.cu, cannon.cu and ssd_chunk.cu, one nvcc each, started
-     together);
+     wx.cu, ring.cu, cannon.cu, ssd_chunk.cu and ssd_chunk_bwd.cu, one
+     nvcc each, started together);
   2. the block_matmul kernel against its plain PyTorch version on the card:
      small ragged shapes in f32 and bf16 with every epilogue, then the six
      GEMM shapes of a weathermixer-1b forecast step (bucket 1) in bf16 and
@@ -51,6 +51,16 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      dt, bmm; at the model's layout after the same copies), the bound and,
      for the model row, the groups arrangement; each row with its route,
      registers, spills, shared bytes, stages and blocks per SM;
+  2b'. the SSD term's backward kernel ssd_chunk_bwd (``ssd_bwd_shape``)
+     against its plain version (``ref.ssd_intra_heads_bwd_ref``) in f32
+     and in float64: ragged chunks (Q = 37 at N = 5, P = 3, and Q = 64)
+     with one and two groups, a chunk whose decay overflows exp above the
+     diagonal, mamba2-130m's layer and jamba's SSM slot as in 2b; every
+     gradient finite and two launches bit for bit; each row timed beside
+     the plain version, the closest library composition (autograd's
+     backward of the groups copies, bmm, where, * dt, bmm with the
+     exponent masked) and the bytes bound, with registers, spills, shared
+     bytes, blocks per SM and waves;
   2c. ``mamba_forward``: the full-width mamba2-130m forward (24 layers,
      random bf16 weights from seed 0) at sequence 4096 and batch 2 on
      ``TokenDataset`` rows, 24 ssd launches (all on the heads entry's
@@ -68,6 +78,27 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      every prompt position against the teacher-forced forward (judged in
      f32, printed in bf16), a decode step's device (CUDA events) and host
      time, graphed and eager;
+  2e. ``mamba_train``: ``TrainEngine("mamba2-130m", reduced=False)`` whole
+     under the config's own dtypes (bf16 weights) with remat, batch 2 x
+     4,096 ``TokenBatchSource`` tokens, three steps: step 0 in f32 (the
+     weights up-cast) against the same step with the plain SSD term
+     (plain forward and backward) and with ``kernel="xla"``: loss, grad
+     norm and every leaf's gradient, beside the control the bounds must
+     refuse (the tied embedding zeroed); then the run, 48 ssd, 24
+     ssd_chunk_bwd and 387 block_matmul launches a step (by layout:
+     forward and recompute 193, dx 97, dw 97), losses finite, the weights
+     moved, ``mfu``, ms a step and tokens/s with ``data_wait`` apart, the
+     peak memory; one more step's parts by CUDA events (the SSD forward
+     and backward launches, the chunked scans' forwards) and one under
+     ``torch.profiler`` (device-busy ms, kernels launched, the top
+     kernels);
+  2f. ``hybrid_train``: ``jamba-1.5-large-398b`` reduced (d_model 256,
+     one period of an SSM slot and an attention slot with 4 experts, f32,
+     remat: the published period's weights do not fit one card in
+     training), one step at batch 2 x 512 on the card: 2 ssd, 1
+     ssd_chunk_bwd and 51 block_matmul launches, its gradients against
+     the port's CPU step on the same weights and batch, and its loss and
+     grad norm against the CPU ``TrainEngine``'s;
   3. full-width serving under the bf16 policy: the engine's per-bucket CUDA
      graphs (buckets 1, 2, 4, captured by ``warmup()``, 14 launches each),
      then an eager engine (``graphs=False``) on the same weights, each
@@ -386,6 +417,13 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     sums of N = 128 and Q = 64 terms in another order), bf16 3e-2 / 3e-2
     (att and y rounded to bf16); its heads entry bit for bit its [G, Q, N]
     entry (the same fmaf chains);
+  * the ssd backward kernel: each gradient max|a - b| / max|b| 1e-4
+    against the plain backward in f32 and in float64 (``SSD_BWD_TOL``);
+    mamba2-130m's training step 0 in f32: against the plain SSD term
+    1e-3 on the loss, the grad norm and every leaf, against
+    ``kernel="xla"`` 1e-3 on the loss and grad norm and 1e-2 on the
+    leaves (``MAMBA_TRAIN_TOL``, ``MAMBA_XLA_LEAF_TOL``); jamba reduced,
+    the card's step against the CPU's, 1e-3 (``HYBRID_TRAIN_TOL``);
   * mamba2-130m logits, judged in f32 (the seed's weights up-cast, where
     only summation orders differ): max|a - b| / max|b| 1e-3 against the
     plain SSD term and against ``kernel="xla"``; token-wise decode against
@@ -808,10 +846,10 @@ SSD_LAYER = (MAMBA_BATCH, MAMBA_SEQ, SSD_HEADS, SSD_P, 1, SSD_N)
 SSD_JAMBA_LAYER = (1, 2048, 256, SSD_P, 8, SSD_N)
 
 
-def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype):
+def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype, q=SSD_Q):
     """x [b, s, h, p], dt [b, s, h] = softplus(N(0, 1)), dac its
-    within-chunk cumsum of dt * A (the model's initial A by head), B, C
-    [b, s, g, n]: contiguous, as the bf16 forward hands them over."""
+    within-chunk (``q``) cumsum of dt * A (the model's initial A by head),
+    B, C [b, s, g, n]: contiguous, as the bf16 forward hands them over."""
     x = torch.randn(bsz, s, h, p, generator=gen, device="cuda").to(dtype)
     bm = (0.3 * torch.randn(bsz, s, g, n, generator=gen, device="cuda")
           ).to(dtype)
@@ -820,8 +858,7 @@ def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype):
     dt = torch.nn.functional.softplus(
         torch.randn(bsz, s, h, generator=gen, device="cuda"))
     a = -torch.linspace(1.0, 16.0, h, device="cuda")
-    dac = torch.cumsum((dt * a).unflatten(1, (-1, SSD_Q)), dim=2).flatten(
-        1, 2)
+    dac = torch.cumsum((dt * a).unflatten(1, (-1, q)), dim=2).flatten(1, 2)
     return x, dt, dac, bm, cm
 
 
@@ -984,6 +1021,125 @@ def ssd_phase(torch, SSD, ref):
     return rows, worst
 
 
+# the SSD term's backward (csrc/ssd_chunk_bwd.cu): each of dx, ddt, ddac,
+# dB and dC against the plain backward (ref.ssd_intra_heads_bwd_ref) in
+# f32 and in float64, max|a - b| / max|b| (the same measure and bound as
+# WX_DX_F64_TOL): the kernel sums up to 64 heads' [Q, Q] terms into dB
+# and dC, and ddac is a difference of a row sum and a column sum, in
+# another order than the plain version's products
+SSD_BWD_TOL = 1e-4
+# (batch, seq, heads, head width, groups, state, chunk): ragged chunks of
+# 37 at an odd width (N 5, P 3) and of 64, one and two groups; then
+# mamba2-130m's layer and jamba's SSM slot as in ssd_shape.  Every row at
+# the models' decays (A from -1 to -16 by head), where exp overflows
+# above the diagonal in the chunks of 64
+SSD_BWD_SMALL = [("q37.g1", (1, 74, 2, 3, 1, 5, 37)),
+                 ("q37.g2", (1, 74, 4, 3, 2, 5, 37)),
+                 ("q64.g1", (2, 128, 4, 64, 1, 128, 64)),
+                 ("q64.g2", (2, 128, 4, 64, 2, 32, 64)),
+                 ("overflow", (1, 128, 8, 64, 1, 128, 64))]
+
+
+def ssd_bwd_bound_ms(bsz, s, h, p, g, n, q):
+    """x and dy read and dx written (f32), dt and dac read and ddt and
+    ddac written, B and C read and dB and dC written, each once; the
+    causal half's operations: per (batch, chunk, group) s and the two
+    products into dB and dC, 6 n per (i, j <= i) pair, and per head datt
+    and dx, 4 p per pair, at the f32 peak."""
+    nbytes = 4 * (3 * bsz * s * h * p + 4 * bsz * s * h + 4 * bsz * s * g * n)
+    ops = (bsz * s // q) * q * (q + 1) // 2 * (g * 6 * n + h * 4 * p)
+    t_ops, t_bytes = ops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_bwd_errors(got, want):
+    """The worst of the five outputs by max|a - b| / max|b| (``rel_err``),
+    and the largest absolute difference, in float64."""
+    pairs = [(a.double(), b.double()) for a, b in zip(got, want)]
+    return (max(rel_err(a, b) for a, b in pairs),
+            max(float((a - b).abs().max()) for a, b in pairs))
+
+
+def ssd_bwd_phase(torch, SSDB, ref):
+    """``ssd_bwd_shape``: the backward kernel against the plain backward
+    on the card (f32 and float64), finite and bit for bit across two
+    launches, at small ragged chunks, an overflowing chunk, mamba2-130m's
+    layer and jamba's SSM slot; each row timed beside the plain version,
+    the closest library composition (autograd's backward of the groups
+    copies, bmm, where, * dt, bmm with the exponent masked) and the bytes
+    bound, with registers, spills, shared bytes and blocks per SM."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows, worst = [], 0.0
+    shapes = SSD_BWD_SMALL + [("model_layout", SSD_LAYER + (SSD_Q,)),
+                              ("jamba_layout", SSD_JAMBA_LAYER + (SSD_Q,))]
+    for tag, (bsz, s, h, p, g, n, q) in shapes:
+        x, dt, dac, bm, cm = ssd_heads_inputs(torch, gen, bsz, s, h, p, g,
+                                              n, torch.float32, q=q)
+        dy = torch.randn(bsz, s, h, p, generator=gen, device="cuda")
+        args = (x, dt, dac, bm, cm, dy)
+        if q == SSD_Q:
+            seg = dac.unflatten(1, (-1, q))
+            check(bool(torch.isinf(torch.exp(
+                seg[:, :, :, None] - seg[:, :, None, :])).any()),
+                f"ssd_bwd {tag}: the decays do not overflow exp")
+        got = SSDB.ssd_intra_heads_bwd(*args, q)
+        again = SSDB.ssd_intra_heads_bwd(*args, q)
+        torch.cuda.synchronize()
+        plain = ref.ssd_intra_heads_bwd_ref(*args, q)
+        rel32, ab = ssd_bwd_errors(got, plain)
+        del plain
+        rel64, _ = ssd_bwd_errors(got, ref.ssd_intra_heads_bwd_ref(
+            *(t.double() for t in args), q))
+        check(all(bool(torch.isfinite(t).all()) for t in got)
+              and all(torch.equal(a, b) for a, b in zip(got, again))
+              and rel32 <= SSD_BWD_TOL and rel64 <= SSD_BWD_TOL,
+              f"ssd_bwd {tag}: f32 {rel32:.3e}, f64 {rel64:.3e} (tol "
+              f"{SSD_BWD_TOL}), finite and repeatable: "
+              f"{[bool(torch.isfinite(t).all()) for t in got]}, "
+              f"{[torch.equal(a, b) for a, b in zip(got, again)]}")
+        worst = max(worst, ab)
+        del got, again
+
+        # the library composition: the forward's groups copies and bmm,
+        # where, * dt, bmm (the exponent masked), its backward alone timed
+        tri = torch.ones((q, q), dtype=torch.bool, device="cuda").tril()
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, dac, bm,
+                                                            cm)]
+        c_, b_, x_, dt_, dac_ = ssd_groups(*leaves, q)
+        sm_ = torch.bmm(c_, b_.transpose(1, 2))
+        seg_ = torch.where(tri, dac_[:, :, None] - dac_[:, None, :],
+                           -float("inf"))
+        y_ = torch.bmm(torch.where(tri, sm_ * torch.exp(seg_), 0.0)
+                       * dt_[:, None, :], x_)
+        dyg = ssd_groups(dy, dt, dac, bm, cm, q)[2]
+
+        def library():
+            return torch.autograd.grad(y_, leaves, dyg, retain_graph=True)
+        bound, bound_by = ssd_bwd_bound_ms(bsz, s, h, p, g, n, q)
+        attrs = SSDB.kernel_attrs(n, p)
+        items = bsz * (s // q) * g
+        row = dict(shape=f"{tag}.seq{s}.b{bsz}", batch=bsz, seq=s, heads=h,
+                   groups=g, q=q, n=n, p=p, dtype="float32",
+                   max_abs_err=ab, max_rel_err_f32=rel32,
+                   max_rel_err_f64=rel64, tol=SSD_BWD_TOL,
+                   kernel_ms=cuda_ms(lambda: SSDB.ssd_intra_heads_bwd(
+                       *args, q), 10),
+                   library_ms=cuda_ms(library, 5),
+                   plain_ms=cuda_ms(lambda: ref.ssd_intra_heads_bwd_ref(
+                       *args, q), 5),
+                   bound_ms=bound, bound_by=bound_by, kernel=attrs,
+                   blocks_per_sm=blocks_per_sm(attrs), items=items,
+                   waves=-(-items // (sm_count(torch)
+                                      * blocks_per_sm(attrs))))
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        emit(phase="ssd_bwd_shape", **row)
+        rows.append(row)
+        del args, x, dt, dac, bm, cm, dy, leaves, y_, dyg, sm_, seg_
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def zero_counts(kernels):
     for fn in kernels:
         fn.launches = 0
@@ -1007,15 +1163,21 @@ MAMBA_FWD_ROUTES = {"sm90": 3 * MAMBA_LAYERS + 1, "wmma": MAMBA_LAYERS}
 
 
 @contextmanager
-def plain_ssd(ops, ref):
-    """The model's forward with ``ref.ssd_intra_heads_ref`` in place of the
-    ssd kernel (``ops.ssd_intra_heads``, which ``_ssd_chunked`` calls): the
-    only difference from the kernel's forward."""
-    saved, ops.ssd_intra_heads = ops.ssd_intra_heads, ref.ssd_intra_heads_ref
+def plain_ssd(ref):
+    """The model with the SSD term's plain forward and backward
+    (``ref.ssd_intra_heads_ref``, ``ref.ssd_intra_heads_bwd_ref``) in place
+    of the two kernels: the module attributes that
+    ``ops.ssd_intra_heads``'s autograd Function calls, and the only
+    difference from the kernels' forward and step."""
+    from repro_torch.kernels import ssd_chunk as SSD
+    from repro_torch.kernels import ssd_chunk_bwd as SSDB
+    saved = SSD.ssd_intra_heads, SSDB.ssd_intra_heads_bwd
+    SSD.ssd_intra_heads = ref.ssd_intra_heads_ref
+    SSDB.ssd_intra_heads_bwd = ref.ssd_intra_heads_bwd_ref
     try:
         yield
     finally:
-        ops.ssd_intra_heads = saved
+        SSD.ssd_intra_heads, SSDB.ssd_intra_heads_bwd = saved
 
 
 @contextmanager
@@ -1119,7 +1281,7 @@ def mamba_forward_phase(torch, kernels, ops, ref, cfg, jcfg, params):
         bf16_top1 = float((logits.float().argmax(-1)
                            == ref32.argmax(-1)).float().mean())
         del logits
-        with plain_ssd(ops, ref):
+        with plain_ssd(ref):
             plain, _ = M.apply(params32, batch, cfg32, jcfg)
         ssd_err = rel_err(ref32, plain)
         del plain
@@ -4958,16 +5120,26 @@ def lm_train_calls(cfg):
     """block_matmul launches of one remat training step, by kind: the
     forward, the remat recompute (every layer's, not the head's), dx, dw
     (every linear's) and the GELU pre-activation recomputes of the FFNs'
-    first linear (``tests/test_torch_lm_train.py`` counts the same on the
-    CPU)."""
+    first linear; and the SSD launches of the SSM layers: the forward and
+    its recompute (ssd_chunk) and the backward (ssd_chunk_bwd), one each a
+    layer (``tests/test_torch_lm_train.py`` and
+    ``tests/test_torch_ssm_train.py`` count the same on the CPU).  A
+    Mamba-2 layer has 4 linears; a hybrid slot its mixer's 4 and its
+    FFN's 3 or its MoE router's 1."""
+    ssm = gelu = 0
     if cfg.family == "audio":
         per = 6 * cfg.n_enc_layers + 10 * cfg.n_layers
         gelu = cfg.n_enc_layers + cfg.n_layers
+    elif cfg.family == "ssm":
+        per, ssm = 4 * cfg.n_layers, cfg.n_layers
+    elif cfg.family == "hybrid":
+        slots = [j % cfg.attn_every for j in range(cfg.n_layers)]
+        per = sum(4 + (1 if cfg.is_moe_layer(j) else 3) for j in slots)
+        ssm = sum(not cfg.is_attn_layer(j) for j in slots)
     else:
         per = (5 if cfg.n_experts else 7) * cfg.n_layers
-        gelu = 0
     return dict(forward=per + 1, remat=per, dx=per + 1, dw=per + 1,
-                gelu=gelu)
+                gelu=gelu, ssd_forward=2 * ssm, ssd_backward=ssm)
 
 
 def lm_bwd_rows(torch, BM, SM90, ref, gen, shapes):
@@ -5031,28 +5203,35 @@ def _sample_leaves(params, n=4):
     return {p: t.clone() for p, t in leaves[::step]}
 
 
-def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False):
-    """``TrainEngine(arch, reduced=False, kernel="pallas")`` on its token
-    batches: optionally step 0 against ``kernel="xla"`` on the same weights
-    and batch; then the run, its launches by layout and route counted
-    from 0 just before it; losses finite, the sampled weights moved, the
-    step records' ``mfu``; one step's device time after it.  Returns the
-    stats, the engine's config and its first batch's token count."""
+def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
+                 first_step=None, reduced=False, init_params=None,
+                 after=None):
+    """``TrainEngine(arch, kernel="pallas")`` on its token batches, at the
+    published width (``reduced``: the reduced config, remat on, from
+    ``init_params``): optionally step 0 against ``kernel="xla"`` on the
+    same weights and batch (``compare``), or ``first_step(eng)``'s checks;
+    then the run, its launches by layout and route counted from 0 just
+    before it; losses finite, the sampled weights moved, the step records'
+    ``mfu``; one step's device time after it, then ``after(eng)``.
+    Returns the stats and the engine's config."""
     import math
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.engine import TrainEngine
     from repro_torch.optim.adam import global_norm
     from repro_torch.train.step import value_and_grad
-    cfg0 = get_config(arch).replace(**cfg_over)
+    cfg0 = get_config(arch)
+    cfg0 = (cfg0.reduced() if reduced else cfg0).replace(**cfg_over)
     t0 = time.perf_counter()
     eng = TrainEngine(arch, reduced=False, kernel="pallas", device="cuda",
-                      config_override=cfg0, config=ecfg)
+                      config_override=cfg0, config=ecfg,
+                      init_params=init_params)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cfg = eng.cfg
     check(cfg.remat and cfg.kernel == "pallas" and cfg.scheme == "none",
           f"{what}: unexpected config remat={cfg.remat} "
           f"kernel={cfg.kernel} scheme={cfg.scheme}")
+    checks = None if first_step is None else first_step(eng)
     first = None
     if compare:
         batch0 = eng.pipeline.get(0)
@@ -5136,10 +5315,14 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False):
                     "x,w.T (dx)": steps * calls["dx"],
                     "x.T,w.T (dw)": steps * calls["dw"]}
     total = sum(want_layouts.values())
+    want_ssd = {"ssd_intra_chunk": steps * calls["ssd_forward"],
+                "ssd_intra_heads_bwd": steps * calls["ssd_backward"]}
     check(launches["block_matmul"] == total
-          and sum(launches.values()) == total and layouts == want_layouts,
+          and all(launches[k] == v for k, v in want_ssd.items())
+          and sum(launches.values()) == total + sum(want_ssd.values())
+          and layouts == want_layouts,
           f"{what}: launches {launches} by layout {layouts}, want "
-          f"{want_layouts}")
+          f"{want_layouts} and {want_ssd}")
     check(len(hist) == steps and all(
         math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
         for h in hist), f"{what}: bad history {hist}")
@@ -5155,10 +5338,13 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False):
     step_s = sum(r["dur_s"] - r["data_wait_s"] for r in later) / len(later)
     batch = eng.pipeline.get(steps)
     device_ms = cuda_ms(lambda: eng.dispatch(batch), 1)
+    if after is not None:
+        after(eng)
     stats = dict(
         arch=arch, params=cfg.param_count(), n_layers=cfg.n_layers,
         precision=eng.policy.name, batch=ecfg.batch, seq_len=ecfg.seq_len,
         steps=steps, setup_s=setup_s, wall_s=wall, first_step_vs_xla=first,
+        first_step=checks,
         loss=[h["loss"] for h in hist],
         grad_norm=[h["grad_norm"] for h in hist],
         metrics_keys=sorted(hist[0]), launches=launches,
@@ -5170,13 +5356,241 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False):
         mfu=[r["mfu"] for r in recs],
         achieved_tflops=[r["achieved_tflops"] for r in recs],
         peak_mem_gb=peak / 1e9, opt_state_gb=eng.opt_state_bytes() / 1e9,
-        params_moved=True)
+        params_moved=True, reduced=reduced)
     if "aux" in hist[0]:
         stats["aux"] = [h["aux"] for h in hist]
     eng.close()
     del eng, batch
     torch.cuda.empty_cache()
     return stats, cfg
+
+
+# mamba2-130m training: TrainEngine whole (24 layers, full width) under the
+# config's own dtypes (bf16 weights) with remat, batch 2 x 4,096 tokens,
+# three steps.  Step 0 is judged in f32 (the engine's weights up-cast), as
+# mamba_forward judges the logits: the kernels' step against the same
+# step with the plain SSD term (the plain forward and backward,
+# ref.ssd_intra_heads_ref and ref.ssd_intra_heads_bwd_ref) and against
+# kernel="xla": the loss and the grad norm relative within
+# MAMBA_TRAIN_TOL, and every leaf's gradient by max|a - b| / max|b| and
+# by the norm of its difference over its norm: against the plain SSD term
+# within MAMBA_TRAIN_TOL (only the term's summation order differs: 5.7e-5
+# measured), against kernel="xla" within MAMBA_XLA_LEAF_TOL (every GEMM's
+# order differs, through 24 layers' backward: 1.1e-3 measured at layer
+# 3's in_xbc weight, 4.4e-4 by norm); the zeroed-embedding control gives
+# ~1 by both
+MAMBA_TRAIN_STEPS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 3, 2, 4096
+MAMBA_TRAIN_TOL = 1e-3
+MAMBA_XLA_LEAF_TOL = 1e-2
+# jamba-1.5-large-398b's reduced config (d_model 256, one period of an SSM
+# slot of 8 heads in 8 groups with a dense FFN and an attention slot with
+# 4 experts top-2), remat on, f32: one step on the card against the port's
+# own CPU step from the same weights and batch: loss and grad norm
+# relative, every leaf's gradient max|a - b| / max|b| (HYBRID_TRAIN_TOL:
+# f32 on both devices, the orders differ)
+HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH = 512, 2
+HYBRID_TRAIN_TOL = 1e-3
+
+
+def grad_parity(torch, m, g, m_ref, g_ref):
+    """Loss and grad norm relative, and the worst gradient leaf
+    (``leaf_errs``), of (m, g) against (m_ref, g_ref)."""
+    from repro_torch.optim.adam import global_norm
+    lk, lr_ = float(m["loss"]), float(m_ref["loss"])
+    nk, nr = float(global_norm(g)), float(global_norm(g_ref))
+    return dict(loss=lk, loss_ref=lr_, loss_rel_err=abs(lk - lr_) / abs(lr_),
+                grad_norm=nk, grad_norm_ref=nr,
+                grad_norm_rel_err=abs(nk - nr) / nr,
+                **leaf_errs(torch, g, g_ref))
+
+
+def parity_passes(r, tol, leaf_tol=None):
+    leaf_tol = tol if leaf_tol is None else leaf_tol
+    return (r["loss_rel_err"] <= tol and r["grad_norm_rel_err"] <= tol
+            and r["max_leaf_rel_err"] <= leaf_tol
+            and r["max_leaf_norm_err"] <= leaf_tol)
+
+
+def mamba_first_step(torch, ref, eng):
+    """Step 0 of the engine's weights and batch, in f32: the kernels'
+    against the plain SSD term and against kernel="xla", beside the
+    control the bound must refuse (the tied embedding and head zeroed)."""
+    from repro_torch.core import tree as ptree
+    from repro_torch.train.step import value_and_grad
+    batch0 = eng.pipeline.get(0)
+    cfg32, params32 = mamba_f32(torch, eng.cfg, eng.params)
+
+    def vg(jcfg):
+        return value_and_grad(params32, batch0, cfg32, jcfg)
+    mk, gk = vg(eng.jcfg)
+    with plain_ssd(ref):
+        mp, gp = vg(eng.jcfg)
+    vs_plain = grad_parity(torch, mk, gk, mp, gp)
+    del gp
+    mx, gx = vg(eng.jcfg.replace(kernel="xla"))
+    vs_xla = grad_parity(torch, mk, gk, mx, gx)
+    finite = all(bool(torch.isfinite(t).all()) for t in ptree.leaves(gk))
+    del gx
+    params32["embed"]["table"].zero_()
+    mc, gc = vg(eng.jcfg)
+    control = grad_parity(torch, mc, gc, mk, gk)
+    del gc, gk, params32
+    torch.cuda.empty_cache()
+    check(finite and parity_passes(vs_plain, MAMBA_TRAIN_TOL)
+          and parity_passes(vs_xla, MAMBA_TRAIN_TOL, MAMBA_XLA_LEAF_TOL),
+          f"mamba_train step 0 in f32: finite {finite}, vs the plain SSD "
+          f"term {vs_plain}, vs kernel='xla' {vs_xla}")
+    check(not parity_passes(control, MAMBA_TRAIN_TOL, MAMBA_XLA_LEAF_TOL),
+          f"mamba_train: the zeroed-embedding control passes the bounds: "
+          f"{control}")
+    return dict(tol=MAMBA_TRAIN_TOL, xla_leaf_tol=MAMBA_XLA_LEAF_TOL,
+                grads_finite=finite,
+                f32_vs_plain_ssd=vs_plain, f32_vs_xla=vs_xla,
+                control_zero_embedding=control)
+
+
+def mamba_step_breakdown(torch, eng, L, SSD, SSDB):
+    """One more training step of the engine, its parts timed by CUDA
+    events around each call (the SSD forward launches, the recompute's
+    among them; the SSD backward launches; the whole chunked scans'
+    forwards, ``_ssd_chunked``), then one step under ``torch.profiler``:
+    the device-busy time, the idle share, the kernels launched and the
+    kernels with the most device time."""
+    batch = eng.pipeline.get(0)
+    spans = {}
+    wrapped = [(SSD, "ssd_intra_heads", "ssd_forward"),
+               (SSDB, "ssd_intra_heads_bwd", "ssd_backward"),
+               (L, "_ssd_chunked", "ssd_chunked_forward")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+
+    def timed(real, label):
+        def fn(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = real(*a, **k)
+            e1.record()
+            spans.setdefault(label, []).append((e0, e1))
+            return out
+        if hasattr(real, "launches"):
+            # a wrapper counts through its module name: the stand-in
+            # carries the count while it stands there
+            fn.launches = real.launches
+        return fn
+    for (mod, name, label), (_, _, real) in zip(wrapped, saved):
+        setattr(mod, name, timed(real, label))
+    try:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        eng.dispatch(batch)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, real in saved:
+            if hasattr(real, "launches"):
+                real.launches = getattr(mod, name).launches
+            setattr(mod, name, real)
+    step_ms = e0.elapsed_time(e1)
+    parts = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in
+             spans.items()}
+    calls = {k: len(v) for k, v in spans.items()}
+    # the device's activity only: the host's ops of a step of ~35,000
+    # launches would cost the smoke seconds to record
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.dispatch(batch)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+
+    def dev_ms(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return getattr(e, name) / 1e3
+        return 0.0
+    kernels = [e for e in rows if dev_ms(e) > 0]
+    busy = sum(dev_ms(e) for e in kernels)
+    by_name = {tag: sum(dev_ms(e) for e in kernels if tag in e.key)
+               for tag in ("ssd_bwd_kernel", "ssd_intra_kernel", "gemm")}
+    return dict(
+        step_ms=step_ms, parts_ms=parts, parts_calls=calls,
+        ssd_chunked_less_intra_forward_ms=parts.get("ssd_chunked_forward",
+                                                    0.0)
+        - parts.get("ssd_forward", 0.0),
+        profiled_device_busy_ms=busy,
+        idle_share=1.0 - busy / step_ms,
+        profiled_kernel_launches=sum(e.count for e in kernels),
+        profiled_device_ms_by_name=by_name,
+        profiled_top_kernels=[
+            {"kernel": e.key[:80], "calls": e.count,
+             "device_ms": dev_ms(e)}
+            for e in sorted(kernels, key=lambda e: -dev_ms(e))[:8]])
+
+
+def ssm_train_phases(torch, BM, SSD, SSDB, ref):
+    """``mamba_train`` (mamba2-130m whole, three steps, step 0 judged in
+    f32 against the plain SSD term and kernel="xla", the step's parts) and
+    ``hybrid_train`` (jamba reduced, one step, against the port's CPU
+    step).  Returns their stats."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as ptree
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+    from repro_torch.train.step import value_and_grad
+    torch.cuda.empty_cache()
+    base = dict(lr=1e-4, log_every=1, seed=0, prefetch=1)
+    breakdown = {}
+
+    def mamba_checks(eng):
+        t0 = time.perf_counter()
+        out = mamba_first_step(torch, ref, eng)
+        out["seconds"] = time.perf_counter() - t0
+        return out
+
+    def mamba_after(eng):
+        t0 = time.perf_counter()
+        breakdown.update(mamba_step_breakdown(torch, eng, L, SSD, SSDB),
+                         seconds=time.perf_counter() - t0)
+    mt, _ = lm_train_run(torch, BM, "mamba2-130m", {}, EngineConfig(
+        steps=MAMBA_TRAIN_STEPS, batch=MAMBA_TRAIN_BATCH,
+        seq_len=MAMBA_TRAIN_SEQ, **base), "mamba_train",
+        first_step=mamba_checks, after=mamba_after)
+    mt["breakdown"] = breakdown
+    emit(phase="mamba_train", **mt)
+
+    cfg = get_config(HYBRID_ARCH).reduced().replace(remat=True,
+                                                    kernel="pallas")
+    init = M.init(cfg, seed=0, device="cpu")
+    ecfg = EngineConfig(steps=1, batch=HYBRID_TRAIN_BATCH,
+                        seq_len=HYBRID_TRAIN_SEQ, **dict(base, prefetch=0))
+
+    def hybrid_checks(eng):
+        """Step 0's gradients on the card against the CPU's."""
+        batch0 = eng.pipeline.get(0)
+        m, g = value_and_grad(eng.params, batch0, eng.cfg, eng.jcfg)
+        cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in batch0.items()}
+        mc, gc = value_and_grad(init, cpu, eng.cfg, eng.jcfg)
+        res = grad_parity(torch, m, ptree.map(lambda t: t.cpu(), g), mc, gc)
+        check(parity_passes(res, HYBRID_TRAIN_TOL), f"hybrid_train step 0, "
+              f"card vs CPU: {res}")
+        return dict(tol=HYBRID_TRAIN_TOL, card_vs_cpu=res)
+    ht, hcfg = lm_train_run(torch, BM, HYBRID_ARCH, {"remat": True}, ecfg,
+                            "hybrid_train", first_step=hybrid_checks,
+                            reduced=True, init_params=init)
+    cpu = TrainEngine(HYBRID_ARCH, reduced=False, kernel="pallas",
+                      device="cpu", config_override=cfg, config=ecfg,
+                      init_params=init)
+    hist = cpu.run()
+    rel = {k: abs(ht[k][0] - hist[0][k]) / abs(hist[0][k])
+           for k in ("loss", "grad_norm")}
+    check(all(v <= HYBRID_TRAIN_TOL for v in rel.values()),
+          f"hybrid_train: the card's step against the CPU engine's: {rel}")
+    ht.update(cpu_engine_rel_err=rel, d_model=hcfg.d_model,
+              ssm_heads=hcfg.ssm_heads, ssm_groups=hcfg.ssm_groups,
+              n_experts=hcfg.n_experts)
+    emit(phase="hybrid_train", label="reduced (jamba-1.5-large-398b"
+         ".reduced(), d_model 256, remat)", **ht)
+    return mt, ht
 
 
 def counted():
@@ -5260,6 +5674,7 @@ def main():
     from repro_torch.kernels import ring as RING
     from repro_torch.kernels import sm90 as SM90
     from repro_torch.kernels import ssd_chunk as SSD
+    from repro_torch.kernels import ssd_chunk_bwd as SSDB
     from repro_torch.kernels import wx as WX
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5269,7 +5684,7 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False)
     t0 = time.perf_counter()
-    libs = (BM, WX, RING, CANNON, SSD)
+    libs = (BM, WX, RING, CANNON, SSD, SSDB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source,
         built = list(pool.map(lambda lib: lib.build(), libs))   # together
     emit(phase="build", built=built, seconds=time.perf_counter() - t0,
@@ -5278,8 +5693,10 @@ def main():
 
     rows, mamba_rows, worst = kernel_phase(torch, BM, SM90, ref)
     ssd_rows, ssd_worst = ssd_phase(torch, SSD, ref)
-    counted = (BM.block_matmul, SSD.ssd_intra_chunk, WX.wx, RING.ring_fwd,
-               RING.ring_bwd, CANNON.cannon_step)
+    ssd_bwd_rows, ssd_bwd_worst = ssd_bwd_phase(torch, SSDB, ref)
+    counted = (BM.block_matmul, SSD.ssd_intra_chunk,
+               SSDB.ssd_intra_heads_bwd, WX.wx, RING.ring_fwd, RING.ring_bwd,
+               CANNON.cannon_step)
     mcfg, mjcfg, mparams = mamba_setup(torch)
     fwd_launches, fwd_ssd_routes, fwd_ssd_ms = mamba_forward_phase(
         torch, counted, OPS, ref, mcfg, mjcfg, mparams)
@@ -5287,6 +5704,8 @@ def main():
         torch, counted, mcfg, mjcfg, mparams)
     del mparams
     torch.cuda.empty_cache()
+    mtrain, htrain = ssm_train_phases(torch, BM, SSD, SSDB, ref)
+    ssm = (ssd_bwd_rows, ssd_bwd_worst, mtrain, htrain)
     import shutil
     import tempfile
     handoff = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
@@ -5299,7 +5718,7 @@ def main():
                            handoff, rows, mamba_rows, worst, ssd_rows,
                            ssd_worst, fwd_launches, fwd_ssd_routes,
                            fwd_ssd_ms, gen_launches, gen_graphed, gen_eager,
-                           serve_launches, legacy)
+                           serve_launches, legacy, ssm)
     finally:
         shutil.rmtree(handoff, ignore_errors=True)
 
@@ -5307,9 +5726,11 @@ def main():
 def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                 rows, mamba_rows, worst, ssd_rows, ssd_worst, fwd_launches,
                 fwd_ssd_routes, fwd_ssd_ms, gen_launches, gen_graphed,
-                gen_eager, serve_launches, legacy):
+                gen_eager, serve_launches, legacy, ssm):
     """The phases after serving (``serve_data`` reads ``handoff``), and
-    the ``kernels`` line."""
+    the ``kernels`` line (``ssm``: the ssd_bwd rows and worst error, and
+    the ``mamba_train`` and ``hybrid_train`` stats)."""
+    ssd_bwd_rows, ssd_bwd_worst, mt, ht = ssm
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, SM90, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
@@ -5380,6 +5801,10 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     ssd_jamba = next(r for r in ssd_rows
                      if r["shape"].startswith("jamba_layout"))
     n_jamba_ssd = hfwd["launches"]["ssd_intra_chunk"]
+    bwd_model = next(r for r in ssd_bwd_rows
+                     if r["shape"].startswith("model_layout"))
+    bwd_jamba = next(r for r in ssd_bwd_rows
+                     if r["shape"].startswith("jamba_layout"))
 
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
@@ -5425,7 +5850,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(x[k]["block_matmul"] for x in (mgen, hgen, agen)
               for k in ("launches", "launches_eager"))
         + afwd["launches"]["block_matmul"]
-        + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot)),
+        + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot, mt,
+                                                      ht)),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -5470,11 +5896,14 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              agen["launches_eager"]["block_matmul"],
                              "lm_train": lmt["launches"]["block_matmul"],
                              "audio_train": aut["launches"]["block_matmul"],
-                             "moe_train": mot["launches"]["block_matmul"]},
+                             "moe_train": mot["launches"]["block_matmul"],
+                             "mamba_train": mt["launches"]["block_matmul"],
+                             "hybrid_train":
+                             ht["launches"]["block_matmul"]},
         "lm_train_launches_by_layout": {
-            x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot)},
+            x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot, mt)},
         "lm_train_launches_by_route": {
-            x["arch"]: x["launches_by_route"] for x in (lmt, aut, mot)},
+            x["arch"]: x["launches_by_route"] for x in (lmt, aut, mot, mt)},
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
         "max_abs_err": max(worst, bwd_worst, lm_worst, mh_worst, au_worst,
@@ -5641,10 +6070,14 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + gen_launches["ssd_intra_chunk"]
         + hfwd["launches"]["ssd_intra_chunk"]
         + sum(hgen[k]["ssd_intra_chunk"]
-              for k in ("launches", "launches_eager")),
+              for k in ("launches", "launches_eager"))
+        + mt["launches"]["ssd_intra_chunk"]
+        + ht["launches"]["ssd_intra_chunk"],
         "launches_by_path": {
             "mamba_forward": fwd_launches["ssd_intra_chunk"],
             "mamba_generate": gen_launches["ssd_intra_chunk"],
+            "mamba_train": mt["launches"]["ssd_intra_chunk"],
+            "hybrid_train": ht["launches"]["ssd_intra_chunk"],
             "hybrid_forward": hfwd["launches"]["ssd_intra_chunk"],
             "hybrid_generate": hgen["launches"]["ssd_intra_chunk"],
             "hybrid_generate_eager":
@@ -5677,6 +6110,38 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "hybrid_forward_bound_ms": n_jamba_ssd * ssd_jamba["bound_ms"],
         "hybrid_forward_library_ms": n_jamba_ssd * ssd_jamba["library_ms"],
         "shapes": ssd_rows,
+    }, {
+        "name": "ssd_chunk_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        # the VJP of that kernel's function: the reference has no TPU
+        # kernel for it and differentiates its plain term
+        # (src/repro/models/layers.py:483) by autodiff
+        "replaces": "src/repro/kernels/ssd_chunk.py:25",
+        "launches": mt["launches"]["ssd_intra_heads_bwd"]
+        + ht["launches"]["ssd_intra_heads_bwd"],
+        "launches_by_path": {
+            "mamba_train": mt["launches"]["ssd_intra_heads_bwd"],
+            "hybrid_train": ht["launches"]["ssd_intra_heads_bwd"]},
+        "max_abs_err": ssd_bwd_worst,
+        # times: the 24 launches of one mamba2-130m training step (batch 2
+        # x 4,096, one a layer) at the model's layout (plain:
+        # ref.ssd_intra_heads_bwd_ref; library: autograd's backward of the
+        # groups copies, bmm, where, * dt, bmm, TF32 off); in_step_ms: the
+        # 24 launches timed inside a training step
+        "ms": MAMBA_LAYERS * bwd_model["kernel_ms"],
+        "plain_ms": MAMBA_LAYERS * bwd_model["plain_ms"],
+        "bound_ms": MAMBA_LAYERS * bwd_model["bound_ms"],
+        "bound_by": bwd_model["bound_by"],
+        "library_ms": MAMBA_LAYERS * bwd_model["library_ms"],
+        "in_step_ms": mt["breakdown"]["parts_ms"].get("ssd_backward"),
+        # one launch at jamba's full-width SSM slot (sequence 2048, batch
+        # 1, 256 heads in 8 groups)
+        "jamba_layout_ms": bwd_jamba["kernel_ms"],
+        "jamba_layout_plain_ms": bwd_jamba["plain_ms"],
+        "jamba_layout_bound_ms": bwd_jamba["bound_ms"],
+        "jamba_layout_library_ms": bwd_jamba["library_ms"],
+        "shapes": ssd_bwd_rows,
     }])
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

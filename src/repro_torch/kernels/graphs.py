@@ -27,9 +27,11 @@ COUNTERS = ("launches", "layout_launches", "route_launches")
 
 def counted_kernels():
     """The counted wrappers of every hand-written kernel."""
-    from repro_torch.kernels import block_matmul, cannon, ring, ssd_chunk, wx
-    return (block_matmul.block_matmul, ssd_chunk.ssd_intra_chunk, wx.wx,
-            ring.ring_fwd, ring.ring_bwd, cannon.cannon_step)
+    from repro_torch.kernels import (block_matmul, cannon, ring, ssd_chunk,
+                                     ssd_chunk_bwd, wx)
+    return (block_matmul.block_matmul, ssd_chunk.ssd_intra_chunk,
+            ssd_chunk_bwd.ssd_intra_heads_bwd, wx.wx, ring.ring_fwd,
+            ring.ring_bwd, cannon.cannon_step)
 
 
 Key = Tuple[str, str]   # (wrapper name, counter name)

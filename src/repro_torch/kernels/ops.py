@@ -6,7 +6,8 @@ over the last dim of any-rank x, and ``mixer_mlp`` is the WeatherMixer MLP
 as two kernel calls with the GELU fused into the first one's epilogue; all
 three are differentiable.  ``ssd_intra`` is the Mamba-2 intra-chunk term
 (forward only), and ``ssd_intra_heads`` the same term read at the model's
-layout.
+layout, differentiable: its backward is the hand-written kernel
+``csrc/ssd_chunk_bwd.cu`` on the card.
 The reference pads every dim to its block grid; the Hopper kernel masks
 ragged edges itself, so nothing is padded here.
 
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.ref import act_grad
-from repro_torch.kernels import ssd_chunk
+from repro_torch.kernels import ssd_chunk, ssd_chunk_bwd
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
 
 
@@ -105,18 +106,46 @@ def ssd_intra(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
               dt: torch.Tensor, dac: torch.Tensor) -> torch.Tensor:
     """The Mamba-2 intra-chunk SSD term on the kernel's grid
     (``kernels/ssd_chunk.py``): c, b [G, Q, N]; x [G, Q, P]; dt, dac [G, Q]
-    -> y [G, Q, P].  The caller (``models/layers.py::_ssd_chunked``) lays
-    the mamba2 tensors out as G = (batch, chunk, head) groups.  Not
-    differentiable: the port runs the ssm family's forward only so far."""
+    -> y [G, Q, P].  The reference's contract, forward only (a gradient
+    asked of it raises, on either device): the model runs
+    ``ssd_intra_heads``, whose backward has a kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (c, b, x, dt, dac)):
+        raise NotImplementedError(
+            "ops.ssd_intra is forward-only; ops.ssd_intra_heads (the "
+            "model's layout) has the backward kernel")
     return ssd_intra_chunk(c, b, x, dt, dac)
 
 
+class _SSDIntraHeads(torch.autograd.Function):
+    """``ssd_chunk.ssd_intra_heads`` with its VJP.
+
+    Saves x, dt, dac, B and C (not y).  Backward, for dy [b, s, h, p]:
+    ``ssd_chunk_bwd.ssd_intra_heads_bwd``, the kernel on CUDA tensors and
+    ``ref.ssd_intra_heads_bwd_ref`` on CPU tensors, never one for the
+    other: (dx, ddt, ddac, dB, dC) in f32, each cast to its operand's
+    dtype (a no-op on the model's f32 operands)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dac, B, C, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, dac, B, C)
+        return ssd_chunk.ssd_intra_heads(x, dt, dac, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ops = ctx.saved_tensors
+        grads = ssd_chunk_bwd.ssd_intra_heads_bwd(*ops, dy, ctx.chunk)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ops)) + (None,)
+
+
 def ssd_intra_heads(x: torch.Tensor, dt: torch.Tensor, dac: torch.Tensor,
-                       B: torch.Tensor, C: torch.Tensor,
-                       chunk: int) -> torch.Tensor:
+                    B: torch.Tensor, C: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
     """The same term at the model's layout (``kernels/ssd_chunk.py``):
     x [b, s, h, p]; dt, dac [b, s, h]; B, C [b, s, g, n] with g head
     groups, read where they lie -> y_intra [b, s, h, p].  The caller
     (``models/layers.py::_ssd_chunked``) pads the sequence to whole chunks.
-    Not differentiable."""
-    return ssd_chunk.ssd_intra_heads(x, dt, dac, B, C, chunk)
+    Differentiable in x, dt, dac, B and C, in f32 (the model's operands;
+    a gradient through bf16 operands raises)."""
+    return _SSDIntraHeads.apply(x, dt, dac, B, C, chunk)

@@ -236,15 +236,20 @@ def ssd_intra_ref(c: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 
     ``repro/kernels/ref.py::ssd_intra_ref`` with the TPU kernel's one cast
     of att to x's dtype before the second product (a no-op for f32 x, the
-    model's path; for bf16 x the kernel's function).  The mask is a select:
-    above the diagonal dac_i - dac_j > 0 and exp may overflow to inf, which
-    the select drops (a multiply by 0 would make NaN)."""
-    s = torch.einsum("gin,gjn->gij", c.float(), b.float())
-    seg = dac[:, :, None] - dac[:, None, :]
+    model's path; for bf16 x the kernel's function).  Above the diagonal
+    dac_i - dac_j > 0 and exp may overflow to inf, so the exponent is
+    masked to -inf before exp (exp gives 0 there, and autograd's gradient
+    stays finite: a select after the exp alone would back-propagate
+    0 * inf = NaN); the select after it keeps the forward's +0 above the
+    diagonal, bit for bit what it was.  float64 operands (the gradient
+    checks) are computed in float64."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    s = torch.einsum("gin,gjn->gij", c.to(acc), b.to(acc))
     q = c.shape[1]
     tri = torch.ones((q, q), dtype=torch.bool, device=c.device).tril()
-    att = torch.where(tri[None], s * torch.exp(seg), 0.0) * dt[:, None, :]
-    y = torch.einsum("gij,gjp->gip", att.to(x.dtype).float(), x.float())
+    seg = torch.where(tri, dac[:, :, None] - dac[:, None, :], -math.inf)
+    att = torch.where(tri, s * torch.exp(seg), 0.0) * dt[:, None, :]
+    y = torch.einsum("gij,gjp->gip", att.to(x.dtype).to(acc), x.to(acc))
     return y.to(x.dtype)
 
 
@@ -271,3 +276,58 @@ def ssd_intra_heads_ref(x: torch.Tensor, dt: torch.Tensor, dac: torch.Tensor,
                       groups(dt), groups(dac))
     return y.reshape(bsz, nc, h, chunk, p).movedim(2, 3).reshape(bsz, s, h,
                                                                    p)
+
+
+def ssd_intra_heads_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                            dac: torch.Tensor, B: torch.Tensor,
+                            C: torch.Tensor, dy: torch.Tensor, chunk: int):
+    """The VJP of ``ssd_intra_heads_ref`` written out (not autograd): for
+    dy [b, s, h, p], returns (dx, ddt, ddac, dB, dC) in the operands'
+    dtypes, computed in f32 (float64 for float64 operands).  Per (batch,
+    chunk, head k of group g), with s = c b^T, E_ij = exp(dac_i - dac_j)
+    for i >= j (0 above, never evaluated there) and att = s * E * dt_j:
+
+      datt = (dy x^T) masked to i >= j
+      dx   = att^T dy
+      G    = datt * E,  ds_k = G * dt_j
+      ddt_j  = sum_i G_ij s_ij
+      W    = datt * att,  ddac_i = sum_j W_ij - sum_i' W_i'i
+      dC_g = (sum_{k in g} ds_k) b,  dB_g = (sum_{k in g} ds_k)^T c
+
+    B and C are shared by the group's heads, so the heads' ds are summed
+    on the [Q, Q] matrix before the one pair of products per group.  The
+    kernel ``csrc/ssd_chunk_bwd.cu`` computes the same, its oracle on the
+    card; on the CPU it is the backward of ``ops.ssd_intra_heads``."""
+    bsz, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep, nc, q = h // g, s // chunk, chunk
+    acc = torch.promote_types(x.dtype, torch.float32)
+
+    def ck(t, w):   # [b, s, h (or g), w] -> [b, nc, q, g, rep (or -), w]
+        return t.to(acc).reshape(bsz, nc, q, *w)
+    xc, dyc = ck(x, (g, rep, p)), ck(dy, (g, rep, p))
+    dtc, dacc = ck(dt, (g, rep)), ck(dac, (g, rep))
+    bc, cc = ck(B, (g, n)), ck(C, (g, n))
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    sm = torch.einsum("bzign,bzjgn->bzgij", cc, bc)[:, :, :, None]
+    dac_h = dacc.permute(0, 1, 3, 4, 2)                  # [b, nc, g, rep, q]
+    dt_j = dtc.permute(0, 1, 3, 4, 2)[..., None, :]
+    e = torch.exp(torch.where(tri, dac_h[..., :, None] - dac_h[..., None, :],
+                              -math.inf))                # [b,nc,g,rep,i,j]
+    att = sm * e * dt_j
+    datt = torch.where(tri, torch.einsum("bzigrp,bzjgrp->bzgrij", dyc, xc),
+                       0.0)
+    dx = torch.einsum("bzgrij,bzigrp->bzjgrp", att, dyc)
+    gm = datt * e
+    ddt = (gm * sm).sum(-2)                              # over i
+    w = datt * att
+    ddac = w.sum(-1) - w.sum(-2)
+    dsum = (gm * dt_j).sum(3)                            # over the heads
+    dc = torch.einsum("bzgij,bzjgn->bzign", dsum, bc)
+    db = torch.einsum("bzgij,bzign->bzjgn", dsum, cc)
+
+    def heads(t):   # [b, nc, g, rep, q] -> [b, s, h]
+        return t.permute(0, 1, 4, 2, 3).reshape(bsz, s, h)
+    return (dx.reshape(bsz, s, h, p).to(x.dtype), heads(ddt).to(dt.dtype),
+            heads(ddac).to(dac.dtype), db.reshape(bsz, s, g, n).to(B.dtype),
+            dc.reshape(bsz, s, g, n).to(C.dtype))

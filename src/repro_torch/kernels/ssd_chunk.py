@@ -18,9 +18,11 @@ Two entries launch the one kernel:
   [b, s, h, p].  Nothing is repeated over the heads or copied into groups.
 
 On a CUDA tensor an entry launches the kernel, or raises; on a CPU tensor
-it computes the plain PyTorch version (``ref.ssd_intra_ref``, and for the
-heads entry ``ref.ssd_intra_heads_ref``: the groups arrangement the model
-made before this entry existed).  Nothing falls back from one to the other.
+(float64 too, for gradient checks) it computes the plain PyTorch version
+(``ref.ssd_intra_ref``, and for the heads entry ``ref.ssd_intra_heads_ref``:
+the groups arrangement the model made before this entry existed).  Nothing
+falls back from one to the other.  The backward of the heads entry is
+``ssd_chunk_bwd.py``'s kernel (``ops.ssd_intra_heads``).
 
 Both entries count into ``ssd_intra_chunk.launches``, and by entry and
 route into ``ssd_intra_chunk.route_launches`` (``"groups.tma"``,
@@ -178,11 +180,15 @@ def _check(c, b, x, dt, dac):
 
 
 def _check_types(name, x, b, c, dt, dac):
-    if x.dtype not in _DTYPES or c.dtype != x.dtype or b.dtype != x.dtype:
+    # float64 on the CPU only: the plain version's gradient checks
+    f64 = x.dtype == torch.float64 and x.device.type == "cpu"
+    if (x.dtype not in _DTYPES and not f64) or c.dtype != x.dtype \
+            or b.dtype != x.dtype:
         raise TypeError(f"{name} needs c, b and x of one dtype, float32 or "
                         f"bfloat16; got {c.dtype}, {b.dtype}, {x.dtype}")
-    if dt.dtype != torch.float32 or dac.dtype != torch.float32:
-        raise TypeError(f"{name} needs float32 dt and dac; got {dt.dtype} "
+    want = torch.float64 if f64 else torch.float32
+    if dt.dtype != want or dac.dtype != want:
+        raise TypeError(f"{name} needs {want} dt and dac; got {dt.dtype} "
                         f"and {dac.dtype}")
     if any(t.device != x.device for t in (c, b, dt, dac)):
         raise ValueError(f"{name}: operands on different devices")

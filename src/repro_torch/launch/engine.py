@@ -34,12 +34,12 @@ The engine owns
     (one MAX all-reduce of the flag), so all of them stop after the same
     step and take part in the same save, whichever was signalled.
 
-A language model (the dense, VLM, moe and audio families) trains on one
-device or on a data-only mesh (``mesh_model=1, mesh_data=n``: every rank
-holds the whole model, reads its rows of the batch of ``seq_len`` tokens
-and all-reduces the gradients over data; ZeRO-1 as for the mixer); a
-model mesh raises (``launch/specs.py::check_lm_mesh``), and so do the ssm
-and hybrid families (``train/step.py::check_trainable``).
+A language model (the dense, VLM, moe, audio, ssm and hybrid families)
+trains on one device or on a data-only mesh (``mesh_model=1,
+mesh_data=n``: every rank holds the whole model, reads its rows of the
+batch of ``seq_len`` tokens and all-reduces the gradients over data;
+ZeRO-1 as for the mixer); a model mesh raises
+(``launch/specs.py::check_lm_mesh``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -87,8 +87,7 @@ from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
 from repro_torch.optim import adam, schedule as sched
-from repro_torch.train.step import (check_trainable, make_eval_step,
-                                    make_train_step)
+from repro_torch.train.step import make_eval_step, make_train_step
 
 # held-out validation stream: step indices far past any training step
 EVAL_STEP_OFFSET = 1 << 20
@@ -145,7 +144,6 @@ class TrainEngine:
         cfg = config_override if config_override is not None \
             else get_config(arch)
         # what the port cannot train raises alike on any device
-        check_trainable(cfg)
         specs.check_lm_mesh(cfg, mesh_model,
                             fsdp=mesh_data > 1 and cfg.shard_params_over_data)
         self.device = torch.device(device)

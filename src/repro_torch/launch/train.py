@@ -8,18 +8,16 @@ flags that are ported, plus ``--device`` and ``--init-params``).
       [--prefetch 2] [--metrics-out m.jsonl] [--device cuda|cpu]
 
 ``--arch`` takes every id of ``configs/registry.py``.  The language
-models of the dense, VLM, moe and audio families train on synthetic token
-rows of ``--seq-len`` tokens (default 128; the VLM's patch embeddings and
-whisper's frames are random f32 draws), on one device or on a data-only
-mesh (``--mesh-data n``, ``--mesh-model 1``):
+models (the dense, VLM, moe, audio, ssm and hybrid families) train on
+synthetic token rows of ``--seq-len`` tokens (default 128; the VLM's patch
+embeddings and whisper's frames are random f32 draws), on one device or on
+a data-only mesh (``--mesh-data n``, ``--mesh-model 1``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-      --arch internlm2-1.8b --steps 5 --seq-len 32 --log-every 1
+      --arch mamba2-130m --steps 5 --seq-len 32 --log-every 1
 
-The ssm and hybrid families (``mamba2-130m``, ``jamba-1.5-large-398b``)
-raise NotImplementedError: their forward runs the SSD term on a kernel
-that has no backward yet (ROADMAP.md, queue 1 item 18); so does a language
-model on a model mesh (``--mesh-model`` > 1; item 19).
+A language model on a model mesh (``--mesh-model`` > 1) raises
+NotImplementedError (ROADMAP.md, queue 1 item 19).
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process
@@ -126,10 +124,7 @@ def train(arch: str, *, steps: int = 100, batch: int = 8,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="weathermixer-1b", choices=ARCH_IDS,
-                    help="any id of configs/registry.py; the ssm and "
-                         "hybrid families (mamba2-130m, "
-                         "jamba-1.5-large-398b) raise: their SSD term has "
-                         "no backward kernel yet (ROADMAP.md item 18)")
+                    help="any id of configs/registry.py")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128,

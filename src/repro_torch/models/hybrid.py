@@ -22,13 +22,14 @@ one token per row against ``init_cache``'s cache, which it writes in
 place (every slot and mask from ``cache["pos"]`` on the device), so
 ``serve/step.py`` can capture it in a CUDA graph.  The reference's hybrid
 has no fused prefill, so there is no ``prefill_cache``: ``serve/step.py``
-prefills token by token.  The port runs this family forward only.
+prefills token by token.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
@@ -158,15 +159,25 @@ def apply(params, batch, cfg: ModelConfig,
           jcfg: JigsawConfig = DEFAULT_JIGSAW
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits [B, S, vocab_padded] of ``batch["tokens"]``
-    [B, S], and the MoE layers' summed aux loss (f32).  ``cfg.remat`` does
-    not apply: the port runs this forward without autograd."""
+    [B, S], and the MoE layers' summed aux loss (f32).  With ``cfg.remat``
+    and autograd recording, each period is checkpointed
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body over the periods): only its inputs are kept, and its
+    slots run again in the backward (the MoE routing has nothing random,
+    so it routes the same)."""
     x = L.embed_apply(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for pp in params["periods"]:
+
+    def period(pp, x, aux):
         for j in range(cfg.attn_every):
             x, _, aux = _slot_apply(pp[f"slot{j}"], x, j, cfg, jcfg,
                                     positions, aux)
+        return x, aux
+    remat = cfg.remat and torch.is_grad_enabled()
+    for pp in params["periods"]:
+        x, aux = (checkpoint(period, pp, x, aux, use_reentrant=False)
+                  if remat else period(pp, x, aux))
     return _lm_head(params, x, cfg, jcfg), aux
 
 

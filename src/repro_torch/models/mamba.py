@@ -9,18 +9,18 @@ between the two).
 
 ``apply`` is the teacher-forced forward: under ``kernel="pallas"`` its
 4 * n_layers + 1 linears run the block_matmul kernel, and each layer's
-intra-chunk SSD term one launch of the ssd_chunk kernel.  ``decode_step`` is
+intra-chunk SSD term one launch of the ssd_chunk kernel (and, in training,
+one launch of its backward kernel, ssd_chunk_bwd).  ``decode_step`` is
 the recurrent single-token step (no SSD launch); it writes the cache that
 ``init_cache`` made in place, and allocates nothing that outlives it, so
-``serve/step.py`` can capture it in a CUDA graph.  The port runs this family
-forward only: training (the LM loss, the token batch source, the SSD term's
-backward) is ROADMAP.md queue 1 item 14.
+``serve/step.py`` can capture it in a CUDA graph.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import DEFAULT_JIGSAW, JigsawConfig
@@ -75,11 +75,16 @@ def apply(params, batch, cfg: ModelConfig,
           jcfg: JigsawConfig = DEFAULT_JIGSAW
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits [B, S, vocab_padded] of ``batch["tokens"]``
-    [B, S], and the reference's aux loss (0).  ``cfg.remat`` does not
-    apply: the port runs this forward without autograd."""
+    [B, S], and the reference's aux loss (0).  With ``cfg.remat`` and
+    autograd recording, each layer is checkpointed
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body): only its input is kept, and its forward, the SSD
+    kernel's launch among it, runs again in the backward."""
     x = L.embed_apply(params["embed"], batch["tokens"])
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x, _ = _mixer(lp, x, cfg, jcfg)
+        x, _ = (checkpoint(_mixer, lp, x, cfg, jcfg, use_reentrant=False)
+                if remat else _mixer(lp, x, cfg, jcfg))
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x, jcfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

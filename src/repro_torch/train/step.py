@@ -3,12 +3,11 @@
 Jigsaw mesh with a data axis.
 
 The loss is the family's: the weather loss for the mixer, and for the
-language models (dense, VLM, moe, audio) the next-token cross-entropy
-plus ``AUX_WEIGHT`` times the MoE load-balance loss.  A language model
-trains on one device or on a data-only mesh (``jcfg.mesh`` a ``Mesh1D``
-of one model rank under ``scheme="none"``: every rank holds the whole
-model and its data rank's rows).  The ssm and hybrid families raise
-(``check_trainable``).
+language models (dense, VLM, moe, audio, ssm, hybrid) the next-token
+cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss.  A
+language model trains on one device or on a data-only mesh (``jcfg.mesh``
+a ``Mesh1D`` of one model rank under ``scheme="none"``: every rank holds
+the whole model and its data rank's rows).
 
 Autograd takes the place of ``jax.value_and_grad``: the step runs the
 forward on detached views of the parameters that require grad (no copy),
@@ -45,17 +44,6 @@ from repro_torch.optim import adam, schedule as sched
 from repro_torch.train import loss as losses
 
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """NotImplementedError for the ssm and hybrid families, on any device:
-    their forward runs the intra-chunk SSD term on ``ssd_chunk.cu``, which
-    has no backward yet, so autograd would carry no gradient through it on
-    the card."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training {cfg.arch_id} ({cfg.family!r}) needs the SSD term's "
-            "backward kernels (ROADMAP.md, queue 1 item 18)")
 
 
 def train_mesh(cfg: ModelConfig, jcfg: JigsawConfig):
@@ -99,10 +87,8 @@ def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
 def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
             rollout: int = 1):
     """Returns (objective, metrics dict): the scalar to differentiate, and
-    the loss.  The language models' is ``lm_loss_fn``; the ssm and hybrid
-    families raise (``check_trainable``).  The mixer's: level weights
-    apply from 69 channels on (the full ERA5
-    variable set).  Under ``scheme="1d"`` / ``"2d"`` the objective is this
+    the loss.  The language models' is ``lm_loss_fn``.  The mixer's: level
+    weights apply from 69 channels on (the full ERA5 variable set).  Under ``scheme="1d"`` / ``"2d"`` the objective is this
     rank's part, the weighted squared error of its block over the element
     count of the whole global batch (its rows times the data extent: where
     the batch is cut over data, the global batch's count; where every data
@@ -111,7 +97,6 @@ def loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     collectives' backward and over the data axis, are the loss's.  The
     metrics carry the whole loss (the parts all-reduced over every rank),
     the same on every rank."""
-    check_trainable(cfg)
     if cfg.family != "mixer":
         return lm_loss_fn(params, batch, cfg, jcfg)
     pred, _ = M.apply(params, batch, cfg, jcfg, rollout=rollout)

@@ -21,6 +21,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ring as RING
 from repro_torch.kernels import sm90 as SM90
 from repro_torch.kernels import ssd_chunk as SSD
+from repro_torch.kernels import ssd_chunk_bwd as SSDB
 from repro_torch.kernels import wx as WX
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -997,9 +998,9 @@ def test_ssd_wrapper_rejects_non_contiguous(cuda):
                             b, x, dt, dac)
 
 
-def _heads_inputs(gen, bsz, s, h, p, g, n, dtype, wide=False):
+def _heads_inputs(gen, bsz, s, h, p, g, n, dtype, wide=False, chunk=64):
     """x [b, s, h, p], dt, dac [b, s, h] (dac the within-chunk cumsum of
-    dt * A at chunk 64), B, C [b, s, g, n].  ``wide``: x, B and C are
+    dt * A at ``chunk``), B, C [b, s, g, n].  ``wide``: x, B and C are
     column slices of one [b, s, h p + 2 g n + 8] buffer, as the model's
     split of its conv output (rows of a stride other than their width)."""
     if wide:
@@ -1019,7 +1020,8 @@ def _heads_inputs(gen, bsz, s, h, p, g, n, dtype, wide=False):
     dt = torch.nn.functional.softplus(
         torch.randn(bsz, s, h, generator=gen, device="cuda"))
     a = -torch.linspace(1.0, 16.0, h, device="cuda")
-    dac = torch.cumsum((dt * a).unflatten(1, (-1, 64)), dim=2).flatten(1, 2)
+    dac = torch.cumsum((dt * a).unflatten(1, (-1, chunk)), dim=2).flatten(
+        1, 2)
     return x, dt, dac, bm, cm
 
 
@@ -1162,6 +1164,109 @@ def test_mamba_forward_and_decode_launch_counts(cuda):
     M.decode_step(params, cache, tokens[:, :1], cfg, jcfg)
     torch.cuda.synchronize()
     assert SSD.ssd_intra_chunk.launches == s0
+
+
+def _bwd_err(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 74, 2, 3, 1, 5, 37, False),      # ragged Q 37, N 5, P 3
+    (2, 128, 4, 64, 2, 128, 64, True),   # two groups, slices of one buffer
+    (2, 128, 6, 64, 1, 128, 64, False),  # one group of six heads
+    (1, 192, 8, 32, 4, 64, 64, True)])
+def test_ssd_bwd_kernel_matches_plain_version(cuda, shape):
+    """The backward kernel (``csrc/ssd_chunk_bwd.cu``) against
+    ``ref.ssd_intra_heads_bwd_ref`` on the same operands, x, B and C at
+    their strides: each of dx, ddt, ddac, dB and dC within 1e-4
+    max-normalised of the plain version in f32 and of the same in float64
+    (sums of up to 64 heads' [Q, Q] terms in another order), finite,
+    where the models' decays (A to -16) overflow exp above the diagonal;
+    one launch a call, and a second launch bit for bit the first (one
+    block an item, no atomics)."""
+    b, s, h, p, g, n, q, wide = shape
+    x, dt, dac, bm, cm = _heads_inputs(cuda, b, s, h, p, g, n,
+                                       torch.float32, wide=wide, chunk=q)
+    dy = torch.randn(b, s, h, p, generator=cuda, device="cuda")
+    args = (x, dt, dac, bm, cm, dy)
+    before = SSDB.ssd_intra_heads_bwd.launches
+    got = SSDB.ssd_intra_heads_bwd(*args, q)
+    again = SSDB.ssd_intra_heads_bwd(*args, q)
+    torch.cuda.synchronize()
+    assert SSDB.ssd_intra_heads_bwd.launches == before + 2
+    plain = ref.ssd_intra_heads_bwd_ref(*args, q)
+    f64 = ref.ssd_intra_heads_bwd_ref(*(t.double() for t in args), q)
+    for name, k, r, r64, k2 in zip(("dx", "ddt", "ddac", "dB", "dC"), got,
+                                    plain, f64, again):
+        assert k.shape == r.shape and k.is_contiguous(), name
+        assert bool(torch.isfinite(k).all()), name
+        assert torch.equal(k, k2), name
+        assert _bwd_err(k, r) <= 1e-4, (name, _bwd_err(k, r))
+        assert _bwd_err(k, r64) <= 1e-4, (name, _bwd_err(k, r64))
+
+
+@pytest.mark.cuda
+def test_ssd_heads_autograd_launches_the_backward_kernel(cuda):
+    """``ops.ssd_intra_heads`` on CUDA tensors: the forward one ssd launch,
+    ``backward`` one ssd_chunk_bwd launch whose gradients are the
+    kernel's own; bf16 operands raise in the backward."""
+    from repro_torch.kernels import ops
+    x, dt, dac, bm, cm = _heads_inputs(cuda, 2, 128, 4, 16, 2, 32,
+                                       torch.float32, wide=True)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, dac, bm, cm)]
+    f0, b0 = SSD.ssd_intra_chunk.launches, SSDB.ssd_intra_heads_bwd.launches
+    y = ops.ssd_intra_heads(*leaves, 64)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == f0 + 1
+    assert SSDB.ssd_intra_heads_bwd.launches == b0 + 1
+    want = SSDB.ssd_intra_heads_bwd(x, dt, dac, bm, cm, dy, 64)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    xb = x.detach().to(torch.bfloat16).requires_grad_(True)
+    y = ops.ssd_intra_heads(xb, dt, dac, bm.to(torch.bfloat16),
+                            cm.to(torch.bfloat16), 64)
+    with pytest.raises(TypeError, match="float32"):
+        y.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_mamba_train_step_launch_counts(cuda, monkeypatch):
+    """One remat training step of the ssm family on the card (reduced,
+    kernel="pallas"): 2 ssd forward launches a layer (forward and
+    recompute) and 1 ssd_chunk_bwd launch, loss and grad norm within 1e-4
+    of the same step with the plain SSD term (both directions) and every
+    gradient finite."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as ptree
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.launch.shapes import jigsaw_for
+    from repro_torch.models import registry as M
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import value_and_grad
+    cfg = get_config("mamba2-130m").reduced().replace(kernel="pallas",
+                                                      remat=True)
+    jcfg = jigsaw_for(cfg)
+    params = M.init(cfg, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_source(
+        cfg, 2, seq_len=128).full_batch(0, 1).items()}
+    f0, b0 = SSD.ssd_intra_chunk.launches, SSDB.ssd_intra_heads_bwd.launches
+    m, g = value_and_grad(params, batch, cfg, jcfg)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches - f0 == 2 * cfg.n_layers
+    assert SSDB.ssd_intra_heads_bwd.launches - b0 == cfg.n_layers
+    monkeypatch.setattr(SSD, "ssd_intra_heads", ref.ssd_intra_heads_ref)
+    monkeypatch.setattr(SSDB, "ssd_intra_heads_bwd",
+                        ref.ssd_intra_heads_bwd_ref)
+    mr, gr = value_and_grad(params, batch, cfg, jcfg)
+    assert abs(float(m["loss"]) - float(mr["loss"])) <= 1e-4 * abs(
+        float(mr["loss"]))
+    n, nr = float(global_norm(g)), float(global_norm(gr))
+    assert abs(n - nr) <= 1e-4 * nr
+    assert all(bool(torch.isfinite(t).all()) for t in ptree.leaves(g))
 
 
 @pytest.mark.cuda

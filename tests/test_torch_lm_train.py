@@ -456,22 +456,6 @@ def test_save_then_resume_equals_the_uninterrupted_run(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), b)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
-def test_ssm_and_hybrid_training_raise(arch):
-    """Their forward runs the SSD term on a kernel without a backward, so
-    training raises on any device, naming the queue item: the loss, the
-    engine (before any weights are made) and the CLI."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        step.loss_fn(None, {}, cfg, jigsaw_for(cfg))
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            TrainEngine(arch, device=device,
-                        config=EngineConfig(steps=1, batch=2))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        train_cli.main(["--device", "cpu", "--arch", arch, "--steps", "1"])
-
-
 def test_lm_on_a_model_mesh_raises():
     """A language model on a model mesh raises before any process group
     is joined, naming its queue item, on either device."""

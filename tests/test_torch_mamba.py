@@ -87,14 +87,9 @@ def test_config_matches_reference():
     assert cfg.param_count() == 129_057_216
 
 
-def test_other_lm_families_still_raise():
-    """Training the ssm family raises (its SSD term has no backward kernel
-    yet: queue 1 item 18), and so does any LM on a model mesh (item
-    19)."""
+def test_lm_on_a_model_mesh_still_raises():
+    """Any LM on a model mesh raises, naming its queue item (item 19)."""
     from repro_torch.launch.engine import EngineConfig, TrainEngine
-    from repro_torch.train.step import loss_fn
-    with pytest.raises(NotImplementedError, match="item 18"):
-        loss_fn(None, {}, get_config("mamba2-130m").reduced(), None)
     with pytest.raises(NotImplementedError, match="item 19"):
         TrainEngine("whisper-small", device="cpu", mesh_model=2,
                     config=EngineConfig(steps=1))
