@@ -15,7 +15,8 @@ prefill, graphed decode on rolling and local:global KV caches), the MoE
 transformer's and the hybrid's forward and generation, whisper's
 encoder-decoder forward and generation, language-model training
 (``TrainEngine`` on token batches: mamba2-130m, h2o-danube-1.8b and
-whisper-small whole, phi3.5-moe cut in depth, jamba reduced),
+whisper-small whole, phi3.5-moe cut in depth, jamba reduced; h2o whole
+on a 1-D Jigsaw model mesh of two ranks sharing the card),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -367,6 +368,23 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      x 1,024 under the config's own dtypes, its router on block_matmul's
      f32 route forward and in its VJP (4 launches a layer), ``aux`` in
      the metrics; for each, the checks of 18;
+  19b. ``lm_1d``: h2o-danube-1.8b whole on a (data 1, model 2) 1-D mesh of
+     two rank processes sharing the card (``--lm-1d-rank``: gloo between
+     them, the ring's slots and the vocab-parallel head's all-gather
+     mapped by CUDA IPC), ``TrainEngine(mesh_model=2, scheme="1d",
+     impl="ring_fused")`` under lm_train's settings, two steps: step 0's
+     loss, grad norm and four named leaves (the first layer's wk, the last
+     layer's down, the head, the final norm) against lm_train's
+     one-device step 0 (handed over in a file) within ``LM_TRAIN_TOL`` /
+     ``LM_LEAF_TOL``; ring_chunked's step-0 loss bit for bit
+     ring_fused's; the run's ring_fwd, ring_bwd and block_matmul launches
+     equal to ``lm_1d_calls`` (672, 336 and 3 a rank and step); ms a step
+     on each rank, tokens/s, the peak a rank with the ring's slots, the
+     bytes through host and through the IPC slots, the bound from the
+     cost model's FLOPs; then h2o cut to 4 layers at 2 x 512 in f32 on
+     the two ranks against the one-device f32 forward (``DENSE_F32_TOL``).
+     ``ring_shape`` (7) holds the ring kernels at h2o's per-rank shapes
+     too (``LM_RING_SHAPES``);
   20. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -411,6 +429,9 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
     rounds each linear's partial sums to bf16 at every hop and adds the
     bias after the reduce); the 2x2 step the same bounds (each Cannon
     linear rounds its product to bf16 before its bias, as under q = 1);
+    h2o's 1-D step 0 against its one-device step 0: lm_train's bounds
+    against kernel="xla" (loss and grad norm 1e-2, the leaves 0.1), the
+    same kind of rounding difference;
   * the Cannon kernel: bit for bit the step loop (wx's main loop, K order
     and epilogue); against the plain Cannon the wx tolerances;
   * the ssd kernel: f32 2e-4 / 2e-4 (the reference's own kernel tolerance:
@@ -2108,6 +2129,8 @@ def ring_phase(torch, BM, RING, WX, ref):
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
     cases.append((2, RING_SHAPES[1], "float32"))
+    # h2o-danube-1.8b's ring linears at a rank of lm_1d's two
+    cases += [(LM_1D_P, shape, "bfloat16") for shape in LM_RING_SHAPES]
     rows_out, worst = [], {"fwd": 0.0, "bwd": 0.0}
     for p, (label, rows, d, m, n_fwd, n_bwd), name in cases:
         dtype = getattr(torch, name)
@@ -5205,7 +5228,7 @@ def _sample_leaves(params, n=4):
 
 def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
                  first_step=None, reduced=False, init_params=None,
-                 after=None):
+                 after=None, handoff=None):
     """``TrainEngine(arch, kernel="pallas")`` on its token batches, at the
     published width (``reduced``: the reduced config, remat on, from
     ``init_params``): optionally step 0 against ``kernel="xla"`` on the
@@ -5213,6 +5236,7 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
     then the run, its launches by layout and route counted from 0 just
     before it; losses finite, the sampled weights moved, the step records'
     ``mfu``; one step's device time after it, then ``after(eng)``.
+    With ``compare``, ``handoff`` (a path) gets step 0 for ``lm_1d``.
     Returns the stats and the engine's config."""
     import math
     from repro_torch.configs.registry import get_config
@@ -5249,6 +5273,8 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
                         **leaf_errs(torch, g, gx))
         mk, gk = value_and_grad(eng.params, batch0, cfg, eng.jcfg)
         first = versus_xla(mk, gk)
+        if handoff is not None:
+            lm_1d_handoff(torch, eng, batch0, mk, gk, handoff)
         del gk
 
         def altered(change, jcfg):
@@ -5363,6 +5389,295 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
     del eng, batch
     torch.cuda.empty_cache()
     return stats, cfg
+
+
+# ---------------------------------------------------------------------------
+# lm_1d: h2o-danube-1.8b whole on a 1-D model mesh of two ranks
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b whole (24 layers, d_model 2560, GQA 32/8, SwiGLU 6,912,
+# untied 32,000 vocab) on a (data 1, model 2) 1-D Jigsaw mesh of two rank
+# processes sharing the card, under lm_train's settings (bf16 policy,
+# remat, batch 2 x 1,024 tokens, seed 0, lr 1e-4), impl="ring_fused": two
+# steps.  Step 0 against lm_train's one-device step 0 on the same weights
+# and batch (handed over in a file): the loss and the grad norm within
+# LM_TRAIN_TOL relative and the named leaves (LM_1D_LEAVES) within
+# LM_LEAF_TOL by both measures, the bounds lm_train derived from its
+# noise floor for kernel="pallas" against "xla": the 1-D step differs from
+# the one-device step by the same kind of rounding (each ring linear's
+# partial sums rounded to bf16 at the hop, the head's dx summed over the
+# ranks), so a loss or norm 1e-2 apart, or a leaf 0.1 apart, is a fault.
+# ring_chunked's loss is ring_fused's bit for bit (the same products and
+# cast points).  Then h2o cut to LM_1D_F32_LAYERS layers at 2 x 512 in f32
+# (the seed's bf16 weights up-cast) on the two ranks against the
+# one-device f32 forward, max-normalised within DENSE_F32_TOL.
+LM_1D_P, LM_1D_STEPS = 2, 2
+LM_1D_F32_LAYERS, LM_1D_F32_SEQ, LM_1D_F32_BATCH = 4, 512, 2
+LM_1D_LEAVES = (("layers", 0, "attn", "wk", "w"),
+                ("layers", -1, "ffn", "down", "w"),
+                ("lm_head", "w"), ("final_norm", "scale"))
+# h2o's ring linears at one rank of p = 2: (label, rows, d, m, forward
+# calls, backward calls) a training step (the forward and the remat
+# recompute of each of the 24 layers, one backward), as RING_SHAPES;
+# wq and wo, wk and wv, gate and up share a shape (rows 2,048 = 2 x 1,024)
+LM_1D_ROWS = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+LM_RING_SHAPES = [("h2o.wq_wo", LM_1D_ROWS, 2560, 2560, 96, 48),
+                  ("h2o.wk_wv", LM_1D_ROWS, 2560, 640, 96, 48),
+                  ("h2o.gate_up", LM_1D_ROWS, 2560, 6912, 96, 48),
+                  ("h2o.down", LM_1D_ROWS, 6912, 2560, 48, 24)]
+
+
+def lm_1d_calls(cfg, p):
+    """One rank's launches of a ring_fused training step of a dense LM on
+    p ranks, from the code: each of a layer's ring linears (q, k, v, o and
+    the FFN's: 3 SwiGLU, 2 GELU) is one ring call in the layer's forward
+    and one in its remat recompute (``transformer.apply`` checkpoints every
+    layer), each p ring_fwd launches (``fused_ring._card_forward``), and
+    one in the backward, p ring_bwd launches; the head is one block_matmul
+    forward (outside the checkpoints) and two in its VJP (dx, dw)."""
+    linears = 4 + (3 if cfg.ffn_kind == "swiglu" else 2)
+    calls = linears * cfg.n_layers
+    return {"ring_fwd": 2 * calls * p, "ring_bwd": calls * p,
+            "block_matmul": 3}
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def lm_1d_handoff(torch, eng, batch0, metrics, grads, path):
+    """lm_train's one-device step 0 for lm_1d: the batch, the loss, the
+    grad norm and the named leaves' gradients, to ``path``."""
+    from repro_torch.optim.adam import global_norm
+    torch.save({"tokens": batch0["tokens"].cpu(),
+                "labels": batch0["labels"].cpu(),
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(global_norm(grads)),
+                "leaves": {"/".join(map(str, p)): _leaf(grads, p).cpu()
+                           for p in LM_1D_LEAVES}}, path)
+
+
+def lm_1d_phase(torch, handoff, head_rows):
+    """``lm_1d``: the two ranks (``--lm-1d-rank``) on lm_train's handoff;
+    returns the phase's stats (launches per rank among them, and the sums
+    over ``head_rows``, block_matmul at the head's per-rank shapes)."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16
+    from repro_torch.telemetry import build_cost_model
+    tmp = handoff.parent
+    (tmp / "meta.json").write_text(json.dumps({"handoff": str(handoff)}))
+    res, wall = run_ranks("--lm-1d-rank", tmp, LM_1D_P)
+    one = torch.load(handoff)
+    cfg = get_config(LM_TRAIN_ARCH)
+    want = {k: LM_1D_STEPS * v for k, v in lm_1d_calls(cfg, LM_1D_P).items()}
+    for r, x in enumerate(res):
+        got = {k: x["launches"][k] for k in want}
+        check(got == want and sum(x["launches"].values()) == sum(
+            want.values()), f"lm_1d rank {r}: launches {x['launches']}, "
+            f"want {want} ({LM_1D_STEPS} steps of lm_1d_calls)")
+    loss, norm = res[0]["loss"], res[0]["grad_norm"]
+    check(all(x["loss"] == loss and x["grad_norm"] == norm for x in res),
+          "lm_1d: the ranks report different step-0 losses or norms")
+    leaves = {}
+    for name in one["leaves"]:
+        d2 = sum(x["leaves"][name]["diff_sq"] for x in res)
+        b2 = sum(x["leaves"][name]["ref_sq"] for x in res)
+        dmax = max(x["leaves"][name]["diff_max"] for x in res)
+        bmax = max(x["leaves"][name]["ref_max"] for x in res)
+        leaves[name] = {"rel_err": dmax / max(bmax, 1e-30),
+                        "norm_err": math.sqrt(d2 / max(b2, 1e-60))}
+    first = dict(loss=loss, loss_one_device=one["loss"],
+                 loss_rel_err=abs(loss - one["loss"]) / abs(one["loss"]),
+                 grad_norm=norm, grad_norm_one_device=one["grad_norm"],
+                 grad_norm_rel_err=abs(norm - one["grad_norm"])
+                 / one["grad_norm"], leaves=leaves, tol=LM_TRAIN_TOL,
+                 leaf_tol=LM_LEAF_TOL)
+    check(first["loss_rel_err"] <= LM_TRAIN_TOL
+          and first["grad_norm_rel_err"] <= LM_TRAIN_TOL
+          and all(v["rel_err"] <= LM_LEAF_TOL and v["norm_err"]
+                  <= LM_LEAF_TOL for v in leaves.values()),
+          f"lm_1d step 0 vs the one-device step: {first}")
+    check(all(x["loss_ring_chunked"] == x["loss"] for x in res),
+          f"lm_1d: ring_chunked's loss {res[0]['loss_ring_chunked']!r} is "
+          f"not ring_fused's {loss!r} bit for bit")
+    check(all(math.isfinite(v) for x in res for v in x["history_loss"]),
+          f"lm_1d: losses {[x['history_loss'] for x in res]}")
+    f32 = res[0]["f32"]
+    check(f32["rel_err"] <= DENSE_F32_TOL, f"lm_1d f32 forward: {f32}")
+    cm = build_cost_model(cfg, n_model=LM_1D_P, batch=LM_TRAIN_BATCH,
+                          seq_len=LM_TRAIN_SEQ)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    step_ms = max(x["step_ms"] for x in res)
+    stats = dict(
+        arch=LM_TRAIN_ARCH, params=cfg.param_count(), n_layers=cfg.n_layers,
+        mesh={"data": 1, "model": LM_1D_P}, impl="ring_fused",
+        precision="bf16", batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        steps=LM_1D_STEPS, first_step_vs_one_device=first,
+        loss_ring_chunked=res[0]["loss_ring_chunked"],
+        history_loss=res[0]["history_loss"],
+        history_grad_norm=res[0]["history_grad_norm"],
+        launches_per_rank=[x["launches"] for x in res],
+        launches_per_step=lm_1d_calls(cfg, LM_1D_P),
+        step_ms=[x["step_ms"] for x in res],
+        device_step_ms=[x["device_step_ms"] for x in res],
+        tokens_per_s=tokens / (step_ms / 1e3),
+        device_tokens_per_s=tokens / (max(x["device_step_ms"]
+                                          for x in res) / 1e3),
+        # the cost model's FLOPs of a step (both ranks' work, which the
+        # one card does) over the bf16 peak
+        bound_ms=1e3 * cm.flops_per_step / PEAK_FLOPS_BF16,
+        peak_mem_gb=[x["peak_mem_gb"] for x in res],
+        ring_slots_gb=[x["ring_slots_gb"] for x in res],
+        collectives_through_host=[x["through_host"] for x in res],
+        gb_through_host=[x["through_host_gb"] for x in res],
+        gb_through_host_by_op=[x["through_host_gb_by_op"] for x in res],
+        gb_ipc_by_op=[x["ipc_gb_by_op"] for x in res],
+        mfu=[x["mfu"] for x in res], f32_forward=f32,
+        # the head's block_matmul launches of one rank's step (forward,
+        # dx, dw), timed at their shapes beside the plain version, the
+        # library call and the bound
+        head_block_matmul_ms=per_rows(head_rows, "kernel_ms"),
+        head_block_matmul_plain_ms=per_rows(head_rows, "plain_ms"),
+        head_block_matmul_bound_ms=per_rows(head_rows, "bound_ms"),
+        head_block_matmul_library_ms=per_rows(head_rows, "library_ms"),
+        head_rows=head_rows,
+        setup_s=[x["setup_s"] for x in res], wall_s=wall)
+    emit(phase="lm_1d", **{k: v for k, v in stats.items()
+                           if k != "head_rows"})
+    return stats
+
+
+def lm_1d_worker(rank, tmp):
+    """One rank of ``lm_1d_phase`` (this file run with ``--lm-1d-rank``):
+    the engine on the (data 1, model LM_1D_P) mesh, step 0 against the
+    handoff on this rank's blocks, ring_chunked's step-0 loss, the run
+    with its launches counted from 0 just before it, the step's device
+    time, then the f32 forward (rank 0 compares); results to
+    rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import shard_params_1d
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import fused_ring
+    from repro_torch.kernels import ring as RING
+    from repro_torch.launch.engine import EngineConfig, TrainEngine
+    from repro_torch.launch.shapes import jigsaw_for
+    from repro_torch.models import registry as M
+    from repro_torch.models import transformer
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import _norm_args, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    one = torch.load(json.loads((tmp / "meta.json").read_text())["handoff"])
+    t0 = time.perf_counter()
+    eng = TrainEngine(LM_TRAIN_ARCH, reduced=False, mesh_model=LM_1D_P,
+                      scheme="1d", impl="ring_fused", kernel="pallas",
+                      device="cuda", config=EngineConfig(
+                          steps=LM_1D_STEPS, batch=LM_TRAIN_BATCH,
+                          seq_len=LM_TRAIN_SEQ, precision="bf16", lr=1e-4,
+                          log_every=1, seed=0, prefetch=1))
+    cfg, jcfg, mesh = eng.cfg, eng.jcfg, eng.mesh
+    check(cfg.remat and cfg.scheme == "1d" and jcfg.impl == "ring_fused"
+          and cfg.kernel == "pallas" and dist.get_backend() == "gloo",
+          "unexpected lm_1d config")
+    batch0 = eng.pipeline.get(0)
+    check(torch.equal(batch0["tokens"].cpu(), one["tokens"])
+          and torch.equal(batch0["labels"].cpu(), one["labels"]),
+          "lm_1d: the first batch is not lm_train's")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # step 0 on this rank's blocks against the one-device step's
+    m, g = value_and_grad(eng.params, batch0, cfg, jcfg)
+    res = dict(loss=float(m["loss"]),
+               grad_norm=float(global_norm(g, **_norm_args(eng.params, cfg,
+                                                           jcfg))),
+               leaves={}, setup_s=setup_s)
+    specs = dict(ptree.leaves_with_path(eng.param_specs))
+    for path in LM_1D_LEAVES:
+        key = "/".join(map(str, path))
+        full = tuple(cfg.n_layers - 1 if k == -1 else k for k in path)
+        b = mesh.block(one["leaves"][key].cuda(), specs[full]).float()
+        d = _leaf(g, path).float() - b
+        res["leaves"][key] = {"diff_sq": float((d * d).sum()),
+                              "ref_sq": float((b * b).sum()),
+                              "diff_max": float(d.abs().max()),
+                              "ref_max": float(b.abs().max())}
+    del g, d, b
+    mc, gc = value_and_grad(eng.params, batch0, cfg,
+                            jcfg.replace(impl="ring_chunked"))
+    res["loss_ring_chunked"] = float(mc["loss"])
+    del gc
+    torch.cuda.empty_cache()
+
+    # -- the main path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counted())
+    comm.through_host.clear()
+    comm.through_host_bytes.clear()
+    fused_ring.ipc_bytes.clear()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    res.update(launches=read_counts(counted()),
+               through_host=dict(comm.through_host),
+               through_host_gb=sum(comm.through_host_bytes.values()) / 1e9,
+               through_host_gb_by_op={k: v / 1e9 for k, v in
+                                      comm.through_host_bytes.items()},
+               ipc_gb_by_op={k: v / 1e9 for k, v in
+                             fused_ring.ipc_bytes.items()},
+               ring_slots_gb=RING.workspace_bytes() / 1e9,
+               peak_mem_gb=(torch.cuda.max_memory_allocated()
+                            + RING.workspace_bytes()) / 1e9)
+    # ----------------------------------------------------------------------
+    recs = eng.tracer.step_records()
+    res.update(history_loss=[h["loss"] for h in hist],
+               history_grad_norm=[h["grad_norm"] for h in hist],
+               mfu=[r["mfu"] for r in recs],
+               # the step after the first (its time holds set-up)
+               step_ms=1e3 * (recs[-1]["dur_s"] - recs[-1]["data_wait_s"]))
+    batch = eng.pipeline.get(LM_1D_STEPS)
+    res["device_step_ms"] = cuda_ms(lambda: eng.dispatch(batch), 1)
+    del batch, batch0
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    # the f32 forward: h2o cut in depth, the seed's bf16 weights up-cast
+    cfg4 = get_config(LM_TRAIN_ARCH).replace(n_layers=LM_1D_F32_LAYERS)
+    whole = ptree.map(lambda t: t.float(), M.init(cfg4, seed=0,
+                                                  device="cuda"))
+    cfg32 = cfg4.replace(param_dtype="float32", compute_dtype="float32",
+                         remat=False)
+    batch = {"tokens": token_rows(torch, cfg4, LM_1D_F32_SEQ,
+                                  LM_1D_F32_BATCH, 0)}
+    c1 = cfg32.replace(scheme="1d", impl="ring_fused", kernel="pallas")
+    with torch.no_grad():
+        out, _ = M.apply(shard_params_1d(whole, mesh.r, mesh.p,
+                                         spec=transformer.param_spec_1d),
+                         batch, c1, jigsaw_for(c1).replace(mesh=mesh))
+        got = torch.cat(comm.all_gather_list(out.contiguous(),
+                                             mesh.tp_group), dim=-1)
+        del out
+        if rank == 0:
+            c0 = cfg32.replace(scheme="none", kernel="pallas")
+            want, _ = M.apply(whole, batch, c0, jigsaw_for(c0))
+            res["f32"] = dict(
+                layers=LM_1D_F32_LAYERS, batch=LM_1D_F32_BATCH,
+                seq=LM_1D_F32_SEQ, finite=bool(torch.isfinite(got).all()),
+                rel_err=rel_err(got, want), mean_rel_err=mean_rel(got, want),
+                tol=DENSE_F32_TOL)
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    fused_ring.ipc_bytes.clear()
+    RING.release_workspaces()
+    dist.destroy_process_group()
+    return 0
 
 
 # mamba2-130m training: TrainEngine whole (24 layers, full width) under the
@@ -5601,14 +5916,26 @@ def counted():
 def lm_train_phases(torch, BM, SM90, ref):
     """``lm_train`` (h2o whole, four steps, step 0 against kernel="xla",
     block_matmul at the step's shapes in its three layouts),
-    ``audio_train`` and ``moe_train``; returns their stats, the GEMM rows
-    and the worst GEMM error."""
+    ``audio_train``, ``moe_train`` and ``lm_1d`` (h2o on two ranks, step 0
+    against lm_train's); returns their stats, the GEMM rows and the worst
+    GEMM error."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm1d_"))
+    try:
+        return _lm_train_phases(torch, BM, SM90, ref, tmp / "step0.pt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _lm_train_phases(torch, BM, SM90, ref, handoff):
     from repro_torch.launch.engine import EngineConfig
     torch.cuda.empty_cache()
     base = dict(lr=1e-4, log_every=1, seed=0, prefetch=1)
     lm, cfg = lm_train_run(torch, BM, LM_TRAIN_ARCH, {}, EngineConfig(
         steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
-        precision="bf16", **base), "lm_train", compare=True)
+        precision="bf16", **base), "lm_train", compare=True,
+        handoff=handoff)
     gen = torch.Generator(device="cuda").manual_seed(45)
     m = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     shapes = lm_gemm_shapes(cfg, "h2o.train", m)
@@ -5636,7 +5963,17 @@ def lm_train_phases(torch, BM, SM90, ref):
           f"{moe['launches_by_route']} (want {4 * mcfg.n_layers}: forward, "
           f"remat, dx, dw a layer), aux {moe['aux']}")
     emit(phase="moe_train", published_layers=32, **moe)
-    return (lm, audio, moe), rows, max(w1, w2)
+    # lm_1d's vocab-parallel head at one rank's shape: the gathered
+    # features (M 2,048, K 2,560) against the rank's vocab rows
+    # (vocab_padded / LM_1D_P); its forward, dx and dw, one launch each a
+    # step and rank
+    head = [("h2o.head_1d", m, cfg.d_model, cfg.vocab_padded // LM_1D_P,
+             "none", 1, "bfloat16")]
+    head_fwd, w3 = lm_gemm_rows(torch, BM, SM90, ref, gen, head)
+    head_bwd, w4 = lm_bwd_rows(torch, BM, SM90, ref, gen, head)
+    torch.cuda.empty_cache()
+    lm1d = lm_1d_phase(torch, handoff, head_fwd + head_bwd)
+    return (lm, audio, moe, lm1d), rows, max(w1, w2, w3, w4)
 
 
 def audio_phases(torch, BM, SM90, ref):
@@ -5744,8 +6081,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         moe_hybrid_phases(torch, BM, SM90, ref)
     (afwd, agen), (afwd_rows, agen_rows), au_worst = audio_phases(
         torch, BM, SM90, ref)
-    (lmt, aut, mot), lmt_rows, lt_worst = lm_train_phases(torch, BM, SM90,
-                                                          ref)
+    (lmt, aut, mot, l1d), lmt_rows, lt_worst = lm_train_phases(
+        torch, BM, SM90, ref)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -5774,12 +6111,14 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         return sum(r.get(key, 0.0) * r["per_train_step"] for r in wx_rows
                    if r["batch"] == 1 and r["shape"].startswith("q1."))
 
-    def per_ring_step(kind, key):
+    def per_ring_step(kind, key, lm=False):
         # the p = 2 bf16 rows (batch 1): one rank of the 1-D step, per
-        # training sample-step at r = 1
+        # training sample-step at r = 1; with ``lm`` h2o's rows, one rank
+        # of lm_1d's training step
         return sum(r[f"{kind}_{key}"] * r[f"{kind}_calls_per_train_step"]
                    for r in ring_rows
-                   if r["p"] == TRAIN_1D_P and r["dtype"] == "bfloat16")
+                   if r["p"] == TRAIN_1D_P and r["dtype"] == "bfloat16"
+                   and r["shape"].startswith("h2o.") == lm)
 
     def per_cannon_step(key):
         # the bf16 rows at batch 1: one rank of the 2x2 step, per training
@@ -5809,14 +6148,15 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
         data = data_launches["1d"][f"ring_{kind}"]
+        lm1d = [x[f"ring_{kind}"] for x in l1d["launches_per_rank"]]
         return {
             "name": f"ring_{kind}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": f"src/repro/kernels/fused_ring.py:{line}",
-            "launches": sum(launches) + sum(data),
+            "launches": sum(launches) + sum(data) + sum(lm1d),
             "launches_by_path": {"train_1d": launches,
-                                 "train_data_1d": data},
+                                 "train_data_1d": data, "lm_1d": lm1d},
             "max_abs_err": ring_worst[kind],
             # times: one rank's launches of a 1-D training sample-step at
             # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
@@ -5829,6 +6169,13 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                 else "bytes"),
             # torch.matmul chunk products plus the adds
             "library_ms": per_ring_step(kind, "library_ms"),
+            # one rank's launches of an h2o-danube-1.8b training step on
+            # lm_1d's two ranks (batch 2 x 1,024): 7 ring calls a layer,
+            # the forward and the remat recompute, one backward
+            "lm_1d_ms": per_ring_step(kind, "kernel_ms", True),
+            "lm_1d_plain_ms": per_ring_step(kind, "plain_ms", True),
+            "lm_1d_bound_ms": per_ring_step(kind, "bound_ms", True),
+            "lm_1d_library_ms": per_ring_step(kind, "library_ms", True),
         }
 
     emit(kernels=[{
@@ -5851,7 +6198,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
               for k in ("launches", "launches_eager"))
         + afwd["launches"]["block_matmul"]
         + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot, mt,
-                                                      ht)),
+                                                      ht))
+        + sum(x["block_matmul"] for x in l1d["launches_per_rank"]),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -5899,7 +6247,9 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "moe_train": mot["launches"]["block_matmul"],
                              "mamba_train": mt["launches"]["block_matmul"],
                              "hybrid_train":
-                             ht["launches"]["block_matmul"]},
+                             ht["launches"]["block_matmul"],
+                             "lm_1d": [x["block_matmul"] for x in
+                                       l1d["launches_per_rank"]]},
         "lm_train_launches_by_layout": {
             x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot, mt)},
         "lm_train_launches_by_route": {
@@ -6000,6 +6350,12 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "lm_train_step_plain_ms": per_rows(lmt_rows, "plain_ms"),
         "lm_train_step_bound_ms": per_rows(lmt_rows, "bound_ms"),
         "lm_train_step_library_ms": per_rows(lmt_rows, "library_ms"),
+        # the 3 of one rank's lm_1d step (h2o's vocab-parallel head at M
+        # 2,048, K 2,560, N 16,000: forward, dx, dw)
+        "lm_1d_ms": l1d["head_block_matmul_ms"],
+        "lm_1d_plain_ms": l1d["head_block_matmul_plain_ms"],
+        "lm_1d_bound_ms": l1d["head_block_matmul_bound_ms"],
+        "lm_1d_library_ms": l1d["head_block_matmul_library_ms"],
         "shapes": rows,
         "shapes_bwd": bwd_rows,
         "shapes_mamba": mamba_rows,
@@ -6007,6 +6363,7 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "shapes_moe_hybrid": mfwd_rows + mgen_rows + hfwd_rows + hgen_rows,
         "shapes_audio": afwd_rows + agen_rows,
         "shapes_lm_train": lmt_rows,
+        "shapes_lm_1d": l1d["head_rows"],
     }, {
         "name": "wx",
         "route": "cuda",
@@ -6154,6 +6511,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--train-1d-rank"]:
             sys.exit(train_1d_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--lm-1d-rank"]:
+            sys.exit(lm_1d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-2d-rank"]:
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-data-rank"]:

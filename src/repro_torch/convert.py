@@ -15,12 +15,14 @@ Both functions go through numpy, so neither package imports the other:
       ``models/weathermixer.py::param_spec_2d``);
   ``gather_params_2d(shards, q)``  every rank's shard -> the whole tree,
       bit for bit;
-  ``shard_params_1d(tree, r, p, d, data, fsdp)`` /
-      ``gather_params_1d(shards, p, data, fsdp)``  the same for rank (d, r)
-      of a (data, model=p) 1-D Jigsaw mesh (``param_spec_1d``: every ``w``
-      cut along its contracting dim, and under the FSDP hybrid its out dim
-      over data; every ``b`` along its out dim);
-  ``param_bounds(path, shape, mesh, fsdp)``  the [start, stop) bounds
+  ``shard_params_1d(tree, r, p, d, data, fsdp, spec)`` /
+      ``gather_params_1d(shards, p, data, fsdp, spec)``  the same for rank
+      (d, r) of a (data, model=p) 1-D Jigsaw mesh (WeatherMixer's
+      ``param_spec_1d``: every ``w`` cut along its contracting dim, and
+      under the FSDP hybrid its out dim over data; every ``b`` along its
+      out dim; or the caller's leaf rule ``spec``, such as a language
+      model's ``models/transformer.py::param_spec_1d``);
+  ``param_bounds(path, shape, mesh, fsdp, spec)``  the [start, stop) bounds
       of each dim of a rank's shard in the whole leaf: the inverse of
       ``shard_params_1d`` / ``_2d`` (``whole[bounds]`` is the shard), what
       a sharded checkpoint records of each rank's block
@@ -50,6 +52,15 @@ from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 # the entries of a parameter tree whose layers the reference stacks
 STACKED = ("blocks", "layers", "periods", "enc_layers", "dec_layers")
+
+
+def _rule_1d(spec, fsdp: bool):
+    """The 1-D leaf rule ``(path, ndim) -> Spec``: the caller's ``spec``
+    (a language model's, ``transformer.param_spec_1d``), else
+    WeatherMixer's under ``fsdp``."""
+    if spec is not None:
+        return spec
+    return lambda path, ndim: param_spec_1d(path, ndim, fsdp)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -163,28 +174,32 @@ def gather_params_2d(shards, q: int):
 
 
 def shard_params_1d(tree, r: int, p: int, d: int = 0, data: int = 1,
-                    fsdp: bool = False):
+                    fsdp: bool = False, spec=None):
     """Rank (d, r)'s shard of a whole parameter tree on a (data, model=p)
     1-D mesh: every ``w`` cut along its contracting (last) dim and, under
     the FSDP hybrid (``fsdp``), along its out dim over the ``data`` ranks
     where their count divides it; every ``b`` along its (last) dim;
     ``scale``, ``bias`` and ``blend`` whole (``param_spec_1d``,
-    sanitized).  Leaves are numpy arrays or tensors; the shard's leaves own
-    their memory."""
+    sanitized), or each leaf by the caller's rule ``spec(path, ndim)``.
+    Leaves are numpy arrays or tensors; the shard's leaves own their
+    memory."""
     mesh = Mesh1D(p=p, r=r, data_size=data, data_index=d)
+    rule = _rule_1d(spec, fsdp)
 
     def shard(path, a):
-        spec = sanitize_spec(a.shape, param_spec_1d(path, a.ndim, fsdp),
-                             mesh)
-        return _own(mesh.block(a, spec))
+        return _own(mesh.block(a, sanitize_spec(a.shape, rule(path, a.ndim),
+                                                mesh)))
     return ptree.map_with_path(shard, tree)
 
 
-def gather_params_1d(shards, p: int, data: int = 1, fsdp: bool = False):
+def gather_params_1d(shards, p: int, data: int = 1, fsdp: bool = False,
+                     spec=None):
     """The whole tree from the data x p shards, listed in rank order
-    d * p + r; replicated leaves are taken from rank 0.  Under ``fsdp`` a
+    d * p + r (cut by ``shard_params_1d`` with the same ``fsdp`` and
+    ``spec``); replicated leaves are taken from rank 0.  Under ``fsdp`` a
     ``w``'s whole out dim is p times its linear's bias block (the bias is
     never cut over data), which says whether its shards were cut."""
+    rule = _rule_1d(spec, fsdp)
     if len(shards) != p * data:
         raise ValueError(f"gather_params_1d: {len(shards)} shards for "
                          f"{data} x {p} ranks")
@@ -195,7 +210,7 @@ def gather_params_1d(shards, p: int, data: int = 1, fsdp: bool = False):
         return np.concatenate(leaves, dim)
 
     def gather(path, *leaves):
-        spec = param_spec_1d(path, leaves[0].ndim, fsdp)
+        spec = rule(path, leaves[0].ndim)
         if DATA_AXIS in spec:
             out = p * _leaf_at(shards[0], path[:-1] + ("b",)).shape[-1]
             if out % data:
@@ -218,15 +233,17 @@ def block_bounds(mesh, spec: Spec, shape) -> tuple:
     return tuple(block_range(mesh, e, n) for e, n in zip(spec, shape))
 
 
-def param_bounds(path, shape, mesh, fsdp: bool = False) -> tuple:
+def param_bounds(path, shape, mesh, fsdp: bool = False,
+                 spec=None) -> tuple:
     """The bounds in the whole parameter leaf at ``path`` (of ``shape``:
     the reference's stacked leaf or the port's per-layer one) of the
-    rank's shard on ``mesh``: ``param_spec_1d`` on a ``Mesh1D`` (with the
-    FSDP hybrid's ``fsdp``), ``param_spec_2d`` on a ``Mesh``, sanitized.
+    rank's shard on ``mesh``: ``shard_params_1d``'s rule on a ``Mesh1D``
+    (with the FSDP hybrid's ``fsdp``, or the caller's ``spec``),
+    ``param_spec_2d`` on a ``Mesh``, sanitized.
     ``whole[tuple(slice(*b) for b in bounds)]`` is the leaf of
     ``shard_params_1d`` / ``shard_params_2d``."""
     ndim = len(shape)
-    spec = (param_spec_1d(path, ndim, fsdp) if isinstance(mesh, Mesh1D)
+    spec = (_rule_1d(spec, fsdp)(path, ndim) if isinstance(mesh, Mesh1D)
             else param_spec_2d(path, ndim))
     return block_bounds(mesh, sanitize_spec(shape, spec, mesh), shape)
 

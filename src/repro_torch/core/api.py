@@ -23,7 +23,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.jigsaw import _cast_operands, check_impl, jigsaw_linear
+from repro_torch.core.jigsaw import (_cast_operands, check_impl,
+                                    jigsaw_linear, vocab_linear_1d)
 from repro_torch.core.sharding import Mesh, Mesh1D
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act
@@ -82,15 +83,20 @@ class JigsawConfig:
 DEFAULT_JIGSAW = JigsawConfig()
 
 
-def head_config(cfg: JigsawConfig) -> JigsawConfig:
-    """Jigsaw config of the LM head (the tied unembedding).  The reference
-    leaves the head to GSPMD under scheme="1d" (its explicit reduce-scatter's
-    transpose would all-gather the full-vocab gradient); the port has no
-    GSPMD, so that config raises (``core/jigsaw.py::check_impl``).  Every
-    other scheme keeps ``cfg``."""
+def head_apply(w: torch.Tensor, x: torch.Tensor,
+               cfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
+    """The LM head ``x @ w.T``, w [V, D] (the tied embedding table or
+    ``lm_head``'s weight).  Under ``scheme="1d"`` the vocab-parallel head
+    on the rank's blocks (``jigsaw.vocab_linear_1d``: x [..., D/p], w the
+    rank's [V/p, D] vocab rows -> logits [..., V/p]), which the reference
+    leaves to GSPMD (its ``head_config``: the port has none); otherwise a
+    linear under ``cfg``."""
     if cfg.scheme == "1d":
-        return cfg.replace(impl="gspmd")
-    return cfg
+        return vocab_linear_1d(x, w, mesh=cfg.mesh_1d,
+                               accum_dtype=cfg.accum_dtype,
+                               kernel=cfg.kernel,
+                               compute_dtype=cfg.compute_dtype)
+    return linear_apply({"w": w}, x, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ collective:
       i + 1 (the reference's ``ppermute`` with perm i -> i+1);
   ``all_reduce(x, group)``  the sum over ``group`` on every rank; its
       backward sums the gradients over ``group``, since each rank consumes
-      the sum for its own part of the one global loss;
+      the sum for its own part of the one global loss (``all_reduce_`` and
+      ``all_reduce_max_`` the in-place sum and MAX outside autograd);
   ``all_gather(x, group, dim)``  every rank's x concatenated along ``dim``
       in rank order, in one library call (the ring form of the same
       gather, the reference's ``_rank_order_all_gather``, is
@@ -175,6 +176,16 @@ def all_reduce_(x: torch.Tensor, *groups) -> torch.Tensor:
     for group in groups:
         _all_reduce(acc, group)
     return x if acc is x else x.copy_(acc)
+
+
+def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place elementwise MAX over ``group`` (None: none), outside
+    autograd."""
+    if group is None:
+        return x
+    return _collective(
+        "all_reduce", lambda o, _: dist.all_reduce(o, op=dist.ReduceOp.MAX,
+                                                   group=group), x, group, x)
 
 
 def _gather_stacked(x: torch.Tensor, group) -> torch.Tensor:

@@ -21,6 +21,10 @@ impls, under the reference's names:
                   collectives, let GSPMD place them", which PyTorch has no
                   counterpart of (ROADMAP.md).
 
+``vocab_linear_1d`` is the language models' head under 1-D, which the
+reference leaves to GSPMD: the features all-gathered, the rank's vocab
+rows multiplied locally, the logits left cut over the vocab.
+
 The wire (every hop, the reduce-scatter's operand) carries x's dtype; the
 ring's adds run in ``accum_dtype``.  Differentiable: the transpose of each
 collective is its autograd backward (a ring reduce-scatter's is the ring
@@ -209,6 +213,32 @@ def jigsaw_linear(x: torch.Tensor, w: torch.Tensor,
     y = jigsaw_matmul_1d(x, w, mesh=mesh, impl=impl,
                          accum_dtype=accum_dtype, kernel=kernel)
     return y if b is None else y + b
+
+
+def vocab_linear_1d(x: torch.Tensor, w: torch.Tensor, *, mesh: Mesh1D,
+                    accum_dtype: Optional[torch.dtype] = torch.float32,
+                    kernel: str = "xla",
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+    """The vocab-parallel LM head on the rank's blocks: x [..., D/p] (the
+    residual stream's features cut), w [V/p, D] (the rank's vocab rows of
+    the head or the tied table) -> the rank's logits [..., V/p], which stay
+    cut (the loss reduces over them: ``train/loss.py::lm_nll_sharded``).
+
+    The reference leaves this head to GSPMD (its
+    ``core/api.py::head_config``); written out, it all-gathers x's
+    features over the tp group (``fused_ring.gather_features``: on the
+    card ring hops through the ring workspace's IPC slots, on the CPU the
+    library's all-gather), then runs the local GEMM against the rank's vocab rows (block_matmul under
+    ``kernel="pallas"``, forward and VJP).  Its backward reduce-scatters dx
+    over D (the gather's transpose) and keeps dw local."""
+    x, w, _ = _cast_operands(x, w, None, compute_dtype)
+    xf = fused_ring.gather_features(x, mesh.tp_group, mesh.p, mesh.r)
+    if xf.shape[-1] != w.shape[1]:
+        raise ValueError(f"vocab_linear_1d: x {tuple(x.shape)} gathered "
+                         f"over {mesh.p} ranks and w {tuple(w.shape)} do "
+                         "not contract")
+    return local_matmul(xf, w, accum_dtype, kernel).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

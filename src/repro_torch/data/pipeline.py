@@ -7,7 +7,7 @@ A language model's batches come from ``TokenBatchSource``: a data rank
 makes only its rows of ``tokens`` and ``labels`` (``TokenDataset.
 sample_shard``, bit for bit the rows of the whole batch); the VLM's
 ``embeds`` and the audio family's ``frames`` are a full f32 draw per step,
-cut to the rank's rows.  ``make_source`` / ``make_pipeline`` pick the
+cut to the rank's rows and, on a 1-D model mesh, to its block of D.  ``make_source`` / ``make_pipeline`` pick the
 source by family.  The rest of this docstring is the weather source's.
 
 On one device (``mesh=None``) both modes read the whole batch. On a mesh
@@ -244,8 +244,18 @@ def _rows(spec: Spec, mesh, batch: int) -> slice:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class _RowPlan:
-    """A data rank's rows of a token batch."""
+    """A data rank's rows of a token batch, and the spec and mesh that cut
+    the trailing dims of the dense side inputs (D on the feature axis)."""
     rows: slice
+    spec: Spec = ()
+    mesh: Any = None
+
+    def cut(self, value: np.ndarray) -> np.ndarray:
+        """The rank's block of a side input [B, n, D]: its rows, and its
+        block of each trailing dim the spec cuts."""
+        tail = tuple(slice(*block_range(self.mesh, e, n)) for e, n in
+                     zip(self.spec[1:], value.shape[1:]))
+        return np.ascontiguousarray(value[(self.rows,) + tail])
 
 
 class TokenBatchSource:
@@ -254,7 +264,8 @@ class TokenBatchSource:
     inputs ``extras`` (name -> trailing shape: ``embeds`` [n_patches, D],
     ``frames`` [n_frames, D]), an f32 normal draw from
     ``np.random.default_rng(step)`` over the whole batch (the reference's:
-    preprocessed modality features), cut to the rank's rows.  A rank's
+    preprocessed modality features), cut to the rank's rows and its block
+    of D (the block spec's feature entry: on a 1-D model mesh).  A rank's
     token rows come from ``sample_shard``: only its rows are made."""
 
     def __init__(self, ds: TokenDataset, batch_size: int,
@@ -291,7 +302,7 @@ class TokenBatchSource:
         return out
 
     def plan(self, spec: Spec, mesh) -> _RowPlan:
-        return _RowPlan(_rows(spec, mesh, self.batch_size))
+        return _RowPlan(_rows(spec, mesh, self.batch_size), spec, mesh)
 
     def read_key(self, key: str, step: int, horizon: int, plan: _RowPlan,
                  cancel: Optional[threading.Event] = None) -> np.ndarray:
@@ -299,7 +310,7 @@ class TokenBatchSource:
         step and plan)."""
         del horizon, cancel
         if key in self.extras:
-            return np.ascontiguousarray(self._extra(key, step)[plan.rows])
+            return plan.cut(self._extra(key, step))
         memo = self._step_memo(step)
         if plan not in memo:
             memo[plan] = self.ds.sample_shard(step, self.batch_size,
@@ -308,9 +319,9 @@ class TokenBatchSource:
 
     def sync_block(self, value: np.ndarray, spec: Spec, mesh) -> np.ndarray:
         """A key of the whole batch as ``"sync-full"`` hands it over: the
-        rank's rows (the model takes the rows it is given)."""
-        return np.ascontiguousarray(value[_rows(spec, mesh,
-                                                self.batch_size)])
+        rank's rows (the model takes the rows it is given) and, of a side
+        input, its block of D."""
+        return self.plan(spec, mesh).cut(value)
 
 
 class InputPipeline:

@@ -34,6 +34,8 @@ skewed operands, so its gradients are the step loop's bit for bit.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import math
 from typing import Optional
 
@@ -62,35 +64,102 @@ def local_matmul(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.to(dt), w.to(dt).t())
 
 
-def ring_walk(get, group, p, me, wire_dtype, acc_dtype):
+def ring_walk(get, group, p, me, wire_dtype, acc_dtype,
+              shift=comm.ring_shift):
     """The 1-D ring's walk (the reference's ``ring_reduce_scatter``): start
     with ``get((me + p - 1) % p)``, then p - 1 rounds of one hop to the
-    successor in ``wire_dtype`` and the add of ``get((me - 2 - s) % p)`` in
-    ``acc_dtype``; ``get(j)`` is this rank's part of chunk j in
-    ``acc_dtype``.  Ends with this rank's chunk of the sum, in
-    ``wire_dtype``."""
+    successor in ``wire_dtype`` (``shift(t, group)``) and the add of
+    ``get((me - 2 - s) % p)`` in ``acc_dtype``; ``get(j)`` is this rank's
+    part of chunk j in ``acc_dtype``.  Ends with this rank's chunk of the
+    sum, in ``wire_dtype``."""
     acc = get((me + p - 1) % p)
     for s in range(p - 1):
-        acc = comm.ring_shift(acc.to(wire_dtype), group)
+        acc = shift(acc.to(wire_dtype), group)
         acc = acc.to(acc_dtype) + get((me - 2 - s) % p)
     return acc.to(wire_dtype)
 
 
 def ring_all_gather(x: torch.Tensor, group, p: int, me: int,
-                    dim: int = -1) -> torch.Tensor:
+                    dim: int = -1, shift=comm.ring_shift) -> torch.Tensor:
     """Ring all-gather (the transpose of ``ring_walk``'s reduce-scatter,
-    the reference's ``_rank_order_all_gather``): p - 1 hops, each piece
-    placed at its owner's rank position along ``dim``."""
+    the reference's ``_rank_order_all_gather``): p - 1 hops
+    (``shift(t, group)``), each piece placed at its owner's rank position
+    along ``dim``."""
     if p == 1:
         return x
     pieces = [x]
     cur = x
     for _ in range(p - 1):
-        cur = comm.ring_shift(cur, group)
+        cur = shift(cur, group)
         pieces.append(cur)
     # piece t came from rank (me - t) % p
     ordered = [pieces[(me - r) % p] for r in range(p)]
     return torch.cat(ordered, dim=dim)
+
+
+# bytes this process copied into its peers' slots by ``ipc_shift``, by
+# the collective that made the hop (outside the kernels' own hops)
+ipc_bytes: collections.Counter = collections.Counter()
+
+
+def ipc_shift(t: torch.Tensor, group, s: int, what: str) -> torch.Tensor:
+    """One ring hop on the card through the group's ring workspace
+    (``ring.workspace``, the successor's slots mapped by CUDA IPC): rank i
+    copies t into rank i + 1's slot ``s % 2`` and gets rank i - 1's t.  The
+    slot discipline of ``ring.cu``: a stream synchronisation and a group
+    barrier before the copy (the successor has read that slot two hops
+    ago, and every earlier kernel on the slots is done) and after it (every
+    rank's copy has landed); the arrived t is copied out of the slot."""
+    t = t.contiguous()
+    ws = ring.workspace(group, t.numel() * t.element_size(), t.device)
+    stream = torch.cuda.current_stream(t.device)
+    stream.synchronize()
+    comm.barrier(group)
+    ws.peer(s % 2, t.shape, t.dtype).tensor().copy_(t)
+    ipc_bytes[what] += t.numel() * t.element_size()
+    stream.synchronize()
+    comm.barrier(group)
+    return ws.own(s % 2, t.shape, t.dtype).tensor().clone()
+
+
+def ipc_hops(what: str):
+    """A ``shift`` for ``ring_walk`` / ``ring_all_gather`` on the card:
+    ``ipc_shift``'s hops, numbered from 0 (each hop's slot is its number
+    mod 2), counted under ``what``."""
+    hops = itertools.count()
+    return lambda t, group: ipc_shift(t, group, next(hops), what)
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, p, me):
+        ctx.args = (group, p, me)
+        return ring_all_gather(x, group, p, me, -1, ipc_hops("all_gather"))
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the gather's transpose: the ring's reduce-scatter, added in f32
+        group, p, me = ctx.args
+        chunk = dy.shape[-1] // p
+        dx = ring_walk(lambda j: dy.narrow(-1, j * chunk, chunk).float(),
+                       group, p, me, torch.float32, torch.float32,
+                       ipc_hops("reduce_scatter"))
+        return dx.to(dy.dtype), None, None, None
+
+
+def gather_features(x: torch.Tensor, group, p: int, me: int
+                    ) -> torch.Tensor:
+    """Every rank's x [..., d/p] concatenated along the last dim in rank
+    order, differentiable (the backward reduce-scatters the cotangent, the
+    rank keeping its chunk): on the card p - 1 ring hops through the ring
+    workspace's IPC slots (``ipc_shift``; the backward's walk adds in
+    f32), on the CPU ``comm.all_gather``.  The vocab-parallel head's
+    gather (``core/jigsaw.py::vocab_linear_1d``)."""
+    if p == 1:
+        return x
+    if not x.is_cuda:
+        return comm.all_gather(x, group, -1)
+    return _GatherFeatures.apply(x, group, p, me)
 
 
 def chunk_walk(x, w, group, p, me, accum_dtype, kernel):

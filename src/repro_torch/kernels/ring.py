@@ -126,6 +126,28 @@ class DeviceBuffer:
     def is_contiguous(self) -> bool:
         return self.ld is None or self.ld == self.shape[-1]
 
+    def tensor(self) -> torch.Tensor:
+        """A tensor over this buffer's memory (contiguous buffers only),
+        through the CUDA array interface: torch copies into and out of the
+        slot in place, and the slot's owner frees it."""
+        if not self.is_contiguous():
+            raise ValueError("DeviceBuffer.tensor: a buffer with padded "
+                             "rows")
+        nbytes = math.prod(self.shape) * _itemsize(self.dtype)
+        raw = torch.as_tensor(_CudaBytes(self.ptr, nbytes),
+                              device=self.device)
+        return raw.view(self.dtype).view(self.shape)
+
+
+class _CudaBytes:
+    """``nbytes`` bytes of device memory at ``ptr``, as the CUDA array
+    interface describes them (what ``torch.as_tensor`` reads)."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 2}
+
 
 Buffer = Union[torch.Tensor, DeviceBuffer]
 

@@ -38,8 +38,13 @@ A language model (the dense, VLM, moe, audio, ssm and hybrid families)
 trains on one device or on a data-only mesh (``mesh_model=1,
 mesh_data=n``: every rank holds the whole model, reads its rows of the
 batch of ``seq_len`` tokens and all-reduces the gradients over data;
-ZeRO-1 as for the mixer); a model mesh raises
-(``launch/specs.py::check_lm_mesh``).
+ZeRO-1 as for the mixer).  The dense and VLM families also train on a 1-D
+model mesh (``mesh_model=p``: ``scheme="1d"``, each rank its shard by the
+reference's 1-D layout, ``impl`` as for the mixer, the VLM's embeds cut
+along D); their checkpoints there raise until that part of ROADMAP.md's
+queue 1 item 19.  The moe, ssm, hybrid and audio families on a model
+mesh, and the FSDP hybrid's cut of any language model, raise naming that
+item (``models/registry.py::check_lm_mesh``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -86,6 +91,7 @@ from repro_torch.launch import resilience, specs
 from repro_torch.launch.mesh import make_host_mesh, make_ring_mesh
 from repro_torch.launch.shapes import jigsaw_for
 from repro_torch.models import registry as M
+from repro_torch.models import transformer
 from repro_torch.optim import adam, schedule as sched
 from repro_torch.train.step import make_eval_step, make_train_step
 
@@ -143,9 +149,11 @@ class TrainEngine:
         ``config.seed``."""
         cfg = config_override if config_override is not None \
             else get_config(arch)
-        # what the port cannot train raises alike on any device
+        # what the port cannot train raises alike on any device, before
+        # any process group is joined
         specs.check_lm_mesh(cfg, mesh_model,
-                            fsdp=mesh_data > 1 and cfg.shard_params_over_data)
+                            fsdp=mesh_data > 1 and cfg.shard_params_over_data,
+                            scheme=scheme or "1d")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainEngine: CUDA is not available; pass "
@@ -169,7 +177,13 @@ class TrainEngine:
             cfg = precision.apply_policy(cfg, config.precision)
         self.policy = precision.policy_of(cfg)
         self.mesh = None
-        if cfg.family != "mixer":
+        if cfg.family != "mixer" and mesh_model > 1:
+            # a dense or VLM language model on a 1-D model mesh
+            cfg = cfg.replace(scheme="1d")
+            specs.check_lm_mesh(cfg, mesh_model)
+            self.mesh = make_ring_mesh(model=mesh_model, data=mesh_data,
+                                       device=self.device)
+        elif cfg.family != "mixer":
             # a language model: whole on every rank of a data-only mesh,
             # each linear's contraction local
             if mesh_data > 1:
@@ -229,17 +243,21 @@ class TrainEngine:
         if self.mesh is not None:
             # every rank holds the whole init; each keeps its shard
             m = self.mesh
-            self.param_specs = specs.sanitize_tree(
-                self.params, specs.param_specs(self.params, cfg, m.rules),
-                m)
+            pspecs = specs.param_specs(self.params, cfg, m.rules)
+            if cfg.family != "mixer" and cfg.scheme != "1d":
+                # a language model on a data-only mesh: whole everywhere
+                pspecs = ptree.map(lambda sp: (None,) * len(sp), pspecs)
+            self.param_specs = specs.sanitize_tree(self.params, pspecs, m)
             if config.zero1 and m.data_size > 1:
                 self.zero1 = adam.Zero1(
                     specs.zero1_dims(self.params, self.param_specs, m),
                     m.data_index, m.data_size, m.data_group)
             if cfg.scheme == "1d":
-                self.params = shard_params_1d(self.params, m.r, m.p,
-                                              m.data_index, m.data_size,
-                                              self.jcfg.fsdp)
+                # a language model by the transformer's rule (no FSDP cut)
+                self.params = shard_params_1d(
+                    self.params, m.r, m.p, m.data_index, m.data_size,
+                    self.jcfg.fsdp, spec=None if cfg.family == "mixer"
+                    else transformer.param_spec_1d)
             elif cfg.scheme == "2d":
                 self.params = shard_params_2d(self.params, m.i, m.j, m.q)
         pol = self.policy
@@ -283,7 +301,16 @@ class TrainEngine:
         self.preempt_stats: Optional[Dict] = None  # final-save timing
         self.preempt_origin: Optional[int] = None  # signalled rank
         if config.resume:
+            self._check_ckpt_mesh()
             self._restore(config.resume)
+
+    def _check_ckpt_mesh(self) -> None:
+        """Checkpoints of a language model on a model mesh raise
+        NotImplementedError (ROADMAP.md, queue 1 item 19)."""
+        if self.cfg.family != "mixer" and self.cfg.scheme == "1d":
+            raise NotImplementedError(
+                f"{self.arch}: checkpoints of a language model on a model "
+                "mesh are not ported (ROADMAP.md, queue 1 item 19)")
 
     def opt_state_bytes(self) -> int:
         """This rank's bytes of optimizer state: moments, and masters
@@ -546,6 +573,7 @@ class TrainEngine:
         checkpoints exist, the oldest are deleted -- except the one the
         ``best`` marker points at.  Rank 0 deletes them, only AFTER the
         new checkpoint is complete."""
+        self._check_ckpt_mesh()
         c = self.config
         block = (not c.async_save) if block is None else block
         prune = []

@@ -12,9 +12,13 @@ describe exactly the blocks the port's ranks hold: ``param_specs``
 (``data/pipeline.py``), and ``zero1_dims`` where ZeRO-1 cuts a leaf's
 optimizer state.  ``state_spec`` places the forecast engine's state
 buffer of a batch bucket on the serving mesh (``serve/engine.py``).
-A language model (every family but the mixer) runs on a data-only mesh:
-its parameters are whole on every rank and its batch is cut by rows; a
-model axis over one raises (``check_lm_mesh``).
+A language model of the dense and VLM families takes the reference's
+1-D layout (``models/transformer.py::param_spec_1d``) on a (data, model=p)
+mesh; on a data-only mesh its parameters stay whole on every rank.  The
+other families (moe, ssm, hybrid, audio) run on a data-only mesh alone, and
+a model axis over one raises for them, as the FSDP hybrid's cut of any
+language model does (``check_lm_mesh``, naming ROADMAP.md queue 1 item
+19).
 ``cache_specs`` (the language models' KV/SSM caches on a mesh) comes with
 the dry-run (ROADMAP.md, queue 1 item 15).
 """
@@ -28,24 +32,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import (DATA_AXIS, ShardingRules, Spec,
                                       entry_axes, sanitize_spec, spec_axes)
-from repro_torch.models import weathermixer
+from repro_torch.models import transformer, weathermixer
+from repro_torch.models.registry import LM_MESH_FAMILIES, check_lm_mesh
 
 __all__ = ["param_specs", "opt_specs", "batch_specs", "block_specs",
            "check_lm_mesh", "sanitize_spec", "sanitize_tree", "state_spec",
            "zero1_dims"]
-
-
-def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False) -> None:
-    """NotImplementedError for a language model on a model mesh (``model``
-    ranks > 1), or with its weights cut over data by the FSDP hybrid
-    (``fsdp``): the reference lays it out by its 1-D ``param_specs`` tree,
-    which has no counterpart here yet."""
-    if cfg.family != "mixer" and (model > 1 or fsdp):
-        raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family!r}) on a model mesh of {model} "
-            f"ranks{' or FSDP-cut over data' if fsdp else ''}: the "
-            "language models' sharded layout is not ported (ROADMAP.md, "
-            "queue 1 item 19); use a data-only mesh")
 
 
 def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
@@ -54,12 +46,22 @@ def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
     layout for the scheme (``weathermixer.PARAM_SPECS``) and, under 1-D
     with ``cfg.shard_params_over_data``, every weight's out dim on the data
     axis too (the FSDP hybrid; the reference's 2-D rule has no data
-    entry).  Leading stacked dims stay whole.  A language model's leaves
-    are whole (every entry None), its data-only mesh's layout; the FSDP
-    hybrid's cut of them raises (``check_lm_mesh``)."""
+    entry).  Leading stacked dims stay whole.  The dense and VLM language
+    models take the reference's 1-D rule
+    (``transformer.param_spec_1d``: contracting dims, the head's and the
+    table's vocab on the model axis) under 1-D rules; the other language
+    models' leaves, and any language model's under 2-D rules, are whole
+    (every entry None), their data-only mesh's layout: a model mesh that
+    needs another layout is refused by ``check_lm_mesh``, which the
+    callers run on their mesh.  The FSDP hybrid's cut of a language model
+    raises here too."""
     if cfg.family != "mixer":
         check_lm_mesh(cfg, 1, fsdp=cfg.shard_params_over_data)
-        return ptree.map(lambda a: (None,) * np.ndim(a), params)
+        if cfg.family not in LM_MESH_FAMILIES or rules.is_2d:
+            return ptree.map(lambda a: (None,) * np.ndim(a), params)
+        return ptree.map_with_path(
+            lambda path, a: transformer.param_spec_1d(path, np.ndim(a)),
+            params)
     if rules.is_2d:
         return ptree.map_with_path(
             lambda path, a: weathermixer.param_spec_2d(path, a.ndim), params)

@@ -16,8 +16,17 @@ a data-only mesh (``--mesh-data n``, ``--mesh-model 1``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-130m --steps 5 --seq-len 32 --log-every 1
 
-A language model on a model mesh (``--mesh-model`` > 1) raises
-NotImplementedError (ROADMAP.md, queue 1 item 19).
+The dense and VLM families also train on a 1-D Jigsaw model mesh
+(``--mesh-model p``, ``--scheme 1d`` implied; ``--impl`` as below, default
+the config's ``rs``), one process per rank under ``torch.distributed.run``:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.train --arch internlm2-1.8b \
+      --mesh-model 2 [--mesh-data n] [--impl ring_fused] --device cpu
+
+The moe, ssm, hybrid and audio families on a model mesh, checkpoints of a
+language model on one, and the FSDP hybrid's cut of a language model
+raise NotImplementedError (ROADMAP.md, queue 1 item 19).
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process

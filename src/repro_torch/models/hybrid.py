@@ -32,8 +32,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
-                                  linear_apply, linear_init)
+from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_apply,
+                                  linear_init)
 from repro_torch.core.precision import dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models.mamba import conv_dtype
@@ -115,7 +115,7 @@ def _lm_head(params, x, cfg: ModelConfig, jcfg: JigsawConfig):
     x = L.rmsnorm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], x, jcfg)
-    return linear_apply(params["lm_head"], x, head_config(jcfg))
+    return head_apply(params["lm_head"]["w"], x, jcfg)
 
 
 def _slot_apply(blk, x, j: int, cfg: ModelConfig, jcfg: JigsawConfig,

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import comm
-from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
+from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_apply,
                                   linear_apply, linear_init, mlp_apply,
                                   mlp_init)
 from repro_torch.core.sharding import Mesh, Mesh1D
@@ -39,11 +39,25 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6,
+                  mesh: Optional[Union[Mesh, Mesh1D]] = None
+                  ) -> torch.Tensor:
+    """RMSNorm over the last dim, in f32.  With ``mesh`` that dim is the
+    rank's block of it along the tp axis: the row sums of squares are
+    all-reduced over the tp group in f32 and divided by the whole dim (the
+    reduction GSPMD makes of the reference's mean), and each rank applies
+    its slice of the replicated scale."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    scale = params["scale"]
+    if mesh is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        dl = xf.shape[-1]
+        var = comm.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
+                              mesh.tp_group) / (dl * mesh.tp_size)
+        scale = scale.narrow(0, mesh.tp_index * dl, dl)
     y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 def layernorm_init(d: int, dtype=torch.float32, device=None):
@@ -233,7 +247,8 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
                     kv_cache: Optional[dict] = None, rolling: bool = False,
                     collect_kv: bool = False,
                     x_kv: Optional[torch.Tensor] = None,
-                    qk_norm: Optional[dict] = None, q_chunk: int = 0
+                    qk_norm: Optional[dict] = None, q_chunk: int = 0,
+                    mesh: Optional[Mesh1D] = None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The attention layer: the q, k, v projections, qk_norm (RMSNorm over
     d_head), RoPE, attention, the output projection.  Causal self-attention
@@ -253,15 +268,39 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
     S_max - 1)``, and attention reads the whole cache; returns {"k", "v"}
     (the same tensors) and "pos" + 1.  Everything is computed on the
     device from ``pos``, with no host read, so the step can be captured
-    in a CUDA graph.  Not ported: the reference's ``kv_spec`` (the cache's
-    layout on a model mesh; the port's LM path runs on one device or a
-    data-only mesh)."""
+    in a CUDA graph.
+
+    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``;
+    training, no cache): x is the rank's block [B, S, D/p] and the rank
+    runs its ``n_heads / p`` heads, the contiguous out blocks of wq
+    (whole heads).  Where p divides ``n_kv_heads`` the out blocks of wk
+    and wv are the kv heads those q heads read (GQA's map stays within a
+    rank); else k and v are all-gathered over the tp group and the rank
+    takes the kv head of each of its q heads.  The qk-norm and RoPE run
+    per head as above, and wo contracts the cut heads.
+    Not ported: the reference's ``kv_spec`` (the cache's layout on a model
+    mesh; the port serves a language model on one device or a data-only
+    mesh)."""
     b, s, _ = x.shape
     xkv = x if x_kv is None else x_kv
     f = xkv.shape[1]
-    q = linear_apply(params["wq"], x, cfg).reshape(b, s, n_heads, d_head)
-    k = linear_apply(params["wk"], xkv, cfg).reshape(b, f, n_kv_heads, d_head)
-    v = linear_apply(params["wv"], xkv, cfg).reshape(b, f, n_kv_heads, d_head)
+    p = 1 if mesh is None else mesh.tp_size
+    h_l = n_heads // p
+    q = linear_apply(params["wq"], x, cfg).reshape(b, s, h_l, d_head)
+    k = linear_apply(params["wk"], xkv, cfg)
+    v = linear_apply(params["wv"], xkv, cfg)
+    n_rep = n_heads // n_kv_heads
+    if p > 1 and n_kv_heads % p:
+        # each q head's kv head, out of the kv heads gathered whole
+        heads = torch.arange(mesh.tp_index * h_l, (mesh.tp_index + 1) * h_l,
+                             device=x.device) // n_rep
+        k, v = (comm.all_gather(t, mesh.tp_group, -1)
+                .reshape(b, f, n_kv_heads, d_head)[:, :, heads]
+                for t in (k, v))
+        n_rep = 1
+    else:
+        k = k.reshape(b, f, n_kv_heads // p, d_head)
+        v = v.reshape(b, f, n_kv_heads // p, d_head)
     if qk_norm is not None:
         q = rmsnorm_apply(qk_norm["q"], q)
         k = rmsnorm_apply(qk_norm["k"], k)
@@ -269,7 +308,6 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 
-    n_rep = n_heads // n_kv_heads
     new_cache = None
     if kv_cache is not None:
         ck, cv, pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
@@ -307,7 +345,7 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
         else:
             out = sdpa(q, kk, vv, q_pos=positions, kv_pos=kv_pos,
                        causal=masked, window=window, soft_cap=soft_cap)
-    out = out.reshape(b, s, n_heads * d_head)
+    out = out.reshape(b, s, h_l * d_head)
     return linear_apply(params["wo"], out, cfg), new_cache
 
 
@@ -646,12 +684,28 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
     return {"table": tbl.to(dtype)}
 
 
-def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed_apply(params, tokens: torch.Tensor,
+                mesh: Optional[Mesh1D] = None) -> torch.Tensor:
+    """The rows of the table [V, D] at ``tokens``.  With ``mesh`` (a 1-D
+    model mesh) the table is the rank's block of vocab rows [V/p, D]: an
+    id outside it gives a zero row, and the rows are reduce-scattered over
+    D, which leaves x in the 1-D layout [B, S, D/p].  Every sum has one
+    non-zero term, so the rows are exact (summed in f32, which holds every
+    table dtype); the backward all-gathers dx over D and scatter-adds it
+    into the rank's rows."""
+    table = params["table"]
+    if mesh is None:
+        return table[tokens.long()]
+    vl = table.shape[0]
+    local = tokens.long() - mesh.tp_index * vl
+    hit = (local >= 0) & (local < vl)
+    rows = torch.where(hit[..., None], table[local.clamp(0, vl - 1)], 0.0)
+    return comm.reduce_scatter(rows.float(), mesh.tp_group, -1).to(
+        table.dtype)
 
 
 def unembed_apply(params_embed, x: torch.Tensor,
                   cfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
-    """Tied LM head: logits = x @ table.T, a linear over d_model under the
-    head's Jigsaw config (``core/api.py::head_config``)."""
-    return linear_apply({"w": params_embed["table"]}, x, head_config(cfg))
+    """Tied LM head: logits = x @ table.T (``core/api.py::head_apply``:
+    under ``scheme="1d"`` the rank's vocab block of them)."""
+    return head_apply(params_embed["table"], x, cfg)

@@ -23,9 +23,51 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return module_for(cfg).init(cfg, seed=seed, device=device)
 
 
+# the language-model families that run on a 1-D model mesh
+# (``jcfg.scheme="1d"``: the transformer's rank blocks)
+LM_MESH_FAMILIES = ("dense", "vlm")
+
+
+def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
+                  scheme: str = "1d") -> None:
+    """What the port cannot lay out of a language model raises:
+    NotImplementedError, naming ROADMAP.md's queue 1 item 19, for the moe,
+    ssm, hybrid and audio families on a model mesh (``model`` ranks > 1),
+    for the dense and VLM families on a 2-D one (``scheme``), and for the
+    FSDP hybrid's cut of any language model over data (``fsdp``); ValueError
+    where ``model`` does not divide ``n_heads``, ``d_model``, ``d_ff`` or
+    ``vocab_padded`` (the reference pads such dims through GSPMD; the
+    port's blocks are exact)."""
+    if cfg.family == "mixer":
+        return
+    if fsdp:
+        raise NotImplementedError(
+            f"{cfg.arch_id} ({cfg.family!r}) FSDP-cut over data: the "
+            "language models' FSDP hybrid is not ported (ROADMAP.md, queue "
+            "1 item 19); use a data or 1-D model mesh without it")
+    if model <= 1:
+        return
+    if cfg.family not in LM_MESH_FAMILIES or scheme == "2d":
+        raise NotImplementedError(
+            f"{cfg.arch_id} ({cfg.family!r}) on a {scheme} model mesh of "
+            f"{model} ranks: only the dense and VLM families train on a "
+            "1-D model mesh (ROADMAP.md, queue 1 item 19); use a data-only "
+            "mesh")
+    dims = {"n_heads": cfg.n_heads, "d_model": cfg.d_model,
+            "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded}
+    bad = {k: v for k, v in dims.items() if v % model}
+    if bad:
+        raise ValueError(f"{cfg.arch_id} on a model mesh of {model} ranks: "
+                         f"{bad} not divisible by {model}")
+
+
 def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, **kw):
     """The training forward: (prediction, aux); the mixer family takes
-    ``rollout``."""
+    ``rollout``.  Under ``scheme="1d"`` the mixer, dense and VLM families
+    run on the rank's blocks; what the port cannot lay out there raises
+    (``check_lm_mesh`` on the config's mesh)."""
+    if jcfg.scheme == "1d":
+        check_lm_mesh(cfg, jcfg.mesh_1d.p)
     return module_for(cfg).apply(params, batch, cfg, jcfg, **kw)
 
 

@@ -24,24 +24,68 @@ MoE layer routes with ``cfg.capacity_factor`` in ``apply`` and
 with ``n_experts`` in ``decode_step`` (the reference's rule: a decode
 step never drops), and ``apply`` returns the sum of their aux losses.
 
+``scheme="1d"`` (training on a 1-D Jigsaw model mesh, the dense and VLM
+families; ``jcfg.mesh`` a ``Mesh1D`` of p ranks): each rank holds its
+shard of the parameters by the reference's 1-D layout (``param_spec_1d``:
+every ``w`` cut along its contracting dim, the head's and the embedding
+table's vocab rows cut, the norms' scales whole) and the residual stream's
+block [B, S, D/p].  The embedding looks up the rank's vocab rows and
+reduce-scatters over D; every linear of a layer is ``jigsaw_linear`` (a
+reduce-scatter by ``jcfg.impl``), the attention runs the rank's heads
+(``layers.attention_apply``), the norms all-reduce their row sums over the
+tp group; the head all-gathers the features and returns the rank's vocab
+block of the logits [B, S, V/p] (``core/api.py::head_apply``), which the
+loss reduces over the tp group (``train/loss.py::lm_nll_sharded``).  The
+VLM's ``embeds`` arrive as the rank's [B, P, D/p] block.
+
 Not ported here: the reference's ``_kv_spec`` (the cache's layout on a
 model mesh: the port serves a language model on one device).
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import List, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_config,
-                                  linear_apply, linear_init)
+from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_apply,
+                                  linear_init)
 from repro_torch.core.precision import dtype_of
+from repro_torch.core.sharding import MODEL_AXIS, Spec
 from repro_torch.models import layers as L
 
 FULL_WINDOW = 2 ** 30   # no sliding window
+# leaves every rank of a model mesh holds whole (the reference's
+# ``_REPLICATED``: the norms' scales and biases; ``pos``)
+_REPLICATED = {"scale", "bias", "pos"}
+
+
+def param_spec_1d(path: Sequence[Any], ndim: int) -> Spec:
+    """The 1-D spec of the leaf at ``path`` (the 1-D rule of
+    ``repro/launch/specs.py:67-107`` for the language models): every
+    ``w`` [out, in] on its contracting (last) dim but the untied head's,
+    which cuts its vocab (out) dim, as the embedding ``table`` [V, D]
+    does; every ``b`` on its (last) dim; the norms' ``scale`` and ``bias``
+    (the qk-norm's too) and ``pos`` whole."""
+    name = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    dims: list = [None] * ndim
+    if name in _REPLICATED:
+        return tuple(dims)
+    if (name == "w" and parent == "lm_head") or name == "table":
+        dims[-2] = MODEL_AXIS
+    elif name in ("w", "b"):
+        dims[-1] = MODEL_AXIS
+    else:
+        raise ValueError(f"no 1-D layout for parameter "
+                         f"{'/'.join(map(str, path))}")
+    return tuple(dims)
+
+
+# the parameter layout of each sharded scheme
+PARAM_SPECS = {"1d": param_spec_1d}
 
 
 def _norm_init(cfg: ModelConfig, d: int, device):
@@ -49,9 +93,11 @@ def _norm_init(cfg: ModelConfig, d: int, device):
             else L.rmsnorm_init(d, device=device))
 
 
-def _norm_apply(cfg: ModelConfig, p, x):
-    return (L.layernorm_apply(p, x) if cfg.norm == "layernorm"
-            else L.rmsnorm_apply(p, x))
+def _norm_apply(cfg: ModelConfig, p, x, mesh=None):
+    """The config's norm; with ``mesh`` over the rank's block of the
+    features."""
+    return (L.layernorm_apply(p, x, mesh=mesh) if cfg.norm == "layernorm"
+            else L.rmsnorm_apply(p, x, mesh=mesh))
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, device):
@@ -108,18 +154,20 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
 
 def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
                  window: int, kv_cache=None, rolling=False, collect_kv=False,
-                 aux_in=0.0):
+                 aux_in=0.0, mesh=None):
     """One decoder layer: (x, the layer's new cache or collected k/v, the
-    aux loss ``aux_in`` plus the MoE layer's)."""
-    h = _norm_apply(cfg, lp["attn_norm"], x)
+    aux loss ``aux_in`` plus the MoE layer's).  With ``mesh`` (a 1-D model
+    mesh) x is the rank's feature block and the attention runs the rank's
+    heads."""
+    h = _norm_apply(cfg, lp["attn_norm"], x, mesh)
     attn_out, new_cache = L.attention_apply(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.d_head, positions=positions, cfg=jcfg, window=window,
         rope_theta=cfg.rope_theta, soft_cap=cfg.attn_soft_cap,
         kv_cache=kv_cache, rolling=rolling, collect_kv=collect_kv,
-        qk_norm=lp.get("qk_norm"), q_chunk=cfg.attn_q_chunk)
+        qk_norm=lp.get("qk_norm"), q_chunk=cfg.attn_q_chunk, mesh=mesh)
     x = x + attn_out
-    h = _norm_apply(cfg, lp["ffn_norm"], x)
+    h = _norm_apply(cfg, lp["ffn_norm"], x, mesh)
     if "moe" in lp:
         # decode: a few tokens in flight; never drop (capacity >= tokens)
         cf = cfg.capacity_factor if kv_cache is None else float(cfg.n_experts)
@@ -131,11 +179,13 @@ def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
     return x + out, new_cache, aux_in
 
 
-def _head(params, x, cfg: ModelConfig, jcfg: JigsawConfig):
-    x = _norm_apply(cfg, params["final_norm"], x)
+def _head(params, x, cfg: ModelConfig, jcfg: JigsawConfig, mesh=None):
+    """The final norm and the head (tied or ``lm_head``): under
+    ``scheme="1d"`` the rank's vocab block of the logits."""
+    x = _norm_apply(cfg, params["final_norm"], x, mesh)
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], x, jcfg)
-    return linear_apply(params["lm_head"], x, head_config(jcfg))
+    return head_apply(params["lm_head"]["w"], x, jcfg)
 
 
 def apply(params, batch, cfg: ModelConfig,
@@ -145,12 +195,15 @@ def apply(params, batch, cfg: ModelConfig,
     the VLM, "embeds": [B, P, D], the vision frontend's patch embeddings,
     put before the text).  Returns the logits [B, P + S, vocab_padded] and
     the reference's aux loss (f32: the MoE layers' sum, 0 without them).
+    Under ``scheme="1d"`` the rank's blocks: ``embeds`` [B, P, D/p] in,
+    the logits' vocab block [B, P + S, vocab_padded / p] out.
     With ``cfg.remat`` and autograd recording, each layer is checkpointed
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
     its scan body): only its inputs are kept, and its forward runs again
     in the backward (the MoE routing has nothing random, so it routes the
     same)."""
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    mesh = jcfg.mesh_1d if jcfg.scheme == "1d" else None
+    x = L.embed_apply(params["embed"], batch["tokens"], mesh=mesh)
     if batch.get("embeds") is not None:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -158,11 +211,11 @@ def apply(params, batch, cfg: ModelConfig,
     remat = cfg.remat and torch.is_grad_enabled()
     for lp, w in zip(params["layers"], layer_windows(cfg)):
         layer = partial(_layer_apply, cfg=cfg, jcfg=jcfg,
-                        positions=positions, window=w)
+                        positions=positions, window=w, mesh=mesh)
         x, _, aux = (checkpoint(layer, lp, x, aux_in=aux,
                                 use_reentrant=False) if remat
                      else layer(lp, x, aux_in=aux))
-    return _head(params, x, cfg, jcfg), aux
+    return _head(params, x, cfg, jcfg, mesh), aux
 
 
 # ---------------------------------------------------------------------------

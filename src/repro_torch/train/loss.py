@@ -1,12 +1,15 @@
 """The losses of ``repro/train/loss.py``: the weather loss (latitude- and
 pressure-level-weighted MSE) with its per-rank part on a Jigsaw mesh, and
-the language models' next-token cross-entropy."""
+the language models' next-token cross-entropy, whole or over logits cut by
+vocab on a 1-D model mesh (``lm_nll_sharded``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import comm
 
 
 def latitude_weights(lat_points: int, device=None) -> torch.Tensor:
@@ -91,6 +94,46 @@ def lm_nll(logits: torch.Tensor, labels: torch.Tensor,
     onehot = ids == labels[..., None]
     gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
     return logz - gold
+
+
+class _ShardedNLL(torch.autograd.Function):
+    """``lm_nll`` of logits cut by vocab over a group: the forward's three
+    reductions over the vocab are all-reduced (the row max with MAX, the
+    sum of exponentials and the gold logit with SUM, all in f32); the
+    backward is local, the rank's block of softmax minus one-hot."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size, group, offset):
+        z = logits.float()
+        ids = offset + torch.arange(z.shape[-1], device=z.device)
+        if offset + z.shape[-1] > vocab_size:
+            z = z + torch.where(ids >= vocab_size, -1e30, 0.0)
+        m = comm.all_reduce_max_(z.amax(dim=-1), group)
+        e = torch.exp(z - m[..., None])
+        onehot = ids == labels[..., None]
+        sums = comm.all_reduce_(torch.stack(
+            [e.sum(dim=-1), torch.where(onehot, z, 0.0).sum(dim=-1)]), group)
+        ctx.save_for_backward(e, sums[0], onehot)
+        ctx.dtype = logits.dtype
+        return torch.log(sums[0]) + m - sums[1]
+
+    @staticmethod
+    def backward(ctx, dnll):
+        e, total, onehot = ctx.saved_tensors
+        grad = dnll[..., None] * (e / total[..., None] - onehot.float())
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def lm_nll_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                   vocab_size: int, mesh) -> torch.Tensor:
+    """``lm_nll`` of the rank's vocab block of the logits [B, S, Vp/p] on a
+    1-D model mesh (rank r holds ids [r Vp/p, (r + 1) Vp/p); the padded ids
+    >= ``vocab_size``, in the last ranks' blocks, get -1e30), the same [B,
+    S] f32 on every rank of the tp group.  Differentiable: the gradient of
+    the NLL flows into the rank's block only, with no collective (the
+    reference's elementwise loss that GSPMD keeps cut)."""
+    return _ShardedNLL.apply(logits, labels, vocab_size, mesh.tp_group,
+                             mesh.tp_index * logits.shape[-1])
 
 
 def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -5,9 +5,11 @@ Jigsaw mesh with a data axis.
 The loss is the family's: the weather loss for the mixer, and for the
 language models (dense, VLM, moe, audio, ssm, hybrid) the next-token
 cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss.  A
-language model trains on one device or on a data-only mesh (``jcfg.mesh``
+language model trains on one device, on a data-only mesh (``jcfg.mesh``
 a ``Mesh1D`` of one model rank under ``scheme="none"``: every rank holds
-the whole model and its data rank's rows).
+the whole model and its data rank's rows) or, the dense and VLM families,
+on a 1-D model mesh (``scheme="1d"``: each rank its shard, the logits cut
+by vocab and the loss reduced over the tp group, ``losses.lm_nll_sharded``).
 
 Autograd takes the place of ``jax.value_and_grad``: the step runs the
 forward on detached views of the parameters that require grad (no copy),
@@ -48,8 +50,9 @@ AUX_WEIGHT = 0.01   # MoE load-balance loss weight
 
 def train_mesh(cfg: ModelConfig, jcfg: JigsawConfig):
     """The mesh the step reduces over: the mixer's Jigsaw mesh
-    (``jcfg.rank_mesh``), a language model's data-only mesh (``jcfg.mesh``
-    under ``scheme="none"``), or None on one device."""
+    (``jcfg.rank_mesh``), a language model's mesh (``jcfg.mesh``: data-only
+    under ``scheme="none"``, a 1-D model mesh under ``"1d"``), or None on
+    one device."""
     return jcfg.rank_mesh if cfg.family == "mixer" else jcfg.mesh
 
 
@@ -60,7 +63,10 @@ def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
     "aux"}.  On a data mesh the objective is this rank's part: its NLL sum
     over the token (or mask) count of all ranks, and its aux over the
     data extent, so that the parts sum to the loss; the metrics are the
-    sums of the parts."""
+    sums of the parts.  On a 1-D model mesh every rank of a model group
+    holds the same NLL of its rows (``losses.lm_nll_sharded``, whose
+    gradient reaches only the rank's vocab block), so the counts and the
+    metrics are summed over the data group alone."""
     logits, aux = M.apply(params, batch, cfg, jcfg)
     labels = batch["labels"]
     if cfg.family == "vlm":
@@ -72,8 +78,12 @@ def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
                                       mask=mask)
         total = nll + AUX_WEIGHT * aux
         return total, {"loss": total, "nll": nll, "aux": aux}
-    group = mesh.mesh_group
-    per = losses.lm_nll(logits, labels, cfg.vocab_size)
+    if jcfg.scheme == "1d":
+        group = mesh.data_group
+        per = losses.lm_nll_sharded(logits, labels, cfg.vocab_size, mesh)
+    else:
+        group = mesh.mesh_group
+        per = losses.lm_nll(logits, labels, cfg.vocab_size)
     w = torch.ones_like(per) if mask is None else mask.float()
     count = comm.all_reduce_(w.sum().detach(), group)
     nll = (per * w).sum() / torch.clamp(count, min=1.0)
@@ -127,11 +137,12 @@ def leaf_specs(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
     """The spec of each parameter shard: ``specs`` (the sanitized
     ``launch/specs.py::param_specs`` the shards were cut by) or, when None,
     the model's own layout for the scheme (a language model's leaves are
-    whole on every rank).  The FSDP hybrid's layout depends on the whole
-    shapes, so a data mesh under it needs ``specs``."""
+    whole on every rank but under ``scheme="1d"``).  The FSDP hybrid's
+    layout depends on the whole shapes, so a data mesh under it needs
+    ``specs``."""
     if specs is not None:
         return specs
-    if cfg.family != "mixer":
+    if cfg.family != "mixer" and jcfg.scheme != "1d":
         return ptree.map(lambda p: (None,) * p.ndim, params)
     if jcfg.fsdp and jcfg.rank_mesh.data_size > 1:
         raise ValueError("the FSDP hybrid's layout needs the shards' specs "
@@ -242,7 +253,7 @@ def make_train_step(cfg: ModelConfig, jcfg: JigsawConfig,
         return train_step
 
     def train_step(params, opt_state, batch):
-        if jcfg.rank_mesh is not None:
+        if cfg.family == "mixer" and jcfg.rank_mesh is not None:
             # the rank's block first (a whole batch from "sync-full"), so
             # that both read modes split the same rows into microbatches
             batch = {k: M.module_for(cfg).field_block(v, cfg, jcfg)

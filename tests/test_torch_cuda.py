@@ -1400,6 +1400,26 @@ def test_ring_two_processes_on_one_card_through_ipc(cuda, tmp_path, n):
         assert res["fwd_equal"] and res["dw_equal"] and res["dx_equal"], res
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_vocab_head_gather_through_ipc(cuda, tmp_path, n):
+    """The vocab-parallel head's all-gather on n processes of one card,
+    hops through the ring workspace's IPC slots: every rank's features in
+    rank order bit for bit; its backward each rank's chunk of the summed
+    cotangent, rounded once to bf16 (bit for bit at n = 2, one f32 add;
+    at n = 3 the f32 adds run in the ring's order, so a rounding may land
+    one bf16 step away: 2^-7 of the max); ``vocab_linear_1d`` under
+    kernel="pallas" bit for bit block_matmul on the gathered features,
+    with one launch; the bytes copied counted in ``fused_ring.ipc_bytes``
+    and none through host memory."""
+    for res in _run_ranks("--vocab-rank", tmp_path, n):
+        assert res["gather_equal"] and res["head_equal"], res
+        assert res["dx_err"] <= (0.0 if n == 2 else 2.0 ** -7), res
+        assert res["head_launches"] == 1 and res["through_host"] == 0, res
+        assert res["ipc"] == {"all_gather": (n - 1) * res["x_bytes"],
+                              "reduce_scatter": (n - 1) * res["dx_bytes"]}
+
+
 # the collectives the port calls, run on CUDA tensors under gloo without
 # staging; which of them gloo takes is what comm.GLOO_CUDA_OPS records
 _PROBES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
@@ -1464,6 +1484,54 @@ def _ring_rank_main(r, n, init, out_dir):
                dx_equal=bool(torch.equal(dx, dxs[r])))
     RING.release_workspaces()
     (Path(out_dir) / f"--ring-rank{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _vocab_rank_main(r, n, init, out_dir):
+    """One rank of ``test_vocab_head_gather_through_ipc``: every rank draws
+    every rank's x and cotangent from one seed, so each knows the whole."""
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.core.jigsaw import vocab_linear_1d
+    from repro_torch.kernels import fused_ring
+    from repro_torch.launch.mesh import make_ring_mesh
+    os.environ["LOCAL_RANK"] = str(r)
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    mesh = make_ring_mesh(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, dl, vl = 96, 40, 136
+    xs = [torch.randn(2, rows // 2, dl, generator=gen, device="cuda")
+          .to(torch.bfloat16) for _ in range(n)]
+    dys = [torch.randn(2, rows // 2, n * dl, generator=gen, device="cuda")
+           .to(torch.bfloat16) for _ in range(n)]
+    w = torch.randn(vl, n * dl, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fused_ring.ipc_bytes.clear()
+    comm.through_host_bytes.clear()
+    x = xs[r].clone().requires_grad_()
+    got = fused_ring.gather_features(x, mesh.tp_group, n, r)
+    (dx,) = torch.autograd.grad(got, (x,), dys[r])
+    whole = torch.cat(xs, -1)
+    total = torch.stack([d.float() for d in dys]).sum(0)
+    want_dx = total[..., r * dl:(r + 1) * dl].to(torch.bfloat16)
+    ipc = dict(fused_ring.ipc_bytes)
+    before = BM.block_matmul.launches
+    with torch.no_grad():
+        logits = vocab_linear_1d(xs[r], w, mesh=mesh, kernel="pallas")
+    launches = BM.block_matmul.launches - before
+    torch.cuda.synchronize()
+    res = dict(gather_equal=bool(torch.equal(got, whole)),
+               dx_err=float((dx.float() - want_dx.float()).abs().max()
+                            / want_dx.float().abs().max()),
+               head_equal=bool(torch.equal(
+                   logits, BM.block_matmul(whole.reshape(rows, -1), w)
+                   .reshape(2, rows // 2, vl))),
+               head_launches=launches,
+               through_host=sum(comm.through_host_bytes.values()),
+               ipc=ipc, x_bytes=x.numel() * x.element_size(),
+               dx_bytes=4 * dx.numel())
+    RING.release_workspaces()
+    (Path(out_dir) / f"--vocab-rank{r}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
@@ -1597,6 +1665,7 @@ def _gloo_probe_main(r, n, init, out_dir, op):
 if __name__ == "__main__":
     mode, rank, n, init, out, *extra = sys.argv[1:]
     main = {"--ring-rank": _ring_rank_main,
+            "--vocab-rank": _vocab_rank_main,
             "--cannon-rank": _cannon_rank_main,
             "--data-rank": _data_rank_main,
             "--gloo-probe": _gloo_probe_main}[mode]

@@ -336,8 +336,9 @@ def test_token_source_rows_per_data_rank(arch):
 
 def test_lm_specs_match_reference():
     """``batch_specs`` of each LM family the reference's entry for entry;
-    ``param_specs`` whole leaves; their FSDP cut raises, naming its queue
-    item (a model axis over one raises in ``TrainEngine``)."""
+    ``param_specs`` of a dense LM the 1-D layout (the table's vocab and a
+    weight's contracting dim on ``model``); their FSDP cut raises, naming
+    its queue item."""
     def norm(spec):
         """One-axis tuples as the axis (JAX's PartitionSpec reads them
         so)."""
@@ -354,7 +355,8 @@ def test_lm_specs_match_reference():
     params = {"embed": {"table": np.zeros((8, 4))},
               "layers": [{"w": np.zeros((4, 4))}]}
     assert specs.param_specs(params, cfg, RULES_1D) == {
-        "embed": {"table": (None, None)}, "layers": [{"w": (None, None)}]}
+        "embed": {"table": ("model", None)},
+        "layers": [{"w": (None, "model")}]}
     with pytest.raises(NotImplementedError, match="item 19"):
         specs.param_specs(params, cfg.replace(shard_params_over_data=True),
                           RULES_1D)
@@ -457,9 +459,10 @@ def test_save_then_resume_equals_the_uninterrupted_run(tmp_path):
 
 
 def test_lm_on_a_model_mesh_raises():
-    """A language model on a model mesh raises before any process group
-    is joined, naming its queue item, on either device."""
-    for arch in ("internlm2-1.8b", "whisper-small"):
+    """A language model of a family that does not train on a model mesh
+    (moe, audio) raises there before any process group is joined, naming
+    its queue item, on either device."""
+    for arch in ("phi3.5-moe-42b-a6.6b", "whisper-small"):
         for device in ("cpu", "cuda"):
             with pytest.raises(NotImplementedError, match="item 19"):
                 TrainEngine(arch, device=device, mesh_model=2,

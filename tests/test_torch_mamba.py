@@ -88,7 +88,8 @@ def test_config_matches_reference():
 
 
 def test_lm_on_a_model_mesh_still_raises():
-    """Any LM on a model mesh raises, naming its queue item (item 19)."""
+    """The audio family on a model mesh raises, naming its queue item
+    (item 19; the dense and VLM families train there)."""
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     with pytest.raises(NotImplementedError, match="item 19"):
         TrainEngine("whisper-small", device="cpu", mesh_model=2,

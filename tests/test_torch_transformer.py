@@ -65,8 +65,8 @@ PORTED = {"internlm2-1.8b": internlm2_1_8b, "h2o-danube-1.8b": h2o_danube_1_8b,
           "pixtral-12b": pixtral_12b, "dbrx-132b": dbrx_132b,
           "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b,
           "jamba-1.5-large-398b": jamba_1_5_large_398b}
-# what the port still refuses of these ids, by id: an LM on a model mesh
-# (queue 1 item 19), and training the ssm and hybrid families (item 18)
+# what the port still refuses of these ids, by id: the audio family on a
+# model mesh (queue 1 item 19), and training the ssm and hybrid families (item 18)
 REFUSED = ["whisper-small", "mamba2-130m", "jamba-1.5-large-398b"]
 
 # the reduced configs the model tests run, by the cache each decodes on:
@@ -170,8 +170,8 @@ def test_param_count_matches_reference(arch):
 @pytest.mark.parametrize("arch", REFUSED)
 def test_unported_ids_still_raise(arch):
     """Every id is served (config, init), and what is still unported
-    raises NotImplementedError naming its queue item: whisper-small (any
-    LM) on a model mesh.  The ssm and hybrid families train: one
+    raises NotImplementedError naming its queue item: whisper-small (the
+    audio family, which does not train on a model mesh) on one.  The ssm and hybrid families train: one
     ``loss_fn`` call on a token batch is finite."""
     from repro_torch.data.pipeline import make_source
     from repro_torch.launch.engine import EngineConfig, TrainEngine
