@@ -16,7 +16,8 @@ transformer's and the hybrid's forward and generation, whisper's
 encoder-decoder forward and generation, language-model training
 (``TrainEngine`` on token batches: mamba2-130m, h2o-danube-1.8b and
 whisper-small whole, phi3.5-moe cut in depth, jamba reduced; h2o whole
-on a 1-D Jigsaw model mesh of two ranks sharing the card),
+on a 1-D Jigsaw model mesh of two ranks sharing the card, and
+mamba2-130m, phi3.5-moe, whisper-small and jamba there too),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -385,6 +386,27 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      the two ranks against the one-device f32 forward (``DENSE_F32_TOL``).
      ``ring_shape`` (7) holds the ring kernels at h2o's per-rank shapes
      too (``LM_RING_SHAPES``);
+  19c. ``lm_1d_zoo``: the moe, ssm, hybrid and audio families on the same
+     mesh (``--lm-1d-zoo-rank``), one step each under its one-device
+     phase's settings and first batch, ``impl="ring_fused"``, each
+     engine freed before the next: mamba2-130m whole (its 24 heads, 12 a
+     rank; its conv channels re-laid to the heads through the IPC
+     slots), phi3.5-moe at its published width cut to 2 layers (8 of its
+     16 experts a rank: the features all-gathered, the partial outputs
+     reduce-scattered through the IPC slots), whisper-small whole and
+     jamba reduced; step 0 in f32 (the weights up-cast): its loss, grad
+     norm, aux and two named leaves each (``ZOO_LEAVES``) against the
+     one-device phase's step 0 in f32 (handed over in a file by
+     ``zoo_handoff``, with its noise floors and the MoE's routes, whose
+     flips are printed) within ``ZOO_TOL`` / ``ZOO_LEAF_TOL``; the
+     launches equal to ``lm_1d_zoo_calls``; ms a
+     step on each rank, tokens/s, the peak a rank, the bytes through
+     host and through the IPC slots, the cost model's bound.
+     ``ring_shape`` (7) holds the ring kernels at the three full-width
+     models' per-rank shapes (``ZOO_RING_SHAPES``, in_dt's chunks of 12
+     columns among them), ``ssd_shape`` (4) and ``ssd_bwd_shape`` the SSD
+     kernels at 12 heads of one group and at jamba's 4 of 4 groups, and
+     block_matmul the heads' and phi3.5's router's per-rank shapes;
   20. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -865,6 +887,11 @@ SSD_LAYER = (MAMBA_BATCH, MAMBA_SEQ, SSD_HEADS, SSD_P, 1, SSD_N)
 # jamba-1.5-large-398b's SSM slot in the hybrid forward (sequence 2048,
 # batch 1): 256 heads of 64 in 8 groups (32 heads a group), state 128
 SSD_JAMBA_LAYER = (1, 2048, 256, SSD_P, 8, SSD_N)
+# the same layers at one rank of lm_1d_zoo's two: mamba2-130m's 12 heads
+# of one group, and reduced jamba's SSM slot (hybrid_train: sequence 512,
+# batch 2, state 32) at 4 heads of 4 groups
+SSD_RANK_LAYER = (MAMBA_BATCH, MAMBA_SEQ, SSD_HEADS // 2, SSD_P, 1, SSD_N)
+SSD_JAMBA_RANK_LAYER = (2, 512, 4, SSD_P, 4, 32)
 
 
 def ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n, dtype, q=SSD_Q):
@@ -992,8 +1019,10 @@ def ssd_phase(torch, SSD, ref):
     # entry on _ssd_chunked's tensors as they lie, bit for bit the
     # [G, Q, N] entry on the groups arrangement (repeat, groups() copies),
     # whose time is its yardstick
-    for tag, (bsz, s, h, p, g, n) in (("model_layout", SSD_LAYER),
-                                      ("jamba_layout", SSD_JAMBA_LAYER)):
+    for tag, (bsz, s, h, p, g, n) in (
+            ("model_layout", SSD_LAYER), ("jamba_layout", SSD_JAMBA_LAYER),
+            ("mamba_rank_layout", SSD_RANK_LAYER),
+            ("jamba_rank_layout", SSD_JAMBA_RANK_LAYER)):
         args = ssd_heads_inputs(torch, gen, bsz, s, h, p, g, n,
                                 torch.float32)
         y, rt = ssd_route(SSD, lambda: SSD.ssd_intra_heads(*args, q))
@@ -1092,8 +1121,11 @@ def ssd_bwd_phase(torch, SSDB, ref):
     bound, with registers, spills, shared bytes and blocks per SM."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows, worst = [], 0.0
-    shapes = SSD_BWD_SMALL + [("model_layout", SSD_LAYER + (SSD_Q,)),
-                              ("jamba_layout", SSD_JAMBA_LAYER + (SSD_Q,))]
+    shapes = SSD_BWD_SMALL + [
+        ("model_layout", SSD_LAYER + (SSD_Q,)),
+        ("jamba_layout", SSD_JAMBA_LAYER + (SSD_Q,)),
+        ("mamba_rank_layout", SSD_RANK_LAYER + (SSD_Q,)),
+        ("jamba_rank_layout", SSD_JAMBA_RANK_LAYER + (SSD_Q,))]
     for tag, (bsz, s, h, p, g, n, q) in shapes:
         x, dt, dac, bm, cm = ssd_heads_inputs(torch, gen, bsz, s, h, p, g,
                                               n, torch.float32, q=q)
@@ -2129,8 +2161,10 @@ def ring_phase(torch, BM, RING, WX, ref):
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
     cases.append((2, RING_SHAPES[1], "float32"))
-    # h2o-danube-1.8b's ring linears at a rank of lm_1d's two
+    # h2o-danube-1.8b's ring linears at a rank of lm_1d's two, and
+    # mamba2-130m's, phi3.5's and whisper's at a rank of lm_1d_zoo's two
     cases += [(LM_1D_P, shape, "bfloat16") for shape in LM_RING_SHAPES]
+    cases += [(ZOO_P, shape, "bfloat16") for shape in ZOO_RING_SHAPES]
     rows_out, worst = [], {"fwd": 0.0, "bwd": 0.0}
     for p, (label, rows, d, m, n_fwd, n_bwd), name in cases:
         dtype = getattr(torch, name)
@@ -5228,7 +5262,7 @@ def _sample_leaves(params, n=4):
 
 def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
                  first_step=None, reduced=False, init_params=None,
-                 after=None, handoff=None):
+                 after=None, handoff=None, zoo=None):
     """``TrainEngine(arch, kernel="pallas")`` on its token batches, at the
     published width (``reduced``: the reduced config, remat on, from
     ``init_params``): optionally step 0 against ``kernel="xla"`` on the
@@ -5236,7 +5270,8 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
     then the run, its launches by layout and route counted from 0 just
     before it; losses finite, the sampled weights moved, the step records'
     ``mfu``; one step's device time after it, then ``after(eng)``.
-    With ``compare``, ``handoff`` (a path) gets step 0 for ``lm_1d``.
+    With ``compare``, ``handoff`` (a path) gets step 0 for ``lm_1d``;
+    ``zoo`` (a directory) gets it for ``lm_1d_zoo`` (``zoo_handoff``).
     Returns the stats and the engine's config."""
     import math
     from repro_torch.configs.registry import get_config
@@ -5256,6 +5291,8 @@ def lm_train_run(torch, BM, arch, cfg_over, ecfg, what, compare=False,
           f"{what}: unexpected config remat={cfg.remat} "
           f"kernel={cfg.kernel} scheme={cfg.scheme}")
     checks = None if first_step is None else first_step(eng)
+    if zoo is not None:
+        zoo_handoff(torch, eng, zoo / f"{arch}.pt", arch)
     first = None
     if compare:
         batch0 = eng.pipeline.get(0)
@@ -5680,6 +5717,418 @@ def lm_1d_worker(rank, tmp):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# lm_1d_zoo: the moe, ssm, hybrid and audio families on a 1-D model mesh
+# ---------------------------------------------------------------------------
+
+# Four language models on a (data 1, model 2) 1-D Jigsaw mesh of two rank
+# processes sharing the card, impl="ring_fused", each under its one-device
+# training phase's own settings and first batch, one step: mamba2-130m
+# whole (mamba_train: 2 x 4,096, the config's bf16 weights), phi3.5-moe at
+# its published width cut to 2 layers (moe_train: all 16 experts, 8 a
+# rank, 2 x 1,024), whisper-small whole (audio_train: 2 x 448 tokens with
+# its 1,500 frames, the bf16 policy) and jamba reduced (hybrid_train: f32,
+# 2 x 512; one full-width period at 8 experts holds 51.8 GB of weights,
+# and two ranks sharing the card hold the same bytes as one).  Each
+# engine is freed before the next.  Step 0 is judged in f32 (the engine's
+# weights up-cast, no compute dtype), as mamba_train judges it: at random
+# init a bf16 model's gradients move by up to their own size for one
+# rounding more or less (on an H100, mamba2-130m's first in_xbc and
+# conv_w moved by 1.8 and 1.1 of their largest magnitude with every
+# element of the bf16 embedding one bf16 step off), so only f32 sees the
+# mesh's arithmetic.  Against that phase's one-device step 0 in
+# f32 (handed over in a file, ``zoo_handoff``): the loss, the grad norm
+# and the aux within ZOO_TOL relative, and the named leaves (ZOO_LEAVES)
+# within ZOO_LEAF_TOL by both measures, mamba_train's f32 bounds for a
+# step whose GEMMs and sums run in another order (MAMBA_TRAIN_TOL,
+# MAMBA_XLA_LEAF_TOL); the handoff also carries the noise floors (the
+# f32 step with its embedding one f32 step off, and the bf16 step one
+# bf16 step off), printed beside the errors, and the MoE models' routes,
+# whose flips the phase prints (``route_flips``).
+ZOO_P = 2
+ZOO_TOL, ZOO_LEAF_TOL = 1e-3, 1e-2
+ZOO_MODELS = ("mamba2-130m", "phi3.5-moe-42b-a6.6b", "whisper-small",
+              "jamba-1.5-large-398b")
+ZOO_LEAVES = {
+    "mamba2-130m": (("layers", 0, "mixer", "in_xbc", "w"),
+                    ("layers", 0, "mixer", "conv_w")),
+    "phi3.5-moe-42b-a6.6b": (("layers", 0, "moe", "router", "w"),
+                             ("layers", 0, "moe", "experts", "down")),
+    "whisper-small": (("dec_layers", 0, "cross", "wk", "w"), ("dec_pos",)),
+    "jamba-1.5-large-398b": (("periods", 0, "slot1", "moe", "router", "w"),
+                             ("periods", 0, "slot0", "ssm", "A_log"))}
+# the ring linears of the three full-width models at one rank of p = 2:
+# (label, rows, d, m, forward calls, backward calls) a training step, as
+# LM_RING_SHAPES (every layer checkpointed: its forward and its remat
+# recompute, one backward).  mamba2-130m (2 x 4,096 rows, 24 layers):
+# in_z, in_xbc, in_dt (24 heads: chunks of 12 columns) and out_proj;
+# phi3.5 (2 x 1,024 rows, 2 layers): wq and wo, wk and wv; whisper (2 x
+# 1,500 encoder rows, 2 x 448 decoder rows, 12 + 12 layers): the encoder's
+# attention and the cross attention's k and v on the encoder rows, the
+# decoder's self attention and the cross attention's q and o on its rows,
+# and each side's GELU FFN
+_ZM, _ZE, _ZD = MAMBA_BATCH * MAMBA_SEQ, 2 * 1500, 2 * 448
+ZOO_RING_SHAPES = [
+    ("mamba.in_z", _ZM, 768, 1536, 48, 24),
+    ("mamba.in_xbc", _ZM, 768, 1792, 48, 24),
+    ("mamba.in_dt", _ZM, 768, 24, 48, 24),
+    ("mamba.out_proj", _ZM, 1536, 768, 48, 24),
+    ("phi.wq_wo", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 4096, 4096, 8, 4),
+    ("phi.wk_wv", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 4096, 1024, 8, 4),
+    ("whisper.enc_attn", _ZE, 768, 768, 144, 72),
+    ("whisper.dec_attn", _ZD, 768, 768, 144, 72),
+    ("whisper.enc_fc1", _ZE, 768, 3072, 24, 12),
+    ("whisper.enc_fc2", _ZE, 3072, 768, 24, 12),
+    ("whisper.dec_fc1", _ZD, 768, 3072, 24, 12),
+    ("whisper.dec_fc2", _ZD, 3072, 768, 24, 12)]
+ZOO_RING_PREFIXES = ("mamba.", "phi.", "whisper.")
+ZOO_KERNELS = ("block_matmul", "ring_fwd", "ring_bwd", "ssd_intra_chunk",
+               "ssd_intra_heads_bwd")
+
+
+def lm_1d_zoo_calls(cfg, p):
+    """One rank's launches of a ring_fused training step on p ranks, from
+    the code: every linear of a layer is one ring call in the layer's
+    forward and one in its remat recompute (each layer, or the hybrid's
+    each period, is checkpointed), each p ring_fwd launches, and one in
+    the backward, p ring_bwd launches.  A Mamba-2 mixer has 4 linears
+    (in_z, in_xbc, in_dt, out_proj), attention 4 (q, k, v, o), whisper's
+    cross attention 4, a dense FFN 3 (SwiGLU) or 2 (GELU), a MoE none (its
+    experts are einsums); block_matmul runs the vocab-parallel head (its
+    forward outside the checkpoints, dx and dw) and each MoE layer's f32
+    router (forward, recompute, dx, dw); ssd_chunk runs each Mamba-2 layer
+    twice (forward, recompute) and ssd_chunk_bwd once."""
+    ffn = 3 if cfg.ffn_kind == "swiglu" else 2
+    if cfg.family == "ssm":
+        linears, moe, ssm = 4 * cfg.n_layers, 0, cfg.n_layers
+    elif cfg.family == "audio":
+        linears = (4 + ffn) * cfg.n_enc_layers + (8 + ffn) * cfg.n_layers
+        moe = ssm = 0
+    elif cfg.family == "hybrid":
+        slots = [j % cfg.attn_every for j in range(cfg.n_layers)]
+        linears = sum(4 + (0 if cfg.is_moe_layer(j) else ffn) for j in slots)
+        moe = sum(bool(cfg.is_moe_layer(j)) for j in slots)
+        ssm = sum(not cfg.is_attn_layer(j) for j in slots)
+    else:
+        linears, moe, ssm = 4 * cfg.n_layers, cfg.n_layers, 0
+    return {"ring_fwd": 2 * linears * p, "ring_bwd": linears * p,
+            "block_matmul": 3 + 4 * moe, "ssd_intra_chunk": 2 * ssm,
+            "ssd_intra_heads_bwd": ssm}
+
+
+def zoo_engine_args(arch):
+    """(TrainEngine keyword arguments, the MoE layers) of ``arch``'s
+    one-device training phase, which lm_1d_zoo repeats on the mesh."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.engine import EngineConfig
+    base = dict(lr=1e-4, log_every=1, seed=0, prefetch=1)
+    cfg = get_config(arch)
+    init = None
+    if arch == "mamba2-130m":
+        ecfg = EngineConfig(steps=MAMBA_TRAIN_STEPS, batch=MAMBA_TRAIN_BATCH,
+                            seq_len=MAMBA_TRAIN_SEQ, **base)
+    elif arch == MOE_ARCH:
+        cfg = cfg.replace(n_layers=MOE_TRAIN_LAYERS)
+        ecfg = EngineConfig(steps=1, batch=MOE_TRAIN_BATCH,
+                            seq_len=MOE_TRAIN_SEQ, **base)
+    elif arch == AUDIO_ARCH:
+        ecfg = EngineConfig(steps=AUDIO_TRAIN_STEPS, batch=AUDIO_TRAIN_BATCH,
+                            seq_len=AUDIO_TOKENS, precision="bf16", **base)
+    else:
+        from repro_torch.models import registry as M
+        cfg = cfg.reduced().replace(remat=True, kernel="pallas")
+        init = M.init(cfg, seed=0, device="cpu")
+        ecfg = EngineConfig(steps=1, batch=HYBRID_TRAIN_BATCH,
+                            seq_len=HYBRID_TRAIN_SEQ,
+                            **dict(base, prefetch=0))
+    moe = sum(bool(cfg.is_moe_layer(i)) for i in range(cfg.n_layers)) \
+        if cfg.n_experts else 0
+    return dict(reduced=False, kernel="pallas", config_override=cfg,
+                config=ecfg, init_params=init), moe
+
+
+def zoo_f32(torch, eng):
+    """The engine's parameters (whole, or the rank's shards) up-cast to
+    f32, and its JigsawConfig with no compute dtype, which runs them so:
+    lm_1d_zoo judges step 0 in f32, as mamba_train does (a random-weight
+    bf16 model's gradients move by up to their own size for one rounding
+    more or less: the noise floor)."""
+    from repro_torch.core import tree as ptree
+    return (ptree.map(lambda t: t.float(), eng.params),
+            eng.jcfg.replace(compute_dtype=None))
+
+
+def zoo_step0(torch, eng, params, jcfg, batch0, n_moe, L):
+    """Step 0 of ``eng``'s model at ``params`` under ``jcfg`` on
+    ``batch0``: (metrics, grads, the first ``n_moe`` routes, each (probs,
+    None, gate_idx, None, keep) on the host)."""
+    from repro_torch.train.step import value_and_grad
+    rec = []
+    with recorded_routes(L, rec):
+        m, g = value_and_grad(params, batch0, eng.cfg, jcfg)
+    routes = [(r[0].float().cpu(), None, r[2].cpu(), None, r[4].cpu())
+              for r in rec[:n_moe]]
+    return m, g, routes
+
+
+def zoo_handoff(torch, eng, path, arch):
+    """A one-device training phase's step 0 for lm_1d_zoo, in f32
+    (``zoo_f32``): the batch, the loss, the grad norm and the aux, the
+    named leaves' gradients (ZOO_LEAVES), the MoE's routes; and two noise
+    floors: the same step with every element of the f32 embedding one f32
+    step off (its lowest bit flipped), and the engine's own step (its
+    dtypes: bf16 for all but jamba) with its embedding one step of that
+    dtype off, each against its unperturbed step."""
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adam import global_norm
+    _, n_moe = zoo_engine_args(arch)
+    batch0 = eng.pipeline.get(0)
+    params32, jcfg32 = zoo_f32(torch, eng)
+    m, g, routes = zoo_step0(torch, eng, params32, jcfg32, batch0, n_moe, L)
+    leaves = {p: _leaf(g, p).float().cpu() for p in ZOO_LEAVES[arch]}
+    norm = float(global_norm(g))
+    del g
+    noise = {"f32": zoo_noise(torch, eng, params32, jcfg32, batch0, m,
+                              norm, leaves)}
+    del params32
+    torch.cuda.empty_cache()
+    m0, g0, _ = zoo_step0(torch, eng, eng.params, eng.jcfg, batch0, 0, L)
+    own = {p: _leaf(g0, p).float().cpu() for p in ZOO_LEAVES[arch]}
+    norm0 = float(global_norm(g0))
+    del g0
+    noise["own_dtypes"] = zoo_noise(torch, eng, eng.params, eng.jcfg,
+                                    batch0, m0, norm0, own)
+    torch.save({"tokens": batch0["tokens"].cpu(),
+                "labels": batch0["labels"].cpu(),
+                "loss": float(m["loss"]), "grad_norm": norm,
+                "aux": float(m["aux"]),
+                "leaves": {"/".join(map(str, p)): v
+                           for p, v in leaves.items()},
+                "routes": routes, "noise": noise}, path)
+    torch.cuda.empty_cache()
+
+
+def zoo_noise(torch, eng, params, jcfg, batch0, m, norm, leaves):
+    """Step 0 at ``params`` under ``jcfg`` with every element of the
+    embedding one step of its dtype off (its lowest bit flipped, which a
+    second flip undoes), against the unperturbed step's metrics ``m``,
+    grad norm and named leaves."""
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adam import global_norm
+    table = params["embed"]["table"]
+    bits = table.view(torch.int16 if table.element_size() == 2
+                      else torch.int32)
+    bits.bitwise_xor_(1)
+    try:
+        mn, gn, _ = zoo_step0(torch, eng, params, jcfg, batch0, 0, L)
+    finally:
+        bits.bitwise_xor_(1)
+    out = dict(loss_rel_err=abs(float(mn["loss"]) - float(m["loss"]))
+               / abs(float(m["loss"])),
+               grad_norm_rel_err=abs(float(global_norm(gn)) - norm) / norm,
+               leaves={"/".join(map(str, p)): zoo_leaf_errs(
+                   _leaf(gn, p).float().cpu(), v)
+                   for p, v in leaves.items()})
+    del gn
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_leaf_errs(got, want):
+    """max|a - b| / max|b| and |a - b| / |b| of two leaves (f32)."""
+    d = got - want
+    return {"rel_err": float(d.abs().max() / want.abs().max().clamp_min(
+        1e-30)), "norm_err": float(d.norm() / want.norm().clamp_min(1e-30))}
+
+
+def lm_1d_zoo_phase(torch, zoo):
+    """``lm_1d_zoo``: the two ranks (``--lm-1d-zoo-rank``) on the four
+    one-device phases' handoffs in ``zoo``; returns the phase's stats, by
+    model, with the launches per rank."""
+    import math
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16
+    from repro_torch.telemetry import build_cost_model
+    t0 = time.perf_counter()
+    res, wall = run_ranks("--lm-1d-zoo-rank", zoo, ZOO_P)
+    models = {}
+    for arch in ZOO_MODELS:
+        one = torch.load(zoo / f"{arch}.pt")
+        xs = [x[arch] for x in res]
+        kw, _ = zoo_engine_args(arch)
+        cfg, ecfg = kw["config_override"], kw["config"]
+        want = {k: v for k, v in lm_1d_zoo_calls(cfg, ZOO_P).items() if v}
+        for r, x in enumerate(xs):
+            check(x["launches"] == want,
+                  f"lm_1d_zoo {arch} rank {r}: launches {x['launches']}, "
+                  f"want {want} (one step of lm_1d_zoo_calls)")
+        loss, norm, aux = xs[0]["loss"], xs[0]["grad_norm"], xs[0]["aux"]
+        check(all(x["loss"] == loss and x["grad_norm"] == norm
+                  and x["aux"] == aux for x in xs),
+              f"lm_1d_zoo {arch}: the ranks report different step-0 "
+              "losses, norms or aux")
+        leaves = {}
+        for name in one["leaves"]:
+            d2 = sum(x["leaves"][name]["diff_sq"] for x in xs)
+            b2 = sum(x["leaves"][name]["ref_sq"] for x in xs)
+            leaves[name] = {
+                "rel_err": max(x["leaves"][name]["diff_max"] for x in xs)
+                / max(max(x["leaves"][name]["ref_max"] for x in xs), 1e-30),
+                "norm_err": math.sqrt(d2 / max(b2, 1e-60))}
+
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-30)
+        first = dict(loss=loss, loss_one_device=one["loss"],
+                     loss_rel_err=rel(loss, one["loss"]), grad_norm=norm,
+                     grad_norm_one_device=one["grad_norm"],
+                     grad_norm_rel_err=rel(norm, one["grad_norm"]), aux=aux,
+                     aux_one_device=one["aux"],
+                     aux_rel_err=rel(aux, one["aux"]) if one["aux"] else
+                     abs(aux), leaves=leaves, tol=ZOO_TOL,
+                     leaf_tol=ZOO_LEAF_TOL, noise_one_step=one["noise"],
+                     route_flips=xs[0]["route_flips"])
+        check(first["loss_rel_err"] <= ZOO_TOL
+              and first["grad_norm_rel_err"] <= ZOO_TOL
+              and first["aux_rel_err"] <= ZOO_TOL
+              and all(v["rel_err"] <= ZOO_LEAF_TOL
+                      and v["norm_err"] <= ZOO_LEAF_TOL
+                      for v in leaves.values()),
+              f"lm_1d_zoo {arch} step 0 vs the one-device step: {first}")
+        check(all(math.isfinite(x["history_loss"]) for x in xs),
+              f"lm_1d_zoo {arch}: loss {[x['history_loss'] for x in xs]}")
+        tokens = ecfg.batch * ecfg.seq_len
+        step_ms = max(x["device_step_ms"] for x in xs)
+        cm = build_cost_model(cfg.replace(scheme="1d"), n_model=ZOO_P,
+                              batch=ecfg.batch, seq_len=ecfg.seq_len)
+        models[arch] = dict(
+            params=cfg.param_count(), n_layers=cfg.n_layers,
+            d_model=cfg.d_model, precision=xs[0]["precision"],
+            batch=ecfg.batch, seq_len=ecfg.seq_len,
+            first_step_vs_one_device=first,
+            launches_per_rank=[x["launches"] for x in xs],
+            launches_per_step=want,
+            device_step_ms=[x["device_step_ms"] for x in xs],
+            tokens_per_s=tokens / (step_ms / 1e3),
+            # the cost model's FLOPs of a step (both ranks' work, which
+            # the one card does) over the bf16 peak
+            bound_ms=1e3 * cm.flops_per_step / PEAK_FLOPS_BF16,
+            peak_mem_gb=[x["peak_mem_gb"] for x in xs],
+            ring_slots_gb=[x["ring_slots_gb"] for x in xs],
+            gb_through_host_by_op=[x["through_host_gb_by_op"] for x in xs],
+            gb_ipc_by_op=[x["ipc_gb_by_op"] for x in xs],
+            setup_s=[x["setup_s"] for x in xs],
+            seconds=[x["seconds"] for x in xs])
+        emit(phase="lm_1d_zoo_model", arch=arch, **models[arch])
+    stats = dict(mesh={"data": 1, "model": ZOO_P}, impl="ring_fused",
+                 models=models, wall_s=wall,
+                 seconds=time.perf_counter() - t0,
+                 launches_per_rank=[{k: sum(x[a]["launches"].get(k, 0)
+                                            for a in ZOO_MODELS)
+                                     for k in ZOO_KERNELS} for x in res])
+    emit(phase="lm_1d_zoo", mesh=stats["mesh"], impl="ring_fused",
+         wall_s=wall, launches_per_rank=stats["launches_per_rank"])
+    return stats
+
+
+def lm_1d_zoo_worker(rank, tmp):
+    """One rank of ``lm_1d_zoo_phase`` (this file run with
+    ``--lm-1d-zoo-rank``): for each model in turn, the engine on the (data
+    1, model ZOO_P) mesh under its one-device phase's settings, step 0
+    against the handoff on this rank's blocks (the routes' flips), one
+    step with its launches counted from 0 just before it, the step's
+    device time; the engine freed before the next; results to
+    rank<r>.json."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import fused_ring
+    from repro_torch.kernels import ring as RING
+    from repro_torch.launch.engine import TrainEngine
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adam import global_norm
+    from repro_torch.train.step import _norm_args
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    out = {}
+    for arch in ZOO_MODELS:
+        t0 = time.perf_counter()
+        one = torch.load(tmp / f"{arch}.pt")
+        kw, n_moe = zoo_engine_args(arch)
+        # one step: step 0's loss and gradients do not read the schedule
+        kw["config"] = dataclasses.replace(kw["config"], steps=1)
+        eng = TrainEngine(arch, mesh_model=ZOO_P, scheme="1d",
+                          impl="ring_fused", device="cuda", **kw)
+        cfg, jcfg, mesh = eng.cfg, eng.jcfg, eng.mesh
+        check(cfg.scheme == "1d" and jcfg.impl == "ring_fused"
+              and cfg.kernel == "pallas" and cfg.remat
+              and dist.get_backend() == "gloo",
+              f"unexpected lm_1d_zoo config for {arch}")
+        batch0 = eng.pipeline.get(0)
+        check(torch.equal(batch0["tokens"].cpu(), one["tokens"])
+              and torch.equal(batch0["labels"].cpu(), one["labels"]),
+              f"lm_1d_zoo {arch}: the first batch is not the one-device "
+              "phase's")
+        torch.cuda.synchronize()
+        res = dict(setup_s=time.perf_counter() - t0,
+                   precision=eng.policy.name)
+
+        # step 0 on this rank's blocks against the one-device step's, both
+        # in f32
+        params32, jcfg32 = zoo_f32(torch, eng)
+        m, g, routes = zoo_step0(torch, eng, params32, jcfg32, batch0,
+                                 n_moe, L)
+        res.update(loss=float(m["loss"]), aux=float(m["aux"]),
+                   grad_norm=float(global_norm(
+                       g, **_norm_args(params32, cfg, jcfg32))), leaves={})
+        flips, _ = route_flips(one["routes"], routes, eng.config.seq_len)
+        res["route_flips"] = {"count": len(flips), "primary": [
+            f for f in flips if f["primary"]][:8]}
+        specs = dict(ptree.leaves_with_path(eng.param_specs))
+        for path in ZOO_LEAVES[arch]:
+            key = "/".join(map(str, path))
+            b = mesh.block(one["leaves"][key].cuda(), specs[path]).float()
+            d = _leaf(g, path).float() - b
+            res["leaves"][key] = {"diff_sq": float((d * d).sum()),
+                                  "ref_sq": float((b * b).sum()),
+                                  "diff_max": float(d.abs().max()),
+                                  "ref_max": float(b.abs().max())}
+        del m, g, d, b, routes, params32
+        torch.cuda.empty_cache()
+
+        # -- the main path: counts to 0 just before, read just after -------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counted())
+        comm.through_host_bytes.clear()
+        fused_ring.ipc_bytes.clear()
+        hist = eng.run()
+        torch.cuda.synchronize()
+        res.update(launches={k: v for k, v in
+                             read_counts(counted()).items() if v},
+                   through_host_gb_by_op={k: v / 1e9 for k, v in
+                                          comm.through_host_bytes.items()},
+                   ipc_gb_by_op={k: v / 1e9 for k, v in
+                                 fused_ring.ipc_bytes.items()},
+                   ring_slots_gb=RING.workspace_bytes() / 1e9,
+                   peak_mem_gb=(torch.cuda.max_memory_allocated()
+                                + RING.workspace_bytes()) / 1e9,
+                   history_loss=hist[0]["loss"])
+        # ------------------------------------------------------------------
+        batch = eng.pipeline.get(1)
+        res["device_step_ms"] = cuda_ms(lambda: eng.dispatch(batch), 1)
+        eng.close()
+        del eng, batch, batch0, hist
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    RING.release_workspaces()
+    dist.destroy_process_group()
+    return 0
+
+
 # mamba2-130m training: TrainEngine whole (24 layers, full width) under the
 # config's own dtypes (bf16 weights) with remat, batch 2 x 4,096 tokens,
 # three steps.  Step 0 is judged in f32 (the engine's weights up-cast), as
@@ -5840,11 +6289,12 @@ def mamba_step_breakdown(torch, eng, L, SSD, SSDB):
             for e in sorted(kernels, key=lambda e: -dev_ms(e))[:8]])
 
 
-def ssm_train_phases(torch, BM, SSD, SSDB, ref):
+def ssm_train_phases(torch, BM, SSD, SSDB, ref, zoo):
     """``mamba_train`` (mamba2-130m whole, three steps, step 0 judged in
     f32 against the plain SSD term and kernel="xla", the step's parts) and
     ``hybrid_train`` (jamba reduced, one step, against the port's CPU
-    step).  Returns their stats."""
+    step); each hands its step 0 over to lm_1d_zoo in ``zoo``.  Returns
+    their stats."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import tree as ptree
     from repro_torch.launch.engine import EngineConfig, TrainEngine
@@ -5868,7 +6318,7 @@ def ssm_train_phases(torch, BM, SSD, SSDB, ref):
     mt, _ = lm_train_run(torch, BM, "mamba2-130m", {}, EngineConfig(
         steps=MAMBA_TRAIN_STEPS, batch=MAMBA_TRAIN_BATCH,
         seq_len=MAMBA_TRAIN_SEQ, **base), "mamba_train",
-        first_step=mamba_checks, after=mamba_after)
+        first_step=mamba_checks, after=mamba_after, zoo=zoo)
     mt["breakdown"] = breakdown
     emit(phase="mamba_train", **mt)
 
@@ -5891,7 +6341,7 @@ def ssm_train_phases(torch, BM, SSD, SSDB, ref):
         return dict(tol=HYBRID_TRAIN_TOL, card_vs_cpu=res)
     ht, hcfg = lm_train_run(torch, BM, HYBRID_ARCH, {"remat": True}, ecfg,
                             "hybrid_train", first_step=hybrid_checks,
-                            reduced=True, init_params=init)
+                            reduced=True, init_params=init, zoo=zoo)
     cpu = TrainEngine(HYBRID_ARCH, reduced=False, kernel="pallas",
                       device="cpu", config_override=cfg, config=ecfg,
                       init_params=init)
@@ -5913,22 +6363,23 @@ def counted():
     return counted_kernels()
 
 
-def lm_train_phases(torch, BM, SM90, ref):
+def lm_train_phases(torch, BM, SM90, ref, zoo):
     """``lm_train`` (h2o whole, four steps, step 0 against kernel="xla",
     block_matmul at the step's shapes in its three layouts),
-    ``audio_train``, ``moe_train`` and ``lm_1d`` (h2o on two ranks, step 0
-    against lm_train's); returns their stats, the GEMM rows and the worst
-    GEMM error."""
+    ``audio_train``, ``moe_train``, ``lm_1d`` (h2o on two ranks, step 0
+    against lm_train's) and ``lm_1d_zoo`` (four models on two ranks, step
+    0 against their one-device phases' handed over in ``zoo``); returns
+    their stats, the GEMM rows and the worst GEMM error."""
     import shutil
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm1d_"))
     try:
-        return _lm_train_phases(torch, BM, SM90, ref, tmp / "step0.pt")
+        return _lm_train_phases(torch, BM, SM90, ref, tmp / "step0.pt", zoo)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _lm_train_phases(torch, BM, SM90, ref, handoff):
+def _lm_train_phases(torch, BM, SM90, ref, handoff, zoo):
     from repro_torch.launch.engine import EngineConfig
     torch.cuda.empty_cache()
     base = dict(lr=1e-4, log_every=1, seed=0, prefetch=1)
@@ -5952,12 +6403,14 @@ def _lm_train_phases(torch, BM, SM90, ref, handoff):
     emit(phase="lm_train", **lm)
     audio, _ = lm_train_run(torch, BM, AUDIO_ARCH, {}, EngineConfig(
         steps=AUDIO_TRAIN_STEPS, batch=AUDIO_TRAIN_BATCH,
-        seq_len=AUDIO_TOKENS, precision="bf16", **base), "audio_train")
+        seq_len=AUDIO_TOKENS, precision="bf16", **base), "audio_train",
+        zoo=zoo)
     emit(phase="audio_train", **audio)
     moe, mcfg = lm_train_run(torch, BM, MOE_ARCH,
                              {"n_layers": MOE_TRAIN_LAYERS}, EngineConfig(
                                  steps=1, batch=MOE_TRAIN_BATCH,
-                                 seq_len=MOE_TRAIN_SEQ, **base), "moe_train")
+                                 seq_len=MOE_TRAIN_SEQ, **base), "moe_train",
+                             zoo=zoo)
     check(moe["launches_by_route"].get("f32") == 4 * mcfg.n_layers
           and moe["aux"][0] > 0, f"moe_train: the router's f32 launches "
           f"{moe['launches_by_route']} (want {4 * mcfg.n_layers}: forward, "
@@ -5973,7 +6426,29 @@ def _lm_train_phases(torch, BM, SM90, ref, handoff):
     head_bwd, w4 = lm_bwd_rows(torch, BM, SM90, ref, gen, head)
     torch.cuda.empty_cache()
     lm1d = lm_1d_phase(torch, handoff, head_fwd + head_bwd)
-    return (lm, audio, moe, lm1d), rows, max(w1, w2, w3, w4)
+    # lm_1d_zoo's block_matmul launches at their per-rank shapes: the
+    # vocab-parallel heads (the gathered features against the rank's vocab
+    # rows; forward, dx, dw) of the three full-width models and phi3.5's
+    # f32 router on the gathered features (forward and remat, dx, dw, each
+    # of its 2 layers)
+    zoo_rows = [
+        ("zoo.mamba.head_1d", _ZM, 768, 50432 // ZOO_P, "none", 1,
+         "bfloat16"),
+        ("zoo.phi.head_1d", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 4096,
+         32256 // ZOO_P, "none", 1, "bfloat16"),
+        ("zoo.whisper.head_1d", _ZD, 768, 51968 // ZOO_P, "none", 1,
+         "bfloat16"),
+        ("zoo.phi.router", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 4096, 16,
+         "none", 2 * MOE_TRAIN_LAYERS, "float32")]
+    zoo_fwd, w5 = lm_gemm_rows(torch, BM, SM90, ref, gen, zoo_rows)
+    zoo_bwd, w6 = lm_bwd_rows(torch, BM, SM90, ref, gen, [
+        r[:5] + (r[5] // 2 if "router" in r[0] else r[5], r[6])
+        for r in zoo_rows])
+    torch.cuda.empty_cache()
+    zoo_stats = lm_1d_zoo_phase(torch, zoo)
+    zoo_stats["block_matmul_rows"] = zoo_fwd + zoo_bwd
+    return (lm, audio, moe, lm1d, zoo_stats), rows, max(w1, w2, w3, w4, w5,
+                                                         w6)
 
 
 def audio_phases(torch, BM, SM90, ref):
@@ -6041,12 +6516,14 @@ def main():
         torch, counted, mcfg, mjcfg, mparams)
     del mparams
     torch.cuda.empty_cache()
-    mtrain, htrain = ssm_train_phases(torch, BM, SSD, SSDB, ref)
-    ssm = (ssd_bwd_rows, ssd_bwd_worst, mtrain, htrain)
     import shutil
     import tempfile
+    # the one-device training phases' step 0 for lm_1d_zoo
+    zoo = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
     handoff = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
     try:
+        mtrain, htrain = ssm_train_phases(torch, BM, SSD, SSDB, ref, zoo)
+        ssm = (ssd_bwd_rows, ssd_bwd_worst, mtrain, htrain, zoo)
         eng, fields, serve_launches = serve_phase(torch, BM, handoff)
         legacy = legacy_phase(torch, BM, eng, fields)
         del eng, fields
@@ -6058,6 +6535,7 @@ def main():
                            serve_launches, legacy, ssm)
     finally:
         shutil.rmtree(handoff, ignore_errors=True)
+        shutil.rmtree(zoo, ignore_errors=True)
 
 
 def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
@@ -6065,9 +6543,10 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                 fwd_ssd_routes, fwd_ssd_ms, gen_launches, gen_graphed,
                 gen_eager, serve_launches, legacy, ssm):
     """The phases after serving (``serve_data`` reads ``handoff``), and
-    the ``kernels`` line (``ssm``: the ssd_bwd rows and worst error, and
-    the ``mamba_train`` and ``hybrid_train`` stats)."""
-    ssd_bwd_rows, ssd_bwd_worst, mt, ht = ssm
+    the ``kernels`` line (``ssm``: the ssd_bwd rows and worst error, the
+    ``mamba_train`` and ``hybrid_train`` stats, and the directory of the
+    step-0 handoffs for ``lm_1d_zoo``)."""
+    ssd_bwd_rows, ssd_bwd_worst, mt, ht, zoo = ssm
     bwd_rows, bwd_worst = kernel_bwd_phase(torch, BM, SM90, ref)
     wx_rows, wx_worst = wx_phase(torch, WX, SM90, ref)
     ring_rows, ring_worst = ring_phase(torch, BM, RING, WX, ref)
@@ -6081,8 +6560,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         moe_hybrid_phases(torch, BM, SM90, ref)
     (afwd, agen), (afwd_rows, agen_rows), au_worst = audio_phases(
         torch, BM, SM90, ref)
-    (lmt, aut, mot, l1d), lmt_rows, lt_worst = lm_train_phases(
-        torch, BM, SM90, ref)
+    (lmt, aut, mot, l1d, zoo1d), lmt_rows, lt_worst = lm_train_phases(
+        torch, BM, SM90, ref, zoo)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -6111,14 +6590,34 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         return sum(r.get(key, 0.0) * r["per_train_step"] for r in wx_rows
                    if r["batch"] == 1 and r["shape"].startswith("q1."))
 
-    def per_ring_step(kind, key, lm=False):
+    def ring_path(r):
+        return ("lm_1d" if r["shape"].startswith("h2o.") else "lm_1d_zoo"
+                if r["shape"].startswith(ZOO_RING_PREFIXES) else "train_1d")
+
+    def per_ring_step(kind, key, path="train_1d"):
         # the p = 2 bf16 rows (batch 1): one rank of the 1-D step, per
-        # training sample-step at r = 1; with ``lm`` h2o's rows, one rank
-        # of lm_1d's training step
+        # training sample-step at r = 1; of path "lm_1d" h2o's rows, one
+        # rank of lm_1d's training step; of "lm_1d_zoo" the three
+        # full-width models' rows, one rank of each model's step, summed
         return sum(r[f"{kind}_{key}"] * r[f"{kind}_calls_per_train_step"]
                    for r in ring_rows
                    if r["p"] == TRAIN_1D_P and r["dtype"] == "bfloat16"
-                   and r["shape"].startswith("h2o.") == lm)
+                   and ring_path(r) == path)
+
+    def per_zoo(rows_, key):
+        # lm_1d_zoo's launches at one rank's layouts: mamba2-130m's
+        # (``mamba_rank_layout``, launches per step ``n``) and reduced
+        # jamba's
+        out = 0.0
+        for r in rows_:
+            for tag, arch in (("mamba_rank", "mamba2-130m"),
+                              ("jamba_rank", "jamba-1.5-large-398b")):
+                if r["shape"].startswith(tag):
+                    n = zoo1d["models"][arch]["launches_per_step"].get(
+                        "ssd_intra_heads_bwd" if rows_ is ssd_bwd_rows
+                        else "ssd_intra_chunk", 0)
+                    out += r[key] * n
+        return out
 
     def per_cannon_step(key):
         # the bf16 rows at batch 1: one rank of the 2x2 step, per training
@@ -6149,14 +6648,16 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         launches = t1[f"ring_{kind}_launches"]
         data = data_launches["1d"][f"ring_{kind}"]
         lm1d = [x[f"ring_{kind}"] for x in l1d["launches_per_rank"]]
+        zoo = [x[f"ring_{kind}"] for x in zoo1d["launches_per_rank"]]
         return {
             "name": f"ring_{kind}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": f"src/repro/kernels/fused_ring.py:{line}",
-            "launches": sum(launches) + sum(data) + sum(lm1d),
+            "launches": sum(launches) + sum(data) + sum(lm1d) + sum(zoo),
             "launches_by_path": {"train_1d": launches,
-                                 "train_data_1d": data, "lm_1d": lm1d},
+                                 "train_data_1d": data, "lm_1d": lm1d,
+                                 "lm_1d_zoo": zoo},
             "max_abs_err": ring_worst[kind],
             # times: one rank's launches of a 1-D training sample-step at
             # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
@@ -6172,10 +6673,20 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
             # one rank's launches of an h2o-danube-1.8b training step on
             # lm_1d's two ranks (batch 2 x 1,024): 7 ring calls a layer,
             # the forward and the remat recompute, one backward
-            "lm_1d_ms": per_ring_step(kind, "kernel_ms", True),
-            "lm_1d_plain_ms": per_ring_step(kind, "plain_ms", True),
-            "lm_1d_bound_ms": per_ring_step(kind, "bound_ms", True),
-            "lm_1d_library_ms": per_ring_step(kind, "library_ms", True),
+            "lm_1d_ms": per_ring_step(kind, "kernel_ms", "lm_1d"),
+            "lm_1d_plain_ms": per_ring_step(kind, "plain_ms", "lm_1d"),
+            "lm_1d_bound_ms": per_ring_step(kind, "bound_ms", "lm_1d"),
+            "lm_1d_library_ms": per_ring_step(kind, "library_ms", "lm_1d"),
+            # one rank's launches of one lm_1d_zoo training step of each of
+            # mamba2-130m, phi3.5 (2 layers) and whisper, summed (jamba's
+            # reduced f32 linears are not timed)
+            "lm_1d_zoo_ms": per_ring_step(kind, "kernel_ms", "lm_1d_zoo"),
+            "lm_1d_zoo_plain_ms": per_ring_step(kind, "plain_ms",
+                                                "lm_1d_zoo"),
+            "lm_1d_zoo_bound_ms": per_ring_step(kind, "bound_ms",
+                                                "lm_1d_zoo"),
+            "lm_1d_zoo_library_ms": per_ring_step(kind, "library_ms",
+                                                  "lm_1d_zoo"),
         }
 
     emit(kernels=[{
@@ -6199,7 +6710,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + afwd["launches"]["block_matmul"]
         + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot, mt,
                                                       ht))
-        + sum(x["block_matmul"] for x in l1d["launches_per_rank"]),
+        + sum(x["block_matmul"] for x in l1d["launches_per_rank"])
+        + sum(x["block_matmul"] for x in zoo1d["launches_per_rank"]),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -6248,6 +6760,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "mamba_train": mt["launches"]["block_matmul"],
                              "hybrid_train":
                              ht["launches"]["block_matmul"],
+                             "lm_1d_zoo": [x["block_matmul"] for x in
+                                           zoo1d["launches_per_rank"]],
                              "lm_1d": [x["block_matmul"] for x in
                                        l1d["launches_per_rank"]]},
         "lm_train_launches_by_layout": {
@@ -6363,7 +6877,19 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "shapes_moe_hybrid": mfwd_rows + mgen_rows + hfwd_rows + hgen_rows,
         "shapes_audio": afwd_rows + agen_rows,
         "shapes_lm_train": lmt_rows,
+        # one rank's of one lm_1d_zoo step of each of mamba2-130m, phi3.5
+        # (2 layers) and whisper, summed: the vocab-parallel heads'
+        # forward, dx and dw, and phi3.5's f32 router (forward and remat,
+        # dx, dw, each layer); jamba's reduced f32 GEMMs are not timed
+        "lm_1d_zoo_ms": per_rows(zoo1d["block_matmul_rows"], "kernel_ms"),
+        "lm_1d_zoo_plain_ms": per_rows(zoo1d["block_matmul_rows"],
+                                       "plain_ms"),
+        "lm_1d_zoo_bound_ms": per_rows(zoo1d["block_matmul_rows"],
+                                       "bound_ms"),
+        "lm_1d_zoo_library_ms": per_rows(zoo1d["block_matmul_rows"],
+                                         "library_ms"),
         "shapes_lm_1d": l1d["head_rows"],
+        "shapes_lm_1d_zoo": zoo1d["block_matmul_rows"],
     }, {
         "name": "wx",
         "route": "cuda",
@@ -6429,8 +6955,11 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(hgen[k]["ssd_intra_chunk"]
               for k in ("launches", "launches_eager"))
         + mt["launches"]["ssd_intra_chunk"]
-        + ht["launches"]["ssd_intra_chunk"],
+        + ht["launches"]["ssd_intra_chunk"]
+        + sum(x["ssd_intra_chunk"] for x in zoo1d["launches_per_rank"]),
         "launches_by_path": {
+            "lm_1d_zoo": [x["ssd_intra_chunk"] for x in
+                          zoo1d["launches_per_rank"]],
             "mamba_forward": fwd_launches["ssd_intra_chunk"],
             "mamba_generate": gen_launches["ssd_intra_chunk"],
             "mamba_train": mt["launches"]["ssd_intra_chunk"],
@@ -6442,6 +6971,13 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "max_abs_err": ssd_worst,
         "launches_by_route": {"mamba_forward": fwd_ssd_routes,
                               "hybrid_forward": hfwd["ssd_routes"]},
+        # one rank's launches of one lm_1d_zoo training step of
+        # mamba2-130m (48 at 12 heads of one group) and of reduced jamba (2
+        # at 4 heads of 4 groups), at their per-rank layouts
+        "lm_1d_zoo_ms": per_zoo(ssd_rows, "kernel_ms"),
+        "lm_1d_zoo_plain_ms": per_zoo(ssd_rows, "plain_ms"),
+        "lm_1d_zoo_bound_ms": per_zoo(ssd_rows, "bound_ms"),
+        "lm_1d_zoo_library_ms": per_zoo(ssd_rows, "library_ms"),
         # times: the 24 launches of one mamba2-130m forward (sequence 4096,
         # batch 2) at the model's layout, the main path's entry (plain: the
         # groups arrangement and ref.ssd_intra_ref; library: the same
@@ -6476,10 +7012,19 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         # (src/repro/models/layers.py:483) by autodiff
         "replaces": "src/repro/kernels/ssd_chunk.py:25",
         "launches": mt["launches"]["ssd_intra_heads_bwd"]
-        + ht["launches"]["ssd_intra_heads_bwd"],
+        + ht["launches"]["ssd_intra_heads_bwd"]
+        + sum(x["ssd_intra_heads_bwd"] for x in zoo1d["launches_per_rank"]),
         "launches_by_path": {
             "mamba_train": mt["launches"]["ssd_intra_heads_bwd"],
-            "hybrid_train": ht["launches"]["ssd_intra_heads_bwd"]},
+            "hybrid_train": ht["launches"]["ssd_intra_heads_bwd"],
+            "lm_1d_zoo": [x["ssd_intra_heads_bwd"] for x in
+                          zoo1d["launches_per_rank"]]},
+        # one rank's launches of one lm_1d_zoo training step (mamba2-130m
+        # 24, jamba reduced 1) at their per-rank layouts
+        "lm_1d_zoo_ms": per_zoo(ssd_bwd_rows, "kernel_ms"),
+        "lm_1d_zoo_plain_ms": per_zoo(ssd_bwd_rows, "plain_ms"),
+        "lm_1d_zoo_bound_ms": per_zoo(ssd_bwd_rows, "bound_ms"),
+        "lm_1d_zoo_library_ms": per_zoo(ssd_bwd_rows, "library_ms"),
         "max_abs_err": ssd_bwd_worst,
         # times: the 24 launches of one mamba2-130m training step (batch 2
         # x 4,096, one a layer) at the model's layout (plain:
@@ -6513,6 +7058,8 @@ if __name__ == "__main__":
             sys.exit(train_1d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--lm-1d-rank"]:
             sys.exit(lm_1d_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--lm-1d-zoo-rank"]:
+            sys.exit(lm_1d_zoo_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-2d-rank"]:
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-data-rank"]:

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Run the language-model phases of ``chip_smoke.py`` alone on the card:
 whisper-small's serving (``audio_forward``, ``audio_generate``), the
-training phases (``lm_train``, ``audio_train``, ``moe_train`` and
-``lm_1d``, h2o-danube-1.8b on two ranks of a 1-D model mesh) and the ring
-step kernels' phase (``ring_shape``, h2o's per-rank shapes among them),
-after one build of block_matmul, ring and wx (started together), with the
-smoke's checks and JSON lines.
+training phases (``mamba_train``, ``hybrid_train``, ``lm_train``,
+``audio_train``, ``moe_train``, ``lm_1d``, h2o-danube-1.8b on two ranks of
+a 1-D model mesh, and ``lm_1d_zoo``, mamba2-130m, phi3.5, whisper and
+jamba there) and the ring step kernels' phase (``ring_shape``, the LMs'
+per-rank shapes among them), after one build of block_matmul, ring, wx
+and the two SSD kernels (started together), with the smoke's checks and
+JSON lines.
 
     python3 scripts/lm_phases.py [audio] [train] [ring]
 
 (audio and train when none is named).  Needs one CUDA device; exits
 non-zero without one, or when a check fails.
 """
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -31,14 +35,17 @@ def main(argv):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ring as RING
     from repro_torch.kernels import sm90 as SM90
+    from repro_torch.kernels import ssd_chunk as SSD
+    from repro_torch.kernels import ssd_chunk_bwd as SSDB
     from repro_torch.kernels import wx as WX
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     which = set(argv) or {"audio", "train"}
     print(C.card_line(), flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:      # one nvcc per source, together
-        list(pool.map(lambda lib: lib.build(), (BM, RING, WX)))
+    libs = (BM, RING, WX, SSD, SSDB)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source,
+        list(pool.map(lambda lib: lib.build(), libs))   # together
     C.emit(phase="build", seconds=time.perf_counter() - t0)
     try:
         if "ring" in which:
@@ -46,7 +53,13 @@ def main(argv):
         if "audio" in which:
             C.audio_phases(torch, BM, SM90, ref)
         if "train" in which:
-            C.lm_train_phases(torch, BM, SM90, ref)
+            # lm_1d_zoo's step-0 handoffs from the four one-device phases
+            zoo = Path(tempfile.mkdtemp(prefix="lm_phases_zoo_"))
+            try:
+                C.ssm_train_phases(torch, BM, SSD, SSDB, ref, zoo)
+                C.lm_train_phases(torch, BM, SM90, ref, zoo)
+            finally:
+                shutil.rmtree(zoo, ignore_errors=True)
     except C.SmokeFailure as e:
         print(f"lm_phases: FAILED: {e}", file=sys.stderr)
         return 1

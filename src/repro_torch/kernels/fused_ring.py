@@ -130,36 +130,82 @@ def ipc_hops(what: str):
     return lambda t, group: ipc_shift(t, group, next(hops), what)
 
 
+def _label(what: str, op: str) -> str:
+    return op if not what else f"{what}/{op}"
+
+
+def _ipc_reduce_scatter(x, group, p, me, what):
+    """This rank's chunk of the sum of x over the group, on the card: the
+    ring's walk through the IPC slots, its hops and adds in f32."""
+    chunk = x.shape[-1] // p
+    y = ring_walk(lambda j: x.narrow(-1, j * chunk, chunk).float(), group,
+                  p, me, torch.float32, torch.float32,
+                  ipc_hops(_label(what, "reduce_scatter")))
+    return y.to(x.dtype)
+
+
+def _ipc_all_gather(x, group, p, me, what):
+    return ring_all_gather(x, group, p, me, -1,
+                           ipc_hops(_label(what, "all_gather")))
+
+
 class _GatherFeatures(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, p, me):
-        ctx.args = (group, p, me)
-        return ring_all_gather(x, group, p, me, -1, ipc_hops("all_gather"))
+    def forward(ctx, x, group, p, me, what):
+        ctx.args = (group, p, me, what)
+        return _ipc_all_gather(x, *ctx.args)
 
     @staticmethod
     def backward(ctx, dy):
         # the gather's transpose: the ring's reduce-scatter, added in f32
-        group, p, me = ctx.args
-        chunk = dy.shape[-1] // p
-        dx = ring_walk(lambda j: dy.narrow(-1, j * chunk, chunk).float(),
-                       group, p, me, torch.float32, torch.float32,
-                       ipc_hops("reduce_scatter"))
-        return dx.to(dy.dtype), None, None, None
+        return _ipc_reduce_scatter(dy, *ctx.args), None, None, None, None
 
 
-def gather_features(x: torch.Tensor, group, p: int, me: int
-                    ) -> torch.Tensor:
+class _ScatterFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, p, me, what):
+        ctx.args = (group, p, me, what)
+        return _ipc_reduce_scatter(x, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _ipc_all_gather(dy, *ctx.args), None, None, None, None
+
+
+def gather_features(x: torch.Tensor, group, p: int, me: int,
+                    what: str = "") -> torch.Tensor:
     """Every rank's x [..., d/p] concatenated along the last dim in rank
     order, differentiable (the backward reduce-scatters the cotangent, the
     rank keeping its chunk): on the card p - 1 ring hops through the ring
     workspace's IPC slots (``ipc_shift``; the backward's walk adds in
     f32), on the CPU ``comm.all_gather``.  The vocab-parallel head's
-    gather (``core/jigsaw.py::vocab_linear_1d``)."""
+    gather (``core/jigsaw.py::vocab_linear_1d``), the MoE's and Mamba-2's
+    (``models/layers.py``).  ``what`` prefixes the hops' ``ipc_bytes``
+    keys ("<what>/all_gather", "<what>/reduce_scatter")."""
     if p == 1:
         return x
     if not x.is_cuda:
         return comm.all_gather(x, group, -1)
-    return _GatherFeatures.apply(x, group, p, me)
+    return _GatherFeatures.apply(x, group, p, me, what)
+
+
+def scatter_features(x: torch.Tensor, group, p: int, me: int,
+                     what: str = "") -> torch.Tensor:
+    """The sum over the group of every rank's x [..., d], of which this
+    rank keeps chunk ``me`` [..., d/p] of the last dim, in x's dtype (the
+    transpose of ``gather_features``; its backward all-gathers the
+    cotangent): on the card the ring's reduce-scatter through the ring
+    workspace's IPC slots, its hops and adds in f32 (``ring_walk`` with
+    ``ipc_shift``), on the CPU ``comm.reduce_scatter`` of x in f32.  The
+    expert-parallel MoE's combine (``models/layers.py::moe_apply``)."""
+    if p == 1:
+        return x
+    if x.shape[-1] % p:
+        raise ValueError(f"scatter_features: last dim of {tuple(x.shape)} "
+                         f"not divisible by {p}")
+    if not x.is_cuda:
+        return comm.reduce_scatter(x.float(), group, -1).to(x.dtype)
+    return _ScatterFeatures.apply(x, group, p, me, what)
 
 
 def chunk_walk(x, w, group, p, me, accum_dtype, kernel):

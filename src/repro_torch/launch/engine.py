@@ -38,13 +38,15 @@ A language model (the dense, VLM, moe, audio, ssm and hybrid families)
 trains on one device or on a data-only mesh (``mesh_model=1,
 mesh_data=n``: every rank holds the whole model, reads its rows of the
 batch of ``seq_len`` tokens and all-reduces the gradients over data;
-ZeRO-1 as for the mixer).  The dense and VLM families also train on a 1-D
-model mesh (``mesh_model=p``: ``scheme="1d"``, each rank its shard by the
-reference's 1-D layout, ``impl`` as for the mixer, the VLM's embeds cut
-along D); their checkpoints there raise until that part of ROADMAP.md's
-queue 1 item 19.  The moe, ssm, hybrid and audio families on a model
-mesh, and the FSDP hybrid's cut of any language model, raise naming that
-item (``models/registry.py::check_lm_mesh``).
+ZeRO-1 as for the mixer), or on a 1-D model mesh (``mesh_model=p``:
+``scheme="1d"``, each rank its shard by the reference's 1-D layout, the
+MoE's experts cut over the ranks, Mamba-2's heads and whisper's encoder
+on them, ``impl`` as for the mixer, the VLM's embeds and whisper's frames
+cut along D).  What still raises, naming ROADMAP.md's queue 1 item 19:
+the checkpoints of a language model on a model mesh (``save`` and
+``resume``), the FSDP hybrid's cut of a language model over more than one
+data rank, and a language model on a 2-D model mesh
+(``models/registry.py::check_lm_mesh``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -178,7 +180,7 @@ class TrainEngine:
         self.policy = precision.policy_of(cfg)
         self.mesh = None
         if cfg.family != "mixer" and mesh_model > 1:
-            # a dense or VLM language model on a 1-D model mesh
+            # a language model on a 1-D model mesh
             cfg = cfg.replace(scheme="1d")
             specs.check_lm_mesh(cfg, mesh_model)
             self.mesh = make_ring_mesh(model=mesh_model, data=mesh_data,
@@ -253,7 +255,8 @@ class TrainEngine:
                     specs.zero1_dims(self.params, self.param_specs, m),
                     m.data_index, m.data_size, m.data_group)
             if cfg.scheme == "1d":
-                # a language model by the transformer's rule (no FSDP cut)
+                # a language model by the language models' rule (no FSDP
+                # cut)
                 self.params = shard_params_1d(
                     self.params, m.r, m.p, m.data_index, m.data_size,
                     self.jcfg.fsdp, spec=None if cfg.family == "mixer"

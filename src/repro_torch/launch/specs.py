@@ -12,13 +12,11 @@ describe exactly the blocks the port's ranks hold: ``param_specs``
 (``data/pipeline.py``), and ``zero1_dims`` where ZeRO-1 cuts a leaf's
 optimizer state.  ``state_spec`` places the forecast engine's state
 buffer of a batch bucket on the serving mesh (``serve/engine.py``).
-A language model of the dense and VLM families takes the reference's
-1-D layout (``models/transformer.py::param_spec_1d``) on a (data, model=p)
-mesh; on a data-only mesh its parameters stay whole on every rank.  The
-other families (moe, ssm, hybrid, audio) run on a data-only mesh alone, and
-a model axis over one raises for them, as the FSDP hybrid's cut of any
-language model does (``check_lm_mesh``, naming ROADMAP.md queue 1 item
-19).
+A language model of any family takes the reference's 1-D layout
+(``models/transformer.py::param_spec_1d``) on a (data, model=p) mesh; on
+a data-only mesh its parameters stay whole on every rank.  The FSDP
+hybrid's cut of a language model over data, and a language model on a 2-D
+model mesh, raise (``check_lm_mesh``, naming ROADMAP.md queue 1 item 19).
 ``cache_specs`` (the language models' KV/SSM caches on a mesh) comes with
 the dry-run (ROADMAP.md, queue 1 item 15).
 """
@@ -33,7 +31,7 @@ from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import (DATA_AXIS, ShardingRules, Spec,
                                       entry_axes, sanitize_spec, spec_axes)
 from repro_torch.models import transformer, weathermixer
-from repro_torch.models.registry import LM_MESH_FAMILIES, check_lm_mesh
+from repro_torch.models.registry import check_lm_mesh
 
 __all__ = ["param_specs", "opt_specs", "batch_specs", "block_specs",
            "check_lm_mesh", "sanitize_spec", "sanitize_tree", "state_spec",
@@ -46,18 +44,17 @@ def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
     layout for the scheme (``weathermixer.PARAM_SPECS``) and, under 1-D
     with ``cfg.shard_params_over_data``, every weight's out dim on the data
     axis too (the FSDP hybrid; the reference's 2-D rule has no data
-    entry).  Leading stacked dims stay whole.  The dense and VLM language
-    models take the reference's 1-D rule
+    entry).  Leading stacked dims stay whole.  A language model (every
+    family) takes the reference's 1-D rule under 1-D rules
     (``transformer.param_spec_1d``: contracting dims, the head's and the
-    table's vocab on the model axis) under 1-D rules; the other language
-    models' leaves, and any language model's under 2-D rules, are whole
-    (every entry None), their data-only mesh's layout: a model mesh that
-    needs another layout is refused by ``check_lm_mesh``, which the
-    callers run on their mesh.  The FSDP hybrid's cut of a language model
-    raises here too."""
+    table's vocab, the expert stacks' expert dim, ``conv_w``'s and
+    ``dec_pos``' last dim on the model axis) without its FSDP data
+    entries: the FSDP hybrid's cut of a language model over more than one
+    data rank is refused by ``check_lm_mesh``, which the callers run on
+    their mesh, as it refuses a 2-D model mesh (under 2-D rules a language
+    model's leaves are whole, its data-only mesh's layout)."""
     if cfg.family != "mixer":
-        check_lm_mesh(cfg, 1, fsdp=cfg.shard_params_over_data)
-        if cfg.family not in LM_MESH_FAMILIES or rules.is_2d:
+        if rules.is_2d:
             return ptree.map(lambda a: (None,) * np.ndim(a), params)
         return ptree.map_with_path(
             lambda path, a: transformer.param_spec_1d(path, np.ndim(a)),

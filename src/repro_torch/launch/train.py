@@ -16,17 +16,20 @@ a data-only mesh (``--mesh-data n``, ``--mesh-model 1``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-130m --steps 5 --seq-len 32 --log-every 1
 
-The dense and VLM families also train on a 1-D Jigsaw model mesh
+Every language model also trains on a 1-D Jigsaw model mesh
 (``--mesh-model p``, ``--scheme 1d`` implied; ``--impl`` as below, default
 the config's ``rs``), one process per rank under ``torch.distributed.run``:
+the dense and VLM transformers, the MoE with its experts cut over the
+ranks, Mamba-2 and the hybrid with their heads on the ranks, whisper's
+encoder and cross attention:
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \
-      --nproc-per-node 2 -m repro_torch.launch.train --arch internlm2-1.8b \
+      --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
       --mesh-model 2 [--mesh-data n] [--impl ring_fused] --device cpu
 
-The moe, ssm, hybrid and audio families on a model mesh, checkpoints of a
-language model on one, and the FSDP hybrid's cut of a language model
-raise NotImplementedError (ROADMAP.md, queue 1 item 19).
+Checkpoints of a language model on a model mesh, the FSDP hybrid's cut of
+a language model over more than one data rank, and a language model on a
+2-D model mesh raise NotImplementedError (ROADMAP.md, queue 1 item 19).
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process

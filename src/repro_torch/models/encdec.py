@@ -104,19 +104,23 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return params
 
 
+def _norm(p, x, jcfg: JigsawConfig):
+    return L.layernorm_apply(p, x, mesh=L.mesh_1d(jcfg))
+
+
 def _attn(p, x, cfg: ModelConfig, jcfg: JigsawConfig, positions, **kw):
     return L.attention_apply(
         p, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.d_head, positions=positions, cfg=jcfg, rope_theta=None,
-        **kw)
+        mesh=L.mesh_1d(jcfg), **kw)
 
 
 def _enc_layer(lp, h, cfg: ModelConfig, jcfg: JigsawConfig, positions):
-    a = L.layernorm_apply(lp["attn_norm"], h)
+    a = _norm(lp["attn_norm"], h, jcfg)
     out, _ = _attn(lp["attn"], a, cfg, jcfg, positions, causal=False,
                    q_chunk=cfg.attn_q_chunk)
     h = h + out
-    f = L.layernorm_apply(lp["ffn_norm"], h)
+    f = _norm(lp["ffn_norm"], h, jcfg)
     return h + L.ffn_apply(lp["ffn"], f, jcfg)
 
 
@@ -128,16 +132,22 @@ def _remat(cfg: ModelConfig) -> bool:
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
            jcfg: JigsawConfig = DEFAULT_JIGSAW) -> torch.Tensor:
     """frames [B, n_frames, d_model] (the stub embeddings) -> the encoder's
-    states, in the frames' dtype (the residual stream's)."""
+    states, in the frames' dtype (the residual stream's).  Under
+    ``scheme="1d"`` the frames and the states are the rank's feature
+    block [B, n_frames, d_model / p], which takes its block of the
+    sinusoids."""
     _, s, d = frames.shape
-    x = frames + sinusoids(s, d, device=frames.device)[None].to(frames.dtype)
+    pos = sinusoids(s, cfg.d_model, device=frames.device)
+    if d != cfg.d_model:        # the rank's block of the features
+        pos = pos.narrow(1, L.mesh_1d(jcfg).tp_index * d, d)
+    x = frames + pos[None].to(frames.dtype)
     positions = torch.arange(s, device=frames.device)
     remat = _remat(cfg)
     for lp in params["enc_layers"]:
         layer = partial(_enc_layer, cfg=cfg, jcfg=jcfg, positions=positions)
         x = (checkpoint(layer, lp, x, use_reentrant=False) if remat
              else layer(lp, x))
-    return L.layernorm_apply(params["enc_norm"], x)
+    return _norm(params["enc_norm"], x, jcfg)
 
 
 def _dec_layer(lp, x, enc, cfg: ModelConfig, jcfg: JigsawConfig, positions,
@@ -145,23 +155,24 @@ def _dec_layer(lp, x, enc, cfg: ModelConfig, jcfg: JigsawConfig, positions,
     """One decoder layer: causal self-attention (on ``kv_cache`` in a
     decode step), cross-attention to ``enc``, the FFN.  Returns (x, the
     self-attention's new cache or None)."""
-    a = L.layernorm_apply(lp["attn_norm"], x)
+    a = _norm(lp["attn_norm"], x, jcfg)
     out, nc = _attn(lp["attn"], a, cfg, jcfg, positions, causal=True,
                     kv_cache=kv_cache,
                     q_chunk=0 if kv_cache is not None else cfg.attn_q_chunk)
     x = x + out
-    c = L.layernorm_apply(lp["cross_norm"], x)
+    c = _norm(lp["cross_norm"], x, jcfg)
     out, _ = _attn(lp["cross"], c, cfg, jcfg, positions, causal=False,
                    x_kv=enc,
                    q_chunk=0 if positions.ndim > 1 else cfg.attn_q_chunk)
     x = x + out
-    f = L.layernorm_apply(lp["ffn_norm"], x)
+    f = _norm(lp["ffn_norm"], x, jcfg)
     return x + L.ffn_apply(lp["ffn"], f, jcfg), nc
 
 
 def _dec_pos(params, positions: torch.Tensor, dtype) -> torch.Tensor:
     """The learned positions at ``positions % 4096`` (whisper's ceiling is
-    448 tokens; longer sequences wrap, as the reference's)."""
+    448 tokens; longer sequences wrap, as the reference's); under
+    ``scheme="1d"`` the table is the rank's [4096, D/p] block of it."""
     table = params["dec_pos"]
     return table[torch.remainder(positions, table.shape[0]).long()].to(dtype)
 
@@ -171,19 +182,26 @@ def apply(params, batch, cfg: ModelConfig,
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced forward.  batch: {"frames": [B, F, D] (the stub),
     "tokens": [B, S]}.  Returns the logits [B, S, vocab_padded] and the
-    reference's aux loss (f32 0)."""
+    reference's aux loss (f32 0).
+
+    Under ``scheme="1d"`` (a 1-D model mesh) the rank's blocks: the frames
+    [B, F, D/p] in, the residual streams of the encoder and the decoder
+    cut on D, every norm over the cut features, self and cross attention
+    on the rank's heads (cross attention's k and v from the encoder
+    states' block through ``jigsaw_linear``; the biases cut on their out
+    dim), the tied head's vocab block of the logits [B, S, V/p] out."""
     enc = encode(params, batch["frames"], cfg, jcfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
-    x = L.embed_apply(params["embed"], tokens)
+    x = L.embed_apply(params["embed"], tokens, mesh=L.mesh_1d(jcfg))
     x = x + _dec_pos(params, positions, x.dtype)[None]
     remat = _remat(cfg)
     for lp in params["dec_layers"]:
         layer = partial(_dec_layer, cfg=cfg, jcfg=jcfg, positions=positions)
         x, _ = (checkpoint(layer, lp, x, enc, use_reentrant=False) if remat
                 else layer(lp, x, enc))
-    x = L.layernorm_apply(params["dec_norm"], x)
+    x = _norm(params["dec_norm"], x, jcfg)
     logits = L.unembed_apply(params["embed"], x, jcfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 

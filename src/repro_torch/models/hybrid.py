@@ -112,7 +112,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 
 def _lm_head(params, x, cfg: ModelConfig, jcfg: JigsawConfig):
-    x = L.rmsnorm_apply(params["final_norm"], x)
+    """The final norm and the head: under ``scheme="1d"`` the rank's vocab
+    block of the logits."""
+    x = L.rmsnorm_apply(params["final_norm"], x, mesh=L.mesh_1d(jcfg))
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], x, jcfg)
     return head_apply(params["lm_head"]["w"], x, jcfg)
@@ -124,9 +126,12 @@ def _slot_apply(blk, x, j: int, cfg: ModelConfig, jcfg: JigsawConfig,
     forward) or the slot's cache entry for this period (attention: its
     "k" and "v", written in place; SSM: its "conv" and "ssm"), with
     ``pos`` the rows' positions.  Returns (x, the SSM slot's new state or
-    None, aux plus the MoE layer's)."""
+    None, aux plus the MoE layer's).  Under ``scheme="1d"`` x is the
+    rank's feature block and the norms, the attention, the Mamba-2 mixer,
+    the FFN and the MoE run the rank's blocks (heads, experts)."""
     new_state = None
-    h = L.rmsnorm_apply(blk["norm"], x)
+    mesh = L.mesh_1d(jcfg)
+    h = L.rmsnorm_apply(blk["norm"], x, mesh=mesh)
     if _slot_kind(cfg, j) == "attn":
         kv = None if state is None else {"k": state["k"], "v": state["v"],
                                          "pos": pos}
@@ -135,20 +140,20 @@ def _slot_apply(blk, x, j: int, cfg: ModelConfig, jcfg: JigsawConfig,
             d_head=cfg.d_head, positions=positions, cfg=jcfg,
             window=cfg.sliding_window, rope_theta=cfg.rope_theta,
             kv_cache=kv, rolling=cfg.sliding_window is not None,
-            q_chunk=cfg.attn_q_chunk)
+            q_chunk=cfg.attn_q_chunk, mesh=mesh)
     else:
         out, new_state = L.mamba2_apply(
             blk["ssm"], h, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
             head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
             conv_kernel=cfg.ssm_conv, chunk=cfg.ssm_chunk, cfg=jcfg,
-            state=state)
+            state=state, mesh=mesh)
     x = x + out
-    h = L.rmsnorm_apply(blk["ffn_norm"], x)
+    h = L.rmsnorm_apply(blk["ffn_norm"], x, mesh=mesh)
     if "moe" in blk:
         # decode (a state given): never drop tokens (capacity >= tokens)
         cf = cfg.capacity_factor if state is None else float(cfg.n_experts)
         out, a = L.moe_apply(blk["moe"], h, top_k=cfg.top_k,
-                             capacity_factor=cf, cfg=jcfg)
+                             capacity_factor=cf, cfg=jcfg, mesh=mesh)
         aux = aux + a
     else:
         out = L.ffn_apply(blk["ffn"], h, jcfg)
@@ -164,8 +169,10 @@ def apply(params, batch, cfg: ModelConfig,
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
     its scan body over the periods): only its inputs are kept, and its
     slots run again in the backward (the MoE routing has nothing random,
-    so it routes the same)."""
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    so it routes the same).  Under ``scheme="1d"`` (a 1-D model mesh) the
+    rank's blocks, as ``transformer.apply``'s: the residual stream
+    [B, S, D/p] and the vocab block of the logits."""
+    x = L.embed_apply(params["embed"], batch["tokens"], mesh=L.mesh_1d(jcfg))
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 

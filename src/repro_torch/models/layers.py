@@ -24,7 +24,13 @@ from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_apply,
                                   linear_apply, linear_init, mlp_apply,
                                   mlp_init)
 from repro_torch.core.sharding import Mesh, Mesh1D
-from repro_torch.kernels import ops
+from repro_torch.kernels import fused_ring, ops
+
+
+def mesh_1d(cfg: JigsawConfig) -> Optional[Mesh1D]:
+    """A language model's rank mesh: the 1-D model mesh under
+    ``scheme="1d"``, else None (one device or a data-only mesh)."""
+    return cfg.mesh_1d if cfg.scheme == "1d" else None
 
 
 def boundary_cast(x: torch.Tensor, cfg: JigsawConfig) -> torch.Tensor:
@@ -451,7 +457,9 @@ def moe_route(router, xg: torch.Tensor, top_k: int, capacity: int,
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               cfg: JigsawConfig = DEFAULT_JIGSAW,
-              group_size: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_size: int = 1024,
+              mesh: Optional[Mesh1D] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style grouped MoE: (output [B, S, D], aux loss).  The tokens
     are split into groups of ``group_size`` (the last one zero-padded; its
     pad rows are routed and count in the aux loss, as in the reference),
@@ -461,9 +469,25 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     dispatch and combine one-hots [G, gs, E, C] are built one k at a time
     in x's dtype; the expert products are plain einsums, as the
     reference's (it calls no kernel there).  The aux loss is the
-    Switch/GShard load balance over all groups."""
-    b, s, d = x.shape
+    Switch/GShard load balance over all groups.
+
+    With ``mesh`` (a 1-D model mesh of p ranks; expert parallelism, the
+    reference's expert stacks cut on their E dim): x is the rank's feature
+    block [B, S, D/p] and ``params["experts"]`` the rank's E/p experts
+    [r*E/p, (r+1)*E/p).  The features are all-gathered over the tp group
+    (``fused_ring.gather_features``: on the card through the ring
+    workspace's IPC slots), every rank routes all tokens with the whole
+    router and the whole expert count (the same routes, drops and aux on
+    every rank), dispatches only into its experts (its slice of the
+    one-hots), runs them, and its partial output [T, D] is reduce-scattered
+    over D back to [B, S, D/p] (``fused_ring.scatter_features``, summed in
+    f32).  Every rank returns the whole aux; the caller counts its
+    gradient once (``train/step.py::lm_loss_fn``)."""
     e = params["router"]["w"].shape[0]
+    if mesh is not None and mesh.tp_size > 1:
+        x = fused_ring.gather_features(x, mesh.tp_group, mesh.tp_size,
+                                       mesh.tp_index, "moe")
+    b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     gs = min(group_size, t)
@@ -481,17 +505,19 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
         dim=(0, 1))
     aux = e * (me * ce).sum()
 
-    dispatch = x.new_zeros((g, gs, e, capacity))
-    combine = x.new_zeros((g, gs, e, capacity))
+    w = params["experts"]
+    e_l = next(iter(w.values())).shape[0]        # the rank's experts
+    first = 0 if mesh is None else mesh.tp_index * e_l
+    dispatch = x.new_zeros((g, gs, e_l, capacity))
+    combine = x.new_zeros((g, gs, e_l, capacity))
     for kk in range(top_k):
-        term = (_one_hot(gate_idx[..., kk], e, x.dtype)[..., None]
+        term = (_one_hot(gate_idx[..., kk] - first, e_l, x.dtype)[..., None]
                 * _one_hot(pos[..., kk], capacity, x.dtype)[..., None, :])
         term = term * keep[..., kk, None, None].to(x.dtype)
         dispatch = dispatch + term
         combine = combine + term * gate_vals[..., kk, None, None].to(x.dtype)
 
     xe = _einsum("gtec,gtd->gecd", dispatch, xg)                # [G, E, C, D]
-    w = params["experts"]
     if "gate" in w:
         gt = _einsum("gecd,efd->gecf", xe, w["gate"])
         u = _einsum("gecd,efd->gecf", xe, w["up"])
@@ -501,7 +527,11 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
                    approximate="tanh")
         ye = _einsum("gecf,edf->gecd", h, w["fc2"])
     yt = _einsum("gtec,gecd->gtd", combine, ye).reshape(g * gs, d)
-    return yt[:t].reshape(b, s, d), aux
+    y = yt[:t].reshape(b, s, d)
+    if mesh is not None and mesh.tp_size > 1:
+        y = fused_ring.scatter_features(y, mesh.tp_group, mesh.tp_size,
+                                        mesh.tp_index, "moe")
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -608,25 +638,80 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, h_prev
 
 
+def _heads_channels(xbc: torch.Tensor, mesh: Mesh1D, d_inner: int,
+                    n_groups: int, d_state: int) -> torch.Tensor:
+    """Re-lay the conv's output channels from the rank's contiguous block
+    of ``conv_dim = d_inner + 2 * n_groups * d_state`` (the layout of
+    ``in_xbc`` and ``conv_w`` cut on ``model``, which need not fall on
+    head bounds) to the rank's heads: its block of the x channels, then
+    the B and C channels of its groups (all of them when ``n_groups`` is
+    1, its ``n_groups / p`` else).  The blocks are all-gathered over the
+    tp group (``fused_ring.gather_features``: on the card through the ring
+    workspace's IPC slots; (p - 1) / p of [B, S, conv_dim] a rank), then
+    sliced: exact, and the gather's backward sums each channel's
+    gradient over the ranks that read it."""
+    p, r = mesh.tp_size, mesh.tp_index
+    whole = fused_ring.gather_features(xbc, mesh.tp_group, p, r,
+                                       "ssm_channels")
+    di, gn = d_inner // p, n_groups * d_state
+    g0, gl = (0, gn) if n_groups == 1 else (r * gn // p, gn // p)
+    return torch.cat([whole[..., r * di:(r + 1) * di],
+                      whole[..., d_inner + g0:d_inner + g0 + gl],
+                      whole[..., d_inner + gn + g0:d_inner + gn + g0 + gl]],
+                     dim=-1)
+
+
 def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
                  head_dim: int, n_groups: int = 1, conv_kernel: int = 4,
                  chunk: int = 64, cfg: JigsawConfig = DEFAULT_JIGSAW,
-                 state: Optional[dict] = None
+                 state: Optional[dict] = None,
+                 mesh: Optional[Mesh1D] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Mamba-2 mixer.  Prefill / teacher-forced: ``state=None``.  Decode:
     one token against ``state`` = {"conv": [B, K-1, conv_dim],
     "ssm": [B, H, P, N]}; returns the new state (conv in the dtype the
     window promotes to, as the reference's concatenate; ssm in the state's
-    dtype)."""
+    dtype).
+
+    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``;
+    teacher-forced only: a decode state raises) the rank runs its
+    ``n_heads / p`` heads: x is its feature block [B, S, D/p]; ``in_z``
+    and ``in_dt`` give its heads' blocks of z and dt (``jigsaw_linear``);
+    ``in_xbc`` and ``conv_w`` hold the rank's contiguous block of the conv
+    channels, so the depthwise conv and SiLU run on that block (with its
+    slice of the whole ``conv_b``) and ``_heads_channels`` re-lays the
+    result to the rank's heads' x and its groups' B and C.  The SSD scan
+    runs the rank's heads (``A_log``, ``D`` and ``dt_bias`` sliced to
+    them; local head k reads local group k // (heads per group)), the
+    gated RMSNorm reduces over the cut d_inner (``rmsnorm_apply(mesh=)``)
+    and ``out_proj`` contracts the rank's d_inner block.  A group count
+    that p neither divides nor equals 1 raises ValueError."""
     del conv_kernel                      # conv_w carries it
     b, s, _ = x.shape
+    p = 1 if mesh is None else mesh.tp_size
+    if p > 1:
+        if state is not None:
+            raise NotImplementedError(
+                "mamba2_apply: a decode step on a model mesh (serving on a "
+                "model mesh: ROADMAP.md, queue 1 item 19)")
+        if n_groups > 1 and n_groups % p:
+            raise ValueError(f"mamba2_apply: {n_groups} groups on {p} "
+                             "ranks (p must divide the groups or they "
+                             "must be 1)")
     d_inner = n_heads * head_dim
     z = linear_apply(params["in_z"], x, cfg)
     xBC = linear_apply(params["in_xbc"], x, cfg)
     dt = linear_apply(params["in_dt"], x, cfg)
-    dt = softplus(dt.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"])
-    split = [d_inner, n_groups * d_state, n_groups * d_state]
+    # the rank's heads and groups (all of them on one rank)
+    h_l, g_l = n_heads // p, n_groups if n_groups == 1 else n_groups // p
+    heads, conv_b = slice(None), params["conv_b"]
+    if p > 1:
+        r, c_l = mesh.tp_index, xBC.shape[-1]
+        heads = slice(r * h_l, (r + 1) * h_l)
+        conv_b = conv_b[r * c_l:(r + 1) * c_l]
+    dt = softplus(dt.float() + params["dt_bias"][heads][None, None, :])
+    A = -torch.exp(params["A_log"][heads])
+    split = [h_l * head_dim, g_l * d_state, g_l * d_state]
     cw = params["conv_w"]                                 # [K, conv_dim]
     k = cw.shape[0]
 
@@ -635,13 +720,15 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
         # causal depthwise conv over the sequence
         xp = torch.cat([xBC.new_zeros((b, k - 1, xBC.shape[2])), xBC], 1)
         conv = sum(xp[:, i:i + s, :] * cw[i][None, None, :] for i in range(k))
-        xBC = F.silu(conv + params["conv_b"][None, None, :])
+        xBC = F.silu(conv + conv_b[None, None, :])
+        if p > 1:
+            xBC = _heads_channels(xBC, mesh, d_inner, n_groups, d_state)
         xs, B, C = torch.split(xBC, split, dim=-1)
-        xs = xs.reshape(b, s, n_heads, head_dim)
-        B = B.reshape(b, s, n_groups, d_state)
-        C = C.reshape(b, s, n_groups, d_state)
+        xs = xs.reshape(b, s, h_l, head_dim)
+        B = B.reshape(b, s, g_l, d_state)
+        C = C.reshape(b, s, g_l, d_state)
         y, _ = _ssd_chunked(xs.float(), dt, A, B.float(), C.float(), chunk)
-        y = y + xs.float() * params["D"][None, None, :, None]
+        y = y + xs.float() * params["D"][heads][None, None, :, None]
     else:
         # single-token decode
         window = torch.cat([state["conv"], xBC], dim=1)   # [B, K, conv]
@@ -665,9 +752,9 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
         new_state = {"conv": window[:, 1:],
                      "ssm": ssm_new.to(state["ssm"].dtype)}
 
-    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = y.reshape(b, s, h_l * head_dim).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm_apply(params["norm"], y)
+    y = rmsnorm_apply(params["norm"], y, mesh=mesh)
     out = linear_apply(params["out_proj"], y, cfg)
     return out, new_state
 

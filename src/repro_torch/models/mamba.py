@@ -62,12 +62,13 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 
 def _mixer(lp, x, cfg: ModelConfig, jcfg: JigsawConfig, state=None):
-    h = L.rmsnorm_apply(lp["norm"], x)
+    mesh = L.mesh_1d(jcfg)
+    h = L.rmsnorm_apply(lp["norm"], x, mesh=mesh)
     out, new_state = L.mamba2_apply(
         lp["mixer"], h, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
         conv_kernel=cfg.ssm_conv, chunk=cfg.ssm_chunk, cfg=jcfg,
-        state=state)
+        state=state, mesh=mesh)
     return x + out, new_state
 
 
@@ -79,13 +80,20 @@ def apply(params, batch, cfg: ModelConfig,
     autograd recording, each layer is checkpointed
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
     its scan body): only its input is kept, and its forward, the SSD
-    kernel's launch among it, runs again in the backward."""
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    kernel's launch among it, runs again in the backward.
+
+    Under ``scheme="1d"`` (a 1-D model mesh) the rank's blocks, as
+    ``transformer.apply``'s: the embedding's vocab rows reduce-scattered
+    over D, the residual stream [B, S, D/p], each mixer on the rank's
+    heads (``layers.mamba2_apply``), the norms over the cut features, and
+    the tied head's vocab block of the logits [B, S, vocab_padded / p]."""
+    mesh = L.mesh_1d(jcfg)
+    x = L.embed_apply(params["embed"], batch["tokens"], mesh=mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         x, _ = (checkpoint(_mixer, lp, x, cfg, jcfg, use_reentrant=False)
                 if remat else _mixer(lp, x, cfg, jcfg))
-    x = L.rmsnorm_apply(params["final_norm"], x)
+    x = L.rmsnorm_apply(params["final_norm"], x, mesh=mesh)
     logits = L.unembed_apply(params["embed"], x, jcfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -19,25 +19,32 @@ def module_for(cfg: ModelConfig):
     return _FAMILY_MODULE[cfg.family]
 
 
+def param_rule(cfg: ModelConfig, scheme: str):
+    """The leaf rule ``(path, ndim) -> Spec`` of the family's parameters
+    under a sharded ``scheme``: WeatherMixer's own, or the language
+    models' one 1-D rule (``transformer.param_spec_1d``, every family's
+    tree)."""
+    mod = weathermixer if cfg.family == "mixer" else transformer
+    return mod.PARAM_SPECS[scheme]
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return module_for(cfg).init(cfg, seed=seed, device=device)
-
-
-# the language-model families that run on a 1-D model mesh
-# (``jcfg.scheme="1d"``: the transformer's rank blocks)
-LM_MESH_FAMILIES = ("dense", "vlm")
 
 
 def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
                   scheme: str = "1d") -> None:
     """What the port cannot lay out of a language model raises:
-    NotImplementedError, naming ROADMAP.md's queue 1 item 19, for the moe,
-    ssm, hybrid and audio families on a model mesh (``model`` ranks > 1),
-    for the dense and VLM families on a 2-D one (``scheme``), and for the
-    FSDP hybrid's cut of any language model over data (``fsdp``); ValueError
-    where ``model`` does not divide ``n_heads``, ``d_model``, ``d_ff`` or
-    ``vocab_padded`` (the reference pads such dims through GSPMD; the
-    port's blocks are exact)."""
+    NotImplementedError, naming ROADMAP.md's queue 1 item 19, for the FSDP
+    hybrid's cut over more than one data rank (``fsdp``: the caller passes
+    it only then) and for a 2-D model mesh (``scheme``); ValueError where
+    ``model`` does not divide a dim it cuts (the reference pads such dims
+    through GSPMD; the port's blocks are exact): the heads, the widths,
+    the experts (expert parallelism), the Mamba-2 heads, inner width and
+    conv channels (``in_xbc`` and ``conv_w`` are cut in blocks of
+    channels), its groups where there is more than one (each rank runs
+    whole groups), and the padded vocabulary.  Every language-model
+    family runs on a 1-D model mesh."""
     if cfg.family == "mixer":
         return
     if fsdp:
@@ -47,14 +54,21 @@ def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
             "1 item 19); use a data or 1-D model mesh without it")
     if model <= 1:
         return
-    if cfg.family not in LM_MESH_FAMILIES or scheme == "2d":
+    if scheme == "2d":
         raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family!r}) on a {scheme} model mesh of "
-            f"{model} ranks: only the dense and VLM families train on a "
-            "1-D model mesh (ROADMAP.md, queue 1 item 19); use a data-only "
-            "mesh")
+            f"{cfg.arch_id} ({cfg.family!r}) on a 2-D model mesh of "
+            f"{model} ranks: a language model trains on a 1-D model mesh "
+            "(ROADMAP.md, queue 1 item 19); use --scheme 1d")
     dims = {"n_heads": cfg.n_heads, "d_model": cfg.d_model,
             "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded}
+    if cfg.n_experts:
+        dims["n_experts"] = cfg.n_experts
+    if cfg.family in ("ssm", "hybrid"):
+        dims.update(ssm_heads=cfg.ssm_heads, d_inner=cfg.ssm_d_inner,
+                    conv_dim=cfg.ssm_d_inner
+                    + 2 * cfg.ssm_groups * cfg.ssm_state)
+        if cfg.ssm_groups > 1:
+            dims["ssm_groups"] = cfg.ssm_groups
     bad = {k: v for k, v in dims.items() if v % model}
     if bad:
         raise ValueError(f"{cfg.arch_id} on a model mesh of {model} ranks: "
@@ -63,9 +77,9 @@ def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
 
 def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, **kw):
     """The training forward: (prediction, aux); the mixer family takes
-    ``rollout``.  Under ``scheme="1d"`` the mixer, dense and VLM families
-    run on the rank's blocks; what the port cannot lay out there raises
-    (``check_lm_mesh`` on the config's mesh)."""
+    ``rollout``.  Under ``scheme="1d"`` every family runs on the rank's
+    blocks; a language model's layout is checked on the config's mesh
+    (``check_lm_mesh``)."""
     if jcfg.scheme == "1d":
         check_lm_mesh(cfg, jcfg.mesh_1d.p)
     return module_for(cfg).apply(params, batch, cfg, jcfg, **kw)

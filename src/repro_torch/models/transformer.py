@@ -24,15 +24,18 @@ MoE layer routes with ``cfg.capacity_factor`` in ``apply`` and
 with ``n_experts`` in ``decode_step`` (the reference's rule: a decode
 step never drops), and ``apply`` returns the sum of their aux losses.
 
-``scheme="1d"`` (training on a 1-D Jigsaw model mesh, the dense and VLM
-families; ``jcfg.mesh`` a ``Mesh1D`` of p ranks): each rank holds its
+``scheme="1d"`` (training on a 1-D Jigsaw model mesh; ``jcfg.mesh`` a
+``Mesh1D`` of p ranks): each rank holds its
 shard of the parameters by the reference's 1-D layout (``param_spec_1d``:
 every ``w`` cut along its contracting dim, the head's and the embedding
-table's vocab rows cut, the norms' scales whole) and the residual stream's
-block [B, S, D/p].  The embedding looks up the rank's vocab rows and
+table's vocab rows cut, the expert stacks cut on their expert dim, the
+norms' scales and the router whole) and the residual stream's block
+[B, S, D/p].  The embedding looks up the rank's vocab rows and
 reduce-scatters over D; every linear of a layer is ``jigsaw_linear`` (a
 reduce-scatter by ``jcfg.impl``), the attention runs the rank's heads
-(``layers.attention_apply``), the norms all-reduce their row sums over the
+(``layers.attention_apply``), a MoE layer the rank's experts on the
+all-gathered features (``layers.moe_apply``: expert parallelism), the
+norms all-reduce their row sums over the
 tp group; the head all-gathers the features and returns the rank's vocab
 block of the logits [B, S, V/p] (``core/api.py::head_apply``), which the
 loss reduces over the tp group (``train/loss.py::lm_nll_sharded``).  The
@@ -58,26 +61,34 @@ from repro_torch.models import layers as L
 
 FULL_WINDOW = 2 ** 30   # no sliding window
 # leaves every rank of a model mesh holds whole (the reference's
-# ``_REPLICATED``: the norms' scales and biases; ``pos``)
-_REPLICATED = {"scale", "bias", "pos"}
+# ``_REPLICATED``: the norms' scales and biases, Mamba-2's A_log, D and
+# dt_bias; ``pos``; its depthwise conv's bias, which no rule of the
+# reference's cuts)
+_REPLICATED = {"scale", "bias", "pos", "A_log", "D", "dt_bias", "conv_b"}
 
 
 def param_spec_1d(path: Sequence[Any], ndim: int) -> Spec:
-    """The 1-D spec of the leaf at ``path`` (the 1-D rule of
-    ``repro/launch/specs.py:67-107`` for the language models): every
-    ``w`` [out, in] on its contracting (last) dim but the untied head's,
-    which cuts its vocab (out) dim, as the embedding ``table`` [V, D]
-    does; every ``b`` on its (last) dim; the norms' ``scale`` and ``bias``
-    (the qk-norm's too) and ``pos`` whole."""
+    """The 1-D spec of the leaf at ``path`` in any language model's tree
+    (the 1-D rule of ``repro/launch/specs.py:41-107``, without the FSDP
+    hybrid's data entries): every ``w`` [out, in] on its contracting
+    (last) dim but the untied head's, which cuts its vocab (out) dim, as
+    the embedding ``table`` [V, D] does; every ``b`` on its (last) dim;
+    the MoE's expert stacks [E, F, D] / [E, D, F] on their expert dim
+    (expert parallelism); Mamba-2's ``conv_w`` [K, conv_dim] and whisper's
+    ``dec_pos`` [4096, D] on their last dim; the router, the norms'
+    ``scale`` and ``bias`` (the qk-norm's too), Mamba-2's ``A_log``,
+    ``D``, ``dt_bias`` and ``conv_b``, and ``pos`` whole."""
     name = path[-1]
     parent = path[-2] if len(path) > 1 else ""
     dims: list = [None] * ndim
-    if name in _REPLICATED:
+    if name in _REPLICATED or parent == "router":
         return tuple(dims)
     if (name == "w" and parent == "lm_head") or name == "table":
         dims[-2] = MODEL_AXIS
-    elif name in ("w", "b"):
+    elif name in ("w", "b", "conv_w", "dec_pos"):
         dims[-1] = MODEL_AXIS
+    elif parent == "experts":
+        dims[-3] = MODEL_AXIS
     else:
         raise ValueError(f"no 1-D layout for parameter "
                          f"{'/'.join(map(str, path))}")
@@ -157,8 +168,8 @@ def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
                  aux_in=0.0, mesh=None):
     """One decoder layer: (x, the layer's new cache or collected k/v, the
     aux loss ``aux_in`` plus the MoE layer's).  With ``mesh`` (a 1-D model
-    mesh) x is the rank's feature block and the attention runs the rank's
-    heads."""
+    mesh) x is the rank's feature block, the attention runs the rank's
+    heads and the MoE the rank's experts."""
     h = _norm_apply(cfg, lp["attn_norm"], x, mesh)
     attn_out, new_cache = L.attention_apply(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -172,7 +183,7 @@ def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
         # decode: a few tokens in flight; never drop (capacity >= tokens)
         cf = cfg.capacity_factor if kv_cache is None else float(cfg.n_experts)
         out, aux = L.moe_apply(lp["moe"], h, top_k=cfg.top_k,
-                               capacity_factor=cf, cfg=jcfg)
+                               capacity_factor=cf, cfg=jcfg, mesh=mesh)
         aux_in = aux_in + aux
     else:
         out = L.ffn_apply(lp["ffn"], h, jcfg)
@@ -202,7 +213,7 @@ def apply(params, batch, cfg: ModelConfig,
     its scan body): only its inputs are kept, and its forward runs again
     in the backward (the MoE routing has nothing random, so it routes the
     same)."""
-    mesh = jcfg.mesh_1d if jcfg.scheme == "1d" else None
+    mesh = L.mesh_1d(jcfg)
     x = L.embed_apply(params["embed"], batch["tokens"], mesh=mesh)
     if batch.get("embeds") is not None:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)

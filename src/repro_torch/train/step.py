@@ -7,9 +7,10 @@ language models (dense, VLM, moe, audio, ssm, hybrid) the next-token
 cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss.  A
 language model trains on one device, on a data-only mesh (``jcfg.mesh``
 a ``Mesh1D`` of one model rank under ``scheme="none"``: every rank holds
-the whole model and its data rank's rows) or, the dense and VLM families,
-on a 1-D model mesh (``scheme="1d"``: each rank its shard, the logits cut
-by vocab and the loss reduced over the tp group, ``losses.lm_nll_sharded``).
+the whole model and its data rank's rows) or on a 1-D model mesh
+(``scheme="1d"``, every family: each rank its shard, the logits cut by
+vocab and the loss reduced over the tp group, ``losses.lm_nll_sharded``;
+the MoE's aux counted once over the model group, ``lm_loss_fn``).
 
 Autograd takes the place of ``jax.value_and_grad``: the step runs the
 forward on detached views of the parameters that require grad (no copy),
@@ -66,7 +67,13 @@ def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
     sums of the parts.  On a 1-D model mesh every rank of a model group
     holds the same NLL of its rows (``losses.lm_nll_sharded``, whose
     gradient reaches only the rank's vocab block), so the counts and the
-    metrics are summed over the data group alone."""
+    metrics are summed over the data group alone.  Every rank there also
+    holds the same whole aux (each MoE layer routes the gathered features
+    with the whole router: ``layers.moe_apply``), and its gradient would
+    be summed over the model group p times (the router's, a whole leaf,
+    in ``value_and_grad``; the features', in the gather's backward): the
+    objective takes aux over the model extent, so the p parts count it
+    once, while the metric stays whole."""
     logits, aux = M.apply(params, batch, cfg, jcfg)
     labels = batch["labels"]
     if cfg.family == "vlm":
@@ -89,7 +96,8 @@ def lm_loss_fn(params, batch, cfg: ModelConfig, jcfg: JigsawConfig):
     nll = (per * w).sum() / torch.clamp(count, min=1.0)
     aux = aux / mesh.data_size
     sums = comm.all_reduce_(torch.stack([nll, aux]).detach(), group)
-    return nll + AUX_WEIGHT * aux, {
+    part = aux / mesh.tp_size if jcfg.scheme == "1d" else aux
+    return nll + AUX_WEIGHT * part, {
         "loss": sums[0] + AUX_WEIGHT * sums[1], "nll": sums[0],
         "aux": sums[1]}
 
@@ -147,7 +155,7 @@ def leaf_specs(params, cfg: ModelConfig, jcfg: JigsawConfig, specs=None):
     if jcfg.fsdp and jcfg.rank_mesh.data_size > 1:
         raise ValueError("the FSDP hybrid's layout needs the shards' specs "
                          "(launch/specs.py::param_specs, sanitized)")
-    spec = M.module_for(cfg).PARAM_SPECS[jcfg.scheme]
+    spec = M.param_rule(cfg, jcfg.scheme)
     return ptree.map_with_path(lambda path, p: spec(path, p.ndim), params)
 
 

@@ -1420,6 +1420,26 @@ def test_vocab_head_gather_through_ipc(cuda, tmp_path, n):
                               "reduce_scatter": (n - 1) * res["dx_bytes"]}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_feature_scatter_through_ipc(cuda, tmp_path, n):
+    """The expert-parallel MoE's reduce-scatter of its partial outputs
+    (``fused_ring.scatter_features``) on n processes of one card, hops
+    through the ring workspace's IPC slots: each rank's chunk of the sum
+    of every rank's x, added in f32 in the ring's order and rounded once
+    to bf16 (bit for bit the f32 sum at n = 2, one add; at n = 3 a
+    rounding may land one bf16 step away: 2^-7 of the max); its backward
+    the rank-ordered all-gather of the cotangents, bit for bit; the bytes
+    counted under the caller's label in ``fused_ring.ipc_bytes``, none
+    through host memory."""
+    for res in _run_ranks("--scatter-rank", tmp_path, n):
+        assert res["fwd_err"] <= (0.0 if n == 2 else 2.0 ** -7), res
+        assert res["bwd_equal"] and res["through_host"] == 0, res
+        assert res["ipc"] == {
+            "moe/reduce_scatter": (n - 1) * res["chunk_f32_bytes"],
+            "moe/all_gather": (n - 1) * res["chunk_bytes"]}, res
+
+
 # the collectives the port calls, run on CUDA tensors under gloo without
 # staging; which of them gloo takes is what comm.GLOO_CUDA_OPS records
 _PROBES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
@@ -1532,6 +1552,42 @@ def _vocab_rank_main(r, n, init, out_dir):
                dx_bytes=4 * dx.numel())
     RING.release_workspaces()
     (Path(out_dir) / f"--vocab-rank{r}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _scatter_rank_main(r, n, init, out_dir):
+    """One rank of ``test_feature_scatter_through_ipc``: every rank draws
+    every rank's x and cotangent from one seed, so each knows the whole."""
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.kernels import fused_ring
+    from repro_torch.launch.mesh import make_ring_mesh
+    os.environ["LOCAL_RANK"] = str(r)
+    dist.init_process_group("gloo", init_method=init, rank=r, world_size=n)
+    mesh = make_ring_mesh(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dl = 40
+    xs = [torch.randn(2, 48, n * dl, generator=gen, device="cuda")
+          .to(torch.bfloat16) for _ in range(n)]
+    dys = [torch.randn(2, 48, dl, generator=gen, device="cuda")
+           .to(torch.bfloat16) for _ in range(n)]
+    fused_ring.ipc_bytes.clear()
+    comm.through_host_bytes.clear()
+    x = xs[r].clone().requires_grad_()
+    got = fused_ring.scatter_features(x, mesh.tp_group, n, r, "moe")
+    (dx,) = torch.autograd.grad(got, (x,), dys[r])
+    total = torch.stack([t.float() for t in xs]).sum(0)
+    want = total[..., r * dl:(r + 1) * dl].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    res = dict(fwd_err=float((got.float() - want.float()).abs().max()
+                             / want.float().abs().max()),
+               bwd_equal=bool(torch.equal(dx, torch.cat(dys, -1))),
+               through_host=sum(comm.through_host_bytes.values()),
+               ipc=dict(fused_ring.ipc_bytes),
+               chunk_bytes=dys[r].numel() * dys[r].element_size(),
+               chunk_f32_bytes=4 * got.numel())
+    RING.release_workspaces()
+    (Path(out_dir) / f"--scatter-rank{r}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
@@ -1666,6 +1722,7 @@ if __name__ == "__main__":
     mode, rank, n, init, out, *extra = sys.argv[1:]
     main = {"--ring-rank": _ring_rank_main,
             "--vocab-rank": _vocab_rank_main,
+            "--scatter-rank": _scatter_rank_main,
             "--cannon-rank": _cannon_rank_main,
             "--data-rank": _data_rank_main,
             "--gloo-probe": _gloo_probe_main}[mode]

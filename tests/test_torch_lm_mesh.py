@@ -369,25 +369,31 @@ def test_param_specs_match_reference(arch):
 
 
 def test_param_specs_of_other_families_and_2d():
-    """The moe, ssm, hybrid and audio families keep whole leaves (their
-    data-only layout), and so does a dense LM under 2-D rules (no language
-    model runs on a 2-D model mesh: ``check_lm_mesh`` refuses it); the
-    FSDP cut of a language model raises naming item 19."""
+    """The moe, ssm, hybrid and audio families take the same 1-D rule as
+    the dense ones (``tests/test_torch_lm_mesh_zoo.py`` holds their trees
+    to the reference's), with no FSDP data entry where the config cuts over
+    data; a dense LM under 2-D rules keeps whole leaves (no language model
+    runs on a 2-D model mesh: ``check_lm_mesh`` refuses it); the FSDP cut
+    of a language model over two data ranks raises naming item 19."""
+    params = {"embed": {"table": np.zeros((8, 4))},
+              "layers": [{"w": np.zeros((4, 4))}]}
     for arch in ("phi3.5-moe-42b-a6.6b", "mamba2-130m", "whisper-small"):
         cfg = get_config(arch).reduced()
-        params = {"embed": {"table": np.zeros((8, 4))},
-                  "layers": [{"w": np.zeros((4, 4))}]}
         assert specs.param_specs(params, cfg, RULES_1D) == {
-            "embed": {"table": (None, None)}, "layers": [{"w": (None, None)}]}
+            "embed": {"table": ("model", None)},
+            "layers": [{"w": (None, "model")}]}
     cfg = get_config("internlm2-1.8b").reduced()
+    assert specs.param_specs(params, cfg.replace(
+        shard_params_over_data=True), RULES_1D) == specs.param_specs(
+            params, cfg, RULES_1D)
     params = {"embed": {"table": np.zeros((8, 4))}}
     assert specs.param_specs(params, cfg, RULES_2D) == {
         "embed": {"table": (None, None)}}
     with pytest.raises(NotImplementedError, match="item 19"):
         specs.check_lm_mesh(cfg, 4, scheme="2d")
     with pytest.raises(NotImplementedError, match="item 19"):
-        specs.param_specs(params, cfg.replace(shard_params_over_data=True),
-                          RULES_1D)
+        specs.check_lm_mesh(cfg.replace(shard_params_over_data=True), 2,
+                            fsdp=True)
 
 
 def test_cost_model_of_a_dense_lm_on_a_model_mesh_matches_reference():
@@ -531,16 +537,19 @@ def test_save_on_a_model_mesh_raises(launched):
                                   "whisper-small"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_other_families_on_a_model_mesh_raise(arch, device):
-    """The moe, ssm, hybrid and audio families on a model mesh raise
-    NotImplementedError naming item 19, before any process group is joined,
-    on either device; so does ``registry.apply`` under a 1-D model mesh."""
+    """The moe, ssm, hybrid and audio families train on a 1-D model mesh
+    (``tests/test_torch_lm_mesh_zoo.py``); on a 2-D model mesh, and with
+    the FSDP hybrid's cut over two data ranks, they raise
+    NotImplementedError naming item 19, before any process group is
+    joined, on either device."""
     with pytest.raises(NotImplementedError, match="item 19"):
-        TrainEngine(arch, device=device, mesh_model=2,
+        TrainEngine(arch, device=device, mesh_model=4, scheme="2d",
                     config=EngineConfig(steps=1, batch=2))
-    cfg = get_config(arch).reduced()
-    jcfg = jigsaw_for(cfg.replace(scheme="1d")).replace(mesh=Mesh1D(p=2))
+    cfg = get_config(arch).replace(shard_params_over_data=True)
     with pytest.raises(NotImplementedError, match="item 19"):
-        M.apply({}, {}, cfg, jcfg)
+        TrainEngine(arch, device=device, mesh_model=2, mesh_data=2,
+                    config_override=cfg,
+                    config=EngineConfig(steps=1, batch=2))
 
 
 def test_fsdp_cut_and_2d_of_a_dense_lm_raise():

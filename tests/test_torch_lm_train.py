@@ -337,8 +337,9 @@ def test_token_source_rows_per_data_rank(arch):
 def test_lm_specs_match_reference():
     """``batch_specs`` of each LM family the reference's entry for entry;
     ``param_specs`` of a dense LM the 1-D layout (the table's vocab and a
-    weight's contracting dim on ``model``); their FSDP cut raises, naming
-    its queue item."""
+    weight's contracting dim on ``model``), with no FSDP data entry where
+    the config cuts over data; that cut over two data ranks raises,
+    naming its queue item."""
     def norm(spec):
         """One-axis tuples as the axis (JAX's PartitionSpec reads them
         so)."""
@@ -357,9 +358,11 @@ def test_lm_specs_match_reference():
     assert specs.param_specs(params, cfg, RULES_1D) == {
         "embed": {"table": ("model", None)},
         "layers": [{"w": (None, "model")}]}
+    fsdp = cfg.replace(shard_params_over_data=True)
+    assert specs.param_specs(params, fsdp, RULES_1D) == specs.param_specs(
+        params, cfg, RULES_1D)
     with pytest.raises(NotImplementedError, match="item 19"):
-        specs.param_specs(params, cfg.replace(shard_params_over_data=True),
-                          RULES_1D)
+        specs.check_lm_mesh(fsdp, 2, fsdp=True)
 
 
 # ---------------------------------------------------------------------------
@@ -459,13 +462,14 @@ def test_save_then_resume_equals_the_uninterrupted_run(tmp_path):
 
 
 def test_lm_on_a_model_mesh_raises():
-    """A language model of a family that does not train on a model mesh
-    (moe, audio) raises there before any process group is joined, naming
-    its queue item, on either device."""
+    """A language model (moe, audio) on a 2-D model mesh, which no
+    language model trains on, raises before any process group is joined,
+    naming its queue item, on either device (every family trains on a 1-D
+    model mesh: ``tests/test_torch_lm_mesh_zoo.py``)."""
     for arch in ("phi3.5-moe-42b-a6.6b", "whisper-small"):
         for device in ("cpu", "cuda"):
             with pytest.raises(NotImplementedError, match="item 19"):
-                TrainEngine(arch, device=device, mesh_model=2,
+                TrainEngine(arch, device=device, mesh_model=4, scheme="2d",
                             config=EngineConfig(steps=1, batch=2))
 
 

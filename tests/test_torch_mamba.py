@@ -88,11 +88,11 @@ def test_config_matches_reference():
 
 
 def test_lm_on_a_model_mesh_still_raises():
-    """The audio family on a model mesh raises, naming its queue item
-    (item 19; the dense and VLM families train there)."""
+    """mamba2-130m on a 2-D model mesh raises, naming its queue item (item
+    19; every family trains on a 1-D model mesh)."""
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     with pytest.raises(NotImplementedError, match="item 19"):
-        TrainEngine("whisper-small", device="cpu", mesh_model=2,
+        TrainEngine("mamba2-130m", device="cpu", mesh_model=4, scheme="2d",
                     config=EngineConfig(steps=1))
 
 

@@ -37,9 +37,9 @@ from repro_torch.convert import (gather_params_1d, params_from_numpy,
 from repro_torch.core import tree as ptree
 from repro_torch.core.api import JigsawConfig
 from repro_torch.core.jigsaw import jigsaw_linear, jigsaw_matmul_1d
-from repro_torch.core.sharding import RULES_1D, Mesh1D
+from repro_torch.core.sharding import Mesh1D
 from repro_torch.kernels import ref, ring
-from repro_torch.launch.specs import param_specs
+from repro_torch.launch.specs import check_lm_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PS = (2, 4)
@@ -408,7 +408,7 @@ def test_one_process_ring_fwd_with_odd_rows_is_the_plain_forward(p):
 def test_bad_inputs_raise(case, exc):
     """Inputs the 1-D path does not take raise before any collective: an
     out dim p does not divide, the impls that are not ported, the FSDP
-    hybrid's layout for a family whose layout is not ported, an FSDP
+    hybrid's cut of a language model over two data ranks, an FSDP
     linear with no bias to tell its whole out dim, blocks that do not
     contract, a ring step outside its chunks or with mismatched
     buffers."""
@@ -424,8 +424,8 @@ def test_bad_inputs_raise(case, exc):
         elif case == "config_gspmd":
             JigsawConfig(scheme="1d", impl="gspmd")
         elif case == "config_fsdp":
-            param_specs({}, get_config("mamba2-130m").replace(
-                scheme="1d", shard_params_over_data=True), RULES_1D)
+            check_lm_mesh(get_config("mamba2-130m").replace(
+                scheme="1d", shard_params_over_data=True), 2, fsdp=True)
         elif case == "fsdp_no_bias":
             jigsaw_linear(x, w, mesh=Mesh1D(p=2, r=0, data_size=2),
                           fsdp=True)

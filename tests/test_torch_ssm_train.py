@@ -534,11 +534,12 @@ def test_cli_history_matches_reference_engine(arch, tmp_path,
 
 
 def test_engine_keeps_item_19_refusals():
-    """Training the two families is open; a model mesh, and jamba's FSDP
-    cut over a data mesh, still raise naming item 19."""
+    """Training the two families is open, on a 1-D model mesh too; a 2-D
+    model mesh, and jamba's FSDP cut over a data mesh, still raise naming
+    item 19."""
     for arch in ARCHS:
         with pytest.raises(NotImplementedError, match="item 19"):
-            TrainEngine(arch, device="cpu", mesh_model=2,
+            TrainEngine(arch, device="cpu", mesh_model=4, scheme="2d",
                         config=EngineConfig(steps=1, batch=2))
     cfg = get_config(ARCHS[1])
     assert cfg.shard_params_over_data

@@ -66,7 +66,7 @@ PORTED = {"internlm2-1.8b": internlm2_1_8b, "h2o-danube-1.8b": h2o_danube_1_8b,
           "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b,
           "jamba-1.5-large-398b": jamba_1_5_large_398b}
 # what the port still refuses of these ids, by id: the audio family on a
-# model mesh (queue 1 item 19), and training the ssm and hybrid families (item 18)
+# 2-D model mesh (queue 1 item 19); the ssm and hybrid families train
 REFUSED = ["whisper-small", "mamba2-130m", "jamba-1.5-large-398b"]
 
 # the reduced configs the model tests run, by the cache each decodes on:
@@ -170,9 +170,9 @@ def test_param_count_matches_reference(arch):
 @pytest.mark.parametrize("arch", REFUSED)
 def test_unported_ids_still_raise(arch):
     """Every id is served (config, init), and what is still unported
-    raises NotImplementedError naming its queue item: whisper-small (the
-    audio family, which does not train on a model mesh) on one.  The ssm and hybrid families train: one
-    ``loss_fn`` call on a token batch is finite."""
+    raises NotImplementedError naming its queue item: whisper-small on a
+    2-D model mesh (every family trains on a 1-D one).  The ssm and hybrid
+    families train: one ``loss_fn`` call on a token batch is finite."""
     from repro_torch.data.pipeline import make_source
     from repro_torch.launch.engine import EngineConfig, TrainEngine
     from repro_torch.launch.shapes import jigsaw_for
@@ -189,7 +189,7 @@ def test_unported_ids_still_raise(arch):
         assert bool(torch.isfinite(loss))
     else:
         with pytest.raises(NotImplementedError, match="item 19"):
-            TrainEngine(arch, device="cpu", mesh_model=2,
+            TrainEngine(arch, device="cpu", mesh_model=4, scheme="2d",
                         config=EngineConfig(steps=1))
 
 

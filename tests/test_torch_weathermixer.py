@@ -98,13 +98,13 @@ def test_configs_match_reference():
 
 def test_registry_raises_for_unported_families():
     """Every family's config is served; what is still unported raises
-    naming its ROADMAP item (a language model on a model mesh), and an
-    unknown id is a KeyError."""
+    naming its ROADMAP item (a language model on a 2-D model mesh), and
+    an unknown id is a KeyError."""
     assert get_config("weathermixer-1b") == wm_cfg.CONFIG
     assert get_config("whisper-small").family == "audio"
     from repro_torch.launch.specs import check_lm_mesh
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_lm_mesh(get_config("mamba2-130m"), 2)
+        check_lm_mesh(get_config("mamba2-130m"), 4, scheme="2d")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
