@@ -407,6 +407,31 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      columns among them), ``ssd_shape`` (4) and ``ssd_bwd_shape`` the SSD
      kernels at 12 heads of one group and at jamba's 4 of 4 groups, and
      block_matmul the heads' and phi3.5's router's per-rank shapes;
+  19d. ``lm_1d_serve``: serving every family on the same mesh
+     (``--lm-1d-serve-rank``), ``serve/step.py::generate`` with each
+     rank's block of the cache laid out by the reference's
+     ``cache_specs``, impl="ring_fused", each model freed before the
+     next: h2o-danube-1.8b whole in the heads mode (4 of its 8 kv heads a
+     rank; batch 4, a 128-token prompt through the fused prefill, 16
+     greedy tokens), h2o cut to 4 layers with kv_shard="seq" (the
+     window's cache slots cut over the ranks), mamba2-130m whole (12 of
+     24 heads a rank), whisper-small whole (the encoder's states cut on
+     D), phi3.5 at its published width cut to 2 layers (8 of 16 experts
+     a rank) and jamba reduced.  Each in f32 (the weights up-cast):
+     the prefill's and 2-6 teacher-forced decode steps' logits against
+     the one-device ``decode_step`` on the same weights within
+     ``SERVE_TOL``; then in its own dtypes the mesh's greedy tokens
+     (``prefill`` and ``make_serve_step``'s steps, as ``generate`` runs
+     them), how many agree with the one-device ``generate``'s, the
+     launches of a decode step equal to ``lm_1d_serve_calls`` (and the
+     run's to it times the steps), ms
+     of the prefill and a token on each rank beside the one-device graphed
+     figure of PERF.md §5, the peak a rank with the ring's slots, the
+     bytes a step moves through host and through the IPC slots, and the
+     step's bytes bound at the rank's shapes.  block_matmul at the decode
+     steps' per-rank shapes first (the heads, phi3.5's router), and
+     ``ring_shape`` (7) holds ring_fwd at the decode steps' per-rank
+     shapes (``LM_SERVE_RING_SHAPES``: M = 4 rows, the forward alone);
   20. the ``kernels`` line, the card's name and power limit, and the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -2140,7 +2165,7 @@ def ring_bound_ms(rows, d_l, m, p, dtype_name, bwd, dx=True):
                                        else "bytes")
 
 
-def ring_phase(torch, BM, RING, WX, ref):
+def ring_phase(torch, BM, RING, WX, ref, only_serve=False):
     """p ranks held in one process (rank r's destination is rank r+1's
     slot; the order of the launches on one stream is the barrier), at each
     full-width 1-D linear for p = 2 and 4 in bf16, and tok_fc1 at p = 2 in
@@ -2157,7 +2182,10 @@ def ring_phase(torch, BM, RING, WX, ref):
     the adds) and the bound; each row names every operand's load path
     (the bf16 TMA plans), each kernel's registers, local and shared bytes,
     and both steps' tiles and waves.  On one card a hop is
-    a store into device memory, not an NVLink write."""
+    a store into device memory, not an NVLink write.  The decode steps'
+    shapes (``LM_SERVE_RING_SHAPES``, M = 4 rows: serving has no
+    backward) hold and time the forward alone; ``only_serve`` runs only
+    them."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [(p, shape, "bfloat16") for p in RING_PS for shape in RING_SHAPES]
     cases.append((2, RING_SHAPES[1], "float32"))
@@ -2165,6 +2193,8 @@ def ring_phase(torch, BM, RING, WX, ref):
     # mamba2-130m's, phi3.5's and whisper's at a rank of lm_1d_zoo's two
     cases += [(LM_1D_P, shape, "bfloat16") for shape in LM_RING_SHAPES]
     cases += [(ZOO_P, shape, "bfloat16") for shape in ZOO_RING_SHAPES]
+    serve = [(SERVE_P, shape, "bfloat16") for shape in LM_SERVE_RING_SHAPES]
+    cases = serve if only_serve else cases + serve
     rows_out, worst = [], {"fwd": 0.0, "bwd": 0.0}
     for p, (label, rows, d, m, n_fwd, n_bwd), name in cases:
         dtype = getattr(torch, name)
@@ -2194,41 +2224,59 @@ def ring_phase(torch, BM, RING, WX, ref):
                   for a, b in zip(outs, plain)),
               f"ring_fwd {label} p={p} {name} vs plain: {fwd_err:.3e}")
         del outs, plain
-        dxs, dws, accs = RING.ring_bwd_all(xs, ws, dys)
-        torch.cuda.synchronize()
-        gathered = torch.cat(dys, dim=1)
-        check(all(torch.equal(dw, BM.block_matmul(gathered, x, x_t=True,
-                                                  w_t=True))
-                  for dw, x in zip(dws, xs)),
-              f"ring_bwd {label} p={p} {name}: dw not bit for bit "
-              "block_matmul's")
-        check(all(torch.equal(dx, a.to(dtype)) for dx, a in zip(dxs, accs)),
-              f"ring_bwd {label} p={p} {name}: dx is not its accumulator "
-              "rounded")
-        del gathered, dxs, dws
-        _, _, paccs = ref.ring_bwd_all_ref(xs, ws, dys)
-        dx_err = max(rel_err(a, b) for a, b in zip(accs, paccs))
-        dx_abs = max(float((a - b).abs().max())
-                     for a, b in zip(accs, paccs))
-        check(dx_err <= RING_DX_TOL,
-              f"ring_bwd {label} p={p} {name}: dx accumulator vs plain "
-              f"{dx_err:.3e}")
-        del paccs
-        if name == "bfloat16":
-            for r in range(p):
-                loop = None
-                for s in range(p):
-                    j = (r - s) % p
-                    loop = WX.wx(dys[j], ws[r][j * mc:(j + 1) * mc][None],
-                                 loop)
-                check(torch.equal(accs[r], loop[0]),
-                      f"ring_bwd {label} p={p} {name}: dx accumulator of "
-                      f"rank {r} not bit for bit the wx step loop")
-                del loop
-        del accs
+        if not n_bwd:
+            # a decode step's other row counts (batch 1 and 8): the same
+            # ring of block_matmul's products, bit for bit
+            for few in (1, 8):
+                xf = [torch.randn(few, dl, generator=gen,
+                                  device="cuda").to(dtype) for _ in xs]
+                parts = [BM.block_matmul(x, w) for x, w in zip(xf, ws)]
+                check(all(torch.equal(a, b) for a, b in zip(
+                    RING.ring_fwd_all(xf, ws), ref.ring_walk_all(
+                        lambda r, j: parts[r][:, j * mc:(j + 1) * mc], p,
+                        dtype, torch.float32))),
+                      f"ring_fwd {label} p={p} {name} at {few} rows: not "
+                      "bit for bit the ring of block_matmul's products")
+                del xf, parts
+        dx_err = dx_abs = None
+        if n_bwd:
+            dxs, dws, accs = RING.ring_bwd_all(xs, ws, dys)
+            torch.cuda.synchronize()
+            gathered = torch.cat(dys, dim=1)
+            check(all(torch.equal(dw, BM.block_matmul(gathered, x, x_t=True,
+                                                      w_t=True))
+                      for dw, x in zip(dws, xs)),
+                  f"ring_bwd {label} p={p} {name}: dw not bit for bit "
+                  "block_matmul's")
+            check(all(torch.equal(dx, a.to(dtype))
+                      for dx, a in zip(dxs, accs)),
+                  f"ring_bwd {label} p={p} {name}: dx is not its accumulator "
+                  "rounded")
+            del gathered, dxs, dws
+            _, _, paccs = ref.ring_bwd_all_ref(xs, ws, dys)
+            dx_err = max(rel_err(a, b) for a, b in zip(accs, paccs))
+            dx_abs = max(float((a - b).abs().max())
+                         for a, b in zip(accs, paccs))
+            check(dx_err <= RING_DX_TOL,
+                  f"ring_bwd {label} p={p} {name}: dx accumulator vs plain "
+                  f"{dx_err:.3e}")
+            del paccs
+            if name == "bfloat16":
+                for r in range(p):
+                    loop = None
+                    for s in range(p):
+                        j = (r - s) % p
+                        loop = WX.wx(dys[j], ws[r][j * mc:(j + 1) * mc][None],
+                                     loop)
+                    check(torch.equal(accs[r], loop[0]),
+                          f"ring_bwd {label} p={p} {name}: dx accumulator of "
+                          f"rank {r} not bit for bit the wx step loop")
+                    del loop
+            del accs
         torch.cuda.empty_cache()
         worst["fwd"] = max(worst["fwd"], fwd_err)
-        worst["bwd"] = max(worst["bwd"], dx_abs)
+        if n_bwd:
+            worst["bwd"] = max(worst["bwd"], dx_abs)
 
         # rank 0's p launches of one ring call, as the ring runs them
         x, w, dy = xs[0], ws[0], dys[0]
@@ -2319,8 +2367,9 @@ def ring_phase(torch, BM, RING, WX, ref):
                     if padded else 0.0)
 
         row = dict(shape=label, p=p, rows=rows, d=d, m=m, dtype=name,
-                   fwd_calls_per_train_step=n_fwd,
+                   fwd_calls_per_train_step=n_fwd if n_bwd else 0,
                    bwd_calls_per_train_step=n_bwd,
+                   calls_per_decode_step=0 if n_bwd else n_fwd,
                    fwd_route="sm90" if bf16 else "f32",
                    fwd_loads=fwd_loads, bwd_loads=bwd_loads,
                    fwd_kernel=RING.kernel_attrs(2 if bf16 else 3),
@@ -2336,7 +2385,8 @@ def ring_phase(torch, BM, RING, WX, ref):
                    dx_acc_bitwise_wx_step_loop=bf16)
         for kind, kernel, plain_fn, lib in (
                 ("fwd", fwd_kernel, fwd_plain, fwd_library),
-                ("bwd", bwd_kernel, bwd_plain, bwd_library)):
+                ("bwd", bwd_kernel, bwd_plain, bwd_library))[:1 + bool(
+                    n_bwd)]:
             bound, bound_by = ring_bound_ms(rows, dl, m, p, name,
                                             kind == "bwd", need_dx)
             row.update({f"{kind}_kernel_ms": cuda_ms(kernel),
@@ -2347,7 +2397,7 @@ def ring_phase(torch, BM, RING, WX, ref):
             work = 2e-9 * rows * m * dl * (1 + int(kind == "bwd"
                                                    and need_dx))
             row[f"{kind}_tflops"] = work / row[f"{kind}_kernel_ms"]
-        if need_dx:
+        if need_dx and n_bwd:
             row["bwd_dw_only_ms"] = cuda_ms(lambda: bwd_kernel(False))
         emit(phase="ring_shape", **row)
         rows_out.append(row)
@@ -5782,6 +5832,21 @@ ZOO_RING_SHAPES = [
     ("whisper.dec_fc1", _ZD, 768, 3072, 24, 12),
     ("whisper.dec_fc2", _ZD, 3072, 768, 24, 12)]
 ZOO_RING_PREFIXES = ("mamba.", "phi.", "whisper.")
+# the ring linears of a decode step at one rank of lm_1d_serve's two, M =
+# the batch's 4 rows: (label, rows, d, m, calls a decode step, 0: no
+# backward).  h2o-danube-1.8b's (24 layers): wq and wo, wk and wv, gate
+# and up, down; mamba2-130m's (24 layers): in_z, in_xbc, in_dt (24 heads:
+# chunks of 12 columns) and out_proj
+SERVE_ROWS = 4
+LM_SERVE_RING_SHAPES = [
+    ("serve.h2o.wq_wo", SERVE_ROWS, 2560, 2560, 48, 0),
+    ("serve.h2o.wk_wv", SERVE_ROWS, 2560, 640, 48, 0),
+    ("serve.h2o.gate_up", SERVE_ROWS, 2560, 6912, 48, 0),
+    ("serve.h2o.down", SERVE_ROWS, 6912, 2560, 24, 0),
+    ("serve.mamba.in_z", SERVE_ROWS, 768, 1536, 24, 0),
+    ("serve.mamba.in_xbc", SERVE_ROWS, 768, 1792, 24, 0),
+    ("serve.mamba.in_dt", SERVE_ROWS, 768, 24, 24, 0),
+    ("serve.mamba.out_proj", SERVE_ROWS, 1536, 768, 24, 0)]
 ZOO_KERNELS = ("block_matmul", "ring_fwd", "ring_bwd", "ssd_intra_chunk",
                "ssd_intra_heads_bwd")
 
@@ -6124,6 +6189,408 @@ def lm_1d_zoo_worker(rank, tmp):
         res["seconds"] = time.perf_counter() - t0
         out[arch] = res
     (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    RING.release_workspaces()
+    dist.destroy_process_group()
+    return 0
+
+
+# ``lm_1d_serve``: serving every LM family on a (data 1, model SERVE_P)
+# 1-D mesh of two rank processes sharing the card (``--lm-1d-serve-rank``:
+# gloo between them, the ring's slots and the features' hops mapped by
+# CUDA IPC), impl="ring_fused", kernel="pallas", one model's weights and
+# caches freed before the next.  Each case: (label, arch, the config's
+# changes, reduced, batch, prompt length, f32 teacher-forced steps, bf16
+# greedy tokens).  h2o whole in the heads mode (its 8 kv heads, 4 a rank),
+# h2o cut to 4 layers with kv_shard="seq" (the sliding window's cache
+# slots cut over the ranks), mamba2-130m whole (12 of its 24 heads a rank,
+# its conv channels re-laid to the heads through the IPC slots),
+# whisper-small whole (the encoder's states cut on D), phi3.5 at its
+# published width cut to 2 layers (8 of its 16 experts a rank) and jamba
+# reduced.  For each, in f32 (the weights up-cast, the cache f32): the
+# prompt's prefill (fused for the dense and moe archs, token by token for
+# the others, as ``serve/step.py``) and the teacher-forced decode steps
+# on the mesh against the one-device ``prefill_cache`` / ``decode_step``
+# on the same weights (rank 0), the logits max-normalised within
+# SERVE_TOL of the family (the CPU tests' bounds,
+# ``tests/test_torch_lm_mesh_serve.py``) beside two one-device controls
+# (``serve_f32_errors``); then, under the config's own dtypes, the greedy
+# serving loop on the mesh as ``generate`` runs it (``serve/step.py``'s
+# ``prefill``, then ``make_serve_step``'s steps: its launches counted from
+# 0 just before it, equal to ``lm_1d_serve_calls``'s a step times the
+# steps, and the first decode step's equal to it; ``generate`` itself,
+# eager on a mesh, gives the same tokens in SERVE_GENERATE's cases), its
+# greedy tokens beside the one-device ``generate``'s (graphed) and how
+# many agree; ms of the prefill and a decode token on each rank, the peak
+# a rank with the ring's slots, the bytes the first decode step moves
+# through host memory and through the IPC slots, and a step's bytes bound
+# at the rank's shapes (its weight shards and cache block read once);
+# beside them the one-device graphed ms a token of PERF.md §5
+# (SERVE_ONE_DEVICE_MS: other cuts of some of the models).
+SERVE_P = 2
+SERVE_CASES = [
+    ("h2o_heads", "h2o-danube-1.8b", {}, False, 4, 128, 2, 16),
+    ("h2o_seq", "h2o-danube-1.8b", {"n_layers": 4, "kv_shard": "seq"},
+     False, 4, 128, 6, 8),
+    ("mamba", "mamba2-130m", {}, False, 4, 2, 2, 4),
+    ("whisper", "whisper-small", {}, False, 4, 2, 2, 4),
+    ("phi", "phi3.5-moe-42b-a6.6b", {"n_layers": 2}, False, 4, 128, 6, 8),
+    ("jamba", "jamba-1.5-large-398b", {}, True, 4, 8, 6, 8)]
+SERVE_TOL = {"ssm": 1e-4, "hybrid": 1e-4}      # else 1e-5
+# the cases whose tokens generate itself also makes on the mesh (those of
+# cheap steps: each step is host-bound)
+SERVE_GENERATE = ("h2o_seq", "phi", "jamba")
+# PERF.md §5's one-device graphed decode steps (batch 4; h2o from a
+# 4,160-token prompt, phi3.5 at 4 layers, jamba at one full-width period of
+# 8 experts), ms a token, printed beside the mesh's (H100 80GB HBM3, 700 W)
+SERVE_ONE_DEVICE_MS = {"h2o-danube-1.8b": 41.32, "mamba2-130m": 5.35,
+                       "whisper-small": 7.37, "phi3.5-moe-42b-a6.6b": 9.91,
+                       "jamba-1.5-large-398b": 35.46}
+SERVE_KERNELS = ("block_matmul", "ring_fwd")
+
+
+def lm_1d_serve_calls(cfg, p):
+    """One rank's launches of a ring_fused decode step (and of a fused
+    prefill, the same linears once each) on p ranks, from the code: every
+    linear of a layer is one ring call, p ring_fwd launches (attention's
+    q, k, v, o; a Mamba-2 mixer's in_z, in_xbc, in_dt, out_proj; whisper's
+    cross attention's q, k, v, o beside its self attention; a dense FFN's
+    3 (SwiGLU) or 2 (GELU); a MoE layer's experts are einsums); the
+    vocab-parallel head is one block_matmul launch and each MoE layer's f32
+    router one more.  Also ``encode``: the ring launches of whisper's
+    encoder (``start_cache``, once a prompt)."""
+    ffn = 3 if cfg.ffn_kind == "swiglu" else 2
+    encode = 0
+    if cfg.family == "ssm":
+        linears, moe = 4 * cfg.n_layers, 0
+    elif cfg.family == "audio":
+        linears, moe = (8 + ffn) * cfg.n_layers, 0
+        encode = (4 + ffn) * cfg.n_enc_layers * p
+    elif cfg.family == "hybrid":
+        slots = [j % cfg.attn_every for j in range(cfg.n_layers)]
+        linears = sum(4 + (0 if cfg.is_moe_layer(j) else ffn) for j in slots)
+        moe = sum(bool(cfg.is_moe_layer(j)) for j in slots)
+    else:
+        moe = sum(bool(cfg.is_moe_layer(i)) for i in range(cfg.n_layers)) \
+            if cfg.n_experts else 0
+        linears = 4 * cfg.n_layers + ffn * (cfg.n_layers - moe)
+    return {"ring_fwd": linears * p, "block_matmul": 1 + moe}, encode
+
+
+def serve_case_cfg(arch, over, reduced):
+    """A case's config on the mesh (scheme 1d, ring_fused, pallas) and on
+    one device."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if reduced else cfg).replace(kernel="pallas",
+                                                      **over)
+    return (cfg.replace(scheme="1d", impl="ring_fused"),
+            cfg.replace(scheme="none"))
+
+
+def serve_gemm_shapes():
+    """block_matmul's launches of lm_1d_serve's decode steps at one rank's
+    shapes (M = the batch's rows): each full-width model's vocab-parallel
+    head (the gathered features against the rank's vocab rows) and
+    phi3.5's f32 router (whole on every rank), as ``lm_gemm_rows`` takes
+    them, with their launches a decode step."""
+    out = []
+    for label, arch, over, reduced, b, *_ in SERVE_CASES:
+        cfg, _ = serve_case_cfg(arch, over, reduced)
+        if reduced or label == "h2o_seq":
+            continue
+        out.append((f"serve.{label}.head_1d", b, cfg.d_model,
+                    cfg.vocab_padded // SERVE_P, "none", 1, "bfloat16"))
+        if cfg.n_experts:
+            out.append((f"serve.{label}.router", b, cfg.d_model,
+                        cfg.n_experts, "none", cfg.n_layers, "float32"))
+    return out
+
+
+def lm_1d_serve_phase(torch, BM, SM90, ref):
+    """``lm_1d_serve``: block_matmul at the decode steps' per-rank shapes
+    (``serve_gemm_shapes``), then the two ranks
+    (``--lm-1d-serve-rank``); checks their reports and returns the
+    phase's stats by case, with the launches per rank, the block_matmul
+    rows and their worst error."""
+    import shutil
+    import tempfile
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    gemm_rows, gemm_worst = lm_gemm_rows(torch, BM, SM90, ref, gen,
+                                         serve_gemm_shapes())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve1d_"))
+    t0 = time.perf_counter()
+    try:
+        res, wall = run_ranks("--lm-1d-serve-rank", tmp, SERVE_P)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cases = {}
+    for label, arch, over, reduced, b, s, n32, n16 in SERVE_CASES:
+        xs = [x[label] for x in res]
+        cfg, _ = serve_case_cfg(arch, over, reduced)
+        per_step, encode = lm_1d_serve_calls(cfg, SERVE_P)
+        tokenwise = cfg.family in ("ssm", "hybrid", "audio")
+        n_steps = (s if tokenwise else 1) + n16 - 1
+        want_gen = {k: v * n_steps + (encode if k == "ring_fwd" else 0)
+                    for k, v in per_step.items()}
+        for r, x in enumerate(xs):
+            check(x["step_launches"] == per_step,
+                  f"lm_1d_serve {label} rank {r}: a decode step's launches "
+                  f"{x['step_launches']}, want {per_step} "
+                  "(lm_1d_serve_calls)")
+            check(x["launches"] == want_gen,
+                  f"lm_1d_serve {label} rank {r}: the prefill's and the "
+                  f"decode steps' launches {x['launches']}, want {want_gen}")
+            check(x["tokens"] == xs[0]["tokens"],
+                  f"lm_1d_serve {label}: the ranks' greedy tokens differ")
+            check(x.get("generate_same_tokens", True),
+                  f"lm_1d_serve {label} rank {r}: generate's tokens are not "
+                  "the prefill's and the decode steps'")
+        f32 = xs[0]["f32"]
+        check(f32["ok"], f"lm_1d_serve {label}: the f32 logits on the mesh "
+              f"vs one device: {f32}")
+        cases[label] = dict(
+            card=card, arch=arch, changes=over, reduced=reduced,
+            params=cfg.param_count(), n_layers=cfg.n_layers,
+            d_model=cfg.d_model, batch=b, prompt=s,
+            prefill="token by token" if tokenwise else "fused",
+            kv_layout=xs[0]["kv_layout"], f32_vs_one_device=f32,
+            tokens=xs[0]["tokens"],
+            one_device_tokens=xs[0]["one_device_tokens"],
+            tokens_agree=xs[0]["tokens_agree"],
+            tokens_total=b * n16,
+            launches_per_decode_step=per_step,
+            launches_per_rank=[x["launches"] for x in xs],
+            prefill_ms=[x["prefill_ms"] for x in xs],
+            ms_per_token=[x["ms_per_token"] for x in xs],
+            one_device_graphed_ms_per_token_perf_md=SERVE_ONE_DEVICE_MS.get(
+                arch),
+            peak_mem_gb=[x["peak_mem_gb"] for x in xs],
+            ring_slots_gb=[x["ring_slots_gb"] for x in xs],
+            step_bytes_through_host=[x["through_host_bytes"] for x in xs],
+            step_bytes_ipc=[x["ipc_bytes"] for x in xs],
+            step_bound_ms=[x["bound_ms"] for x in xs],
+            seconds=[x["seconds"] for x in xs])
+        emit(phase="lm_1d_serve_case", case=label, **cases[label])
+    stats = dict(card=card, mesh={"data": 1, "model": SERVE_P},
+                 impl="ring_fused", cases=cases, wall_s=wall,
+                 seconds=time.perf_counter() - t0,
+                 block_matmul_rows=gemm_rows, block_matmul_worst=gemm_worst,
+                 launches_per_rank=[{k: sum(x[c]["launches"].get(k, 0)
+                                            for c in x)
+                                     for k in SERVE_KERNELS} for x in res])
+    emit(phase="lm_1d_serve", card=card, mesh=stats["mesh"],
+         impl="ring_fused", wall_s=wall, seconds=stats["seconds"],
+         launches_per_rank=stats["launches_per_rank"])
+    return stats
+
+
+def _serve_prefill(S, M, params, prompts, cfg, jcfg, max_len, dtype,
+                   frames, teacher):
+    """The prefill and the teacher-forced decode steps as serving runs
+    them (the fused prefill where the family has one, else token by
+    token, in a cache of ``dtype``); returns the logits of the prefill's
+    last position and of each step (on a mesh, the rank's vocab
+    block)."""
+    extra = None if frames is None else {"frames": frames}
+    if M.has_fused_prefill(cfg) and cfg.local_global_ratio == 0:
+        logits, cache = M.prefill_cache(params, {"tokens": prompts}, cfg,
+                                        jcfg, max_len, dtype=dtype)
+        logits = logits[:, -1:]
+    else:
+        from repro_torch.models import layers as L
+        cache = S.start_cache(params, prompts, cfg, jcfg, max_len, dtype,
+                              extra)
+        rows = L.rows_block(prompts, L.mesh_1d(jcfg))
+        for t in range(prompts.shape[1]):
+            logits, cache = M.decode_step(params, cache, rows[:, t:t + 1],
+                                          cfg, jcfg)
+    out = [logits]
+    for i in range(teacher.shape[1]):
+        logits, cache = M.decode_step(params, cache, teacher[:, i:i + 1],
+                                      cfg, jcfg)
+        out.append(logits)
+    return out
+
+
+def serve_f32_errors(y, z, zn, zx, tol):
+    """The f32 logits of the mesh (``y``: the prefill's last position and
+    each step, gathered over the vocab) against the one-device run's
+    (``z``) and, beside them, two one-device controls against ``z``: its
+    embedding one f32 step off (``zn``, the noise floor) and its products
+    in torch.matmul's order (``zx``, kernel="xla": the noise of another
+    summation order): max |a - b|, max-normalised (over max |b|, the
+    logits' scale), and elementwise within tol + tol |b|.  Judged
+    max-normalised within ``tol`` (the CPU tests' numbers): at these full
+    widths the xla control alone leaves tol + tol |b| elementwise, so that
+    form cannot tell a fault from a summation order here."""
+    def errs(a_s):
+        d = max(float((a - c).abs().max()) for a, c in zip(a_s, z))
+        scale = max(float(c.abs().max()) for c in z)
+        return dict(max_abs_err=d, max_norm_err=d / max(scale, 1e-30),
+                    elementwise_ok=all(bool(((a - c).abs()
+                                             <= tol + tol * c.abs()).all())
+                                       for a, c in zip(a_s, z)))
+    out = dict(tol=tol, steps=len(y), **errs(y),
+               logits_scale=max(float(c.abs().max()) for c in z),
+               noise_floor=errs(zn), xla_order=errs(zx))
+    out["ok"] = out["max_norm_err"] <= tol
+    return out
+
+
+def lm_1d_serve_worker(rank, tmp):
+    """One rank of ``lm_1d_serve_phase`` (this file run with
+    ``--lm-1d-serve-rank``): each case of SERVE_CASES in turn, as the
+    phase's comment says; results to rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.convert import shard_params_1d
+    from repro_torch.core import comm
+    from repro_torch.core import tree as ptree
+    from repro_torch.kernels import fused_ring
+    from repro_torch.kernels import ring as RING
+    from repro_torch.launch.mesh import make_ring_mesh
+    from repro_torch.launch.shapes import jigsaw_for
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+    from repro_torch.serve import step as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_ring_mesh(SERVE_P, 1, device="cuda")
+    check(dist.get_backend() == "gloo", "lm_1d_serve: not gloo")
+    out = {}
+    for label, arch, over, reduced, b, s, n32, n16 in SERVE_CASES:
+        t0 = time.perf_counter()
+        cfg, cfg1 = serve_case_cfg(arch, over, reduced)
+        jcfg = jigsaw_for(cfg).replace(mesh=mesh)
+        jcfg1 = jigsaw_for(cfg1)
+        max_len = s + max(n32, n16) + 8
+        whole = M.init(cfg1, seed=0, device="cuda")
+        params = shard_params_1d(whole, mesh.r, SERVE_P,
+                                 spec=M.param_rule(cfg, "1d"))
+        if rank:
+            del whole
+        gen = torch.Generator().manual_seed(17)
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                dtype=torch.int32).cuda()
+        teacher = torch.randint(0, cfg.vocab_size, (b, n32), generator=gen,
+                                dtype=torch.int32).cuda()
+        frames = None
+        if cfg.family == "audio":
+            frames = torch.randn(b, cfg.n_frames, cfg.d_model,
+                                 generator=gen).cuda()
+        res = dict(kv_layout=None)
+
+        # f32: the mesh against one device, on the same (up-cast) weights
+        with torch.no_grad():
+            up = ptree.map(lambda t: t.float(), params)
+            y = _serve_prefill(S, M, up, prompts, cfg,
+                               jcfg.replace(compute_dtype=None), max_len,
+                               torch.float32, frames, teacher)
+            y = [comm.all_gather(t.contiguous(), mesh.tp_group, -1)
+                 for t in y]
+            del up
+            if cfg.n_kv_heads:
+                res["kv_layout"] = L.kv_mode(cfg, SERVE_P)
+            if rank == 0:
+                up = ptree.map(lambda t: t.float(), whole)
+                j32 = jcfg1.replace(compute_dtype=None)
+                z = _serve_prefill(S, M, up, prompts, cfg1, j32,
+                                   max_len, torch.float32, frames, teacher)
+                # the noise floor: the one-device run with every element
+                # of the f32 embedding one f32 step off (its lowest bit
+                # flipped)
+                bits = up["embed"]["table"].view(torch.int32)
+                bits.bitwise_xor_(1)
+                try:
+                    zn = _serve_prefill(S, M, up, prompts, cfg1, j32,
+                                        max_len, torch.float32, frames,
+                                        teacher)
+                finally:
+                    bits.bitwise_xor_(1)      # (up may be whole itself)
+                # and with every product in torch.matmul's order
+                zx = _serve_prefill(S, M, up, prompts,
+                                    cfg1.replace(kernel="xla"),
+                                    jigsaw_for(cfg1.replace(kernel="xla"))
+                                    .replace(compute_dtype=None), max_len,
+                                    torch.float32, frames, teacher)
+                del up, bits
+                res["f32"] = serve_f32_errors(y, z, zn, zx,
+                                              SERVE_TOL.get(cfg.family,
+                                                            1e-5))
+                del z, zn, zx
+            del y
+        torch.cuda.empty_cache()
+
+        # bf16 (the config's own dtypes): the prefill and the decode steps
+        # through serve/step.py's entry points, as generate runs them
+        extra = None if frames is None else {"frames": frames}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()                # rank 0's one-device runs are done
+        step = S.make_serve_step(cfg, jcfg)
+        with torch.no_grad():
+            zero_counts(counted())
+            # -- the main path: counts to 0 just before, read just after ---
+            t1 = time.perf_counter()
+            nxt, cache = S.prefill(params, prompts, cfg, jcfg, max_len,
+                                   extra_batch=extra)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            before = read_counts(counted())
+            comm.through_host_bytes.clear()
+            fused_ring.ipc_bytes.clear()
+            toks = [nxt]
+            for i in range(n16 - 1):
+                nxt, cache = step(params, cache, nxt)
+                toks.append(nxt)
+                if i == 0:            # the first decode step's own
+                    torch.cuda.synchronize()
+                    res["step_launches"] = {
+                        k: v - before[k] for k, v in
+                        read_counts(counted()).items() if v - before[k]}
+                    res["through_host_bytes"] = dict(
+                        comm.through_host_bytes)
+                    res["ipc_bytes"] = dict(fused_ring.ipc_bytes)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            res["launches"] = {k: v for k, v in
+                               read_counts(counted()).items() if v}
+            # --------------------------------------------------------------
+        tokens = torch.cat(toks, dim=1)
+        res["tokens"] = tokens.cpu().tolist()
+        res.update(prefill_ms=1e3 * (t2 - t1),
+                   ms_per_token=1e3 * (t3 - t2) / max(n16 - 1, 1),
+                   ring_slots_gb=RING.workspace_bytes() / 1e9,
+                   peak_mem_gb=(torch.cuda.max_memory_allocated()
+                                + RING.workspace_bytes()) / 1e9)
+        if label in SERVE_GENERATE:
+            # generate itself (graph=None: the eager loop on a mesh), the
+            # same tokens
+            res["generate_same_tokens"] = torch.equal(S.generate(
+                params, prompts, cfg, jcfg, steps=n16, max_len=max_len,
+                extra_batch=extra), tokens)
+        shard_bytes = sum(t.numel() * t.element_size()
+                          for t in ptree.leaves(params))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in ptree.leaves(cache))
+        res["bound_ms"] = 1e3 * (shard_bytes + cache_bytes) / PEAK_BYTES
+        del cache, nxt
+        if rank == 0:
+            one = S.generate(whole, prompts, cfg1, jcfg1, steps=n16,
+                             max_len=max_len, extra_batch=extra)
+            res["one_device_tokens"] = one.cpu().tolist()
+            res["tokens_agree"] = int((one == tokens).sum())
+            del one, whole
+            S.clear_graphs()
+        else:
+            res["one_device_tokens"], res["tokens_agree"] = None, None
+        del params, tokens
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[label] = res
+        dist.barrier()
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
     RING.release_workspaces()
     dist.destroy_process_group()
     return 0
@@ -6562,6 +7029,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         torch, BM, SM90, ref)
     (lmt, aut, mot, l1d, zoo1d), lmt_rows, lt_worst = lm_train_phases(
         torch, BM, SM90, ref, zoo)
+    torch.cuda.empty_cache()
+    serve1d = lm_1d_serve_phase(torch, BM, SM90, ref)
     mesh_launches = {k: [x[k] for x in t2m["launches"]]
                      for k in t2m["launches"][0]}
     # the data phases' launches per rank (each run's first step)
@@ -6592,7 +7061,16 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
 
     def ring_path(r):
         return ("lm_1d" if r["shape"].startswith("h2o.") else "lm_1d_zoo"
-                if r["shape"].startswith(ZOO_RING_PREFIXES) else "train_1d")
+                if r["shape"].startswith(ZOO_RING_PREFIXES) else
+                "lm_1d_serve" if r["shape"].startswith("serve.")
+                else "train_1d")
+
+    def per_decode_step(model, key):
+        # one rank's ring_fwd launches of a decode step of lm_1d_serve's
+        # ``model`` (h2o-danube-1.8b whole or mamba2-130m) at batch 4
+        return sum(r[f"fwd_{key}"] * r["calls_per_decode_step"]
+                   for r in ring_rows
+                   if r["shape"].startswith(f"serve.{model}."))
 
     def per_ring_step(kind, key, path="train_1d"):
         # the p = 2 bf16 rows (batch 1): one rank of the 1-D step, per
@@ -6649,15 +7127,18 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         data = data_launches["1d"][f"ring_{kind}"]
         lm1d = [x[f"ring_{kind}"] for x in l1d["launches_per_rank"]]
         zoo = [x[f"ring_{kind}"] for x in zoo1d["launches_per_rank"]]
-        return {
+        serve = [x.get(f"ring_{kind}", 0)
+                 for x in serve1d["launches_per_rank"]]
+        out = {
             "name": f"ring_{kind}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": f"src/repro/kernels/fused_ring.py:{line}",
-            "launches": sum(launches) + sum(data) + sum(lm1d) + sum(zoo),
+            "launches": sum(launches) + sum(data) + sum(lm1d) + sum(zoo)
+            + sum(serve),
             "launches_by_path": {"train_1d": launches,
                                  "train_data_1d": data, "lm_1d": lm1d,
-                                 "lm_1d_zoo": zoo},
+                                 "lm_1d_zoo": zoo, "lm_1d_serve": serve},
             "max_abs_err": ring_worst[kind],
             # times: one rank's launches of a 1-D training sample-step at
             # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
@@ -6666,8 +7147,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
             "plain_ms": per_ring_step(kind, "plain_ms"),
             "bound_ms": per_ring_step(kind, "bound_ms"),
             "bound_by": ("operations" if all(
-                r[f"{kind}_bound_by"] == "operations" for r in ring_rows)
-                else "bytes"),
+                r[f"{kind}_bound_by"] == "operations" for r in ring_rows
+                if f"{kind}_bound_by" in r) else "bytes"),
             # torch.matmul chunk products plus the adds
             "library_ms": per_ring_step(kind, "library_ms"),
             # one rank's launches of an h2o-danube-1.8b training step on
@@ -6688,6 +7169,17 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
             "lm_1d_zoo_library_ms": per_ring_step(kind, "library_ms",
                                                   "lm_1d_zoo"),
         }
+        if kind == "fwd":
+            # one rank's launches of a decode step at batch 4 on
+            # lm_1d_serve's two ranks (M = 4 rows): h2o-danube-1.8b whole
+            # (168 ring calls) and mamba2-130m (96), each p launches
+            for model in ("h2o", "mamba"):
+                for key in ("kernel_ms", "plain_ms", "bound_ms",
+                            "library_ms"):
+                    out[f"lm_1d_serve_{model}_decode_"
+                        f"{key.replace('kernel_', '')}"] = \
+                        per_decode_step(model, key)
+        return out
 
     emit(kernels=[{
         "name": "block_matmul",
@@ -6711,7 +7203,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         + sum(x["launches"]["block_matmul"] for x in (lmt, aut, mot, mt,
                                                       ht))
         + sum(x["block_matmul"] for x in l1d["launches_per_rank"])
-        + sum(x["block_matmul"] for x in zoo1d["launches_per_rank"]),
+        + sum(x["block_matmul"] for x in zoo1d["launches_per_rank"])
+        + sum(x["block_matmul"] for x in serve1d["launches_per_rank"]),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -6763,7 +7256,9 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "lm_1d_zoo": [x["block_matmul"] for x in
                                            zoo1d["launches_per_rank"]],
                              "lm_1d": [x["block_matmul"] for x in
-                                       l1d["launches_per_rank"]]},
+                                       l1d["launches_per_rank"]],
+                             "lm_1d_serve": [x["block_matmul"] for x in
+                                             serve1d["launches_per_rank"]]},
         "lm_train_launches_by_layout": {
             x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot, mt)},
         "lm_train_launches_by_route": {
@@ -6771,7 +7266,7 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "train_launches_by_layout": train["launches_by_layout"],
         "train_launches_by_route": train["launches_by_route"],
         "max_abs_err": max(worst, bwd_worst, lm_worst, mh_worst, au_worst,
-                           lt_worst),
+                           lt_worst, serve1d["block_matmul_worst"]),
         # times: the 14 GEMMs of one bf16 forecast step at bucket 1 (the
         # kernel's with its per-call padding, of which pad_ms; wmma_ms the
         # WMMA loop's on the same operands, bit for bit the same result)
@@ -6888,8 +7383,20 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                                        "bound_ms"),
         "lm_1d_zoo_library_ms": per_rows(zoo1d["block_matmul_rows"],
                                          "library_ms"),
+        # one decode step of each full-width lm_1d_serve model at one
+        # rank's shapes (batch 4), summed: the vocab-parallel heads and
+        # phi3.5's two f32 routers
+        "lm_1d_serve_ms": per_rows(serve1d["block_matmul_rows"],
+                                   "kernel_ms"),
+        "lm_1d_serve_plain_ms": per_rows(serve1d["block_matmul_rows"],
+                                         "plain_ms"),
+        "lm_1d_serve_bound_ms": per_rows(serve1d["block_matmul_rows"],
+                                         "bound_ms"),
+        "lm_1d_serve_library_ms": per_rows(serve1d["block_matmul_rows"],
+                                           "library_ms"),
         "shapes_lm_1d": l1d["head_rows"],
         "shapes_lm_1d_zoo": zoo1d["block_matmul_rows"],
+        "shapes_lm_1d_serve": serve1d["block_matmul_rows"],
     }, {
         "name": "wx",
         "route": "cuda",
@@ -7060,6 +7567,8 @@ if __name__ == "__main__":
             sys.exit(lm_1d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--lm-1d-zoo-rank"]:
             sys.exit(lm_1d_zoo_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--lm-1d-serve-rank"]:
+            sys.exit(lm_1d_serve_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-2d-rank"]:
             sys.exit(train_2d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-data-rank"]:

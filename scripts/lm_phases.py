@@ -4,12 +4,13 @@ whisper-small's serving (``audio_forward``, ``audio_generate``), the
 training phases (``mamba_train``, ``hybrid_train``, ``lm_train``,
 ``audio_train``, ``moe_train``, ``lm_1d``, h2o-danube-1.8b on two ranks of
 a 1-D model mesh, and ``lm_1d_zoo``, mamba2-130m, phi3.5, whisper and
-jamba there) and the ring step kernels' phase (``ring_shape``, the LMs'
-per-rank shapes among them), after one build of block_matmul, ring, wx
-and the two SSD kernels (started together), with the smoke's checks and
-JSON lines.
+jamba there), serving on that mesh (``lm_1d_serve``: the six cases on
+two ranks) and the ring step kernels' phase (``ring_shape``, the LMs'
+per-rank shapes among them; ``serve_ring`` its decode shapes alone),
+after one build of block_matmul, ring, wx and the two SSD kernels
+(started together), with the smoke's checks and JSON lines.
 
-    python3 scripts/lm_phases.py [audio] [train] [ring]
+    python3 scripts/lm_phases.py [audio] [train] [ring] [serve] [serve_ring]
 
 (audio and train when none is named).  Needs one CUDA device; exits
 non-zero without one, or when a check fails.
@@ -48,8 +49,11 @@ def main(argv):
         list(pool.map(lambda lib: lib.build(), libs))   # together
     C.emit(phase="build", seconds=time.perf_counter() - t0)
     try:
-        if "ring" in which:
-            C.ring_phase(torch, BM, RING, WX, ref)
+        if "ring" in which or "serve_ring" in which:
+            C.ring_phase(torch, BM, RING, WX, ref,
+                         only_serve="ring" not in which)
+        if "serve" in which:
+            C.lm_1d_serve_phase(torch, BM, SM90, ref)
         if "audio" in which:
             C.audio_phases(torch, BM, SM90, ref)
         if "train" in which:

@@ -28,7 +28,12 @@ Both functions go through numpy, so neither package imports the other:
       a sharded checkpoint records of each rank's block
       (``block_bounds`` under any spec);
   ``params_from_npz(path)``  a reference pytree saved flat with
-      ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port.
+      ``np.savez`` under "/"-joined keys ("blocks/tok_fc1/w") -> port;
+  ``shard_cache_1d(cache, cfg, mesh)`` / ``gather_cache_1d(blocks, cfg,
+      mesh)``  the same for a language model's decode cache: a whole
+      cache (numpy or tensors) -> the rank's block on a 1-D mesh (the
+      reference's ``cache_specs``, sanitized; a ``CacheBlock``), and the
+      ranks' blocks -> the whole cache, bit for bit.
 
 bf16 travels as its uint16 bits, with no float round trip.  numpy has no
 bfloat16 of its own: a reference leaf arrives as an ``ml_dtypes.bfloat16``
@@ -47,6 +52,7 @@ from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import (DATA_AXIS, MDOM_AXIS, MODEL_AXIS,
                                       Mesh, Mesh1D, Spec, block_range,
                                       sanitize_spec)
+from repro_torch.models.layers import CacheBlock, sanitized_cache_specs
 from repro_torch.models.weathermixer import param_spec_1d, param_spec_2d
 
 
@@ -246,6 +252,54 @@ def param_bounds(path, shape, mesh, fsdp: bool = False,
     spec = (_rule_1d(spec, fsdp)(path, ndim) if isinstance(mesh, Mesh1D)
             else param_spec_2d(path, ndim))
     return block_bounds(mesh, sanitize_spec(shape, spec, mesh), shape)
+
+
+def shard_cache_1d(cache, cfg, mesh: Mesh1D) -> CacheBlock:
+    """The rank's block of a whole decode cache of ``cfg`` (numpy arrays
+    or tensors; flat, or the hybrid's nested slots) on the (data,
+    model=p) mesh ``mesh`` (a ``Mesh1D``: its p, r, data extent and
+    index): each leaf cut by the reference's ``cache_specs``, sanitized
+    (``layers.sanitized_cache_specs``); a ``CacheBlock`` whose leaves own
+    their memory and whose ``specs`` the decode step reads."""
+    specs = sanitized_cache_specs(cache, cfg, mesh)
+    return CacheBlock(ptree.map(lambda a, sp: _own(mesh.block(a, sp)),
+                                cache, specs), specs)
+
+
+def gather_cache_1d(blocks, cfg, mesh: Mesh1D, specs=None):
+    """The whole decode cache from the blocks of every rank of ``mesh``'s
+    (data, model=p) mesh, listed in rank order d * p + r: each leaf's
+    blocks concatenated along the dims its spec cuts, the model axis
+    inside the data axis; a dim left whole is taken from the first block.
+    ``specs``: the sanitized spec tree of the whole cache (by default the
+    blocks' own, ``CacheBlock.specs``).  Bit for bit the cache
+    ``shard_cache_1d`` cut.  ``cfg`` names the model the cache is of."""
+    del cfg
+    p, data = mesh.p, mesh.data_size
+    if len(blocks) != p * data:
+        raise ValueError(f"gather_cache_1d: {len(blocks)} blocks for "
+                         f"{data} x {p} ranks")
+    specs = blocks[0].specs if specs is None else specs
+
+    def cat(leaves, dim):
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.cat(leaves, dim)
+        return np.concatenate(leaves, dim)
+
+    def gather(path, spec):
+        leaves = [_leaf_at(b, path) for b in blocks]
+        dims = {a: d for d, e in enumerate(spec) for a in
+                (e if isinstance(e, tuple) else (e,)) if a is not None}
+        if MODEL_AXIS in dims:
+            leaves = [cat(leaves[k:k + p], dims[MODEL_AXIS])
+                      for k in range(0, len(leaves), p)]
+        else:
+            leaves = leaves[::p]
+        if DATA_AXIS in dims:
+            return _own(cat(leaves, dims[DATA_AXIS]))
+        return _own(leaves[0])
+
+    return ptree.map_with_path(gather, specs)
 
 
 def _leaf_at(tree, path):

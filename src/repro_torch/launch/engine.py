@@ -44,8 +44,8 @@ MoE's experts cut over the ranks, Mamba-2's heads and whisper's encoder
 on them, ``impl`` as for the mixer, the VLM's embeds and whisper's frames
 cut along D).  What still raises, naming ROADMAP.md's queue 1 item 19:
 the checkpoints of a language model on a model mesh (``save`` and
-``resume``), the FSDP hybrid's cut of a language model over more than one
-data rank, and a language model on a 2-D model mesh
+``resume``) and the FSDP hybrid's cut of a language model over more than
+one data rank (item 19.3), and a language model on a 2-D model mesh
 (``models/registry.py::check_lm_mesh``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
@@ -309,11 +309,11 @@ class TrainEngine:
 
     def _check_ckpt_mesh(self) -> None:
         """Checkpoints of a language model on a model mesh raise
-        NotImplementedError (ROADMAP.md, queue 1 item 19)."""
+        NotImplementedError (ROADMAP.md, queue 1 item 19.3)."""
         if self.cfg.family != "mixer" and self.cfg.scheme == "1d":
             raise NotImplementedError(
                 f"{self.arch}: checkpoints of a language model on a model "
-                "mesh are not ported (ROADMAP.md, queue 1 item 19)")
+                "mesh are not ported (ROADMAP.md, queue 1 item 19.3)")
 
     def opt_state_bytes(self) -> int:
         """This rank's bytes of optimizer state: moments, and masters

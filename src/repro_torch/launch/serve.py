@@ -13,7 +13,9 @@
 ``--mesh-data n`` serves on n ranks of a data-only mesh and must run as
 ``WORLD_SIZE = n`` ranks under ``torch.distributed.run``: rank 0 takes the
 requests, runs the scheduler and prints the report; the others follow its
-ticks (``ForecastEngine.serve_worker``).  On CUDA each bucket's step is a
+ticks (``ForecastEngine.serve_worker``); then the ranks leave the process
+group together (a barrier, ``destroy_process_group``), as the train CLI's
+do.  On CUDA each bucket's step is a
 CUDA graph captured at warmup; ``--no-graphs`` runs it eagerly.
 ``--ckpt`` restores the params group of any training checkpoint (either
 package's, any saving mesh; cast to the serving precision); without it the
@@ -29,6 +31,8 @@ import argparse
 import os
 import time
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from repro_torch.configs.registry import MIXER_IDS
 from repro_torch.data.weather import WeatherDataConfig, WeatherDataset
@@ -132,13 +136,21 @@ def main(argv=None):
                     help="run every step eagerly (CUDA graphs per bucket "
                          "are the default on CUDA)")
     args = ap.parse_args(argv)
-    serve(args.arch, ckpt=args.ckpt, requests=args.requests,
-          leads=[int(x) for x in args.leads.split(",")],
-          precision=args.precision, mode=args.mode,
-          buckets=[int(x) for x in args.buckets.split(",")],
-          coalesce_ms=args.coalesce_ms, seed=args.seed,
-          reduced=not args.full, trace=args.trace, device=args.device,
-          mesh_data=args.mesh_data, graphs=not args.no_graphs)
+    _, engine, _ = serve(
+        args.arch, ckpt=args.ckpt, requests=args.requests,
+        leads=[int(x) for x in args.leads.split(",")],
+        precision=args.precision, mode=args.mode,
+        buckets=[int(x) for x in args.buckets.split(",")],
+        coalesce_ms=args.coalesce_ms, seed=args.seed, reduced=not args.full,
+        trace=args.trace, device=args.device, mesh_data=args.mesh_data,
+        graphs=not args.no_graphs)
+    if engine.mesh is not None:
+        # every rank has left the serving loop: leave the process group
+        # together, before the interpreter tears down gloo's threads (a
+        # rank exiting beside a peer's last collective can abort, turning
+        # a clean run into a crash)
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,14 +11,15 @@ describe exactly the blocks the port's ranks hold: ``param_specs``
 ``block_specs`` the block of the patchified fields a rank reads
 (``data/pipeline.py``), and ``zero1_dims`` where ZeRO-1 cuts a leaf's
 optimizer state.  ``state_spec`` places the forecast engine's state
-buffer of a batch bucket on the serving mesh (``serve/engine.py``).
+buffer of a batch bucket on the serving mesh (``serve/engine.py``), and
+``cache_specs`` a language model's decode cache on a (data, model=p)
+mesh (sanitized: the blocks ``init_cache`` makes and
+``convert.shard_cache_1d`` cuts).
 A language model of any family takes the reference's 1-D layout
 (``models/transformer.py::param_spec_1d``) on a (data, model=p) mesh; on
 a data-only mesh its parameters stay whole on every rank.  The FSDP
 hybrid's cut of a language model over data, and a language model on a 2-D
 model mesh, raise (``check_lm_mesh``, naming ROADMAP.md queue 1 item 19).
-``cache_specs`` (the language models' KV/SSM caches on a mesh) comes with
-the dry-run (ROADMAP.md, queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -30,12 +31,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import (DATA_AXIS, ShardingRules, Spec,
                                       entry_axes, sanitize_spec, spec_axes)
+from repro_torch.models import layers as L
 from repro_torch.models import transformer, weathermixer
 from repro_torch.models.registry import check_lm_mesh
 
 __all__ = ["param_specs", "opt_specs", "batch_specs", "block_specs",
-           "check_lm_mesh", "sanitize_spec", "sanitize_tree", "state_spec",
-           "zero1_dims"]
+           "cache_specs", "check_lm_mesh", "sanitize_spec", "sanitize_tree",
+           "state_spec", "zero1_dims"]
 
 
 def param_specs(params, cfg: ModelConfig, rules: ShardingRules):
@@ -137,6 +139,22 @@ def block_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, Spec]:
     if cfg.family != "mixer":
         return batch_specs(cfg, rules)
     return {k: rules.act(3, domain_dim=1) for k in batch_specs(cfg, rules)}
+
+
+def cache_specs(cache, cfg: ModelConfig, rules: ShardingRules, mesh):
+    """The spec tree of a decode cache (a whole cache of any language
+    model family: tensors, arrays or shape structs, flat or the hybrid's
+    nested slots), unsanitized, as the reference's ``cache_specs``: each
+    leaf by ``layers.cache_spec`` on the mesh's extent of the tp axis (the
+    kv heads, the sequence or head_dim of the attention caches, the SSM
+    state's heads, the conv window's channels, "enc"'s D; the batch over
+    the batch axes; "pos" whole).  ``sanitize_tree`` then leaves whole
+    every dim the mesh does not divide."""
+    p = mesh.shape.get(rules.tp_axis, 1)
+    return ptree.map_with_path(
+        lambda path, a: L.cache_spec(path[-1], np.ndim(a), cfg, p,
+                                     rules.tp_axis, rules.batch_axes),
+        cache)
 
 
 def state_spec(b: int, mesh, ndim: int = 4) -> Spec:

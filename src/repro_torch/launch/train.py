@@ -27,9 +27,10 @@ encoder and cross attention:
       --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
       --mesh-model 2 [--mesh-data n] [--impl ring_fused] --device cpu
 
-Checkpoints of a language model on a model mesh, the FSDP hybrid's cut of
-a language model over more than one data rank, and a language model on a
-2-D model mesh raise NotImplementedError (ROADMAP.md, queue 1 item 19).
+Checkpoints of a language model on a model mesh and the FSDP hybrid's cut
+of a language model over more than one data rank (ROADMAP.md, queue 1 item
+19.3), and a language model on a 2-D model mesh (item 19) raise
+NotImplementedError.
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process

@@ -26,7 +26,15 @@ every slot computed on the device from ``pos``, so the step can be
 captured in a CUDA graph.  As in
 the reference, the decode step recomputes every layer's cross-attention
 k and v from ``cache["enc"]``.  There is no fused prefill (the reference
-has none): ``serve/step.py`` prefills token by token.
+has none): ``serve/step.py`` prefills token by token.  On a 1-D model
+mesh (``scheme="1d"``) ``init_cache(mesh=)`` makes the rank's block of
+the cache (the reference's ``cache_specs``: the self-attention's kv heads
+or sequence slots, "enc" [B, F, D/p], the encoder's states as the mesh
+forward leaves them), ``start_cache`` writes the encoder's states of the
+frames' block into it, and ``decode_step`` runs the embedding, the
+learned positions' block, every layer (the self-attention on its cache
+block, the cross attention on the rank's heads) and the head on the
+rank's blocks.
 """
 from __future__ import annotations
 
@@ -151,13 +159,14 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
 
 
 def _dec_layer(lp, x, enc, cfg: ModelConfig, jcfg: JigsawConfig, positions,
-               kv_cache=None):
+               kv_cache=None, kv_layout=None):
     """One decoder layer: causal self-attention (on ``kv_cache`` in a
-    decode step), cross-attention to ``enc``, the FFN.  Returns (x, the
-    self-attention's new cache or None)."""
+    decode step, laid out as ``kv_layout`` says), cross-attention to
+    ``enc``, the FFN.  Returns (x, the self-attention's new cache or
+    None)."""
     a = _norm(lp["attn_norm"], x, jcfg)
     out, nc = _attn(lp["attn"], a, cfg, jcfg, positions, causal=True,
-                    kv_cache=kv_cache,
+                    kv_cache=kv_cache, kv_layout=kv_layout,
                     q_chunk=0 if kv_cache is not None else cfg.attn_q_chunk)
     x = x + out
     c = _norm(lp["cross_norm"], x, jcfg)
@@ -207,15 +216,19 @@ def apply(params, batch, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", mesh=None):
     """The decode cache, zeros, the reference's layout: "pos" [B] int32,
     the decoder's self-attention "k" and "v" [L, B, max_len, Hkv, hd], and
     the encoder's states "enc" [B, n_frames, D] (filled once, before the
-    first prompt token)."""
+    first prompt token).  With ``mesh`` (a 1-D model mesh) the rank's
+    block for the whole batch ``batch_size`` (``layers.cache_block``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("encdec.init_cache: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
+    if mesh is not None:
+        return L.cache_block(init_cache(cfg, batch_size, max_len, dtype,
+                                        device="meta"), cfg, mesh, device)
     kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
     return {
         "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device),
@@ -231,7 +244,8 @@ def start_cache(params, cache, extra_batch: dict, cfg: ModelConfig,
                 jcfg: JigsawConfig = DEFAULT_JIGSAW):
     """Write the encoder's states of ``extra_batch["frames"]`` into a fresh
     cache's "enc", in place, cast to its dtype (once, before the first
-    prompt token)."""
+    prompt token).  Under ``scheme="1d"`` the frames are the rank's block
+    [B, F, D/p] and "enc" its block of the states."""
     cache["enc"].copy_(encode(params, extra_batch["frames"], cfg, jcfg))
 
 
@@ -241,17 +255,22 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     cache).  Each layer's k and v are written into ``cache``'s tensors in
     place at slot ``min(pos, max_len - 1)``, and "pos" is advanced in
     place; the same dict is returned.  Every layer's cross-attention
-    projects ``cache["enc"]`` anew, as the reference's step does."""
-    pos = cache["pos"]
-    x = L.embed_apply(params["embed"], tokens)
+    projects ``cache["enc"]`` anew, as the reference's step does.  Under
+    ``scheme="1d"`` the rank's blocks: its rows of the tokens, its block of
+    the cache (a ``CacheBlock``), its vocab block of the logits [B, 1,
+    vocab_padded / p]."""
+    mesh = L.mesh_1d(jcfg)
+    pos = L.rows_block(cache["pos"], mesh)      # "pos" is whole: the rows'
+    x = L.embed_apply(params["embed"], tokens, mesh=mesh)
     x = x + _dec_pos(params, pos, x.dtype)[:, None, :]
     positions = pos[:, None]
     enc = cache["enc"].to(x.dtype)
+    layout = L.kv_layout(cache, ("k",), mesh)
     for i, lp in enumerate(params["dec_layers"]):
         x, _ = _dec_layer(lp, x, enc, cfg, jcfg, positions,
                           kv_cache={"k": cache["k"][i], "v": cache["v"][i],
-                                    "pos": pos})
-    x = L.layernorm_apply(params["dec_norm"], x)
+                                    "pos": pos}, kv_layout=layout)
+    x = _norm(params["dec_norm"], x, jcfg)
     logits = L.unembed_apply(params["embed"], x, jcfg)
-    pos += 1
+    cache["pos"] += 1
     return logits, cache

@@ -22,7 +22,11 @@ one token per row against ``init_cache``'s cache, which it writes in
 place (every slot and mask from ``cache["pos"]`` on the device), so
 ``serve/step.py`` can capture it in a CUDA graph.  The reference's hybrid
 has no fused prefill, so there is no ``prefill_cache``: ``serve/step.py``
-prefills token by token.
+prefills token by token.  On a 1-D model mesh (``scheme="1d"``)
+``init_cache(mesh=)`` makes the rank's block of every slot's buffers (the
+reference's ``cache_specs``) and ``decode_step`` runs every slot on the
+rank's blocks: the attention on its kv heads or sequence slots, the
+Mamba-2 mixer on its heads, the MoE on its experts.
 """
 from __future__ import annotations
 
@@ -121,14 +125,15 @@ def _lm_head(params, x, cfg: ModelConfig, jcfg: JigsawConfig):
 
 
 def _slot_apply(blk, x, j: int, cfg: ModelConfig, jcfg: JigsawConfig,
-                positions, aux, state=None, pos=None):
+                positions, aux, state=None, pos=None, kv_layout=None):
     """One layer of the period.  ``state``: None (the teacher-forced
     forward) or the slot's cache entry for this period (attention: its
     "k" and "v", written in place; SSM: its "conv" and "ssm"), with
     ``pos`` the rows' positions.  Returns (x, the SSM slot's new state or
     None, aux plus the MoE layer's).  Under ``scheme="1d"`` x is the
-    rank's feature block and the norms, the attention, the Mamba-2 mixer,
-    the FFN and the MoE run the rank's blocks (heads, experts)."""
+    rank's feature block and the norms, the attention (on its cache block
+    laid out as ``kv_layout`` says), the Mamba-2 mixer, the FFN and the
+    MoE run the rank's blocks (heads, experts)."""
     new_state = None
     mesh = L.mesh_1d(jcfg)
     h = L.rmsnorm_apply(blk["norm"], x, mesh=mesh)
@@ -140,7 +145,7 @@ def _slot_apply(blk, x, j: int, cfg: ModelConfig, jcfg: JigsawConfig,
             d_head=cfg.d_head, positions=positions, cfg=jcfg,
             window=cfg.sliding_window, rope_theta=cfg.rope_theta,
             kv_cache=kv, rolling=cfg.sliding_window is not None,
-            q_chunk=cfg.attn_q_chunk, mesh=mesh)
+            q_chunk=cfg.attn_q_chunk, mesh=mesh, kv_layout=kv_layout)
     else:
         out, new_state = L.mamba2_apply(
             blk["ssm"], h, d_state=cfg.ssm_state, n_heads=cfg.ssm_heads,
@@ -189,19 +194,24 @@ def apply(params, batch, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", mesh=None):
     """The decode cache, zeros, the reference's layout: {"pos" [B],
     "slots": {"slot{j}": ...}}, each slot's buffers stacked over the
     periods.  Attention slots: "k", "v" [n_periods, B, S, Hkv, hd] in
     ``dtype`` (S = min(window, max_len) under a sliding window, else
     max_len); SSM slots, O(1) in the sequence: "conv" [n_periods, B, K-1,
     conv_dim] in the dtype the step writes (``mamba.conv_dtype``) and
-    "ssm" [n_periods, B, H, P, N] in f32."""
+    "ssm" [n_periods, B, H, P, N] in f32.  With ``mesh`` (a 1-D model
+    mesh) the rank's block of each buffer for the whole batch
+    ``batch_size`` (``layers.cache_block``)."""
     n_periods = _n_periods(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("hybrid.init_cache: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
+    if mesh is not None:
+        return L.cache_block(init_cache(cfg, batch_size, max_len, dtype,
+                                        device="meta"), cfg, mesh, device)
     w = cfg.sliding_window
     s = min(max_len, w) if w is not None else max_len
     conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
@@ -234,17 +244,23 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     cache to XLA), "pos" is advanced in place, and the same dict is
     returned.  An SSM slot's conv window must be in the dtype the step
     writes (``init_cache`` makes it so): a narrower one raises rather than
-    rounding the window."""
-    x = L.embed_apply(params["embed"], tokens)
-    pos = cache["pos"]
+    rounding the window.  Under ``scheme="1d"`` the rank's blocks: its
+    rows of the tokens, its block of every buffer (a ``CacheBlock``), its
+    vocab block of the logits [B, 1, vocab_padded / p]."""
+    mesh = L.mesh_1d(jcfg)
+    x = L.embed_apply(params["embed"], tokens, mesh=mesh)
+    pos = L.rows_block(cache["pos"], mesh)      # "pos" is whole: the rows'
     positions = pos[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, pp in enumerate(params["periods"]):
         for j in range(cfg.attn_every):
             buf = cache["slots"][f"slot{j}"]
             state = {k: v[p] for k, v in buf.items()}
+            layout = (L.kv_layout(cache, ("slots", f"slot{j}", "k"), mesh)
+                      if _slot_kind(cfg, j) == "attn" else None)
             x, ns, _ = _slot_apply(pp[f"slot{j}"], x, j, cfg, jcfg,
-                                   positions, zero, state=state, pos=pos)
+                                   positions, zero, state=state, pos=pos,
+                                   kv_layout=layout)
             if ns is not None:
                 if ns["conv"].dtype != buf["conv"].dtype:
                     raise TypeError(
@@ -255,5 +271,5 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                 state["conv"].copy_(ns["conv"])
                 state["ssm"].copy_(ns["ssm"])
     logits = _lm_head(params, x, cfg, jcfg)
-    pos += 1
+    cache["pos"] += 1
     return logits, cache

@@ -23,7 +23,9 @@ from repro_torch.core import comm
 from repro_torch.core.api import (DEFAULT_JIGSAW, JigsawConfig, head_apply,
                                   linear_apply, linear_init, mlp_apply,
                                   mlp_init)
-from repro_torch.core.sharding import Mesh, Mesh1D
+from repro_torch.core import tree as ptree
+from repro_torch.core.sharding import (DATA_AXIS, MODEL_AXIS, Mesh, Mesh1D,
+                                      Spec, block_range, sanitize_spec)
 from repro_torch.kernels import fused_ring, ops
 
 
@@ -31,6 +33,134 @@ def mesh_1d(cfg: JigsawConfig) -> Optional[Mesh1D]:
     """A language model's rank mesh: the 1-D model mesh under
     ``scheme="1d"``, else None (one device or a data-only mesh)."""
     return cfg.mesh_1d if cfg.scheme == "1d" else None
+
+
+# ---------------------------------------------------------------------------
+# Decode caches on a model mesh (the reference's ``cache_specs``)
+# ---------------------------------------------------------------------------
+
+# the attention caches' leaves [..., B, S, Hkv, hd]: uniform stacks' "k" and
+# "v", local:global stacks' local "lk"/"lv", global "gk"/"gv" and leftover
+# "rk"/"rv"
+KV_LEAVES = ("k", "v", "lk", "lv", "gk", "gv", "rk", "rv")
+
+
+def kv_mode(cfg, p: int) -> str:
+    """The cache's kv cut on p model ranks (``cfg.kv_shard``): "auto" is
+    "heads" where p divides the kv heads, else "seq"."""
+    mode = getattr(cfg, "kv_shard", "auto")
+    if mode == "auto":
+        even = cfg.n_kv_heads > 0 and cfg.n_kv_heads % p == 0
+        mode = "heads" if even else "seq"
+    return mode
+
+
+def check_kv_shard(cfg, p: int) -> None:
+    """``kv_shard="headdim"`` (head_dim cut on the model axis) raises on
+    a model mesh: not ported (ROADMAP.md, queue 1 item 19.5)."""
+    if p > 1 and cfg.n_kv_heads > 0 and kv_mode(cfg, p) == "headdim":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: kv_shard='headdim' on a model mesh of {p} "
+            "ranks is not ported (ROADMAP.md, queue 1 item 19.5); use "
+            "'auto', 'heads' or 'seq'")
+
+
+def cache_spec(name: str, ndim: int, cfg, p: int, tp_axis: str = MODEL_AXIS,
+               batch_axes=(DATA_AXIS,)) -> Spec:
+    """The spec of a decode cache's leaf ``name`` of ``ndim`` dims on a
+    mesh whose tp axis has p ranks (the leaf rule of
+    ``repro/launch/specs.py::cache_specs``, unsanitized): the attention
+    caches [..., B, S, Hkv, hd] with B on the batch axes and the kv heads
+    ("heads"), head_dim ("headdim") or the sequence ("seq") on the tp axis
+    (``kv_mode``); the SSM state [..., B, H, P, N] with B on the batch
+    axes and H on the tp axis where p divides the SSM heads; the conv
+    window [..., B, K-1, conv_dim] with B on the batch axes and its
+    channels on the tp axis; the enc-dec family's encoder states "enc"
+    [B, frames, D] with D on the tp axis; "pos" (and anything else)
+    whole."""
+    dims: list = [None] * ndim
+    if name in KV_LEAVES:
+        dims[ndim - 4] = batch_axes
+        mode = kv_mode(cfg, p)
+        dims[{"heads": -2, "headdim": -1}.get(mode, -3)] = tp_axis
+    elif name == "ssm":
+        dims[ndim - 4] = batch_axes
+        if cfg.ssm_heads > 0 and cfg.ssm_heads % p == 0:
+            dims[ndim - 3] = tp_axis
+    elif name == "conv":
+        dims[ndim - 3] = batch_axes
+        dims[ndim - 1] = tp_axis
+    elif name == "enc":
+        dims[0] = batch_axes
+        dims[ndim - 1] = tp_axis
+    return tuple(dims)
+
+
+class CacheBlock(dict):
+    """A rank's block of a decode cache on a model mesh: the cache's dict
+    of leaves (the rank's block of each), and ``specs``, the tree of each
+    leaf's spec in the whole cache, sanitized on the mesh (which dims are
+    cut, and which stay whole because the mesh does not divide them).  A
+    dim of a block that stays whole and one that is cut can have the same
+    length, so the block carries the specs for the decode step
+    (``kv_layout``) and ``convert.gather_cache_1d``."""
+
+    def __init__(self, leaves, specs):
+        super().__init__(leaves)
+        self.specs = specs
+
+
+def sanitized_cache_specs(cache, cfg, mesh):
+    """The spec of every leaf of a whole decode cache (tensors or arrays)
+    on ``mesh``: ``cache_spec`` with ``sanitize_spec`` (the reference's
+    ``cache_specs`` then ``sanitize_tree``)."""
+    return ptree.map_with_path(
+        lambda path, t: sanitize_spec(
+            tuple(t.shape), cache_spec(path[-1], len(t.shape), cfg,
+                                       mesh.tp_size), mesh), cache)
+
+
+def cache_block(whole, cfg, mesh: Mesh1D, device) -> CacheBlock:
+    """Zeros of the rank's block of every leaf of ``whole`` (a cache on
+    the meta device: the whole cache's shapes and dtypes, nothing
+    allocated), cut by its ``sanitized_cache_specs``."""
+    check_kv_shard(cfg, mesh.tp_size)
+    specs = sanitized_cache_specs(whole, cfg, mesh)
+
+    def zeros(t, spec):
+        shape = tuple(hi - lo for lo, hi in (block_range(mesh, e, n)
+                                             for e, n in zip(spec, t.shape)))
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+    return CacheBlock(ptree.map(zeros, whole, specs), specs)
+
+
+def kv_layout(cache, path, mesh: Optional[Mesh1D]) -> Optional[str]:
+    """How the rank holds the attention cache leaf at ``path`` of
+    ``cache`` (a ``CacheBlock``) on a model mesh, for
+    ``attention_apply``: "heads", "seq" or "whole"; None off a model mesh
+    (one rank on the model axis)."""
+    if mesh is None or mesh.tp_size == 1:
+        return None
+    specs = getattr(cache, "specs", None)
+    if specs is None:
+        raise ValueError("a decode step on a model mesh takes the cache "
+                         "block that init_cache, prefill_cache or "
+                         "convert.shard_cache_1d made (a CacheBlock)")
+    for k in path:
+        specs = specs[k]
+    if specs[-2] == MODEL_AXIS:
+        return "heads"
+    return "seq" if specs[-3] == MODEL_AXIS else "whole"
+
+
+def rows_block(t: torch.Tensor, mesh: Optional[Mesh1D]) -> torch.Tensor:
+    """The rank's rows of a whole batch ``t`` [B, ...]: its block over the
+    data axis where the data extent divides B, else every row (the
+    reference's sanitized batch spec)."""
+    if mesh is None or mesh.data_size == 1:
+        return t
+    spec = sanitize_spec(t.shape[:1], ((DATA_AXIS,),), mesh)
+    return t[slice(*block_range(mesh, spec[0], t.shape[0]))]
 
 
 def boundary_cast(x: torch.Tensor, cfg: JigsawConfig) -> torch.Tensor:
@@ -145,22 +275,13 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
-         window: Optional[int] = None,
-         kv_mask: Optional[torch.Tensor] = None,
-         soft_cap: Optional[float] = None) -> torch.Tensor:
-    """Scaled dot-product attention, the GQA repeat done by the caller.
-
-    q: [B, Sq, H, hd]; k, v: [B, Skv, H, hd]; q_pos [B, Sq] or [Sq] and
-    kv_pos [B, Skv] or [Skv] the absolute positions of the queries and
-    keys (a rolling cache's slots hold positions out of order); kv_mask
-    [B, Skv] the valid cache slots.  The reference's order of roundings:
-    the scores in f32 (each product of q and k exact in f32, never rounded
-    to q's dtype), then the scale, the soft cap and the -1e30 mask; the
-    softmax in f32, the probabilities cast to q's dtype, then ``@ v`` (in
-    the promoted dtype where v's differs).
-    1-D positions keep the mask [Sq, Skv], batch-free."""
+def _scores(q: torch.Tensor, k: torch.Tensor, *, q_pos: torch.Tensor,
+            kv_pos: torch.Tensor, causal: bool, window: Optional[int],
+            kv_mask: Optional[torch.Tensor],
+            soft_cap: Optional[float]) -> torch.Tensor:
+    """``sdpa``'s masked scores [B, H, Sq, Skv] in f32: each product of q
+    and k exact in f32, then the scale, the soft cap and the -1e30
+    mask."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores.mul_(scale)
@@ -181,11 +302,67 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mask is not None:
         mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
         scores.masked_fill_(~mask, -1e30)
+    return scores
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
+         window: Optional[int] = None,
+         kv_mask: Optional[torch.Tensor] = None,
+         soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Scaled dot-product attention, the GQA repeat done by the caller.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, H, hd]; q_pos [B, Sq] or [Sq] and
+    kv_pos [B, Skv] or [Skv] the absolute positions of the queries and
+    keys (a rolling cache's slots hold positions out of order); kv_mask
+    [B, Skv] the valid cache slots.  The reference's order of roundings:
+    the scores in f32 (each product of q and k exact in f32, never rounded
+    to q's dtype), then the scale, the soft cap and the -1e30 mask; the
+    softmax in f32, the probabilities cast to q's dtype, then ``@ v`` (in
+    the promoted dtype where v's differs).
+    1-D positions keep the mask [Sq, Skv], batch-free."""
+    scores = _scores(q, k, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                     window=window, kv_mask=kv_mask, soft_cap=soft_cap)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     del scores
     # jnp.einsum promotes mixed operands (bf16 queries against f32 keys
     # and values: cross-attention to f32 encoder states)
     return _einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def sdpa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                 window: Optional[int] = None,
+                 kv_mask: Optional[torch.Tensor] = None,
+                 soft_cap: Optional[float] = None):
+    """The causal softmax's statistics over a block of the keys, in f32
+    (flash-decoding's partials): the scores of ``sdpa`` (same mask, scale
+    and cap), their row max m [B, H, Sq], the sum l of exp(scores - m)
+    [B, H, Sq] and the weighted sum of v acc [B, H, Sq, hd].  A block
+    whose every key is masked gives m = -1e30, which ``combine_partials``
+    weighs by exp(-1e30 - max) = 0."""
+    scores = _scores(q, k, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                     window=window, kv_mask=kv_mask, soft_cap=soft_cap)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    return m, e.sum(dim=-1), torch.einsum("bhqk,bkhd->bhqd", e, v.float())
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The attention output [B, Sq, H, hd] (f32) from the partials ``(m, l,
+    acc)`` of every block of the keys (``sdpa_partial``), combined in the
+    order given: the global max, each block's sums rescaled to it, then
+    acc / l."""
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    l_sum = acc_sum = None
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        l_sum = l * w if l_sum is None else l_sum + l * w
+        a = acc * w[..., None]
+        acc_sum = a if acc_sum is None else acc_sum + a
+    return (acc_sum / l_sum[..., None]).permute(0, 2, 1, 3)
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -254,7 +431,8 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
                     collect_kv: bool = False,
                     x_kv: Optional[torch.Tensor] = None,
                     qk_norm: Optional[dict] = None, q_chunk: int = 0,
-                    mesh: Optional[Mesh1D] = None
+                    mesh: Optional[Mesh1D] = None,
+                    kv_layout: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The attention layer: the q, k, v projections, qk_norm (RMSNorm over
     d_head), RoPE, attention, the output projection.  Causal self-attention
@@ -276,17 +454,31 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
     device from ``pos``, with no host read, so the step can be captured
     in a CUDA graph.
 
-    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``;
-    training, no cache): x is the rank's block [B, S, D/p] and the rank
-    runs its ``n_heads / p`` heads, the contiguous out blocks of wq
-    (whole heads).  Where p divides ``n_kv_heads`` the out blocks of wk
-    and wv are the kv heads those q heads read (GQA's map stays within a
-    rank); else k and v are all-gathered over the tp group and the rank
-    takes the kv head of each of its q heads.  The qk-norm and RoPE run
-    per head as above, and wo contracts the cut heads.
-    Not ported: the reference's ``kv_spec`` (the cache's layout on a model
-    mesh; the port serves a language model on one device or a data-only
-    mesh)."""
+    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``) x is
+    the rank's block [B, S, D/p] and the rank runs its ``n_heads / p``
+    heads, the contiguous out blocks of wq (whole heads).  Where p divides
+    ``n_kv_heads`` the out blocks of wk and wv are the kv heads those q
+    heads read (GQA's map stays within a rank); else, and wherever
+    ``kv_layout`` asks for every kv head, k and v are all-gathered over
+    the tp group (``fused_ring.gather_features``) and the rank takes the
+    kv head of each of its q heads.  The qk-norm and RoPE run per head as
+    above, and wo contracts the cut heads.  ``kv_layout`` says how the
+    rank holds the decode cache (the reference's ``_kv_spec``, from
+    ``cache_specs`` sanitized: ``kv_mode``), and, in a prefill, which k
+    and v ``collect_kv`` returns:
+
+      * "heads": its ``n_kv_heads / p`` kv heads [B, S_max, Hkv/p, hd],
+        the ones its q heads read;
+      * "seq" (flash-decoding): S_max / p slots of every kv head, slots
+        [r S_max/p, (r+1) S_max/p).  The rank that owns the new token's
+        slot writes it; every rank takes the q of every head (gathered
+        over the tp group), computes the softmax's partial statistics
+        over its slots (``sdpa_partial``, f32), and the partials of all
+        ranks are gathered and combined in rank order
+        (``combine_partials``) for the rank's own heads;
+      * "whole": the whole cache (a dim p does not divide, which
+        ``sanitize_spec`` leaves whole): every rank writes every kv head
+        and reads those of its q heads."""
     b, s, _ = x.shape
     xkv = x if x_kv is None else x_kv
     f = xkv.shape[1]
@@ -296,14 +488,12 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
     k = linear_apply(params["wk"], xkv, cfg)
     v = linear_apply(params["wv"], xkv, cfg)
     n_rep = n_heads // n_kv_heads
-    if p > 1 and n_kv_heads % p:
-        # each q head's kv head, out of the kv heads gathered whole
-        heads = torch.arange(mesh.tp_index * h_l, (mesh.tp_index + 1) * h_l,
-                             device=x.device) // n_rep
-        k, v = (comm.all_gather(t, mesh.tp_group, -1)
-                .reshape(b, f, n_kv_heads, d_head)[:, :, heads]
-                for t in (k, v))
-        n_rep = 1
+    whole_kv = p > 1 and bool(n_kv_heads % p or kv_layout in ("seq",
+                                                               "whole"))
+    if whole_kv:
+        k, v = (fused_ring.gather_features(t, mesh.tp_group, p,
+                                           mesh.tp_index, "attn_kv")
+                .reshape(b, f, n_kv_heads, d_head) for t in (k, v))
     else:
         k = k.reshape(b, f, n_kv_heads // p, d_head)
         v = v.reshape(b, f, n_kv_heads // p, d_head)
@@ -313,33 +503,79 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int,
     if rope_theta is not None and x_kv is None:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
+    # each local q head's kv head, out of every kv head
+    heads = None if not whole_kv else torch.arange(
+        mesh.tp_index * h_l, (mesh.tp_index + 1) * h_l,
+        device=x.device) // n_rep
 
     new_cache = None
     if kv_cache is not None:
+        if p > 1 and kv_layout is None:
+            raise ValueError("attention_apply: a decode step on a model "
+                             "mesh needs the cache's kv_layout")
         ck, cv, pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
-        s_max = ck.shape[1]
+        seq = kv_layout == "seq"
+        s_blk = ck.shape[1]
+        s_max = s_blk * p if seq else s_blk
+        lo = mesh.tp_index * s_blk if seq else 0
         # floor modulo (Python's): slot - i below goes negative
         slot = (torch.remainder(pos, s_max) if rolling
                 else pos.clamp(max=s_max - 1))
-        rows = (torch.arange(b, device=pos.device), slot.long())
-        ck.index_put_(rows, k[:, 0].to(ck.dtype))
-        cv.index_put_(rows, v[:, 0].to(cv.dtype))
-        slot_idx = torch.arange(s_max, device=pos.device)[None, :]
+        ar = torch.arange(b, device=pos.device)
+        if seq:
+            # only the rank that owns the slot writes it
+            local = slot - lo
+            own = ((local >= 0) & (local < s_blk))[:, None, None]
+            rows = (ar, local.clamp(0, s_blk - 1).long())
+            ck.index_put_(rows, torch.where(own, k[:, 0].to(ck.dtype),
+                                            ck[rows]))
+            cv.index_put_(rows, torch.where(own, v[:, 0].to(cv.dtype),
+                                            cv[rows]))
+        else:
+            rows = (ar, slot.long())
+            ck.index_put_(rows, k[:, 0].to(ck.dtype))
+            cv.index_put_(rows, v[:, 0].to(cv.dtype))
+        slot_idx = torch.arange(lo, lo + s_blk, device=pos.device)[None, :]
         if rolling:
             # slot i holds absolute position pos - ((slot - i) % s_max)
             kv_pos = pos[:, None] - torch.remainder(slot[:, None] - slot_idx,
                                                     s_max)
         else:
-            kv_pos = slot_idx.expand(b, s_max)
+            kv_pos = slot_idx.expand(b, s_blk)
         kv_mask = (kv_pos >= 0) & (kv_pos <= pos[:, None])
-        out = sdpa(q, _repeat_kv(ck.to(q.dtype), n_rep),
-                   _repeat_kv(cv.to(q.dtype), n_rep), q_pos=positions,
-                   kv_pos=kv_pos, causal=True, window=window,
-                   kv_mask=kv_mask, soft_cap=soft_cap)
+        kk, vv = ck.to(q.dtype), cv.to(q.dtype)
+        if seq:
+            # every head's q, this rank's slots: its partial statistics;
+            # then every rank's, combined for this rank's heads
+            qa = fused_ring.gather_features(
+                q.reshape(b, s, h_l * d_head), mesh.tp_group, p,
+                mesh.tp_index, "attn_q").reshape(b, s, n_heads, d_head)
+            m, l, acc = sdpa_partial(
+                qa, _repeat_kv(kk, n_rep), _repeat_kv(vv, n_rep),
+                q_pos=positions, kv_pos=kv_pos, window=window,
+                kv_mask=kv_mask, soft_cap=soft_cap)
+            part = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+            w = part.shape[-1]
+            allp = fused_ring.gather_features(
+                part.reshape(b, 1, -1), mesh.tp_group, p, mesh.tp_index,
+                "attn_partials").reshape(b, p, n_heads, s, w)
+            mine = allp[:, :, mesh.tp_index * h_l:(mesh.tp_index + 1) * h_l]
+            out = combine_partials([(t[..., 0], t[..., 1], t[..., 2:])
+                                    for t in mine.unbind(1)]).to(q.dtype)
+        else:
+            if whole_kv:
+                kk, vv, rep = kk[:, :, heads], vv[:, :, heads], 1
+            else:
+                rep = n_rep
+            out = sdpa(q, _repeat_kv(kk, rep), _repeat_kv(vv, rep),
+                       q_pos=positions, kv_pos=kv_pos, causal=True,
+                       window=window, kv_mask=kv_mask, soft_cap=soft_cap)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     else:
         if collect_kv:
             new_cache = {"k": k, "v": v}
+        if whole_kv:
+            k, v, n_rep = k[:, :, heads], v[:, :, heads], 1
         kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
         kv_pos = (positions if x_kv is None
                   else torch.arange(f, device=x.device))
@@ -673,9 +909,9 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
     window promotes to, as the reference's concatenate; ssm in the state's
     dtype).
 
-    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``;
-    teacher-forced only: a decode state raises) the rank runs its
-    ``n_heads / p`` heads: x is its feature block [B, S, D/p]; ``in_z``
+    With ``mesh`` (a 1-D model mesh of p ranks, ``cfg.scheme="1d"``) the
+    rank runs its ``n_heads / p`` heads: x is its feature block [B, S,
+    D/p]; ``in_z``
     and ``in_dt`` give its heads' blocks of z and dt (``jigsaw_linear``);
     ``in_xbc`` and ``conv_w`` hold the rank's contiguous block of the conv
     channels, so the depthwise conv and SiLU run on that block (with its
@@ -684,16 +920,17 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
     runs the rank's heads (``A_log``, ``D`` and ``dt_bias`` sliced to
     them; local head k reads local group k // (heads per group)), the
     gated RMSNorm reduces over the cut d_inner (``rmsnorm_apply(mesh=)``)
-    and ``out_proj`` contracts the rank's d_inner block.  A group count
-    that p neither divides nor equals 1 raises ValueError."""
+    and ``out_proj`` contracts the rank's d_inner block.  A decode step
+    runs the same blocks (the layout of ``cache_specs``): the conv window
+    [B, K-1, conv_dim/p] is the rank's contiguous channel block, so the
+    one token's conv and SiLU run there before ``_heads_channels``, and
+    the recurrent update runs the rank's heads of the state [B, H/p, P,
+    N].  A group count that p neither divides nor equals 1 raises
+    ValueError."""
     del conv_kernel                      # conv_w carries it
     b, s, _ = x.shape
     p = 1 if mesh is None else mesh.tp_size
     if p > 1:
-        if state is not None:
-            raise NotImplementedError(
-                "mamba2_apply: a decode step on a model mesh (serving on a "
-                "model mesh: ROADMAP.md, queue 1 item 19)")
         if n_groups > 1 and n_groups % p:
             raise ValueError(f"mamba2_apply: {n_groups} groups on {p} "
                              "ranks (p must divide the groups or they "
@@ -735,12 +972,14 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
         wdt = torch.promote_types(window.dtype, cw.dtype)
         conv = torch.einsum("bkc,kc->bc", window.to(wdt),
                             cw.to(wdt))[:, None, :]
-        xBC = F.silu(conv + params["conv_b"][None, None, :])
+        xBC = F.silu(conv + conv_b[None, None, :])
+        if p > 1:
+            xBC = _heads_channels(xBC, mesh, d_inner, n_groups, d_state)
         xs, B, C = torch.split(xBC, split, dim=-1)
-        xs = xs.reshape(b, 1, n_heads, head_dim).float()
-        B = B.reshape(b, 1, n_groups, d_state).float()
-        C = C.reshape(b, 1, n_groups, d_state).float()
-        rep = n_heads // n_groups
+        xs = xs.reshape(b, 1, h_l, head_dim).float()
+        B = B.reshape(b, 1, g_l, d_state).float()
+        C = C.reshape(b, 1, g_l, d_state).float()
+        rep = h_l // g_l
         Bh = B[:, 0].repeat_interleave(rep, dim=1)        # [B, H, N]
         Ch = C[:, 0].repeat_interleave(rep, dim=1)
         dA = torch.exp(dt[:, 0, :] * A[None, :])          # [B, H]
@@ -748,7 +987,7 @@ def mamba2_apply(params, x: torch.Tensor, *, d_state: int, n_heads: int,
         upd = torch.einsum("bh,bhn,bhp->bhpn", dt[:, 0], Bh, xs[:, 0])
         ssm_new = ssm * dA[:, :, None, None] + upd
         y = torch.einsum("bhn,bhpn->bhp", Ch, ssm_new)[:, None]
-        y = y + xs * params["D"][None, None, :, None]
+        y = y + xs * params["D"][heads][None, None, :, None]
         new_state = {"conv": window[:, 1:],
                      "ssm": ssm_new.to(state["ssm"].dtype)}
 

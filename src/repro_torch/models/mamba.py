@@ -13,7 +13,12 @@ intra-chunk SSD term one launch of the ssd_chunk kernel (and, in training,
 one launch of its backward kernel, ssd_chunk_bwd).  ``decode_step`` is
 the recurrent single-token step (no SSD launch); it writes the cache that
 ``init_cache`` made in place, and allocates nothing that outlives it, so
-``serve/step.py`` can capture it in a CUDA graph.
+``serve/step.py`` can capture it in a CUDA graph.  On a 1-D model mesh
+(``scheme="1d"``) ``init_cache(mesh=)`` makes the rank's block of the
+state (the conv window's channel block and the SSM state's heads, as the
+reference's ``cache_specs`` lays them out) and ``decode_step`` runs the
+embedding, each mixer, the final norm and the vocab-parallel head on the
+rank's blocks.
 """
 from __future__ import annotations
 
@@ -110,17 +115,22 @@ def conv_dtype(cfg: ModelConfig, dtype=torch.bfloat16) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", mesh=None):
     """The decode state, O(1) in sequence length: per layer the conv window
     [B, K-1, conv_dim] in ``conv_dtype(cfg, dtype)`` (``dtype``, or the
     activations' where those are wider: the dtype the step writes) and the
     SSM state [B, H, P, N] in f32, stacked on a leading layer dim as in the
-    reference."""
-    del max_len
+    reference.  With ``mesh`` (a 1-D model mesh) the rank's block of the
+    state of the whole batch ``batch_size``: the conv window's contiguous
+    block of channels [L, B, K-1, conv_dim/p] and the state's heads [L, B,
+    H/p, P, N] (``layers.cache_block``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("mamba.init_cache: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
+    if mesh is not None:
+        return L.cache_block(init_cache(cfg, batch_size, max_len, dtype,
+                                        device="meta"), cfg, mesh, device)
     conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     return {
         "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device),
@@ -141,8 +151,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     reference donates the cache to XLA), and the same dict is returned.
     The conv window must be in the dtype the step writes
     (``conv_dtype``, as ``init_cache`` makes it): a narrower one raises
-    rather than rounding the window."""
-    x = L.embed_apply(params["embed"], tokens)
+    rather than rounding the window.  Under ``scheme="1d"`` the rank's
+    blocks: its rows of the tokens, its block of the state, its vocab
+    block of the logits [B, 1, vocab_padded / p]."""
+    mesh = L.mesh_1d(jcfg)
+    x = L.embed_apply(params["embed"], tokens, mesh=mesh)
     conv, ssm = cache["conv"], cache["ssm"]
     for i, lp in enumerate(params["layers"]):
         x, ns = _mixer(lp, x, cfg, jcfg,
@@ -153,7 +166,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                             "make the cache with init_cache")
         conv[i].copy_(ns["conv"])
         ssm[i].copy_(ns["ssm"])
-    x = L.rmsnorm_apply(params["final_norm"], x)
+    x = L.rmsnorm_apply(params["final_norm"], x, mesh=mesh)
     logits = L.unembed_apply(params["embed"], x, jcfg)
     cache["pos"] += 1
     return logits, cache

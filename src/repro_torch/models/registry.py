@@ -3,12 +3,15 @@
 enc-dec audio family)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import JigsawConfig
 from repro_torch.models import (encdec, hybrid, mamba, transformer,
                                 weathermixer)
+from repro_torch.models import layers as L
 
 _FAMILY_MODULE = {"mixer": weathermixer, "ssm": mamba, "dense": transformer,
                   "vlm": transformer, "moe": transformer, "hybrid": hybrid,
@@ -37,9 +40,10 @@ def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
     """What the port cannot lay out of a language model raises:
     NotImplementedError, naming ROADMAP.md's queue 1 item 19, for the FSDP
     hybrid's cut over more than one data rank (``fsdp``: the caller passes
-    it only then) and for a 2-D model mesh (``scheme``); ValueError where
-    ``model`` does not divide a dim it cuts (the reference pads such dims
-    through GSPMD; the port's blocks are exact): the heads, the widths,
+    it only then; item 19.3) and for a 2-D model mesh (``scheme``);
+    ValueError where ``model`` does not divide a dim it cuts (the
+    reference pads such dims through GSPMD; the port's blocks are exact):
+    the heads, the widths,
     the experts (expert parallelism), the Mamba-2 heads, inner width and
     conv channels (``in_xbc`` and ``conv_w`` are cut in blocks of
     channels), its groups where there is more than one (each rank runs
@@ -51,7 +55,7 @@ def check_lm_mesh(cfg: ModelConfig, model: int, fsdp: bool = False,
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family!r}) FSDP-cut over data: the "
             "language models' FSDP hybrid is not ported (ROADMAP.md, queue "
-            "1 item 19); use a data or 1-D model mesh without it")
+            "1 item 19.3); use a data or 1-D model mesh without it")
     if model <= 1:
         return
     if scheme == "2d":
@@ -85,23 +89,47 @@ def apply(params, batch, cfg: ModelConfig, jcfg: JigsawConfig, **kw):
     return module_for(cfg).apply(params, batch, cfg, jcfg, **kw)
 
 
+def check_serve_mesh(cfg: ModelConfig, jcfg: Optional[JigsawConfig]) -> None:
+    """What serving on the config's mesh cannot lay out raises: the
+    layout of ``check_lm_mesh`` under ``scheme="1d"``, and
+    ``kv_shard="headdim"`` on a model mesh (``layers.check_kv_shard``,
+    ROADMAP.md queue 1 item 19.5)."""
+    mesh = None if jcfg is None else L.mesh_1d(jcfg)
+    if mesh is not None:
+        check_lm_mesh(cfg, mesh.p)
+        L.check_kv_shard(cfg, mesh.p)
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda",
+               jcfg: Optional[JigsawConfig] = None):
+    """A fresh decode cache for a batch of ``batch_size`` rows.  Under
+    ``jcfg.scheme="1d"`` the rank's block of it on the config's mesh
+    (``layers.cache_block``: the reference's ``cache_specs``, sanitized;
+    the whole cache is never allocated), a ``CacheBlock``."""
     mod = module_for(cfg)
     if not hasattr(mod, "init_cache"):
         raise ValueError(f"{cfg.arch_id} ({cfg.family}) has no decode path")
-    return mod.init_cache(cfg, batch_size, max_len, dtype, device=device)
+    check_serve_mesh(cfg, jcfg)
+    mesh = None if jcfg is None else L.mesh_1d(jcfg)
+    return mod.init_cache(cfg, batch_size, max_len, dtype, device=device,
+                          mesh=mesh)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, jcfg: JigsawConfig):
+    """One token per row (the rank's rows and cache block under
+    ``scheme="1d"``): (logits, cache), the cache written in place."""
+    check_serve_mesh(cfg, jcfg)
     return module_for(cfg).decode_step(params, cache, tokens, cfg, jcfg)
 
 
 def start_cache(params, cache, extra_batch: dict, cfg: ModelConfig,
                 jcfg: JigsawConfig):
     """Load a prompt's extra inputs into a fresh decode cache, in place
-    (the enc-dec family's encoder states of ``extra_batch["frames"]``);
-    a family that takes none leaves the cache as it is.  Returns it."""
+    (the enc-dec family's encoder states of ``extra_batch["frames"]``: the
+    rank's block of them under ``scheme="1d"``); a family that takes none
+    leaves the cache as it is.  Returns it."""
+    check_serve_mesh(cfg, jcfg)
     mod = module_for(cfg)
     if hasattr(mod, "start_cache"):
         mod.start_cache(params, cache, extra_batch, cfg, jcfg)
@@ -125,6 +153,7 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     if not has_fused_prefill(cfg):
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family}) has no fused prefill")
+    check_serve_mesh(cfg, jcfg)
     return module_for(cfg).prefill_cache(params, batch, cfg, jcfg, max_len,
                                          dtype=dtype)
 

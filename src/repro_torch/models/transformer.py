@@ -41,8 +41,14 @@ block of the logits [B, S, V/p] (``core/api.py::head_apply``), which the
 loss reduces over the tp group (``train/loss.py::lm_nll_sharded``).  The
 VLM's ``embeds`` arrive as the rank's [B, P, D/p] block.
 
-Not ported here: the reference's ``_kv_spec`` (the cache's layout on a
-model mesh: the port serves a language model on one device).
+Serving on a 1-D model mesh: ``init_cache(mesh=)`` makes the rank's block
+of the cache (``layers.cache_block``: the layout of the reference's
+``cache_specs``, sanitized: the kv heads on the model axis where p divides
+them, else the sequence, the batch's rows over data), ``prefill_cache``
+runs the fused forward on the rank's blocks and writes each layer's k and
+v into it, and ``decode_step`` runs the embedding, every layer and the
+head on the rank's blocks, each attention on its cache leaf's layout (the
+reference's ``_kv_spec``: ``layers.kv_layout``).
 """
 from __future__ import annotations
 
@@ -165,18 +171,20 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
 
 def _layer_apply(lp, x, *, cfg: ModelConfig, jcfg: JigsawConfig, positions,
                  window: int, kv_cache=None, rolling=False, collect_kv=False,
-                 aux_in=0.0, mesh=None):
+                 aux_in=0.0, mesh=None, kv_layout=None):
     """One decoder layer: (x, the layer's new cache or collected k/v, the
     aux loss ``aux_in`` plus the MoE layer's).  With ``mesh`` (a 1-D model
     mesh) x is the rank's feature block, the attention runs the rank's
-    heads and the MoE the rank's experts."""
+    heads (on its cache block laid out as ``kv_layout`` says) and the MoE
+    the rank's experts."""
     h = _norm_apply(cfg, lp["attn_norm"], x, mesh)
     attn_out, new_cache = L.attention_apply(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.d_head, positions=positions, cfg=jcfg, window=window,
         rope_theta=cfg.rope_theta, soft_cap=cfg.attn_soft_cap,
         kv_cache=kv_cache, rolling=rolling, collect_kv=collect_kv,
-        qk_norm=lp.get("qk_norm"), q_chunk=cfg.attn_q_chunk, mesh=mesh)
+        qk_norm=lp.get("qk_norm"), q_chunk=cfg.attn_q_chunk, mesh=mesh,
+        kv_layout=kv_layout)
     x = x + attn_out
     h = _norm_apply(cfg, lp["ffn_norm"], x, mesh)
     if "moe" in lp:
@@ -239,7 +247,7 @@ def _period(cfg: ModelConfig) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", mesh=None):
     """The KV cache, zeros, the reference's layout.
 
     Uniform stacks: {"pos", "k", "v"}, k and v [L, B, S, Hkv, hd]; where
@@ -249,11 +257,18 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     "lk"/"lv" [n_periods, ratio, B, w, Hkv, hd] (w = min(local_window,
     max_len)), the global ones' "gk"/"gv" [n_periods, B, max_len, Hkv,
     hd], and the layers left over after the last whole period (depth %
-    period, all local) "rk"/"rv" [leftover, B, w, Hkv, hd]."""
+    period, all local) "rk"/"rv" [leftover, B, w, Hkv, hd].
+
+    With ``mesh`` (a 1-D model mesh) the rank's block of the cache of the
+    whole batch ``batch_size``, and nothing else, is allocated
+    (``layers.cache_block``, a ``CacheBlock``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("transformer.init_cache: CUDA is not available; "
                            "pass device='cpu' to run on the CPU")
+    if mesh is not None:
+        return L.cache_block(init_cache(cfg, batch_size, max_len, dtype,
+                                        device="meta"), cfg, mesh, device)
 
     def zeros(*lead, s):
         return torch.zeros(lead + (batch_size, s, cfg.n_kv_heads,
@@ -286,6 +301,14 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
     tokens), as the token-wise decode steps would have put it.  Returns
     (logits [B, S_prompt, V], cache) with "pos" = S_prompt.
 
+    Under ``scheme="1d"`` (a 1-D model mesh) ``batch["tokens"]`` is the
+    whole batch: the rank runs its rows (``layers.rows_block``) through
+    the mesh forward (``apply``'s blocks) and returns its block of the
+    logits [B_rank, S_prompt, V/p] and of the cache (``init_cache(mesh=)``),
+    into which each layer's k and v go as the cache's layout holds them:
+    the rank's kv heads, or, where the sequence is cut, the tokens whose
+    slots are the rank's.
+
     Uniform stacks only: local:global stacks (gemma3) and VLM embeds raise
     NotImplementedError, as the reference's, and ``serve/step.py`` then
     prefills token by token.  A prompt longer than a non-rolling cache
@@ -295,24 +318,36 @@ def prefill_cache(params, batch, cfg: ModelConfig, jcfg: JigsawConfig,
                                   "only (local:global falls back)")
     if batch.get("embeds") is not None:
         raise NotImplementedError("fused prefill: text prompts only")
+    mesh = L.mesh_1d(jcfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len, dtype, device=tokens.device)
-    s_max = cache["k"].shape[2]
+    cache = init_cache(cfg, tokens.shape[0], max_len, dtype,
+                       device=tokens.device, mesh=mesh)
+    tokens = L.rows_block(tokens, mesh)
+    s = tokens.shape[1]
+    layout = L.kv_layout(cache, ("k",), mesh)
+    seq = layout == "seq"
+    s_blk = cache["k"].shape[2]
+    s_max = s_blk * mesh.tp_size if seq else s_blk
     if cfg.sliding_window is None and s > s_max:
         raise ValueError(f"prompt length {s} > cache max_len {s_max}")
     m = min(s, s_max)   # a rolling cache keeps only the last window
     slots = torch.arange(s - m, s, device=tokens.device) % s_max
-    x = L.embed_apply(params["embed"], tokens)
+    src = torch.arange(s - m, s, device=tokens.device)
+    if seq:             # the tokens whose slots are this rank's
+        lo = mesh.tp_index * s_blk
+        own = (slots >= lo) & (slots < lo + s_blk)
+        slots, src = slots[own] - lo, src[own]
+    x = L.embed_apply(params["embed"], tokens, mesh=mesh)
     positions = torch.arange(s, device=x.device)
     for i, (lp, w) in enumerate(zip(params["layers"], layer_windows(cfg))):
         x, kv, _ = _layer_apply(lp, x, cfg=cfg, jcfg=jcfg,
                                 positions=positions, window=w,
-                                collect_kv=True)
-        cache["k"][i][:, slots] = kv["k"][:, s - m:].to(dtype)
-        cache["v"][i][:, slots] = kv["v"][:, s - m:].to(dtype)
+                                collect_kv=True, mesh=mesh,
+                                kv_layout=layout)
+        cache["k"][i][:, slots] = kv["k"][:, src].to(dtype)
+        cache["v"][i][:, slots] = kv["v"][:, src].to(dtype)
     cache["pos"].fill_(s)
-    return _head(params, x, cfg, jcfg), cache
+    return _head(params, x, cfg, jcfg, mesh), cache
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig,
@@ -322,16 +357,22 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     place (the reference donates the cache to XLA) and "pos" is advanced
     in place; the same dict is returned.  Local:global stacks run their
     layers in order: each period's local layers on their rolling buffers,
-    then its global layer, then the leftover local layers."""
-    x = L.embed_apply(params["embed"], tokens)
-    pos = cache["pos"]
+    then its global layer, then the leftover local layers.  Under
+    ``scheme="1d"`` the rank's blocks: its rows of the tokens, its block
+    of the cache (a ``CacheBlock``), its vocab block of the logits [B, 1,
+    vocab_padded / p]."""
+    mesh = L.mesh_1d(jcfg)
+    x = L.embed_apply(params["embed"], tokens, mesh=mesh)
+    pos = L.rows_block(cache["pos"], mesh)      # "pos" is whole: the rows'
     positions = pos[:, None]
 
-    def run(lp, h, window, kc, vc, rolling):
+    def run(lp, h, window, key, index, rolling):
+        kc, vc = cache[key][index], cache[key[:-1] + "v"][index]
         h, _, _ = _layer_apply(lp, h, cfg=cfg, jcfg=jcfg,
                                positions=positions, window=window,
                                kv_cache={"k": kc, "v": vc, "pos": pos},
-                               rolling=rolling)
+                               rolling=rolling, mesh=mesh,
+                               kv_layout=L.kv_layout(cache, (key,), mesh))
         return h
 
     layers = params["layers"]
@@ -339,7 +380,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     if per == 1:
         rolling = cfg.sliding_window is not None
         for i, (lp, w) in enumerate(zip(layers, layer_windows(cfg))):
-            x = run(lp, x, w, cache["k"][i], cache["v"][i], rolling)
+            x = run(lp, x, w, "k", i, rolling)
     else:
         n_per = cfg.n_layers // per
         ratio = cfg.local_global_ratio
@@ -347,14 +388,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
             for j in range(per):
                 lp = layers[p * per + j]
                 if j < ratio:
-                    x = run(lp, x, cfg.local_window, cache["lk"][p, j],
-                            cache["lv"][p, j], True)
+                    x = run(lp, x, cfg.local_window, "lk", (p, j), True)
                 else:
-                    x = run(lp, x, FULL_WINDOW, cache["gk"][p],
-                            cache["gv"][p], False)
+                    x = run(lp, x, FULL_WINDOW, "gk", p, False)
         for r, lp in enumerate(layers[n_per * per:]):
-            x = run(lp, x, cfg.local_window, cache["rk"][r], cache["rv"][r],
-                    True)
-    logits = _head(params, x, cfg, jcfg)
-    pos += 1
+            x = run(lp, x, cfg.local_window, "rk", r, True)
+    logits = _head(params, x, cfg, jcfg, mesh)
+    cache["pos"] += 1
     return logits, cache

@@ -29,6 +29,22 @@ until one concatenate at the end.  Nothing here needs autograd:
 ``generate`` runs under ``torch.no_grad``.  Everything runs where the
 prompts and the parameters lie: on the card unless the caller made them on
 the CPU.
+
+On a 1-D Jigsaw model mesh (``jcfg.scheme="1d"``, ``jcfg.mesh`` the rank's
+``Mesh1D`` of (data n, model p)) every rank holds its shard of the weights
+(``convert.shard_params_1d`` under ``registry.param_rule(cfg, "1d")``) and
+its block of the cache (``registry.init_cache``: the reference's
+``cache_specs``), and ``prefill`` and ``generate`` take the whole prompt
+batch: each rank runs its data rank's rows (all of them where n does not
+divide the batch) and the frames' block of D.  The greedy argmax runs
+over the vocab-cut logits [B, 1, V/p] (``greedy``): every rank of the
+model group picks the same token, and ``generate`` returns the whole
+batch's tokens on every rank.  A mesh decode runs eagerly: the ring
+kernels' stream synchronisation and gloo barrier before each launch
+(``kernels/ring.py``, ``kernels/fused_ring.py``), and the features'
+hops through the ring workspace, are host work that a CUDA graph cannot
+capture, so ``graph=None`` takes the eager loop there and ``graph=True``
+raises ValueError.
 """
 from __future__ import annotations
 
@@ -37,25 +53,67 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core import tree as ptree
 from repro_torch.core.api import JigsawConfig
+from repro_torch.core.sharding import DATA_AXIS, MODEL_AXIS, sanitize_spec
+from repro_torch.kernels import fused_ring
 from repro_torch.kernels.graphs import CountedGraph
+from repro_torch.models import layers as L
 from repro_torch.models import registry as M
+
+
+def greedy(logits: torch.Tensor, cfg: ModelConfig,
+           jcfg: JigsawConfig) -> torch.Tensor:
+    """The next token [B, 1] int32 from the logits of the last position:
+    the vocab padding (ids >= ``cfg.vocab_size``) masked off, then the
+    first maximum, as ``jnp.argmax``.  Under ``scheme="1d"`` the logits
+    are the rank's vocab block [B, S, V/p]: each rank takes its block's
+    first maximum, the (value, global id) pairs of the tp group are
+    gathered (``fused_ring.gather_features``) and the first rank holding
+    the largest value wins, so a tie goes to the lowest global id and
+    every rank returns the same token."""
+    last = logits[:, -1:]
+    mesh = L.mesh_1d(jcfg)
+    if mesh is None or mesh.p == 1:
+        return torch.argmax(last[..., :cfg.vocab_size],
+                            dim=-1).to(torch.int32)
+    vl = last.shape[-1]
+    ids = torch.arange(mesh.r * vl, (mesh.r + 1) * vl, device=last.device)
+    vals = last.float().masked_fill(ids >= cfg.vocab_size, -torch.inf)
+    idx = torch.argmax(vals, dim=-1, keepdim=True)
+    pair = torch.cat([vals.gather(-1, idx), (idx + mesh.r * vl).float()], -1)
+    pairs = fused_ring.gather_features(pair, mesh.tp_group, mesh.p, mesh.r,
+                                       "greedy")
+    pairs = pairs.reshape(*pairs.shape[:-1], mesh.p, 2)
+    best = torch.argmax(pairs[..., 0], dim=-1, keepdim=True)
+    return pairs[..., 1].gather(-1, best)[..., 0].to(torch.int32)
 
 
 def make_serve_step(cfg: ModelConfig, jcfg: JigsawConfig):
     """Returns serve_step(params, cache, tokens [B, 1]) ->
     (next_tokens [B, 1] int32, cache): greedy, with the vocab padding
     masked off before the argmax (which takes the first maximum, as
-    ``jnp.argmax``)."""
+    ``jnp.argmax``; over the vocab-cut logits on a model mesh:
+    ``greedy``)."""
 
     def serve_step(params, cache, tokens):
         logits, cache = M.decode_step(params, cache, tokens, cfg, jcfg)
-        logits = logits[..., : cfg.vocab_size]
-        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return nxt, cache
+        return greedy(logits, cfg, jcfg), cache
 
     return serve_step
+
+
+def _frames_block(extra_batch: Optional[dict],
+                  jcfg: JigsawConfig) -> Optional[dict]:
+    """The rank's block of the whole batch's ``extra_batch`` on a model
+    mesh: its rows of the frames [B, F, D] and its block of D."""
+    mesh = L.mesh_1d(jcfg)
+    if extra_batch is None or mesh is None:
+        return extra_batch
+    spec = ((DATA_AXIS,), None, MODEL_AXIS)
+    return {k: mesh.block(v, sanitize_spec(v.shape, spec, mesh))
+            for k, v in extra_batch.items()}
 
 
 def start_cache(params, prompts: torch.Tensor, cfg: ModelConfig,
@@ -64,12 +122,15 @@ def start_cache(params, prompts: torch.Tensor, cfg: ModelConfig,
     """A fresh cache on the prompts' device for their batch, with the
     prompt's ``extra_batch`` loaded by the family (``M.start_cache``: the
     audio family's encoder states of its "frames" in "enc", cast to the
-    cache dtype)."""
+    cache dtype).  On a model mesh the rank's block of the cache, and of
+    the frames (the whole batch's given)."""
     cache = M.init_cache(cfg, prompts.shape[0], max_len, dtype=cache_dtype,
-                         device=prompts.device)
+                         device=prompts.device, jcfg=jcfg)
     if extra_batch is not None:
         with torch.no_grad():
-            M.start_cache(params, cache, extra_batch, cfg, jcfg)
+            M.start_cache(params, cache,
+                          _frames_block(extra_batch, jcfg),
+                          cfg, jcfg)
     return cache
 
 
@@ -79,10 +140,12 @@ def prefill_tokenwise(params, prompts: torch.Tensor, cfg: ModelConfig,
                       extra_batch: Optional[dict] = None):
     """Token-by-token prefill through the decode step: a fresh cache
     (``start_cache``), then one step per prompt position.  Returns the
-    token after the prompt [B, 1] and the cache."""
+    token after the prompt [B, 1] and the cache (on a model mesh, of the
+    rank's rows)."""
     s = prompts.shape[1]
     cache = start_cache(params, prompts, cfg, jcfg, max_len, cache_dtype,
                         extra_batch)
+    prompts = L.rows_block(prompts, L.mesh_1d(jcfg))
     step = make_serve_step(cfg, jcfg)
     last = prompts[:, :1]
     for t in range(s):
@@ -114,7 +177,9 @@ def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
     """Fill a fresh cache from the prompt.  ``fused=None`` takes the family's
     fused prefill where it has one and goes token-wise otherwise; True
     forces the fused one (and raises where there is none: the audio family
-    and ``extra_batch`` among them); False forces the token-wise path."""
+    and ``extra_batch`` among them); False forces the token-wise path.
+    Returns the token after the prompt [B, 1] and the cache: on a model
+    mesh, of the rank's rows of the whole batch ``prompts``."""
     if _tokenwise_only(cfg, extra_batch, fused):
         return prefill_tokenwise(params, prompts, cfg, jcfg, max_len,
                                  cache_dtype, extra_batch)
@@ -126,9 +191,7 @@ def prefill(params, prompts: torch.Tensor, cfg: ModelConfig,
             raise
         return prefill_tokenwise(params, prompts, cfg, jcfg, max_len,
                                  cache_dtype)
-    nxt = torch.argmax(logits[:, -1:, : cfg.vocab_size],
-                       dim=-1).to(torch.int32)
-    return nxt, cache
+    return greedy(logits, cfg, jcfg), cache
 
 
 class GraphedStep:
@@ -225,11 +288,20 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     """Greedy generation: prefill, then ``steps - 1`` decode steps.
     Returns the ``steps`` new tokens [B, steps] (int32) on the prompts'
     device.  ``extra_batch``: the audio family's {"frames"}.  ``graph``
-    (None: on CUDA) replays ``graph_serve_step``'s captured step for every
-    decode step and every step of a token-wise prefill; False runs them
-    eagerly; True on the CPU raises."""
+    (None: on CUDA off a model mesh) replays ``graph_serve_step``'s
+    captured step for every decode step and every step of a token-wise
+    prefill; False runs them eagerly; True on the CPU or on a model mesh
+    raises.  On a model mesh the prompts (and frames) are the whole
+    batch's, each rank runs its rows, and every rank returns the whole
+    batch's tokens (gathered over the data axis)."""
+    mesh = L.mesh_1d(jcfg)
+    on_mesh = mesh is not None and mesh.p * mesh.data_size > 1
+    if graph and on_mesh:
+        raise ValueError("generate(graph=True): a decode step on a mesh "
+                         "runs eagerly (its collectives synchronise the "
+                         "host)")
     if graph is None:
-        graph = prompts.is_cuda
+        graph = prompts.is_cuda and not on_mesh
     if not graph:
         nxt, cache = prefill(params, prompts, cfg, jcfg, max_len,
                              extra_batch=extra_batch, fused=fused)
@@ -238,7 +310,10 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
         for _ in range(steps - 1):
             nxt, cache = step(params, cache, nxt)
             out.append(nxt)
-        return torch.cat(out, dim=1)
+        out = torch.cat(out, dim=1)
+        if on_mesh and L.rows_block(prompts, mesh).shape[0] < len(prompts):
+            out = comm.all_gather(out, mesh.data_group, 0)
+        return out
     _check_cuda(prompts, "generate(graph=True) needs prompts on cuda")
     b, s = prompts.shape
     out = torch.empty((b, steps), dtype=torch.int32, device=prompts.device)
