@@ -17,7 +17,8 @@ encoder-decoder forward and generation, language-model training
 (``TrainEngine`` on token batches: mamba2-130m, h2o-danube-1.8b and
 whisper-small whole, phi3.5-moe cut in depth, jamba reduced; h2o whole
 on a 1-D Jigsaw model mesh of two ranks sharing the card, and
-mamba2-130m, phi3.5-moe, whisper-small and jamba there too),
+mamba2-130m, phi3.5-moe, whisper-small and jamba there too, and
+mamba2-130m's checkpoints there: save, resume, serving restore),
 forecast serving, one-GPU training (and its preemption, supervised
 relaunch and resume), the 2-D Jigsaw (Cannon) training step
 at q = 1 and on a 2x2 mesh of four ranks sharing the card, the 1-D
@@ -407,6 +408,19 @@ schemes' model groups replicated over a data axis of two (ZeRO-1, the
      columns among them), ``ssd_shape`` (4) and ``ssd_bwd_shape`` the SSD
      kernels at 12 heads of one group and at jamba's 4 of 4 groups, and
      block_matmul the heads' and phi3.5's router's per-rank shapes;
+  19c'. ``lm_1d_ckpt``: mamba2-130m's checkpoints on the same mesh, in
+     ``lm_1d_zoo``'s rank processes after its models, under the zoo's
+     settings: step 0, an async ``save`` (each rank its blocks by the
+     1-D layout), step 1 beside the write, ``wait_checkpoints``; a fresh
+     engine on each rank resumes and runs step 1 through ``run()``, its
+     loss, grad norm and every param and moment leaf bit for bit the
+     continued run's; ``restore_serving_params(mesh=, specs=)`` gives
+     the blocks held at the save bit for bit, and ``generate`` from them
+     (4 prompts of 2 tokens, 4 greedy tokens) the held blocks' tokens;
+     this process's one-device restore is ``gather_params_1d`` of the
+     ranks' blocks bit for bit; the launches equal to
+     ``lm_1d_ckpt_calls``; bytes a save and a rank, ``ckpt_submit`` and
+     ``ckpt.write`` s, GB/s, restore s a rank, resume to first step s;
   19d. ``lm_1d_serve``: serving every family on the same mesh
      (``--lm-1d-serve-rank``), ``serve/step.py::generate`` with each
      rank's block of the cache laid out by the reference's
@@ -6091,6 +6105,7 @@ def lm_1d_zoo_phase(torch, zoo):
                                      for k in ZOO_KERNELS} for x in res])
     emit(phase="lm_1d_zoo", mesh=stats["mesh"], impl="ring_fused",
          wall_s=wall, launches_per_rank=stats["launches_per_rank"])
+    stats["ckpt"] = lm_1d_ckpt_phase(torch, res, zoo)
     return stats
 
 
@@ -6188,10 +6203,240 @@ def lm_1d_zoo_worker(rank, tmp):
         torch.cuda.empty_cache()
         res["seconds"] = time.perf_counter() - t0
         out[arch] = res
+    out["lm_1d_ckpt"] = lm_1d_ckpt_rank(torch, tmp, rank)
     (tmp / f"rank{rank}.json").write_text(json.dumps(out))
     RING.release_workspaces()
     dist.destroy_process_group()
     return 0
+
+
+# ``lm_1d_ckpt``: mamba2-130m's checkpoints on lm_1d_zoo's (data 1, model
+# 2) mesh, in its rank processes after its four models (the zoo's engine
+# runs one step, steps=1, so a resumed run of it would have no step to
+# run: the phase builds its own pair of engines under the zoo's settings,
+# at two steps): step 0, an async ``save`` (each rank writes its blocks
+# by the 1-D layout from the writer thread), step 1 while the write
+# streams, ``wait_checkpoints``; a fresh engine on each rank resumes from
+# the save and runs step 1 through ``run()``: its loss, grad norm and
+# every param and moment leaf's ``bit_fingerprint`` must equal the
+# continued run's step 1.  Before that step, ``restore_serving_params(
+# mesh=, specs=)`` reads each rank's block of the save, which must be the
+# blocks the first engine held at the save bit for bit, and ``generate``
+# from it (CKPT_GEN: 4 prompts of 2 tokens, 4 greedy tokens) must give
+# the tokens of ``generate`` from those held blocks.  The parent restores
+# the save's params on one device (the CPU), which must equal
+# ``gather_params_1d`` of the ranks' held blocks bit for bit.  The counts
+# go to 0 just before the first engine is built and are read after the
+# resumed step: three steps of ``lm_1d_zoo_calls`` and two generates of
+# ``lm_1d_serve_calls`` a token.
+CKPT_LM = "mamba2-130m"
+CKPT_GEN = (4, 2, 4)            # prompts, prompt tokens, greedy tokens
+
+
+def lm_1d_ckpt_calls(cfg, p):
+    """One rank's launches of the phase: three training steps and two
+    token-wise generates of CKPT_GEN."""
+    train = lm_1d_zoo_calls(cfg, p)
+    serve, _ = lm_1d_serve_calls(cfg, p)
+    b, s, n = CKPT_GEN
+    out = {k: 3 * v for k, v in train.items()}
+    for k, v in serve.items():
+        out[k] = out.get(k, 0) + 2 * (s + n - 1) * v
+    return {k: v for k, v in out.items() if v}
+
+
+def lm_1d_ckpt_rank(torch, tmp, rank):
+    """One rank's part of ``lm_1d_ckpt`` (after the zoo's models, or alone
+    with ``--lm-1d-ckpt-rank``); returns its results, and writes the
+    blocks its first engine held at the save to ckpt_blocks<r>.pt."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_serving_params
+    from repro_torch.core import tree as ptree
+    from repro_torch.launch.engine import TrainEngine
+    from repro_torch.serve.step import generate
+    kw, _ = zoo_engine_args(CKPT_LM)
+    path = Path(tmp) / "lm_1d_ckpt" / "ck-0"
+
+    def engine(**over):
+        return TrainEngine(CKPT_LM, mesh_model=ZOO_P, scheme="1d",
+                           impl="ring_fused", device="cuda", **dict(
+                               kw, config=dataclasses.replace(
+                                   kw["config"], steps=2, **over)))
+
+    def state(eng):
+        return bit_fingerprint(torch, {"params": eng.params,
+                                       "opt_state": eng.opt_state})
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    # -- the main path: counts to 0 just before, read just after ----------
+    zero_counts(counted())
+    eng = engine()
+    it = eng.pipeline.iterate(eng.r_sched, start_step=0)
+    eng.dispatch(next(it))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save(str(path))
+    held = ptree.map(torch.clone, eng.params)
+    m1 = eng.dispatch(next(it))
+    it.close()
+    eng.wait_checkpoints()
+    torch.cuda.synchronize()
+    written_s = time.perf_counter() - t0
+    cont = dict(loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]),
+                state=state(eng))
+    spans = dict(submit=[d / 1e6 for _, d in span_times(eng.tracer,
+                                                        "ckpt_submit")],
+                 write=[d / 1e6 for _, d in span_times(eng.tracer,
+                                                       "ckpt.write")])
+    saved = eng.last_save.bytes_per_rank[rank]
+    eng.close()
+    del eng, m1
+    torch.cuda.empty_cache()
+    dist.barrier()                  # rank 0's writer merged the manifest
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = engine(resume=str(path))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    at = [eng.step_idx, eng.pipeline.cursor, int(eng.opt_state["step"])]
+    t0 = time.perf_counter()
+    served, man = restore_serving_params(
+        str(path), arch=CKPT_LM, like=eng.params, mesh=eng.mesh,
+        specs=eng.param_specs, device=eng.device)
+    torch.cuda.synchronize()
+    serve_restore_s = time.perf_counter() - t0
+    b, s, n = CKPT_GEN
+    prompts = torch.randint(0, eng.cfg.vocab_size, (b, s), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(33), dtype=torch.int32)
+    with torch.no_grad():
+        tokens = [generate(p, prompts, eng.cfg, eng.jcfg, steps=n,
+                           max_len=s + n).cpu().tolist()
+                  for p in (served, held)]
+    served_same = bit_fingerprint(torch, served) == bit_fingerprint(
+        torch, held)
+    del served
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts(counted()).items() if v}
+    # ----------------------------------------------------------------------
+    resumed = dict(loss=hist[0]["loss"], grad_norm=hist[0]["grad_norm"],
+                   state=state(eng), steps=[h["step"] for h in hist])
+    torch.save(ptree.map(lambda t: t.cpu(), held),
+               Path(tmp) / f"ckpt_blocks{rank}.pt")
+    eng.close()
+    del eng, held
+    torch.cuda.empty_cache()
+    return dict(continued=cont, resumed=resumed, resumed_at=at,
+                manifest_step=man.step, bytes=saved, written_s=written_s, spans=spans, resume_engine_s=resume_s,
+                serve_restore_s=serve_restore_s, first_step_s=first_step_s,
+                tokens=tokens, served_same=served_same, launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
+def lm_1d_ckpt_worker(rank, tmp):
+    """``lm_1d_ckpt``'s rank part alone (this file run with
+    ``--lm-1d-ckpt-rank``); results to rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ring as RING
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"lm_1d_ckpt": lm_1d_ckpt_rank(torch, Path(tmp), rank)}
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+    RING.release_workspaces()
+    dist.destroy_process_group()
+    return 0
+
+
+def lm_1d_ckpt_phase(torch, res, tmp, wall=None):
+    """The parent's part of ``lm_1d_ckpt`` on the ranks' results ``res``:
+    the checks above, the one-device restore, the phase line; returns its
+    stats.  The checkpoint's directory is removed at the end."""
+    import math
+    import shutil
+    from repro_torch.checkpoint import load_manifest, restore_tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import gather_params_1d
+    from repro_torch.core import tree as ptree
+    from repro_torch.models.transformer import param_spec_1d
+    tmp = Path(tmp)
+    path = tmp / "lm_1d_ckpt" / "ck-0"
+    xs = [x["lm_1d_ckpt"] for x in res]
+    kw, _ = zoo_engine_args(CKPT_LM)
+    want = lm_1d_ckpt_calls(kw["config_override"], ZOO_P)
+    try:
+        for r, x in enumerate(xs):
+            check(x["launches"] == want, f"lm_1d_ckpt rank {r}: launches "
+                  f"{x['launches']}, want {want} (lm_1d_ckpt_calls)")
+            check(x["resumed_at"] == [1, 1, 1] and x["manifest_step"] == 1
+                  and x["resumed"]["steps"] == [1], f"lm_1d_ckpt rank {r}: "
+                  f"resumed at {x['resumed_at']} from step "
+                  f"{x['manifest_step']}, ran {x['resumed']['steps']}")
+            check(x["resumed"] == dict(x["continued"], steps=[1]),
+                  f"lm_1d_ckpt rank {r}: the resumed step 1 (loss "
+                  f"{x['resumed']['loss']}, grad norm "
+                  f"{x['resumed']['grad_norm']}) or its state differs from "
+                  f"the continued run's (loss {x['continued']['loss']}, "
+                  f"grad norm {x['continued']['grad_norm']})")
+            check(x["served_same"], f"lm_1d_ckpt rank {r}: the serving "
+                  "restore's blocks differ from the engine's at the save")
+            check(x["tokens"][0] == x["tokens"][1] == xs[0]["tokens"][0],
+                  f"lm_1d_ckpt rank {r}: generate from the serving restore "
+                  f"{x['tokens'][0]}, from the held blocks {x['tokens'][1]}")
+            check(len(x["spans"]["submit"]) == 1
+                  and len(x["spans"]["write"]) == 1, f"lm_1d_ckpt rank {r}: "
+                  f"spans {x['spans']}, want one submit and one write")
+        check(all(math.isfinite(x["resumed"]["loss"]) for x in xs),
+              "lm_1d_ckpt: the resumed loss is not finite")
+        total = manifest_bytes(path)
+        per = [x["bytes"] for x in xs]
+        check(sum(per) == total, f"lm_1d_ckpt: the ranks wrote {per} "
+              f"bytes, the leaves hold {total}")
+        t0 = time.perf_counter()
+        whole = dict(ptree.leaves_with_path(restore_tree(str(path),
+                                                         "params")))
+        one_device_restore_s = time.perf_counter() - t0
+        blocks = [torch.load(tmp / f"ckpt_blocks{r}.pt")
+                  for r in range(len(xs))]
+        gathered = dict(ptree.leaves_with_path(gather_params_1d(
+            blocks, ZOO_P, spec=param_spec_1d)))
+        check(whole.keys() == gathered.keys() and all(
+            whole[k].dtype == v.dtype and torch.equal(whole[k], v)
+            for k, v in gathered.items()),
+            "lm_1d_ckpt: the one-device restore of the mesh's save is not "
+            "gather_params_1d of the ranks' blocks bit for bit")
+        check(load_manifest(str(path)).extra.get("arch") == CKPT_LM,
+              "lm_1d_ckpt: the manifest names another arch")
+        del whole, blocks, gathered
+    finally:
+        shutil.rmtree(tmp / "lm_1d_ckpt", ignore_errors=True)
+    cfg = get_config(CKPT_LM)
+    writes = [x["spans"]["write"][0] for x in xs]
+    stats = dict(
+        card=card_line(), arch=CKPT_LM, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, mesh={"data": 1, "model": ZOO_P},
+        bytes_per_save=total, bytes_per_rank=per,
+        ckpt_submit_s=[x["spans"]["submit"][0] for x in xs],
+        ckpt_write_s=writes,
+        write_gb_s=[b / 1e9 / w for b, w in zip(per, writes)],
+        submit_to_written_s=[x["written_s"] for x in xs],
+        restore_s_per_rank=[x["resume_engine_s"] for x in xs],
+        serving_restore_s_per_rank=[x["serve_restore_s"] for x in xs],
+        resume_to_first_step_s=[x["resume_engine_s"] + x["first_step_s"]
+                                for x in xs],
+        one_device_restore_s=one_device_restore_s,
+        resumed_step_bitwise_equal=True, one_device_bitwise_equal=True,
+        generate_tokens=xs[0]["tokens"][0], launches_per_rank=[
+            x["launches"] for x in xs], launches_want=want,
+        rank_seconds=[x["seconds"] for x in xs], wall_s=wall)
+    emit(phase="lm_1d_ckpt", **stats)
+    return stats
 
 
 # ``lm_1d_serve``: serving every LM family on a (data 1, model SERVE_P)
@@ -7122,6 +7367,11 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
     bwd_jamba = next(r for r in ssd_bwd_rows
                      if r["shape"].startswith("jamba_layout"))
 
+    def ckpt1d(kernel):
+        # lm_1d_ckpt's launches of ``kernel`` on each rank
+        return [x.get(kernel, 0)
+                for x in zoo1d["ckpt"]["launches_per_rank"]]
+
     def ring_entry(kind, line):
         launches = t1[f"ring_{kind}_launches"]
         data = data_launches["1d"][f"ring_{kind}"]
@@ -7129,16 +7379,18 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         zoo = [x[f"ring_{kind}"] for x in zoo1d["launches_per_rank"]]
         serve = [x.get(f"ring_{kind}", 0)
                  for x in serve1d["launches_per_rank"]]
+        ck1d = ckpt1d(f"ring_{kind}")
         out = {
             "name": f"ring_{kind}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring.cu",
             "replaces": f"src/repro/kernels/fused_ring.py:{line}",
             "launches": sum(launches) + sum(data) + sum(lm1d) + sum(zoo)
-            + sum(serve),
+            + sum(serve) + sum(ck1d),
             "launches_by_path": {"train_1d": launches,
                                  "train_data_1d": data, "lm_1d": lm1d,
-                                 "lm_1d_zoo": zoo, "lm_1d_serve": serve},
+                                 "lm_1d_zoo": zoo, "lm_1d_serve": serve,
+                                 "lm_1d_ckpt": ck1d},
             "max_abs_err": ring_worst[kind],
             # times: one rank's launches of a 1-D training sample-step at
             # p = 2, r = 1 (batch 1): forward 2 + 24 ring calls, backward
@@ -7204,7 +7456,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                                                       ht))
         + sum(x["block_matmul"] for x in l1d["launches_per_rank"])
         + sum(x["block_matmul"] for x in zoo1d["launches_per_rank"])
-        + sum(x["block_matmul"] for x in serve1d["launches_per_rank"]),
+        + sum(x["block_matmul"] for x in serve1d["launches_per_rank"])
+        + sum(ckpt1d("block_matmul")),
         "launches_by_path": {"serve": serve_launches["graphed"],
                              "serve_eager": serve_launches["eager"],
                              "serve_data": sd["launches_per_rank"],
@@ -7258,7 +7511,8 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
                              "lm_1d": [x["block_matmul"] for x in
                                        l1d["launches_per_rank"]],
                              "lm_1d_serve": [x["block_matmul"] for x in
-                                             serve1d["launches_per_rank"]]},
+                                             serve1d["launches_per_rank"]],
+                             "lm_1d_ckpt": ckpt1d("block_matmul")},
         "lm_train_launches_by_layout": {
             x["arch"]: x["launches_by_layout"] for x in (lmt, aut, mot, mt)},
         "lm_train_launches_by_route": {
@@ -7463,10 +7717,12 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
               for k in ("launches", "launches_eager"))
         + mt["launches"]["ssd_intra_chunk"]
         + ht["launches"]["ssd_intra_chunk"]
-        + sum(x["ssd_intra_chunk"] for x in zoo1d["launches_per_rank"]),
+        + sum(x["ssd_intra_chunk"] for x in zoo1d["launches_per_rank"])
+        + sum(ckpt1d("ssd_intra_chunk")),
         "launches_by_path": {
             "lm_1d_zoo": [x["ssd_intra_chunk"] for x in
                           zoo1d["launches_per_rank"]],
+            "lm_1d_ckpt": ckpt1d("ssd_intra_chunk"),
             "mamba_forward": fwd_launches["ssd_intra_chunk"],
             "mamba_generate": gen_launches["ssd_intra_chunk"],
             "mamba_train": mt["launches"]["ssd_intra_chunk"],
@@ -7520,12 +7776,14 @@ def after_serve(torch, BM, WX, RING, CANNON, SSD, SM90, ref, card, handoff,
         "replaces": "src/repro/kernels/ssd_chunk.py:25",
         "launches": mt["launches"]["ssd_intra_heads_bwd"]
         + ht["launches"]["ssd_intra_heads_bwd"]
-        + sum(x["ssd_intra_heads_bwd"] for x in zoo1d["launches_per_rank"]),
+        + sum(x["ssd_intra_heads_bwd"] for x in zoo1d["launches_per_rank"])
+        + sum(ckpt1d("ssd_intra_heads_bwd")),
         "launches_by_path": {
             "mamba_train": mt["launches"]["ssd_intra_heads_bwd"],
             "hybrid_train": ht["launches"]["ssd_intra_heads_bwd"],
             "lm_1d_zoo": [x["ssd_intra_heads_bwd"] for x in
-                          zoo1d["launches_per_rank"]]},
+                          zoo1d["launches_per_rank"]],
+            "lm_1d_ckpt": ckpt1d("ssd_intra_heads_bwd")},
         # one rank's launches of one lm_1d_zoo training step (mamba2-130m
         # 24, jamba reduced 1) at their per-rank layouts
         "lm_1d_zoo_ms": per_zoo(ssd_bwd_rows, "kernel_ms"),
@@ -7567,6 +7825,8 @@ if __name__ == "__main__":
             sys.exit(lm_1d_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--lm-1d-zoo-rank"]:
             sys.exit(lm_1d_zoo_worker(int(sys.argv[2]), sys.argv[3]))
+        if sys.argv[1:2] == ["--lm-1d-ckpt-rank"]:
+            sys.exit(lm_1d_ckpt_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--lm-1d-serve-rank"]:
             sys.exit(lm_1d_serve_worker(int(sys.argv[2]), sys.argv[3]))
         if sys.argv[1:2] == ["--train-2d-rank"]:

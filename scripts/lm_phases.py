@@ -5,12 +5,15 @@ training phases (``mamba_train``, ``hybrid_train``, ``lm_train``,
 ``audio_train``, ``moe_train``, ``lm_1d``, h2o-danube-1.8b on two ranks of
 a 1-D model mesh, and ``lm_1d_zoo``, mamba2-130m, phi3.5, whisper and
 jamba there), serving on that mesh (``lm_1d_serve``: the six cases on
-two ranks) and the ring step kernels' phase (``ring_shape``, the LMs'
-per-rank shapes among them; ``serve_ring`` its decode shapes alone),
-after one build of block_matmul, ring, wx and the two SSD kernels
-(started together), with the smoke's checks and JSON lines.
+two ranks), the checkpoints on that mesh (``lm_1d_ckpt``: mamba2-130m's
+async save, exact resume, one-device restore and serving restore) and the
+ring step kernels' phase (``ring_shape``, the LMs' per-rank shapes among
+them; ``serve_ring`` its decode shapes alone), after one build of
+block_matmul, ring, wx and the two SSD kernels (started together), with
+the smoke's checks and JSON lines.
 
-    python3 scripts/lm_phases.py [audio] [train] [ring] [serve] [serve_ring]
+    python3 scripts/lm_phases.py [audio] [train] [ring] [serve] \
+        [serve_ring] [ckpt]
 
 (audio and train when none is named).  Needs one CUDA device; exits
 non-zero without one, or when a check fails.
@@ -54,6 +57,13 @@ def main(argv):
                          only_serve="ring" not in which)
         if "serve" in which:
             C.lm_1d_serve_phase(torch, BM, SM90, ref)
+        if "ckpt" in which:
+            tmp = Path(tempfile.mkdtemp(prefix="lm_phases_ckpt_"))
+            try:
+                res, wall = C.run_ranks("--lm-1d-ckpt-rank", tmp, C.ZOO_P)
+                C.lm_1d_ckpt_phase(torch, res, tmp, wall)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
         if "audio" in which:
             C.audio_phases(torch, BM, SM90, ref)
         if "train" in which:

@@ -2,22 +2,27 @@
 
 Training checkpoints are zero-redundancy sharded saves whose manifest
 records the *saving* topology's specs.  Serving needs none of that
-topology: only the ``params`` group, whole on the serving device,
-possibly at a different precision than training kept its weights in.
+topology: only the ``params`` group, on the serving device or as the
+rank's blocks of the serving mesh, possibly at a different precision than
+training kept its weights in.
 
 ``restore_serving_params`` is that path: it validates the checkpoint's
 architecture against the engine's, restores ONLY ``params`` (never
 ``opt_state`` -- a serving process must not pay for Adam moments), and
 finally casts leaves to the serving policy's dtypes (a bf16-trained
 checkpoint can serve fp32 and vice versa; shapes are validated
-leaf-by-leaf, dtypes are converted).
+leaf-by-leaf, dtypes are converted).  Without a mesh every caller reads
+the whole group; with ``mesh=`` (a language model's (data, model=p) 1-D
+mesh, ``serve/step.py::generate`` on it) each rank reads only its block of
+every leaf, by ``specs`` (the serving layout) or, without them, the saved
+specs refit to the mesh: the saving mesh may be any, of either package.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 from repro_torch.checkpoint.manifest import Manifest, load_manifest
-from repro_torch.checkpoint.sharded import restore_tree
+from repro_torch.checkpoint.sharded import describe_tree, restore_tree
 from repro_torch.core import tree as ptree
 
 
@@ -52,20 +57,43 @@ def _cast_like(params, like):
     return out
 
 
+def _check_global_shapes(man: Manifest, like, specs, mesh) -> None:
+    """On a mesh: the global shape of each of ``like``'s blocks (its local
+    shape times the extents its spec names) against the checkpoint's, so a
+    wrong config raises before any read, naming the leaf."""
+    saved = man.groups["params"]
+    for key, (shape, _) in describe_tree(like, specs, mesh).items():
+        if key not in saved:
+            raise ValueError(f"serving restore: the checkpoint has no param "
+                             f"{key!r} (wrong config for this checkpoint?)")
+        if tuple(saved[key].shape) != tuple(shape):
+            raise ValueError(
+                f"serving restore: param {key!r} global "
+                f"shape {tuple(shape)} on the serving mesh != checkpoint "
+                f"shape {tuple(saved[key].shape)} -- wrong config for this "
+                "checkpoint?")
+
+
 def restore_serving_params(path: str, *, arch: Optional[str] = None,
-                           like=None, device="cpu"
+                           like=None, mesh=None, specs=None, device="cpu"
                            ) -> Tuple[object, Manifest]:
-    """Restore a training checkpoint's params for serving on one device,
-    or on each rank of a data-only serving mesh: every rank calls this and
-    reads the whole params group (no collective; the saving mesh may be
-    any, of either package).
+    """Restore a training checkpoint's params for serving.  No collective
+    runs: each caller reads its own bytes.
 
     path   : sharded checkpoint directory (any saving topology).
     arch   : expected arch id; mismatches against the manifest raise
              (checkpoints without the ``arch`` extra pass through).
-    like   : optional params tree under the SERVING config -- shapes
-             validated, dtypes cast (see ``_cast_like``).
-    device : where the params land (whole on every serving rank).
+    like   : optional params tree under the SERVING config (on a mesh,
+             this rank's blocks) -- shapes validated (on a mesh the
+             blocks' global shapes too), dtypes cast (``_cast_like``).
+    mesh   : None -> the whole params on ``device`` (one device, or every
+             rank of a data-only serving mesh); a ``Mesh1D`` -> this
+             rank's block of every leaf, reading only the shard-file
+             slices it needs.
+    specs  : the spec tree of the serving layout (the port's layout, as
+             ``launch/specs.py::param_specs`` sanitized; absent leaves
+             whole); None refits the saved specs onto ``mesh``.
+    device : where the params land.
 
     Returns ``(params, manifest)`` -- the manifest carries training
     metadata (step, precision, scheme) for logging/validation.
@@ -78,7 +106,10 @@ def restore_serving_params(path: str, *, arch: Optional[str] = None,
     if arch is not None and ck_arch is not None and ck_arch != arch:
         raise ValueError(f"serving restore: checkpoint arch {ck_arch!r} "
                          f"!= serving arch {arch!r}")
-    params = restore_tree(path, "params", manifest=man, device=device)
+    if like is not None and mesh is not None:
+        _check_global_shapes(man, like, specs, mesh)
+    params = restore_tree(path, "params", manifest=man, mesh=mesh,
+                          specs=specs, device=device)
     if like is not None:
         params = _cast_like(params, like)
     return params, man

@@ -21,9 +21,20 @@ rank's coordinates).  A leaf's global shape is its local shape times the
 extents of its spec, its bounds ``convert.block_bounds``.
 
 The port keeps a list of per-layer dicts where the reference stacks the
-layers on a leading dim (``"blocks"``, ``"layers"``): a leaf of such a
+layers on a leading dim (``convert.STACKED``: the mixer's ``"blocks"``, a
+language model's ``"layers"``, the hybrid's ``"periods"`` of ``slot{j}``
+dicts, whisper's ``"enc_layers"`` and ``"dec_layers"``): a leaf of such a
 list is saved stacked (one npz member, global shape [n_layers, ...], its
-spec with a leading ``None``), and restore splits it again.
+spec with a leading ``None``; every layer of the list must share that
+spec), and restore splits it again.  A language model on a (data, model=p)
+mesh saves each leaf by its sanitized 1-D layout
+(``models/transformer.py::param_spec_1d``, the engine's ``param_specs``):
+the linears on their contracting dim, the vocab-cut ``embed/table`` and
+``lm_head/w`` on ``vocab_padded``, the experts on E, ``conv_w``'s and
+``dec_pos``' last dim (Mamba-2's ``in_xbc`` and ``conv_w`` hold contiguous
+blocks of the conv channels), and whole where the layout or
+``sanitize_spec`` names no axis: those leaves are written once, by the
+rank at coordinate 0 of every axis.
 
 Restore is topology-free: ``restore_tree(path, group, like=..., mesh=...,
 specs=...)`` reads, for every leaf, only the slices of the shard files
@@ -130,12 +141,23 @@ def _stacked(key: str) -> bool:
 
 
 def _flat_specs(specs) -> Dict[str, Any]:
-    """A spec tree in the port's layout, flat; a layer list's specs (one
-    per layer, all the same) give one."""
+    """A spec tree in the port's layout, flat; a layer list's specs give
+    one, which every layer of the list must share (its leaves are saved
+    stacked under that one spec): a list whose layers disagree raises
+    ValueError naming the key."""
     if specs is None:
         return {}
-    return {k: (v[0] if isinstance(v, Layers) else v)
-            for k, v in flatten_tree(specs).items()}
+    out = {}
+    for k, v in flatten_tree(specs).items():
+        if isinstance(v, Layers):
+            if any(tuple(s or ()) != tuple(v[0] or ()) for s in v[1:]):
+                raise ValueError(
+                    f"checkpoint specs: the layers of {k!r} do not share "
+                    f"one spec ({[tuple(s or ()) for s in v]}); a stacked "
+                    "leaf is saved under one")
+            v = v[0]
+        out[k] = v
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -42,11 +42,13 @@ ZeRO-1 as for the mixer), or on a 1-D model mesh (``mesh_model=p``:
 ``scheme="1d"``, each rank its shard by the reference's 1-D layout, the
 MoE's experts cut over the ranks, Mamba-2's heads and whisper's encoder
 on them, ``impl`` as for the mixer, the VLM's embeds and whisper's frames
-cut along D).  What still raises, naming ROADMAP.md's queue 1 item 19:
-the checkpoints of a language model on a model mesh (``save`` and
-``resume``) and the FSDP hybrid's cut of a language model over more than
-one data rank (item 19.3), and a language model on a 2-D model mesh
-(``models/registry.py::check_lm_mesh``).
+cut along D).  Its checkpoints work as the mixer's on either mesh: each
+rank writes its blocks by that layout (a leaf every rank holds whole once),
+and a resume reads this engine's blocks from a save of any mesh, one
+device's among them, of either package.  What still raises, naming
+ROADMAP.md's queue 1 item 19: the FSDP hybrid's cut of a language model
+over more than one data rank (item 19.3), and a language model on a 2-D
+model mesh (``models/registry.py::check_lm_mesh``).
 
 It runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``,
 and raises when CUDA is asked for and absent.  On a mesh each rank reads
@@ -304,16 +306,7 @@ class TrainEngine:
         self.preempt_stats: Optional[Dict] = None  # final-save timing
         self.preempt_origin: Optional[int] = None  # signalled rank
         if config.resume:
-            self._check_ckpt_mesh()
             self._restore(config.resume)
-
-    def _check_ckpt_mesh(self) -> None:
-        """Checkpoints of a language model on a model mesh raise
-        NotImplementedError (ROADMAP.md, queue 1 item 19.3)."""
-        if self.cfg.family != "mixer" and self.cfg.scheme == "1d":
-            raise NotImplementedError(
-                f"{self.arch}: checkpoints of a language model on a model "
-                "mesh are not ported (ROADMAP.md, queue 1 item 19.3)")
 
     def opt_state_bytes(self) -> int:
         """This rank's bytes of optimizer state: moments, and masters
@@ -540,8 +533,10 @@ class TrainEngine:
     # -- checkpointing ---------------------------------------------------
     def _ckpt_specs(self):
         """The spec trees of this rank's blocks of each checkpoint group
-        (None on one device): the params' sanitized specs; the optimizer
-        state's the same, with the data axis on the dim ZeRO-1 cuts."""
+        (None on one device): the params' sanitized specs (the mixer's
+        layout, or a language model's ``transformer.param_spec_1d``; whole
+        on a data-only mesh); the optimizer state's the same, with the data
+        axis on the dim ZeRO-1 cuts."""
         if self.mesh is None:
             return None
 
@@ -576,7 +571,6 @@ class TrainEngine:
         checkpoints exist, the oldest are deleted -- except the one the
         ``best`` marker points at.  Rank 0 deletes them, only AFTER the
         new checkpoint is complete."""
-        self._check_ckpt_mesh()
         c = self.config
         block = (not c.async_save) if block is None else block
         prune = []
@@ -676,9 +670,12 @@ class TrainEngine:
         The restore is elastic: the checkpoint may come from either
         package and any mesh.  Each rank reads, from the manifest's global
         bounds, only its blocks of THIS engine's own param and ZeRO-1
-        layouts, into its own tensors.  The pipeline needs no refit: its
-        read plans come from the current mesh, only the cursor is
-        restored."""
+        layouts, into its own tensors (a language model's by its 1-D
+        layout, ``_ckpt_specs``).  The saved ``scheme`` is not compared,
+        as the reference does not: a 1-D save restores on one device or a
+        data-only mesh, where a language model's scheme is "none".  The
+        pipeline needs no refit: its read plans come from the current
+        mesh, only the cursor is restored."""
         c = self.config
         man = ckpt.load_manifest(path)
         for field in ("seed", "rollout", "steps"):

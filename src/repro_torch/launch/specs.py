@@ -17,9 +17,14 @@ mesh (sanitized: the blocks ``init_cache`` makes and
 ``convert.shard_cache_1d`` cuts).
 A language model of any family takes the reference's 1-D layout
 (``models/transformer.py::param_spec_1d``) on a (data, model=p) mesh; on
-a data-only mesh its parameters stay whole on every rank.  The FSDP
-hybrid's cut of a language model over data, and a language model on a 2-D
-model mesh, raise (``check_lm_mesh``, naming ROADMAP.md queue 1 item 19).
+a data-only mesh its parameters stay whole on every rank.  Those specs,
+sanitized, are also the layout its checkpoints are written and restored
+in (``TrainEngine._ckpt_specs``, ``checkpoint.restore_serving_params(
+specs=)``).  What raises (``check_lm_mesh``): NotImplementedError,
+naming ROADMAP.md queue 1 item 19, for the FSDP hybrid's cut of a
+language model over more than one data rank (item 19.3) and for a
+language model on a 2-D model mesh; ValueError for a model extent that
+does not divide a dim the layout cuts.
 """
 from __future__ import annotations
 

@@ -27,10 +27,9 @@ encoder and cross attention:
       --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
       --mesh-model 2 [--mesh-data n] [--impl ring_fused] --device cpu
 
-Checkpoints of a language model on a model mesh and the FSDP hybrid's cut
-of a language model over more than one data rank (ROADMAP.md, queue 1 item
-19.3), and a language model on a 2-D model mesh (item 19) raise
-NotImplementedError.
+The FSDP hybrid's cut of a language model over more than one data rank
+(ROADMAP.md, queue 1 item 19.3) and a language model on a 2-D model mesh
+(item 19) raise NotImplementedError.
 
 1-D Jigsaw on p processes and 2-D Jigsaw on q*q, one per rank, each model
 group replicated ``--mesh-data`` times (the launcher gives each process
@@ -62,7 +61,14 @@ own blocks, the writes in the background unless ``--sync-save``:
 
 ``--ckpt-every k`` saves ``out/ck-<i>`` after every k-th step i (and the
 final ``out/ck``); ``--resume`` continues bit for bit from any of them, on
-any mesh (each rank reads only its blocks of the new layout).
+any mesh (each rank reads only its blocks of the new layout).  The same
+flags work for every language model on a 1-D model mesh (and with
+``--supervise``, below):
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
+      --mesh-model 2 --device cpu --steps 4 --ckpt out/ck --ckpt-every 2
+  ... the same with --resume out/ck-2
 
 Preemption (``launch/resilience.py``): a SIGTERM or SIGUSR1 lets the step
 in flight finish, takes a final synchronous save at ``<ckpt>-<step>`` and

@@ -39,12 +39,15 @@ import torch
 from repro.checkpoint import sharded as ref_sharded
 from repro_torch.checkpoint import load_manifest, restore_tree
 from repro_torch.checkpoint import manifest as MF
+from repro_torch.configs.registry import get_config
 from repro_torch.convert import (gather_params_2d, params_from_numpy,
-                                 param_bounds, shard_params_1d,
-                                 shard_params_2d)
+                                 params_to_numpy, param_bounds,
+                                 shard_params_1d, shard_params_2d)
 from repro_torch.core import tree as ptree
 from repro_torch.core.sharding import Mesh, Mesh1D
 from repro_torch.launch.engine import EngineConfig, TrainEngine
+from repro_torch.models import registry as M
+from repro_torch.models.transformer import param_spec_1d as LM_SPEC
 from repro_torch.serve.engine import ForecastEngine, ServeConfig
 from test_torch_cannon import Launched
 
@@ -395,36 +398,69 @@ def test_train_cli_ckpt_and_resume_under_torchrun(launched):
     assert all(again[0][k] == first[3][k] for k in HIST_KEYS)
 
 
-@pytest.mark.parametrize("scheme", ["1d", "2d", "1d_fsdp"])
+# a language model of each family (reduced), under its 1-D layout
+LM_BOUNDS = ("h2o-danube-1.8b", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
+             "mamba2-130m", "jamba-1.5-large-398b", "whisper-small")
+
+
+def _lm_trees(arch):
+    """The reduced model's whole parameters in the port's per-layer
+    layout and in the reference's stacked one (numpy)."""
+    tree = M.init(get_config(arch).reduced(), seed=0, device="cpu")
+    return [tree, params_to_numpy(tree)]
+
+
+@pytest.mark.parametrize("scheme", ["1d", "2d", "1d_fsdp"] + [
+    f"lm_{a}" for a in LM_BOUNDS])
 def test_param_bounds_invert_the_shard_functions(scheme):
     """``convert.param_bounds`` of every leaf and rank is the block that
     ``shard_params_1d`` / ``_2d`` cut, on the reference's stacked layout
-    and the port's per-layer one."""
+    and the port's per-layer one: the mixer's layouts on (data 2, p 2) and
+    2x2, and each language-model family's 1-D layout
+    (``transformer.param_spec_1d``: the vocab-cut table and head, the
+    experts' E, ``conv_w``, ``dec_pos``) on (data 1, p 4), its leaves the
+    layout leaves whole among them."""
     rng = np.random.default_rng(0)
-    tree = {"encoder": {"w": rng.normal(size=(8, 6)),
-                        "b": rng.normal(size=(8,))},
-            "blocks": {"tok_fc1": {"w": rng.normal(size=(3, 8, 4)),
-                                   "b": rng.normal(size=(3, 8))},
-                       "ch_norm": {"scale": rng.normal(size=(3, 4))}},
-            "blend": rng.normal(size=(4,))}
-    if scheme == "2d":
-        meshes = [Mesh(q=2, i=i, j=j) for i in range(2) for j in range(2)]
-        shards = [shard_params_2d(tree, m.i, m.j, 2) for m in meshes]
-    else:
-        fsdp = scheme == "1d_fsdp"
-        meshes = [Mesh1D(p=2, r=r, data_size=2, data_index=d)
-                  for d in range(2) for r in range(2)]
-        shards = [shard_params_1d(tree, m.r, 2, m.data_index, 2, fsdp)
-                  for m in meshes]
-    for m, shard in zip(meshes, shards):
-        def check(path, a, m=m, shard=shard):
-            b = param_bounds(path, a.shape, m,
-                             fsdp=scheme == "1d_fsdp")
-            want = shard
-            for k in path:
-                want = want[k]
-            assert np.array_equal(a[tuple(slice(*x) for x in b)], want)
-        ptree.map_with_path(check, tree)
+    trees = [{"encoder": {"w": rng.normal(size=(8, 6)),
+                          "b": rng.normal(size=(8,))},
+              "blocks": {"tok_fc1": {"w": rng.normal(size=(3, 8, 4)),
+                                     "b": rng.normal(size=(3, 8))},
+                         "ch_norm": {"scale": rng.normal(size=(3, 4))}},
+              "blend": rng.normal(size=(4,))}]
+    spec = None
+    if scheme.startswith("lm_"):
+        trees, spec = _lm_trees(scheme[3:]), LM_SPEC
+    for tree in trees:
+        if scheme == "2d":
+            meshes = [Mesh(q=2, i=i, j=j) for i in range(2)
+                      for j in range(2)]
+            shards = [shard_params_2d(tree, m.i, m.j, 2) for m in meshes]
+        elif spec is not None:
+            meshes = [Mesh1D(p=4, r=r) for r in range(4)]
+            shards = [shard_params_1d(tree, m.r, 4, spec=spec)
+                      for m in meshes]
+        else:
+            fsdp = scheme == "1d_fsdp"
+            meshes = [Mesh1D(p=2, r=r, data_size=2, data_index=d)
+                      for d in range(2) for r in range(2)]
+            shards = [shard_params_1d(tree, m.r, 2, m.data_index, 2, fsdp)
+                      for m in meshes]
+        cut = []
+        for m, shard in zip(meshes, shards):
+            def check(path, a, m=m, shard=shard):
+                b = param_bounds(path, a.shape, m,
+                                 fsdp=scheme == "1d_fsdp", spec=spec)
+                want = shard
+                for k in path:
+                    want = want[k]
+                got = a[tuple(slice(*x) for x in b)]
+                if isinstance(got, torch.Tensor):
+                    assert torch.equal(got, want), path
+                else:
+                    assert np.array_equal(got, want), path
+                cut.append(tuple(b) != tuple((0, n) for n in a.shape))
+            ptree.map_with_path(check, tree)
+        assert any(cut) and not all(cut)
 
 
 if __name__ == "__main__":

@@ -184,7 +184,7 @@ def _rank_main(rank, key, init, wdir):
     extent (the logits gathered over the vocab), one train step of
     STEP_ARCH on its shards and its data rank's rows (the gradients too),
     and on (data 1, model 2) five-step TrainEngine runs of each impl (then
-    a save, which must refuse) and on (data 2, model 2) the rs run with
+    the rs run's save) and on (data 2, model 2) the rs run with
     ZeRO-1; saved to <key>_rank<r>.npz."""
     import torch.distributed as dist
     from repro_torch.core import comm
@@ -241,11 +241,10 @@ def _rank_main(rank, key, init, wdir):
             res[f"{name}/{k}"] = np.array([h[k] for h in hist])
         if name == "rs":
             res["jcfg"] = np.array([eng.cfg.scheme, eng.jcfg.impl])
-            try:
-                eng.save(str(wdir / f"ck_{key}"))
-                res["save"] = np.array("saved")
-            except NotImplementedError as e:
-                res["save"] = np.array(str(e))
+            eng.save(str(wdir / f"ck_{key}"))
+            eng.wait_checkpoints()
+            for k, v in _flat(eng.params).items():
+                res[f"save/params/{k}"] = v.numpy()
         eng.close()
     np.savez(wdir / f"{key}_rank{rank}.npz",
              **{k: np.asarray(v) for k, v in res.items()})
@@ -521,15 +520,29 @@ def test_cli_two_ranks_matches_reference(launched, reference):
 
 
 # ---------------------------------------------------------------------------
-# what still raises
+# the mesh's checkpoint, and what still raises
 # ---------------------------------------------------------------------------
 
-def test_save_on_a_model_mesh_raises(launched):
-    """``TrainEngine.save`` of a language model on a model mesh raises
-    NotImplementedError naming item 19 on every rank (its checkpoint part
-    waits)."""
-    for res in launched.rank_results("m2"):
-        assert "item 19" in str(res["save"])
+def test_save_on_a_model_mesh_restores(launched):
+    """``TrainEngine.save`` of a language model on a model mesh (the rs
+    run's, after five steps) writes each rank's blocks: restored whole on
+    one device, the params are ``gather_params_1d`` of the ranks' blocks
+    bit for bit (``tests/test_torch_lm_mesh_ckpt.py`` holds the resumes)."""
+    from repro_torch.checkpoint import restore_tree
+    ranks = launched.rank_results("m2")
+    blocks = [{k[len("save/params/"):]: torch.from_numpy(v)
+               for k, v in res.items() if k.startswith("save/params/")}
+              for res in ranks]
+    got = _flat(restore_tree(str(launched.tmp / "ck_m2"), "params"))
+    trees = [ptree.map_with_path(
+        lambda path, _, b=b: b["/".join(map(str, path))],
+        restore_tree(str(launched.tmp / "ck_m2"), "params"))
+        for b in blocks]
+    want = _flat(gather_params_1d(trees, 2, spec=LM_SPEC))
+    assert got.keys() == want.keys() and len(got) > 10
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "dbrx-132b",
